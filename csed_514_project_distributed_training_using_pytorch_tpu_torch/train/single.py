@@ -1,0 +1,149 @@
+"""Single-process trainer — the reference ``train.py`` workflow on one CUDA device.
+
+Counterpart of the JAX package's ``train/single.py``. In order: seeding, the index-plan
+loader, baseline eval before training, then ``n_epochs`` of (train with a progress line and
+metric record every ``log_interval`` batches, the ragged tail batch, eval), and finally
+``results/metrics.jsonl``.
+
+The whole training split lives on the device, and each step gathers its batch with
+``index_select`` by the sampler's plan, as the JAX package's device-resident path does. The
+host syncs once per log tick, to print the tick's loss.
+
+The trainer runs on the card (``--device cuda``, the default) and raises when none is
+present; the CPU is used only when asked for (``--device cpu``). On CUDA it turns TF32 off
+for cuDNN convolutions and cuBLAS matmuls, so float32 means float32.
+
+Run it with::
+
+    python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \\
+        --use-pallas-kernels
+
+Checkpoints, plots, telemetry and the resilience hooks are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+    BatchLoader,
+    load_mnist,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+    TrainState,
+    create_train_state,
+    make_eval_fn,
+    make_segment_fn,
+    make_train_step,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+    SingleProcessConfig,
+    parse_config,
+)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device the trainer runs on. ``cuda`` needs a card and turns TF32 off; there is
+    no quiet fallback to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' was asked for but no CUDA device is "
+                               "available; pass --device cpu to train on the CPU")
+        # cuDNN convolutions default to TF32 (about 3 decimal digits); keep float32.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {name!r} — use 'cuda' or 'cpu'")
+    return device
+
+
+def main(config: SingleProcessConfig = SingleProcessConfig(), *,
+         datasets=None) -> tuple[TrainState, M.MetricsHistory]:
+    """Run the single-process workflow; returns the final state and the metric history.
+
+    ``datasets`` optionally injects a ``(train, test)`` Dataset pair (tests, notebooks); by
+    default MNIST is loaded from ``config.data_dir``.
+    """
+    watch = M.Stopwatch()
+    device = resolve_device(config.device)            # fail fast, before any data work
+    optimizer = optim.make_optimizer(config.optimizer, learning_rate=config.learning_rate,
+                                     momentum=config.momentum)
+    train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
+    M.log(f"Loaded MNIST ({train_ds.source}): {len(train_ds)} train / {len(test_ds)} test")
+
+    init_generator = torch.Generator().manual_seed(config.seed)
+    train_loader = BatchLoader(train_ds, config.batch_size_train, shuffle=True,
+                               seed=config.seed)
+    model = build_model("cnn").to(device)
+    state = create_train_state(model, init_generator, optimizer=optimizer, device=device)
+
+    # Device-resident splits: the one host->device transfer.
+    to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    train_x, test_x = to_device(train_ds.images), to_device(test_ds.images)
+    train_y = to_device(train_ds.labels.astype(np.int64))
+    test_y = to_device(test_ds.labels.astype(np.int64))
+
+    step_fn = make_train_step(model, learning_rate=config.learning_rate,
+                              momentum=config.momentum,
+                              use_pallas=config.use_pallas_kernels, optimizer=optimizer)
+    segment_fn = make_segment_fn(step_fn)
+    eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
+
+    history = M.MetricsHistory()
+    n_train, n_test = len(train_ds), len(test_ds)
+    batch = config.batch_size_train
+
+    def evaluate(state: TrainState, examples_seen: int) -> None:
+        sum_nll, correct = eval_fn(state.params, test_x, test_y)
+        avg = sum_nll.item() / n_test              # sum-then-divide
+        history.record_test(examples_seen, avg)
+        M.log(M.test_summary_line(avg, int(correct.item()), n_test, watch.elapsed()))
+
+    def train_epoch(state: TrainState, epoch: int) -> TrainState:
+        train_loader.set_epoch(epoch)
+        indices = train_loader.sampler.epoch_indices(epoch)
+        idx_full = to_device(train_loader.epoch_index_matrix(epoch, allow_empty=True))
+        full_steps = idx_full.shape[0]
+
+        # log_interval-sized segments, then the ragged tail.
+        li = config.log_interval
+        for seg_start in range(0, full_steps, li):
+            state, losses = segment_fn(state, train_x, train_y,
+                                       idx_full[seg_start:seg_start + li], config.seed)
+            last_loss = losses[-1].item()              # the tick's one host sync
+            batches_done = min(seg_start + li, full_steps)
+            examples_seen = (epoch - 1) * n_train + batches_done * batch
+            M.log(M.train_progress_line(epoch, batches_done * batch, n_train, last_loss))
+            history.record_train(examples_seen, last_loss)
+
+        # final partial batch (drop_last=False, as torch's DataLoader defaults)
+        tail = indices[full_steps * batch:]
+        if len(tail):
+            tail_idx = to_device(tail)
+            state, _ = step_fn(state, train_x.index_select(0, tail_idx),
+                               train_y.index_select(0, tail_idx), config.seed)
+        return state
+
+    evaluate(state, 0)                                 # baseline eval
+    for epoch in range(1, config.n_epochs + 1):
+        t_epoch = time.perf_counter()
+        state = train_epoch(state, epoch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)             # honest wall-clock
+        history.epoch_seconds.append(time.perf_counter() - t_epoch)
+        evaluate(state, epoch * n_train)
+
+    M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
+    return state, history
+
+
+if __name__ == "__main__":
+    main(parse_config(SingleProcessConfig))
