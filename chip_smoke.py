@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the hand-written CUDA kernels,
-holds each against its plain PyTorch version on the card, and trains the reference CNN for
-one epoch through them.
+holds each against its plain PyTorch version on the card, trains the reference CNN for one
+epoch through the fused kernels, and trains the transformer classifier through the flash
+kernels (the composed trainer at seq 2048, and a few steps at the large bench widths).
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
 
 1. the device: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
-2. build ``csrc/fused_kernels.cu`` with nvcc for sm_90a and report the build seconds;
+2. build ``csrc/fused_kernels.cu`` and ``csrc/flash_attention.cu`` with nvcc for sm_90a, one
+   nvcc per source started together, and report the build seconds;
 3. each kernel against its plain version on the card, at the main path's shapes and more,
    with its time, its plain version's time, its bound and, where one PyTorch call computes
    the same function, that call's time (a yardstick only; the port never calls it);
@@ -21,7 +23,20 @@ Phases (each raises on failure; nothing is caught):
    over the kernel path: device time by kernel, device time per launch of each fused
    kernel, and the device's busy share of the window (the rest is idle, waiting on the
    host);
-7. one JSON line with every kernel's numbers, then, last, the JSON result line.
+7. the flash kernels (B4, B5) against their plain versions on the card, at the composed
+   trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
+   time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
+   (a yardstick only), its bound, and its device time per launch from a profiler window;
+8. flash against the dense core at the composed widths, S in {512, 1024, 2048}, forward and
+   forward+backward: the card's own flash/dense crossover (recorded; nothing reads it);
+9. the slice's path: ``train.composed.main`` on cuda, ``--mesh data=1 --flash-attention
+   --seq-len 2048``, one epoch (capped at ``COMPOSED_TRAIN`` train and ``COMPOSED_TEST``
+   test examples), with the flash launch counts read around it against what the step
+   count predicts, the val loss against its value at init, and a profiler window over
+   five steps of the segment function ``main`` trains with;
+10. a few bf16 optimizer steps of the classifier at the ``bench_transformer.py --large``
+    widths on synthetic ``[16, 2048, 16]`` tokens, with step ms and a profiler window;
+11. one JSON line with every kernel's numbers, then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -40,9 +55,12 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "results" / "chip_smoke"
 TPU_KERNELS = "csed_514_project_distributed_training_using_pytorch_tpu/ops/pallas_kernels.py"
 SOURCE = f"{PKG}/csrc/fused_kernels.cu"
+TPU_ATTENTION = "csed_514_project_distributed_training_using_pytorch_tpu/ops/pallas_attention.py"
+FLASH_SOURCE = f"{PKG}/csrc/flash_attention.cu"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16, dense, tensor cores
 
 NLL_SHAPES = ((64, 10), (32, 10), (1, 10), (300, 130), (4096, 1000))
 NLL_ATOL, NLL_RTOL = 1e-6, 1e-5
@@ -55,21 +73,104 @@ LR, MOMENTUM, BATCH = 0.01, 0.5, 64
 PROFILE_STEPS = 200            # per timed run of phase 6
 PROFILE_WINDOW = 100           # steps under the profiler
 
+# Flash attention, phases 7-10. Shapes are [batch, seq, heads, head dim].
+COMPOSED = (64, 2048, 4, 16)   # train.composed --seq-len 2048: embed 64 over 4 heads, f32
+LARGE = (16, 2048, 8, 128)     # bench_transformer.py --large: d_model 1024, 8 heads, bf16
+FLASH_CASES = (                # (shape, dtype, causal, window)
+    (COMPOSED, "float32", False, 0), (LARGE, "bfloat16", False, 0),
+    ((2, 128, 4, 16), "float32", True, 0), ((2, 256, 2, 64), "float32", False, 160),
+    ((2, 256, 2, 64), "bfloat16", True, 160), ((2, 2048, 2, 128), "float32", True, 160),
+    ((2, 2048, 4, 16), "bfloat16", True, 0))
+# kernel vs plain (atol, rtol), as tests/test_torch_port_cuda.py: f32, the same arithmetic
+# with f32 sums in another order; bf16 out and grads, one bf16 ulp where two f32 values a
+# few f32 ulps apart round to neighbouring bf16s — rtol 2^-7 is one ulp at any magnitude,
+# atol 1e-3 two ulps below 0.125 — so a wrong tile (a 64-key tile skipped moves out by
+# ~5e-3 at the large shape, where |out| ~ 0.03) fails; lse stays f32 in both
+BF16_RTOL = 2.0 ** -7
+FLASH_TOL = {"float32": {"out": (2e-5, 1e-5), "lse": (1e-4, 1e-4), "grad": (1e-4, 1e-4)},
+             "bfloat16": {"out": (1e-3, BF16_RTOL), "lse": (1e-4, 1e-4),
+                          "grad": (1e-3, BF16_RTOL)}}
+FLASH_ITERS, FLASH_WARMUP = 10, 2
+CROSSOVER_SEQS = (512, 1024, 2048)
+COMPOSED_TRAIN = 60000         # phase 9: the whole synthetic train split, 937 steps of 64
+                               # (about 40 s on the card; 150 steps did not lower the val
+                               # loss at seq 2048, one epoch does)
+COMPOSED_TEST = 10000          # phase 9: the whole test split, 10 eval batches of 1000
+LARGE_LAYERS, LARGE_STEPS = 8, 3   # phase 10: full depth; timed steps after one warm-up
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time the card could take: bytes over the memory rate vs ops over the f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time the card could take: bytes over the memory rate vs ops over the peak rate
+    of their type (f32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bounds(shape, dtype: str, visible_pairs: int) -> dict[str, tuple[float, str]]:
+    """Bounds of the three flash kernels on ``[B, S, H, D]`` operands: per visible
+    (query, key) pair and head, 2·D flops for each product the kernel forms — q·kᵀ and p·v
+    forward (4·D); q·kᵀ, dO·vᵀ, ds·k for dq (6·D); q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q for dk/dv
+    (8·D) — at the peak rate of the operand type; bytes: each operand read once and each
+    output written once (lse and Δ are f32 [B, H, S])."""
+    b, s, h, d = shape
+    elem = 4 if dtype == "float32" else 2
+    rate = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    x, stat, pairs = b * s * h * d * elem, b * h * s * 4, b * h * visible_pairs
+    return {"flash_fwd": bound_ms(4 * x + stat, 4 * d * pairs, rate),
+            "flash_dq": bound_ms(5 * x + 2 * stat, 6 * d * pairs, rate),
+            "flash_dkv": bound_ms(6 * x + 2 * stat, 8 * d * pairs, rate)}
+
+
+def device_kernel_times(prof) -> list[tuple[float, int, str]]:
+    """``(device µs, launches, name)`` of every kernel in a profiler window."""
+    rows = []
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            rows.append((us, evt.count, evt.key))
+    return rows
+
+
+def report_window(tag: str, rows, steps: int, wall: float, ours: tuple[str, ...],
+                  card: str) -> dict[str, float]:
+    """Print a profiler window's busy share and kernels (top 10, then the port's own);
+    return the device µs per launch of each of ``ours`` found in it."""
+    busy_us = sum(r[0] for r in rows)
+    print(f"{tag} profiled {steps} steps: wall {wall * 1e3:.3f} ms, "
+          f"{wall / steps * 1e3:.4f} ms per step [{card}]")
+    if busy_us == 0:
+        print(f"{tag} the profiler recorded no device time: busy share not measured")
+        return {}
+    n_launch = sum(r[1] for r in rows)
+    print(f"{tag} device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.4f} of the "
+          f"window (idle {1 - busy_us / 1e6 / wall:.4f}); {n_launch} kernel launches, "
+          f"{n_launch / steps:.1f} per step")
+    print(f"{tag}   us/step  launches/step  share  kernel (top 10, then the port's own)")
+    per_launch = {}
+    for rank, (us, count, name) in enumerate(sorted(rows, reverse=True)):
+        if rank < 10 or any(k in name for k in ours):
+            print(f"{tag}   {us / steps:9.3f}  {count / steps:5.1f}  "
+                  f"{us / busy_us:6.3f}  {name[:100]}")
+        for kernel in ours:
+            if kernel in name:
+                per_launch[kernel] = us / count
+                print(f"{tag} {kernel}: {us / count:.3f} us of device time per launch "
+                      f"[{card}]")
+    return per_launch
 
 
 def main() -> None:
     if not (ROOT / PKG).is_dir():
         fail(f"the port's package {PKG}/ is not beside this script")
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
@@ -80,16 +181,20 @@ def main() -> None:
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
         load_mnist, mnist,
     )
-    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
-    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
-        _build, fused_kernels as fk,
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+        Net, TransformerClassifier,
     )
-    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import single
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        _build, attention, flash_attention as fa, fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        composed, single,
+    )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
         create_train_state, make_eval_fn, make_train_step,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
-        SingleProcessConfig,
+        ComposedConfig, SingleProcessConfig,
     )
 
     dev = torch.device("cuda", 0)
@@ -108,12 +213,14 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------------------
     t0 = time.perf_counter()
-    kl = _build.load_library()
-    print(f"[2] kernels built in {kl.build_seconds:.2f} s (load total "
-          f"{time.perf_counter() - t0:.2f} s): {kl.path.name}")
-    for line in kl.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[2] ptxas: {line.strip()}")
+    builds = _build.build()                   # one nvcc per source, all started together
+    print(f"[2] {len(builds)} kernel libraries built in {time.perf_counter() - t0:.2f} s of "
+          f"wall time")
+    for name, built in builds.items():
+        print(f"[2] {name}: nvcc {built.seconds:.2f} s: {built.path.name}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[2] ptxas: {line.strip()}")
 
     # -- 3. kernels against their plain versions ------------------------------------------
     def timed_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -324,42 +431,224 @@ def main() -> None:
             state, _ = fn(state, prof_x.index_select(0, idx), prof_y.index_select(0, idx), 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_kernels = []
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0)
-            device_kernels.append((us, evt.count, evt.key))
-    busy_us = sum(k[0] for k in device_kernels)
-    print(f"[6] profiled {PROFILE_WINDOW} steps: wall {wall * 1e3:.3f} ms, "
-          f"{wall / PROFILE_WINDOW * 1e3:.4f} ms per step [{card}]")
-    if busy_us == 0:
-        print("[6] the profiler recorded no device time: busy share not measured")
-    else:
-        n_launch = sum(k[1] for k in device_kernels)
-        print(f"[6] device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.4f} of the "
-              f"window (idle {1 - busy_us / 1e6 / wall:.4f}); {n_launch} kernel launches, "
-              f"{n_launch / PROFILE_WINDOW:.1f} per step")
-        ours = ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_kernel")
-        print("[6]   us/step  launches/step  share  kernel (top 10, then the port's own)")
-        for rank, (us, count, name) in enumerate(sorted(device_kernels, reverse=True)):
-            if rank < 10 or any(k in name for k in ours):
-                print(f"[6]   {us / PROFILE_WINDOW:9.3f}  {count / PROFILE_WINDOW:5.1f}  "
-                      f"{us / busy_us:6.3f}  {name[:100]}")
-            for kernel in ours:
-                if kernel in name:
-                    print(f"[6] {kernel}: {us / count:.3f} us of device time per launch "
-                          f"[{card}]")
+    report_window("[6]", device_kernel_times(prof), PROFILE_WINDOW, wall,
+                  ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_kernel"), card)
 
-    # -- 7. result ----------------------------------------------------------------------
+    # -- 7. flash kernels against their plain versions ------------------------------------
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def flash_inputs(shape, dtype: str, seed: int):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(*shape, generator=g, device=dev).to(dtypes[dtype])
+                for _ in range(4)]
+
+    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    print(f"[7] flash kernels vs plain, (atol, rtol) by dtype: {FLASH_TOL}")
+    for shape, dtype, causal, window in FLASH_CASES:
+        q, k, v, do = flash_inputs(shape, dtype, sum(shape) + window)
+        tol = FLASH_TOL[dtype]
+        tag = f"{list(shape)} {dtype} causal={causal} window={window}"
+        out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        out_p, lse_p = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+        e_out = close(f"flash out {tag}", out.float(), out_p.float(), *tol["out"])
+        e_lse = close(f"flash lse {tag}", lse, lse_p, *tol["lse"])
+        dq, dk, dv = fa.flash_backward(q, k, v, out_p, lse_p, do, causal=causal,
+                                       window=window)
+        want = fa.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=causal,
+                                       window=window)
+        e_dq, e_dk, e_dv = (close(f"flash {n} {tag}", got.float(), w.float(), *tol["grad"])
+                            for n, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want))
+        torch.cuda.synchronize()
+        for name, e in (("flash_fwd", max(e_out, e_lse)), ("flash_dq", e_dq),
+                        ("flash_dkv", max(e_dk, e_dv))):
+            flash_err[name] = max(flash_err[name], e)
+        print(f"[7]   {tag}: max |err| out {e_out:.3e} lse {e_lse:.3e} dq {e_dq:.3e} "
+              f"dk {e_dk:.3e} dv {e_dv:.3e}")
+
+    def visible_pairs(s: int, causal: bool, window: int) -> int:
+        return int(attention.visibility_mask(s, s, causal=causal, window=window or None,
+                                             device=dev).sum().item())
+
+    def flash_kernel_times(shape, dtype: str) -> dict[str, dict]:
+        """Each flash kernel at one shape (no mask): its ms, its plain version's, SDPA's,
+        and its bound."""
+        q, k, v, do = flash_inputs(shape, dtype, 1)
+        out, lse = fa.flash_forward(q, k, v)
+        delta = fa.flash_delta(out, do)
+        bhsd = lambda x: x.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(bhsd(q), bhsd(k), bhsd(v))
+        leaves = [bhsd(x).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        lib_bwd = lambda: torch.autograd.grad(lib_out, leaves, bhsd(do), retain_graph=True)
+        plain_bwd = lambda: fa.flash_backward_plain(q, k, v, out, lse, do)
+        bounds = flash_bounds(shape, dtype, visible_pairs(shape[1], False, 0))
+        t = lambda fn: timed_ms(fn, iters=FLASH_ITERS, warmup=FLASH_WARMUP)
+        plain_bwd_ms, lib_bwd_ms = t(plain_bwd), t(lib_bwd)
+        return {
+            "flash_fwd": dict(ms=t(lambda: fa.flash_forward(q, k, v)),
+                              plain_ms=t(lambda: fa.flash_forward_plain(q, k, v)),
+                              library_ms=t(sdpa), bound=bounds["flash_fwd"]),
+            # the plain backward and SDPA's backward each compute dq, dk and dv at once:
+            # their times stand beside both backward kernels
+            "flash_dq": dict(ms=t(lambda: fa.flash_dq(q, k, v, do, lse, delta)),
+                             plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                             bound=bounds["flash_dq"]),
+            "flash_dkv": dict(ms=t(lambda: fa.flash_dkv(q, k, v, do, lse, delta)),
+                              plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                              bound=bounds["flash_dkv"]),
+        }
+
+    flash_ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    flash_by_shape = {}
+    for label, shape, dtype in (("composed", COMPOSED, "float32"),
+                                ("large", LARGE, "bfloat16")):
+        flash_by_shape[label] = flash_kernel_times(shape, dtype)
+        for name, tm in flash_by_shape[label].items():
+            print(f"[7] {name} {label} {list(shape)} {dtype}: kernel_ms {tm['ms']:.5f}, "
+                  f"plain_ms {tm['plain_ms']:.5f}, library_ms {tm['library_ms']:.5f}, "
+                  f"bound_ms {tm['bound'][0]:.5f} ({tm['bound'][1]}), "
+                  f"{tm['bound'][0] / tm['ms']:.4f} of the bound [{card}]")
+        q, k, v, do = flash_inputs(shape, dtype, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                out, lse = fa.flash_forward(q, k, v)
+                fa.flash_backward(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report_window(f"[7] {label}:", device_kernel_times(prof), 3, wall, flash_ours, card)
+    flash_times = flash_by_shape["composed"]     # the main path's shape goes to the table
+
+    # -- 8. flash against the dense core: the card's crossover -------------------------
+    b, _, h, d = COMPOSED
+    print(f"[8] flash_attention vs full_attention at [{b}, S, {h}, {d}] f32, ms per call "
+          f"(the JAX package's dispatch takes flash at S >= {fa.FLASH_MIN_SEQ}) [{card}]")
+    for s in CROSSOVER_SEQS:
+        q, k, v, do = flash_inputs((b, s, h, d), "float32", s)
+        row = []
+        for core in (fa.flash_attention, attention.full_attention):
+            with torch.no_grad():
+                fwd = timed_ms(lambda: core(q, k, v), iters=5, warmup=1)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            both = timed_ms(lambda: torch.autograd.grad(core(*leaves), leaves, do),
+                            iters=5, warmup=1)
+            row.append((fwd, both))
+        (f_fwd, f_both), (d_fwd, d_both) = row
+        print(f"[8]   S={s}: forward flash {f_fwd:.4f} dense {d_fwd:.4f} "
+              f"(flash/dense {f_fwd / d_fwd:.3f}); forward+backward flash {f_both:.4f} "
+              f"dense {d_both:.4f} (flash/dense {f_both / d_both:.3f})")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # -- 9. the slice's path: the composed trainer through the flash kernels --------------
+    cfg = ComposedConfig(mesh="data=1", flash_attention=True, seq_len=COMPOSED[1],
+                         epochs=1, max_train_examples=COMPOSED_TRAIN,
+                         max_test_examples=COMPOSED_TEST, device="cuda",
+                         results_dir=str(OUT_DIR / "composed"))
+    init_model = composed.build_classifier(cfg)
+    init_state = create_train_state(init_model, torch.Generator().manual_seed(cfg.seed),
+                                    device=dev)
+    sum_nll, _ = make_eval_fn(init_model, batch_size=cfg.batch_size_test)(
+        init_state.params, torch.from_numpy(test_ds.images[:COMPOSED_TEST]).to(dev),
+        torch.from_numpy(test_ds.labels[:COMPOSED_TEST].astype("int64")).to(dev))
+    print(f"[9] composed trainer: mesh {cfg.mesh}, seq {cfg.seq_len}, flash, "
+          f"{COMPOSED_TRAIN} train / {COMPOSED_TEST} test examples, batch {cfg.batch_size}, "
+          f"lr {cfg.learning_rate}, momentum {cfg.momentum}, seed {cfg.seed}")
+    val_at_init = sum_nll.item() / COMPOSED_TEST
+    del init_state
+    steps = COMPOSED_TRAIN // cfg.batch_size
+    eval_batches = COMPOSED_TEST // cfg.batch_size_test
+    layers = init_model.num_layers
+    expected = {"flash_fwd": layers * (steps + eval_batches), "flash_dq": layers * steps,
+                "flash_dkv": layers * steps}
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    c_state, c_hist = composed.main(cfg, datasets=(train_ds, test_ds))
+    c_main_s = time.perf_counter() - t0
+    flash_launches = fa.launch_counts()
+    print(f"[9] launches in composed.main(): {flash_launches} over {c_state.step} steps and "
+          f"{eval_batches} eval batch(es); predicted {expected}")
+    if flash_launches != expected:
+        fail(f"flash launches {flash_launches} != predicted {expected}")
+    val_loss, epoch_s = c_hist.test_losses[0], c_hist.epoch_seconds[0]
+    finite = all(torch.isfinite(p).all().item() for p in c_state.params.values())
+    print(f"[9] val loss {val_at_init:.4f} at init -> {val_loss:.4f} after {steps} steps "
+          f"(bar: below its value at init); train loss {c_hist.train_losses[0]:.4f}; "
+          f"params finite: {finite}")
+    print(f"[9] epoch {epoch_s:.3f} s, {steps / epoch_s:.3f} steps/s, "
+          f"{epoch_s / steps * 1e3:.3f} ms per step; main() {c_main_s:.2f} s [{card}]")
+    if not finite:
+        fail("non-finite parameters after the composed epoch")
+    if not val_loss < val_at_init:
+        fail(f"val loss {val_loss:.4f} is not below its value at init {val_at_init:.4f}")
+    # where the trainer's step spends its time: the optimizer and segment function that
+    # main() trains with (composed.build_segment_fn), over the first steps of the next
+    # epoch's plan, one warm-up step and then five under the profiler
+    _, c_segment = composed.build_segment_fn(cfg, init_model)
+    c_x = torch.from_numpy(train_ds.images[:COMPOSED_TRAIN]).to(dev)
+    c_y = torch.from_numpy(train_ds.labels[:COMPOSED_TRAIN].astype("int64")).to(dev)
+    c_plan = torch.from_numpy(composed.epoch_plan(cfg.seed, 1, COMPOSED_TRAIN, 6,
+                                                  cfg.batch_size)).to(dev)
+    c_state, _ = c_segment(c_state, c_x, c_y, c_plan[:1], cfg.seed + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        c_state, _ = c_segment(c_state, c_x, c_y, c_plan[1:], cfg.seed + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_window("[9]", device_kernel_times(prof), 5, wall, flash_ours, card)
+    del c_state, c_x, c_y
+    torch.cuda.empty_cache()
+
+    # -- 10. the large bench widths in bf16 --------------------------------------------
+    lb, ls, lh, ld = LARGE
+    large = TransformerClassifier(seq_len=ls, embed_dim=lh * ld, num_layers=LARGE_LAYERS,
+                                  num_heads=lh, dropout_rate=0.0, dtype=torch.bfloat16,
+                                  attention_fn=fa.dispatch_attention, token_features=16)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.normal(size=(lb, ls, 16)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(np.arange(lb) % 10).to(dev)
+    l_state = create_train_state(large, torch.Generator().manual_seed(1), device=dev)
+    l_step = make_train_step(large, learning_rate=0.01, momentum=0.5)
+    torch.cuda.reset_peak_memory_stats()
+    l_state, l_loss = l_step(l_state, tokens, labels, 2)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LARGE_STEPS):
+        l_state, l_loss = l_step(l_state, tokens, labels, 2)
+    torch.cuda.synchronize()
+    l_step_ms = (time.perf_counter() - t0) / LARGE_STEPS * 1e3
+    loss_value = l_loss.item()
+    print(f"[10] large widths {list(LARGE)} bf16, {LARGE_LAYERS} layers: step "
+          f"{l_step_ms:.3f} ms over {LARGE_STEPS} steps, loss {loss_value:.4f}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if not np.isfinite(loss_value):
+        fail(f"non-finite loss {loss_value} at the large widths")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            l_state, l_loss = l_step(l_state, tokens, labels, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_window("[10]", device_kernel_times(prof), 2, wall, flash_ours, card)
+    del l_state, large
+    torch.cuda.empty_cache()
+
+    all_launches = launches | flash_launches
+    all_err = err | flash_err
+
+    # -- 11. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
-                "sgd_momentum": f"{TPU_KERNELS}:156"}
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-                "launches": launches[name], "max_abs_err": err[name], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
+                "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731"}
+    sources = {name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
+    kernels = [{"name": name, "route": "cuda", "source": sources[name],
+                "replaces": replaces[name], "launches": all_launches[name],
+                "max_abs_err": all_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
-               for name, t in times.items()]
+               for name, t in (times | flash_times).items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

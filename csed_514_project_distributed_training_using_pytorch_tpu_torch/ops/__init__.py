@@ -1,5 +1,9 @@
-"""Ops: NHWC functional layers, initializers, SGD, and the hand-written CUDA kernels."""
+"""Ops: NHWC functional layers, attention, initializers, SGD, and the hand-written CUDA
+kernels."""
 
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
+    full_attention,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.initializers import (
     torch_fan_in_uniform,
     torch_kaiming_uniform,
@@ -10,6 +14,8 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.nn import
     dense,
     dropout,
     dropout2d,
+    gelu,
+    layer_norm,
     log_softmax,
     max_pool2d,
     nll_loss,
@@ -17,6 +23,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.nn import
 )
 
 __all__ = [
-    "conv2d", "cross_entropy_loss", "dense", "dropout", "dropout2d", "log_softmax",
-    "max_pool2d", "nll_loss", "relu", "torch_fan_in_uniform", "torch_kaiming_uniform",
+    "conv2d", "cross_entropy_loss", "dense", "dropout", "dropout2d", "full_attention",
+    "gelu", "layer_norm", "log_softmax", "max_pool2d", "nll_loss", "relu",
+    "torch_fan_in_uniform", "torch_kaiming_uniform",
 ]

@@ -56,16 +56,6 @@ def _check_cuda(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _launch(name: str, device: torch.device, entry: str, *args) -> None:
-    """Call the C entry point ``entry`` with ``args`` and ``device``'s current stream, with
-    ``device`` current only for the call (torch keeps owning the thread's device), and
-    raise on a CUDA error."""
-    kl = _build.load_library()
-    with torch.cuda.device(device):
-        code = getattr(kl.lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
-    kl.check(name, code)
-
-
 def _check_rows(name: str, logits: torch.Tensor, labels: torch.Tensor) -> tuple[int, int]:
     if logits.dim() != 2 or labels.shape != (logits.shape[0],):
         raise ValueError(f"{name}: expected logits [B, C] and labels [B], got "
@@ -100,8 +90,8 @@ def nll_fwd(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     dev = logits.device
     _check_cuda("nll_fwd", dev, logits=(logits, torch.float32), labels=(labels, torch.int64))
     out = torch.empty(rows, dtype=torch.float32, device=dev)
-    _launch("nll_fwd", dev, "nll_fwd_f32", logits.data_ptr(), labels.data_ptr(),
-            out.data_ptr(), rows, cols)
+    _build.launch("fused_kernels", "nll_fwd", dev, "nll_fwd_f32", logits.data_ptr(),
+                  labels.data_ptr(), out.data_ptr(), rows, cols)
     nll_fwd_launches += 1
     return out
 
@@ -141,8 +131,9 @@ def nll_bwd(logits: torch.Tensor, labels: torch.Tensor, ct: torch.Tensor,
     _check_cuda("nll_bwd", dev, logits=(logits, torch.float32), labels=(labels, torch.int64),
                 ct=(ct, torch.float32))
     out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
-    _launch("nll_bwd", dev, "nll_bwd_f32", logits.data_ptr(), labels.data_ptr(),
-            ct.data_ptr(), ct_stride, scale, out.data_ptr(), rows, cols)
+    _build.launch("fused_kernels", "nll_bwd", dev, "nll_bwd_f32", logits.data_ptr(),
+                  labels.data_ptr(), ct.data_ptr(), ct_stride, scale, out.data_ptr(), rows,
+                  cols)
     nll_bwd_launches += 1
     return out
 
@@ -213,8 +204,8 @@ def sgd_momentum_leaf(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
     dev = p.device
     _check_cuda("sgd_momentum", dev, p=(p, torch.float32), v=(v, torch.float32),
                 g=(g, torch.float32))
-    _launch("sgd_momentum", dev, "sgd_momentum_f32", p.data_ptr(), v.data_ptr(),
-            g.data_ptr(), p.numel(), learning_rate, momentum)
+    _build.launch("fused_kernels", "sgd_momentum", dev, "sgd_momentum_f32", p.data_ptr(),
+                  v.data_ptr(), g.data_ptr(), p.numel(), learning_rate, momentum)
     sgd_momentum_launches += 1
 
 

@@ -1,7 +1,8 @@
 """Core functional NN ops on tensors, NHWC at the public functions.
 
 Counterpart of the JAX package's ``ops/nn.py``: conv2d, max-pool, dense, relu,
-log_softmax, the NLL / cross-entropy losses and the two dropouts. Activations are NHWC
+log_softmax, the NLL / cross-entropy losses, the two dropouts, and the transformer
+family's layer_norm and gelu. Activations are NHWC
 (``[batch, height, width, channels]``), conv kernels HWIO and dense kernels ``[in, out]``,
 as in the JAX package, so the parity tests compare like with like. Inside, each op hands
 PyTorch a permuted *view* (NCHW / OIHW / ``[out, in]``): no copy is made, and cuDNN and
@@ -66,6 +67,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Softmax cross-entropy from unnormalized (or already log-softmaxed) inputs:
     log_softmax is idempotent, so both give the same objective."""
     return nll_loss(log_softmax(logits), labels, reduction=reduction)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer normalization over the last axis with learned scale/shift. Statistics are
+    computed in float32 (so bfloat16 activations normalize accurately), then cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * gamma.float() + beta.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Gaussian-error linear unit, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def _keep_mask(generator: torch.Generator | None, shape, keep: float,

@@ -1,4 +1,5 @@
-"""Configuration of the port's single-process trainer.
+"""Configuration of the port's trainers (the single-process CNN trainer and the composed
+transformer trainer).
 
 Counterpart of the JAX package's ``utils/config.py``, holding only the knobs this port
 implements, with the JAX package's names and defaults (the reference's values), plus
@@ -32,6 +33,36 @@ class SingleProcessConfig:
                                       # name is the JAX package's flag
     device: str = "cuda"              # 'cuda' (the default: raises when no card is
                                       # present) or 'cpu', which must be asked for
+
+
+@dataclass(frozen=True)
+class ComposedConfig:
+    """Knobs of the composed trainer (the transformer classifier), with the JAX package's
+    defaults. Only a mesh of one device is ported: ``--mesh data=1``."""
+
+    mesh: str = "data=2,seq=2,model=2"  # the JAX default; a product above 1 raises
+    seq_len: int = 16                   # tokens per image (784 pixels zero-padded)
+    flash_attention: bool = False       # attention through the flash kernels where the
+                                        # dispatch predicate takes them (S >= 2048)
+    bf16: bool = False                  # bfloat16 activations, f32 master weights
+    causal: bool = False                # decoder-style (causal) attention
+    attention_window: int = 0           # sliding-window width; 0 off
+    kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides 4
+    rope: bool = False                  # rotary position embeddings on q/k
+    epochs: int = 2
+    batch_size: int = 64
+    batch_size_test: int = 1000
+    learning_rate: float = 0.05
+    momentum: float = 0.5
+    optimizer: str = "sgd"              # only 'sgd' is ported
+    dropout_rate: float = 0.0           # 0 keeps runs comparable across meshes
+    seed: int = 1
+    data_dir: str = "files"
+    results_dir: str = "results"        # metrics.jsonl goes here
+    max_train_examples: int = 0         # truncate the splits (0 = all)
+    max_test_examples: int = 0
+    device: str = "cuda"                # 'cuda' (the default: raises when no card is
+                                        # present) or 'cpu', which must be asked for
 
 
 def _add_args(parser: argparse.ArgumentParser, cfg) -> None:

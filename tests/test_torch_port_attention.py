@@ -1,0 +1,184 @@
+"""PyTorch port, attention ops: the dense core and the plain flash versions against the JAX
+package.
+
+The same numpy inputs go through both packages. The JAX flash kernels run in Pallas
+interpret mode on the CPU, as ``tests/test_pallas_attention.py`` runs them; the port's
+``flash_attention`` takes its plain versions for CPU tensors (the CUDA kernels are held
+against those plain versions on the card, ``tests/test_torch_port_cuda.py``).
+
+Tolerances, as the JAX package's own flash tests state them for interpret mode (f32
+round-off, sums in another order): outputs and lse within rtol 1e-5 + atol 1e-5; gradients
+within rtol 1e-4 + atol 2e-5. bfloat16 within 2e-2 (both round p to bf16 before the value
+product and the output to bf16; an f32 value an ulp apart can round to the neighbouring
+bf16).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from csed_514_project_distributed_training_using_pytorch_tpu.ops import attention as jax_attn
+from csed_514_project_distributed_training_using_pytorch_tpu.ops import (
+    pallas_attention as jax_pa,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+    attention,
+    flash_attention as fa,
+)
+
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+MASKS = [(False, None), (True, None), (False, 100), (True, 100)]
+MASK_IDS = ["full", "causal", "window", "causal_window"]
+
+
+def _arrays(shape, n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+
+
+def _both(arrays, dtype="f32"):
+    """(jax arrays, torch tensors) holding the same values in the same dtype."""
+    if dtype == "bf16":
+        return ([jnp.asarray(a, jnp.bfloat16) for a in arrays],
+                [torch.from_numpy(a).bfloat16() for a in arrays])
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(
+        x, dtype=np.float32)
+
+
+@pytest.mark.parametrize("causal,window", MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_full_attention_matches_jax(causal, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, 64, 2, 16), 3, 0), dtype)
+    want = jax_attn.full_attention(jq, jk, jv, causal=causal, window=window)
+    got = attention.full_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **(FWD_TOL if dtype == "f32"
+                                                      else BF16_TOL))
+
+
+def test_windowed_attention_fn_binds_the_window():
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((1, 32, 2, 16), 3, 1))
+    np.testing.assert_allclose(
+        _np(attention.windowed_attention_fn(5)(tq, tk, tv, causal=True)),
+        _np(jax_attn.windowed_attention_fn(5)(jq, jk, jv, causal=True)), **FWD_TOL)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        attention.windowed_attention_fn(0)
+
+
+def _loss_grads_jax(q, k, v, **kw):
+    loss = lambda q, k, v: jnp.sum(jnp.sin(jax_pa.flash_attention(q, k, v, **kw)))
+    return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+
+def _loss_grads_port(q, k, v, **kw):
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, **kw)
+    return torch.autograd.grad(torch.sin(out.float()).sum(), (q, k, v))
+
+
+@pytest.mark.parametrize("s,d", [(128, 16), (256, 64)])
+@pytest.mark.parametrize("causal,window", MASKS, ids=MASK_IDS)
+def test_plain_flash_matches_jax_flash(s, d, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, s, 2, d), 3, s + d))
+    np.testing.assert_allclose(
+        _np(fa.flash_attention(tq, tk, tv, causal=causal, window=window)),
+        _np(jax_pa.flash_attention(jq, jk, jv, causal=causal, window=window)), **FWD_TOL)
+    for name, got, want in zip("qkv", _loss_grads_port(tq, tk, tv, causal=causal,
+                                                       window=window),
+                               _loss_grads_jax(jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(_np(got), _np(want), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, 100)],
+                         ids=["full", "causal_window"])
+def test_plain_flash_bf16_matches_jax_flash(causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, 128, 2, 16), 3, 7), "bf16")
+    out = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        _np(out), _np(jax_pa.flash_attention(jq, jk, jv, causal=causal, window=window)),
+        **BF16_TOL)
+    for name, got, want in zip("qkv", _loss_grads_port(tq, tk, tv, causal=causal,
+                                                       window=window),
+                               _loss_grads_jax(jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(_np(got), _np(want), err_msg=name, **BF16_TOL)
+
+
+def _packed(x):
+    """[B, S, H, D] -> the JAX kernels' packed [B·H, S, D]."""
+    b, s, h, d = x.shape
+    return jnp.transpose(x, (0, 2, 1, 3)).reshape(b * h, s, d)
+
+
+def _unpacked(x, b, h):
+    bh, s, d = x.shape
+    return np.asarray(x).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 100)],
+                         ids=["full", "causal_window"])
+def test_plain_forward_lse_matches_jax(causal, window):
+    b, s, h, d = 2, 256, 2, 16
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((b, s, h, d), 3, 11))
+    j_out, j_lse = jax_pa.flash_forward_with_lse(_packed(jq), _packed(jk), _packed(jv),
+                                                 causal=causal, window=window)
+    out, lse = fa.flash_forward_plain(tq, tk, tv, causal=causal, window=window)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _unpacked(j_out, b, h), **FWD_TOL)
+    np.testing.assert_allclose(_np(lse), np.asarray(j_lse).reshape(b, h, s), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 100)],
+                         ids=["full", "causal_window"])
+def test_plain_backward_matches_jax_backward_blocks(causal, window):
+    """Given the JAX forward's out and lse and the same dO, the port's plain backward
+    gives JAX ``flash_backward_blocks``'s dq, dk, dv (Δ from the same out and dO)."""
+    b, s, h, d = 2, 256, 2, 16
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(_arrays((b, s, h, d), 4, 12))
+    q3, k3, v3, g3 = (_packed(x) for x in (jq, jk, jv, jdo))
+    j_out, j_lse = jax_pa.flash_forward_with_lse(q3, k3, v3, causal=causal, window=window)
+    delta = jnp.sum(g3 * j_out, axis=-1).reshape(j_lse.shape)
+    want = jax_pa.flash_backward_blocks(q3, k3, v3, g3, j_lse, delta, causal=causal,
+                                        window=window)
+    out = torch.from_numpy(_unpacked(j_out, b, h).copy())
+    lse = torch.from_numpy(np.asarray(j_lse).reshape(b, h, s).copy())
+    got = fa.flash_backward_plain(tq, tk, tv, out, lse, tdo, causal=causal, window=window)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(g), _unpacked(w, b, h), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("s", [16, 128, 1920, 2048, 2049, 4096])
+def test_dispatch_predicate_matches_jax(s):
+    assert fa.dispatch_uses_flash(s) == jax_pa.dispatch_uses_flash(s)
+    assert fa.FLASH_MIN_SEQ == jax_pa.FLASH_MIN_SEQ and fa.BLOCK == jax_pa.BLOCK
+
+
+def test_dispatch_attention_takes_the_dense_core_below_the_crossover():
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((1, 128, 2, 16), 3, 13))
+    np.testing.assert_allclose(
+        _np(fa.dispatch_attention(tq, tk, tv, causal=True)),
+        _np(jax_pa.dispatch_attention(jq, jk, jv, causal=True)), **FWD_TOL)
+
+
+@pytest.mark.parametrize("s,kw", [
+    (100, {}),                      # length no lane-aligned block tiles
+    (256, {"block": 100}),          # block not a multiple of 128
+    (384, {"block": 256}),          # length not a multiple of the block
+    (128, {"window": 0}),           # window below 1
+    (128, {"window": -3}),
+], ids=["length", "block", "length_vs_block", "window0", "window_negative"])
+def test_bad_inputs_raise_as_in_jax(s, kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((1, s, 1, 16), 3, 0))
+    with pytest.raises(ValueError) as want:
+        jax_pa.flash_attention(jq, jk, jv, **kw)
+    with pytest.raises(ValueError) as got:
+        fa.flash_attention(tq, tk, tv, **kw)
+    assert str(got.value) == str(want.value)

@@ -103,3 +103,126 @@ def test_train_steps_through_kernels_match_plain(device):
         finals.append(state.params)
     for k in finals[0]:
         torch.testing.assert_close(finals[0][k], finals[1][k], atol=1e-5, rtol=0)
+
+
+# =========================================================================================
+# Flash attention (B4, B5): each kernel against its plain version
+# =========================================================================================
+#
+# Tolerances: float32 kernels against the plain versions within atol 2e-5 + rtol 1e-5 (out)
+# and atol 1e-4 + rtol 1e-4 (lse, dq, dk, dv): the same arithmetic, f32 sums in another
+# order, over up to 2048 keys or queries. bfloat16 out and grads within atol 1e-3 + rtol
+# 2^-7: p and ds round to bf16 at the same places in both, but two f32 values a few f32
+# ulps apart can round to neighbouring bf16s, one bf16 ulp, which rtol 2^-7 covers at any
+# magnitude and atol 1e-3 covers twice below 0.125 (a skipped 64-key tile moves out by
+# ~5e-3 where |out| ~ 0.03, and fails); atol 1e-4 for the f32 lse.
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (  # noqa: E402
+    transformer,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (  # noqa: E402
+    attention,
+    flash_attention as fa,
+)
+
+FLASH_TOL = {torch.float32: dict(out=(2e-5, 1e-5), lse=(1e-4, 1e-4), grad=(1e-4, 1e-4)),
+             torch.bfloat16: dict(out=(1e-3, 2.0 ** -7), lse=(1e-4, 1e-4),
+                                  grad=(1e-3, 2.0 ** -7))}
+MASKS = [(False, 0), (True, 0), (False, 160), (True, 160)]
+
+
+def _qkvd(device, b, s, h, d, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=gen, device=device).to(dtype)
+            for _ in range(4)]
+
+
+def _close(got, want, tol):
+    atol, rtol = tol
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("s", [128, 256, 2048])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
+    q, k, v, do = _qkvd(device, 2, s, 2, d, dtype, s + d + window)
+    tol = FLASH_TOL[dtype]
+    out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+    _close(out, out_p, tol["out"])
+    _close(lse, lse_p, tol["lse"])
+    grads = fa.flash_backward(q, k, v, out_p, lse_p, do, causal=causal, window=window)
+    grads_p = fa.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=causal,
+                                      window=window)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_p):
+        assert got.dtype == dtype
+        _close(got, want, tol["grad"])
+
+
+def test_flash_attention_counts_one_launch_per_kernel(device):
+    q, k, v, do = (x.requires_grad_() for x in _qkvd(device, 2, 256, 2, 64, torch.float32, 0))
+    before = fa.launch_counts()
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out, (q, k, v), do)
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {"flash_fwd": 1, "flash_dq": 1,
+                                                         "flash_dkv": 1}
+    with torch.no_grad():
+        fa.dispatch_attention(q[:, :128], k[:, :128], v[:, :128])   # dense below 2048
+    assert fa.launch_counts() == after
+
+
+def test_flash_kernels_read_strided_qkv_views(device):
+    """q, k, v sliced out of a fused [B, S, 3, H, D] projection give what contiguous
+    copies give, bit for bit: the kernels read by strides."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    qkv = torch.randn(2, 256, 3, 4, 16, generator=gen, device=device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(2, 256, 4, 16, generator=gen, device=device)
+    assert not q.is_contiguous()
+    out, lse = fa.flash_forward(q, k, v, window=160)
+    copies = [t.contiguous() for t in (q, k, v)]
+    out_c, lse_c = fa.flash_forward(*copies, window=160)
+    torch.testing.assert_close(out, out_c, atol=0, rtol=0)
+    torch.testing.assert_close(lse, lse_c, atol=0, rtol=0)
+    grads = fa.flash_backward(q, k, v, out, lse, do.transpose(1, 2).contiguous().transpose(
+        1, 2), window=160)
+    grads_c = fa.flash_backward(*copies, out_c, lse_c, do, window=160)
+    for got, want in zip(grads, grads_c):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(device):
+    q, k, v, _ = _qkvd(device, 1, 128, 2, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="contiguous in its last dim"):
+        fa.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3)[..., :16], k, v)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_forward(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_forward(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_forward(*(x[..., :8].contiguous() for x in (q, k, v)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_forward(q, k.cpu(), v)
+
+
+def test_transformer_step_through_flash_matches_dense(device):
+    """One train step of the classifier at seq 128 with the flash kernels as its core
+    matches the dense core within atol 1e-5 (f32 sums in another order)."""
+    finals = []
+    for core in (fa.flash_attention, attention.full_attention):
+        model = transformer.TransformerClassifier(seq_len=128, embed_dim=32, num_heads=2,
+                                                  dropout_rate=0.0, attention_fn=core)
+        state = step.create_train_state(model, torch.Generator().manual_seed(1), device=device)
+        fn = step.make_train_step(model, learning_rate=0.05, momentum=0.5)
+        gen = torch.Generator(device=device).manual_seed(0)
+        xs = torch.randn(4, 28, 28, 1, generator=gen, device=device)
+        ys = torch.arange(4, device=device)
+        state, loss = fn(state, xs, ys, 1)
+        finals.append((loss, state.params))
+    torch.testing.assert_close(finals[0][0], finals[1][0], atol=1e-5, rtol=0)
+    for name in finals[0][1]:
+        torch.testing.assert_close(finals[0][1][name], finals[1][1][name], atol=1e-5, rtol=0)

@@ -31,8 +31,12 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 
 def test_sources_found():
-    assert len(SOURCES) >= 15
-    assert (PORT / "csrc" / "fused_kernels.cu").is_file()
+    assert len(SOURCES) >= 22
+    for kernel_source in ("fused_kernels.cu", "flash_attention.cu"):
+        assert (PORT / "csrc" / kernel_source).is_file()
+    for module in ("ops/attention.py", "ops/rotary.py", "ops/flash_attention.py",
+                   "models/transformer.py", "parallel/mesh.py", "train/composed.py"):
+        assert PORT / module in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -98,5 +98,6 @@ def test_dropout_in_training_mode_only():
 
 def test_build_model():
     assert isinstance(models.build_model("cnn"), cnn.Net)
-    with pytest.raises(ValueError, match="only 'cnn'"):
-        models.build_model("transformer")
+    assert isinstance(models.build_model("transformer"), models.TransformerClassifier)
+    with pytest.raises(ValueError, match="unknown model 'mlp'"):
+        models.build_model("mlp")
