@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the hand-written CUDA kernels,
 holds each against its plain PyTorch version on the card, trains the reference CNN for one
-epoch through the fused kernels, and trains the transformer classifier through the flash
-kernels (the composed trainer at seq 2048, and a few steps at the large bench widths).
+epoch through the fused kernels, trains the transformer classifier through the flash
+kernels (the composed trainer at seq 2048, and a few steps at the large bench widths), and
+serves the pixel LM through the paged-decode kernel (the continuous-batching engine).
 
     python3 chip_smoke.py
 
@@ -36,7 +37,20 @@ Phases (each raises on failure; nothing is caught):
    five steps of the segment function ``main`` trains with;
 10. a few bf16 optimizer steps of the classifier at the ``bench_transformer.py --large``
     widths on synthetic ``[16, 2048, 16]`` tokens, with step ms and a profiler window;
-11. one JSON line with every kernel's numbers, then, last, the JSON result line.
+11. the paged-decode kernel (B6) against its plain version on the card: the serving shape
+    ``[8, 4, 1, 16]`` f32 over a 105-page pool, D = 32 bf16 GQA, int8 and fp8 codes with
+    scales, a window, ``t = 0``; for each, max |err|, kernel and plain ms, device µs per
+    launch, its bound, and ``F.scaled_dot_product_attention`` on the gathered view (a
+    yardstick only);
+12. the slice: ``serving.ContinuousBatchingEngine.run`` at ``tools/serve_loadgen.py``'s
+    default widths (vocab 17, seq 784, embed 64, 2 layers, 4 heads, 8 slots, pages of 64,
+    chunks 32/128/512, budget 1) serving 32 greedy requests cut from the synthetic test
+    split, in the paged layout (through B6) and the contiguous one (plain torch): equal
+    streams (up to true ties), B6 launches = layers × decode steps, tokens/s, and a
+    profiler window over decode steps;
+13. a few requests at ``bench_lm.py``'s widths (d 256, 4 layers, 8 heads, 2 KV heads,
+    bf16, 8 slots) through B6;
+14. one JSON line with every kernel's numbers, then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -97,6 +111,30 @@ COMPOSED_TRAIN = 60000         # phase 9: the whole synthetic train split, 937 s
                                # loss at seq 2048, one epoch does)
 COMPOSED_TEST = 10000          # phase 9: the whole test split, 10 eval batches of 1000
 LARGE_LAYERS, LARGE_STEPS = 8, 3   # phase 10: full depth; timed steps after one warm-up
+
+# Paged decode and serving, phases 11-13.
+TPU_PAGED = "csed_514_project_distributed_training_using_pytorch_tpu/ops/paged_attention.py"
+PAGED_SOURCE = f"{PKG}/csrc/paged_attention.cu"
+SERVE_LM = dict(vocab_size=17, seq_len=784, embed_dim=64, num_layers=2, num_heads=4)
+SERVE_SLOTS, SERVE_PAGE, SERVE_REQUESTS = 8, 64, 32   # tools/serve_loadgen.py defaults
+SERVE_MAX_NEW = 128            # phase 12: max_new_tokens drawn from 1..128
+PAGED_CASES = (                # (label, KV heads G, rows per head R, D, pool dtype, window, t)
+    ("serving", 4, 1, 16, "float32", 0, "random"),
+    ("bench_lm_gqa", 2, 4, 32, "bfloat16", 0, "random"),
+    ("int8", 4, 1, 16, "int8", 0, "random"),
+    ("fp8", 2, 4, 32, "float8_e4m3fn", 0, "random"),
+    ("window", 4, 1, 16, "float32", 100, "random"),
+    ("t0", 4, 1, 16, "float32", 0, "zero"))
+# B6 vs plain: the same f32 arithmetic on the same f32 values (pool rows read as f32 or
+# dequantised code·scale in both) with sums in another order over up to 784 positions
+PAGED_ATOL, PAGED_RTOL = 1e-5, 1e-5
+PAGED_ITERS, PAGED_WARMUP = 200, 20
+TIE_GAP = 1e-5                 # a stream mismatch is a true tie when the plain path's top-2
+                               # log-prob gap there is below this
+DECODE_WINDOW = 50             # phase 12: decode steps under the profiler
+BENCH_LM = dict(vocab_size=17, seq_len=784, embed_dim=256, num_layers=4, num_heads=8,
+                num_kv_heads=2)   # bench_lm.py's widths (--kv-heads 2)
+BENCH_LM_REQUESTS, BENCH_LM_MAX_NEW = 8, 64
 
 
 def fail(msg: str) -> None:
@@ -181,11 +219,13 @@ def main() -> None:
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
         load_mnist, mnist,
     )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import serving
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
-        Net, TransformerClassifier,
+        Net, TransformerClassifier, lm,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
         _build, attention, flash_attention as fa, fused_kernels as fk,
+        paged_attention as paged,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
         composed, single,
@@ -635,20 +675,299 @@ def main() -> None:
     del l_state, large
     torch.cuda.empty_cache()
 
-    all_launches = launches | flash_launches
-    all_err = err | flash_err
+    # -- 11. the paged-decode kernel against its plain version ----------------------------
+    s_len, ps = SERVE_LM["seq_len"], SERVE_PAGE
+    p_max = lm.pages_per_slot(s_len, ps)
+    n_pages = SERVE_SLOTS * p_max + 1            # the engine's default pool: 105 pages
 
-    # -- 11. result ---------------------------------------------------------------------
+    def quantize_rows(x, dtype):
+        """Symmetric per-row codes over the last axis and their f32 scales, the JAX
+        package's ``ops/quant.py`` rule (scale = amax / qmax; int8 rounds and clips)."""
+        qmax = 127.0 if dtype == torch.int8 else 448.0
+        amax = x.abs().amax(dim=-1)
+        scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+        codes = x / scale[..., None]
+        if dtype == torch.int8:
+            codes = codes.round().clamp(-qmax, qmax)
+        return codes.to(dtype), scale
+
+    def paged_case(g, r, d, dtype, t_kind, seed):
+        """A random pool, a shuffled full-context table per slot (the engine's
+        reservation at 105 pages), q and t."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k = torch.randn(n_pages, ps, g, d, generator=gen, device=dev)
+        v = torch.randn(n_pages, ps, g, d, generator=gen, device=dev)
+        scales = {}
+        if dtype in (torch.int8, torch.float8_e4m3fn):
+            (k, ks), (v, vs) = quantize_rows(k, dtype), quantize_rows(v, dtype)
+            scales = dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.to(dtype), v.to(dtype)
+        perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+        table = perm[:SERVE_SLOTS * p_max].reshape(SERVE_SLOTS, p_max).to(torch.int32)
+        q = torch.randn(SERVE_SLOTS, g, r, d, generator=gen, device=dev)
+        t = (torch.zeros(SERVE_SLOTS, dtype=torch.int32) if t_kind == "zero" else
+             torch.randint(0, s_len, (SERVE_SLOTS,), generator=torch.Generator()
+                           .manual_seed(seed), dtype=torch.int32))
+        if t_kind != "zero":                     # the edges ride along in every case: t = 0,
+            t[0], t[1], t[2] = 0, s_len - 1, s_len   # the last position, a finished slot
+        return q, k, v, table.to(dev), t.to(dev), scales
+
+    def visible_rows(t, window: int) -> int:
+        last = t.clamp(max=s_len - 1)
+        first = (t - window + 1).clamp(min=0) if window else torch.zeros_like(t)
+        return int((last - first + 1).clamp(min=0).sum().item())
+
+    def paged_bound(q, k, t, window, scales):
+        """Least time: the visible K/V rows (and their scales), q, out, table and t read or
+        written once, over the memory rate; 4·D flops per visible row and query row (q·k
+        and p·v) over the f32 rate."""
+        b, g, r, d = q.shape
+        rows = visible_rows(t, window)
+        nbytes = (2 * rows * g * d * k.element_size() + (2 * rows * g * 4 if scales else 0)
+                  + 2 * b * g * r * d * 4 + b * p_max * 4 + b * 4)
+        return bound_ms(nbytes, 4 * d * r * g * rows)
+
+    def sdpa_on_view(q, k, v, table, t, window, scales):
+        """``F.scaled_dot_product_attention`` on the already-gathered f32 view with the
+        visibility mask, K/V heads repeated over their query rows (a yardstick only)."""
+        b, g, r, d = q.shape
+        view = lambda pool, sc: (paged.gather_view(pool, table, s_len).float()
+                                 * (paged.gather_view(sc, table, s_len)[..., None]
+                                    if sc is not None else 1.0))
+        kv = [view(pool, scales.get(name)).repeat_interleave(r, dim=2).transpose(1, 2)
+              .contiguous() for pool, name in ((k, "k_scale"), (v, "v_scale"))]
+        pos = torch.arange(s_len, device=dev)[None]
+        mask = pos <= t.long()[:, None]
+        if window:
+            mask &= t.long()[:, None] - pos < window
+        qh = q.reshape(b, g * r, 1, d)
+        return lambda: F.scaled_dot_product_attention(qh, kv[0], kv[1],
+                                                      attn_mask=mask[:, None, None, :])
+
+    paged_err, paged_times = 0.0, None
+    print(f"[11] paged_attend vs plain (atol {PAGED_ATOL:g}, rtol {PAGED_RTOL:g}); pool "
+          f"[{n_pages}, {ps}, G, D], table [{SERVE_SLOTS}, {p_max}] [{card}]")
+    for label, g, r, d, dtype_name, window, t_kind in PAGED_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, table, t, scales = paged_case(g, r, d, dtype, t_kind, g * 100 + r * 10 + d)
+        out = paged.paged_attend(q, k, v, table, t, window=window, seq_len=s_len, **scales)
+        want = paged.paged_attend_reference(q, k, v, table, t, seq_len=s_len, window=window,
+                                            **scales)
+        torch.cuda.synchronize()
+        e = close(f"paged_attend {label}", out, want, PAGED_ATOL, PAGED_RTOL)
+        paged_err = max(paged_err, e)
+        t_kernel = lambda: paged.paged_attend(q, k, v, table, t, window=window, seq_len=s_len,
+                                              **scales)
+        t_plain = lambda: paged.paged_attend_reference(q, k, v, table, t, seq_len=s_len,
+                                                       window=window, **scales)
+        tm = dict(ms=timed_ms(t_kernel, PAGED_ITERS, PAGED_WARMUP),
+                  plain_ms=timed_ms(t_plain, PAGED_ITERS, PAGED_WARMUP),
+                  library_ms=timed_ms(sdpa_on_view(q, k, v, table, t, window, scales),
+                                      PAGED_ITERS, PAGED_WARMUP),
+                  bound=paged_bound(q, k, t, window, scales))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                t_kernel()
+            torch.cuda.synchronize()
+        per_launch = [us / n for us, n, name in device_kernel_times(prof)
+                      if "paged_attend_kernel" in name]
+        us = f"{per_launch[0]:.3f}" if per_launch else "not measured"
+        print(f"[11]   {label} q {list(q.shape)} {dtype_name} window={window} "
+              f"visible rows {visible_rows(t, window)}: max |err| {e:.3e}; kernel_ms "
+              f"{tm['ms']:.5f}, plain_ms {tm['plain_ms']:.5f}, device us/launch {us}, "
+              f"bound_ms {tm['bound'][0]:.3e} ({tm['bound'][1]}), {tm['bound'][0] / tm['ms']:.4f} "
+              f"of the bound, sdpa_ms {tm['library_ms']:.5f} [{card}]")
+        if label == "serving":
+            paged_times = {"paged_attend": tm}
+        del q, k, v, table, t, scales
+    torch.cuda.empty_cache()
+
+    # -- 12. the slice: the serving engine through B6 -------------------------------------
+    lm_model = lm.TransformerLM(**SERVE_LM)
+    lm_params = lm_model.init(torch.Generator().manual_seed(0))
+    lm_params_dev = {name: p.to(dev) for name, p in lm_params.items()}
+    vocab = SERVE_LM["vocab_size"]
+
+    def request_mix(ids, n, max_new, seed):
+        """``n`` greedy requests cut from image token streams: prompt lengths 0..S/2 and
+        ``max_new_tokens`` 1..``max_new``, drawn from ``seed``."""
+        rng = np.random.default_rng(seed)
+        plens = rng.integers(0, s_len // 2 + 1, size=n)
+        news = rng.integers(1, max_new + 1, size=n)
+        return [serving.Request(prompt=ids[i, :plens[i]].copy(), max_new_tokens=int(news[i]),
+                                request_id=i) for i in range(n)]
+
+    def serve(model, params, layout, requests, warmup):
+        """A warmed-up engine's ``run`` over ``requests``, with the B6 count set to 0 just
+        before it and read just after; (engine, streams, wall s, B6 launches)."""
+        engine = serving.ContinuousBatchingEngine(model, params, num_slots=SERVE_SLOTS,
+                                                  kv_layout=layout, page_size=SERVE_PAGE,
+                                                  device=dev)
+        engine.run(warmup)
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        paged.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (engine, {c.request.request_id: c.tokens.tolist() for c in done}, wall,
+                paged.launch_counts()["paged_attend"])
+
+    def plain_gap(model, params_dev, stream, fill: int, p: int) -> float:
+        """The plain (contiguous) path's top-2 log-prob gap at position ``p`` of
+        ``stream``, BOS masked: replay the slot alone — its prompt in the engine's chunk
+        plan, then one decode step per position up to ``p``."""
+        cache = lm.init_cache(model, 1, device=dev)
+        prompt = torch.zeros((1, model.seq_len), dtype=torch.int32, device=dev)
+        prompt[0, :fill] = torch.as_tensor(stream[:fill], device=dev)
+        for start, length, size in serving.greedy_chunk_plan(lm.PREFILL_CHUNK_SIZES, 0, fill):
+            lm.prefill_chunk(model, params_dev, cache, prompt, 0, start, length, start == 0,
+                             chunk=size)
+        with torch.no_grad():
+            for pos in range(fill, p + 1):
+                ids = stream[pos - 1] if pos else model.vocab_size - 1
+                _, lp = lm.decode_step_slots(
+                    model, params_dev, cache, torch.tensor([ids], device=dev),
+                    torch.tensor([pos], dtype=torch.int32, device=dev))
+        lp = lp[0].clone()
+        lp[model.vocab_size - 1] = float("-inf")
+        top2 = lp.topk(2).values
+        return (top2[0] - top2[1]).item()
+
+    def compare_streams(tag, model, params_dev, requests, kernel_streams,
+                        plain_streams) -> int:
+        """Paged (kernel) streams against contiguous (plain) ones: equal, or diverging at a
+        true tie (the plain path's top-2 log-prob gap there below ``TIE_GAP``). Returns
+        the number of ties."""
+        ties = 0
+        for req in requests:
+            rid = req.request_id
+            got, plain = kernel_streams[rid], plain_streams[rid]
+            if got == plain:
+                continue
+            p = next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b),
+                     min(len(got), len(plain)))
+            gap = (plain_gap(model, params_dev, plain, len(req.prompt), p)
+                   if p < min(len(got), len(plain)) else float("inf"))
+            print(f"{tag} request {rid}: streams differ first at position {p} (kernel "
+                  f"{got[p] if p < len(got) else None}, plain "
+                  f"{plain[p] if p < len(plain) else None}); plain top-2 gap {gap:.3e}")
+            if not gap < TIE_GAP:
+                fail(f"{tag} request {rid}: kernel and plain streams differ at position {p} "
+                     f"with a top-2 gap of {gap:.3e} (not a tie below {TIE_GAP:g})")
+            ties += 1
+        return ties
+
+    test_ids = lm.tokenize_images_to_ids(torch.from_numpy(
+        test_ds.images[:max(SERVE_REQUESTS, SERVE_SLOTS)])).numpy()
+    warmup = request_mix(test_ids, 2, 8, 99)
+    requests = request_mix(test_ids, SERVE_REQUESTS, SERVE_MAX_NEW, 0)
+    print(f"[12] engine: TransformerLM {SERVE_LM}, {SERVE_SLOTS} slots, pages of {ps} "
+          f"(P_max {p_max}), chunks {lm.PREFILL_CHUNK_SIZES}, budget 1, f32; "
+          f"{SERVE_REQUESTS} greedy requests, prompts {min(len(r.prompt) for r in requests)}"
+          f"-{max(len(r.prompt) for r in requests)}, max_new_tokens "
+          f"{min(r.max_new_tokens for r in requests)}-{max(r.max_new_tokens for r in requests)}")
+    plain_engine, plain_streams, plain_wall, plain_launches = serve(
+        lm_model, lm_params, "contiguous", requests, warmup)
+    kernel_engine, kernel_streams, kernel_wall, paged_launches = serve(
+        lm_model, lm_params, "paged", requests, warmup)
+    pstats = kernel_engine.page_stats()
+    for tag, engine, wall in (("paged (B6)", kernel_engine, kernel_wall),
+                              ("contiguous (plain)", plain_engine, plain_wall)):
+        print(f"[12] {tag}: {engine.steps} decode steps, {engine.generated_tokens} generated "
+              f"tokens, {engine.prefill_invocations} prefill chunks, run {wall:.4f} s, "
+              f"{engine.generated_tokens / wall:.1f} generated tokens/s, "
+              f"{wall / engine.steps * 1e3:.4f} ms per decode step (prefill included), "
+              f"occupancy {engine.slot_occupancy:.4f} [{card}]")
+    print(f"[12] B6 launches in the paged run: {paged_launches} (layers x steps = "
+          f"{lm_model.num_layers} x {kernel_engine.steps}); in the contiguous run: "
+          f"{plain_launches}; pool {pstats['num_pages']} pages, peak in use "
+          f"{pstats['peak_in_use']}")
+    if paged_launches != lm_model.num_layers * kernel_engine.steps or paged_launches == 0:
+        fail(f"B6 launches {paged_launches} != {lm_model.num_layers} x {kernel_engine.steps}")
+    if plain_launches:
+        fail(f"the contiguous run launched B6 {plain_launches} times")
+    if sorted(kernel_streams) != list(range(SERVE_REQUESTS)):
+        fail(f"the paged run completed {len(kernel_streams)} of {SERVE_REQUESTS} requests")
+    for req in requests:
+        stream = kernel_streams[req.request_id]
+        want_len = min(len(req.prompt) + req.max_new_tokens, s_len)
+        if (len(stream) != want_len or stream[:len(req.prompt)] != req.prompt.tolist()
+                or not all(0 <= x < vocab - 1 for x in stream[len(req.prompt):])):
+            fail(f"request {req.request_id}: stream of length {len(stream)} (want "
+                 f"{want_len}) or its prompt or its tokens are wrong")
+    ties = compare_streams("[12]", lm_model, lm_params_dev, requests, kernel_streams,
+                           plain_streams)
+    same = sum(kernel_streams[i] == plain_streams[i] for i in plain_streams)
+    print(f"[12] paged (kernel) vs contiguous (plain) streams: {same}/{SERVE_REQUESTS} "
+          f"equal, {ties} diverging at a true tie (gap < {TIE_GAP:g})")
+    # where a decode step spends its time: 8 slots decoding, prompts prefilled
+    engine = serving.ContinuousBatchingEngine(lm_model, lm_params, num_slots=SERVE_SLOTS,
+                                              kv_layout="paged", page_size=SERVE_PAGE,
+                                              device=dev)
+    engine.admit_many([(i, serving.Request(prompt=test_ids[i, :200].copy(),
+                                           max_new_tokens=400, request_id=i))
+                       for i in range(SERVE_SLOTS)])
+    while engine.num_prefilling:
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_WINDOW):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_window("[12] decode window:", device_kernel_times(prof), DECODE_WINDOW, wall,
+                  ("paged_attend_kernel",), card)
+    del engine, plain_engine, kernel_engine
+    torch.cuda.empty_cache()
+
+    # -- 13. bench_lm.py's widths in bf16 ---------------------------------------------------
+    big = lm.TransformerLM(**BENCH_LM, dtype=torch.bfloat16)
+    big_params = {name: p.to(torch.bfloat16)
+                  for name, p in big.init(torch.Generator().manual_seed(1)).items()}
+    big_requests = request_mix(test_ids, BENCH_LM_REQUESTS, BENCH_LM_MAX_NEW, 1)
+    big_plain, big_plain_streams, _, _ = serve(big, big_params, "contiguous", big_requests,
+                                               warmup)
+    big_kernel, big_streams, big_wall, big_launches = serve(big, big_params, "paged",
+                                                            big_requests, warmup)
+    print(f"[13] bench_lm widths {BENCH_LM} bf16 weights and KV pool: "
+          f"{big_kernel.steps} decode steps, {big_kernel.generated_tokens} tokens in "
+          f"{big_wall:.4f} s ({big_kernel.generated_tokens / big_wall:.1f} tokens/s, "
+          f"{big_wall / big_kernel.steps * 1e3:.4f} ms per step); B6 launches {big_launches} "
+          f"(layers x steps = {big.num_layers} x {big_kernel.steps}) [{card}]")
+    if big_launches != big.num_layers * big_kernel.steps or big_launches == 0:
+        fail(f"[13] B6 launches {big_launches} != {big.num_layers} x {big_kernel.steps}")
+    if sorted(big_streams) != list(range(BENCH_LM_REQUESTS)) or not all(
+            0 <= x < vocab for s in big_streams.values() for x in s):
+        fail("[13] the bf16 engine's streams are incomplete or out of the vocabulary")
+    big_ties = compare_streams("[13]", big, {k: p.to(dev) for k, p in big_params.items()},
+                               big_requests, big_streams, big_plain_streams)
+    big_same = sum(big_streams[i] == big_plain_streams[i] for i in big_plain_streams)
+    print(f"[13] paged (kernel) vs contiguous (plain) streams: {big_same}/"
+          f"{BENCH_LM_REQUESTS} equal, {big_ties} diverging at a true tie")
+    del big_plain, big_kernel
+    torch.cuda.empty_cache()
+
+    all_launches = launches | flash_launches | {"paged_attend": paged_launches}
+    all_err = err | flash_err | {"paged_attend": paged_err}
+
+    # -- 14. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
-                "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731"}
-    sources = {name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
+                "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731",
+                "paged_attend": f"{TPU_PAGED}:85"}
+    sources = ({name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
+               | {"paged_attend": PAGED_SOURCE})
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": all_launches[name],
                 "max_abs_err": all_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
-               for name, t in (times | flash_times).items()]
+               for name, t in (times | flash_times | paged_times).items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

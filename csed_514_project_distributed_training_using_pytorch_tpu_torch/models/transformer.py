@@ -72,6 +72,26 @@ class _Slots(nn.Module):
             specs.update(child.param_inits(f"{prefix}{child_name}."))
         return specs
 
+    def init(self, generator: torch.Generator,
+             device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+        """A fresh f32 parameter dict drawn on the CPU from ``generator`` (normal(0.02),
+        zeros, ones by parameter), then moved to ``device``."""
+        params = {}
+        for name, (shape, init) in self.param_inits().items():
+            if init == NORMAL:
+                t = torch.empty(shape).normal_(0.0, INIT_STDDEV, generator=generator)
+            else:
+                t = torch.zeros(shape) if init == ZEROS else torch.ones(shape)
+            params[name] = t.to(device)
+        return params
+
+    def _fill_slots(self) -> None:
+        """Give the placeholder parameters values (seed 0), so that a direct call is
+        defined."""
+        with torch.no_grad():
+            for name, value in self.init(torch.Generator().manual_seed(0)).items():
+                self.get_parameter(name).copy_(value)
+
 
 class MultiHeadSelfAttention(_Slots):
     """Multi-head self-attention with a pluggable core.
@@ -204,22 +224,7 @@ class TransformerClassifier(_Slots):
         self._slot("ln_f_bias", (embed_dim,), ZEROS)
         self._slot("head_kernel", (embed_dim, num_classes), NORMAL)
         self._slot("head_bias", (num_classes,), ZEROS)
-        with torch.no_grad():
-            for name, value in self.init(torch.Generator().manual_seed(0)).items():
-                self.get_parameter(name).copy_(value)
-
-    def init(self, generator: torch.Generator,
-             device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
-        """A fresh f32 parameter dict drawn on the CPU from ``generator`` (normal(0.02),
-        zeros, ones by parameter), then moved to ``device``."""
-        params = {}
-        for name, (shape, init) in self.param_inits().items():
-            if init == NORMAL:
-                t = torch.empty(shape).normal_(0.0, INIT_STDDEV, generator=generator)
-            else:
-                t = torch.zeros(shape) if init == ZEROS else torch.ones(shape)
-            params[name] = t.to(device)
-        return params
+        self._fill_slots()
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -53,6 +53,12 @@ SIGNATURES = {
         "flash_dkv": (_I, _P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P,
                       _I, _I, _I, _I, _F, _I, _I, _P),
     },
+    "paged_attention": {
+        # dtype, q, k_pool, v_pool, k_scale, v_scale (null without scales), table, t, out,
+        # B, G, R, D, page_size, P_max, seq_len, window, scale, stream
+        "paged_attend": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
 }
 
 

@@ -84,13 +84,40 @@ def _loss_grads_port(q, k, v, **kw):
     return torch.autograd.grad(torch.sin(out.float()).sum(), (q, k, v))
 
 
+def _which_side(got, want, arrays, *, causal, window):
+    """For a failure message: each side's largest distance from float64 attention on the
+    same inputs, and the [b, s, h] rows where the two sides differ most, so that a
+    failure says which framework moved and where."""
+    q, k, v = (a.astype(np.float64) for a in arrays)
+    s = q.shape[1]
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    visible = np.ones((s, s), bool)
+    if causal:
+        visible &= i >= j
+    if window:
+        visible &= np.abs(i - j) < window
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    scores = np.where(visible, scores, -np.inf)
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    exact = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
+    rows = np.argsort(np.abs(got - want).max(-1), axis=None)[-3:]
+    return (f"port vs float64 {np.abs(got - exact).max():.3e}, jax vs float64 "
+            f"{np.abs(want - exact).max():.3e}; rows [b, s, h] differing most "
+            f"{[tuple(int(x) for x in np.unravel_index(r, got.shape[:3])) for r in rows]}")
+
+
 @pytest.mark.parametrize("s,d", [(128, 16), (256, 64)])
 @pytest.mark.parametrize("causal,window", MASKS, ids=MASK_IDS)
 def test_plain_flash_matches_jax_flash(s, d, causal, window):
-    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, s, 2, d), 3, s + d))
-    np.testing.assert_allclose(
-        _np(fa.flash_attention(tq, tk, tv, causal=causal, window=window)),
-        _np(jax_pa.flash_attention(jq, jk, jv, causal=causal, window=window)), **FWD_TOL)
+    arrays = _arrays((2, s, 2, d), 3, s + d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays)
+    got = _np(fa.flash_attention(tq, tk, tv, causal=causal, window=window))
+    want = _np(jax_pa.flash_attention(jq, jk, jv, causal=causal, window=window))
+    try:
+        np.testing.assert_allclose(got, want, **FWD_TOL)
+    except AssertionError as err:
+        where = _which_side(got, want, arrays, causal=causal, window=window)
+        raise AssertionError(f"{err}\n{where}") from None
     for name, got, want in zip("qkv", _loss_grads_port(tq, tk, tv, causal=causal,
                                                        window=window),
                                _loss_grads_jax(jq, jk, jv, causal=causal, window=window)):

@@ -226,3 +226,148 @@ def test_transformer_step_through_flash_matches_dense(device):
     torch.testing.assert_close(finals[0][0], finals[1][0], atol=1e-5, rtol=0)
     for name in finals[0][1]:
         torch.testing.assert_close(finals[0][1][name], finals[1][1][name], atol=1e-5, rtol=0)
+
+
+# =========================================================================================
+# Paged decode (B6): the kernel against its plain version, and the serving engine on it
+# =========================================================================================
+#
+# Tolerance: atol 1e-5 + rtol 1e-5. Kernel and plain version read the same pool values as
+# f32 (or dequantise code·scale in f32 in both) and differ only in the order of f32 sums
+# over up to 832 positions.
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch import serving  # noqa: E402
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm  # noqa: E402
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (  # noqa: E402
+    paged_attention as paged,
+)
+
+PAGED_TOL = dict(atol=1e-5, rtol=1e-5)
+POOL_DTYPES = [torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn]
+
+
+def _quantize_rows(x, dtype):
+    """Per-row symmetric codes and f32 scales (the JAX package's ``quant.quantize_rows``)."""
+    qmax = 127.0 if dtype == torch.int8 else 448.0
+    amax = x.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    codes = x / scale[..., None]
+    if dtype == torch.int8:
+        codes = codes.round().clamp(-qmax, qmax)
+    return codes.to(dtype), scale
+
+
+def _paged_case(device, b, g, r, d, ps, p_max, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    num_pages = 1 + b * p_max + 3                 # null + reservations + unowned spares
+    k = torch.randn(num_pages, ps, g, d, generator=gen, device=device)
+    v = torch.randn(num_pages, ps, g, d, generator=gen, device=device)
+    scales = {}
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        (k, ks), (v, vs) = _quantize_rows(k, dtype), _quantize_rows(v, dtype)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm[:b * p_max].reshape(b, p_max).to(torch.int32).to(device)
+    q = torch.randn(b, g, r, d, generator=gen, device=device)
+    t = torch.randint(0, p_max * ps, (b,), generator=torch.Generator().manual_seed(seed),
+                      dtype=torch.int32)
+    t[0] = 0
+    return q, k, v, table, t.to(device), scales
+
+
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("dtype", POOL_DTYPES, ids=["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_paged_kernel_matches_plain(device, d, r, dtype, window):
+    """Pages of 64 over a 13-page table (the serving engine's P_max at seq 784)."""
+    q, k, v, table, t, scales = _paged_case(device, 5, 2, r, d, 64, 13, dtype, d + r)
+    before = paged.launch_counts()["paged_attend"]
+    out = paged.paged_attend(q, k, v, table, t, window=window, **scales)
+    torch.cuda.synchronize()
+    assert paged.launch_counts()["paged_attend"] == before + 1
+    want = paged.paged_attend_reference(q, k, v, table, t, seq_len=13 * 64, window=window,
+                                        **scales)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, want, **PAGED_TOL)
+
+
+@pytest.mark.parametrize("ps", [1, 4, 16, 100])
+def test_paged_kernel_page_sizes_and_edges(device, ps):
+    """Page sizes other than the tile; t past the table (clipped), t = 0, t = -1 (no
+    visible row: zeros); unowned pages poisoned with 1e9 change nothing."""
+    p_max = -(-200 // ps)
+    q, k, v, table, t, _ = _paged_case(device, 4, 2, 2, 32, ps, p_max, torch.float32, ps)
+    t[1], t[2], t[3] = p_max * ps + 50, 0, -1
+    out = paged.paged_attend(q, k, v, table, t)
+    want = paged.paged_attend_reference(q, k, v, table, t, seq_len=p_max * ps)
+    want[3] = 0.0
+    torch.testing.assert_close(out, want, **PAGED_TOL)
+    owned = set(table.flatten().tolist())
+    poison = torch.tensor([p for p in range(k.shape[0]) if p not in owned], device=device)
+    k2, v2 = k.clone(), v.clone()
+    k2[poison], v2[poison] = 1e9, 1e9
+    assert torch.equal(paged.paged_attend(q, k2, v2, table, t), out)
+
+
+def test_paged_kernel_clips_at_seq_len(device):
+    """The engine's view: seq_len 784 under a 13-page table of 64 (832 positions). Slots
+    at t = 783, 784 (a finished slot parks there), 800 and 831 see rows 0..783 on the
+    card as in the plain version; poisoning rows 784..831 changes nothing."""
+    q, k, v, table, t, _ = _paged_case(device, 4, 4, 1, 16, 64, 13, torch.float32, 3)
+    t = torch.tensor([783, 784, 800, 831], dtype=torch.int32, device=device)
+    out = paged.paged_attend(q, k, v, table, t, seq_len=784)
+    want = paged.paged_attend_reference(q, k, v, table, t, seq_len=784)
+    torch.testing.assert_close(out, want, **PAGED_TOL)
+    k2, v2 = k.clone(), v.clone()
+    tail = table[:, 784 // 64].long()
+    k2[tail, 784 % 64:], v2[tail, 784 % 64:] = 1e9, 1e9
+    assert torch.equal(paged.paged_attend(q, k2, v2, table, t, seq_len=784), out)
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(device):
+    q, k, v, table, t, _ = _paged_case(device, 2, 2, 2, 16, 4, 4, torch.float32, 0)
+    with pytest.raises(ValueError, match="table must be int32"):
+        paged.paged_attend(q, k, v, table.long(), t)
+    with pytest.raises(ValueError, match="t must be int32"):
+        paged.paged_attend(q, k, v, table, t.long())
+    with pytest.raises(TypeError, match="pool dtypes"):
+        paged.paged_attend(q, k.half(), v.half(), table, t)
+    with pytest.raises(ValueError, match="R <= 4"):
+        paged.paged_attend(torch.randn(2, 2, 8, 16, device=device), k, v, table, t)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged.paged_attend(q, k, v, table.cpu(), t)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        paged.paged_attend(q, k, v, table, t, k_scale=torch.ones(k.shape[:3], device=device))
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(num_kv_heads=2), dict(attention_window=5),
+                                 dict(rope=True)], ids=["mha", "gqa", "window", "rope"])
+def test_engine_paged_streams_on_the_card(device, cfg):
+    """The engine on the card: the paged layout (through the kernel) against the
+    contiguous layout (plain torch), greedy, through fewer slots than requests; one
+    kernel launch per layer and decode step."""
+    model = lm.TransformerLM(vocab_size=9, seq_len=16, embed_dim=32, num_layers=2,
+                             num_heads=4, **cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+
+    def requests():
+        rng = torch.Generator().manual_seed(1)
+        return [serving.Request(
+            prompt=torch.randint(0, 8, (int(torch.randint(0, 8, (1,), generator=rng)),),
+                                 generator=rng).numpy().astype("int32"),
+            max_new_tokens=int(torch.randint(1, 16, (1,), generator=rng)), request_id=i)
+            for i in range(6)]
+
+    streams = {}
+    for layout in ("contiguous", "paged"):
+        engine = serving.ContinuousBatchingEngine(model, params, num_slots=3,
+                                                  kv_layout=layout, page_size=4)
+        before = paged.launch_counts()["paged_attend"]
+        streams[layout] = {c.request.request_id: c.tokens.tolist()
+                           for c in engine.run(requests())}
+        launched = paged.launch_counts()["paged_attend"] - before
+        assert launched == (2 * engine.steps if layout == "paged" else 0)
+    assert streams["paged"] == streams["contiguous"]

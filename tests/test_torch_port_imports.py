@@ -31,11 +31,13 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 
 def test_sources_found():
-    assert len(SOURCES) >= 22
-    for kernel_source in ("fused_kernels.cu", "flash_attention.cu"):
+    assert len(SOURCES) >= 28
+    for kernel_source in ("fused_kernels.cu", "flash_attention.cu", "paged_attention.cu"):
         assert (PORT / "csrc" / kernel_source).is_file()
     for module in ("ops/attention.py", "ops/rotary.py", "ops/flash_attention.py",
-                   "models/transformer.py", "parallel/mesh.py", "train/composed.py"):
+                   "models/transformer.py", "parallel/mesh.py", "train/composed.py",
+                   "ops/paged_attention.py", "models/lm.py", "serving/__init__.py",
+                   "serving/engine.py", "serving/pagepool.py", "serving/scheduler.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -48,7 +50,7 @@ def test_no_jax_imports(path):
 
 def test_top_level_is_a_namespace_package():
     assert not (PORT / "__init__.py").exists()
-    for sub in ("data", "ops", "models", "parallel", "train", "utils"):
+    for sub in ("data", "ops", "models", "parallel", "serving", "train", "utils"):
         assert (PORT / sub / "__init__.py").is_file(), sub
 
 
