@@ -10,8 +10,10 @@ serves the pixel LM through the paged-decode kernel (the continuous-batching eng
 Phases (each raises on failure; nothing is caught):
 
 1. the device: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
-2. build ``csrc/fused_kernels.cu`` and ``csrc/flash_attention.cu`` with nvcc for sm_90a, one
-   nvcc per source started together, and report the build seconds;
+2. build ``csrc/fused_kernels.cu``, ``csrc/flash_attention.cu`` and
+   ``csrc/paged_attention.cu`` with nvcc for sm_90a, one nvcc per source started together;
+   report the build seconds, ptxas's registers and spills, and the tensor-core (HMMA)
+   instructions of each flash kernel as ``cuobjdump -sass`` lists them;
 3. each kernel against its plain version on the card, at the main path's shapes and more,
    with its time, its plain version's time, its bound and, where one PyTorch call computes
    the same function, that call's time (a yardstick only; the port never calls it);
@@ -28,6 +30,7 @@ Phases (each raises on failure; nothing is caught):
    trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
+   f32 operands take B5's SIMT kernels, bf16 ones its tensor-core kernels;
 8. flash against the dense core at the composed widths, S in {512, 1024, 2048}, forward and
    forward+backward: the card's own flash/dense crossover (recorded; nothing reads it);
 9. the slice's path: ``train.composed.main`` on cuda, ``--mesh data=1 --flash-attention
@@ -36,7 +39,8 @@ Phases (each raises on failure; nothing is caught):
    count predicts, the val loss against its value at init, and a profiler window over
    five steps of the segment function ``main`` trains with;
 10. a few bf16 optimizer steps of the classifier at the ``bench_transformer.py --large``
-    widths on synthetic ``[16, 2048, 16]`` tokens, with step ms and a profiler window;
+    widths on synthetic ``[16, 2048, 16]`` tokens through the tensor-core backward, with
+    the flash launch counts read around the timed steps, step ms and a profiler window;
 11. the paged-decode kernel (B6) against its plain version on the card: the serving shape
     ``[8, 4, 1, 16]`` f32 over a 105-page pool, D = 32 bf16 GQA, int8 and fp8 codes with
     scales, a window, ``t = 0``; for each, max |err|, kernel and plain ms, device µs per
@@ -59,6 +63,8 @@ package is not beside it.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,12 +100,16 @@ FLASH_CASES = (                # (shape, dtype, causal, window)
     (COMPOSED, "float32", False, 0), (LARGE, "bfloat16", False, 0),
     ((2, 128, 4, 16), "float32", True, 0), ((2, 256, 2, 64), "float32", False, 160),
     ((2, 256, 2, 64), "bfloat16", True, 160), ((2, 2048, 2, 128), "float32", True, 160),
+    ((2, 2048, 2, 128), "bfloat16", False, 100), ((2, 2048, 2, 128), "bfloat16", True, 160),
     ((2, 2048, 4, 16), "bfloat16", True, 0))
 # kernel vs plain (atol, rtol), as tests/test_torch_port_cuda.py: f32, the same arithmetic
-# with f32 sums in another order; bf16 out and grads, one bf16 ulp where two f32 values a
-# few f32 ulps apart round to neighbouring bf16s — rtol 2^-7 is one ulp at any magnitude,
-# atol 1e-3 two ulps below 0.125 — so a wrong tile (a 64-key tile skipped moves out by
-# ~5e-3 at the large shape, where |out| ~ 0.03) fails; lse stays f32 in both
+# with f32 sums in another order; bf16 out and grads within one bf16 ulp — rtol 2^-7 is one
+# ulp at any magnitude, atol 1e-3 two ulps below 0.125 — so a wrong tile (a 64-key tile
+# skipped moves out by ~5e-3 at the large shape, where |out| ~ 0.03) fails; lse stays f32
+# in both. bf16 operands lie on the grid of 1/16 in [-4, 4], on which q·kᵀ and dO·vᵀ are
+# exact in f32 whatever the order of the sums: the tensor-core backward sums them in
+# another order than the plain version, and on randn operands a p or ds within that f32
+# error of a bf16 rounding midpoint rounds one step apart in the two (see the card tests)
 BF16_RTOL = 2.0 ** -7
 FLASH_TOL = {"float32": {"out": (2e-5, 1e-5), "lse": (1e-4, 1e-4), "grad": (1e-4, 1e-4)},
              "bfloat16": {"out": (1e-3, BF16_RTOL), "lse": (1e-4, 1e-4),
@@ -163,6 +173,26 @@ def flash_bounds(shape, dtype: str, visible_pairs: int) -> dict[str, tuple[float
     return {"flash_fwd": bound_ms(4 * x + stat, 4 * d * pairs, rate),
             "flash_dq": bound_ms(5 * x + 2 * stat, 6 * d * pairs, rate),
             "flash_dkv": bound_ms(6 * x + 2 * stat, 8 * d * pairs, rate)}
+
+
+def tensor_core_instructions(library: Path) -> dict[str, int]:
+    """HMMA (tensor-core matrix) instructions of each kernel in a built library's SASS, as
+    ``cuobjdump -sass`` lists them, by mangled kernel name. Fails without cuobjdump, which
+    ships with the nvcc that built the library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        fail("cuobjdump not found beside nvcc: the tensor-core kernels' HMMA not checked")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            kernel = found.group(1)
+            counts[kernel] = 0
+        elif kernel and re.search(r"\bHMMA\b", line):
+            counts[kernel] += 1
+    return counts
 
 
 def device_kernel_times(prof) -> list[tuple[float, int, str]]:
@@ -261,6 +291,13 @@ def main() -> None:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2] ptxas: {line.strip()}")
+    hmma = tensor_core_instructions(builds["flash_attention"].path)
+    for kernel, count in sorted(hmma.items()):
+        print(f"[2] cuobjdump -sass: {count} HMMA instructions in {kernel}")
+    for kernel in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
+        for d in fa.HEAD_DIMS:
+            if not any(f"{kernel}ILi{d}E" in k and n for k, n in hmma.items()):
+                fail(f"{kernel}<{d}> has no HMMA (tensor-core) instruction in its SASS")
 
     # -- 3. kernels against their plain versions ------------------------------------------
     def timed_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -478,11 +515,16 @@ def main() -> None:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
     def flash_inputs(shape, dtype: str, seed: int):
+        """randn operands; bf16 ones on the grid of 1/16 in [-4, 4]."""
         g = torch.Generator(device=dev).manual_seed(seed)
-        return [torch.randn(*shape, generator=g, device=dev).to(dtypes[dtype])
-                for _ in range(4)]
+        xs = [torch.randn(*shape, generator=g, device=dev) for _ in range(4)]
+        if dtype == "bfloat16":
+            xs = [(x * 16).round().clamp(-64, 64) / 16 for x in xs]
+        return [x.to(dtypes[dtype]) for x in xs]
 
-    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    # the bf16 backward's errors go to its tensor-core kernels' names
+    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "flash_dq_mma": 0.0,
+                 "flash_dkv_mma": 0.0}
     print(f"[7] flash kernels vs plain, (atol, rtol) by dtype: {FLASH_TOL}")
     for shape, dtype, causal, window in FLASH_CASES:
         q, k, v, do = flash_inputs(shape, dtype, sum(shape) + window)
@@ -499,8 +541,9 @@ def main() -> None:
         e_dq, e_dk, e_dv = (close(f"flash {n} {tag}", got.float(), w.float(), *tol["grad"])
                             for n, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want))
         torch.cuda.synchronize()
-        for name, e in (("flash_fwd", max(e_out, e_lse)), ("flash_dq", e_dq),
-                        ("flash_dkv", max(e_dk, e_dv))):
+        route = "_mma" if dtype == "bfloat16" else ""
+        for name, e in (("flash_fwd", max(e_out, e_lse)), (f"flash_dq{route}", e_dq),
+                        (f"flash_dkv{route}", max(e_dk, e_dv))):
             flash_err[name] = max(flash_err[name], e)
         print(f"[7]   {tag}: max |err| out {e_out:.3e} lse {e_lse:.3e} dq {e_dq:.3e} "
               f"dk {e_dk:.3e} dv {e_dv:.3e}")
@@ -538,7 +581,8 @@ def main() -> None:
                               bound=bounds["flash_dkv"]),
         }
 
-    flash_ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    flash_ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                  "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
     flash_by_shape = {}
     for label, shape, dtype in (("composed", COMPOSED, "float32"),
                                 ("large", LARGE, "bfloat16")):
@@ -558,7 +602,10 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report_window(f"[7] {label}:", device_kernel_times(prof), 3, wall, flash_ours, card)
-    flash_times = flash_by_shape["composed"]     # the main path's shape goes to the table
+    # the composed shape (f32) is the main path's; the tensor-core kernels' row is the
+    # large shape (bf16)
+    flash_times = flash_by_shape["composed"] | {
+        f"{name}_mma": flash_by_shape["large"][name] for name in ("flash_dq", "flash_dkv")}
 
     # -- 8. flash against the dense core: the card's crossover -------------------------
     b, _, h, d = COMPOSED
@@ -654,15 +701,22 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     l_state, l_loss = l_step(l_state, tokens, labels, 2)      # warm-up
     torch.cuda.synchronize()
+    fa.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(LARGE_STEPS):
         l_state, l_loss = l_step(l_state, tokens, labels, 2)
     torch.cuda.synchronize()
     l_step_ms = (time.perf_counter() - t0) / LARGE_STEPS * 1e3
+    large_launches = fa.launch_counts()
     loss_value = l_loss.item()
     print(f"[10] large widths {list(LARGE)} bf16, {LARGE_LAYERS} layers: step "
           f"{l_step_ms:.3f} ms over {LARGE_STEPS} steps, loss {loss_value:.4f}, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    print(f"[10] flash launches over the {LARGE_STEPS} timed steps: {large_launches} "
+          f"(the bf16 backward's are the tensor-core kernels'); predicted "
+          f"{LARGE_LAYERS * LARGE_STEPS} each")
+    if set(large_launches.values()) != {LARGE_LAYERS * LARGE_STEPS}:
+        fail(f"flash launches {large_launches} != {LARGE_LAYERS} x {LARGE_STEPS} each")
     if not np.isfinite(loss_value):
         fail(f"non-finite loss {loss_value} at the large widths")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -952,13 +1006,16 @@ def main() -> None:
     del big_plain, big_kernel
     torch.cuda.empty_cache()
 
-    all_launches = launches | flash_launches | {"paged_attend": paged_launches}
+    all_launches = (launches | flash_launches | {"paged_attend": paged_launches}
+                    | {"flash_dq_mma": large_launches["flash_dq"],
+                       "flash_dkv_mma": large_launches["flash_dkv"]})
     all_err = err | flash_err | {"paged_attend": paged_err}
 
     # -- 14. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
                 "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731",
+                "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
                 "paged_attend": f"{TPU_PAGED}:85"}
     sources = ({name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
                | {"paged_attend": PAGED_SOURCE})

@@ -9,49 +9,63 @@
 // the shared-memory attribute call) so that the Python wrapper raises on a refused launch.
 // No --use_fast_math: expf/logf keep the card close to the plain PyTorch versions.
 //
-// Three kernels, one per TPU kernel of the JAX package's ops/pallas_attention.py:
+// Five kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py; the
+// backward has one route per operand type, chosen by the dtype alone:
 //
-//   flash_fwd_kernel  replaces _fwd_kernel (online-softmax attention, out + lse)
-//   flash_dq_kernel   replaces _dq_kernel  (dq by recompute)
-//   flash_dkv_kernel  replaces _dkv_kernel (dk, dv by recompute)
+//   flash_fwd_kernel      replaces _fwd_kernel (online-softmax attention, out + lse), f32
+//                         and bf16, SIMT
+//   flash_dq_kernel       replaces _dq_kernel  (dq by recompute), f32, SIMT
+//   flash_dkv_kernel      replaces _dkv_kernel (dk, dv by recompute), f32, SIMT
+//   flash_dq_mma_kernel   replaces _dq_kernel,  bf16, tensor cores (mma.sync)
+//   flash_dkv_mma_kernel  replaces _dkv_kernel, bf16, tensor cores (mma.sync)
 //
 // Operands are [B, S, H, D] tensors read through their strides (D contiguous), so the
 // q/k/v views that a fused qkv projection hands over need no copy; outputs are contiguous
-// [B, S, H, D], and lse and delta are contiguous f32 [B, H, S]. Inputs are float32 or
-// bfloat16; every product is taken in f32 (a bf16 x bf16 product is exact in f32) and
-// accumulated in f32. p (forward, dk/dv) and ds (dq, dk/dv) are rounded to the input type
-// where they enter a product, where the TPU kernels narrow them (pallas_attention.py:541,
-// :711, :780, :786), so kernel and plain version round at the same places.
+// [B, S, H, D], and lse and delta are contiguous f32 [B, H, S]. Every product is taken in
+// f32 or with f32 accumulation (a bf16 x bf16 product is exact in f32). p (forward, dk/dv)
+// and ds (dq, dk/dv) are rounded to the input type where they enter a product, where the
+// TPU kernels narrow them (pallas_attention.py:541, :711, :780, :786), so kernel and plain
+// version round at the same places.
 //
 // What bounds them: at the trainer's shapes (S = 2048, D = 16 f32; D = 128 bf16) the work
 // is 4·B·H·S²·D flops forward and 6 (dq) and 8 (dk/dv) backward against O(B·S·H·D) bytes,
-// so all three are bound by arithmetic, not by memory. These first versions run on the
-// CUDA cores in f32 (no tensor cores, no TMA): they keep the S x S scores out of device
-// memory, walk only the key (or query) tiles that the causal mask and the window leave
-// live, and lay the work out as a small SIMT matrix product per tile — each thread owns a
-// few rows by four score columns and a few rows by D/16 output columns, so every value
-// read from shared memory feeds several FMAs. Tensor-core (mma/wgmma) and TMA versions are
-// later work.
+// so all of them are bound by arithmetic, not by memory: by the CUDA cores' f32 rate for
+// f32 operands and by the tensor cores' bf16 rate for bf16 ones (which the bf16 forward,
+// still SIMT, does not use yet). Every kernel keeps the S x S scores out of device memory
+// and walks only the key (or query) tiles that the causal mask and the window leave live.
 //
 // Tiling. A block owns one (b, h) and one tile of 64 query rows (forward, dq) or 64 key
 // rows (dk/dv) and loops over the tiles of the other side inside the block: the TPU's
 // sequential grid axis becomes that loop, and each block writes only its own rows, so no
-// sum crosses blocks and no atomics are needed. Operand tiles sit in shared memory as f32
-// with a padded row stride (D + 1) so that the column-strided reads of the score product
-// fall in distinct banks. At D = 128 a block holds up to ~166 KB of shared memory (dk/dv),
-// which needs cudaFuncSetAttribute(MaxDynamicSharedMemorySize); D = 128 also runs 256
-// threads so that each thread's accumulators stay in registers.
+// sum crosses blocks and no atomics are needed.
+//
+// The SIMT kernels (the forward, and the f32 backward) lay the work out as a small matrix
+// product per tile on the CUDA cores: each thread owns a few rows by four score columns
+// and a few rows by D/16 output columns, so every value read from shared memory feeds
+// several FMAs. Operand tiles sit in shared memory as f32 with a padded row stride (D + 1)
+// so that the column-strided reads fall in distinct banks. At D = 128 a block holds up to
+// ~166 KB of shared memory (dk/dv), which needs the kernel's MaxDynamicSharedMemorySize
+// raised; D = 128 also runs 256 threads so that each thread's accumulators stay in
+// registers.
+//
+// The bf16 backward runs on the tensor cores, whose bf16 rate is ~15x the f32 one; see the
+// note above flash_dq_mma_kernel for its design. Later work: wgmma with TMA loads and a
+// producer warp for the bf16 backward; the forward on tensor cores; a 3xTF32 split
+// (hi·hi + hi·lo + lo·hi) that would keep f32 accuracy on the tensor cores for f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kMaskValue = -1e30f;   // ops/attention.py MASK_VALUE
 constexpr int kTile = 64;              // query rows and key rows per tile
 constexpr int kF32 = 0, kBF16 = 1;     // dtype codes of the C interface
+using bf16 = __nv_bfloat16;
 
 // A [B, S, H, D] tensor read through its element strides; D is contiguous.
 struct Operand {
@@ -264,10 +278,10 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
   }
 }
 
-// The recomputed score tile of the backward kernels: for this thread's RPT query rows
+// The recomputed score tile of the f32 backward kernels: for this thread's RPT query rows
 // (rows of sQ/sDO) and CPT key columns (rows of sK/sV), p = exp(q·k·scale - lse) (0 where
-// masked) and ds = p·(dO·v - delta), each rounded to T (the product operands' type).
-template <typename T, int D, int RPT, int CPT>
+// masked) and ds = p·(dO·v - delta).
+template <int D, int RPT, int CPT>
 __device__ __forceinline__ void recompute_tile(
     const float* __restrict__ sQ, const float* __restrict__ sDO, const float* __restrict__ sK,
     const float* __restrict__ sV, const float* lse_r, const float* delta_r, int row0,
@@ -306,20 +320,20 @@ __device__ __forceinline__ void recompute_tile(
       const bool vis = !masked || visible(q0 + row0 + i, k0 + lane16 + 16 * j, causal, window);
       const float sc = vis ? p[i][j] * scale : kMaskValue;
       const float pij = vis ? expf(sc - lse_r[i]) : 0.f;
-      ds[i][j] = narrow<T>(pij * (dp[i][j] - delta_r[i]));
-      p[i][j] = narrow<T>(pij);
+      ds[i][j] = pij * (dp[i][j] - delta_r[i]);
+      p[i][j] = pij;
     }
   }
 }
 
-// Replaces ops/pallas_attention.py::_dq_kernel.
+// Replaces ops/pallas_attention.py::_dq_kernel for f32 operands.
 // dq[q] = scale · sum_k ds[q, k] k[k] over the live key tiles; the block owns its query
 // tile, so the sum stays in its registers.
-template <typename T, int D, int NT>
+template <int D, int NT>
 __global__ void __launch_bounds__(NT)
 flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S, int H, float scale,
-                int causal, int window) {
+                const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
+                float scale, int causal, int window) {
   constexpr int RPT = kTile * 16 / NT, CPT = kTile / 16, DPT = D / 16;
   constexpr int LD = D + 1, LP = kTile + 1;
   extern __shared__ float smem[];
@@ -334,10 +348,10 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
 
-  load_tile<T, D, NT>(sQ, slice<T>(q, b, h), q.ss, q0);
-  load_tile<T, D, NT>(sDO, slice<T>(dout, b, h), dout.ss, q0);
-  const T* kb = slice<T>(k, b, h);
-  const T* vb = slice<T>(v, b, h);
+  load_tile<float, D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
+  load_tile<float, D, NT>(sDO, slice<float>(dout, b, h), dout.ss, q0);
+  const float* kb = slice<float>(k, b, h);
+  const float* vb = slice<float>(v, b, h);
   float lse_r[RPT], delta_r[RPT], acc[RPT][DPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -352,12 +366,12 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, D, NT>(sK, kb, k.ss, k0);
-    load_tile<T, D, NT>(sV, vb, v.ss, k0);
+    load_tile<float, D, NT>(sK, kb, k.ss, k0);
+    load_tile<float, D, NT>(sV, vb, v.ss, k0);
     __syncthreads();
     float p[RPT][CPT], ds[RPT][CPT];
-    recompute_tile<T, D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
-                                   causal, window, p, ds);
+    recompute_tile<D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
+                                causal, window, p, ds);
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -379,22 +393,22 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    T* row = dq + ((static_cast<int64_t>(b) * S + q0 + row0 + i) * H + h) * D;
+    float* row = dq + ((static_cast<int64_t>(b) * S + q0 + row0 + i) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) row[lane16 + 16 * c] = from_f32<T>(acc[i][c] * scale);
+    for (int c = 0; c < DPT; ++c) row[lane16 + 16 * c] = acc[i][c] * scale;
   }
 }
 
-// Replaces ops/pallas_attention.py::_dkv_kernel.
+// Replaces ops/pallas_attention.py::_dkv_kernel for f32 operands.
 // dv[k] = sum_q p[q, k] dO[q], dk[k] = scale · sum_q ds[q, k] q[q] over the live query
 // tiles; the block owns its key tile. The score tile is recomputed with the same thread
 // layout as in the dq kernel (rows = queries); p and ds go through shared memory so that
 // the transposed products can read them by key row.
-template <typename T, int D, int NT>
+template <int D, int NT>
 __global__ void __launch_bounds__(NT)
 flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int S,
-                 int H, float scale, int causal, int window) {
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                 int S, int H, float scale, int causal, int window) {
   constexpr int RPT = kTile * 16 / NT, CPT = kTile / 16, DPT = D / 16;
   constexpr int LD = D + 1, LP = kTile + 1;
   extern __shared__ float smem[];
@@ -412,10 +426,10 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
 
-  load_tile<T, D, NT>(sK, slice<T>(k, b, h), k.ss, k0);
-  load_tile<T, D, NT>(sV, slice<T>(v, b, h), v.ss, k0);
-  const T* qb = slice<T>(q, b, h);
-  const T* dob = slice<T>(dout, b, h);
+  load_tile<float, D, NT>(sK, slice<float>(k, b, h), k.ss, k0);
+  load_tile<float, D, NT>(sV, slice<float>(v, b, h), v.ss, k0);
+  const float* qb = slice<float>(q, b, h);
+  const float* dob = slice<float>(dout, b, h);
   float acc_k[RPT][DPT], acc_v[RPT][DPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
@@ -427,8 +441,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, D, NT>(sQ, qb, q.ss, q0);
-    load_tile<T, D, NT>(sDO, dob, dout.ss, q0);
+    load_tile<float, D, NT>(sQ, qb, q.ss, q0);
+    load_tile<float, D, NT>(sDO, dob, dout.ss, q0);
     if (threadIdx.x < kTile) {
       sLse[threadIdx.x] = lse[stat + q0 + threadIdx.x];
       sDelta[threadIdx.x] = delta[stat + q0 + threadIdx.x];
@@ -441,8 +455,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
       delta_r[i] = sDelta[row0 + i];
     }
     float p[RPT][CPT], ds[RPT][CPT];
-    recompute_tile<T, D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
-                                   causal, window, p, ds);
+    recompute_tile<D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
+                                causal, window, p, ds);
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -478,21 +492,405 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
     const int64_t off = ((static_cast<int64_t>(b) * S + k0 + row0 + i) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
-      dk[off + lane16 + 16 * c] = from_f32<T>(acc_k[i][c] * scale);
-      dv[off + lane16 + 16 * c] = from_f32<T>(acc_v[i][c]);
+      dk[off + lane16 + 16 * c] = acc_k[i][c] * scale;
+      dv[off + lane16 + 16 * c] = acc_v[i][c];
     }
   }
 }
 
-template <int D> constexpr int threads() { return D == 128 ? 256 : 128; }
+// ---------------------------------------------------------------------------------------
+// The bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------------------
+//
+// flash_dq_mma_kernel replaces ops/pallas_attention.py::_dq_kernel and flash_dkv_mma_kernel
+// replaces _dkv_kernel for bf16 operands. They compute what the f32 kernels above compute —
+// p = exp(q·kᵀ·scale − lse) recomputed, ds = p∘(dO·vᵀ − Δ), dq = scale·Σ ds·k,
+// dk = scale·Σ dsᵀ·q, dv = Σ pᵀ·dO, with p and ds rounded to bf16 where they enter a
+// product — and are bound by the tensor cores' bf16 rate (6 and 8 products of 2·D flops
+// per visible pair against O(B·S·H·D) bytes). What the design does about it:
+//
+// - Every product is mma.sync.m16n8k16 bf16 x bf16 -> f32. A block of 4 warps owns 64 rows
+//   (queries for dq, keys for dk/dv); each warp owns 16 of them and all 64 columns of the
+//   walked tile. dq forms S = Q·Kᵀ and dP = dO·Vᵀ, then dQ += dS·K; dk/dv forms Sᵀ = K·Qᵀ
+//   and dPᵀ = V·dOᵀ directly, then dV += Pᵀ·dO and dK += dSᵀ·Q. Operand fragments come
+//   from shared memory by ldmatrix (.trans for the right-hand operand of the second
+//   products, which is stored row-major [walked row][D]).
+// - p and ds never leave registers: the f32 accumulators of two neighbouring n8 tiles,
+//   rounded with __float22bfloat162_rn, are exactly the A fragment of the next m16n8k16
+//   product, and that rounding is the one the plain version does.
+// - Operands stay bf16 in shared memory with rows padded by 8 elements (16 bytes), so
+//   the eight 16-byte rows that one ldmatrix phase reads fall in distinct banks. Tiles are
+//   copied with cp.async 16 bytes at a time through the operands' strides (the wrapper
+//   refuses pointers and strides that are not 16-byte aligned), and the walked side is
+//   double-buffered: tile n + 1's copies are in flight while tile n's products run, with
+//   one barrier a tile.
+// - The statistics: the dq kernel keeps its rows' lse and Δ in registers for the whole
+//   walk; the dk/dv kernel stages each query tile's lse and Δ with the tile and reads the
+//   columns it needs from shared memory.
+// - Masks cost only where they cut a tile: the per-element test runs on tiles that the
+//   causal diagonal or the window edge crosses, and interior tiles skip it (the JAX
+//   package's _block_interior).
+//
+// Registers: a dk/dv thread holds 2 x D/2 f32 accumulators (128 at D = 128) besides its
+// score tiles, so at D = 128 it walks each 64-query tile in two passes of 32 columns and
+// stays within 255 registers without spilling; dq takes one pass of 64. Shared memory is
+// 6 tiles of 64 x (D + 8) bf16 (104 KB at D = 128), so two blocks fit an SM. Left for
+// later: wgmma with TMA and a producer warp (these products wait on ldmatrix traffic that
+// wgmma would read from shared memory itself).
 
-// Opens the kernel's dynamic shared memory past the 48 KB default where it needs more.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+constexpr int kMmaThreads = 128;       // 4 warps x 16 rows of the block's 64-row tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a·b for one 16 x 8 tile: a is the 16 x 16 A fragment, (b0, b1) the 16 x 8 B one.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+// (lo, hi) rounded to bf16 (to nearest even, as torch's .to(bfloat16)), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// True when every (query, key) pair of the tile at (q0, k0) is visible.
+__device__ __forceinline__ bool tile_interior(int q0, int k0, int causal, int window) {
+  const int back = q0 + kTile - 1 - k0;    // the largest q - k in the tile
+  const int ahead = k0 + kTile - 1 - q0;   // the largest k - q
+  if (causal && ahead > 0) return false;
+  return window <= 0 || (back < window && ahead < window);
+}
+
+// Rows [row0, row0 + kTile) of one (b, h) slice into a [kTile][D + 8] bf16 tile, with one
+// 16-byte cp.async per 8 elements.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* tile, const bf16* base, int64_t row_stride,
+                                        int row0) {
+  constexpr int kChunks = D / 8, LD = D + 8;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int idx = i * kMmaThreads + threadIdx.x;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    cp_async16(tile + r * LD + c, base + static_cast<int64_t>(row0 + r) * row_stride + c);
+  }
+}
+
+// Lane offsets (in elements, within a [kTile][D + 8] tile) of the rows that ldmatrix.x4
+// reads. A fragment of a warp's 16 rows: rows lane % 16, column half lane / 16. B fragments
+// of two n8 tiles from a [n][k] tile: n rows (lane / 16)·8 + lane % 8, k half (lane / 8) % 2.
+// The same from a [k][n] tile through .trans: k rows ((lane / 8) % 2)·8 + lane % 8, n half
+// lane / 16.
+template <int D> struct FragOffsets {
+  int a, b, bt;
+  __device__ __forceinline__ FragOffsets(int warp, int lane) {
+    constexpr int LD = D + 8;
+    a = (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8;
+    b = ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+    bt = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
+  }
+};
+
+// Two 16 x 8·NJ products of one warp over the D columns of the operands: x = A·Bᵀ and
+// y = C·Dᵀ, where A and C are the warp's 16 rows (at offset off.a) and B, D the 8·NJ rows
+// of the walked tile from row c0 on.
+template <int D, int NJ>
+__device__ __forceinline__ void score_tiles(const bf16* A, const bf16* B, const bf16* C,
+                                            const bf16* Dm, const FragOffsets<D>& off, int c0,
+                                            float (&x)[NJ][4], float (&y)[NJ][4]) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4], c[4];
+    ldmatrix_x4(a, A + off.a + 16 * kk);
+    ldmatrix_x4(c, C + off.a + 16 * kk);
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t b[4], d[4];
+      ldmatrix_x4(b, B + off.b + (c0 + 16 * jp) * LD + 16 * kk);
+      ldmatrix_x4(d, Dm + off.b + (c0 + 16 * jp) * LD + 16 * kk);
+      mma_bf16(x[2 * jp], a, b[0], b[1]);
+      mma_bf16(x[2 * jp + 1], a, b[2], b[3]);
+      mma_bf16(y[2 * jp], c, d[0], d[1]);
+      mma_bf16(y[2 * jp + 1], c, d[2], d[3]);
+    }
+  }
+}
+
+// acc += frag·T for the warp's 16 rows, where frag holds NK 16 x 16 A fragments (walked
+// columns c0 to c0 + 16·NK) and T is the walked [kTile][D + 8] tile, read through
+// ldmatrix.trans.
+template <int D, int NK>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&frag)[NK][4],
+                                           const bf16* tile, const FragOffsets<D>& off, int c0) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, tile + off.bt + (c0 + 16 * kk) * LD + 16 * n);
+      mma_bf16(acc[2 * n], frag[kk], b[0], b[1]);
+      mma_bf16(acc[2 * n + 1], frag[kk], b[2], b[3]);
+    }
+}
+
+// One warp's p and ds from its score tiles s and dp (accumulator layout: value e of n8
+// tile j sits at row g + 8·(e / 2), column 8·j + 2·t + e % 2, with g = lane / 4 and
+// t = lane % 4), rounded to bf16 and packed as the A fragments of the next products: the
+// values of tiles 2·kk and 2·kk + 1 are fragment kk. stat(e, j) gives (lse, Δ) and pos(e, j)
+// the (query, key) position of a value; kMasked applies the mask, p = 0 where not visible.
+template <bool kMasked, int NJ, typename Stat, typename Pos>
+__device__ __forceinline__ void softmax_grads(const float (&s)[NJ][4], const float (&dp)[NJ][4],
+                                              float scale, int causal, int window,
+                                              const Stat& stat, const Pos& pos,
+                                              uint32_t (&p_frag)[NJ / 2][4],
+                                              uint32_t (&ds_frag)[NJ / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 ld = stat(e, j);
+      bool vis = true;
+      if constexpr (kMasked) {
+        const int2 qk = pos(e, j);
+        vis = visible(qk.x, qk.y, causal, window);
+      }
+      // s·scale rounded before lse is taken off, as the plain version does (no FMA)
+      p[e] = vis ? expf(__fsub_rn(__fmul_rn(s[j][e], scale), ld.x)) : 0.f;
+      ds[e] = p[e] * (dp[j][e] - ld.y);
+    }
+    p_frag[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    p_frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    ds_frag[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+    ds_frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// One warp's 16 output rows (row0 + g and row0 + g + 8, this thread's columns 8·j + 2·t)
+// of a contiguous [B, S, H, D] bf16 tensor, times mult.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], int b,
+                                           int row, int S, int H, int h, int t, float mult) {
+  bf16* r0 = out + ((static_cast<int64_t>(b) * S + row) * H + h) * D + 2 * t;
+  bf16* r8 = r0 + static_cast<int64_t>(8) * H * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(r0 + 8 * j) =
+        __float22bfloat162_rn(make_float2(acc[j][0] * mult, acc[j][1] * mult));
+    *reinterpret_cast<__nv_bfloat162*>(r8 + 8 * j) =
+        __float22bfloat162_rn(make_float2(acc[j][2] * mult, acc[j][3] * mult));
+  }
+}
+
+template <int D> constexpr size_t mma_tile_bytes() { return kTile * (D + 8) * sizeof(bf16); }
+
+// n8 tiles of the walked tile per pass of the dk/dv kernel: at D = 128 it takes the tile's
+// 64 columns in two passes of 32, so that a thread's 2 x 64 accumulators and its score
+// tiles fit in 255 registers without spilling. The dq kernel takes all 64 in one pass.
+template <int D> constexpr int kDkvPassTiles = D == 128 ? 4 : 8;
+
+// Replaces ops/pallas_attention.py::_dq_kernel for bf16 operands (design note above).
+// Shared memory: Q and dO, then two stages of K and V.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int S, int H, float scale, int causal, int window) {
+  constexpr int TILE = kTile * (D + 8), NJ = 8;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(mma_smem);
+  bf16* sDO = sQ + TILE;
+  bf16* sK = sDO + TILE;
+  bf16* sV = sK + 2 * TILE;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const bf16* kb = slice<bf16>(k, b, h);
+  const bf16* vb = slice<bf16>(v, b, h);
+  const FragOffsets<D> off(warp, lane);
+  int kt_lo, kt_hi;
+  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+
+  cp_tile<D>(sQ, slice<bf16>(q, b, h), q.ss, q0);
+  cp_tile<D>(sDO, slice<bf16>(dout, b, h), dout.ss, q0);
+  if (kt_lo < kt_hi) {
+    cp_tile<D>(sK, kb, k.ss, kt_lo * kTile);
+    cp_tile<D>(sV, vb, v.ss, kt_lo * kTile);
+  }
+  cp_async_commit();
+
+  const int row = q0 + 16 * warp + g;       // this thread's rows: row and row + 8
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S + row;
+  const float2 stat_r[2] = {make_float2(lse[stat], delta[stat]),
+                            make_float2(lse[stat + 8], delta[stat + 8])};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();              // tile kt is in, and every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) {         // ... whose buffers now take tile kt + 1
+      cp_tile<D>(sK + (stage ^ 1) * TILE, kb, k.ss, (kt + 1) * kTile);
+      cp_tile<D>(sV + (stage ^ 1) * TILE, vb, v.ss, (kt + 1) * kTile);
+      cp_async_commit();
+    }
+    const bf16* tK = sK + stage * TILE;
+    const bf16* tV = sV + stage * TILE;
+    const int k0 = kt * kTile;
+    const bool interior = tile_interior(q0, k0, causal, window);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's keys, 8·NJ at a time
+      float s[NJ][4], dp[NJ][4];
+      score_tiles<D, NJ>(sQ, tK, sDO, tV, off, c0, s, dp);
+      const auto stat_of = [&](int e, int) { return stat_r[e >> 1]; };
+      const auto pos_of = [&](int e, int j) {
+        return make_int2(row + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1));
+      };
+      uint32_t p_frag[NJ / 2][4], ds_frag[NJ / 2][4];
+      if (interior)
+        softmax_grads<false>(s, dp, scale, causal, window, stat_of, pos_of, p_frag, ds_frag);
+      else
+        softmax_grads<true>(s, dp, scale, causal, window, stat_of, pos_of, p_frag, ds_frag);
+      accumulate<D>(acc, ds_frag, tK, off, c0);
+    }
+  }
+  store_rows<D>(dq, acc, b, row, S, H, h, t, scale);
+}
+
+// Replaces ops/pallas_attention.py::_dkv_kernel for bf16 operands (design note above).
+// Shared memory: K and V, then two stages of Q, dO, lse and Δ.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+                     int causal, int window) {
+  constexpr int TILE = kTile * (D + 8), NJ = kDkvPassTiles<D>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(mma_smem);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;
+  bf16* sDO = sQ + 2 * TILE;
+  float* sStat = reinterpret_cast<float*>(sDO + 2 * TILE);   // [2 stages][lse, Δ][kTile]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
+  const bf16* qb = slice<bf16>(q, b, h);
+  const bf16* dob = slice<bf16>(dout, b, h);
+  const FragOffsets<D> off(warp, lane);
+  int qt_lo, qt_hi;
+  live_query_tiles(k0, S, causal, window, &qt_lo, &qt_hi);
+
+  // The query tile qt's rows of Q and dO, and its lse and Δ (16 floats a warp-quarter).
+  const auto stage_queries = [&](int st, int qt) {
+    cp_tile<D>(sQ + st * TILE, qb, q.ss, qt * kTile);
+    cp_tile<D>(sDO + st * TILE, dob, dout.ss, qt * kTile);
+    if (threadIdx.x < 32) {
+      const int which = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;
+      cp_async16(sStat + (2 * st + which) * kTile + c,
+                 (which ? delta : lse) + stat + qt * kTile + c);
+    }
+  };
+  cp_tile<D>(sK, slice<bf16>(k, b, h), k.ss, k0);
+  cp_tile<D>(sV, slice<bf16>(v, b, h), v.ss, k0);
+  if (qt_lo < qt_hi) stage_queries(0, qt_lo);
+  cp_async_commit();
+
+  const int key = k0 + 16 * warp + g;       // this thread's rows: key and key + 8
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();              // tile qt is in, and every warp is done with tile qt - 1
+    if (qt + 1 < qt_hi) {
+      stage_queries(stage ^ 1, qt + 1);
+      cp_async_commit();
+    }
+    const bf16* tQ = sQ + stage * TILE;
+    const bf16* tDO = sDO + stage * TILE;
+    const float* tLse = sStat + 2 * stage * kTile;
+    const float* tDelta = tLse + kTile;
+    const int q0 = qt * kTile;
+    const bool interior = tile_interior(q0, k0, causal, window);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's queries, 8·NJ at a time
+      float s[NJ][4], dp[NJ][4];  // Sᵀ and dPᵀ: rows are keys, columns queries
+      score_tiles<D, NJ>(sK, tQ, sV, tDO, off, c0, s, dp);
+      const auto stat_of = [&](int e, int j) {
+        const int c = c0 + 8 * j + 2 * t + (e & 1);
+        return make_float2(tLse[c], tDelta[c]);
+      };
+      const auto pos_of = [&](int e, int j) {
+        return make_int2(q0 + c0 + 8 * j + 2 * t + (e & 1), key + 8 * (e >> 1));
+      };
+      uint32_t p_frag[NJ / 2][4], ds_frag[NJ / 2][4];
+      if (interior)
+        softmax_grads<false>(s, dp, scale, causal, window, stat_of, pos_of, p_frag, ds_frag);
+      else
+        softmax_grads<true>(s, dp, scale, causal, window, stat_of, pos_of, p_frag, ds_frag);
+      accumulate<D>(acc_v, p_frag, tDO, off, c0);
+      accumulate<D>(acc_k, ds_frag, tQ, off, c0);
+    }
+  }
+  store_rows<D>(dk, acc_k, b, key, S, H, h, t, scale);
+  store_rows<D>(dv, acc_v, b, key, S, H, h, t, 1.f);
+}
+
+// ---------------------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------------------
+
+template <int D> constexpr int threads() { return D == 128 ? 256 : 128; }
 
 struct Shape {
   int B, S, H;
@@ -501,55 +899,66 @@ struct Shape {
   dim3 grid() const { return dim3(S / kTile, H, B); }
 };
 
-template <typename T, int D>
-cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, Shape s,
-                       cudaStream_t stream) {
-  constexpr int NT = threads<D>();
-  const size_t bytes = fwd_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D, NT>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<s.grid(), NT, bytes, stream>>>(q, k, v, static_cast<T*>(out), lse, s.S, s.H, s.scale,
-                                          s.causal, s.window);
+// Launches kernel on the shape's grid, first opening its dynamic shared memory past the
+// 48 KB default where it needs more.
+template <typename... Params, typename... Args>
+cudaError_t start(void (*kernel)(Params...), int block, size_t bytes, const Shape& s,
+                  cudaStream_t stream, Args... args) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<s.grid(), block, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
+cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, Shape s,
+                       cudaStream_t stream) {
+  return start(flash_fwd_kernel<T, D, threads<D>()>, threads<D>(),
+               fwd_smem_floats<D>() * sizeof(float), s, stream, q, k, v, static_cast<T*>(out),
+               lse, s.S, s.H, s.scale, s.causal, s.window);
+}
+
+// bf16 operands take the tensor-core kernel, f32 ones the SIMT kernel.
+template <typename T, int D>
 cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dout, const float* lse,
                       const float* delta, void* dq, Shape s, cudaStream_t stream) {
-  constexpr int NT = threads<D>();
-  const size_t bytes = dq_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_dq_kernel<T, D, NT>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<s.grid(), NT, bytes, stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(dq), s.S,
-                                          s.H, s.scale, s.causal, s.window);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>)
+    return start(flash_dq_mma_kernel<D>, kMmaThreads, 6 * mma_tile_bytes<D>(), s, stream, q,
+                 k, v, dout, lse, delta, static_cast<bf16*>(dq), s.S, s.H, s.scale, s.causal,
+                 s.window);
+  else
+    return start(flash_dq_kernel<D, threads<D>()>, threads<D>(),
+                 dq_smem_floats<D>() * sizeof(float), s, stream, q, k, v, dout, lse, delta,
+                 static_cast<float*>(dq), s.S, s.H, s.scale, s.causal, s.window);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(Operand q, Operand k, Operand v, Operand dout, const float* lse,
                        const float* delta, void* dk, void* dv, Shape s, cudaStream_t stream) {
-  constexpr int NT = threads<D>();
-  const size_t bytes = dkv_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_dkv_kernel<T, D, NT>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<s.grid(), NT, bytes, stream>>>(q, k, v, dout, lse, delta, static_cast<T*>(dk),
-                                          static_cast<T*>(dv), s.S, s.H, s.scale, s.causal,
-                                          s.window);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>)
+    return start(flash_dkv_mma_kernel<D>, kMmaThreads,
+                 6 * mma_tile_bytes<D>() + 4 * kTile * sizeof(float), s, stream, q, k, v, dout,
+                 lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.S, s.H, s.scale,
+                 s.causal, s.window);
+  else
+    return start(flash_dkv_kernel<D, threads<D>()>, threads<D>(),
+                 dkv_smem_floats<D>() * sizeof(float), s, stream, q, k, v, dout, lse, delta,
+                 static_cast<float*>(dk), static_cast<float*>(dv), s.S, s.H, s.scale,
+                 s.causal, s.window);
 }
 
 // Calls fn.template run<T, D>() for the run-time dtype code and head width.
 template <typename Fn>
 cudaError_t dispatch(int dtype, int d, const Fn& fn) {
-  const bool bf16 = dtype == kBF16;
-  if (!bf16 && dtype != kF32) return cudaErrorInvalidValue;
+  const bool is_bf16 = dtype == kBF16;
+  if (!is_bf16 && dtype != kF32) return cudaErrorInvalidValue;
   switch (d) {
-    case 16: return bf16 ? fn.template run<__nv_bfloat16, 16>() : fn.template run<float, 16>();
-    case 64: return bf16 ? fn.template run<__nv_bfloat16, 64>() : fn.template run<float, 64>();
-    case 128: return bf16 ? fn.template run<__nv_bfloat16, 128>() : fn.template run<float, 128>();
+    case 16: return is_bf16 ? fn.template run<bf16, 16>() : fn.template run<float, 16>();
+    case 64: return is_bf16 ? fn.template run<bf16, 64>() : fn.template run<float, 64>();
+    case 128: return is_bf16 ? fn.template run<bf16, 128>() : fn.template run<float, 128>();
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,6 +21,13 @@ sliced out of a fused qkv projection) is taken as it is; a last dim that is not 
 raises. Each launch adds one to its counter (``flash_fwd_launches``, ``flash_dq_launches``,
 ``flash_dkv_launches``), so a run can show that it went through the kernels.
 
+The backward has two routes, chosen by the operands' dtype alone and counted alike:
+float32 operands launch the SIMT kernels (``flash_dq_kernel``, ``flash_dkv_kernel``),
+bfloat16 operands the tensor-core kernels (``flash_dq_mma_kernel``,
+``flash_dkv_mma_kernel``). The bf16 kernels copy their tiles 16 bytes at a time, so they
+raise on an operand whose data pointer or (b, s, h) stride is not 16-byte aligned; such an
+operand is neither copied nor sent to the SIMT kernels.
+
 The plain versions walk the keys in the kernels' tiles of ``KV_TILE`` with the same
 recurrence, masks and roundings (p and ds narrowed to the input type at the products), so
 kernel and plain version differ only in the order of f32 sums. ``block`` is validated as
@@ -117,6 +124,20 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
     if s % KV_TILE:
         raise ValueError(f"{name}: sequence length {s} is not a multiple of {KV_TILE}")
     return dev
+
+
+def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's data pointer, and each ``[B, S, H, D]`` operand's (b, s, h)
+    strides over dims longer than 1, are multiples of 16 bytes: the bf16 backward kernels
+    stage their tiles with 16-byte copies."""
+    for arg, t in tensors.items():
+        lead = zip(t.stride()[:3], t.shape[:3]) if t.dim() == 4 else ()
+        strides = [st * t.element_size() for st, n in lead if n > 1]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(
+                f"{name}: {arg} must be 16-byte aligned for the bf16 tensor-core kernel "
+                f"(data pointer {t.data_ptr()} % 16 = {t.data_ptr() % 16}, strides "
+                f"{t.stride()} of {t.element_size()} bytes)")
 
 
 def _strides(t: torch.Tensor):
@@ -261,12 +282,14 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
              lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
              window: int = 0) -> torch.Tensor:
     """dq ``[B, S, H, D]`` from the statistics lse and Δ (``[B, H, S]`` f32): one launch of
-    the dq kernel."""
+    the dq kernel (the tensor-core one for bf16 operands)."""
     global flash_dq_launches
     if _on_cpu(q, k, v, dout, lse, delta):
         return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[0]
     dev = _check_operands("flash_dq", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dq", q, lse=lse, delta=delta)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_dq", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _build.launch("flash_attention", "flash_dq", dev, "flash_dq",
                   *_backward_args(q, k, v, dout, lse, delta), dq.data_ptr(),
@@ -279,12 +302,14 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
               lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
               window: int = 0):
     """(dk, dv) ``[B, S, H, D]`` from the statistics lse and Δ: one launch of the dk/dv
-    kernel."""
+    kernel (the tensor-core one for bf16 operands)."""
     global flash_dkv_launches
     if _on_cpu(q, k, v, dout, lse, delta):
         return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[1:]
     dev = _check_operands("flash_dkv", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dkv", q, lse=lse, delta=delta)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_dkv", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     _build.launch("flash_attention", "flash_dkv", dev, "flash_dkv",

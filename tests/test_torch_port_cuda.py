@@ -12,6 +12,8 @@ plain versions, the SGD kernel bitwise up to 1e-6 * max|p|, 5 steps through the 
 within atol 1e-5 of the plain step.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -112,10 +114,18 @@ def test_train_steps_through_kernels_match_plain(device):
 # Tolerances: float32 kernels against the plain versions within atol 2e-5 + rtol 1e-5 (out)
 # and atol 1e-4 + rtol 1e-4 (lse, dq, dk, dv): the same arithmetic, f32 sums in another
 # order, over up to 2048 keys or queries. bfloat16 out and grads within atol 1e-3 + rtol
-# 2^-7: p and ds round to bf16 at the same places in both, but two f32 values a few f32
-# ulps apart can round to neighbouring bf16s, one bf16 ulp, which rtol 2^-7 covers at any
-# magnitude and atol 1e-3 covers twice below 0.125 (a skipped 64-key tile moves out by
-# ~5e-3 where |out| ~ 0.03, and fails); atol 1e-4 for the f32 lse.
+# 2^-7, one bf16 ulp at any magnitude and two below 0.125 (a skipped 64-key tile moves out
+# by ~5e-3 where |out| ~ 0.03, and fails); atol 1e-4 for the f32 lse.
+#
+# p and ds round to bf16 at the same places in kernel and plain version, but the bf16
+# backward sums q·kᵀ and dO·vᵀ on the tensor cores, in another order than the plain
+# version's f32 GEMMs. Where the exact p or ds lies within that f32 error of a bf16
+# rounding midpoint, one rounds up and the other down, and the flipped step, times a row of
+# k, q or dO, can exceed one ulp of a small output element. So the bf16 comparison at
+# these tolerances draws its operands on a grid (``_exact_grid``) on which both products
+# are exact in f32 in any order: kernel and plain version then round p and ds alike. On
+# randn operands, test_flash_bf16_backward_differs_from_plain_only_at_rounding_ties holds
+# every element beyond the tolerance to one-step flips at such midpoints.
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (  # noqa: E402
     transformer,
@@ -128,13 +138,22 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import ( 
 FLASH_TOL = {torch.float32: dict(out=(2e-5, 1e-5), lse=(1e-4, 1e-4), grad=(1e-4, 1e-4)),
              torch.bfloat16: dict(out=(1e-3, 2.0 ** -7), lse=(1e-4, 1e-4),
                                   grad=(1e-3, 2.0 ** -7))}
-MASKS = [(False, 0), (True, 0), (False, 160), (True, 160)]
+# windows whose edge falls on a tile boundary (64) and inside tiles (100, 160), so that
+# both interior tiles and tiles the band edge crosses are walked
+MASKS = [(False, 0), (True, 0), (False, 64), (True, 100), (False, 160), (True, 160)]
 
 
-def _qkvd(device, b, s, h, d, dtype, seed):
+def _exact_grid(x):
+    """x on the grid of 1/16 in [-4, 4]: a product of two such values is a multiple of
+    2^-8 and a sum of up to 128 of them is at most 2^11 in magnitude, so every q·kᵀ and
+    dO·vᵀ (D <= 128) is exact in f32 whatever the order of its sums."""
+    return (x * 16).round().clamp(-64, 64) / 16
+
+
+def _qkvd(device, b, s, h, d, dtype, seed, exact=False):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(b, s, h, d, generator=gen, device=device).to(dtype)
-            for _ in range(4)]
+    xs = [torch.randn(b, s, h, d, generator=gen, device=device) for _ in range(4)]
+    return [(_exact_grid(x) if exact else x).to(dtype) for x in xs]
 
 
 def _close(got, want, tol):
@@ -142,12 +161,15 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("s", [128, 256, 2048])
+@pytest.mark.parametrize("s", [64, 128, 256, 2048])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
-    q, k, v, do = _qkvd(device, 2, s, 2, d, dtype, s + d + window)
+    """Every kernel against its plain version: f32 operands take the SIMT backward, bf16
+    the tensor-core one, on operands of the exact grid; S = 64 is a single tile."""
+    q, k, v, do = _qkvd(device, 2, s, 2, d, dtype, s + d + window,
+                        exact=dtype == torch.bfloat16)
     tol = FLASH_TOL[dtype]
     out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
@@ -162,8 +184,132 @@ def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
         _close(got, want, tol["grad"])
 
 
-def test_flash_attention_counts_one_launch_per_kernel(device):
-    q, k, v, do = (x.requires_grad_() for x in _qkvd(device, 2, 256, 2, 64, torch.float32, 0))
+F32_U = 2.0 ** -24       # unit roundoff of f32
+
+
+def _rounding_ties(name, r, ops, lse, delta, vis, scale):
+    """Row r of dq (a query) or of dk, dv (a key) of one (b, h) slice, from the operands
+    ``ops`` = (q, k, v, dO) as f64 ``[S, D]`` and the f32 lse and Δ as f64 ``[S]``: over
+    the row's visible partners, the exact value that is rounded to bf16 (ds for dq and dk,
+    p for dv), a bound on how far either implementation's f32 value of it lies from it, and
+    the row that one bf16 step of that value adds to the output (scale·k, scale·q or dO)."""
+    q, k, v, do = ops
+    if name == "dq":
+        idx = vis[r].nonzero()[:, 0]
+        qi, ki, vi, doi, lse_i, delta_i = q[r], k[idx], v[idx], do[r], lse[r], delta[r]
+        vec = scale * k[idx]
+    else:
+        idx = vis[:, r].nonzero()[:, 0]
+        qi, ki, vi, doi, lse_i, delta_i = q[idx], k[r], v[r], do[idx], lse[idx], delta[idx]
+        vec = scale * q[idx] if name == "dk" else do[idx]
+    # a sum of d exact bf16 products in f32 lies within (λ·√d + d/8)·u·Σ|terms| of the exact
+    # sum: λ·√d·u·Σ|terms| with λ = 8 is Higham and Mary's probabilistic bound for sums
+    # rounded to nearest in any order (it fails with probability below 2·d·exp(-32)), and
+    # 2·u·Σ|terms| for each of the tensor cores' d/16 truncating k-steps
+    d = q.shape[1]
+    bound = (8 * math.sqrt(d) + d / 8) * F32_U
+    s, e_s = (qi * ki).sum(-1), bound * (qi * ki).abs().sum(-1)
+    dp, e_dp = (doi * vi).sum(-1), bound * (doi * vi).abs().sum(-1)
+    x = s * scale - lse_i                                   # two f32 roundings
+    e_x = scale * e_s + 2 * F32_U * ((s * scale).abs() + x.abs())
+    p = x.exp()
+    e_p = p * (e_x.exp() * (1 + 4 * F32_U) - 1)             # expf within 2 ulp
+    dd = dp - delta_i
+    e_dd = e_dp + 2 * F32_U * dd.abs()
+    ds = p * dd
+    e_ds = e_p * (dd.abs() + e_dd) + p * e_dd + 2 * F32_U * ds.abs()
+    return (p, e_p, vec) if name == "dv" else (ds, e_ds, vec)
+
+
+def _explain_by_flips(got, want, value, err, vec, tol):
+    """Greedily take one-step flips (either sign, each value at most once) of the values
+    whose bf16 rounding ``value ± err`` leaves open, until ``got`` lies within ``tol`` of
+    ``want`` plus the flips: the number taken, or None if no flip brings it closer."""
+    atol, rtol = tol
+    lo, hi = ((value + sign * err).to(torch.bfloat16).double() for sign in (-1, 1))
+    open_ = (lo != hi).nonzero()[:, 0]
+    steps = (hi - lo)[open_, None] * vec[open_]
+    steps = torch.cat([steps, -steps])
+    taken = torch.zeros(len(steps), dtype=torch.bool, device=got.device)
+    moved = torch.zeros_like(want)
+    while True:
+        resid = got - want - moved
+        if bool((resid.abs() <= atol + rtol * (want + moved).abs()).all()):
+            return int(taken.sum())
+        norms = (resid - steps).norm(dim=-1).masked_fill(taken | taken.roll(len(open_)),
+                                                         float("inf"))
+        if not len(norms) or norms.min() >= resid.norm():
+            return None
+        best = int(norms.argmin())
+        moved, taken[best] = moved + steps[best], True
+
+
+def _f64_backward(q, k, v, do, lse, delta, vis, scale):
+    """dq, dk, dv ``[B, S, H, D]`` in f64 from bf16 operands and the f32 lse and Δ, with p
+    and ds rounded to bf16 from their exact values."""
+    qf, kf, vf, dof = (x.double().permute(0, 2, 1, 3) for x in (q, k, v, do))
+    x = (qf @ kf.transpose(-1, -2)) * scale - lse.double()[..., None]
+    p = torch.where(vis, x.exp(), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.double()[..., None])
+    p, ds = (t.to(torch.bfloat16).double() for t in (p, ds))
+    grads = (scale * ds @ kf, scale * ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof)
+    return [g.permute(0, 2, 1, 3) for g in grads]
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_bf16_backward_differs_from_plain_only_at_rounding_ties(device, d, causal,
+                                                                     window):
+    """randn bf16 operands at S = 2048 (the seeds of test_flash_kernels_match_plain): each
+    dq, dk or dv row of the tensor-core kernels with an element beyond the bf16 tolerance
+    of the plain version comes within it once one-step flips of p or ds are taken at
+    visible pairs whose exact value (f64, from the same operands, lse and Δ) lies within
+    the f32 error bound of a bf16 rounding midpoint. A skipped, extra or wrongly masked tile
+    moves a row by sums over many pairs, which such flips do not explain. Prints each such
+    row's worst element beside the f64 value with p and ds rounded from their exact
+    values, and how far each of kernel and plain version lies from that f64 backward over
+    the whole tensor (run with -s or -rP); on average the kernel lies no farther from it
+    than the plain version, within 1%."""
+    s, tol = 2048, FLASH_TOL[torch.bfloat16]["grad"]
+    q, k, v, do = _qkvd(device, 2, s, 2, d, torch.bfloat16, s + d + window)
+    out, lse = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+    delta = fa.flash_delta(out, do)
+    grads = fa.flash_backward(q, k, v, out, lse, do, causal=causal, window=window)
+    grads_p = fa.flash_backward_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    vis = attention.visibility_mask(s, s, causal=causal, window=window, device=device)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).item()
+    atol, rtol = tol
+    exact_grads = _f64_backward(q, k, v, do, lse, delta, vis, scale)
+    for name, got, want, ref in zip(("dq", "dk", "dv"), grads, grads_p, exact_grads):
+        got, want = got.double(), want.double()
+        far = [((x - ref).abs() > atol + rtol * ref.abs()).sum().item() for x in (got, want)]
+        mean = [(x - ref).abs().mean().item() for x in (got, want)]
+        print(f"{name} d={d} causal={causal} window={window} against the f64 backward: "
+              f"beyond the tolerance kernel {far[0]}, plain {far[1]} elements; mean |err| "
+              f"kernel {mean[0]:.4g}, plain {mean[1]:.4g}")
+        assert mean[0] <= 1.01 * mean[1], f"{name}: the kernel is farther from f64 on average"
+        excess = (got - want).abs() - atol - rtol * want.abs()
+        for b, r, h in (excess > 0).any(-1).nonzero().tolist():
+            ops = [x[b, :, h].double() for x in (q, k, v, do)]
+            value, err, vec = _rounding_ties(name, r, ops, lse[b, h].double(),
+                                             delta[b, h].double(), vis, scale)
+            flips = _explain_by_flips(got[b, r, h], want[b, r, h], value, err, vec, tol)
+            c = int(excess[b, r, h].argmax())
+            exact = float((value.to(torch.bfloat16).double() * vec[:, c]).sum())
+            g, w = got[b, r, h, c].item(), want[b, r, h, c].item()
+            print(f"{name}[{b}, {r}, {h}, {c}] d={d} causal={causal} window={window}: "
+                  f"kernel {g:.6g}, plain {w:.6g}, f64 {exact:.6g}; |kernel - f64| "
+                  f"{abs(g - exact):.4g}, |plain - f64| {abs(w - exact):.4g}; "
+                  f"explained by {flips} flips")
+            assert flips is not None, (
+                f"{name} row ({b}, {r}, {h}): kernel and plain version differ beyond "
+                f"one-step flips of p or ds at rounding ties")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_counts_one_launch_per_kernel(device, dtype):
+    """One launch of each kernel on either backward route (SIMT f32, tensor-core bf16)."""
+    q, k, v, do = (x.requires_grad_() for x in _qkvd(device, 2, 256, 2, 64, dtype, 0))
     before = fa.launch_counts()
     out = fa.flash_attention(q, k, v, causal=True)
     torch.autograd.grad(out, (q, k, v), do)
@@ -175,13 +321,15 @@ def test_flash_attention_counts_one_launch_per_kernel(device):
     assert fa.launch_counts() == after
 
 
-def test_flash_kernels_read_strided_qkv_views(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_read_strided_qkv_views(device, dtype):
     """q, k, v sliced out of a fused [B, S, 3, H, D] projection give what contiguous
-    copies give, bit for bit: the kernels read by strides."""
+    copies give, bit for bit: the kernels read by strides (the bf16 backward's 16-byte
+    copies included: these views are aligned)."""
     gen = torch.Generator(device=device).manual_seed(3)
-    qkv = torch.randn(2, 256, 3, 4, 16, generator=gen, device=device)
+    qkv = torch.randn(2, 256, 3, 4, 16, generator=gen, device=device).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    do = torch.randn(2, 256, 4, 16, generator=gen, device=device)
+    do = torch.randn(2, 256, 4, 16, generator=gen, device=device).to(dtype)
     assert not q.is_contiguous()
     out, lse = fa.flash_forward(q, k, v, window=160)
     copies = [t.contiguous() for t in (q, k, v)]
@@ -193,6 +341,57 @@ def test_flash_kernels_read_strided_qkv_views(device):
     grads_c = fa.flash_backward(*copies, out_c, lse_c, do, window=160)
     for got, want in zip(grads, grads_c):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_flash_backward_bf16_refuses_misaligned_operands(device):
+    """A bf16 operand one element off 16-byte alignment (a view cut from a flat buffer at
+    offset 1) raises in both backward wrappers, launching nothing; the same view in f32
+    takes the SIMT kernels, which read any alignment."""
+    b, s, h, d = 1, 128, 2, 64
+    q, k, v, do = _qkvd(device, b, s, h, d, torch.bfloat16, 5)
+    out, lse = fa.flash_forward_plain(q, k, v)
+    delta = fa.flash_delta(out, do)
+    flat = torch.empty(b * s * h * d + 1, dtype=torch.bfloat16, device=device)
+    q_off = flat[1:].view(b, s, h, d)
+    q_off.copy_(q)
+    before = fa.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dq(q_off, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dkv(k, q_off, v, do, lse, delta)
+    assert fa.launch_counts() == before
+    q32 = flat.float()[1:].view(b, s, h, d)
+    f32 = [x.float() for x in (k, v, do)]
+    dq = fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
+    want = fa._backward_plain(q32, *f32[:2], lse, delta, f32[2], causal=False, window=0)[0]
+    _close(dq, want, FLASH_TOL[torch.float32]["grad"])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_bf16_ignores_rows_outside_the_band(device, d):
+    """Window 100 at S = 512: poisoning (1e9) every key row outside the band of query tile
+    5 leaves that tile's dq unchanged, bit for bit, and poisoning every query row (q, dO,
+    lse, Δ) outside the band of key tile 5 leaves that tile's dk and dv unchanged. The
+    band's live tiles 3 and 7 hold poisoned rows too, so a masked element must add an
+    exact 0."""
+    s, w, t0 = 512, 100, 5 * 64
+    q, k, v, do = _qkvd(device, 2, s, 2, d, torch.bfloat16, d)
+    out, lse = fa.flash_forward_plain(q, k, v, window=w)
+    delta = fa.flash_delta(out, do)
+    rows = slice(t0, t0 + 64)
+    out_of_band = torch.ones(s, dtype=torch.bool, device=device)
+    out_of_band[t0 - w + 1:t0 + 64 + w - 1] = False
+    dq = fa.flash_dq(q, k, v, do, lse, delta, window=w)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, window=w)
+    kp, vp = k.clone(), v.clone()
+    kp[:, out_of_band], vp[:, out_of_band] = 1e9, 1e9
+    assert torch.equal(fa.flash_dq(q, kp, vp, do, lse, delta, window=w)[:, rows], dq[:, rows])
+    qp, dop, lsep, deltap = q.clone(), do.clone(), lse.clone(), delta.clone()
+    qp[:, out_of_band], dop[:, out_of_band] = 1e9, 1e9
+    lsep[..., out_of_band], deltap[..., out_of_band] = 1e9, 1e9
+    dk2, dv2 = fa.flash_dkv(qp, k, v, dop, lsep, deltap, window=w)
+    assert torch.equal(dk2[:, rows], dk[:, rows])
+    assert torch.equal(dv2[:, rows], dv[:, rows])
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(device):

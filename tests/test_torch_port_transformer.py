@@ -224,3 +224,37 @@ def test_unported_knobs_raise():
         models.build_model("mlp")
     with pytest.raises(ValueError, match="ROADMAP A10"):
         models.validate_model_config("transformer", remat=True)
+
+
+def _bf16_operands(case):
+    """[B, S, H, D] bf16 operands for the bf16 flash backward's alignment rule."""
+    b, s, h, d = 2, 64, 2, 16
+    if case == "fused_qkv_views":        # the classifier's q, k, v slices of one projection
+        qkv = torch.zeros(b, s, 3, h, d, dtype=torch.bfloat16)
+        return dict(q=qkv[:, :, 0], k=qkv[:, :, 1], v=qkv[:, :, 2],
+                    dout=torch.zeros(b, h, s, d, dtype=torch.bfloat16).transpose(1, 2))
+    if case == "pointer_16_bytes_in":
+        return dict(q=torch.zeros(b * s * h * d + 8, dtype=torch.bfloat16)[8:].view(b, s, h, d))
+    if case == "head_stride_40_bytes":
+        return dict(k=torch.zeros(b, s, h, 20, dtype=torch.bfloat16)[..., :d])
+    # the same 40-byte stride on a dim of length 1, which the kernels never step along
+    return dict(k=torch.zeros(b * s * d, dtype=torch.bfloat16).as_strided((b, s, 1, d),
+                                                                         (s * d, d, 20, 1)))
+
+
+@pytest.mark.parametrize("case,raises", [("fused_qkv_views", False),
+                                         ("pointer_16_bytes_in", False),
+                                         ("head_stride_40_bytes", True),
+                                         ("head_stride_40_bytes_one_head", False)])
+def test_bf16_flash_backward_alignment_rule(case, raises):
+    """The tensor-core backward stages tiles with 16-byte copies, so its wrappers refuse a
+    bf16 operand whose pointer or (b, s, h) stride over a dim longer than 1 is not a
+    multiple of 16 bytes. The rule reads only pointers and strides, so it is checked here
+    on CPU tensors; the card tests check that the wrappers apply it."""
+    operands = _bf16_operands(case) | dict(lse=torch.zeros(2, 2, 64),
+                                           delta=torch.zeros(2, 2, 64))
+    if raises:
+        with pytest.raises(ValueError, match="k must be 16-byte aligned"):
+            fa._check_aligned("flash_dkv", **operands)
+    else:
+        fa._check_aligned("flash_dkv", **operands)
