@@ -16,7 +16,8 @@ Phases (each raises on failure; nothing is caught):
    instructions of each flash kernel as ``cuobjdump -sass`` lists them;
 3. each kernel against its plain version on the card, at the main path's shapes and more,
    with its time, its plain version's time, its bound and, where one PyTorch call computes
-   the same function, that call's time (a yardstick only; the port never calls it);
+   the same function, that call's time (a yardstick only; the port never calls it); the
+   SGD step (one multi-tensor launch over every leaf) and one leaf (a table of one) bitwise;
 4. a 20-step trajectory with dropout off, kernels against the plain path, on the card, and
    the kernel path on the card against the plain path on the CPU;
 5. the whole slice: ``train.single.main`` on cuda with ``use_pallas_kernels=True`` for one
@@ -30,7 +31,7 @@ Phases (each raises on failure; nothing is caught):
    trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
-   f32 operands take B5's SIMT kernels, bf16 ones its tensor-core kernels;
+   f32 operands take the SIMT kernels, bf16 ones the tensor-core kernels (B4 and B5);
 8. flash against the dense core at the composed widths, S in {512, 1024, 2048}, forward and
    forward+backward: the card's own flash/dense crossover (recorded; nothing reads it);
 9. the slice's path: ``train.composed.main`` on cuda, ``--mesh data=1 --flash-attention
@@ -85,7 +86,6 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16, dense, tensor cores
 NLL_SHAPES = ((64, 10), (32, 10), (1, 10), (300, 130), (4096, 1000))
 NLL_ATOL, NLL_RTOL = 1e-6, 1e-5
 CNN_LEAVES = (250, 10, 5000, 20, 16000, 50, 500, 10)
-SGD_REL_TOL = 1e-6             # times max|p|
 TRAJECTORY_STEPS = 20
 TRAJECTORY_ATOL = 1e-5         # kernels vs plain path, both on the card
 CROSS_DEVICE_ATOL = 1e-4       # card vs CPU: conv sums run in another order
@@ -294,7 +294,7 @@ def main() -> None:
     hmma = tensor_core_instructions(builds["flash_attention"].path)
     for kernel, count in sorted(hmma.items()):
         print(f"[2] cuobjdump -sass: {count} HMMA instructions in {kernel}")
-    for kernel in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
+    for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
         for d in fa.HEAD_DIMS:
             if not any(f"{kernel}ILi{d}E" in k and n for k, n in hmma.items()):
                 fail(f"{kernel}<{d}> has no HMMA (tensor-core) instruction in its SASS")
@@ -344,18 +344,34 @@ def main() -> None:
         err["nll_bwd"] = max(err["nll_bwd"], e_b)
         print(f"[3]   B={rows} C={cols}: max |fwd err| {e_f:.3e}, max |bwd err| {e_b:.3e}")
 
-    print(f"[3] sgd_momentum vs plain, 3 steps: tolerance {SGD_REL_TOL:g} * max|p|")
-    for n_leaf in CNN_LEAVES + (1 << 22,):
-        p, v, g = (torch.randn(n_leaf, generator=gen, device=dev) for _ in range(3))
-        pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
-        for _ in range(3):
-            fk.sgd_momentum_leaf(pk, vk, g, learning_rate=LR, momentum=MOMENTUM)
-            fk.sgd_momentum_leaf_plain(pp, vp, g, learning_rate=LR, momentum=MOMENTUM)
-        tol = SGD_REL_TOL * pp.abs().max().item()
-        e = max(close(f"sgd p n={n_leaf}", pk, pp, tol, 0.0),
-                close(f"sgd v n={n_leaf}", vk, vp, tol, 0.0))
-        err["sgd_momentum"] = max(err["sgd_momentum"], e)
-    print(f"[3]   8 CNN leaves + one of 2^22: max |err| {err['sgd_momentum']:.3e}")
+    print("[3] sgd_momentum vs plain, 3 steps, bitwise: sgd_momentum_step (one multi-tensor "
+          "launch a step) over the 8 CNN leaves and one of 2^22 together, and "
+          "sgd_momentum_leaf on each")
+    p0, v0, sgd_g = ({f"leaf{i}": torch.randn(n, generator=gen, device=dev)
+                      for i, n in enumerate(CNN_LEAVES + (1 << 22,))} for _ in range(3))
+    runs = {name: ({k: t.clone() for k, t in p0.items()}, {k: t.clone() for k, t in v0.items()})
+            for name in ("multi", "leaf", "plain")}
+    before = fk.launch_counts()["sgd_momentum"]
+    for _ in range(3):
+        fk.sgd_momentum_step(*runs["multi"], sgd_g, learning_rate=LR, momentum=MOMENTUM)
+    multi_launches = fk.launch_counts()["sgd_momentum"] - before
+    for _ in range(3):
+        for k, g in sgd_g.items():
+            fk.sgd_momentum_leaf(runs["leaf"][0][k], runs["leaf"][1][k], g, learning_rate=LR,
+                                 momentum=MOMENTUM)
+            fk.sgd_momentum_leaf_plain(runs["plain"][0][k], runs["plain"][1][k], g,
+                                       learning_rate=LR, momentum=MOMENTUM)
+    torch.cuda.synchronize()
+    for name in ("multi", "leaf"):
+        for got, want in zip(runs[name], runs["plain"]):
+            for k in sgd_g:
+                e = close(f"sgd {name} {k}", got[k], want[k], 0.0, 0.0)
+                err["sgd_momentum"] = max(err["sgd_momentum"], e)
+    print(f"[3]   max |err| {err['sgd_momentum']:.3e}; sgd_momentum_step launches over 3 "
+          f"steps: {multi_launches}")
+    if multi_launches != 3:
+        fail(f"sgd_momentum_step made {multi_launches} launches in 3 steps, expected 3")
+    del p0, v0, sgd_g, runs
 
     # Times at the main path's shapes: one [64, 10] loss block, one step over the 8 leaves.
     x = torch.randn(64, 10, generator=gen, device=dev) * 3.0
@@ -447,9 +463,8 @@ def main() -> None:
         fail(f"main() took {state.step} steps, expected {steps}")
     if not (launches["nll_fwd"] == launches["nll_bwd"] == steps):
         fail(f"nll launches {launches} != {steps} steps")
-    n_leaves = len(state.params)
-    if launches["sgd_momentum"] != steps * n_leaves:
-        fail(f"sgd_momentum launches {launches['sgd_momentum']} != {steps} x {n_leaves}")
+    if launches["sgd_momentum"] != steps:    # one multi-tensor launch a step, all leaves
+        fail(f"sgd_momentum launches {launches['sgd_momentum']} != {steps} steps")
     test_x = torch.from_numpy(test_ds.images).to(dev)
     test_y = torch.from_numpy(test_ds.labels.astype("int64")).to(dev)
     sum_nll, correct = make_eval_fn(single.build_model("cnn"))(state.params, test_x, test_y)
@@ -509,7 +524,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report_window("[6]", device_kernel_times(prof), PROFILE_WINDOW, wall,
-                  ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_kernel"), card)
+                  ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_multi_kernel"), card)
 
     # -- 7. flash kernels against their plain versions ------------------------------------
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -522,9 +537,9 @@ def main() -> None:
             xs = [(x * 16).round().clamp(-64, 64) / 16 for x in xs]
         return [x.to(dtypes[dtype]) for x in xs]
 
-    # the bf16 backward's errors go to its tensor-core kernels' names
-    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "flash_dq_mma": 0.0,
-                 "flash_dkv_mma": 0.0}
+    # the bf16 errors go to the tensor-core kernels' names
+    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "flash_fwd_mma": 0.0,
+                 "flash_dq_mma": 0.0, "flash_dkv_mma": 0.0}
     print(f"[7] flash kernels vs plain, (atol, rtol) by dtype: {FLASH_TOL}")
     for shape, dtype, causal, window in FLASH_CASES:
         q, k, v, do = flash_inputs(shape, dtype, sum(shape) + window)
@@ -542,7 +557,7 @@ def main() -> None:
                             for n, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want))
         torch.cuda.synchronize()
         route = "_mma" if dtype == "bfloat16" else ""
-        for name, e in (("flash_fwd", max(e_out, e_lse)), (f"flash_dq{route}", e_dq),
+        for name, e in ((f"flash_fwd{route}", max(e_out, e_lse)), (f"flash_dq{route}", e_dq),
                         (f"flash_dkv{route}", max(e_dk, e_dv))):
             flash_err[name] = max(flash_err[name], e)
         print(f"[7]   {tag}: max |err| out {e_out:.3e} lse {e_lse:.3e} dq {e_dq:.3e} "
@@ -582,7 +597,7 @@ def main() -> None:
         }
 
     flash_ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                  "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
+                  "flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
     flash_by_shape = {}
     for label, shape, dtype in (("composed", COMPOSED, "float32"),
                                 ("large", LARGE, "bfloat16")):
@@ -605,7 +620,8 @@ def main() -> None:
     # the composed shape (f32) is the main path's; the tensor-core kernels' row is the
     # large shape (bf16)
     flash_times = flash_by_shape["composed"] | {
-        f"{name}_mma": flash_by_shape["large"][name] for name in ("flash_dq", "flash_dkv")}
+        f"{name}_mma": flash_by_shape["large"][name]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv")}
 
     # -- 8. flash against the dense core: the card's crossover -------------------------
     b, _, h, d = COMPOSED
@@ -713,7 +729,7 @@ def main() -> None:
           f"{l_step_ms:.3f} ms over {LARGE_STEPS} steps, loss {loss_value:.4f}, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     print(f"[10] flash launches over the {LARGE_STEPS} timed steps: {large_launches} "
-          f"(the bf16 backward's are the tensor-core kernels'); predicted "
+          f"(bf16: the tensor-core kernels'); predicted "
           f"{LARGE_LAYERS * LARGE_STEPS} each")
     if set(large_launches.values()) != {LARGE_LAYERS * LARGE_STEPS}:
         fail(f"flash launches {large_launches} != {LARGE_LAYERS} x {LARGE_STEPS} each")
@@ -1007,15 +1023,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     all_launches = (launches | flash_launches | {"paged_attend": paged_launches}
-                    | {"flash_dq_mma": large_launches["flash_dq"],
-                       "flash_dkv_mma": large_launches["flash_dkv"]})
+                    | {f"{name}_mma": large_launches[name]
+                       for name in ("flash_fwd", "flash_dq", "flash_dkv")})
     all_err = err | flash_err | {"paged_attend": paged_err}
 
     # -- 14. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
                 "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731",
-                "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
+                "flash_fwd_mma": f"{TPU_ATTENTION}:479", "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
                 "paged_attend": f"{TPU_PAGED}:85"}
     sources = ({name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
                | {"paged_attend": PAGED_SOURCE})

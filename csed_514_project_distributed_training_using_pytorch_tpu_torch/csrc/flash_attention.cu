@@ -9,13 +9,14 @@
 // the shared-memory attribute call) so that the Python wrapper raises on a refused launch.
 // No --use_fast_math: expf/logf keep the card close to the plain PyTorch versions.
 //
-// Five kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py; the
-// backward has one route per operand type, chosen by the dtype alone:
+// Six kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py; each
+// has one route per operand type, chosen by the dtype alone:
 //
-//   flash_fwd_kernel      replaces _fwd_kernel (online-softmax attention, out + lse), f32
-//                         and bf16, SIMT
+//   flash_fwd_kernel      replaces _fwd_kernel (online-softmax attention, out + lse), f32,
+//                         SIMT
 //   flash_dq_kernel       replaces _dq_kernel  (dq by recompute), f32, SIMT
 //   flash_dkv_kernel      replaces _dkv_kernel (dk, dv by recompute), f32, SIMT
+//   flash_fwd_mma_kernel  replaces _fwd_kernel, bf16, tensor cores (mma.sync)
 //   flash_dq_mma_kernel   replaces _dq_kernel,  bf16, tensor cores (mma.sync)
 //   flash_dkv_mma_kernel  replaces _dkv_kernel, bf16, tensor cores (mma.sync)
 //
@@ -30,28 +31,27 @@
 // What bounds them: at the trainer's shapes (S = 2048, D = 16 f32; D = 128 bf16) the work
 // is 4·B·H·S²·D flops forward and 6 (dq) and 8 (dk/dv) backward against O(B·S·H·D) bytes,
 // so all of them are bound by arithmetic, not by memory: by the CUDA cores' f32 rate for
-// f32 operands and by the tensor cores' bf16 rate for bf16 ones (which the bf16 forward,
-// still SIMT, does not use yet). Every kernel keeps the S x S scores out of device memory
-// and walks only the key (or query) tiles that the causal mask and the window leave live.
+// f32 operands and by the tensor cores' bf16 rate for bf16 ones. Every kernel keeps the
+// S x S scores out of device memory and walks only the key (or query) tiles that the
+// causal mask and the window leave live.
 //
 // Tiling. A block owns one (b, h) and one tile of 64 query rows (forward, dq) or 64 key
 // rows (dk/dv) and loops over the tiles of the other side inside the block: the TPU's
 // sequential grid axis becomes that loop, and each block writes only its own rows, so no
 // sum crosses blocks and no atomics are needed.
 //
-// The SIMT kernels (the forward, and the f32 backward) lay the work out as a small matrix
-// product per tile on the CUDA cores: each thread owns a few rows by four score columns
-// and a few rows by D/16 output columns, so every value read from shared memory feeds
-// several FMAs. Operand tiles sit in shared memory as f32 with a padded row stride (D + 1)
-// so that the column-strided reads fall in distinct banks. At D = 128 a block holds up to
-// ~166 KB of shared memory (dk/dv), which needs the kernel's MaxDynamicSharedMemorySize
-// raised; D = 128 also runs 256 threads so that each thread's accumulators stay in
-// registers.
+// The SIMT kernels (all three, for f32) lay the work out as a small matrix product per
+// tile on the CUDA cores: each thread owns a few rows by four score columns and a few rows
+// by D/16 output columns, so every value read from shared memory feeds several FMAs.
+// Operand tiles sit in shared memory as f32 with a padded row stride (D + 1) so that the
+// column-strided reads fall in distinct banks. At D = 128 a block holds up to ~166 KB of
+// shared memory (dk/dv), which needs the kernel's MaxDynamicSharedMemorySize raised;
+// D = 128 also runs 256 threads so that each thread's accumulators stay in registers.
 //
-// The bf16 backward runs on the tensor cores, whose bf16 rate is ~15x the f32 one; see the
-// note above flash_dq_mma_kernel for its design. Later work: wgmma with TMA loads and a
-// producer warp for the bf16 backward; the forward on tensor cores; a 3xTF32 split
-// (hi·hi + hi·lo + lo·hi) that would keep f32 accuracy on the tensor cores for f32.
+// The bf16 kernels run on the tensor cores, whose bf16 rate is ~15x the f32 one; see the
+// notes above flash_fwd_mma_kernel and the bf16 section. Later work: wgmma with TMA loads
+// and a producer warp for the bf16 kernels; a 3xTF32 split (hi·hi + hi·lo + lo·hi) that
+// would keep f32 accuracy on the tensor cores for f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,20 +72,6 @@ struct Operand {
   const void* ptr;
   int64_t sb, ss, sh;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's .to(bfloat16)
-}
-
-// x rounded to T's precision, back in f32: the narrowing at a product.
-template <typename T> __device__ __forceinline__ float narrow(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -141,14 +127,15 @@ __device__ __forceinline__ const T* slice(const Operand& x, int b, int h) {
   return static_cast<const T*>(x.ptr) + b * x.sb + h * x.sh;
 }
 
-// Rows [row0, row0 + kTile) of one (b, h) slice into a [kTile][D + 1] f32 tile.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void load_tile(float* __restrict__ tile, const T* __restrict__ base,
-                                          int64_t row_stride, int row0) {
+// Rows [row0, row0 + kTile) of one (b, h) f32 slice into a [kTile][D + 1] tile.
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(float* __restrict__ tile,
+                                          const float* __restrict__ base, int64_t row_stride,
+                                          int row0) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    tile[r * LD + d] = to_f32(base[static_cast<int64_t>(row0 + r) * row_stride + d]);
+    tile[r * LD + d] = base[static_cast<int64_t>(row0 + r) * row_stride + d];
   }
 }
 
@@ -159,16 +146,16 @@ template <int D> constexpr int dkv_smem_floats() {
   return 4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile;
 }
 
-// Replaces ops/pallas_attention.py::_fwd_kernel.
+// Replaces ops/pallas_attention.py::_fwd_kernel for f32 operands.
 // out[q] = sum_k softmax_k(q·k·scale)[k] v[k] over the visible keys, lse[q] = m + log(l),
 // by the online-softmax recurrence over the live key tiles: per tile, the tile's scores,
 // m_new = max(m, max_k s), p = exp(s - m_new) (0 where masked), corr = exp(m - m_new),
 // acc = acc·corr + p·v, l = l·corr + sum_k p. Masked scores take kMaskValue, as the TPU
 // kernel's do, and l == 0 is guarded. Each half-warp owns RPT query rows: it reduces the
 // row max and sum with shuffles, so no statistic goes through shared memory.
-template <typename T, int D, int NT>
+template <int D, int NT>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
+flash_fwd_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
                  float* __restrict__ lse, int S, int H, float scale, int causal, int window) {
   constexpr int RPT = kTile * 16 / NT;   // query rows per thread (and per half-warp)
   constexpr int CPT = kTile / 16;        // score columns per thread
@@ -185,9 +172,9 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const bool masked = causal || window > 0;
 
-  load_tile<T, D, NT>(sQ, slice<T>(q, b, h), q.ss, q0);
-  const T* kb = slice<T>(k, b, h);
-  const T* vb = slice<T>(v, b, h);
+  load_tile<D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
+  const float* kb = slice<float>(k, b, h);
+  const float* vb = slice<float>(v, b, h);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
 #pragma unroll
@@ -203,8 +190,8 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                       // the previous tile's reads are done
-    load_tile<T, D, NT>(sK, kb, k.ss, k0);
-    load_tile<T, D, NT>(sV, vb, v.ss, k0);
+    load_tile<D, NT>(sK, kb, k.ss, k0);
+    load_tile<D, NT>(sV, vb, v.ss, k0);
     __syncthreads();
 
     float s[RPT][CPT];
@@ -244,7 +231,7 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
         float p = expf(s[i][j] - m_new);
         if (masked && !visible(qpos, k0 + col, causal, window)) p = 0.f;
         rs += p;
-        sP[(row0 + i) * LP + col] = narrow<T>(p);
+        sP[(row0 + i) * LP + col] = p;
       }
       l[i] = l[i] * corr + half_warp_sum(rs);
       m[i] = m_new;
@@ -271,9 +258,9 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, T* __restrict__ out,
   for (int i = 0; i < RPT; ++i) {
     const int qpos = q0 + row0 + i;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
+    float* orow = out + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) orow[lane16 + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
+    for (int c = 0; c < DPT; ++c) orow[lane16 + 16 * c] = acc[i][c] / l_safe;
     if (lane16 == 0) lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[i] + logf(l_safe);
   }
 }
@@ -348,8 +335,8 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
 
-  load_tile<float, D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
-  load_tile<float, D, NT>(sDO, slice<float>(dout, b, h), dout.ss, q0);
+  load_tile<D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
+  load_tile<D, NT>(sDO, slice<float>(dout, b, h), dout.ss, q0);
   const float* kb = slice<float>(k, b, h);
   const float* vb = slice<float>(v, b, h);
   float lse_r[RPT], delta_r[RPT], acc[RPT][DPT];
@@ -366,8 +353,8 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<float, D, NT>(sK, kb, k.ss, k0);
-    load_tile<float, D, NT>(sV, vb, v.ss, k0);
+    load_tile<D, NT>(sK, kb, k.ss, k0);
+    load_tile<D, NT>(sV, vb, v.ss, k0);
     __syncthreads();
     float p[RPT][CPT], ds[RPT][CPT];
     recompute_tile<D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
@@ -426,8 +413,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
 
-  load_tile<float, D, NT>(sK, slice<float>(k, b, h), k.ss, k0);
-  load_tile<float, D, NT>(sV, slice<float>(v, b, h), v.ss, k0);
+  load_tile<D, NT>(sK, slice<float>(k, b, h), k.ss, k0);
+  load_tile<D, NT>(sV, slice<float>(v, b, h), v.ss, k0);
   const float* qb = slice<float>(q, b, h);
   const float* dob = slice<float>(dout, b, h);
   float acc_k[RPT][DPT], acc_v[RPT][DPT];
@@ -441,8 +428,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<float, D, NT>(sQ, qb, q.ss, q0);
-    load_tile<float, D, NT>(sDO, dob, dout.ss, q0);
+    load_tile<D, NT>(sQ, qb, q.ss, q0);
+    load_tile<D, NT>(sDO, dob, dout.ss, q0);
     if (threadIdx.x < kTile) {
       sLse[threadIdx.x] = lse[stat + q0 + threadIdx.x];
       sDelta[threadIdx.x] = delta[stat + q0 + threadIdx.x];
@@ -499,10 +486,11 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
 }
 
 // ---------------------------------------------------------------------------------------
-// The bf16 backward on the tensor cores
+// The bf16 kernels on the tensor cores
 // ---------------------------------------------------------------------------------------
 //
-// flash_dq_mma_kernel replaces ops/pallas_attention.py::_dq_kernel and flash_dkv_mma_kernel
+// flash_fwd_mma_kernel replaces ops/pallas_attention.py::_fwd_kernel for bf16 operands;
+// see the note above it. flash_dq_mma_kernel replaces _dq_kernel and flash_dkv_mma_kernel
 // replaces _dkv_kernel for bf16 operands. They compute what the f32 kernels above compute —
 // p = exp(q·kᵀ·scale − lse) recomputed, ds = p∘(dO·vᵀ − Δ), dq = scale·Σ ds·k,
 // dk = scale·Σ dsᵀ·q, dv = Σ pᵀ·dO, with p and ds rounded to bf16 where they enter a
@@ -535,8 +523,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
 // score tiles, so at D = 128 it walks each 64-query tile in two passes of 32 columns and
 // stays within 255 registers without spilling; dq takes one pass of 64. Shared memory is
 // 6 tiles of 64 x (D + 8) bf16 (104 KB at D = 128), so two blocks fit an SM. Left for
-// later: wgmma with TMA and a producer warp (these products wait on ldmatrix traffic that
-// wgmma would read from shared memory itself).
+// later, for the forward too: wgmma with TMA and a producer warp (these products wait on
+// ldmatrix traffic that wgmma would read from shared memory itself).
 
 constexpr int kMmaThreads = 128;       // 4 warps x 16 rows of the block's 64-row tile
 
@@ -727,6 +715,187 @@ template <int D> constexpr size_t mma_tile_bytes() { return kTile * (D + 8) * si
 // tiles fit in 255 registers without spilling. The dq kernel takes all 64 in one pass.
 template <int D> constexpr int kDkvPassTiles = D == 128 ? 4 : 8;
 
+// S = Q·Kᵀ for one warp's 16 rows against the 64 keys of a [kTile][D + 8] tile, from the
+// warp's Q fragments held in registers (D/16 A fragments of 16 x 16).
+template <int D>
+__device__ __forceinline__ void score_tile(const uint32_t (&qf)[D / 16][4], const bf16* K,
+                                           const FragOffsets<D>& off, float (&x)[8][4]) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t b[4];
+      ldmatrix_x4(b, K + off.b + 16 * jp * LD + 16 * kk);
+      mma_bf16(x[2 * jp], qf[kk], b[0], b[1]);
+      mma_bf16(x[2 * jp + 1], qf[kk], b[2], b[3]);
+    }
+}
+
+// One step of the online softmax for one warp's score tile s (accumulator layout, as in
+// softmax_grads: this thread holds rows row and row + 8, columns 8·j + 2·t + e % 2 of the
+// key tile at k0). Updates the running max m and sum l of its two rows, returns each row's
+// correction exp(m_old − m_new) in corr, and packs p, rounded to bf16, as the A fragments
+// of P·V. The row max and sum go over the quad of lanes that share a row (xor 1, 2).
+template <bool kMasked>
+__device__ __forceinline__ void online_softmax(const float (&s)[8][4], float scale, int row,
+                                               int k0, int t, int causal, int window,
+                                               float (&m)[2], float (&l)[2], float (&corr)[2],
+                                               uint32_t (&p_frag)[4][4]) {
+  float x[8][4], mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // s·scale rounded, as the plain version's product then scale (no FMA below)
+      float v = __fmul_rn(s[j][e], scale);
+      if constexpr (kMasked) {
+        if (!visible(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), causal, window))
+          v = kMaskValue;
+      }
+      x[j][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m[r], mx[r]);
+    corr[r] = expf(m[r] - m_new[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = expf(__fsub_rn(x[j][e], m_new[e >> 1]));
+      if constexpr (kMasked) {
+        if (!visible(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), causal, window))
+          p[e] = 0.f;
+      }
+      sum[e >> 1] += p[e];     // l sums the f32 p, before rounding, as the plain version
+    }
+    p_frag[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    p_frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
+    m[r] = m_new[r];
+  }
+}
+
+// Replaces ops/pallas_attention.py::_fwd_kernel for bf16 operands.
+// The same online softmax as flash_fwd_kernel — per live key tile, m_new = max(m, max_k s),
+// corr = exp(m − m_new), p = exp(s·scale − m_new) (0 where masked), acc = acc·corr + p·v,
+// l = l·corr + Σ p; then out = acc / l and lse = m + log(l), with l == 0 guarded — and
+// bound, like the backward, by the tensor cores' bf16 rate (2 products of 2·D flops per
+// visible pair against O(B·S·H·D) bytes). The design is the dq kernel's with one product
+// fewer before the softmax:
+//
+// - A block of 4 warps owns one (b, h) and 64 query rows, 16 a warp, and walks the live
+//   64-key tiles of K and V, double-buffered in shared memory (cp.async, one barrier a
+//   tile). A warp's Q fragments stay in registers for the whole walk.
+// - S = Q·Kᵀ and then P·V are mma.sync.m16n8k16 bf16 x bf16 -> f32 products. The softmax
+//   runs in the accumulator layout: each thread holds two rows' worth of the warp's 16 x 64
+//   score tile, so the row max and sum take two shuffles within a quad, and no statistic
+//   goes through shared memory. p, rounded to bf16 where the plain version rounds it, is
+//   packed straight into the A fragments of P·V: it never leaves registers.
+// - The mask runs only on tiles that the band edge crosses (tile_interior).
+//
+// Registers at D = 128: 64 f32 accumulators, 32 words of Q fragments and the 32 scores.
+// Shared memory: Q, then two stages of K and two of V (85 KB at D = 128; two blocks an SM).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, float scale, int causal,
+                     int window) {
+  constexpr int TILE = kTile * (D + 8);
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(mma_smem);
+  bf16* sK = sQ + TILE;
+  bf16* sV = sK + 2 * TILE;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const bf16* kb = slice<bf16>(k, b, h);
+  const bf16* vb = slice<bf16>(v, b, h);
+  const FragOffsets<D> off(warp, lane);
+  int kt_lo, kt_hi;
+  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+
+  cp_tile<D>(sQ, slice<bf16>(q, b, h), q.ss, q0);
+  if (kt_lo < kt_hi) {
+    cp_tile<D>(sK, kb, k.ss, kt_lo * kTile);
+    cp_tile<D>(sV, vb, v.ss, kt_lo * kTile);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], sQ + off.a + 16 * kk);
+
+  const int row = q0 + 16 * warp + g;       // this thread's rows: row and row + 8
+  float acc[D / 8][4], m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();              // tile kt is in, and every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) {         // ... whose buffers now take tile kt + 1
+      cp_tile<D>(sK + (stage ^ 1) * TILE, kb, k.ss, (kt + 1) * kTile);
+      cp_tile<D>(sV + (stage ^ 1) * TILE, vb, v.ss, (kt + 1) * kTile);
+      cp_async_commit();
+    }
+    const int k0 = kt * kTile;
+    float s[8][4], corr[2];
+    uint32_t p_frag[4][4];
+    score_tile<D>(qf, sK + stage * TILE, off, s);
+    if (tile_interior(q0, k0, causal, window))
+      online_softmax<false>(s, scale, row, k0, t, causal, window, m, l, corr, p_frag);
+    else
+      online_softmax<true>(s, scale, row, k0, t, causal, window, m, l, corr, p_frag);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    accumulate<D>(acc, p_frag, sV + stage * TILE, off, 0);
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {   // IEEE division, as the plain version's acc / l
+    acc[j][0] /= l_safe[0];
+    acc[j][1] /= l_safe[0];
+    acc[j][2] /= l_safe[1];
+    acc[j][3] /= l_safe[1];
+  }
+  store_rows<D>(out, acc, b, row, S, H, h, t, 1.f);
+  if (t == 0) {
+    float* lse_row = lse + (static_cast<int64_t>(b) * H + h) * S + row;
+    lse_row[0] = m[0] + logf(l_safe[0]);
+    lse_row[8] = m[1] + logf(l_safe[1]);
+  }
+}
+
 // Replaces ops/pallas_attention.py::_dq_kernel for bf16 operands (design note above).
 // Shared memory: Q and dO, then two stages of K and V.
 template <int D>
@@ -913,15 +1082,19 @@ cudaError_t start(void (*kernel)(Params...), int block, size_t bytes, const Shap
   return cudaGetLastError();
 }
 
+// bf16 operands take the tensor-core kernels, f32 ones the SIMT kernels.
 template <typename T, int D>
 cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, Shape s,
                        cudaStream_t stream) {
-  return start(flash_fwd_kernel<T, D, threads<D>()>, threads<D>(),
-               fwd_smem_floats<D>() * sizeof(float), s, stream, q, k, v, static_cast<T*>(out),
-               lse, s.S, s.H, s.scale, s.causal, s.window);
+  if constexpr (std::is_same_v<T, bf16>)
+    return start(flash_fwd_mma_kernel<D>, kMmaThreads, 5 * mma_tile_bytes<D>(), s, stream, q,
+                 k, v, static_cast<bf16*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
+  else
+    return start(flash_fwd_kernel<D, threads<D>()>, threads<D>(),
+                 fwd_smem_floats<D>() * sizeof(float), s, stream, q, k, v,
+                 static_cast<float*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
 }
 
-// bf16 operands take the tensor-core kernel, f32 ones the SIMT kernel.
 template <typename T, int D>
 cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dout, const float* lse,
                       const float* delta, void* dq, Shape s, cudaStream_t stream) {

@@ -10,15 +10,17 @@
 //
 // Three kernels, one per TPU kernel of the JAX package's ops/pallas_kernels.py:
 //
-//   nll_fwd_kernel       replaces _nll_fwd_kernel (log-softmax + NLL forward)
-//   nll_bwd_kernel       replaces _nll_bwd_kernel (its backward)
-//   sgd_momentum_kernel  replaces _sgd_kernel     (fused SGD-momentum update)
+//   nll_fwd_kernel             replaces _nll_fwd_kernel (log-softmax + NLL forward)
+//   nll_bwd_kernel             replaces _nll_bwd_kernel (its backward)
+//   sgd_momentum_multi_kernel  replaces _sgd_kernel     (fused SGD-momentum update), over up
+//                              to kSgdTableLeaves leaves in one launch
 //
 // All three move a few kilobytes per launch on the main path (a [64, 10] logit block; CNN
 // leaves of 10 to 16,000 floats), so on this card they are bound by launch latency first
 // and by memory bandwidth second; none does enough arithmetic per byte to approach the
 // compute bound. The designs therefore read each input once and write each output once,
-// keep every intermediate in registers, and need no second pass or scratch buffer.
+// keep every intermediate in registers, and need no second pass or scratch buffer; and the
+// step's update goes out as one launch over all its leaves, not one launch a leaf.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,6 +33,7 @@ constexpr int kRowsPerBlock = 8;                      // one warp per row
 constexpr int kRowThreads = kRowsPerBlock * kWarp;    // 256 threads per block
 constexpr int kSgdThreads = 256;
 constexpr int kSgdMaxBlocks = 132 * 16;               // 16 blocks per SM on an H100
+constexpr int kSgdTableLeaves = 64;                   // leaves per multi-tensor launch
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int offset = kWarp / 2; offset > 0; offset >>= 1)
@@ -110,18 +113,45 @@ __global__ void nll_bwd_kernel(const float* __restrict__ logits,
   }
 }
 
+// The leaves of one launch, passed by value as the kernel's argument (2.3 KB, within the
+// 4 KB a kernel's parameters may take): each leaf's pointers and size, and the first block
+// of each leaf (a prefix sum of the leaves' block counts; first_block[count] is the grid's
+// size).
+struct SgdTable {
+  float* p[kSgdTableLeaves];
+  float* v[kSgdTableLeaves];
+  const float* g[kSgdTableLeaves];
+  int64_t n[kSgdTableLeaves];
+  int first_block[kSgdTableLeaves + 1];
+  int count;
+};
+
 // Replaces ops/pallas_kernels.py::_sgd_kernel.
-// v <- momentum * v + g; p <- p - lr * v, elementwise over one parameter leaf.
-// The TPU kernel tiles the flattened leaf into [1024, 128] VMEM blocks and writes new p and
-// v arrays. Here a grid-stride loop reads p, v and g once and writes p and v once, IN PLACE:
-// that saves allocating two new tensors per leaf per step, and the caller owns the buffers.
-// __fmul_rn keeps nvcc from contracting the products into FMAs, so every element rounds
-// exactly as the plain PyTorch version (two roundings per line) does.
-__global__ void sgd_momentum_kernel(float* __restrict__ p, float* __restrict__ v,
-                                    const float* __restrict__ g, int64_t n, float lr,
-                                    float momentum) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+// v <- momentum * v + g; p <- p - lr * v, elementwise over every leaf of the table.
+// The TPU kernel tiles each flattened leaf into [1024, 128] VMEM blocks and writes new p
+// and v arrays, one launch a leaf. The CNN's update is 8 leaves of 10 to 16,000 floats, and
+// a launch a leaf spends ~25 us of host time for ~1.4 us of device time, so one launch
+// takes them all: each block finds its leaf by a binary search of first_block (the table
+// lives in the parameter space, read in place through __grid_constant__), then a
+// grid-stride loop over the leaf's blocks reads p, v and g once and writes p and v once,
+// IN PLACE: that saves allocating two new tensors per leaf per step, and the caller owns
+// the buffers. __fmul_rn keeps nvcc from contracting the products into FMAs, so every
+// element rounds exactly as the plain PyTorch version (two roundings per line) does.
+__global__ void __launch_bounds__(kSgdThreads)
+sgd_momentum_multi_kernel(const __grid_constant__ SgdTable table, float lr, float momentum) {
+  const int block = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = table.count - 1;      // the last leaf whose first block is <= block
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.first_block[mid] <= block) lo = mid; else hi = mid - 1;
+  }
+  float* __restrict__ p = table.p[lo];
+  float* __restrict__ v = table.v[lo];
+  const float* __restrict__ g = table.g[lo];
+  const int first = table.first_block[lo];
+  const int64_t n = table.n[lo];
+  const int64_t stride = static_cast<int64_t>(table.first_block[lo + 1] - first) * kSgdThreads;
+  for (int64_t i = static_cast<int64_t>(block - first) * kSgdThreads + threadIdx.x; i < n;
        i += stride) {
     const float vi = __fmul_rn(momentum, v[i]) + g[i];
     v[i] = vi;
@@ -130,6 +160,13 @@ __global__ void sgd_momentum_kernel(float* __restrict__ p, float* __restrict__ v
 }
 
 int row_blocks(int rows) { return (rows + kRowsPerBlock - 1) / kRowsPerBlock; }
+
+// Blocks of a leaf of n elements: one element a thread, at most kSgdMaxBlocks (the
+// grid-stride loop takes the rest).
+int sgd_blocks(int64_t n) {
+  const int64_t blocks = (n + kSgdThreads - 1) / kSgdThreads;
+  return static_cast<int>(blocks < kSgdMaxBlocks ? blocks : kSgdMaxBlocks);
+}
 
 }  // namespace
 
@@ -155,14 +192,25 @@ int nll_bwd_f32(const float* logits, const int64_t* labels, const float* ct,
   return static_cast<int>(cudaGetLastError());
 }
 
-int sgd_momentum_f32(float* p, float* v, const float* g, int64_t n, float lr, float momentum,
-                     cudaStream_t stream) {
-  if (n > 0) {
-    int64_t blocks = (n + kSgdThreads - 1) / kSgdThreads;
-    if (blocks > kSgdMaxBlocks) blocks = kSgdMaxBlocks;
-    sgd_momentum_kernel<<<static_cast<int>(blocks), kSgdThreads, 0, stream>>>(p, v, g, n, lr,
-                                                                            momentum);
+// One launch over count <= kSgdTableLeaves leaves: p[i], v[i], g[i] (host arrays of device
+// pointers) hold n[i] elements each. Leaves of 0 elements get no block; no leaf, no launch.
+int sgd_momentum_multi_f32(float* const* p, float* const* v, const float* const* g,
+                           const int64_t* n, int count, float lr, float momentum,
+                           cudaStream_t stream) {
+  if (count < 0 || count > kSgdTableLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  SgdTable table;
+  table.count = count;
+  table.first_block[0] = 0;
+  for (int i = 0; i < count; ++i) {
+    table.p[i] = p[i];
+    table.v[i] = v[i];
+    table.g[i] = g[i];
+    table.n[i] = n[i];
+    table.first_block[i + 1] = table.first_block[i] + (n[i] > 0 ? sgd_blocks(n[i]) : 0);
   }
+  if (table.first_block[count] > 0)
+    sgd_momentum_multi_kernel<<<table.first_block[count], kSgdThreads, 0, stream>>>(
+        table, lr, momentum);
   return static_cast<int>(cudaGetLastError());
 }
 

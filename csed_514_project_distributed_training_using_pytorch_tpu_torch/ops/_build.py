@@ -38,8 +38,9 @@ SIGNATURES = {
         "nll_fwd_f32": (_P, _P, _P, _I, _I, _P),
         # logits, labels, ct, ct_stride, ct_scale, dlogits, rows, cols, stream
         "nll_bwd_f32": (_P, _P, _P, _I64, _F, _P, _I, _I, _P),
-        # p, v, g, n, lr, momentum, stream
-        "sgd_momentum_f32": (_P, _P, _P, _I64, _F, _F, _P),
+        # p, v, g (host arrays of device pointers), n (host int64 array), count, lr,
+        # momentum, stream
+        "sgd_momentum_multi_f32": (_P, _P, _P, _P, _I, _F, _F, _P),
     },
     "flash_attention": {
         # dtype, q, q_strides, k, k_strides, v, v_strides, out, lse,
@@ -155,6 +156,12 @@ def launch(library: str, kernel: str, device: torch.device, entry: str, *args) -
     stream, with ``device`` current only for the call (torch keeps owning the thread's
     device), and raise on a CUDA error."""
     kl = load_library(library)
-    with torch.cuda.device(device):
-        code = getattr(kl.lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn, index = getattr(kl.lib, entry), device.index
+    # the stream's raw handle, without building a torch.cuda.Stream object at every launch;
+    # the device switch only where it is needed (the CNN step's launches are host-bound)
+    if torch.cuda.current_device() == index:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     kl.check(kernel, code)

@@ -21,12 +21,13 @@ sliced out of a fused qkv projection) is taken as it is; a last dim that is not 
 raises. Each launch adds one to its counter (``flash_fwd_launches``, ``flash_dq_launches``,
 ``flash_dkv_launches``), so a run can show that it went through the kernels.
 
-The backward has two routes, chosen by the operands' dtype alone and counted alike:
-float32 operands launch the SIMT kernels (``flash_dq_kernel``, ``flash_dkv_kernel``),
-bfloat16 operands the tensor-core kernels (``flash_dq_mma_kernel``,
-``flash_dkv_mma_kernel``). The bf16 kernels copy their tiles 16 bytes at a time, so they
-raise on an operand whose data pointer or (b, s, h) stride is not 16-byte aligned; such an
-operand is neither copied nor sent to the SIMT kernels.
+Forward and backward each have two routes, chosen by the operands' dtype alone and counted
+alike: float32 operands launch the SIMT kernels (``flash_fwd_kernel``, ``flash_dq_kernel``,
+``flash_dkv_kernel``), bfloat16 operands the tensor-core kernels (``flash_fwd_mma_kernel``,
+``flash_dq_mma_kernel``, ``flash_dkv_mma_kernel``). The bf16 kernels copy their tiles 16
+bytes at a time, so their wrappers raise on an operand whose data pointer or (b, s, h)
+stride is not 16-byte aligned; such an operand is neither copied nor sent to the SIMT
+kernels.
 
 The plain versions walk the keys in the kernels' tiles of ``KV_TILE`` with the same
 recurrence, masks and roundings (p and ds narrowed to the input type at the products), so
@@ -128,8 +129,8 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
 
 def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
     """Raise unless each tensor's data pointer, and each ``[B, S, H, D]`` operand's (b, s, h)
-    strides over dims longer than 1, are multiples of 16 bytes: the bf16 backward kernels
-    stage their tiles with 16-byte copies."""
+    strides over dims longer than 1, are multiples of 16 bytes: the bf16 kernels stage
+    their tiles with 16-byte copies."""
     for arg, t in tensors.items():
         lead = zip(t.stride()[:3], t.shape[:3]) if t.dim() == 4 else ()
         strides = [st * t.element_size() for st, n in lead if n > 1]
@@ -192,11 +193,14 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = False, window: int = 0):
-    """``q, k, v: [B, S, H, D]`` -> ``(out [B, S, H, D] in q's dtype, lse f32 [B, H, S])``."""
+    """``q, k, v: [B, S, H, D]`` -> ``(out [B, S, H, D] in q's dtype, lse f32 [B, H, S])``:
+    one launch of the forward kernel (the tensor-core one for bf16 operands)."""
     global flash_fwd_launches
     if _on_cpu(q, k, v):
         return flash_forward_plain(q, k, v, causal=causal, window=window)
     dev = _check_operands("flash_fwd", q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_fwd", q=q, k=k, v=v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)

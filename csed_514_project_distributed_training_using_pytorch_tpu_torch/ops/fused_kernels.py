@@ -6,10 +6,11 @@ beside it, a plain PyTorch version of the same function:
 
 - ``nll_fwd``: per-row ``-log_softmax(logits)[label]`` in one pass (TPU ``_nll_fwd_kernel``);
 - ``nll_bwd``: ``(softmax - onehot) * ct_row`` in one pass (TPU ``_nll_bwd_kernel``);
-- ``sgd_momentum_leaf``: ``v <- mu*v + g; p <- p - lr*v``, in place (TPU ``_sgd_kernel``).
+- ``sgd_momentum_step``: ``v <- mu*v + g; p <- p - lr*v``, in place, over every leaf of a
+  parameter dict, on the card in one launch per ``SGD_TABLE_LEAVES`` leaves (TPU
+  ``_sgd_kernel``); ``sgd_momentum_leaf`` does the same for one leaf.
 
-``nll_from_logits`` joins the first two as one ``torch.autograd.Function``;
-``sgd_momentum_step`` applies the third to every leaf of a parameter dict.
+``nll_from_logits`` joins the first two as one ``torch.autograd.Function``.
 
 Dispatch is by the device of the tensors alone: a CPU tensor takes the plain version (the
 CPU tests), a CUDA tensor launches the kernel or raises. Nothing falls back. Each launch
@@ -19,9 +20,13 @@ adds one to its counter (``nll_fwd_launches``, ``nll_bwd_launches``,
 
 from __future__ import annotations
 
+import array
+
 import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import _build
+
+SGD_TABLE_LEAVES = 64   # leaves per multi-tensor launch (kSgdTableLeaves in the source)
 
 nll_fwd_launches = 0
 nll_bwd_launches = 0
@@ -40,7 +45,7 @@ def launch_counts() -> dict[str, int]:
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the plain versions' only case."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
@@ -190,34 +195,84 @@ def sgd_momentum_leaf_plain(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *
     p.sub_(v * learning_rate)
 
 
+def _check_shapes(name: str, p: torch.Tensor, v: torch.Tensor, g: torch.Tensor) -> None:
+    if not (p.shape == v.shape == g.shape):
+        raise ValueError(f"{name}: shapes differ: p {tuple(p.shape)}, "
+                         f"v {tuple(v.shape)}, g {tuple(g.shape)}")
+
+
+def _on_card(t: torch.Tensor, index: int) -> bool:
+    """True for a contiguous f32 tensor on CUDA device ``index``: what the SGD kernel takes."""
+    return t.is_cuda and t.get_device() == index and t.dtype == torch.float32 and (
+        t.is_contiguous())
+
+
+def _sgd_launch(device: torch.device, ps: list[torch.Tensor], vs: list[torch.Tensor],
+                gs: list[torch.Tensor], learning_rate: float, momentum: float) -> None:
+    """One launch of the multi-tensor kernel per ``SGD_TABLE_LEAVES`` checked CUDA leaves
+    (the kernel gives an empty leaf no block; a table of empty leaves is not launched)."""
+    global sgd_momentum_launches
+    for start in range(0, len(ps), SGD_TABLE_LEAVES):
+        chunk = slice(start, start + SGD_TABLE_LEAVES)
+        numels = [t.numel() for t in ps[chunk]]
+        if not any(numels):
+            continue
+        # the C entry's host arrays: data pointers and sizes, 8 bytes each (array.array
+        # builds them several times faster than ctypes arrays; they live through the call)
+        tables = [array.array("Q", [t.data_ptr() for t in xs[chunk]]) for xs in (ps, vs, gs)]
+        tables.append(array.array("q", numels))
+        _build.launch("fused_kernels", "sgd_momentum", device, "sgd_momentum_multi_f32",
+                      *[t.buffer_info()[0] for t in tables], len(numels), learning_rate,
+                      momentum)
+        sgd_momentum_launches += 1
+
+
 @torch.no_grad()
 def sgd_momentum_leaf(p: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
                       learning_rate: float, momentum: float) -> None:
-    """``v <- momentum*v + g; p <- p - learning_rate*v`` on one f32 leaf, IN PLACE."""
-    global sgd_momentum_launches
-    if not (p.shape == v.shape == g.shape):
-        raise ValueError(f"sgd_momentum_leaf: shapes differ: p {tuple(p.shape)}, "
-                         f"v {tuple(v.shape)}, g {tuple(g.shape)}")
+    """``v <- momentum*v + g; p <- p - learning_rate*v`` on one f32 leaf, IN PLACE: on the
+    card one launch of the multi-tensor kernel with a table of one."""
+    _check_shapes("sgd_momentum_leaf", p, v, g)
     if _on_cpu(p, v, g):
         sgd_momentum_leaf_plain(p, v, g, learning_rate=learning_rate, momentum=momentum)
         return
     dev = p.device
     _check_cuda("sgd_momentum", dev, p=(p, torch.float32), v=(v, torch.float32),
                 g=(g, torch.float32))
-    _build.launch("fused_kernels", "sgd_momentum", dev, "sgd_momentum_f32", p.data_ptr(),
-                  v.data_ptr(), g.data_ptr(), p.numel(), learning_rate, momentum)
-    sgd_momentum_launches += 1
+    _sgd_launch(dev, [p], [v], [g], learning_rate, momentum)
 
 
+@torch.no_grad()
 def sgd_momentum_step(params: dict[str, torch.Tensor], velocity: dict[str, torch.Tensor],
                       grads: dict[str, torch.Tensor], *, learning_rate: float,
                       momentum: float):
     """Fused SGD-momentum step over every leaf — the counterpart of
-    ``ops.optim.sgd_update`` — one launch per leaf. Updates ``params`` and ``velocity`` in
-    place and returns them as ``(params, velocity)``. A gradient that autograd left in
-    another memory layout (cuDNN returns some conv weight gradients channels-last) is made
-    contiguous first; the kernel reads memory in order."""
-    for k, p in params.items():
-        sgd_momentum_leaf(p, velocity[k], grads[k].contiguous(), learning_rate=learning_rate,
-                          momentum=momentum)
+    ``ops.optim.sgd_update``. Updates ``params`` and ``velocity`` in place and returns them
+    as ``(params, velocity)``. On the card it makes one launch of the multi-tensor kernel
+    per ``SGD_TABLE_LEAVES`` leaves (one for the CNN's 8); on the CPU it takes the plain
+    version leaf by leaf. A gradient that autograd left in another memory layout (cuDNN
+    returns some conv weight gradients channels-last) is made contiguous first; the kernel
+    reads memory in order."""
+    ps = list(params.values())
+    vs = [velocity[k] for k in params]
+    gs = [grads[k].contiguous() for k in params]
+    if not ps:
+        return params, velocity
+    index = ps[0].get_device()
+    # One quick pass, since this runs every step (a host-bound step's update costs as much
+    # host time as its checks); the full checks run only to raise or to take the CPU path.
+    if not all([p.shape == v.shape == g.shape and _on_card(p, index) and _on_card(v, index)
+                and _on_card(g, index) for p, v, g in zip(ps, vs, gs)]):
+        for leaf in zip(ps, vs, gs):
+            _check_shapes("sgd_momentum_step", *leaf)
+        if _on_cpu(*ps, *vs, *gs):
+            for leaf in zip(ps, vs, gs):
+                sgd_momentum_leaf_plain(*leaf, learning_rate=learning_rate,
+                                        momentum=momentum)
+            return params, velocity
+        f32 = torch.float32
+        for p, v, g in zip(ps, vs, gs):
+            _check_cuda("sgd_momentum_step", ps[0].device, p=(p, f32), v=(v, f32),
+                        g=(g, f32))
+    _sgd_launch(ps[0].device, ps, vs, gs, learning_rate, momentum)
     return params, velocity

@@ -13,6 +13,9 @@ product and the output to bf16; an f32 value an ulp apart can round to the neigh
 bf16).
 """
 
+import pathlib
+import platform
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,10 +87,25 @@ def _loss_grads_port(q, k, v, **kw):
     return torch.autograd.grad(torch.sin(out.float()).sum(), (q, k, v))
 
 
+def _host_cpu() -> str:
+    """The host CPU's model and whether it has the bf16 instructions that a CPU backend may
+    take for products (``avx512_bf16``, ``amx_bf16``), from the kernel's CPU table."""
+    try:
+        text = pathlib.Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return f"{platform.processor() or platform.machine()} (no CPU table)"
+    model = next((line.split(":", 1)[1].strip() for line in text.splitlines()
+                  if line.startswith("model name")), platform.machine())
+    flags = set(next((line.split(":", 1)[1].split() for line in text.splitlines()
+                      if line.startswith("flags")), []))
+    return (f"{model}; avx512_bf16 {'avx512_bf16' in flags}, "
+            f"amx_bf16 {'amx_bf16' in flags}")
+
+
 def _which_side(got, want, arrays, *, causal, window):
     """For a failure message: each side's largest distance from float64 attention on the
-    same inputs, and the [b, s, h] rows where the two sides differ most, so that a
-    failure says which framework moved and where."""
+    same inputs, the [b, s, h] rows where the two sides differ most, and the host CPU, so
+    that a failure says which framework moved, where, and on what host."""
     q, k, v = (a.astype(np.float64) for a in arrays)
     s = q.shape[1]
     i, j = np.arange(s)[:, None], np.arange(s)[None, :]
@@ -103,7 +121,8 @@ def _which_side(got, want, arrays, *, causal, window):
     rows = np.argsort(np.abs(got - want).max(-1), axis=None)[-3:]
     return (f"port vs float64 {np.abs(got - exact).max():.3e}, jax vs float64 "
             f"{np.abs(want - exact).max():.3e}; rows [b, s, h] differing most "
-            f"{[tuple(int(x) for x in np.unravel_index(r, got.shape[:3])) for r in rows]}")
+            f"{[tuple(int(x) for x in np.unravel_index(r, got.shape[:3])) for r in rows]}; "
+            f"host CPU {_host_cpu()}")
 
 
 @pytest.mark.parametrize("s,d", [(128, 16), (256, 64)])
@@ -150,16 +169,23 @@ def _unpacked(x, b, h):
     return np.asarray(x).reshape(b, h, s, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("causal,window", [(False, 0), (True, 100)],
-                         ids=["full", "causal_window"])
-def test_plain_forward_lse_matches_jax(causal, window):
-    b, s, h, d = 2, 256, 2, 16
-    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((b, s, h, d), 3, 11))
+@pytest.mark.parametrize("causal,window,dtype,shape", [
+    (False, 0, "f32", (2, 256, 2, 16)), (True, 100, "f32", (2, 256, 2, 16)),
+    (False, 0, "bf16", (1, 256, 2, 128)), (True, 100, "bf16", (1, 256, 2, 128)),
+], ids=["full", "causal_window", "bf16_d128_full", "bf16_d128_causal_window"])
+def test_plain_forward_lse_matches_jax(causal, window, dtype, shape):
+    """The plain forward (what the card's forward kernels are held to) against the JAX
+    forward: f32 at D = 16, and bf16 at D = 128, the width of the bf16 tensor-core kernel,
+    where out is bf16 (BF16_TOL) and lse stays f32 (FWD_TOL)."""
+    b, s, h, d = shape
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays(shape, 3, 11), dtype)
     j_out, j_lse = jax_pa.flash_forward_with_lse(_packed(jq), _packed(jk), _packed(jv),
                                                  causal=causal, window=window)
     out, lse = fa.flash_forward_plain(tq, tk, tv, causal=causal, window=window)
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
-    np.testing.assert_allclose(_np(out), _unpacked(j_out, b, h), **FWD_TOL)
+    assert out.dtype == tq.dtype
+    np.testing.assert_allclose(_np(out), _unpacked(j_out, b, h).astype(np.float32),
+                               **(FWD_TOL if dtype == "f32" else BF16_TOL))
     np.testing.assert_allclose(_np(lse), np.asarray(j_lse).reshape(b, h, s), **FWD_TOL)
 
 

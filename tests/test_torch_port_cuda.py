@@ -8,8 +8,8 @@ only PyTorch; there, skip this directory's JAX-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 Tolerances as in ``chip_smoke.py``: the loss kernels within atol 1e-6 + rtol 1e-5 of the
-plain versions, the SGD kernel bitwise up to 1e-6 * max|p|, 5 steps through the kernels
-within atol 1e-5 of the plain step.
+plain versions, the one-leaf SGD kernel up to 1e-6 * max|p| and the multi-tensor SGD step
+bitwise, 5 steps through the kernels within atol 1e-5 of the plain step.
 """
 
 import math
@@ -89,6 +89,47 @@ def test_sgd_kernel_matches_plain(device, n):
     tol = 1e-6 * pp.abs().max().item()
     torch.testing.assert_close(pk, pp, atol=tol, rtol=0)
     torch.testing.assert_close(vk, vp, atol=tol, rtol=0)
+
+
+def _leaf_dicts(device, sizes, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [{f"leaf{i}": torch.randn(n, generator=gen, device=device)
+             for i, n in enumerate(sizes)} for _ in range(3)]
+
+
+CNN_LEAF_SIZES = (250, 10, 5000, 20, 16000, 50, 500, 10)
+
+
+@pytest.mark.parametrize("case", ["cnn", "large", "channels_last", "longer_than_table"])
+def test_sgd_step_multi_tensor_matches_plain(device, case):
+    """sgd_momentum_step on the card (one launch of the multi-tensor kernel per table of
+    SGD_TABLE_LEAVES leaves) is bitwise the plain version applied leaf by leaf, over 3
+    steps: on the CNN's 8 leaves, on those with a 2^22 leaf, with a channels-last conv
+    weight gradient (made contiguous first), and on more leaves than one table holds."""
+    sizes = {"cnn": CNN_LEAF_SIZES, "large": CNN_LEAF_SIZES + (1 << 22,),
+             "channels_last": CNN_LEAF_SIZES,
+             "longer_than_table": tuple(range(1, 2 * fk.SGD_TABLE_LEAVES + 4))}[case]
+    params, vel, grads = _leaf_dicts(device, sizes, len(sizes))
+    if case == "channels_last":
+        conv = torch.randn(16, 10, 5, 5, device=device)
+        for d in (params, vel):
+            d["conv"] = torch.randn_like(conv)
+        grads["conv"] = conv.to(memory_format=torch.channels_last)
+        assert not grads["conv"].is_contiguous()
+    pk, vk, pp, vp = ({k: t.clone() for k, t in d.items()} for d in (params, vel, params, vel))
+    before = fk.launch_counts()["sgd_momentum"]
+    for _ in range(3):
+        out = fk.sgd_momentum_step(pk, vk, grads, learning_rate=0.01, momentum=0.5)
+        for k, g in grads.items():
+            fk.sgd_momentum_leaf_plain(pp[k], vp[k], g, learning_rate=0.01, momentum=0.5)
+    torch.cuda.synchronize()
+    assert out == (pk, vk)
+    tables = -(-len(grads) // fk.SGD_TABLE_LEAVES)
+    assert tables == (3 if case == "longer_than_table" else 1)
+    assert fk.launch_counts()["sgd_momentum"] - before == 3 * tables
+    for k in grads:
+        assert torch.equal(pk[k], pp[k]), k
+        assert torch.equal(vk[k], vp[k]), k
 
 
 def test_train_steps_through_kernels_match_plain(device):
@@ -182,6 +223,25 @@ def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
     for got, want in zip(grads, grads_p):
         assert got.dtype == dtype
         _close(got, want, tol["grad"])
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 160)])
+def test_flash_bf16_forward_on_randn_operands(device, causal, window):
+    """The tensor-core forward against its plain version on randn operands (off the exact
+    grid) at [2, 2048, 2, 128]: out within (1e-3, 2^-7), lse within (1e-4, 1e-4). The two
+    sum q·kᵀ in other orders, so a p near a bf16 rounding midpoint may round one step
+    apart; but out is a convex mix of v rows, and one such step moves it by at most 2^-7 of
+    that p's weight p/l times its v row, below the tolerance unless one key holds much of a
+    row's weight."""
+    q, k, v, _ = _qkvd(device, 2, 2048, 2, 128, torch.bfloat16, 2048 + 128 + window)
+    before = fa.launch_counts()["flash_fwd"]
+    out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+    assert fa.launch_counts()["flash_fwd"] == before + 1
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    _close(out, out_p, FLASH_TOL[torch.bfloat16]["out"])
+    _close(lse, lse_p, FLASH_TOL[torch.bfloat16]["lse"])
 
 
 F32_U = 2.0 ** -24       # unit roundoff of f32
@@ -343,10 +403,11 @@ def test_flash_kernels_read_strided_qkv_views(device, dtype):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-def test_flash_backward_bf16_refuses_misaligned_operands(device):
+@pytest.mark.parametrize("route", ["backward", "forward"])
+def test_flash_backward_bf16_refuses_misaligned_operands(device, route):
     """A bf16 operand one element off 16-byte alignment (a view cut from a flat buffer at
-    offset 1) raises in both backward wrappers, launching nothing; the same view in f32
-    takes the SIMT kernels, which read any alignment."""
+    offset 1) raises in the bf16 wrappers — both backward ones, or the forward — launching
+    nothing; the same view in f32 takes the SIMT kernels, which read any alignment."""
     b, s, h, d = 1, 128, 2, 64
     q, k, v, do = _qkvd(device, b, s, h, d, torch.bfloat16, 5)
     out, lse = fa.flash_forward_plain(q, k, v)
@@ -356,15 +417,26 @@ def test_flash_backward_bf16_refuses_misaligned_operands(device):
     q_off.copy_(q)
     before = fa.launch_counts()
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fa.flash_dq(q_off, k, v, do, lse, delta)
+        if route == "backward":
+            fa.flash_dq(q_off, k, v, do, lse, delta)
+        else:
+            fa.flash_forward(q_off, k, v)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fa.flash_dkv(k, q_off, v, do, lse, delta)
+        if route == "backward":
+            fa.flash_dkv(k, q_off, v, do, lse, delta)
+        else:
+            fa.flash_forward(k, v, q_off, causal=True)
     assert fa.launch_counts() == before
     q32 = flat.float()[1:].view(b, s, h, d)
     f32 = [x.float() for x in (k, v, do)]
-    dq = fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
-    want = fa._backward_plain(q32, *f32[:2], lse, delta, f32[2], causal=False, window=0)[0]
-    _close(dq, want, FLASH_TOL[torch.float32]["grad"])
+    if route == "backward":
+        dq = fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
+        want = fa._backward_plain(q32, *f32[:2], lse, delta, f32[2], causal=False, window=0)[0]
+        _close(dq, want, FLASH_TOL[torch.float32]["grad"])
+    else:
+        got, want = fa.flash_forward(q32, *f32[:2]), fa.flash_forward_plain(q32, *f32[:2])
+        _close(got[0], want[0], FLASH_TOL[torch.float32]["out"])
+        _close(got[1], want[1], FLASH_TOL[torch.float32]["lse"])
 
 
 @pytest.mark.parametrize("d", [64, 128])

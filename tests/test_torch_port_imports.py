@@ -15,7 +15,7 @@ PORT = ROOT / "csed_514_project_distributed_training_using_pytorch_tpu_torch"
 JAX_PACKAGE = "csed_514_project_distributed_training_using_pytorch_tpu"
 FORBIDDEN = ("jax", "jaxlib", "flax", JAX_PACKAGE)
 
-SCRIPTS = [ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "flash_probe.py"]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
