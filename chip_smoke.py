@@ -13,7 +13,8 @@ Phases (each raises on failure; nothing is caught):
 2. build ``csrc/fused_kernels.cu``, ``csrc/flash_attention.cu`` and
    ``csrc/paged_attention.cu`` with nvcc for sm_90a, one nvcc per source started together;
    report the build seconds, ptxas's registers and spills, and the tensor-core (HMMA)
-   instructions of each flash kernel as ``cuobjdump -sass`` lists them;
+   instructions of each flash kernel as ``cuobjdump -sass`` lists them (the bf16 kernels
+   and the f32 backward's 3xTF32 kernels must have them);
 3. each kernel against its plain version on the card, at the main path's shapes and more,
    with its time, its plain version's time, its bound and, where one PyTorch call computes
    the same function, that call's time (a yardstick only; the port never calls it); the
@@ -31,7 +32,9 @@ Phases (each raises on failure; nothing is caught):
    trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
-   f32 operands take the SIMT kernels, bf16 ones the tensor-core kernels (B4 and B5);
+   f32 operands take the SIMT forward and the 3xTF32 tensor-core backward, bf16 ones the
+   bf16 tensor-core kernels (B4 and B5); the f32 bound is the tensor cores' 3xTF32 one,
+   with the CUDA cores' FFMA bound printed beside it;
 8. flash against the dense core at the composed widths, S in {512, 1024, 2048}, forward and
    forward+backward: the card's own flash/dense crossover (recorded; nothing reads it);
 9. the slice's path: ``train.composed.main`` on cuda, ``--mesh data=1 --flash-attention
@@ -44,9 +47,9 @@ Phases (each raises on failure; nothing is caught):
     the flash launch counts read around the timed steps, step ms and a profiler window;
 11. the paged-decode kernel (B6) against its plain version on the card: the serving shape
     ``[8, 4, 1, 16]`` f32 over a 105-page pool, D = 32 bf16 GQA, int8 and fp8 codes with
-    scales, a window, ``t = 0``; for each, max |err|, kernel and plain ms, device µs per
-    launch, its bound, and ``F.scaled_dot_product_attention`` on the gathered view (a
-    yardstick only);
+    scales, a window, ``t = 0``, and 8 query rows per KV head at D = 128; for each, max
+    |err|, kernel and plain ms, device µs per launch, its bound, and
+    ``F.scaled_dot_product_attention`` on the gathered view (a yardstick only);
 12. the slice: ``serving.ContinuousBatchingEngine.run`` at ``tools/serve_loadgen.py``'s
     default widths (vocab 17, seq 784, embed 64, 2 layers, 4 heads, 8 slots, pages of 64,
     chunks 32/128/512, budget 1) serving 32 greedy requests cut from the synthetic test
@@ -80,8 +83,10 @@ TPU_ATTENTION = "csed_514_project_distributed_training_using_pytorch_tpu/ops/pal
 FLASH_SOURCE = f"{PKG}/csrc/flash_attention.cu"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores (FFMA)
 BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16, dense, tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32, dense, tensor cores
+F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3   # an f32 product as three TF32 products
 
 NLL_SHAPES = ((64, 10), (32, 10), (1, 10), (300, 130), (4096, 1000))
 NLL_ATOL, NLL_RTOL = 1e-6, 1e-5
@@ -134,7 +139,8 @@ PAGED_CASES = (                # (label, KV heads G, rows per head R, D, pool dt
     ("int8", 4, 1, 16, "int8", 0, "random"),
     ("fp8", 2, 4, 32, "float8_e4m3fn", 0, "random"),
     ("window", 4, 1, 16, "float32", 100, "random"),
-    ("t0", 4, 1, 16, "float32", 0, "zero"))
+    ("t0", 4, 1, 16, "float32", 0, "zero"),
+    ("r8_d128", 2, 8, 128, "float32", 0, "random"))
 # B6 vs plain: the same f32 arithmetic on the same f32 values (pool rows read as f32 or
 # dequantised code·scale in both) with sums in another order over up to 784 positions
 PAGED_ATOL, PAGED_RTOL = 1e-5, 1e-5
@@ -160,15 +166,18 @@ def bound_ms(nbytes: float, ops: float,
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bounds(shape, dtype: str, visible_pairs: int) -> dict[str, tuple[float, str]]:
+def flash_bounds(shape, dtype: str, visible_pairs: int,
+                 ops_per_s: float | None = None) -> dict[str, tuple[float, str]]:
     """Bounds of the three flash kernels on ``[B, S, H, D]`` operands: per visible
     (query, key) pair and head, 2·D flops for each product the kernel forms — q·kᵀ and p·v
     forward (4·D); q·kᵀ, dO·vᵀ, ds·k for dq (6·D); q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q for dk/dv
-    (8·D) — at the peak rate of the operand type; bytes: each operand read once and each
+    (8·D) — at the least time the card can take for them: the tensor cores' bf16 rate for
+    bf16, their TF32 rate taken three times (3xTF32) for f32, or ``ops_per_s`` where given
+    (the CUDA cores' FFMA rate, for comparison); bytes: each operand read once and each
     output written once (lse and Δ are f32 [B, H, S])."""
     b, s, h, d = shape
     elem = 4 if dtype == "float32" else 2
-    rate = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    rate = ops_per_s or (F32_3XTF32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S)
     x, stat, pairs = b * s * h * d * elem, b * h * s * 4, b * h * visible_pairs
     return {"flash_fwd": bound_ms(4 * x + stat, 4 * d * pairs, rate),
             "flash_dq": bound_ms(5 * x + 2 * stat, 6 * d * pairs, rate),
@@ -294,7 +303,8 @@ def main() -> None:
     hmma = tensor_core_instructions(builds["flash_attention"].path)
     for kernel, count in sorted(hmma.items()):
         print(f"[2] cuobjdump -sass: {count} HMMA instructions in {kernel}")
-    for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
+    for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
+                   "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"):
         for d in fa.HEAD_DIMS:
             if not any(f"{kernel}ILi{d}E" in k and n for k, n in hmma.items()):
                 fail(f"{kernel}<{d}> has no HMMA (tensor-core) instruction in its SASS")
@@ -537,9 +547,12 @@ def main() -> None:
             xs = [(x * 16).round().clamp(-64, 64) / 16 for x in xs]
         return [x.to(dtypes[dtype]) for x in xs]
 
-    # the bf16 errors go to the tensor-core kernels' names
-    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0, "flash_fwd_mma": 0.0,
-                 "flash_dq_mma": 0.0, "flash_dkv_mma": 0.0}
+    # each error goes to the name of the kernel that made it: f32 the SIMT forward and the
+    # 3xTF32 backward, bf16 the bf16 tensor-core kernels
+    flash_err = {"flash_fwd": 0.0, "flash_dq_tf32": 0.0, "flash_dkv_tf32": 0.0,
+                 "flash_fwd_mma": 0.0, "flash_dq_mma": 0.0, "flash_dkv_mma": 0.0}
+    routes = {"float32": ("flash_fwd", "flash_dq_tf32", "flash_dkv_tf32"),
+              "bfloat16": ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")}
     print(f"[7] flash kernels vs plain, (atol, rtol) by dtype: {FLASH_TOL}")
     for shape, dtype, causal, window in FLASH_CASES:
         q, k, v, do = flash_inputs(shape, dtype, sum(shape) + window)
@@ -556,9 +569,7 @@ def main() -> None:
         e_dq, e_dk, e_dv = (close(f"flash {n} {tag}", got.float(), w.float(), *tol["grad"])
                             for n, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want))
         torch.cuda.synchronize()
-        route = "_mma" if dtype == "bfloat16" else ""
-        for name, e in ((f"flash_fwd{route}", max(e_out, e_lse)), (f"flash_dq{route}", e_dq),
-                        (f"flash_dkv{route}", max(e_dk, e_dv))):
+        for name, e in zip(routes[dtype], (max(e_out, e_lse), e_dq, max(e_dk, e_dv))):
             flash_err[name] = max(flash_err[name], e)
         print(f"[7]   {tag}: max |err| out {e_out:.3e} lse {e_lse:.3e} dq {e_dq:.3e} "
               f"dk {e_dk:.3e} dv {e_dv:.3e}")
@@ -568,8 +579,8 @@ def main() -> None:
                                              device=dev).sum().item())
 
     def flash_kernel_times(shape, dtype: str) -> dict[str, dict]:
-        """Each flash kernel at one shape (no mask): its ms, its plain version's, SDPA's,
-        and its bound."""
+        """Each flash kernel of the dtype's route at one shape (no mask), by name: its ms,
+        its plain version's, SDPA's, and its bound."""
         q, k, v, do = flash_inputs(shape, dtype, 1)
         out, lse = fa.flash_forward(q, k, v)
         delta = fa.flash_delta(out, do)
@@ -579,34 +590,40 @@ def main() -> None:
         lib_out = F.scaled_dot_product_attention(*leaves)
         lib_bwd = lambda: torch.autograd.grad(lib_out, leaves, bhsd(do), retain_graph=True)
         plain_bwd = lambda: fa.flash_backward_plain(q, k, v, out, lse, do)
-        bounds = flash_bounds(shape, dtype, visible_pairs(shape[1], False, 0))
+        pairs = visible_pairs(shape[1], False, 0)
+        bounds = flash_bounds(shape, dtype, pairs)
+        ffma = flash_bounds(shape, dtype, pairs, F32_OPS_PER_S)
         t = lambda fn: timed_ms(fn, iters=FLASH_ITERS, warmup=FLASH_WARMUP)
         plain_bwd_ms, lib_bwd_ms = t(plain_bwd), t(lib_bwd)
+        fwd, dq, dkv = routes[dtype]
         return {
-            "flash_fwd": dict(ms=t(lambda: fa.flash_forward(q, k, v)),
-                              plain_ms=t(lambda: fa.flash_forward_plain(q, k, v)),
-                              library_ms=t(sdpa), bound=bounds["flash_fwd"]),
+            fwd: dict(ms=t(lambda: fa.flash_forward(q, k, v)),
+                      plain_ms=t(lambda: fa.flash_forward_plain(q, k, v)),
+                      library_ms=t(sdpa), bound=bounds["flash_fwd"],
+                      ffma_bound=ffma["flash_fwd"]),
             # the plain backward and SDPA's backward each compute dq, dk and dv at once:
             # their times stand beside both backward kernels
-            "flash_dq": dict(ms=t(lambda: fa.flash_dq(q, k, v, do, lse, delta)),
-                             plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                             bound=bounds["flash_dq"]),
-            "flash_dkv": dict(ms=t(lambda: fa.flash_dkv(q, k, v, do, lse, delta)),
-                              plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                              bound=bounds["flash_dkv"]),
+            dq: dict(ms=t(lambda: fa.flash_dq(q, k, v, do, lse, delta)),
+                     plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                     bound=bounds["flash_dq"], ffma_bound=ffma["flash_dq"]),
+            dkv: dict(ms=t(lambda: fa.flash_dkv(q, k, v, do, lse, delta)),
+                      plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                      bound=bounds["flash_dkv"], ffma_bound=ffma["flash_dkv"]),
         }
 
-    flash_ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+    flash_ours = ("flash_fwd_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                   "flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
     flash_by_shape = {}
     for label, shape, dtype in (("composed", COMPOSED, "float32"),
                                 ("large", LARGE, "bfloat16")):
         flash_by_shape[label] = flash_kernel_times(shape, dtype)
         for name, tm in flash_by_shape[label].items():
+            ffma = (f"; FFMA bound_ms {tm['ffma_bound'][0]:.5f} ({tm['ffma_bound'][1]}), "
+                    f"{tm['ffma_bound'][0] / tm['ms']:.4f} of it" if dtype == "float32" else "")
             print(f"[7] {name} {label} {list(shape)} {dtype}: kernel_ms {tm['ms']:.5f}, "
                   f"plain_ms {tm['plain_ms']:.5f}, library_ms {tm['library_ms']:.5f}, "
                   f"bound_ms {tm['bound'][0]:.5f} ({tm['bound'][1]}), "
-                  f"{tm['bound'][0] / tm['ms']:.4f} of the bound [{card}]")
+                  f"{tm['bound'][0] / tm['ms']:.4f} of the bound{ffma} [{card}]")
         q, k, v, do = flash_inputs(shape, dtype, 2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -617,11 +634,9 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report_window(f"[7] {label}:", device_kernel_times(prof), 3, wall, flash_ours, card)
-    # the composed shape (f32) is the main path's; the tensor-core kernels' row is the
-    # large shape (bf16)
-    flash_times = flash_by_shape["composed"] | {
-        f"{name}_mma": flash_by_shape["large"][name]
-        for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    # the f32 kernels' rows are the composed shape's (the main path's), the bf16 kernels'
+    # the large shape's
+    flash_times = flash_by_shape["composed"] | flash_by_shape["large"]
 
     # -- 8. flash against the dense core: the card's crossover -------------------------
     b, _, h, d = COMPOSED
@@ -1022,15 +1037,16 @@ def main() -> None:
     del big_plain, big_kernel
     torch.cuda.empty_cache()
 
-    all_launches = (launches | flash_launches | {"paged_attend": paged_launches}
-                    | {f"{name}_mma": large_launches[name]
-                       for name in ("flash_fwd", "flash_dq", "flash_dkv")})
+    counted = ("flash_fwd", "flash_dq", "flash_dkv")
+    all_launches = (launches | {"paged_attend": paged_launches}
+                    | dict(zip(routes["float32"], (flash_launches[n] for n in counted)))
+                    | dict(zip(routes["bfloat16"], (large_launches[n] for n in counted))))
     all_err = err | flash_err | {"paged_attend": paged_err}
 
     # -- 14. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
-                "flash_dq": f"{TPU_ATTENTION}:666", "flash_dkv": f"{TPU_ATTENTION}:731",
+                "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
                 "flash_fwd_mma": f"{TPU_ATTENTION}:479", "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
                 "paged_attend": f"{TPU_PAGED}:85"}
     sources = ({name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}

@@ -12,46 +12,48 @@
 // Six kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py; each
 // has one route per operand type, chosen by the dtype alone:
 //
-//   flash_fwd_kernel      replaces _fwd_kernel (online-softmax attention, out + lse), f32,
-//                         SIMT
-//   flash_dq_kernel       replaces _dq_kernel  (dq by recompute), f32, SIMT
-//   flash_dkv_kernel      replaces _dkv_kernel (dk, dv by recompute), f32, SIMT
-//   flash_fwd_mma_kernel  replaces _fwd_kernel, bf16, tensor cores (mma.sync)
-//   flash_dq_mma_kernel   replaces _dq_kernel,  bf16, tensor cores (mma.sync)
-//   flash_dkv_mma_kernel  replaces _dkv_kernel, bf16, tensor cores (mma.sync)
+//   flash_fwd_kernel       replaces _fwd_kernel (online-softmax attention, out + lse), f32,
+//                          SIMT
+//   flash_dq_tf32_kernel   replaces _dq_kernel  (dq by recompute), f32, tensor cores
+//                          (mma.sync, 3xTF32)
+//   flash_dkv_tf32_kernel  replaces _dkv_kernel (dk, dv by recompute), f32, tensor cores
+//                          (mma.sync, 3xTF32)
+//   flash_fwd_mma_kernel   replaces _fwd_kernel, bf16, tensor cores (mma.sync)
+//   flash_dq_mma_kernel    replaces _dq_kernel,  bf16, tensor cores (mma.sync)
+//   flash_dkv_mma_kernel   replaces _dkv_kernel, bf16, tensor cores (mma.sync)
 //
 // Operands are [B, S, H, D] tensors read through their strides (D contiguous), so the
 // q/k/v views that a fused qkv projection hands over need no copy; outputs are contiguous
 // [B, S, H, D], and lse and delta are contiguous f32 [B, H, S]. Every product is taken in
-// f32 or with f32 accumulation (a bf16 x bf16 product is exact in f32). p (forward, dk/dv)
-// and ds (dq, dk/dv) are rounded to the input type where they enter a product, where the
-// TPU kernels narrow them (pallas_attention.py:541, :711, :780, :786), so kernel and plain
-// version round at the same places.
+// f32 or with f32 accumulation (a bf16 x bf16 product is exact in f32; f32 products on the
+// tensor cores are split into three TF32 products). p (forward, dk/dv) and ds (dq, dk/dv)
+// are rounded to the input type where they enter a product, where the TPU kernels narrow
+// them (pallas_attention.py:541, :711, :780, :786), so kernel and plain version round at
+// the same places; for f32 that is no rounding.
 //
 // What bounds them: at the trainer's shapes (S = 2048, D = 16 f32; D = 128 bf16) the work
 // is 4·B·H·S²·D flops forward and 6 (dq) and 8 (dk/dv) backward against O(B·S·H·D) bytes,
-// so all of them are bound by arithmetic, not by memory: by the CUDA cores' f32 rate for
-// f32 operands and by the tensor cores' bf16 rate for bf16 ones. Every kernel keeps the
-// S x S scores out of device memory and walks only the key (or query) tiles that the
-// causal mask and the window leave live.
+// so all of them are bound by arithmetic, not by memory: by the tensor cores' rate — bf16,
+// or TF32 taken three times for f32 (the 3xTF32 backward) — and, for the f32 forward, which
+// still runs on the CUDA cores, by their f32 rate. Every kernel keeps the S x S scores out
+// of device memory and walks only the key (or query) tiles that the causal mask and the
+// window leave live.
 //
 // Tiling. A block owns one (b, h) and one tile of 64 query rows (forward, dq) or 64 key
 // rows (dk/dv) and loops over the tiles of the other side inside the block: the TPU's
 // sequential grid axis becomes that loop, and each block writes only its own rows, so no
 // sum crosses blocks and no atomics are needed.
 //
-// The SIMT kernels (all three, for f32) lay the work out as a small matrix product per
-// tile on the CUDA cores: each thread owns a few rows by four score columns and a few rows
-// by D/16 output columns, so every value read from shared memory feeds several FMAs.
-// Operand tiles sit in shared memory as f32 with a padded row stride (D + 1) so that the
-// column-strided reads fall in distinct banks. At D = 128 a block holds up to ~166 KB of
-// shared memory (dk/dv), which needs the kernel's MaxDynamicSharedMemorySize raised;
-// D = 128 also runs 256 threads so that each thread's accumulators stay in registers.
+// The SIMT forward (f32) lays the work out as a small matrix product per tile on the CUDA
+// cores: each thread owns a few rows by four score columns and a few rows by D/16 output
+// columns, so every value read from shared memory feeds several FMAs. Operand tiles sit in
+// shared memory as f32 with a padded row stride (D + 1) so that the column-strided reads
+// fall in distinct banks; D = 128 runs 256 threads so that each thread's accumulators stay
+// in registers.
 //
-// The bf16 kernels run on the tensor cores, whose bf16 rate is ~15x the f32 one; see the
-// notes above flash_fwd_mma_kernel and the bf16 section. Later work: wgmma with TMA loads
-// and a producer warp for the bf16 kernels; a 3xTF32 split (hi·hi + hi·lo + lo·hi) that
-// would keep f32 accuracy on the tensor cores for f32.
+// The tensor-core kernels: see the notes above flash_fwd_mma_kernel, the bf16 section and
+// the 3xTF32 section. Later work: the f32 forward on the tensor cores (3xTF32, as the
+// backward); wgmma with TMA loads and a producer warp for the bf16 kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,12 +141,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ tile,
   }
 }
 
-// Shared memory of each kernel, in floats.
+// Shared memory of the f32 forward, in floats.
 template <int D> constexpr int fwd_smem_floats() { return 3 * kTile * (D + 1) + kTile * (kTile + 1); }
-template <int D> constexpr int dq_smem_floats() { return 4 * kTile * (D + 1) + kTile * (kTile + 1); }
-template <int D> constexpr int dkv_smem_floats() {
-  return 4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile;
-}
 
 // Replaces ops/pallas_attention.py::_fwd_kernel for f32 operands.
 // out[q] = sum_k softmax_k(q·k·scale)[k] v[k] over the visible keys, lse[q] = m + log(l),
@@ -265,233 +263,13 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
   }
 }
 
-// The recomputed score tile of the f32 backward kernels: for this thread's RPT query rows
-// (rows of sQ/sDO) and CPT key columns (rows of sK/sV), p = exp(q·k·scale - lse) (0 where
-// masked) and ds = p·(dO·v - delta).
-template <int D, int RPT, int CPT>
-__device__ __forceinline__ void recompute_tile(
-    const float* __restrict__ sQ, const float* __restrict__ sDO, const float* __restrict__ sK,
-    const float* __restrict__ sV, const float* lse_r, const float* delta_r, int row0,
-    int lane16, int q0, int k0, float scale, int causal, int window, float (&p)[RPT][CPT],
-    float (&ds)[RPT][CPT]) {
-  constexpr int LD = D + 1;
-  float dp[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) p[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float kv[CPT], vv[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      kv[j] = sK[(lane16 + 16 * j) * LD + d];
-      vv[j] = sV[(lane16 + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float qv = sQ[(row0 + i) * LD + d];
-      const float dov = sDO[(row0 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        p[i][j] = fmaf(qv, kv[j], p[i][j]);
-        dp[i][j] = fmaf(dov, vv[j], dp[i][j]);
-      }
-    }
-  }
-  const bool masked = causal || window > 0;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const bool vis = !masked || visible(q0 + row0 + i, k0 + lane16 + 16 * j, causal, window);
-      const float sc = vis ? p[i][j] * scale : kMaskValue;
-      const float pij = vis ? expf(sc - lse_r[i]) : 0.f;
-      ds[i][j] = pij * (dp[i][j] - delta_r[i]);
-      p[i][j] = pij;
-    }
-  }
-}
-
-// Replaces ops/pallas_attention.py::_dq_kernel for f32 operands.
-// dq[q] = scale · sum_k ds[q, k] k[k] over the live key tiles; the block owns its query
-// tile, so the sum stays in its registers.
-template <int D, int NT>
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
-                float scale, int causal, int window) {
-  constexpr int RPT = kTile * 16 / NT, CPT = kTile / 16, DPT = D / 16;
-  constexpr int LD = D + 1, LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kTile * LD;
-  float* sK = sDO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sDS = sV + kTile * LD;
-
-  const int lane16 = threadIdx.x & 15;
-  const int row0 = (threadIdx.x >> 4) * RPT;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
-
-  load_tile<D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
-  load_tile<D, NT>(sDO, slice<float>(dout, b, h), dout.ss, q0);
-  const float* kb = slice<float>(k, b, h);
-  const float* vb = slice<float>(v, b, h);
-  float lse_r[RPT], delta_r[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    lse_r[i] = lse[stat + q0 + row0 + i];
-    delta_r[i] = delta[stat + q0 + row0 + i];
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-
-  int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D, NT>(sK, kb, k.ss, k0);
-    load_tile<D, NT>(sV, vb, v.ss, k0);
-    __syncthreads();
-    float p[RPT][CPT], ds[RPT][CPT];
-    recompute_tile<D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
-                                causal, window, p, ds);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) sDS[(row0 + i) * LP + lane16 + 16 * j] = ds[i][j];
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float kv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) kv[c] = sK[kk * LD + lane16 + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float dsv = sDS[(row0 + i) * LP + kk];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(dsv, kv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float* row = dq + ((static_cast<int64_t>(b) * S + q0 + row0 + i) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) row[lane16 + 16 * c] = acc[i][c] * scale;
-  }
-}
-
-// Replaces ops/pallas_attention.py::_dkv_kernel for f32 operands.
-// dv[k] = sum_q p[q, k] dO[q], dk[k] = scale · sum_q ds[q, k] q[q] over the live query
-// tiles; the block owns its key tile. The score tile is recomputed with the same thread
-// layout as in the dq kernel (rows = queries); p and ds go through shared memory so that
-// the transposed products can read them by key row.
-template <int D, int NT>
-__global__ void __launch_bounds__(NT)
-flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                 int S, int H, float scale, int causal, int window) {
-  constexpr int RPT = kTile * 16 / NT, CPT = kTile / 16, DPT = D / 16;
-  constexpr int LD = D + 1, LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;
-  float* sDO = sQ + kTile * LD;
-  float* sP = sDO + kTile * LD;
-  float* sDS = sP + kTile * LP;
-  float* sLse = sDS + kTile * LP;
-  float* sDelta = sLse + kTile;
-
-  const int lane16 = threadIdx.x & 15;
-  const int row0 = (threadIdx.x >> 4) * RPT;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
-
-  load_tile<D, NT>(sK, slice<float>(k, b, h), k.ss, k0);
-  load_tile<D, NT>(sV, slice<float>(v, b, h), v.ss, k0);
-  const float* qb = slice<float>(q, b, h);
-  const float* dob = slice<float>(dout, b, h);
-  float acc_k[RPT][DPT], acc_v[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  int qt_lo, qt_hi;
-  live_query_tiles(k0, S, causal, window, &qt_lo, &qt_hi);
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D, NT>(sQ, qb, q.ss, q0);
-    load_tile<D, NT>(sDO, dob, dout.ss, q0);
-    if (threadIdx.x < kTile) {
-      sLse[threadIdx.x] = lse[stat + q0 + threadIdx.x];
-      sDelta[threadIdx.x] = delta[stat + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    float lse_r[RPT], delta_r[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      lse_r[i] = sLse[row0 + i];
-      delta_r[i] = sDelta[row0 + i];
-    }
-    float p[RPT][CPT], ds[RPT][CPT];
-    recompute_tile<D, RPT, CPT>(sQ, sDO, sK, sV, lse_r, delta_r, row0, lane16, q0, k0, scale,
-                                causal, window, p, ds);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        sP[(row0 + i) * LP + lane16 + 16 * j] = p[i][j];
-        sDS[(row0 + i) * LP + lane16 + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-    // This thread's rows are now key rows row0 + i, summed over the tile's queries qq.
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float dov[DPT], qv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        dov[c] = sDO[qq * LD + lane16 + 16 * c];
-        qv[c] = sQ[qq * LD + lane16 + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float pv = sP[qq * LP + row0 + i];
-        const float dsv = sDS[qq * LP + row0 + i];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-          acc_v[i][c] = fmaf(pv, dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(dsv, qv[c], acc_k[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int64_t off = ((static_cast<int64_t>(b) * S + k0 + row0 + i) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      dk[off + lane16 + 16 * c] = acc_k[i][c] * scale;
-      dv[off + lane16 + 16 * c] = acc_v[i][c];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------------------
 // The bf16 kernels on the tensor cores
 // ---------------------------------------------------------------------------------------
 //
 // flash_fwd_mma_kernel replaces ops/pallas_attention.py::_fwd_kernel for bf16 operands;
 // see the note above it. flash_dq_mma_kernel replaces _dq_kernel and flash_dkv_mma_kernel
-// replaces _dkv_kernel for bf16 operands. They compute what the f32 kernels above compute —
+// replaces _dkv_kernel for bf16 operands. They compute what the TPU kernels compute —
 // p = exp(q·kᵀ·scale − lse) recomputed, ds = p∘(dO·vᵀ − Δ), dq = scale·Σ ds·k,
 // dk = scale·Σ dsᵀ·q, dv = Σ pᵀ·dO, with p and ds rounded to bf16 where they enter a
 // product — and are bound by the tensor cores' bf16 rate (6 and 8 products of 2·D flops
@@ -582,16 +360,16 @@ __device__ __forceinline__ bool tile_interior(int q0, int k0, int causal, int wi
   return window <= 0 || (back < window && ahead < window);
 }
 
-// Rows [row0, row0 + kTile) of one (b, h) slice into a [kTile][D + 8] bf16 tile, with one
-// 16-byte cp.async per 8 elements.
-template <int D>
-__device__ __forceinline__ void cp_tile(bf16* tile, const bf16* base, int64_t row_stride,
+// Rows [row0, row0 + kTile) of one (b, h) slice into a tile whose rows are padded by 16
+// bytes ([kTile][D + 8] bf16, [kTile][D + 4] f32), with one 16-byte cp.async per chunk.
+template <int D, typename T>
+__device__ __forceinline__ void cp_tile(T* tile, const T* base, int64_t row_stride,
                                         int row0) {
-  constexpr int kChunks = D / 8, LD = D + 8;
+  constexpr int kPer = 16 / sizeof(T), kChunks = D / kPer, LD = D + kPer;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
     const int idx = i * kMmaThreads + threadIdx.x;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const int r = idx / kChunks, c = (idx % kChunks) * kPer;
     cp_async16(tile + r * LD + c, base + static_cast<int64_t>(row0 + r) * row_stride + c);
   }
 }
@@ -1056,6 +834,483 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
 }
 
 // ---------------------------------------------------------------------------------------
+// The f32 backward on the tensor cores: 3xTF32
+// ---------------------------------------------------------------------------------------
+//
+// flash_dq_tf32_kernel replaces ops/pallas_attention.py::_dq_kernel and
+// flash_dkv_tf32_kernel replaces _dkv_kernel for f32 operands. They compute what the bf16
+// kernels compute — p = exp(q·kᵀ·scale − lse) recomputed (0 where masked),
+// ds = p∘(dO·vᵀ − Δ), dq = scale·Σ ds·k, dk = scale·Σ dsᵀ·q, dv = Σ pᵀ·dO — with p and ds
+// kept in f32 (the TPU kernels narrow them to the input type, f32 here). They are bound by
+// arithmetic: 6·D (dq) and 8·D (dk/dv) flops per visible pair against O(B·S·H·D) bytes.
+// The CUDA cores' f32 rate is 67 TFLOP/s; the tensor cores take TF32 (a 10-bit mantissa)
+// at 495. 3xTF32 keeps close to f32 accuracy on them at a third of that rate: each f32
+// operand x is split into the TF32 values hi = tf32(x) and lo = tf32(x − hi) (rounded
+// as cvt.rna.tf32.f32 rounds, see tf32_bits), and a·b is taken as
+// lo_a·hi_b + hi_a·lo_b + hi_a·hi_b into one f32 accumulator, the small terms first so
+// that they are not lost behind the large one (lo·lo, ~2^-22 of a·b, is left out). The
+// design is the bf16 kernels', carried to TF32:
+//
+// - Every product is mma.sync.m16n8k8 tf32 x tf32 -> f32, three times. A block of 4 warps
+//   owns 64 rows (queries for dq, keys for dk/dv), 16 a warp, against the walked 64-row
+//   tile. dq forms S = Q·Kᵀ and dP = dO·Vᵀ, then dQ += dS·K; dk/dv forms Sᵀ = K·Qᵀ and
+//   dPᵀ = V·dOᵀ directly, so that pᵀ and dsᵀ come out in the rows of dV += Pᵀ·dO and
+//   dK += dSᵀ·Q.
+// - p and ds go from the score accumulators into the next product's A fragments in
+//   registers, split once per score. The register layouts differ: the m16n8 accumulator
+//   holds columns 2t and 2t + 1 of rows g and g + 8 (g = lane / 4, t = lane % 4), the
+//   m16n8k8 TF32 A fragment columns t and t + 4. So the second product takes its k (the
+//   walked rows) in a permuted order — k = t is walked row 2t and k = t + 4 is row 2t + 1
+//   of each group of 8 — and reads its B operand from shared memory in that order. A sum
+//   does not care about the order, and no value crosses lanes (no shuffle).
+// - Tiles stay f32 in shared memory with rows padded by 4 floats (16 bytes): at a row
+//   stride of D + 4 ≡ 4 (mod 16) words, each fragment read of a warp — 8 rows by 4
+//   columns, or 4 row pairs by 8 columns — falls in 32 distinct banks. Fragments come
+//   from shared memory by 32-bit loads (ldmatrix moves 16-bit elements). Tiles are copied
+//   with cp.async 16 bytes at a time through the operands' strides (the wrapper refuses
+//   operands that are not 16-byte aligned), and the walked side is double-buffered, with
+//   one barrier a tile.
+// - Splits, at D = 16 (the composed trainer's width, where the splits cost most beside the
+//   products): each element once. A warp splits its own 16 rows (Q and dO for dq, K and V
+//   for dk/dv) and holds their hi and lo fragments in registers for the whole walk (32
+//   registers); each walked tile is split where it lands — each thread splits the chunks
+//   it copied, after its own cp.async wait and before the tile's barrier, hi in place and
+//   lo into a tile of its own — instead of by each of the 4 warps that read it. At D = 64
+//   and 128 the held fragments would take 128 and 256 registers and the lo tiles push
+//   shared memory down to one block an SM (D = 64) or past the SM (D = 128), so there
+//   both sides are split where their fragments are read.
+// - p = exp2(s·(scale·log2 e) − lse·log2 e): one FFMA and one ex2.approx, the scale and
+//   the change of base folded into the argument. The per-pair work besides the products —
+//   that, ds, and the splits of p and ds — costs as much as the products at D = 16, so
+//   each split is five instructions (tf32_bits twice and a subtraction).
+// - Masks cost only where they cut a tile (tile_interior), as in the bf16 kernels.
+//
+// A pass takes the scores of NJ n8 tiles of the walked tile at once (kTf32PassTiles), then
+// feeds them, tile by tile, into the second products: 32 walked rows a pass, but dk/dv,
+// which holds 2 x D/2 f32 accumulators a thread, takes 16 at D = 64 and 8 at D = 128, so
+// that it stays within 255 registers without spilling (ptxas spilled at 32 and 16 rows a
+// pass). Shared memory: f32 tiles of 64 x (D + 4), 10 at D = 16 (50 KB), 6 at D = 64 and
+// 128 (102 and 198 KB; one block an SM at D = 128).
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// n8 tiles of the walked tile per pass (see above).
+template <int D, bool kDkv> constexpr int kTf32PassTiles = !kDkv || D == 16 ? 4 : 128 / D;
+
+// Where the splits are made (see above): at D = 16 once — the own rows held in registers,
+// the walked tiles split in shared memory as they land, into 4 more tiles (lo parts);
+// at D = 64 and 128 where they are read.
+template <int D> constexpr bool kTf32SplitOnce = D == 16;
+
+// Shared memory: 2 own tiles, 2 stages of 2 walked tiles, and 2 stages of their lo parts
+// where the walked tiles are split as they land; dk/dv adds 2 stages of lse and Δ.
+template <int D> constexpr size_t tf32_dq_bytes() {
+  return (6 + (kTf32SplitOnce<D> ? 4 : 0)) * kTile * (D + 4) * sizeof(float);
+}
+template <int D> constexpr size_t tf32_dkv_bytes() {
+  return tf32_dq_bytes<D>() + 4 * kTile * sizeof(float);
+}
+
+// x rounded to TF32 (10-bit mantissa, to nearest, ties away from zero), as its f32 bits:
+// cvt.rna.tf32.f32's result for every finite x, taken on the bits — add half a TF32 ulp
+// and clear the 13 bits below the TF32 mantissa (CUTLASS's fast-f32 rounding). Two integer
+// instructions, where ptxas makes five of the cvt (it also tests for NaN and infinity).
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// 2^x by the special-function unit in one instruction (relative error ~2^-22; results below
+// 2^-126 flush to 0, where exp2f would spend instructions on them).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both TF32: hi = tf32(x), lo = tf32(x − hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// c += a·b for one 16 x 8 tile in TF32: a is the 16 x 8 A fragment, (b0, b1) the 8 x 8 B one.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+// An m16n8k8 A fragment (a0: row g, column t; a1: g + 8, t; a2: g, t + 4; a3: g + 8, t + 4)
+// and B fragment (b0: row t, column g; b1: t + 4, g), each as TF32 hi and lo parts.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a·b in 3xTF32: the two small cross terms, then the large one.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// The A fragment of k-step kk from 16 rows (row0 on) of an f32 [kTile][D + 4] tile.
+template <int D>
+__device__ __forceinline__ FragA frag_a(const float* tile, int row0, int kk, int g, int t) {
+  constexpr int LD = D + 4;
+  const float* p = tile + (row0 + g) * LD + 8 * kk + t;
+  FragA f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * LD], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The walked tile as B fragments, each element split into hi and lo: split where it is read
+// from the raw f32 tile, or read split from the hi and lo tiles (kPresplit, split_tile).
+template <int D, bool kPresplit>
+struct WalkedTile {
+  const float* tile;   // the raw f32 rows, or their hi parts (kPresplit)
+  const float* lo;     // their lo parts (kPresplit)
+  __device__ __forceinline__ void part(int off, uint32_t& hi, uint32_t& lo_) const {
+    if constexpr (kPresplit) {
+      hi = __float_as_uint(tile[off]);
+      lo_ = __float_as_uint(lo[off]);
+    } else {
+      split_tf32(tile[off], hi, lo_);
+    }
+  }
+  // The B fragment of k-step kk of a first product (x = A·Wᵀ, k over D): Wᵀ's columns
+  // are the walked rows n0 .. n0 + 7.
+  __device__ __forceinline__ FragB rows(int n0, int kk, int g, int t) const {
+    const int off = (n0 + g) * (D + 4) + 8 * kk + t;
+    FragB f;
+    part(off, f.hi[0], f.lo[0]);
+    part(off + 4, f.hi[1], f.lo[1]);
+    return f;
+  }
+  // The B fragment of a second product (acc += P·W, k over the walked rows k0 .. k0 + 7
+  // in the permuted order: k = t is row k0 + 2t, k = t + 4 is row k0 + 2t + 1) for the
+  // output columns n0 .. n0 + 7.
+  __device__ __forceinline__ FragB cols(int k0, int n0, int g, int t) const {
+    const int off = (k0 + 2 * t) * (D + 4) + n0 + g;
+    FragB f;
+    part(off, f.hi[0], f.lo[0]);
+    part(off + D + 4, f.hi[1], f.lo[1]);
+    return f;
+  }
+};
+
+// Splits the chunks of a [kTile][D + 4] f32 tile that this thread copied with cp_tile, in
+// place: hi into the tile, lo into lo_tile at the same offsets. A thread reads back only its
+// own cp.async writes, which cp_async_wait_all has made visible to it, so the split needs no
+// barrier of its own: the tile's barrier publishes it.
+template <int D>
+__device__ __forceinline__ void split_tile(float* tile, float* lo_tile) {
+  constexpr int kChunks = D / 4, LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int idx = i * kMmaThreads + threadIdx.x;
+    const int off = (idx / kChunks) * LD + (idx % kChunks) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(tile + off);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(tile + off) = hi;
+    *reinterpret_cast<uint4*>(lo_tile + off) = lo;
+  }
+}
+
+// An n8 score tile in the accumulator layout (x0: row g, column 2t; x1: g, 2t + 1;
+// x2: g + 8, 2t; x3: g + 8, 2t + 1) as the A fragment of the next product, in the permuted
+// k order of WalkedTile::cols: k = t takes column 2t, k = t + 4 column 2t + 1.
+__device__ __forceinline__ FragA frag_from_scores(const float (&x)[4]) {
+  FragA f;
+  split_tf32(x[0], f.hi[0], f.lo[0]);
+  split_tf32(x[2], f.hi[1], f.lo[1]);
+  split_tf32(x[1], f.hi[2], f.lo[2]);
+  split_tf32(x[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A warp's 16 rows of one of the block's own tiles, as A fragments: split once and held in
+// registers (kHeld), or split from the tile where they are read.
+template <int D, bool kHeld>
+struct OwnRows {
+  FragA held[kHeld ? D / 8 : 1];
+  const float* tile;
+  int row0;
+  __device__ __forceinline__ OwnRows(const float* tile_, int row0_, int g, int t)
+      : tile(tile_), row0(row0_) {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) held[kk] = frag_a<D>(tile, row0, kk, g, t);
+    }
+  }
+  __device__ __forceinline__ FragA frag(int kk, int g, int t) const {
+    if constexpr (kHeld)
+      return held[kk];
+    else
+      return frag_a<D>(tile, row0, kk, g, t);
+  }
+};
+
+// A pass's first products for one warp: x = A·Wᵀ and y = C·Vᵀ over the D columns, for the
+// NJ n8 tiles of walked rows c0 .. c0 + 8·NJ − 1; A and C are the warp's own rows.
+template <int D, int NJ, bool kHeld, bool kPresplit>
+__device__ __forceinline__ void tf32_scores(const OwnRows<D, kHeld>& A,
+                                            const OwnRows<D, kHeld>& C,
+                                            const WalkedTile<D, kPresplit>& W,
+                                            const WalkedTile<D, kPresplit>& V, int c0, int g,
+                                            int t, float (&x)[NJ][4], float (&y)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA a = A.frag(kk, g, t), c = C.frag(kk, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mma_3xtf32(x[j], a, W.rows(c0 + 8 * j, kk, g, t));
+      mma_3xtf32(y[j], c, V.rows(c0 + 8 * j, kk, g, t));
+    }
+  }
+}
+
+// One warp's 16 output rows (row and row + 8, this thread's columns 8·j + 2t and
+// 8·j + 2t + 1) of a contiguous [B, S, H, D] f32 tensor, times mult.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[D / 8][4], int b,
+                                               int row, int S, int H, int h, int t,
+                                               float mult) {
+  float* r0 = out + ((static_cast<int64_t>(b) * S + row) * H + h) * D + 2 * t;
+  float* r8 = r0 + static_cast<int64_t>(8) * H * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(acc[j][0] * mult, acc[j][1] * mult);
+    *reinterpret_cast<float2*>(r8 + 8 * j) = make_float2(acc[j][2] * mult, acc[j][3] * mult);
+  }
+}
+
+// Replaces ops/pallas_attention.py::_dq_kernel for f32 operands (design note above).
+// Shared memory: Q and dO, then two stages of K and V.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, int S, int H, float scale, int causal,
+                     int window) {
+  constexpr int TILE = kTile * (D + 4), NJ = kTf32PassTiles<D, false>;
+  constexpr bool kOnce = kTf32SplitOnce<D>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  float* sQ = reinterpret_cast<float*>(mma_smem);
+  float* sDO = sQ + TILE;
+  float* sK = sDO + TILE;
+  float* sV = sK + 2 * TILE;
+  float* sKlo = sV + 2 * TILE;              // kOnce: the lo parts of sK and sV
+  float* sVlo = sKlo + 2 * TILE;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const float* kb = slice<float>(k, b, h);
+  const float* vb = slice<float>(v, b, h);
+  int kt_lo, kt_hi;
+  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+
+  cp_tile<D>(sQ, slice<float>(q, b, h), q.ss, q0);
+  cp_tile<D>(sDO, slice<float>(dout, b, h), dout.ss, q0);
+  if (kt_lo < kt_hi) {
+    cp_tile<D>(sK, kb, k.ss, kt_lo * kTile);
+    cp_tile<D>(sV, vb, v.ss, kt_lo * kTile);
+  }
+  cp_async_commit();
+
+  const int row = q0 + 16 * warp + g;       // this thread's rows: row and row + 8
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S + row;
+  const float neg_lse2[2] = {-lse[stat] * kLog2e, -lse[stat + 8] * kLog2e};
+  const float delta_r[2] = {delta[stat], delta[stat + 8]};
+  const float scale2 = scale * kLog2e;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  const OwnRows<D, kOnce> oq(sQ, 16 * warp, g, t), odo(sDO, 16 * warp, g, t);
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    if constexpr (kOnce) {        // split tile kt where this thread's copies landed
+      split_tile<D>(sK + stage * TILE, sKlo + stage * TILE);
+      split_tile<D>(sV + stage * TILE, sVlo + stage * TILE);
+    }
+    __syncthreads();              // tile kt is in, and every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) {         // ... whose buffers now take tile kt + 1
+      cp_tile<D>(sK + (stage ^ 1) * TILE, kb, k.ss, (kt + 1) * kTile);
+      cp_tile<D>(sV + (stage ^ 1) * TILE, vb, v.ss, (kt + 1) * kTile);
+      cp_async_commit();
+    }
+    const WalkedTile<D, kOnce> tK{sK + stage * TILE, sKlo + stage * TILE};
+    const WalkedTile<D, kOnce> tV{sV + stage * TILE, sVlo + stage * TILE};
+    const int k0 = kt * kTile;
+    const auto tile_passes = [&](auto masked) {
+#pragma unroll 1
+      for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's keys, 8·NJ at a time
+        float s[NJ][4], dp[NJ][4];
+        tf32_scores<D, NJ>(oq, odo, tK, tV, c0, g, t, s, dp);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool vis = true;
+            if constexpr (decltype(masked)::value)
+              vis = visible(row + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1), causal,
+                            window);
+            const float p = vis ? exp2_approx(fmaf(s[j][e], scale2, neg_lse2[e >> 1])) : 0.f;
+            ds[e] = p * (dp[j][e] - delta_r[e >> 1]);
+          }
+          const FragA a = frag_from_scores(ds);
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)
+            mma_3xtf32(acc[n], a, tK.cols(c0 + 8 * j, 8 * n, g, t));
+        }
+      }
+    };
+    if (tile_interior(q0, k0, causal, window))
+      tile_passes(std::false_type{});
+    else
+      tile_passes(std::true_type{});
+  }
+  store_rows_f32<D>(dq, acc, b, row, S, H, h, t, scale);
+}
+
+// Replaces ops/pallas_attention.py::_dkv_kernel for f32 operands (design note above).
+// Shared memory: K and V, then two stages of Q, dO, lse and Δ.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+                      float scale, int causal, int window) {
+  constexpr int TILE = kTile * (D + 4), NJ = kTf32PassTiles<D, true>;
+  constexpr bool kOnce = kTf32SplitOnce<D>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  float* sK = reinterpret_cast<float*>(mma_smem);
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;
+  float* sDO = sQ + 2 * TILE;
+  float* sQlo = sDO + 2 * TILE;             // kOnce: the lo parts of sQ and sDO
+  float* sDOlo = sQlo + 2 * TILE;
+  float* sStat = sDO + (kOnce ? 6 : 2) * TILE;   // [2 stages][lse, Δ][kTile]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
+  const float* qb = slice<float>(q, b, h);
+  const float* dob = slice<float>(dout, b, h);
+  int qt_lo, qt_hi;
+  live_query_tiles(k0, S, causal, window, &qt_lo, &qt_hi);
+
+  // The query tile qt's rows of Q and dO, and its lse and Δ (16 floats a warp-quarter).
+  const auto stage_queries = [&](int st, int qt) {
+    cp_tile<D>(sQ + st * TILE, qb, q.ss, qt * kTile);
+    cp_tile<D>(sDO + st * TILE, dob, dout.ss, qt * kTile);
+    if (threadIdx.x < 32) {
+      const int which = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;
+      cp_async16(sStat + (2 * st + which) * kTile + c,
+                 (which ? delta : lse) + stat + qt * kTile + c);
+    }
+  };
+  cp_tile<D>(sK, slice<float>(k, b, h), k.ss, k0);
+  cp_tile<D>(sV, slice<float>(v, b, h), v.ss, k0);
+  if (qt_lo < qt_hi) stage_queries(0, qt_lo);
+  cp_async_commit();
+
+  const int key = k0 + 16 * warp + g;       // this thread's rows: key and key + 8
+  const float scale2 = scale * kLog2e;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  const OwnRows<D, kOnce> ok(sK, 16 * warp, g, t), ov(sV, 16 * warp, g, t);
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    cp_async_wait_all();
+    if constexpr (kOnce) {        // split tile qt where this thread's copies landed
+      split_tile<D>(sQ + stage * TILE, sQlo + stage * TILE);
+      split_tile<D>(sDO + stage * TILE, sDOlo + stage * TILE);
+    }
+    __syncthreads();              // tile qt is in, and every warp is done with tile qt - 1
+    if (qt + 1 < qt_hi) {
+      stage_queries(stage ^ 1, qt + 1);
+      cp_async_commit();
+    }
+    const WalkedTile<D, kOnce> tQ{sQ + stage * TILE, sQlo + stage * TILE};
+    const WalkedTile<D, kOnce> tDO{sDO + stage * TILE, sDOlo + stage * TILE};
+    const float* tLse = sStat + 2 * stage * kTile;
+    const float* tDelta = tLse + kTile;
+    const int q0 = qt * kTile;
+    const auto tile_passes = [&](auto masked) {
+#pragma unroll 1
+      for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's queries, 8·NJ at a time
+        float s[NJ][4], dp[NJ][4];  // Sᵀ and dPᵀ: rows are keys, columns queries
+        tf32_scores<D, NJ>(ok, ov, tQ, tDO, c0, g, t, s, dp);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = c0 + 8 * j + 2 * t;     // this thread's query columns c and c + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(tLse + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(tDelta + c);
+          const float neg_lse2[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+          const float delta_c[2] = {d2.x, d2.y};
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool vis = true;
+            if constexpr (decltype(masked)::value)
+              vis = visible(q0 + c + (e & 1), key + 8 * (e >> 1), causal, window);
+            p[e] = vis ? exp2_approx(fmaf(s[j][e], scale2, neg_lse2[e & 1])) : 0.f;
+            ds[e] = p[e] * (dp[j][e] - delta_c[e & 1]);
+          }
+          const FragA pa = frag_from_scores(p), da = frag_from_scores(ds);
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            mma_3xtf32(acc_v[n], pa, tDO.cols(c0 + 8 * j, 8 * n, g, t));
+            mma_3xtf32(acc_k[n], da, tQ.cols(c0 + 8 * j, 8 * n, g, t));
+          }
+        }
+      }
+    };
+    if (tile_interior(q0, k0, causal, window))
+      tile_passes(std::false_type{});
+    else
+      tile_passes(std::true_type{});
+  }
+  store_rows_f32<D>(dk, acc_k, b, key, S, H, h, t, scale);
+  store_rows_f32<D>(dv, acc_v, b, key, S, H, h, t, 1.f);
+}
+
+// ---------------------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------------------
 
@@ -1082,7 +1337,8 @@ cudaError_t start(void (*kernel)(Params...), int block, size_t bytes, const Shap
   return cudaGetLastError();
 }
 
-// bf16 operands take the tensor-core kernels, f32 ones the SIMT kernels.
+// The forward: bf16 operands take the tensor-core kernel, f32 ones the SIMT kernel. The
+// backward: bf16 operands take the bf16 tensor-core kernels, f32 ones the 3xTF32 ones.
 template <typename T, int D>
 cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, Shape s,
                        cudaStream_t stream) {
@@ -1103,9 +1359,9 @@ cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dout, const float
                  k, v, dout, lse, delta, static_cast<bf16*>(dq), s.S, s.H, s.scale, s.causal,
                  s.window);
   else
-    return start(flash_dq_kernel<D, threads<D>()>, threads<D>(),
-                 dq_smem_floats<D>() * sizeof(float), s, stream, q, k, v, dout, lse, delta,
-                 static_cast<float*>(dq), s.S, s.H, s.scale, s.causal, s.window);
+    return start(flash_dq_tf32_kernel<D>, kMmaThreads, tf32_dq_bytes<D>(), s, stream, q, k, v,
+                 dout, lse, delta, static_cast<float*>(dq), s.S, s.H, s.scale, s.causal,
+                 s.window);
 }
 
 template <typename T, int D>
@@ -1117,10 +1373,9 @@ cudaError_t launch_dkv(Operand q, Operand k, Operand v, Operand dout, const floa
                  lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.S, s.H, s.scale,
                  s.causal, s.window);
   else
-    return start(flash_dkv_kernel<D, threads<D>()>, threads<D>(),
-                 dkv_smem_floats<D>() * sizeof(float), s, stream, q, k, v, dout, lse, delta,
-                 static_cast<float*>(dk), static_cast<float*>(dv), s.S, s.H, s.scale,
-                 s.causal, s.window);
+    return start(flash_dkv_tf32_kernel<D>, kMmaThreads, tf32_dkv_bytes<D>(), s, stream, q, k,
+                 v, dout, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), s.S,
+                 s.H, s.scale, s.causal, s.window);
 }
 
 // Calls fn.template run<T, D>() for the run-time dtype code and head width.

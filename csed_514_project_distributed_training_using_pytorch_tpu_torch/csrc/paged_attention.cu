@@ -20,22 +20,25 @@
 // entries point at the allocator's null page: a valid page whose rows the mask hides.
 //
 // What bounds it: decode reads every visible K/V row once and does 4·D flops per row and
-// query row, so at the serving shapes (R <= 4) it is bound by memory — and at the serving
-// engine's widths (8 slots, 4 heads of 16, up to 784 positions, f32) by launch latency:
-// the whole pool read is ~3 MB, a microsecond of the card's 3.35 TB/s. This first version is
-// plain SIMT code (no tensor cores, no TMA) that keeps the gathered view out of device
-// memory: one block per (slot, KV head) walks the visible positions in tiles of 64,
-// stages each tile's K and V rows in shared memory as f32 (dequantised on the way in),
-// and runs the online softmax in f32 — the TPU kernel's m, l, acc discipline — so each
-// row is read from device memory once. The TPU kernel's sequential page axis becomes this
-// loop inside the block; positions before the window and pages past t are never read.
+// query row, so at the serving shapes it is bound by memory — and at the serving engine's
+// widths (8 slots, 4 heads of 16, up to 784 positions, f32) by launch latency: the whole
+// pool read is ~3 MB, a microsecond of the card's 3.35 TB/s. This first version is plain
+// SIMT code (no tensor cores, no TMA) that keeps the gathered view out of device memory:
+// one block per (slot, KV head) walks the visible positions in tiles of 64, stages each
+// tile's K and V rows in shared memory as f32 (dequantised on the way in), and runs the
+// online softmax in f32 — the TPU kernel's m, l, acc discipline — so each row is read from
+// device memory once. The TPU kernel's sequential page axis becomes this loop inside the
+// block; positions before the window and pages past t are never read.
 //
 // Work in a block of 128 threads, per tile: the first 64 threads look up their position's
 // page and row (and scales); all threads copy the K/V rows into shared memory (neighbouring
-// threads on neighbouring elements of a row); each thread forms R·64/128 scores as D-long
+// threads on neighbouring elements of a row); the threads form the R·64 scores as D-long
 // dot products (K rows at a padded stride D + 1, so the column walk hits distinct banks);
-// warp r folds row r's 64 scores into (m, l) with shuffles; each thread then updates the
-// R·D/128 (at most 4) output columns it owns in registers.
+// warp w folds rows w, w + 4, ... of the scores into their (m, l) with shuffles; then the
+// threads walk the R·D outputs, thread i owning outputs i, i + 128, ..., whose running sums
+// sit in shared memory. So the kernel takes any number R of query rows per KV head, as the
+// TPU kernel does; R·D only sizes the shared memory (smem_bytes), up to the card's 227 KB
+// a block (R = 16 at D = 128 takes 87 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -47,9 +50,8 @@ namespace {
 
 constexpr float kMaskValue = -1e30f;   // ops/attention.py MASK_VALUE
 constexpr int kThreads = 128;          // four warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;              // positions per tile (two per lane in the softmax)
-constexpr int kMaxRows = 4;            // R: query rows per KV head, one warp each
-constexpr int kMaxOut = 4;             // output columns per thread: R·D <= 4·kThreads
 constexpr int kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3;   // dtype codes of the C interface
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -72,10 +74,10 @@ struct Args {
 
 // Dynamic shared memory: the tile's row offsets (int64, first for alignment), then f32
 // q [R][D], K [kTile][D + 1], V [kTile][D], scores [R][kTile], the row scales
-// [2][kTile] and the softmax state m, l, corr [3][kMaxRows].
+// [2][kTile], the softmax state m, l, corr [3][R] and the output sums [R][D].
 size_t smem_bytes(int R, int D) {
-  const size_t floats = static_cast<size_t>(R) * D + kTile * (D + 1) + kTile * D +
-                        R * kTile + 2 * kTile + 3 * kMaxRows;
+  const size_t floats = 2 * static_cast<size_t>(R) * D + kTile * (D + 1) + kTile * D +
+                        static_cast<size_t>(R) * kTile + 2 * kTile + 3 * static_cast<size_t>(R);
   return kTile * sizeof(long long) + floats * sizeof(float);
 }
 
@@ -90,9 +92,10 @@ __global__ void __launch_bounds__(kThreads) paged_attend_kernel(const Args a) {
   float* sc = vs + kTile * D;                                     // [R][kTile]
   float* ksc = sc + R * kTile;                                    // [kTile]
   float* vsc = ksc + kTile;                                       // [kTile]
-  float* m_sh = vsc + kTile;                                      // [kMaxRows]
-  float* l_sh = m_sh + kMaxRows;
-  float* c_sh = l_sh + kMaxRows;
+  float* m_sh = vsc + kTile;                                      // [R]
+  float* l_sh = m_sh + R;
+  float* c_sh = l_sh + R;
+  float* acc = c_sh + R;                                          // [R][D]
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / a.G, g = blockIdx.x % a.G;
@@ -103,14 +106,14 @@ __global__ void __launch_bounds__(kThreads) paged_attend_kernel(const Args a) {
   const T* kp = static_cast<const T*>(a.k);
   const T* vp = static_cast<const T*>(a.v);
 
-  for (int i = tid; i < R * D; i += kThreads) qs[i] = a.q[head + i];
-  if (tid < R) {
-    m_sh[tid] = kMaskValue;
-    l_sh[tid] = 0.f;
+  for (int i = tid; i < R * D; i += kThreads) {
+    qs[i] = a.q[head + i];
+    acc[i] = 0.f;            // output i is thread i % kThreads's, in every tile
   }
-  float acc[kMaxOut];
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.f;
+  for (int r = tid; r < R; r += kThreads) {
+    m_sh[r] = kMaskValue;
+    l_sh[r] = 0.f;
+  }
 
   for (int p0 = first; p0 <= last; p0 += kTile) {
     __syncthreads();   // q and the softmax state are written; the last tile's readers are done
@@ -157,12 +160,12 @@ __global__ void __launch_bounds__(kThreads) paged_attend_kernel(const Args a) {
     }
     __syncthreads();
     const int warp = tid / 32, lane = tid % 32;
-    if (warp < R) {
-      float* srow = sc + warp * kTile;
+    for (int r = warp; r < R; r += kWarps) {   // warp-uniform: the shuffles see 32 lanes
+      float* srow = sc + r * kTile;
       const float s0 = srow[lane], s1 = srow[lane + 32];
       float mb = fmaxf(s0, s1);
       for (int o = 16; o > 0; o >>= 1) mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
-      const float m_old = m_sh[warp];
+      const float m_old = m_sh[r];
       const float m_new = fmaxf(m_old, mb);
       const float e0 = p0 + lane <= last ? expf(s0 - m_new) : 0.f;
       const float e1 = p0 + lane + 32 <= last ? expf(s1 - m_new) : 0.f;
@@ -172,32 +175,24 @@ __global__ void __launch_bounds__(kThreads) paged_attend_kernel(const Args a) {
       srow[lane + 32] = e1;
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
-        c_sh[warp] = corr;
-        l_sh[warp] = l_sh[warp] * corr + lb;
-        m_sh[warp] = m_new;
+        c_sh[r] = corr;
+        l_sh[r] = l_sh[r] * corr + lb;
+        m_sh[r] = m_new;
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int i = tid + k * kThreads;
-      if (i < R * D) {
-        const int r = i / D, d = i - r * D;
-        const float* prow = sc + r * kTile;
-        float sum = 0.f;
-        for (int j = 0; j < kTile; ++j) sum = fmaf(prow[j], vs[j * D + d], sum);
-        acc[k] = acc[k] * c_sh[r] + sum;
-      }
+    for (int i = tid; i < R * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      const float* prow = sc + r * kTile;
+      float sum = 0.f;
+      for (int j = 0; j < kTile; ++j) sum = fmaf(prow[j], vs[j * D + d], sum);
+      acc[i] = acc[i] * c_sh[r] + sum;
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) {
-    const int i = tid + k * kThreads;
-    if (i < R * D) {
-      const float l = l_sh[i / D];
-      a.out[head + i] = acc[k] / (l == 0.f ? 1.f : l);   // a slot with no visible row: 0
-    }
+  for (int i = tid; i < R * D; i += kThreads) {
+    const float l = l_sh[i / D];
+    a.out[head + i] = acc[i] / (l == 0.f ? 1.f : l);   // a slot with no visible row: 0
   }
 }
 
@@ -220,8 +215,9 @@ extern "C" {
 
 // q: contiguous f32 [B, G, R, D]; k, v: contiguous [num_pages, ps, G, D] pools of dtype
 // code `dtype`; k_scale, v_scale: contiguous f32 [num_pages, ps, G] or both null; table:
-// contiguous int32 [B, P_max]; t: int32 [B]; out: contiguous f32 [B, G, R, D]. R <= 4,
-// R·D <= 512, 1 <= seq_len <= P_max·page_size and B >= 1 (the wrapper checks them).
+// contiguous int32 [B, P_max]; t: int32 [B]; out: contiguous f32 [B, G, R, D]. Any R;
+// 1 <= seq_len <= P_max·page_size and B >= 1 (the wrapper checks them); an R·D whose
+// shared memory (smem_bytes) the card cannot give a block returns the attribute's error.
 int paged_attend(int dtype, const float* q, const void* k, const void* v,
                  const float* k_scale, const float* v_scale, const int* table, const int* t,
                  float* out, int B, int G, int R, int D, int ps, int p_max, int seq_len,

@@ -22,12 +22,14 @@ raises. Each launch adds one to its counter (``flash_fwd_launches``, ``flash_dq_
 ``flash_dkv_launches``), so a run can show that it went through the kernels.
 
 Forward and backward each have two routes, chosen by the operands' dtype alone and counted
-alike: float32 operands launch the SIMT kernels (``flash_fwd_kernel``, ``flash_dq_kernel``,
-``flash_dkv_kernel``), bfloat16 operands the tensor-core kernels (``flash_fwd_mma_kernel``,
-``flash_dq_mma_kernel``, ``flash_dkv_mma_kernel``). The bf16 kernels copy their tiles 16
-bytes at a time, so their wrappers raise on an operand whose data pointer or (b, s, h)
-stride is not 16-byte aligned; such an operand is neither copied nor sent to the SIMT
-kernels.
+alike. float32 operands launch the SIMT forward (``flash_fwd_kernel``) and the tensor-core
+backward in 3xTF32 (``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``: each f32 product
+as three TF32 products, hi·hi + hi·lo + lo·hi, close to f32 accuracy); bfloat16 operands
+launch the tensor-core kernels ``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel`` and
+``flash_dkv_mma_kernel``. The tensor-core kernels copy their tiles 16 bytes at a time, so
+their wrappers (the bf16 forward, and the backward in either dtype) raise on an operand
+whose data pointer or (b, s, h) stride is not 16-byte aligned; such an operand is neither
+copied nor sent to another kernel.
 
 The plain versions walk the keys in the kernels' tiles of ``KV_TILE`` with the same
 recurrence, masks and roundings (p and ds narrowed to the input type at the products), so
@@ -129,14 +131,14 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
 
 def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
     """Raise unless each tensor's data pointer, and each ``[B, S, H, D]`` operand's (b, s, h)
-    strides over dims longer than 1, are multiples of 16 bytes: the bf16 kernels stage
-    their tiles with 16-byte copies."""
+    strides over dims longer than 1, are multiples of 16 bytes: the tensor-core kernels
+    stage their tiles with 16-byte copies."""
     for arg, t in tensors.items():
         lead = zip(t.stride()[:3], t.shape[:3]) if t.dim() == 4 else ()
         strides = [st * t.element_size() for st, n in lead if n > 1]
         if t.data_ptr() % 16 or any(st % 16 for st in strides):
             raise ValueError(
-                f"{name}: {arg} must be 16-byte aligned for the bf16 tensor-core kernel "
+                f"{name}: {arg} must be 16-byte aligned for the tensor-core kernel "
                 f"(data pointer {t.data_ptr()} % 16 = {t.data_ptr() % 16}, strides "
                 f"{t.stride()} of {t.element_size()} bytes)")
 
@@ -286,14 +288,14 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
              lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
              window: int = 0) -> torch.Tensor:
     """dq ``[B, S, H, D]`` from the statistics lse and Δ (``[B, H, S]`` f32): one launch of
-    the dq kernel (the tensor-core one for bf16 operands)."""
+    the dq kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on the tensor
+    cores)."""
     global flash_dq_launches
     if _on_cpu(q, k, v, dout, lse, delta):
         return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[0]
     dev = _check_operands("flash_dq", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dq", q, lse=lse, delta=delta)
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash_dq", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
+    _check_aligned("flash_dq", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _build.launch("flash_attention", "flash_dq", dev, "flash_dq",
                   *_backward_args(q, k, v, dout, lse, delta), dq.data_ptr(),
@@ -306,14 +308,13 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
               lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
               window: int = 0):
     """(dk, dv) ``[B, S, H, D]`` from the statistics lse and Δ: one launch of the dk/dv
-    kernel (the tensor-core one for bf16 operands)."""
+    kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on the tensor cores)."""
     global flash_dkv_launches
     if _on_cpu(q, k, v, dout, lse, delta):
         return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[1:]
     dev = _check_operands("flash_dkv", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dkv", q, lse=lse, delta=delta)
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash_dkv", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
+    _check_aligned("flash_dkv", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     _build.launch("flash_attention", "flash_dkv", dev, "flash_dkv",

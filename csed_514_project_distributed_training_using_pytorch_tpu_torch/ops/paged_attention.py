@@ -35,8 +35,6 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
     MASK_VALUE,
 )
 
-MAX_ROWS = 4          # R: query rows per KV head the kernel takes (one warp each)
-MAX_ROW_WIDTH = 512   # R·D: the kernel's 128 threads own at most four output columns each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
            torch.float8_e4m3fn: 3}   # pool dtype codes of the C interface
 
@@ -128,7 +126,7 @@ def _check(q, k_pool, v_pool, table, t, k_scale, v_scale) -> torch.device:
             raise ValueError(f"paged_attend: {name} must be contiguous")
     if q.dim() != 4:
         raise ValueError(f"paged_attend: expected q [B, G, R, D], got {tuple(q.shape)}")
-    b, g, r, d = q.shape
+    b, g, _, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape[2:] != (g, d) or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged_attend: pools must be [num_pages, page_size, {g}, {d}], "
                          f"got {tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
@@ -147,9 +145,6 @@ def _check(q, k_pool, v_pool, table, t, k_scale, v_scale) -> torch.device:
     if t.dtype != torch.int32 or t.shape != (b,):
         raise ValueError(f"paged_attend: t must be int32 [{b}], got {t.dtype} "
                          f"{tuple(t.shape)}")
-    if not 1 <= r <= MAX_ROWS or r * d > MAX_ROW_WIDTH:
-        raise ValueError(f"paged_attend: R={r}, D={d}; the kernel takes R <= {MAX_ROWS} "
-                         f"and R·D <= {MAX_ROW_WIDTH}")
     return dev
 
 

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""What bounds the bf16 flash forward (``flash_fwd_mma_kernel``) on the card: builds
-``csrc/flash_attention.cu`` as it is and with one change, then times the bf16 forward of
-each at the ``bench_transformer.py --large`` shape ``[16, 2048, 8, 128]``, full and causal,
-beside ``F.scaled_dot_product_attention``.
+"""What bounds the flash kernels on the card: builds ``csrc/flash_attention.cu`` as it is
+and with one change at a time, then times
+
+1. the bf16 forward (``flash_fwd_mma_kernel``) of each at the ``bench_transformer.py
+   --large`` shape ``[16, 2048, 8, 128]``, full and causal, beside
+   ``F.scaled_dot_product_attention``;
+2. the f32 backward (``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``) of each at the
+   composed trainer's shape ``[64, 2048, 4, 16]``, in turns, with each build's SASS
+   instruction count for the D = 16 kernels and its results against the build as it is.
 
     python3 flash_probe.py
 
-The change is a diagnostic, never shipped: ``fast_exp`` takes ``__expf`` for the softmax's
-exponential (fewer instructions, other roundings), so the gap to the kernel as built is
-what the precise ``expf`` costs. Each build's ptxas registers and spills are printed. The
-builds go to ``results/flash_probe/``; needs one CUDA device and nvcc.
+The changes are diagnostics, never shipped: ``fast_exp`` takes ``__expf`` for the bf16
+softmax's exponential (fewer instructions, other roundings), so the gap to the kernel as
+built is what the precise ``expf`` costs; ``split_where_read`` splits every f32 operand
+into TF32 hi and lo where its fragment is read (as at D = 64 and 128) instead of once
+(the own rows held in registers, the walked tiles split as they land), and ``cvt_rna``
+rounds to TF32 with ``cvt.rna.tf32.f32`` instead of on the bits (the same values), so the
+gaps to the kernels as built are what each saves. Each build's ptxas registers and spills
+are printed. The builds go to ``results/flash_probe/``; needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +33,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "results" / "flash_probe"
 SHAPE = (16, 2048, 8, 128)
+COMPOSED = (64, 2048, 4, 16)
 EXPF = "p[e] = expf(__fsub_rn(x[j][e], m_new[e >> 1]));"
+ONCE = "template <int D> constexpr bool kTf32SplitOnce = D == 16;"
+BITS = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+CVT = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
+       "  return r;")
 
 
 def main() -> None:
@@ -38,10 +53,12 @@ def main() -> None:
     )
 
     source = (_build.CSRC / "flash_attention.cu").read_text()
-    if EXPF not in source:
-        sys.exit("flash_probe: the softmax's exponential is not where the probe expects it")
+    if not all(anchor in source for anchor in (EXPF, ONCE, BITS)):
+        sys.exit("flash_probe: a line the probe changes is not where it expects it")
     variants = {"as_built": source,
-                "fast_exp": source.replace(EXPF, EXPF.replace("expf", "__expf"))}
+                "fast_exp": source.replace(EXPF, EXPF.replace("expf", "__expf")),
+                "split_where_read": source.replace(ONCE, ONCE.replace("D == 16", "false")),
+                "cvt_rna": source.replace(BITS, CVT)}
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variants.items():
@@ -54,11 +71,13 @@ def main() -> None:
         lines = proc.communicate()[0].splitlines()
         if proc.returncode:
             sys.exit(f"flash_probe: nvcc failed for {name}:\n" + "\n".join(lines[-40:]))
-        at = next(i for i, line in enumerate(lines)
-                  if "Compiling entry" in line and "flash_fwd_mma_kernelILi128" in line)
-        print(f"{name}: flash_fwd_mma_kernel<128>: "
-              + "; ".join(line.replace("ptxas info    :", "").strip()
-                          for line in lines[at + 1:at + 4]))
+        for kernel in ("flash_fwd_mma_kernelILi128", "flash_dq_tf32_kernelILi16",
+                       "flash_dkv_tf32_kernelILi16"):
+            at = next(i for i, line in enumerate(lines)
+                      if "Compiling entry" in line and kernel in line)
+            print(f"{name}: {kernel}: "
+                  + "; ".join(line.replace("ptxas info    :", "").strip()
+                              for line in lines[at + 1:at + 4]))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -99,6 +118,52 @@ def main() -> None:
                 sys.exit(f"flash_probe: {name} did not launch")
             print(f"{name}: {list(SHAPE)} bf16 causal={causal}: "
                   f"{timed_ms(lambda: fwd(*args)):.5f} ms; SDPA {sdpa:.5f} ms [{card}]")
+    del q, k, v
+
+    # 2. the f32 backward at the composed shape: the SASS of its D = 16 kernels, then each
+    # build in turns, its results against the build as it is
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    f32_builds = ("as_built", "split_where_read", "cvt_rna")
+    for name in f32_builds:
+        sass = subprocess.run([str(tool), "-sass", str(OUT / f"{name}.so")],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        for kernel in ("flash_dq_tf32_kernelILi16", "flash_dkv_tf32_kernelILi16"):
+            body = sass.split(kernel, 1)[1].split("Function :", 1)[0]
+            ops = [m.group(1) for m in re.finditer(
+                r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)]
+            top = sorted({op: ops.count(op) for op in ops}.items(), key=lambda x: -x[1])[:6]
+            print(f"{name}: {kernel}: {len(ops)} SASS instructions (both mask variants); "
+                  f"most: {', '.join(f'{op} {n}' for op, n in top)}")
+    b, s, h, d = COMPOSED
+    q, k, v, do = (torch.randn(*COMPOSED, generator=gen, device=dev) for _ in range(4))
+    out, lse = fa.flash_forward(q, k, v)
+    delta = fa.flash_delta(out, do)
+    common = (0, q.data_ptr(), fa._strides(q), k.data_ptr(), fa._strides(k), v.data_ptr(),
+              fa._strides(v), do.data_ptr(), fa._strides(do), lse.data_ptr(),
+              delta.data_ptr())
+    shape_args = (b, s, h, d, 1.0 / math.sqrt(d), 0, 0, stream)
+    results, times = {}, {name: [] for name in f32_builds}
+    for name in f32_builds + f32_builds[::-1]:
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        calls = {}
+        for entry in ("flash_dq", "flash_dkv"):
+            fn = getattr(lib, entry)
+            fn.argtypes = list(_build.SIGNATURES["flash_attention"][entry])
+            fn.restype = ctypes.c_int
+            calls[entry] = fn
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        run_dq = lambda: calls["flash_dq"](*common, dq.data_ptr(), *shape_args)
+        run_dkv = lambda: calls["flash_dkv"](*common, dk.data_ptr(), dv.data_ptr(), *shape_args)
+        if run_dq() or run_dkv():
+            sys.exit(f"flash_probe: {name} did not launch")
+        times[name].append((timed_ms(run_dq), timed_ms(run_dkv)))
+        results[name] = (dq, dk, dv)
+    for name in f32_builds:
+        same = all(torch.equal(x, y) for x, y in zip(results[name], results["as_built"]))
+        print(f"{name}: {list(COMPOSED)} f32 backward: dq "
+              f"{', '.join(f'{t[0]:.5f}' for t in times[name])} ms, dk/dv "
+              f"{', '.join(f'{t[1]:.5f}' for t in times[name])} ms; results equal to "
+              f"as_built's: {same} [{card}]")
 
 
 if __name__ == "__main__":

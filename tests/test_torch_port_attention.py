@@ -208,6 +208,67 @@ def test_plain_backward_matches_jax_backward_blocks(causal, window):
         np.testing.assert_allclose(_np(g), _unpacked(w, b, h), err_msg=name, **GRAD_TOL)
 
 
+def _tf32(x):
+    """x rounded to TF32 (a 10-bit mantissa), to nearest with ties away from zero, by
+    integer operations on the f32 bits (cvt.rna.tf32.f32 on finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 backward kernels take it on the tensor cores: each operand split into
+    hi = tf32(x) and lo = tf32(x − hi), then lo·hi + hi·lo + hi·hi in f32 (a product of two
+    TF32 values is exact in f32; lo·lo is left out)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _backward_3xtf32(q, k, v, lse, delta, dout, *, causal, window):
+    """The plain backward (``flash_attention._backward_plain``, f32) with every product in
+    emulated 3xTF32 and p = exp2(s·scale·log2 e − lse·log2 e), as the card's
+    ``flash_dq_tf32_kernel`` and ``flash_dkv_tf32_kernel`` compute it."""
+    b, s, h, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    log2e = 1.4426950408889634
+    qf, kf, vf, dof = (x.permute(0, 2, 1, 3) for x in (q, k, v, dout))
+    sc = _mm_3xtf32(qf, kf.transpose(-1, -2))
+    p = torch.exp2(sc * np.float32(scale * log2e) - lse[..., None] * np.float32(log2e))
+    if causal or window:
+        p = torch.where(attention.visibility_mask(s, s, causal=causal, window=window), p, 0.0)
+    ds = p * (_mm_3xtf32(dof, vf.transpose(-1, -2)) - delta[..., None])
+    grads = (_mm_3xtf32(ds, kf) * np.float32(scale),
+             _mm_3xtf32(ds.transpose(-1, -2), qf) * np.float32(scale),
+             _mm_3xtf32(p.transpose(-1, -2), dof))
+    return [g.permute(0, 2, 1, 3) for g in grads]
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 16), (1, 128, 1, 128)], ids=["d16", "d128"])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (False, 100), (True, 100)],
+                         ids=MASK_IDS)
+def test_3xtf32_backward_meets_the_card_tolerance(shape, causal, window):
+    """The f32 backward's products in emulated 3xTF32 (the scheme of the card's f32 backward
+    kernels) stay within the card's f32 grad tolerance (atol 1e-4, rtol 1e-4) of the FFMA
+    plain version and of the JAX ``_dq_kernel``/``_dkv_kernel`` in interpret mode, from the
+    same out, lse and dO."""
+    b, s, h, d = shape
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(_arrays(shape, 4, d + window))
+    q3, k3, v3, g3 = (_packed(x) for x in (jq, jk, jv, jdo))
+    j_out, j_lse = jax_pa.flash_forward_with_lse(q3, k3, v3, causal=causal, window=window)
+    delta = jnp.sum(g3 * j_out, axis=-1).reshape(j_lse.shape)
+    want_jax = jax_pa.flash_backward_blocks(q3, k3, v3, g3, j_lse, delta, causal=causal,
+                                            window=window)
+    out = torch.from_numpy(_unpacked(j_out, b, h).copy())
+    lse = torch.from_numpy(np.asarray(j_lse).reshape(b, h, s).copy())
+    want = fa.flash_backward_plain(tq, tk, tv, out, lse, tdo, causal=causal, window=window)
+    got = _backward_3xtf32(tq, tk, tv, lse, fa.flash_delta(out, tdo), tdo, causal=causal,
+                           window=window)
+    for name, g, w, wj in zip("qkv", got, want, want_jax):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(_np(g), _unpacked(wj, b, h), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("s", [16, 128, 1920, 2048, 2049, 4096])
 def test_dispatch_predicate_matches_jax(s):
     assert fa.dispatch_uses_flash(s) == jax_pa.dispatch_uses_flash(s)

@@ -207,8 +207,9 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
-    """Every kernel against its plain version: f32 operands take the SIMT backward, bf16
-    the tensor-core one, on operands of the exact grid; S = 64 is a single tile."""
+    """Every kernel against its plain version: f32 operands take the SIMT forward and the
+    3xTF32 tensor-core backward, bf16 the bf16 tensor-core kernels, on operands of the
+    exact grid; S = 64 is a single tile."""
     q, k, v, do = _qkvd(device, 2, s, 2, d, dtype, s + d + window,
                         exact=dtype == torch.bfloat16)
     tol = FLASH_TOL[dtype]
@@ -366,9 +367,41 @@ def test_flash_bf16_backward_differs_from_plain_only_at_rounding_ties(device, d,
                 f"one-step flips of p or ds at rounding ties")
 
 
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 160)])
+def test_flash_f32_backward_against_f64(device, d, causal, window):
+    """The 3xTF32 backward on randn f32 operands at S = 2048 (D = 16 is the composed
+    trainer's width) against an f64 backward from the same operands, lse and Δ: within the
+    f32 grad tolerance (1e-4, 1e-4) of it, as the FFMA plain version is. Prints each one's
+    max and mean |err| against f64 (run with -s or -rP)."""
+    s = 2048
+    q, k, v, do = _qkvd(device, 2, s, 2, d, torch.float32, 7 * d + window)
+    out, lse = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+    delta = fa.flash_delta(out, do)
+    grads = fa.flash_backward(q, k, v, out, lse, do, causal=causal, window=window)
+    grads_p = fa.flash_backward_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    vis = attention.visibility_mask(s, s, causal=causal, window=window, device=device)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).item()
+    qf, kf, vf, dof = (x.double().permute(0, 2, 1, 3) for x in (q, k, v, do))
+    p = torch.where(vis, ((qf @ kf.transpose(-1, -2)) * scale - lse.double()[..., None]).exp(),
+                    0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.double()[..., None])
+    exact = [g.permute(0, 2, 1, 3) for g in (scale * ds @ kf, scale * ds.transpose(-1, -2) @ qf,
+                                             p.transpose(-1, -2) @ dof)]
+    for name, got, plain, ref in zip(("dq", "dk", "dv"), grads, grads_p, exact):
+        errs = [(x.double() - ref).abs() for x in (got, plain)]
+        print(f"{name} d={d} causal={causal} window={window} against the f64 backward: "
+              f"max |err| kernel {errs[0].max().item():.4g}, plain {errs[1].max().item():.4g}; "
+              f"mean |err| kernel {errs[0].mean().item():.4g}, plain "
+              f"{errs[1].mean().item():.4g}")
+        _close(got, ref, FLASH_TOL[torch.float32]["grad"])
+        _close(plain, ref, FLASH_TOL[torch.float32]["grad"])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_counts_one_launch_per_kernel(device, dtype):
-    """One launch of each kernel on either backward route (SIMT f32, tensor-core bf16)."""
+    """One launch of each kernel on either route (3xTF32 backward for f32, bf16 tensor-core
+    kernels for bf16)."""
     q, k, v, do = (x.requires_grad_() for x in _qkvd(device, 2, 256, 2, 64, dtype, 0))
     before = fa.launch_counts()
     out = fa.flash_attention(q, k, v, causal=True)
@@ -405,9 +438,10 @@ def test_flash_kernels_read_strided_qkv_views(device, dtype):
 
 @pytest.mark.parametrize("route", ["backward", "forward"])
 def test_flash_backward_bf16_refuses_misaligned_operands(device, route):
-    """A bf16 operand one element off 16-byte alignment (a view cut from a flat buffer at
-    offset 1) raises in the bf16 wrappers — both backward ones, or the forward — launching
-    nothing; the same view in f32 takes the SIMT kernels, which read any alignment."""
+    """An operand one element off 16-byte alignment (a view cut from a flat buffer at
+    offset 1) raises in the wrappers of the tensor-core kernels — both backward ones, in
+    bf16 and in f32 (3xTF32), or the bf16 forward — launching nothing; in f32 the same view
+    takes the SIMT forward, which reads any alignment."""
     b, s, h, d = 1, 128, 2, 64
     q, k, v, do = _qkvd(device, b, s, h, d, torch.bfloat16, 5)
     out, lse = fa.flash_forward_plain(q, k, v)
@@ -430,9 +464,11 @@ def test_flash_backward_bf16_refuses_misaligned_operands(device, route):
     q32 = flat.float()[1:].view(b, s, h, d)
     f32 = [x.float() for x in (k, v, do)]
     if route == "backward":
-        dq = fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
-        want = fa._backward_plain(q32, *f32[:2], lse, delta, f32[2], causal=False, window=0)[0]
-        _close(dq, want, FLASH_TOL[torch.float32]["grad"])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_dkv(f32[0], q32, f32[1], f32[2], lse, delta)
+        assert fa.launch_counts() == before
     else:
         got, want = fa.flash_forward(q32, *f32[:2]), fa.flash_forward_plain(q32, *f32[:2])
         _close(got[0], want[0], FLASH_TOL[torch.float32]["out"])
@@ -550,10 +586,11 @@ def _paged_case(device, b, g, r, d, ps, p_max, dtype, seed):
 
 @pytest.mark.parametrize("window", [0, 37])
 @pytest.mark.parametrize("dtype", POOL_DTYPES, ids=["f32", "bf16", "int8", "fp8"])
-@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("r", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_paged_kernel_matches_plain(device, d, r, dtype, window):
-    """Pages of 64 over a 13-page table (the serving engine's P_max at seq 784)."""
+    """Pages of 64 over a 13-page table (the serving engine's P_max at seq 784); any
+    number R of query rows per KV head (R·D up to 2048 here)."""
     q, k, v, table, t, scales = _paged_case(device, 5, 2, r, d, 64, 13, dtype, d + r)
     before = paged.launch_counts()["paged_attend"]
     out = paged.paged_attend(q, k, v, table, t, window=window, **scales)
@@ -606,8 +643,10 @@ def test_paged_kernel_refuses_what_it_does_not_take(device):
         paged.paged_attend(q, k, v, table, t.long())
     with pytest.raises(TypeError, match="pool dtypes"):
         paged.paged_attend(q, k.half(), v.half(), table, t)
-    with pytest.raises(ValueError, match="R <= 4"):
-        paged.paged_attend(torch.randn(2, 2, 8, 16, device=device), k, v, table, t)
+    q8 = torch.randn(2, 2, 8, 16, device=device)    # R = 8: taken, as the TPU kernel does
+    torch.testing.assert_close(paged.paged_attend(q8, k, v, table, t),
+                               paged.paged_attend_reference(q8, k, v, table, t, seq_len=16),
+                               **PAGED_TOL)
     with pytest.raises(ValueError, match="one CUDA device"):
         paged.paged_attend(q, k, v, table.cpu(), t)
     with pytest.raises(ValueError, match="both k_scale and v_scale"):
@@ -615,13 +654,15 @@ def test_paged_kernel_refuses_what_it_does_not_take(device):
 
 
 @pytest.mark.parametrize("cfg", [dict(), dict(num_kv_heads=2), dict(attention_window=5),
-                                 dict(rope=True)], ids=["mha", "gqa", "window", "rope"])
+                                 dict(rope=True), dict(num_heads=8, num_kv_heads=1)],
+                         ids=["mha", "gqa", "window", "rope", "mqa_r8"])
 def test_engine_paged_streams_on_the_card(device, cfg):
     """The engine on the card: the paged layout (through the kernel) against the
     contiguous layout (plain torch), greedy, through fewer slots than requests; one
-    kernel launch per layer and decode step."""
-    model = lm.TransformerLM(vocab_size=9, seq_len=16, embed_dim=32, num_layers=2,
-                             num_heads=4, **cfg)
+    kernel launch per layer and decode step. mqa_r8: 8 query heads over one KV head
+    (R = 8)."""
+    model = lm.TransformerLM(**(dict(vocab_size=9, seq_len=16, embed_dim=32, num_layers=2,
+                                     num_heads=4) | cfg))
     params = model.init(torch.Generator().manual_seed(0))
 
     def requests():

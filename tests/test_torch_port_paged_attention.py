@@ -82,10 +82,11 @@ def test_reference_matches_jax_reference(window, qdtype, rep):
 
 @pytest.mark.parametrize("window", [0, 5], ids=["full", "window"])
 @pytest.mark.parametrize("qdtype", QDTYPES, ids=QDTYPE_IDS)
-@pytest.mark.parametrize("rep", [1, 2, 4], ids=["mha", "gqa2", "gqa4"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8], ids=["mha", "gqa2", "gqa4", "gqa8"])
 def test_plain_version_matches_jax_kernel(window, qdtype, rep):
     """``paged_attend`` on CPU tensors (its plain version over the table's whole
-    ``P_max·ps`` view) against the JAX Pallas kernel in interpret mode."""
+    ``P_max·ps`` view) against the JAX Pallas kernel in interpret mode, at any number of
+    query rows per KV head (the card's kernel takes any R too)."""
     jargs, targs, jsc, tsc = _setup(1, rep=rep, qdtype=qdtype)
     want = jax_paged.paged_attend(*jargs, window=window, **jsc)
     before = paged.launch_counts()
