@@ -12,9 +12,10 @@ Phases (each raises on failure; nothing is caught):
 1. the device: ``torch.cuda.get_device_name`` and nvidia-smi's name and power limit;
 2. build ``csrc/fused_kernels.cu``, ``csrc/flash_attention.cu`` and
    ``csrc/paged_attention.cu`` with nvcc for sm_90a, one nvcc per source started together;
-   report the build seconds, ptxas's registers and spills, and the tensor-core (HMMA)
-   instructions of each flash kernel as ``cuobjdump -sass`` lists them (the bf16 kernels
-   and the f32 backward's 3xTF32 kernels must have them);
+   report the build seconds, ptxas's registers and spills (every kernel must spill 0
+   bytes), and the tensor-core (HMMA) instructions of each flash kernel as ``cuobjdump
+   -sass`` lists them (every flash kernel must have them: the bf16 kernels and the f32
+   3xTF32 kernels);
 3. each kernel against its plain version on the card, at the main path's shapes and more,
    with its time, its plain version's time, its bound and, where one PyTorch call computes
    the same function, that call's time (a yardstick only; the port never calls it); the
@@ -32,9 +33,9 @@ Phases (each raises on failure; nothing is caught):
    trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
-   f32 operands take the SIMT forward and the 3xTF32 tensor-core backward, bf16 ones the
-   bf16 tensor-core kernels (B4 and B5); the f32 bound is the tensor cores' 3xTF32 one,
-   with the CUDA cores' FFMA bound printed beside it;
+   f32 operands take the 3xTF32 tensor-core kernels, bf16 ones the bf16 tensor-core
+   kernels (B4 and B5); the f32 bound is the tensor cores' 3xTF32 one, with the CUDA
+   cores' FFMA bound printed beside it;
 8. flash against the dense core at the composed widths, S in {512, 1024, 2048}, forward and
    forward+backward: the card's own flash/dense crossover (recorded; nothing reads it);
 9. the slice's path: ``train.composed.main`` on cuda, ``--mesh data=1 --flash-attention
@@ -45,10 +46,12 @@ Phases (each raises on failure; nothing is caught):
 10. a few bf16 optimizer steps of the classifier at the ``bench_transformer.py --large``
     widths on synthetic ``[16, 2048, 16]`` tokens through the tensor-core backward, with
     the flash launch counts read around the timed steps, step ms and a profiler window;
-11. the paged-decode kernel (B6) against its plain version on the card: the serving shape
-    ``[8, 4, 1, 16]`` f32 over a 105-page pool, D = 32 bf16 GQA, int8 and fp8 codes with
-    scales, a window, ``t = 0``, and 8 query rows per KV head at D = 128; for each, max
-    |err|, kernel and plain ms, device µs per launch, its bound, and
+11. the paged-decode kernels (B6: the split kernel and the combine kernel that merges its
+    chunks) against their plain version on the card: the serving shape ``[8, 4, 1, 16]``
+    f32 over a 105-page pool, D = 32 bf16 GQA, int8 and fp8 codes with scales, a window,
+    ``t = 0``, every slot at the last position (every chunk live), slots' t spread so that
+    some chunks are empty, and 8 query rows per KV head at D = 128; for each, the split,
+    max |err|, kernel and plain ms, device µs per call (both kernels), its bound, and
     ``F.scaled_dot_product_attention`` on the gathered view (a yardstick only);
 12. the slice: ``serving.ContinuousBatchingEngine.run`` at ``tools/serve_loadgen.py``'s
     default widths (vocab 17, seq 784, embed 64, 2 layers, 4 heads, 8 slots, pages of 64,
@@ -140,6 +143,8 @@ PAGED_CASES = (                # (label, KV heads G, rows per head R, D, pool dt
     ("fp8", 2, 4, 32, "float8_e4m3fn", 0, "random"),
     ("window", 4, 1, 16, "float32", 100, "random"),
     ("t0", 4, 1, 16, "float32", 0, "zero"),
+    ("long_t", 4, 1, 16, "float32", 0, "last"),
+    ("mixed_t", 4, 1, 16, "int8", 0, "spread"),
     ("r8_d128", 2, 8, 128, "float32", 0, "random"))
 # B6 vs plain: the same f32 arithmetic on the same f32 values (pool rows read as f32 or
 # dequantised code·scale in both) with sums in another order over up to 784 positions
@@ -300,11 +305,24 @@ def main() -> None:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2] ptxas: {line.strip()}")
+    spills = {}
+    for built in builds.values():
+        entry = None
+        for line in built.log.splitlines():
+            found = re.search(r"Function properties for (\S+)", line)
+            if found:
+                entry = found.group(1)
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found and entry:
+                spills[entry] = int(found.group(1)) + int(found.group(2))
+    if any(spills.values()):
+        fail(f"kernels that spill: {[k for k, n in spills.items() if n]}")
+    print(f"[2] {len(spills)} kernels, 0 spill bytes in each")
     hmma = tensor_core_instructions(builds["flash_attention"].path)
     for kernel, count in sorted(hmma.items()):
         print(f"[2] cuobjdump -sass: {count} HMMA instructions in {kernel}")
     for kernel in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
-                   "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"):
+                   "flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"):
         for d in fa.HEAD_DIMS:
             if not any(f"{kernel}ILi{d}E" in k and n for k, n in hmma.items()):
                 fail(f"{kernel}<{d}> has no HMMA (tensor-core) instruction in its SASS")
@@ -547,11 +565,11 @@ def main() -> None:
             xs = [(x * 16).round().clamp(-64, 64) / 16 for x in xs]
         return [x.to(dtypes[dtype]) for x in xs]
 
-    # each error goes to the name of the kernel that made it: f32 the SIMT forward and the
-    # 3xTF32 backward, bf16 the bf16 tensor-core kernels
-    flash_err = {"flash_fwd": 0.0, "flash_dq_tf32": 0.0, "flash_dkv_tf32": 0.0,
+    # each error goes to the name of the kernel that made it: f32 the 3xTF32 kernels, bf16
+    # the bf16 tensor-core kernels
+    flash_err = {"flash_fwd_tf32": 0.0, "flash_dq_tf32": 0.0, "flash_dkv_tf32": 0.0,
                  "flash_fwd_mma": 0.0, "flash_dq_mma": 0.0, "flash_dkv_mma": 0.0}
-    routes = {"float32": ("flash_fwd", "flash_dq_tf32", "flash_dkv_tf32"),
+    routes = {"float32": ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32"),
               "bfloat16": ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")}
     print(f"[7] flash kernels vs plain, (atol, rtol) by dtype: {FLASH_TOL}")
     for shape, dtype, causal, window in FLASH_CASES:
@@ -611,7 +629,7 @@ def main() -> None:
                       bound=bounds["flash_dkv"], ffma_bound=ffma["flash_dkv"]),
         }
 
-    flash_ours = ("flash_fwd_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
+    flash_ours = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                   "flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
     flash_by_shape = {}
     for label, shape, dtype in (("composed", COMPOSED, "float32"),
@@ -791,11 +809,16 @@ def main() -> None:
         perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
         table = perm[:SERVE_SLOTS * p_max].reshape(SERVE_SLOTS, p_max).to(torch.int32)
         q = torch.randn(SERVE_SLOTS, g, r, d, generator=gen, device=dev)
-        t = (torch.zeros(SERVE_SLOTS, dtype=torch.int32) if t_kind == "zero" else
-             torch.randint(0, s_len, (SERVE_SLOTS,), generator=torch.Generator()
-                           .manual_seed(seed), dtype=torch.int32))
-        if t_kind != "zero":                     # the edges ride along in every case: t = 0,
-            t[0], t[1], t[2] = 0, s_len - 1, s_len   # the last position, a finished slot
+        t = torch.randint(0, s_len, (SERVE_SLOTS,), generator=torch.Generator()
+                          .manual_seed(seed), dtype=torch.int32)
+        if t_kind == "zero":
+            t.zero_()
+        elif t_kind == "last":                   # every chunk of every slot live
+            t.fill_(s_len - 1)
+        elif t_kind == "spread":                 # slots end in different chunks
+            t = torch.arange(SERVE_SLOTS, dtype=torch.int32) * (s_len // SERVE_SLOTS) + 17
+        if t_kind in ("random", "spread"):       # the edges ride along: t = 0, the last
+            t[0], t[1], t[2] = 0, s_len - 1, s_len   # position, a finished slot
         return q, k, v, table.to(dev), t.to(dev), scales
 
     def visible_rows(t, window: int) -> int:
@@ -831,8 +854,9 @@ def main() -> None:
                                                       attn_mask=mask[:, None, None, :])
 
     paged_err, paged_times = 0.0, None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[11] paged_attend vs plain (atol {PAGED_ATOL:g}, rtol {PAGED_RTOL:g}); pool "
-          f"[{n_pages}, {ps}, G, D], table [{SERVE_SLOTS}, {p_max}] [{card}]")
+          f"[{n_pages}, {ps}, G, D], table [{SERVE_SLOTS}, {p_max}]; {sms} SMs [{card}]")
     for label, g, r, d, dtype_name, window, t_kind in PAGED_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v, table, t, scales = paged_case(g, r, d, dtype, t_kind, g * 100 + r * 10 + d)
@@ -855,12 +879,17 @@ def main() -> None:
             for _ in range(20):
                 t_kernel()
             torch.cuda.synchronize()
-        per_launch = [us / n for us, n, name in device_kernel_times(prof)
-                      if "paged_attend_kernel" in name]
-        us = f"{per_launch[0]:.3f}" if per_launch else "not measured"
+        b6_us = [(re.search(r"paged_attend\w*", name).group(0), us)
+                 for us, _, name in device_kernel_times(prof) if "paged_attend" in name]
+        us = (f"{sum(u for _, u in b6_us) / 20:.3f} ("
+              + " + ".join(f"{u / 20:.3f} {n}" for n, u in b6_us) + ")"
+              if b6_us else "not measured")
+        row_blk, n_split, split_tiles = paged.split_plan(SERVE_SLOTS, g, r, d, s_len, sms)
         print(f"[11]   {label} q {list(q.shape)} {dtype_name} window={window} "
-              f"visible rows {visible_rows(t, window)}: max |err| {e:.3e}; kernel_ms "
-              f"{tm['ms']:.5f}, plain_ms {tm['plain_ms']:.5f}, device us/launch {us}, "
+              f"visible rows {visible_rows(t, window)}, grid "
+              f"{SERVE_SLOTS * g * -(-r // row_blk)} "
+              f"row blocks x {n_split} chunks of {split_tiles} tiles: max |err| {e:.3e}; "
+              f"kernel_ms {tm['ms']:.5f}, plain_ms {tm['plain_ms']:.5f}, device us/call {us}, "
               f"bound_ms {tm['bound'][0]:.3e} ({tm['bound'][1]}), {tm['bound'][0] / tm['ms']:.4f} "
               f"of the bound, sdpa_ms {tm['library_ms']:.5f} [{card}]")
         if label == "serving":
@@ -1005,8 +1034,12 @@ def main() -> None:
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_window("[12] decode window:", device_kernel_times(prof), DECODE_WINDOW, wall,
-                  ("paged_attend_kernel",), card)
+    rows_12 = device_kernel_times(prof)
+    report_window("[12] decode window:", rows_12, DECODE_WINDOW, wall,
+                  ("paged_attend_kernel", "paged_attend_combine_kernel"), card)
+    b6_us = sum(us for us, _, name in rows_12 if "paged_attend" in name)
+    print(f"[12] decode window: B6 {b6_us / (lm_model.num_layers * DECODE_WINDOW):.3f} us of "
+          f"device time per call (both kernels; {lm_model.num_layers} calls a step) [{card}]")
     del engine, plain_engine, kernel_engine
     torch.cuda.empty_cache()
 
@@ -1045,7 +1078,7 @@ def main() -> None:
 
     # -- 14. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
-                "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd": f"{TPU_ATTENTION}:479",
+                "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
                 "flash_fwd_mma": f"{TPU_ATTENTION}:479", "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
                 "paged_attend": f"{TPU_PAGED}:85"}

@@ -9,51 +9,43 @@
 // the shared-memory attribute call) so that the Python wrapper raises on a refused launch.
 // No --use_fast_math: expf/logf keep the card close to the plain PyTorch versions.
 //
-// Six kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py; each
-// has one route per operand type, chosen by the dtype alone:
+// Six kernels for the three TPU kernels of the JAX package's ops/pallas_attention.py, all
+// on the tensor cores (mma.sync); each TPU kernel has one route per operand type, chosen by
+// the dtype alone:
 //
-//   flash_fwd_kernel       replaces _fwd_kernel (online-softmax attention, out + lse), f32,
-//                          SIMT
-//   flash_dq_tf32_kernel   replaces _dq_kernel  (dq by recompute), f32, tensor cores
-//                          (mma.sync, 3xTF32)
-//   flash_dkv_tf32_kernel  replaces _dkv_kernel (dk, dv by recompute), f32, tensor cores
-//                          (mma.sync, 3xTF32)
-//   flash_fwd_mma_kernel   replaces _fwd_kernel, bf16, tensor cores (mma.sync)
-//   flash_dq_mma_kernel    replaces _dq_kernel,  bf16, tensor cores (mma.sync)
-//   flash_dkv_mma_kernel   replaces _dkv_kernel, bf16, tensor cores (mma.sync)
+//   flash_fwd_tf32_kernel  replaces _fwd_kernel (online-softmax attention, out + lse), f32,
+//                          3xTF32
+//   flash_dq_tf32_kernel   replaces _dq_kernel  (dq by recompute), f32, 3xTF32
+//   flash_dkv_tf32_kernel  replaces _dkv_kernel (dk, dv by recompute), f32, 3xTF32
+//   flash_fwd_mma_kernel   replaces _fwd_kernel, bf16
+//   flash_dq_mma_kernel    replaces _dq_kernel,  bf16
+//   flash_dkv_mma_kernel   replaces _dkv_kernel, bf16
 //
 // Operands are [B, S, H, D] tensors read through their strides (D contiguous), so the
 // q/k/v views that a fused qkv projection hands over need no copy; outputs are contiguous
 // [B, S, H, D], and lse and delta are contiguous f32 [B, H, S]. Every product is taken in
-// f32 or with f32 accumulation (a bf16 x bf16 product is exact in f32; f32 products on the
-// tensor cores are split into three TF32 products). p (forward, dk/dv) and ds (dq, dk/dv)
-// are rounded to the input type where they enter a product, where the TPU kernels narrow
-// them (pallas_attention.py:541, :711, :780, :786), so kernel and plain version round at
-// the same places; for f32 that is no rounding.
+// f32 or with f32 accumulation (a bf16 x bf16 product is exact in f32; f32 products are
+// split into three TF32 products). p (forward, dk/dv) and ds (dq, dk/dv) are rounded to
+// the input type where they enter a product, where the TPU kernels narrow them
+// (pallas_attention.py:541, :711, :780, :786), so kernel and plain version round at the
+// same places; for f32 that is no rounding.
 //
 // What bounds them: at the trainer's shapes (S = 2048, D = 16 f32; D = 128 bf16) the work
 // is 4·B·H·S²·D flops forward and 6 (dq) and 8 (dk/dv) backward against O(B·S·H·D) bytes,
 // so all of them are bound by arithmetic, not by memory: by the tensor cores' rate — bf16,
-// or TF32 taken three times for f32 (the 3xTF32 backward) — and, for the f32 forward, which
-// still runs on the CUDA cores, by their f32 rate. Every kernel keeps the S x S scores out
-// of device memory and walks only the key (or query) tiles that the causal mask and the
+// or TF32 taken three times for f32 (3xTF32). Every kernel keeps the S x S scores out of
+// device memory and walks only the key (or query) tiles that the causal mask and the
 // window leave live.
 //
-// Tiling. A block owns one (b, h) and one tile of 64 query rows (forward, dq) or 64 key
-// rows (dk/dv) and loops over the tiles of the other side inside the block: the TPU's
-// sequential grid axis becomes that loop, and each block writes only its own rows, so no
-// sum crosses blocks and no atomics are needed.
+// Tiling. A block of 4 warps owns one (b, h) and one tile of 64 query rows (forward, dq)
+// or 64 key rows (dk/dv), 16 a warp, and loops over the tiles of the other side inside the
+// block: the TPU's sequential grid axis becomes that loop, and each block writes only its
+// own rows, so no sum crosses blocks and no atomics are needed. The walked tiles are copied
+// 16 bytes at a time with cp.async and double-buffered, so the wrappers refuse operands
+// that are not 16-byte aligned.
 //
-// The SIMT forward (f32) lays the work out as a small matrix product per tile on the CUDA
-// cores: each thread owns a few rows by four score columns and a few rows by D/16 output
-// columns, so every value read from shared memory feeds several FMAs. Operand tiles sit in
-// shared memory as f32 with a padded row stride (D + 1) so that the column-strided reads
-// fall in distinct banks; D = 128 runs 256 threads so that each thread's accumulators stay
-// in registers.
-//
-// The tensor-core kernels: see the notes above flash_fwd_mma_kernel, the bf16 section and
-// the 3xTF32 section. Later work: the f32 forward on the tensor cores (3xTF32, as the
-// backward); wgmma with TMA loads and a producer warp for the bf16 kernels.
+// The designs: see the notes above flash_fwd_mma_kernel, the bf16 section and the 3xTF32
+// section. Later work: wgmma with TMA loads and a producer warp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,16 +66,6 @@ struct Operand {
   const void* ptr;
   int64_t sb, ss, sh;
 };
-
-__device__ __forceinline__ float half_warp_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // ops/attention.py's mask: causal keeps k <= q, the window keeps |q - k| < window.
 __device__ __forceinline__ bool visible(int q, int k, int causal, int window) {
@@ -127,140 +109,6 @@ __device__ __forceinline__ void live_query_tiles(int k0, int S, int causal, int 
 template <typename T>
 __device__ __forceinline__ const T* slice(const Operand& x, int b, int h) {
   return static_cast<const T*>(x.ptr) + b * x.sb + h * x.sh;
-}
-
-// Rows [row0, row0 + kTile) of one (b, h) f32 slice into a [kTile][D + 1] tile.
-template <int D, int NT>
-__device__ __forceinline__ void load_tile(float* __restrict__ tile,
-                                          const float* __restrict__ base, int64_t row_stride,
-                                          int row0) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    tile[r * LD + d] = base[static_cast<int64_t>(row0 + r) * row_stride + d];
-  }
-}
-
-// Shared memory of the f32 forward, in floats.
-template <int D> constexpr int fwd_smem_floats() { return 3 * kTile * (D + 1) + kTile * (kTile + 1); }
-
-// Replaces ops/pallas_attention.py::_fwd_kernel for f32 operands.
-// out[q] = sum_k softmax_k(q·k·scale)[k] v[k] over the visible keys, lse[q] = m + log(l),
-// by the online-softmax recurrence over the live key tiles: per tile, the tile's scores,
-// m_new = max(m, max_k s), p = exp(s - m_new) (0 where masked), corr = exp(m - m_new),
-// acc = acc·corr + p·v, l = l·corr + sum_k p. Masked scores take kMaskValue, as the TPU
-// kernel's do, and l == 0 is guarded. Each half-warp owns RPT query rows: it reduces the
-// row max and sum with shuffles, so no statistic goes through shared memory.
-template <int D, int NT>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, float scale, int causal, int window) {
-  constexpr int RPT = kTile * 16 / NT;   // query rows per thread (and per half-warp)
-  constexpr int CPT = kTile / 16;        // score columns per thread
-  constexpr int DPT = D / 16;            // output columns per thread
-  constexpr int LD = D + 1, LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sP = sV + kTile * LD;
-
-  const int lane16 = threadIdx.x & 15;
-  const int row0 = (threadIdx.x >> 4) * RPT;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const bool masked = causal || window > 0;
-
-  load_tile<D, NT>(sQ, slice<float>(q, b, h), q.ss, q0);
-  const float* kb = slice<float>(k, b, h);
-  const float* vb = slice<float>(v, b, h);
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = kMaskValue;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-
-  int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                       // the previous tile's reads are done
-    load_tile<D, NT>(sK, kb, k.ss, k0);
-    load_tile<D, NT>(sV, vb, v.ss, k0);
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = sK[(lane16 + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float qv = sQ[(row0 + i) * LD + d];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qpos = q0 + row0 + i;
-      float mb = kMaskValue;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] *= scale;
-        if (masked && !visible(qpos, k0 + lane16 + 16 * j, causal, window)) s[i][j] = kMaskValue;
-        mb = fmaxf(mb, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mb));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = lane16 + 16 * j;
-        float p = expf(s[i][j] - m_new);
-        if (masked && !visible(qpos, k0 + col, causal, window)) p = 0.f;
-        rs += p;
-        sP[(row0 + i) * LP + col] = p;
-      }
-      l[i] = l[i] * corr + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();                       // sP is whole
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float vv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) vv[c] = sV[kk * LD + lane16 + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float p = sP[(row0 + i) * LP + kk];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + row0 + i;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = out + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) orow[lane16 + 16 * c] = acc[i][c] / l_safe;
-    if (lane16 == 0) lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------------------
@@ -571,7 +419,7 @@ __device__ __forceinline__ void online_softmax(const float (&s)[8][4], float sca
 }
 
 // Replaces ops/pallas_attention.py::_fwd_kernel for bf16 operands.
-// The same online softmax as flash_fwd_kernel — per live key tile, m_new = max(m, max_k s),
+// The online softmax of the TPU kernel — per live key tile, m_new = max(m, max_k s),
 // corr = exp(m − m_new), p = exp(s·scale − m_new) (0 where masked), acc = acc·corr + p·v,
 // l = l·corr + Σ p; then out = acc / l and lse = m + log(l), with l == 0 guarded — and
 // bound, like the backward, by the tensor cores' bf16 rate (2 products of 2·D flops per
@@ -834,28 +682,34 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
 }
 
 // ---------------------------------------------------------------------------------------
-// The f32 backward on the tensor cores: 3xTF32
+// The f32 kernels on the tensor cores: 3xTF32
 // ---------------------------------------------------------------------------------------
 //
-// flash_dq_tf32_kernel replaces ops/pallas_attention.py::_dq_kernel and
-// flash_dkv_tf32_kernel replaces _dkv_kernel for f32 operands. They compute what the bf16
-// kernels compute — p = exp(q·kᵀ·scale − lse) recomputed (0 where masked),
+// flash_fwd_tf32_kernel replaces ops/pallas_attention.py::_fwd_kernel,
+// flash_dq_tf32_kernel replaces _dq_kernel and flash_dkv_tf32_kernel replaces _dkv_kernel
+// for f32 operands. They compute what the bf16 kernels compute — the online-softmax forward
+// (out and lse), and the backward's p = exp(q·kᵀ·scale − lse) recomputed (0 where masked),
 // ds = p∘(dO·vᵀ − Δ), dq = scale·Σ ds·k, dk = scale·Σ dsᵀ·q, dv = Σ pᵀ·dO — with p and ds
 // kept in f32 (the TPU kernels narrow them to the input type, f32 here). They are bound by
-// arithmetic: 6·D (dq) and 8·D (dk/dv) flops per visible pair against O(B·S·H·D) bytes.
-// The CUDA cores' f32 rate is 67 TFLOP/s; the tensor cores take TF32 (a 10-bit mantissa)
-// at 495. 3xTF32 keeps close to f32 accuracy on them at a third of that rate: each f32
-// operand x is split into the TF32 values hi = tf32(x) and lo = tf32(x − hi) (rounded
-// as cvt.rna.tf32.f32 rounds, see tf32_bits), and a·b is taken as
+// arithmetic: 4·D (forward), 6·D (dq) and 8·D (dk/dv) flops per visible pair against
+// O(B·S·H·D) bytes. The CUDA cores' f32 rate is 67 TFLOP/s; the tensor cores take TF32 (a
+// 10-bit mantissa) at 495. 3xTF32 keeps close to f32 accuracy on them at a third of that
+// rate: each f32 operand x is split into the TF32 values hi = tf32(x) and lo = tf32(x − hi)
+// (rounded as cvt.rna.tf32.f32 rounds, see tf32_bits), and a·b is taken as
 // lo_a·hi_b + hi_a·lo_b + hi_a·hi_b into one f32 accumulator, the small terms first so
 // that they are not lost behind the large one (lo·lo, ~2^-22 of a·b, is left out). The
 // design is the bf16 kernels', carried to TF32:
 //
 // - Every product is mma.sync.m16n8k8 tf32 x tf32 -> f32, three times. A block of 4 warps
-//   owns 64 rows (queries for dq, keys for dk/dv), 16 a warp, against the walked 64-row
-//   tile. dq forms S = Q·Kᵀ and dP = dO·Vᵀ, then dQ += dS·K; dk/dv forms Sᵀ = K·Qᵀ and
-//   dPᵀ = V·dOᵀ directly, so that pᵀ and dsᵀ come out in the rows of dV += Pᵀ·dO and
-//   dK += dSᵀ·Q.
+//   owns 64 rows (queries for the forward and dq, keys for dk/dv), 16 a warp, against the
+//   walked 64-row tile. The forward forms S = Q·Kᵀ, then O += P·V; dq forms S = Q·Kᵀ and
+//   dP = dO·Vᵀ, then dQ += dS·K; dk/dv forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly, so that
+//   pᵀ and dsᵀ come out in the rows of dV += Pᵀ·dO and dK += dSᵀ·Q.
+// - The forward's online softmax runs in the accumulator layout, as the bf16 forward's:
+//   the row max and sum take two shuffles within a quad, the running m and l of a
+//   thread's two rows stay in registers, and m is kept in base 2 (the max of s·scale·log2 e)
+//   so that p = exp2(s·scale·log2 e − m) and the correction exp2(m_old − m_new) are each one
+//   ex2.approx; lse = m·ln 2 + log(l) is written in base e, as the backward reads it.
 // - p and ds go from the score accumulators into the next product's A fragments in
 //   registers, split once per score. The register layouts differ: the m16n8 accumulator
 //   holds columns 2t and 2t + 1 of rows g and g + 8 (g = lane / 4, t = lane % 4), the
@@ -871,41 +725,55 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
 //   operands that are not 16-byte aligned), and the walked side is double-buffered, with
 //   one barrier a tile.
 // - Splits, at D = 16 (the composed trainer's width, where the splits cost most beside the
-//   products): each element once. A warp splits its own 16 rows (Q and dO for dq, K and V
-//   for dk/dv) and holds their hi and lo fragments in registers for the whole walk (32
+//   products): each element once. A warp splits its own 16 rows (Q for the forward, Q and
+//   dO for dq, K and V for dk/dv) and holds their hi and lo fragments in registers for the whole walk (32
 //   registers); each walked tile is split where it lands — each thread splits the chunks
 //   it copied, after its own cp.async wait and before the tile's barrier, hi in place and
 //   lo into a tile of its own — instead of by each of the 4 warps that read it. At D = 64
 //   and 128 the held fragments would take 128 and 256 registers and the lo tiles push
 //   shared memory down to one block an SM (D = 64) or past the SM (D = 128), so there
 //   both sides are split where their fragments are read.
-// - p = exp2(s·(scale·log2 e) − lse·log2 e): one FFMA and one ex2.approx, the scale and
-//   the change of base folded into the argument. The per-pair work besides the products —
-//   that, ds, and the splits of p and ds — costs as much as the products at D = 16, so
-//   each split is five instructions (tf32_bits twice and a subtraction).
+// - p = exp2(s·(scale·log2 e) − lse·log2 e) in the backward, exp2(s·(scale·log2 e) − m) in
+//   the forward: one FFMA and one ex2.approx, the scale and the change of base folded into
+//   the argument. The per-pair work besides the products — that, ds, and the splits of p
+//   and ds — costs as much as the products at D = 16, so each split is five instructions
+//   (tf32_bits twice and a subtraction).
 // - Masks cost only where they cut a tile (tile_interior), as in the bf16 kernels.
 //
-// A pass takes the scores of NJ n8 tiles of the walked tile at once (kTf32PassTiles), then
-// feeds them, tile by tile, into the second products: 32 walked rows a pass, but dk/dv,
-// which holds 2 x D/2 f32 accumulators a thread, takes 16 at D = 64 and 8 at D = 128, so
-// that it stays within 255 registers without spilling (ptxas spilled at 32 and 16 rows a
-// pass). Shared memory: f32 tiles of 64 x (D + 4), 10 at D = 16 (50 KB), 6 at D = 64 and
-// 128 (102 and 198 KB; one block an SM at D = 128).
+// A backward pass takes the scores of NJ n8 tiles of the walked tile at once
+// (kTf32PassTiles), then feeds them, tile by tile, into the second products: 32 walked rows
+// a pass, but dk/dv, which holds 2 x D/2 f32 accumulators a thread, takes 16 at D = 64 and
+// 8 at D = 128, so that it stays within 255 registers without spilling (ptxas spilled at 32
+// and 16 rows a pass). The forward takes the whole 64-key tile in one pass, as the row max
+// needs all of it: 32 scores and D/2 accumulators a thread (64 at D = 128); at D = 16 it
+// spreads P·V over 4 independent sets of accumulators (kTf32FwdAccSets), added at the
+// end, which shortens each sum's chain of dependent products and sums in a shape closer to
+// the plain version's per-tile products (flash_probe.py times it against one set and
+// prints how far the two lie apart). Shared memory:
+// f32 tiles of 64 x (D + 4); the forward 9 at D = 16 (45 KB) and 5 at D = 64 and 128 (85
+// and 165 KB); dq 10 at D = 16 (50 KB), 6 at D = 64 and 128 (102 and 198 KB; one block an
+// SM at D = 128).
 
 constexpr float kLog2e = 1.4426950408889634f;
 
 // n8 tiles of the walked tile per pass (see above).
 template <int D, bool kDkv> constexpr int kTf32PassTiles = !kDkv || D == 16 ? 4 : 128 / D;
+// Independent sets of the forward's P·V sums (see above).
+template <int D> constexpr int kTf32FwdAccSets = D == 16 ? 4 : 1;
 
 // Where the splits are made (see above): at D = 16 once — the own rows held in registers,
 // the walked tiles split in shared memory as they land, into 4 more tiles (lo parts);
 // at D = 64 and 128 where they are read.
 template <int D> constexpr bool kTf32SplitOnce = D == 16;
 
-// Shared memory: 2 own tiles, 2 stages of 2 walked tiles, and 2 stages of their lo parts
-// where the walked tiles are split as they land; dk/dv adds 2 stages of lse and Δ.
+// Shared memory: the own tiles (Q for the forward; Q and dO for dq, K and V for dk/dv),
+// 2 stages of 2 walked tiles, and 2 stages of their lo parts where the walked tiles are
+// split as they land; dk/dv adds 2 stages of lse and Δ.
+template <int D> constexpr size_t tf32_fwd_bytes() {
+  return (5 + (kTf32SplitOnce<D> ? 4 : 0)) * kTile * (D + 4) * sizeof(float);
+}
 template <int D> constexpr size_t tf32_dq_bytes() {
-  return (6 + (kTf32SplitOnce<D> ? 4 : 0)) * kTile * (D + 4) * sizeof(float);
+  return tf32_fwd_bytes<D>() + kTile * (D + 4) * sizeof(float);
 }
 template <int D> constexpr size_t tf32_dkv_bytes() {
   return tf32_dq_bytes<D>() + 4 * kTile * sizeof(float);
@@ -1064,8 +932,27 @@ struct OwnRows {
   }
 };
 
-// A pass's first products for one warp: x = A·Wᵀ and y = C·Vᵀ over the D columns, for the
-// NJ n8 tiles of walked rows c0 .. c0 + 8·NJ − 1; A and C are the warp's own rows.
+// One warp's scores x = A·Wᵀ over the D columns, for the 8 n8 tiles of a walked tile;
+// A is the warp's own rows (the forward's S = Q·Kᵀ).
+template <int D, bool kHeld, bool kPresplit>
+__device__ __forceinline__ void tf32_score_tile(const OwnRows<D, kHeld>& A,
+                                                const WalkedTile<D, kPresplit>& W, int g,
+                                                int t, float (&x)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA a = A.frag(kk, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_3xtf32(x[j], a, W.rows(8 * j, kk, g, t));
+  }
+}
+
+// A backward pass's first products for one warp: x = A·Wᵀ and y = C·Vᵀ over the D
+// columns, for the NJ n8 tiles of walked rows c0 .. c0 + 8·NJ − 1; A and C are the warp's
+// own rows.
 template <int D, int NJ, bool kHeld, bool kPresplit>
 __device__ __forceinline__ void tf32_scores(const OwnRows<D, kHeld>& A,
                                             const OwnRows<D, kHeld>& C,
@@ -1099,6 +986,151 @@ __device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[D 
   for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(acc[j][0] * mult, acc[j][1] * mult);
     *reinterpret_cast<float2*>(r8 + 8 * j) = make_float2(acc[j][2] * mult, acc[j][3] * mult);
+  }
+}
+
+// Replaces ops/pallas_attention.py::_fwd_kernel for f32 operands (design note above).
+// Per live key tile: S = Q·Kᵀ in 3xTF32, m_new = max(m, max_k s·scale·log2 e) (base 2),
+// corr = exp2(m − m_new), p = exp2(s·scale·log2 e − m_new) (0 where masked),
+// acc = acc·corr + P·V in 3xTF32, l = l·corr + Σ p; then out = acc / l and
+// lse = m·ln 2 + log(l), with l == 0 guarded. Shared memory: Q, then two stages of K and V
+// (and of their lo parts at D = 16).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
+                      float* __restrict__ lse, int S, int H, float scale, int causal,
+                      int window) {
+  constexpr int TILE = kTile * (D + 4), SETS = kTf32FwdAccSets<D>;
+  constexpr bool kOnce = kTf32SplitOnce<D>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  float* sQ = reinterpret_cast<float*>(mma_smem);
+  float* sK = sQ + TILE;
+  float* sV = sK + 2 * TILE;
+  float* sKlo = sV + 2 * TILE;              // kOnce: the lo parts of sK and sV
+  float* sVlo = sKlo + 2 * TILE;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const float* kb = slice<float>(k, b, h);
+  const float* vb = slice<float>(v, b, h);
+  int kt_lo, kt_hi;
+  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+
+  cp_tile<D>(sQ, slice<float>(q, b, h), q.ss, q0);
+  if (kt_lo < kt_hi) {
+    cp_tile<D>(sK, kb, k.ss, kt_lo * kTile);
+    cp_tile<D>(sV, vb, v.ss, kt_lo * kTile);
+  }
+  cp_async_commit();
+
+  const int row = q0 + 16 * warp + g;       // this thread's rows: row and row + 8
+  const float scale2 = scale * kLog2e;
+  // P·V's sums: SETS independent sets, n8 key tile j into set j % SETS, added at the end
+  float acc[SETS][D / 8][4], m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < SETS; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  const OwnRows<D, kOnce> oq(sQ, 16 * warp, g, t);
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    if constexpr (kOnce) {        // split tile kt where this thread's copies landed
+      split_tile<D>(sK + stage * TILE, sKlo + stage * TILE);
+      split_tile<D>(sV + stage * TILE, sVlo + stage * TILE);
+    }
+    __syncthreads();              // tile kt is in, and every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) {         // ... whose buffers now take tile kt + 1
+      cp_tile<D>(sK + (stage ^ 1) * TILE, kb, k.ss, (kt + 1) * kTile);
+      cp_tile<D>(sV + (stage ^ 1) * TILE, vb, v.ss, (kt + 1) * kTile);
+      cp_async_commit();
+    }
+    const WalkedTile<D, kOnce> tK{sK + stage * TILE, sKlo + stage * TILE};
+    const WalkedTile<D, kOnce> tV{sV + stage * TILE, sVlo + stage * TILE};
+    const int k0 = kt * kTile;
+    const auto tile_step = [&](auto masked) {
+      const auto vis = [&](int e, int j) {
+        if constexpr (decltype(masked)::value)
+          return visible(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), causal, window);
+        else
+          return true;
+      };
+      float s[8][4], mx[2] = {kMaskValue, kMaskValue};
+      tf32_score_tile<D>(oq, tK, g, t, s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (vis(e, j)) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r] * scale2);   // scale2 > 0: the max of s·scale2
+        corr[r] = exp2_approx(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < SETS; ++i)
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[i][j][0] *= corr[0];
+          acc[i][j][1] *= corr[0];
+          acc[i][j][2] *= corr[1];
+          acc[i][j][3] *= corr[1];
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = vis(e, j) ? exp2_approx(fmaf(s[j][e], scale2, -m_new[e >> 1])) : 0.f;
+          sum[e >> 1] += p[e];
+        }
+        const FragA pa = frag_from_scores(p);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          mma_3xtf32(acc[j % SETS][n], pa, tV.cols(8 * j, 8 * n, g, t));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+        m[r] = m_new[r];
+      }
+    };
+    if (tile_interior(q0, k0, causal, window))
+      tile_step(std::false_type{});
+    else
+      tile_step(std::true_type{});
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int i = 1; i < SETS; ++i) acc[0][j][e] += acc[i][j][e];
+      acc[0][j][e] /= l_safe[e >> 1];   // IEEE division, as the plain version's acc / l
+    }
+  }
+  store_rows_f32<D>(out, acc[0], b, row, S, H, h, t, 1.f);
+  if (t == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lse_row = lse + (static_cast<int64_t>(b) * H + h) * S + row;
+    lse_row[0] = m[0] * kLn2 + logf(l_safe[0]);
+    lse_row[8] = m[1] * kLn2 + logf(l_safe[1]);
   }
 }
 
@@ -1314,8 +1346,6 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
 // Launches
 // ---------------------------------------------------------------------------------------
 
-template <int D> constexpr int threads() { return D == 128 ? 256 : 128; }
-
 struct Shape {
   int B, S, H;
   float scale;
@@ -1337,8 +1367,7 @@ cudaError_t start(void (*kernel)(Params...), int block, size_t bytes, const Shap
   return cudaGetLastError();
 }
 
-// The forward: bf16 operands take the tensor-core kernel, f32 ones the SIMT kernel. The
-// backward: bf16 operands take the bf16 tensor-core kernels, f32 ones the 3xTF32 ones.
+// bf16 operands take the bf16 tensor-core kernels, f32 ones the 3xTF32 ones.
 template <typename T, int D>
 cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, Shape s,
                        cudaStream_t stream) {
@@ -1346,9 +1375,8 @@ cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, S
     return start(flash_fwd_mma_kernel<D>, kMmaThreads, 5 * mma_tile_bytes<D>(), s, stream, q,
                  k, v, static_cast<bf16*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
   else
-    return start(flash_fwd_kernel<D, threads<D>()>, threads<D>(),
-                 fwd_smem_floats<D>() * sizeof(float), s, stream, q, k, v,
-                 static_cast<float*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
+    return start(flash_fwd_tf32_kernel<D>, kMmaThreads, tf32_fwd_bytes<D>(), s, stream, q, k,
+                 v, static_cast<float*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
 }
 
 template <typename T, int D>

@@ -56,9 +56,10 @@ SIGNATURES = {
     },
     "paged_attention": {
         # dtype, q, k_pool, v_pool, k_scale, v_scale (null without scales), table, t, out,
-        # B, G, R, D, page_size, P_max, seq_len, window, scale, stream
-        "paged_attend": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        # workspace (null without a split), B, G, R, D, page_size, P_max, seq_len, window,
+        # rows_per_block, n_split, scale, stream
+        "paged_attend": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
 }
 

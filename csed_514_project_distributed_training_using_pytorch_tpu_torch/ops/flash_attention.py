@@ -22,14 +22,15 @@ raises. Each launch adds one to its counter (``flash_fwd_launches``, ``flash_dq_
 ``flash_dkv_launches``), so a run can show that it went through the kernels.
 
 Forward and backward each have two routes, chosen by the operands' dtype alone and counted
-alike. float32 operands launch the SIMT forward (``flash_fwd_kernel``) and the tensor-core
-backward in 3xTF32 (``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``: each f32 product
-as three TF32 products, hi·hi + hi·lo + lo·hi, close to f32 accuracy); bfloat16 operands
-launch the tensor-core kernels ``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel`` and
-``flash_dkv_mma_kernel``. The tensor-core kernels copy their tiles 16 bytes at a time, so
-their wrappers (the bf16 forward, and the backward in either dtype) raise on an operand
-whose data pointer or (b, s, h) stride is not 16-byte aligned; such an operand is neither
-copied nor sent to another kernel.
+alike, all on the tensor cores. float32 operands launch the 3xTF32 kernels
+(``flash_fwd_tf32_kernel``, ``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``: each f32
+product as three TF32 products, hi·hi + hi·lo + lo·hi, close to f32 accuracy); bfloat16
+operands launch ``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel`` and
+``flash_dkv_mma_kernel``. The kernels copy their tiles 16 bytes at a time, so every wrapper
+raises on an operand whose data pointer or (b, s, h) stride is not 16-byte aligned; such an
+operand is neither copied nor sent to another kernel. The views of a fused
+``[B, S, 3, H, D]`` projection (``models/transformer.py``) lie at offsets of H·D elements
+with strides of multiples of D, so at the head widths the kernels take they are aligned.
 
 The plain versions walk the keys in the kernels' tiles of ``KV_TILE`` with the same
 recurrence, masks and roundings (p and ds narrowed to the input type at the products), so
@@ -196,13 +197,14 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = False, window: int = 0):
     """``q, k, v: [B, S, H, D]`` -> ``(out [B, S, H, D] in q's dtype, lse f32 [B, H, S])``:
-    one launch of the forward kernel (the tensor-core one for bf16 operands)."""
+    one launch of the forward kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on
+    the tensor cores). Raises on operands that are not 16-byte aligned, which the main
+    path's q, k, v views of the fused qkv projection are."""
     global flash_fwd_launches
     if _on_cpu(q, k, v):
         return flash_forward_plain(q, k, v, causal=causal, window=window)
     dev = _check_operands("flash_fwd", q=q, k=k, v=v)
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash_fwd", q=q, k=k, v=v)
+    _check_aligned("flash_fwd", q=q, k=k, v=v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)

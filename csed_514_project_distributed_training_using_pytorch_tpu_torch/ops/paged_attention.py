@@ -9,8 +9,14 @@ built by ``ops/_build.py``) and, beside it, the plain PyTorch version of the sam
   and softmax structure of ``models.lm.decode_step_slots``). The plain version and the
   numerics oracle;
 - ``paged_attend``: the kernel entry. CPU tensors take ``paged_attend_reference``; CUDA
-  tensors launch the kernel or raise. Nothing falls back. Each launch adds one to
+  tensors launch the kernel or raise. Nothing falls back. Each call adds one to
   ``paged_attend_launches``, so a run can show that it went through the kernel.
+
+On the card each slot's positions are split over several blocks (flash-decoding): the
+call launches ``paged_attend_kernel`` on ``split_plan``'s grid and, when it splits,
+``paged_attend_combine_kernel``, which merges the chunks' partial softmaxes from a
+workspace this wrapper allocates. The plan depends on the shapes and the card's SM count
+alone, never on ``t``, so a call makes no device-to-host sync.
 
 Layouts (the TPU kernel's): ``q [B, G, R, D]`` (query heads grouped by their shared KV
 head; ``R == 1`` is plain MHA), pools ``[num_pages, page_size, G, D]`` with optional f32
@@ -27,6 +33,9 @@ always f32 ``[B, G, R, D]``; a slot with no visible position gets zeros.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -37,6 +46,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
            torch.float8_e4m3fn: 3}   # pool dtype codes of the C interface
+
+TILE = 64                  # positions per tile of the kernel (kTile in the source)
+MAX_BLOCK_FLOATS = 512     # query rows x D a block of 128 threads owns: one float4 a thread
+SPLIT_BLOCKS_PER_SM = 4    # blocks the split aims for on each SM
 
 paged_attend_launches = 0
 
@@ -98,6 +111,30 @@ def paged_attend_reference(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     return decode_attention(q, k_read, v_read, t, window=window)
 
 
+def split_plan(b: int, g: int, r: int, d: int, seq_len: int,
+               sm_count: int) -> tuple[int, int, int]:
+    """The kernel's grid for ``q [b, g, r, d]`` over a ``seq_len``-position view on a card
+    of ``sm_count`` SMs: ``(rows_per_block, n_split, split_tiles)``. A block takes up to
+    ``rows_per_block`` query rows of one (slot, KV head) (``rows·d <= MAX_BLOCK_FLOATS``,
+    at most 32) and one chunk of ``split_tiles`` tiles of ``TILE`` positions; each slot's
+    view is cut into ``n_split`` chunks, enough for about ``SPLIT_BLOCKS_PER_SM`` blocks an
+    SM, or 1 when the row blocks alone fill the card; no chunk lies wholly past the view.
+    ``split_tiles`` is ``ceil(tiles / n_split)``, as the kernel's entry point computes it.
+    Shapes only: never ``t``."""
+    rows = max(1, min(r, 32, MAX_BLOCK_FLOATS // d))
+    blocks = b * g * math.ceil(r / rows)
+    tiles = math.ceil(seq_len / TILE)
+    want = 1 if blocks >= sm_count else min(
+        tiles, math.ceil(SPLIT_BLOCKS_PER_SM * sm_count / blocks))
+    n_split = math.ceil(tiles / math.ceil(tiles / want))
+    return rows, n_split, math.ceil(tiles / n_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _view_len(table: torch.Tensor, k_pool: torch.Tensor, seq_len: int | None) -> int:
     """The positions a slot's view holds: ``seq_len``, or the table's ``P_max · ps``."""
     full = table.shape[1] * k_pool.shape[1]
@@ -127,6 +164,9 @@ def _check(q, k_pool, v_pool, table, t, k_scale, v_scale) -> torch.device:
     if q.dim() != 4:
         raise ValueError(f"paged_attend: expected q [B, G, R, D], got {tuple(q.shape)}")
     b, g, _, d = q.shape
+    if d % 4:
+        raise ValueError(f"paged_attend: head dim {d} is not a multiple of 4 (the kernel "
+                         f"moves float4s)")
     if k_pool.dim() != 4 or k_pool.shape[2:] != (g, d) or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged_attend: pools must be [num_pages, page_size, {g}, {d}], "
                          f"got {tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
@@ -156,8 +196,9 @@ def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     ``seq_len`` positions (default ``P_max · page_size``; the engine passes the model's
     ``seq_len``, so the view has the contiguous cache's shape). On CUDA tensors, one
     launch of the kernel, which walks only slot ``b``'s visible positions (inside the
-    window, up to ``min(t[b], seq_len - 1)``) without materialising the gathered view.
-    On CPU tensors, the plain version."""
+    window, up to ``min(t[b], seq_len - 1)``) without materialising the gathered view,
+    split over ``split_plan``'s blocks and merged by the combine kernel (the call counts
+    once). On CPU tensors, the plain version."""
     global paged_attend_launches
     seq_len = _view_len(table, k_pool, seq_len)
     tensors = [x for x in (q, k_pool, v_pool, table, t, k_scale, v_scale) if x is not None]
@@ -170,11 +211,16 @@ def paged_attend(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     out = torch.empty((b, g, r, d), dtype=torch.float32, device=dev)
     if b == 0:
         return out
+    rows, n_split, _ = split_plan(b, g, r, d, seq_len, _sm_count(dev.index))
+    workspace = (torch.empty(n_split * b * g * r * (d + 2), dtype=torch.float32, device=dev)
+                 if n_split > 1 else None)
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None
               else (None, None))
     _build.launch("paged_attention", "paged_attend", dev, "paged_attend",
                   _DTYPES[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                  *scales, table.data_ptr(), t.data_ptr(), out.data_ptr(), b, g, r, d,
-                  k_pool.shape[1], table.shape[1], seq_len, int(window), attention_scale(d))
+                  *scales, table.data_ptr(), t.data_ptr(), out.data_ptr(),
+                  None if workspace is None else workspace.data_ptr(), b, g, r, d,
+                  k_pool.shape[1], table.shape[1], seq_len, int(window), rows, n_split,
+                  attention_scale(d))
     paged_attend_launches += 1
     return out

@@ -5,9 +5,10 @@ and with one change at a time, then times
 1. the bf16 forward (``flash_fwd_mma_kernel``) of each at the ``bench_transformer.py
    --large`` shape ``[16, 2048, 8, 128]``, full and causal, beside
    ``F.scaled_dot_product_attention``;
-2. the f32 backward (``flash_dq_tf32_kernel``, ``flash_dkv_tf32_kernel``) of each at the
-   composed trainer's shape ``[64, 2048, 4, 16]``, in turns, with each build's SASS
-   instruction count for the D = 16 kernels and its results against the build as it is.
+2. the f32 forward and backward (``flash_fwd_tf32_kernel``, ``flash_dq_tf32_kernel``,
+   ``flash_dkv_tf32_kernel``) of each at the composed trainer's shape ``[64, 2048, 4, 16]``,
+   in turns, with each build's SASS instruction count for the D = 16 kernels and its
+   results against the build as it is.
 
     python3 flash_probe.py
 
@@ -15,10 +16,12 @@ The changes are diagnostics, never shipped: ``fast_exp`` takes ``__expf`` for th
 softmax's exponential (fewer instructions, other roundings), so the gap to the kernel as
 built is what the precise ``expf`` costs; ``split_where_read`` splits every f32 operand
 into TF32 hi and lo where its fragment is read (as at D = 64 and 128) instead of once
-(the own rows held in registers, the walked tiles split as they land), and ``cvt_rna``
-rounds to TF32 with ``cvt.rna.tf32.f32`` instead of on the bits (the same values), so the
-gaps to the kernels as built are what each saves. Each build's ptxas registers and spills
-are printed. The builds go to ``results/flash_probe/``; needs one CUDA device and nvcc.
+(the own rows held in registers, the walked tiles split as they land), ``cvt_rna``
+rounds to TF32 with ``cvt.rna.tf32.f32`` instead of on the bits (the same values), and
+``one_acc_set`` sums the f32 forward's P·V at D = 16 into one set of accumulators instead
+of 4 (other sums: its forward is compared by its largest difference, not bit for bit), so
+the gaps to the kernels as built are what each saves. Each build's ptxas registers and
+spills are printed. The builds go to ``results/flash_probe/``; needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ ONCE = "template <int D> constexpr bool kTf32SplitOnce = D == 16;"
 BITS = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 CVT = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
        "  return r;")
+SETS = "template <int D> constexpr int kTf32FwdAccSets = D == 16 ? 4 : 1;"
 
 
 def main() -> None:
@@ -53,12 +57,13 @@ def main() -> None:
     )
 
     source = (_build.CSRC / "flash_attention.cu").read_text()
-    if not all(anchor in source for anchor in (EXPF, ONCE, BITS)):
+    if not all(anchor in source for anchor in (EXPF, ONCE, BITS, SETS)):
         sys.exit("flash_probe: a line the probe changes is not where it expects it")
     variants = {"as_built": source,
                 "fast_exp": source.replace(EXPF, EXPF.replace("expf", "__expf")),
                 "split_where_read": source.replace(ONCE, ONCE.replace("D == 16", "false")),
-                "cvt_rna": source.replace(BITS, CVT)}
+                "cvt_rna": source.replace(BITS, CVT),
+                "one_acc_set": source.replace(SETS, SETS.replace("D == 16 ? 4 : 1", "1"))}
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variants.items():
@@ -71,8 +76,8 @@ def main() -> None:
         lines = proc.communicate()[0].splitlines()
         if proc.returncode:
             sys.exit(f"flash_probe: nvcc failed for {name}:\n" + "\n".join(lines[-40:]))
-        for kernel in ("flash_fwd_mma_kernelILi128", "flash_dq_tf32_kernelILi16",
-                       "flash_dkv_tf32_kernelILi16"):
+        for kernel in ("flash_fwd_mma_kernelILi128", "flash_fwd_tf32_kernelILi16",
+                       "flash_dq_tf32_kernelILi16", "flash_dkv_tf32_kernelILi16"):
             at = next(i for i, line in enumerate(lines)
                       if "Compiling entry" in line and kernel in line)
             print(f"{name}: {kernel}: "
@@ -120,14 +125,15 @@ def main() -> None:
                   f"{timed_ms(lambda: fwd(*args)):.5f} ms; SDPA {sdpa:.5f} ms [{card}]")
     del q, k, v
 
-    # 2. the f32 backward at the composed shape: the SASS of its D = 16 kernels, then each
-    # build in turns, its results against the build as it is
+    # 2. the f32 kernels at the composed shape: the SASS of their D = 16 instances, then
+    # each build in turns, its results against the build as it is
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    f32_builds = ("as_built", "split_where_read", "cvt_rna")
+    f32_builds = ("as_built", "split_where_read", "cvt_rna", "one_acc_set")
     for name in f32_builds:
         sass = subprocess.run([str(tool), "-sass", str(OUT / f"{name}.so")],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        for kernel in ("flash_dq_tf32_kernelILi16", "flash_dkv_tf32_kernelILi16"):
+        for kernel in ("flash_fwd_tf32_kernelILi16", "flash_dq_tf32_kernelILi16",
+                       "flash_dkv_tf32_kernelILi16"):
             body = sass.split(kernel, 1)[1].split("Function :", 1)[0]
             ops = [m.group(1) for m in re.finditer(
                 r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)]
@@ -142,28 +148,36 @@ def main() -> None:
               fa._strides(v), do.data_ptr(), fa._strides(do), lse.data_ptr(),
               delta.data_ptr())
     shape_args = (b, s, h, d, 1.0 / math.sqrt(d), 0, 0, stream)
+    fwd_args = (0, q.data_ptr(), fa._strides(q), k.data_ptr(), fa._strides(k), v.data_ptr(),
+                fa._strides(v))
     results, times = {}, {name: [] for name in f32_builds}
     for name in f32_builds + f32_builds[::-1]:
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         calls = {}
-        for entry in ("flash_dq", "flash_dkv"):
+        for entry in ("flash_fwd", "flash_dq", "flash_dkv"):
             fn = getattr(lib, entry)
             fn.argtypes = list(_build.SIGNATURES["flash_attention"][entry])
             fn.restype = ctypes.c_int
             calls[entry] = fn
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        run_dq = lambda: calls["flash_dq"](*common, dq.data_ptr(), *shape_args)
-        run_dkv = lambda: calls["flash_dkv"](*common, dk.data_ptr(), dv.data_ptr(), *shape_args)
-        if run_dq() or run_dkv():
+        o, l_, dq, dk, dv = (torch.empty_like(x) for x in (q, lse, q, q, q))
+        runs = (lambda: calls["flash_fwd"](*fwd_args, o.data_ptr(), l_.data_ptr(), *shape_args),
+                lambda: calls["flash_dq"](*common, dq.data_ptr(), *shape_args),
+                lambda: calls["flash_dkv"](*common, dk.data_ptr(), dv.data_ptr(), *shape_args))
+        if any(run() for run in runs):
             sys.exit(f"flash_probe: {name} did not launch")
-        times[name].append((timed_ms(run_dq), timed_ms(run_dkv)))
-        results[name] = (dq, dk, dv)
+        times[name].append(tuple(timed_ms(run) for run in runs))
+        results[name] = (o, l_, dq, dk, dv)
     for name in f32_builds:
-        same = all(torch.equal(x, y) for x, y in zip(results[name], results["as_built"]))
-        print(f"{name}: {list(COMPOSED)} f32 backward: dq "
-              f"{', '.join(f'{t[0]:.5f}' for t in times[name])} ms, dk/dv "
-              f"{', '.join(f'{t[1]:.5f}' for t in times[name])} ms; results equal to "
-              f"as_built's: {same} [{card}]")
+        fwd, bwd = results[name][:2], results[name][2:]
+        same = [all(torch.equal(x, y) for x, y in zip(got, want))
+                for got, want in ((fwd, results["as_built"][:2]), (bwd, results["as_built"][2:]))]
+        apart = (fwd[0] - results["as_built"][0]).abs().max().item()
+        print(f"{name}: {list(COMPOSED)} f32: forward "
+              + ", ".join(f"{t[0]:.5f}" for t in times[name]) + " ms, dq "
+              + ", ".join(f"{t[1]:.5f}" for t in times[name]) + " ms, dk/dv "
+              + ", ".join(f"{t[2]:.5f}" for t in times[name])
+              + f" ms; equal to as_built's: forward {same[0]} (out at most {apart:.3e} apart),"
+              f" backward {same[1]} [{card}]")
 
 
 if __name__ == "__main__":

@@ -269,6 +269,55 @@ def test_3xtf32_backward_meets_the_card_tolerance(shape, causal, window):
                                    err_msg=name)
 
 
+def _forward_3xtf32(q, k, v, *, causal, window):
+    """The plain forward (``flash_attention.flash_forward_plain``, f32) as the card's
+    ``flash_fwd_tf32_kernel`` computes it: per key tile of ``KV_TILE``, S = Q·Kᵀ and P·V in
+    emulated 3xTF32, the running max m kept in base 2 (the max of s·scale·log2 e over the
+    visible keys), p = exp2(s·scale·log2 e − m) and corr = exp2(m_old − m_new); then
+    out = acc / l and lse = m·ln 2 + log(l), with l == 0 guarded."""
+    b, s, h, d = q.shape
+    scale2 = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(1.4426950408889634))
+    qf, kf, vf = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    m = torch.full((b, h, s, 1), fa.MASK_VALUE, dtype=torch.float32)
+    l = torch.zeros((b, h, s, 1), dtype=torch.float32)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32)
+    for k0 in range(0, s, fa.KV_TILE):
+        kt, vt = kf[:, :, k0:k0 + fa.KV_TILE], vf[:, :, k0:k0 + fa.KV_TILE]
+        sc = _mm_3xtf32(qf, kt.transpose(-1, -2))
+        vis = attention.visibility_mask(s, kt.shape[2], causal=causal, window=window,
+                                        k_offset=k0)
+        mx = torch.where(vis, sc, fa.MASK_VALUE).amax(dim=-1, keepdim=True)
+        m_new = torch.maximum(m, mx * scale2)
+        corr = torch.exp2(m - m_new)
+        p = torch.where(vis, torch.exp2(sc * scale2 - m_new), 0.0)
+        acc = acc * corr + _mm_3xtf32(p, vt)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l_safe).permute(0, 2, 1, 3)
+    return out, (m * np.float32(np.log(2.0)) + torch.log(l_safe)).squeeze(-1)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 16), (1, 128, 1, 128)], ids=["d16", "d128"])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (False, 100), (True, 100)],
+                         ids=MASK_IDS)
+def test_3xtf32_forward_meets_the_card_tolerance(shape, causal, window):
+    """The f32 forward in emulated 3xTF32 with base-2 softmax statistics (the scheme of the
+    card's f32 forward kernel) stays within the card's f32 tolerances — out (atol 2e-5,
+    rtol 1e-5), lse (atol 1e-4, rtol 1e-4) — of the FFMA plain version and of the JAX
+    ``_fwd_kernel`` in interpret mode."""
+    b, s, h, d = shape
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays(shape, 3, 3 * d + window))
+    j_out, j_lse = jax_pa.flash_forward_with_lse(_packed(jq), _packed(jk), _packed(jv),
+                                                 causal=causal, window=window)
+    want_out, want_lse = fa.flash_forward_plain(tq, tk, tv, causal=causal, window=window)
+    got_out, got_lse = _forward_3xtf32(tq, tk, tv, causal=causal, window=window)
+    for want in (_np(want_out), _unpacked(j_out, b, h)):
+        np.testing.assert_allclose(_np(got_out), want, atol=2e-5, rtol=1e-5)
+    for want in (_np(want_lse), np.asarray(j_lse).reshape(b, h, s)):
+        np.testing.assert_allclose(_np(got_lse), want, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("s", [16, 128, 1920, 2048, 2049, 4096])
 def test_dispatch_predicate_matches_jax(s):
     assert fa.dispatch_uses_flash(s) == jax_pa.dispatch_uses_flash(s)

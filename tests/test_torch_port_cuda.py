@@ -207,9 +207,9 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
-    """Every kernel against its plain version: f32 operands take the SIMT forward and the
-    3xTF32 tensor-core backward, bf16 the bf16 tensor-core kernels, on operands of the
-    exact grid; S = 64 is a single tile."""
+    """Every kernel against its plain version: f32 operands take the 3xTF32 tensor-core
+    forward and backward, bf16 the bf16 tensor-core kernels, on operands of the exact grid;
+    S = 64 is a single tile."""
     q, k, v, do = _qkvd(device, 2, s, 2, d, dtype, s + d + window,
                         exact=dtype == torch.bfloat16)
     tol = FLASH_TOL[dtype]
@@ -369,6 +369,33 @@ def test_flash_bf16_backward_differs_from_plain_only_at_rounding_ties(device, d,
 
 @pytest.mark.parametrize("d", [16, 128])
 @pytest.mark.parametrize("causal,window", [(False, 0), (True, 160)])
+def test_flash_f32_forward_against_f64(device, d, causal, window):
+    """The 3xTF32 forward on randn f32 operands at S = 2048 (D = 16 is the composed
+    trainer's width) against an f64 forward from the same operands: out within
+    (2e-5, 1e-5) and lse within (1e-4, 1e-4) of it, as the FFMA plain version is. Prints
+    each one's max and mean |err| against f64 (run with -s or -rP)."""
+    s = 2048
+    q, k, v, _ = _qkvd(device, 2, s, 2, d, torch.float32, 5 * d + window)
+    got = fa.flash_forward(q, k, v, causal=causal, window=window)
+    plain = fa.flash_forward_plain(q, k, v, causal=causal, window=window)
+    vis = attention.visibility_mask(s, s, causal=causal, window=window, device=device)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32).item()
+    qf, kf, vf = (x.double().permute(0, 2, 1, 3) for x in (q, k, v))
+    scores = torch.where(vis, (qf @ kf.transpose(-1, -2)) * scale, -math.inf)
+    exact = ((torch.softmax(scores, dim=-1) @ vf).permute(0, 2, 1, 3),
+             torch.logsumexp(scores, dim=-1))
+    for i, name in enumerate(("out", "lse")):
+        errs = [(x[i].double() - exact[i]).abs() for x in (got, plain)]
+        print(f"{name} d={d} causal={causal} window={window} against the f64 forward: "
+              f"max |err| kernel {errs[0].max().item():.4g}, plain {errs[1].max().item():.4g}; "
+              f"mean |err| kernel {errs[0].mean().item():.4g}, plain "
+              f"{errs[1].mean().item():.4g}")
+        _close(got[i], exact[i], FLASH_TOL[torch.float32][name])
+        _close(plain[i], exact[i], FLASH_TOL[torch.float32][name])
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 160)])
 def test_flash_f32_backward_against_f64(device, d, causal, window):
     """The 3xTF32 backward on randn f32 operands at S = 2048 (D = 16 is the composed
     trainer's width) against an f64 backward from the same operands, lse and Δ: within the
@@ -439,9 +466,8 @@ def test_flash_kernels_read_strided_qkv_views(device, dtype):
 @pytest.mark.parametrize("route", ["backward", "forward"])
 def test_flash_backward_bf16_refuses_misaligned_operands(device, route):
     """An operand one element off 16-byte alignment (a view cut from a flat buffer at
-    offset 1) raises in the wrappers of the tensor-core kernels — both backward ones, in
-    bf16 and in f32 (3xTF32), or the bf16 forward — launching nothing; in f32 the same view
-    takes the SIMT forward, which reads any alignment."""
+    offset 1) raises in the wrappers of the tensor-core kernels — both backward ones, or
+    the forward, in bf16 and in f32 (3xTF32) — launching nothing."""
     b, s, h, d = 1, 128, 2, 64
     q, k, v, do = _qkvd(device, b, s, h, d, torch.bfloat16, 5)
     out, lse = fa.flash_forward_plain(q, k, v)
@@ -463,16 +489,17 @@ def test_flash_backward_bf16_refuses_misaligned_operands(device, route):
     assert fa.launch_counts() == before
     q32 = flat.float()[1:].view(b, s, h, d)
     f32 = [x.float() for x in (k, v, do)]
-    if route == "backward":
-        with pytest.raises(ValueError, match="16-byte aligned"):
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if route == "backward":
             fa.flash_dq(q32, *f32[:2], f32[2], lse, delta)
-        with pytest.raises(ValueError, match="16-byte aligned"):
+        else:
+            fa.flash_forward(q32, *f32[:2])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if route == "backward":
             fa.flash_dkv(f32[0], q32, f32[1], f32[2], lse, delta)
-        assert fa.launch_counts() == before
-    else:
-        got, want = fa.flash_forward(q32, *f32[:2]), fa.flash_forward_plain(q32, *f32[:2])
-        _close(got[0], want[0], FLASH_TOL[torch.float32]["out"])
-        _close(got[1], want[1], FLASH_TOL[torch.float32]["lse"])
+        else:
+            fa.flash_forward(f32[0], f32[1], q32, causal=True)
+    assert fa.launch_counts() == before
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -587,10 +614,12 @@ def _paged_case(device, b, g, r, d, ps, p_max, dtype, seed):
 @pytest.mark.parametrize("window", [0, 37])
 @pytest.mark.parametrize("dtype", POOL_DTYPES, ids=["f32", "bf16", "int8", "fp8"])
 @pytest.mark.parametrize("r", [1, 2, 4, 8, 16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [4, 8, 16, 32, 64, 128])
 def test_paged_kernel_matches_plain(device, d, r, dtype, window):
     """Pages of 64 over a 13-page table (the serving engine's P_max at seq 784); any
-    number R of query rows per KV head (R·D up to 2048 here)."""
+    number R of query rows per KV head (R·D up to 2048 here, cut into row blocks of
+    512 / D). Rows of 16-byte multiples take the kernel's 16-byte copies, narrower ones
+    (int8 and fp8 at D = 4 and 8, bf16 at D = 4) its element copies."""
     q, k, v, table, t, scales = _paged_case(device, 5, 2, r, d, 64, 13, dtype, d + r)
     before = paged.launch_counts()["paged_attend"]
     out = paged.paged_attend(q, k, v, table, t, window=window, **scales)
@@ -635,6 +664,44 @@ def test_paged_kernel_clips_at_seq_len(device):
     assert torch.equal(paged.paged_attend(q, k2, v2, table, t, seq_len=784), out)
 
 
+@pytest.mark.parametrize("t_kind", ["long", "mixed"])
+@pytest.mark.parametrize("dtype", POOL_DTYPES, ids=["f32", "bf16", "int8", "fp8"])
+def test_paged_kernel_long_and_mixed_t(device, t_kind, dtype):
+    """The serving shape [8, 4, 1, 16] over the engine's 784-position view, split into one
+    chunk a tile: every slot at t = 783 (every chunk live), or slots' t spread over the
+    view so that some slots' later chunks are empty; and a batch of 80 slots, whose row
+    blocks fill the card, so that each block walks its slot's tiles alone and no chunk is
+    merged."""
+    for b in (8, 80):
+        q, k, v, table, t, scales = _paged_case(device, b, 4, 1, 16, 64, 13, dtype, b)
+        if t_kind == "long":
+            t.fill_(783)
+        else:
+            t.copy_(torch.arange(b, device=device, dtype=torch.int32) * 97 % 800)
+        n_split = paged.split_plan(b, 4, 1, 16, 784, paged._sm_count(device.index))[1]
+        assert n_split == (13 if b == 8 else 1)
+        out = paged.paged_attend(q, k, v, table, t, seq_len=784, **scales)
+        want = paged.paged_attend_reference(q, k, v, table, t, seq_len=784, **scales)
+        torch.testing.assert_close(out, want, **PAGED_TOL)
+
+
+def test_paged_kernel_makes_no_host_sync(device):
+    """A call runs under ``torch.cuda.set_sync_debug_mode("error")``: the split plan comes
+    from the shapes and the SM count, never from ``t``, so nothing waits on the card (the
+    engine may capture the decode step in a CUDA graph)."""
+    q, k, v, table, t, scales = _paged_case(device, 8, 4, 1, 16, 64, 13, torch.int8, 11)
+    paged.paged_attend(q, k, v, table, t, seq_len=784, **scales)   # built and loaded first
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged.paged_attend(q, k, v, table, t, seq_len=784, **scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    want = paged.paged_attend_reference(q, k, v, table, t, seq_len=784, **scales)
+    torch.testing.assert_close(out, want, **PAGED_TOL)
+
+
 def test_paged_kernel_refuses_what_it_does_not_take(device):
     q, k, v, table, t, _ = _paged_case(device, 2, 2, 2, 16, 4, 4, torch.float32, 0)
     with pytest.raises(ValueError, match="table must be int32"):
@@ -651,6 +718,9 @@ def test_paged_kernel_refuses_what_it_does_not_take(device):
         paged.paged_attend(q, k, v, table.cpu(), t)
     with pytest.raises(ValueError, match="both k_scale and v_scale"):
         paged.paged_attend(q, k, v, table, t, k_scale=torch.ones(k.shape[:3], device=device))
+    q6, k6, v6, _, _, _ = _paged_case(device, 2, 2, 2, 6, 4, 4, torch.float32, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):     # the kernel moves float4s
+        paged.paged_attend(q6, k6, v6, table, t)
 
 
 @pytest.mark.parametrize("cfg", [dict(), dict(num_kv_heads=2), dict(attention_window=5),

@@ -95,6 +95,13 @@ def test_plain_version_matches_jax_kernel(window, qdtype, rep):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
+def test_reset_launch_counts_zeroes_the_count():
+    paged.paged_attend_launches = 5
+    assert paged.launch_counts() == {"paged_attend": 5}
+    paged.reset_launch_counts()
+    assert paged.launch_counts() == {"paged_attend": 0}
+
+
 def test_unmapped_pages_are_ignored():
     """Poison every page no slot owns (the spares and the null page) with 1e9: the
     output is unchanged, bit for bit."""
@@ -171,6 +178,99 @@ def test_reference_equals_decode_attention_on_a_contiguous_table():
     want = paged.decode_attention(q, planes(k_pool), planes(v_pool), t)
     got = paged.paged_attend_reference(q, k_pool, v_pool, table, t, seq_len=16)
     assert torch.equal(got, want)
+
+
+def _split_then_merge(q, k_pool, v_pool, table, t, *, seq_len, chunk, window=0,
+                      k_scale=None, v_scale=None):
+    """The card's flash-decoding arithmetic in plain torch: each slot's ``seq_len``-position
+    view cut into chunks of ``chunk`` positions, each chunk's partial softmax (m, l, acc)
+    over its visible positions (l = 0 where it has none), then the combine kernel's merge:
+    m* = max m_i, out = Σ acc_i·e^(m_i − m*) / Σ l_i·e^(m_i − m*) over the chunks with
+    l_i > 0, and 0 where no chunk has one."""
+    k = paged.gather_view(k_pool, table, seq_len).float()
+    v = paged.gather_view(v_pool, table, seq_len).float()
+    if k_scale is not None:
+        k = k * paged.gather_view(k_scale, table, seq_len)[..., None]
+        v = v * paged.gather_view(v_scale, table, seq_len)[..., None]
+    pos = torch.arange(seq_len)[None]
+    tb = t.long()[:, None]
+    visible = pos <= tb
+    if window:
+        visible &= tb - pos < window
+    scores = torch.einsum("bgrd,bsgd->bgrs", q * paged.attention_scale(q.shape[-1]), k)
+    parts = []
+    for c0 in range(0, seq_len, chunk):
+        vis = (visible & (pos >= c0) & (pos < c0 + chunk))[:, None, None, :]
+        sc = torch.where(vis, scores, paged.MASK_VALUE)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(vis, torch.exp(sc - m), 0.0)
+        parts.append((m, p.sum(dim=-1, keepdim=True), torch.einsum("bgrs,bsgd->bgrd", p, v)))
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    live = l > 0
+    m_star = torch.where(live, m, paged.MASK_VALUE).amax(dim=0)
+    w = torch.where(live, torch.exp(m - m_star), 0.0)
+    l_sum = (l * w).sum(dim=0)
+    return (acc * w).sum(dim=0) / torch.where(l_sum == 0, 1.0, l_sum)
+
+
+# (setup kwargs, t, seq_len, chunk, window): chunks that cut pages of 4 (3, 5, 6), a window
+# that starts inside a chunk, t = 0, slots whose t differ so that some chunks are empty,
+# seq_len below P_max·page_size (slots past it clip), and the kernel's own plans
+# (split_plan on 132 SMs) at the serving shape and at R = 8, D = 128 over pages of 100
+SPLIT_CASES = {
+    "page_cut": (dict(rep=2), [5, 15, 10], 16, 3, 0),
+    "window_inside_chunk": (dict(rep=2), [14, 9, 15], 16, 6, 5),
+    "t_zero": (dict(rep=1), [0, 7, 0], 16, 5, 0),
+    "empty_chunks": (dict(rep=4), [1, 15, 6], 16, 4, 0),
+    "seq_len_short": (dict(rep=2), [13, 15, 40], 13, 4, 0),
+    "int8": (dict(rep=2, qdtype=jnp.int8), [11, 2, 15], 16, 3, 0),
+    "fp8_window": (dict(rep=2, qdtype=jnp.float8_e4m3fn), [11, 2, 15], 16, 5, 3),
+    "serving_plan": (dict(b=8, g=4, rep=1, d=16, ps=64, s=832),
+                     [0, 783, 784, 5, 63, 64, 400, 700], 784, None, 0),
+    "r8_d128_plan": (dict(b=2, g=2, rep=8, d=128, ps=100, s=900), [783, 130], 784, None, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_then_merge_matches_jax_kernel(case):
+    """The B6 kernel's split-then-merge arithmetic (``_split_then_merge``) against the JAX
+    Pallas kernel in interpret mode within atol 1e-5 + rtol 1e-5, the bound the card holds
+    the kernel to; ``t`` clipped to ``seq_len - 1`` on the JAX side, whose view is the
+    table's whole ``P_max·ps``."""
+    setup, t_list, seq_len, chunk, window = SPLIT_CASES[case]
+    jargs, targs, jsc, tsc = _setup(9, **setup)
+    b, g, r, d = targs[0].shape
+    if chunk is None:
+        _, _, split_tiles = paged.split_plan(b, g, r, d, seq_len, 132)
+        chunk = split_tiles * paged.TILE
+    t = np.asarray(t_list, np.int32)
+    want = jax_paged.paged_attend(*jargs[:4], jnp.asarray(np.minimum(t, seq_len - 1)),
+                                  window=window, **jsc)
+    got = _split_then_merge(*targs[:4], torch.from_numpy(t), seq_len=seq_len, chunk=chunk,
+                            window=window, **tsc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 1, 16, 784), (8, 2, 8, 128, 784), (8, 2, 4, 32, 784),
+                                   (5, 2, 16, 128, 832), (200, 4, 1, 16, 784), (3, 2, 3, 8, 16),
+                                   (1, 1, 40, 4, 100)])
+@pytest.mark.parametrize("sm_count", [132, 16])
+def test_split_plan_covers_the_view_once(shape, sm_count):
+    """The kernel's grid: row blocks of at most 512 / D query rows (one float4 of output a
+    thread of 128); chunks of whole tiles that cover the view's tiles with none wholly past
+    it; one chunk when the row blocks alone fill the card, else enough for about
+    SPLIT_BLOCKS_PER_SM blocks an SM."""
+    b, g, r, d, seq_len = shape
+    rows, n_split, split_tiles = paged.split_plan(b, g, r, d, seq_len, sm_count)
+    tiles = -(-seq_len // paged.TILE)
+    assert 1 <= rows <= r and rows * d <= paged.MAX_BLOCK_FLOATS
+    assert n_split * split_tiles >= tiles > (n_split - 1) * split_tiles
+    assert split_tiles == -(-tiles // n_split)
+    blocks = b * g * -(-r // rows)
+    if blocks >= sm_count:
+        assert n_split == 1
+    else:
+        assert n_split == tiles or blocks * n_split >= sm_count
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
