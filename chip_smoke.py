@@ -61,7 +61,20 @@ Phases (each raises on failure; nothing is caught):
     profiler window over decode steps;
 13. a few requests at ``bench_lm.py``'s widths (d 256, 4 layers, 8 heads, 2 KV heads,
     bf16, 8 slots) through B6;
-14. one JSON line with every kernel's numbers, then, last, the JSON result line.
+14. rendezvous: ``train.smoke`` at world 1 on NCCL in this process, then at world 2 on gloo
+    through the port's launcher, two processes on the one card (NCCL refuses two ranks on
+    one device), each with its backend and its ring;
+15. the data-parallel slice: ``train.distributed.main`` on cuda at world 1 (NCCL) for one
+    epoch of the 60k/10k split at global batch 64 (937 steps), with every kernel count
+    read around it (the data-parallel path runs no kernel of the port's, as the JAX
+    package's runs no Pallas kernel), a profiler window over its step (busy share,
+    launches per step) and one over the gradient reducer alone (the all-reduce's device
+    µs per step); then world 2 on gloo through the launcher on a capped split (the val
+    loss falls, the replicas stay in sync), and 20 steps with dropout off at world 2
+    against world 1;
+16. the port's epoch bench (``python -m <port>.bench``) at world 1, the full protocol (a
+    warm-up epoch and 7 timed ones), its JSON line printed and checked;
+17. one JSON line with every kernel's numbers, then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -69,7 +82,11 @@ package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
@@ -156,6 +173,13 @@ DECODE_WINDOW = 50             # phase 12: decode steps under the profiler
 BENCH_LM = dict(vocab_size=17, seq_len=784, embed_dim=256, num_layers=4, num_heads=8,
                 num_kv_heads=2)   # bench_lm.py's widths (--kv-heads 2)
 BENCH_LM_REQUESTS, BENCH_LM_MAX_NEW = 8, 64
+
+# Data parallelism, phases 14-16. Worlds of 2 are two processes on the one card (gloo).
+FLEET_TIMEOUT = 300            # seconds; the launcher kills the fleet and exits 124
+DP_PROFILE_STEPS = 200         # phase 15: the data-parallel step under the profiler
+DP_W2_TRAIN, DP_W2_TEST = 8192, 10000   # phase 15: the world-2 run's split, 2 epochs
+DP_TRAJECTORY_ATOL = 1e-5      # world 2 vs world 1: the reduce adds two halves' gradients
+BENCH_TIMED_EPOCHS, BENCH_TIMEOUT = 7, 600
 
 
 def fail(msg: str) -> None:
@@ -249,6 +273,68 @@ def report_window(tag: str, rows, steps: int, wall: float, ours: tuple[str, ...]
     return per_launch
 
 
+def run_fleet(tag: str, command: list[str], env: dict | None = None):
+    """``python <command>`` as a world of 2 through the port's launcher, from the root of
+    the checkout; echoes its output under ``tag`` and fails unless every rank exits 0."""
+    env = {k: v for k, v in (env or os.environ).items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.train.launch", "--num-processes",
+                           "2", "--timeout", str(FLEET_TIMEOUT), "--", *command],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=FLEET_TIMEOUT + 60)
+    for line in proc.stdout.splitlines():
+        if line.strip():
+            print(f"{tag} {line}")
+    print(f"{tag} launcher exit {proc.returncode} after {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"{tag} a rank failed: the launcher exited {proc.returncode}")
+    return proc.stdout
+
+
+def dp_trajectory(out: str) -> None:
+    """``TRAJECTORY_STEPS`` data-parallel steps of the CNN with dropout off, on the card, as
+    this process's rank (a world of 1 without a launcher): each rank steps on its block of
+    rows of the same global batches of ``BATCH``; rank 0 saves the parameters and the
+    losses to ``out``. Run by phase 15 at world 1 in process and at world 2 through the
+    launcher."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        single, step,
+    )
+
+    xs, ys = mnist._synthesize_split(TRAJECTORY_STEPS * BATCH, 2024)
+    with mesh.cluster(single.resolve_device("cuda")) as info:
+        per = BATCH // info.process_count
+        images = torch.from_numpy(mnist._normalize(xs)).to(info.device)
+        labels = torch.from_numpy(ys.astype(np.int64)).to(info.device)
+        model = Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+        state = step.create_train_state(model, torch.Generator().manual_seed(7),
+                                        device=info.device)
+        fn = step.make_train_step(model, learning_rate=LR, momentum=MOMENTUM,
+                                  grad_reduce=dp.GradReducer(state.params),
+                                  rank=info.process_index)
+        losses = []
+        for i in range(TRAJECTORY_STEPS):
+            rows = slice(i * BATCH + info.process_index * per,
+                         i * BATCH + (info.process_index + 1) * per)
+            state, loss = fn(state, images[rows], labels[rows], 1)
+            losses.append(loss)
+        if info.is_coordinator:
+            np.savez(out, losses=torch.stack(losses).cpu().numpy(), backend=info.backend,
+                     **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
 def main() -> None:
     if not (ROOT / PKG).is_dir():
         fail(f"the port's package {PKG}/ is not beside this script")
@@ -271,16 +357,23 @@ def main() -> None:
         _build, attention, flash_attention as fa, fused_kernels as fk,
         paged_attention as paged,
     )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.sampler import (
+        ShardedSampler,
+    )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
-        composed, single,
+        composed, distributed, single, smoke,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
-        create_train_state, make_eval_fn, make_train_step,
+        create_train_state, make_eval_fn, make_segment_fn, make_train_step,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
-        ComposedConfig, SingleProcessConfig,
+        ComposedConfig, DistributedConfig, SingleProcessConfig,
     )
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1070,13 +1163,195 @@ def main() -> None:
     del big_plain, big_kernel
     torch.cuda.empty_cache()
 
+    # -- 14. rendezvous -----------------------------------------------------------------
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        ring_ok = smoke.main("cuda")                  # world 1, this process
+    for line in said.getvalue().splitlines():
+        print(f"[14] world 1: {line}")
+    if not ring_ok or "backend nccl" not in said.getvalue():
+        fail("[14] the world-1 smoke failed or did not run on NCCL")
+    w2_smoke = run_fleet("[14] world 2:", ["-m", f"{PKG}.train.smoke"])
+    if not ("backend gloo" in w2_smoke and "Device 1 has data 0.0" in w2_smoke
+            and "OK — rendezvous + ring p2p verified" in w2_smoke):
+        fail("[14] the world-2 smoke did not verify its ring on gloo")
+
+    # -- 15. the data-parallel slice ------------------------------------------------------
+    dconfig = DistributedConfig(epochs=1, device="cuda",
+                                results_dir=str(OUT_DIR / "distributed"))
+    full_steps = len(train_ds) // dconfig.global_batch_size
+    all_counts = lambda: fk.launch_counts() | fa.launch_counts() | paged.launch_counts()
+    with mesh.cluster(dev) as info:                   # world 1; main() joins this group
+        print(f"[15] world {info.process_count}, backend {info.backend}, {info.device}")
+        if info.backend != "nccl":
+            fail(f"[15] world 1 on the card ran {info.backend}, not nccl")
+        fk.reset_launch_counts()
+        fa.reset_launch_counts()
+        paged.reset_launch_counts()
+        t0 = time.perf_counter()
+        d_state, d_hist = distributed.main(dconfig, datasets=(train_ds, test_ds))
+        d_main_s = time.perf_counter() - t0
+        d_counts = all_counts()
+        print(f"[15] kernel counts in distributed.main(): {d_counts} (the data-parallel "
+              f"path runs no kernel of the port's)")
+        if any(d_counts.values()):
+            fail(f"[15] the data-parallel path launched a kernel: {d_counts}")
+        if d_state.step != full_steps:
+            fail(f"[15] main() took {d_state.step} steps, expected {full_steps}")
+        sum_nll, correct = make_eval_fn(Net())(d_state.params, test_x, test_y)
+        d_nll, d_acc = sum_nll.item() / len(test_ds), correct.item() / len(test_ds)
+        d_epoch_s = d_hist.epoch_seconds[0]
+        print(f"[15] {d_state.step} steps at global batch {dconfig.global_batch_size}: test "
+              f"NLL {d_nll:.4f} (history {d_hist.test_losses[-1]:.4f}), accuracy "
+              f"{d_acc:.4f}")
+        print(f"[15] epoch {d_epoch_s:.3f} s, {d_state.step / d_epoch_s:.1f} steps/s, "
+              f"main() {d_main_s:.2f} s (world 1, nccl) [{card}]")
+        if not all(torch.isfinite(p).all().item() for p in d_state.params.values()):
+            fail("[15] non-finite parameters after the data-parallel epoch")
+        if abs(d_nll - d_hist.test_losses[-1]) > 1e-4:
+            fail(f"[15] re-evaluated NLL {d_nll} disagrees with main()'s")
+        if not (d_nll < 1.0 and d_acc >= 0.85):
+            fail(f"[15] test NLL {d_nll:.4f} / accuracy {d_acc:.4f} miss the bar "
+                 f"(< 1.0, >= 0.85)")
+        # where the data-parallel step spends its time: the step main() trains with, over
+        # the next epoch's plan, 10 warm-up steps and then a window under the profiler
+        d_model = Net()
+        reducer = dp.GradReducer(d_state.params)
+        d_segment = make_segment_fn(make_train_step(
+            d_model, learning_rate=dconfig.learning_rate, momentum=dconfig.momentum,
+            grad_reduce=reducer))
+        d_x = torch.from_numpy(train_ds.images).to(dev)
+        d_y = torch.from_numpy(train_ds.labels.astype("int64")).to(dev)
+        d_plan = torch.from_numpy(distributed.epoch_index_plan(
+            [ShardedSampler(len(train_ds), seed=dconfig.sampler_seed)], 1,
+            dconfig.global_batch_size)).to(dev)
+        d_state, _ = d_segment(d_state, d_x, d_y, d_plan[:10], dconfig.seed)
+        # the all-reduce's cost end to end: the same step without and with the reducer,
+        # in turns (plain, data-parallel, data-parallel, plain), host clock and a sync
+        plain_segment = make_segment_fn(make_train_step(
+            d_model, learning_rate=dconfig.learning_rate, momentum=dconfig.momentum))
+        dp_ms = {"plain": [], "data-parallel": []}
+        for name in ("plain", "data-parallel", "data-parallel", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d_state, _ = (plain_segment if name == "plain" else d_segment)(
+                d_state, d_x, d_y, d_plan[10:10 + DP_PROFILE_STEPS], dconfig.seed)
+            torch.cuda.synchronize()
+            dp_ms[name].append((time.perf_counter() - t0) / DP_PROFILE_STEPS * 1e3)
+        print(f"[15] step ms in turns ({DP_PROFILE_STEPS} steps a run): plain "
+              f"{', '.join(f'{t:.4f}' for t in dp_ms['plain'])}; data-parallel (world 1, "
+              f"{info.backend}) {', '.join(f'{t:.4f}' for t in dp_ms['data-parallel'])} "
+              f"[{card}]")
+        torch.cuda.synchronize()
+        calls_before = reducer.calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            d_state, _ = d_segment(d_state, d_x, d_y, d_plan[10:10 + DP_PROFILE_STEPS],
+                                   dconfig.seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        d_rows = device_kernel_times(prof)
+        report_window("[15]", d_rows, DP_PROFILE_STEPS, wall, ("nccl",), card)
+        if reducer.calls - calls_before != DP_PROFILE_STEPS:
+            fail(f"[15] {reducer.calls - calls_before} reduces in {DP_PROFILE_STEPS} steps")
+        # the reducer alone on the step's gradients: bucket copies, all-reduce, division
+        grads = {k: torch.randn_like(p) for k, p in d_state.params.items()}
+        loss = torch.zeros((), device=dev)
+        reducer(grads, loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_PROFILE_STEPS):
+            reducer(grads, loss)
+        torch.cuda.synchronize()
+        r_host_us = (time.perf_counter() - t0) / DP_PROFILE_STEPS * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DP_PROFILE_STEPS):
+                reducer(grads, loss)
+            torch.cuda.synchronize()
+            r_wall = time.perf_counter() - t0
+        r_rows = device_kernel_times(prof)
+        r_us = sum(r[0] for r in r_rows) / DP_PROFILE_STEPS
+        r_launch = sum(r[1] for r in r_rows) / DP_PROFILE_STEPS
+        nccl_us = sum(r[0] for r in r_rows if "nccl" in r[2].lower()) / DP_PROFILE_STEPS
+        print(f"[15] all-reduce (GradReducer over {reducer.numel + 1} floats, one "
+              f"{info.backend} all-reduce a step): {r_us:.3f} us of device time per step in "
+              f"{r_launch:.1f} launches ({nccl_us:.3f} us in NCCL kernels); wall time per "
+              f"call {r_host_us:.1f} us ({r_wall / DP_PROFILE_STEPS * 1e6:.1f} us under the "
+              f"profiler) [{card}]")
+        for us, count, name in sorted(r_rows, reverse=True):
+            print(f"[15]   reducer kernel {us / DP_PROFILE_STEPS:8.3f} us/step "
+                  f"{count / DP_PROFILE_STEPS:4.1f}/step  {name[:90]}")
+    del d_x, d_y, grads
+
+    w2_dir = OUT_DIR / "distributed_w2"
+    w2_out = run_fleet("[15] world 2:", [
+        "-m", f"{PKG}.train.distributed", "--device", "cuda", "--epochs", "2",
+        "--max-train-examples", str(DP_W2_TRAIN), "--max-test-examples", str(DP_W2_TEST),
+        "--results-dir", str(w2_dir)])
+    w2_val = [json.loads(l)["loss"] for l in open(w2_dir / "metrics.jsonl")
+              if json.loads(l)["kind"] == "test"]
+    print(f"[15] world 2 (gloo, two ranks time-slicing one card: a correctness run, not a "
+          f"scaling point): val loss by epoch {w2_val}; replicas in sync at atol 0 "
+          f"(main()'s closing check)")
+    if "Collective backend: gloo (device cuda, 2 rank(s))" not in w2_out:
+        fail("[15] the world-2 run did not run gloo on cuda")
+    if not (len(w2_val) == 2 and all(map(math.isfinite, w2_val)) and w2_val[1] < w2_val[0]):
+        fail(f"[15] the world-2 val loss did not fall: {w2_val}")
+
+    traj = {1: OUT_DIR / "dp_trajectory_w1.npz", 2: OUT_DIR / "dp_trajectory_w2.npz"}
+    dp_trajectory(str(traj[1]))
+    run_fleet("[15] trajectory world 2:", [
+        "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+              f"chip_smoke.dp_trajectory({str(traj[2])!r})"])
+    w1, w2 = np.load(traj[1]), np.load(traj[2])
+    e_loss = close("dp trajectory loss", torch.from_numpy(w2["losses"]),
+                   torch.from_numpy(w1["losses"]), DP_TRAJECTORY_ATOL, 0.0)
+    e_par = max(close(f"dp trajectory {k}", torch.from_numpy(w2[k]), torch.from_numpy(w1[k]),
+                      DP_TRAJECTORY_ATOL, 0.0)
+                for k in d_state.params)
+    print(f"[15] {TRAJECTORY_STEPS} steps, dropout off, world 2 ({w2['backend']}) vs world 1 "
+          f"({w1['backend']}): max |dloss| {e_loss:.3e}, max |dp| {e_par:.3e} (atol "
+          f"{DP_TRAJECTORY_ATOL:g})")
+    del d_state
+    torch.cuda.empty_cache()
+
+    # -- 16. the epoch bench ---------------------------------------------------------------
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "BENCH_MAX_TRAIN_EXAMPLES")}
+    env.update(PYTHONPATH=str(ROOT), BENCH_TIMED_EPOCHS=str(BENCH_TIMED_EPOCHS))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=BENCH_TIMEOUT)
+    bench_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"[16] the bench exited {proc.returncode}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    if len(lines) != 1:
+        fail(f"[16] the bench printed {len(lines)} JSON lines, not one")
+    print(f"[16] bench ({bench_s:.1f} s, world 1) [{card}]: {lines[0]}")
+    result = json.loads(lines[0])
+    want = {"platform": "gpu", "devices": 1, "steps_per_epoch": full_steps,
+            "collective_backend": "nccl", "epochs_trained": 1 + BENCH_TIMED_EPOCHS}
+    got = {k: result.get(k) for k in want}
+    if got != want or len(result.get("epoch_seconds_all", [])) != BENCH_TIMED_EPOCHS:
+        fail(f"[16] the bench line has {got} (want {want}) and "
+             f"{len(result.get('epoch_seconds_all', []))} timed epochs")
+    if not result["test_accuracy_after_run"] >= 0.85:
+        fail(f"[16] test accuracy {result['test_accuracy_after_run']} is below 0.85")
+    print(f"[16] median epoch {result['value']} s, min {result['min_epoch_seconds']} s, "
+          f"samples {result['epoch_seconds_all']}, vs_baseline {result['vs_baseline']}, "
+          f"test accuracy {result['test_accuracy_after_run']} [{card}]")
+
     counted = ("flash_fwd", "flash_dq", "flash_dkv")
     all_launches = (launches | {"paged_attend": paged_launches}
                     | dict(zip(routes["float32"], (flash_launches[n] for n in counted)))
                     | dict(zip(routes["bfloat16"], (large_launches[n] for n in counted))))
     all_err = err | flash_err | {"paged_attend": paged_err}
 
-    # -- 14. result ---------------------------------------------------------------------
+    # -- 17. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -1090,6 +1365,8 @@ def main() -> None:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
                for name, t in (times | flash_times | paged_times).items()]
+    print(f"[17] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+          f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

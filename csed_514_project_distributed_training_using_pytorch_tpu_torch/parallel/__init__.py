@@ -1,5 +1,5 @@
-"""Parallelism: the sharded sampler and the mesh-spec grammar (the data-parallel trainer
-comes later)."""
+"""Parallelism: the sharded sampler, the process group and the mesh-spec grammar
+(``mesh``), the collectives and the data-parallel gradient reducer."""
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
     parse_mesh_spec,

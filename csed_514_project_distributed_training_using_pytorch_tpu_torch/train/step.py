@@ -14,6 +14,13 @@ loops it:
 Dropout masks come from a generator on the batch's device, seeded from ``(seed, step)`` —
 the counterpart of ``fold_in(rng, state.step)`` — so a step's masks depend on nothing but
 the run's seed and the step number.
+
+Data-parallel steps (``grad_reduce``, ``rank``): each rank draws the masks of its own rows
+from ``(seed, step, rank)``. Rank 0's are the single process's masks (numpy's
+``SeedSequence`` pads its entropy with zeros, so ``[seed, step, 0]`` is ``[seed, step]``)
+and no two ranks share a mask. The JAX package draws the masks of the whole global batch
+at once instead, so with dropout on a world of N ranks trains on other masks than a world
+of 1; with dropout off the two agree up to the order of the gradient sums.
 """
 
 from __future__ import annotations
@@ -51,14 +58,16 @@ def create_train_state(model, generator: torch.Generator, *,
     return TrainState(params=params, velocity=opt_init(params), step=0)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The dropout seed of one step: a 64-bit mix of ``(seed, step)``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The dropout seed of one step on one rank: a 64-bit mix of ``(seed, step, rank)``;
+    rank 0's is the mix of ``(seed, step)``."""
+    return int(np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0])
 
 
 def make_train_step(model, *, learning_rate: float, momentum: float,
                     use_pallas: bool = False,
-                    optimizer: Optimizer | None = None) -> Callable:
+                    optimizer: Optimizer | None = None,
+                    grad_reduce: Callable | None = None, rank: int = 0) -> Callable:
     """Build ``step(state, images, labels, seed) -> (state, loss)``.
 
     The loss is ``nll(log_probs)``. ``use_pallas=True`` routes it through the fused kernel
@@ -66,6 +75,12 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
     so the objective and its gradients are unchanged), and routes the update through the
     fused in-place ``fused_kernels.sgd_momentum_step`` with the hyperparameters taken from
     ``optimizer``. The flag keeps the JAX package's name for the kernels it selects.
+
+    ``grad_reduce(grads, loss)``, when given, runs between the backward and the update and
+    replaces both, in place, by their mean over the data-parallel ranks
+    (``parallel.data_parallel.GradReducer``); the step then returns the global batch's
+    loss. ``rank`` keys this rank's dropout masks. The single-process trainer passes
+    neither.
     """
     if optimizer is None:
         optimizer = sgd(learning_rate, momentum)
@@ -79,7 +94,7 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
         gen = generators.get(images.device)
         if gen is None:
             gen = generators[images.device] = torch.Generator(device=images.device)
-        gen.manual_seed(step_seed(seed, state.step))
+        gen.manual_seed(step_seed(seed, state.step, rank))
         leaves = {k: p.detach().requires_grad_() for k, p in state.params.items()}
         log_probs = functional_call(model, leaves, (images,),
                                     {"deterministic": False, "generator": gen})
@@ -88,6 +103,9 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
         else:
             loss = ops.nll_loss(log_probs, labels)
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        loss = loss.detach()
+        if grad_reduce is not None:
+            grad_reduce(grads, loss)
         if use_pallas:
             params, velocity = fused_kernels.sgd_momentum_step(
                 state.params, state.velocity, grads,
@@ -95,7 +113,7 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
                 momentum=optimizer.hyperparams["momentum"])
         else:
             params, velocity = optimizer.update(state.params, state.velocity, grads)
-        return TrainState(params, velocity, state.step + 1), loss.detach()
+        return TrainState(params, velocity, state.step + 1), loss
 
     return step
 

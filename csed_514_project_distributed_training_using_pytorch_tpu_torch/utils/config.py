@@ -1,5 +1,5 @@
-"""Configuration of the port's trainers (the single-process CNN trainer and the composed
-transformer trainer).
+"""Configuration of the port's trainers (the single-process CNN trainer, the data-parallel
+CNN trainer and the composed transformer trainer).
 
 Counterpart of the JAX package's ``utils/config.py``, holding only the knobs this port
 implements, with the JAX package's names and defaults (the reference's values), plus
@@ -31,6 +31,31 @@ class SingleProcessConfig:
     use_pallas_kernels: bool = False  # the fused loss/optimizer kernels
                                       # (ops/fused_kernels.py: CUDA on the card); the
                                       # name is the JAX package's flag
+    device: str = "cuda"              # 'cuda' (the default: raises when no card is
+                                      # present) or 'cpu', which must be asked for
+
+
+@dataclass(frozen=True)
+class DistributedConfig:
+    """Knobs of the data-parallel trainer. The world size is not a knob: it comes from the
+    launcher's environment (``train.launch``, ``torchrun``)."""
+
+    epochs: int = 6
+    global_batch_size: int = 64       # per rank: global // world
+    batch_size_test: int = 1000
+    learning_rate: float = 0.02
+    momentum: float = 0.5
+    optimizer: str = "sgd"            # only 'sgd' (the reference's) is ported
+    log_interval: int = 10
+    seed: int = 1                     # the parameters' seed, and the dropout masks'
+    sampler_seed: int = 42            # the DistributedSampler order's seed
+    data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
+    results_dir: str = "results"      # rank 0 writes metrics.jsonl here
+    shard_eval: bool = False          # False: every rank evaluates the whole test split
+                                      # (the reference's way); True: each rank a block,
+                                      # the sums SUM-reduced
+    max_train_examples: int = 0       # truncate the splits (0 = all)
+    max_test_examples: int = 0
     device: str = "cuda"              # 'cuda' (the default: raises when no card is
                                       # present) or 'cpu', which must be asked for
 

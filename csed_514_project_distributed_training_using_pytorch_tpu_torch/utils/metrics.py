@@ -1,8 +1,9 @@
 """Metric history + stdout reporting, with the JAX package's line formats.
 
 Counterpart of the JAX package's ``utils/metrics.py``: the loss trajectories, the
-every-``log_interval`` train progress line, the post-eval test summary, and the
-``metrics.jsonl`` artifact. The lines are character for character the JAX package's.
+every-``log_interval`` train progress line, the post-eval test summary, the data-parallel
+epoch summary, and the ``metrics.jsonl`` artifact. The lines are character for character
+the JAX package's, and only rank 0 of a process group prints them.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
+
+import torch.distributed as dist
 
 
 @dataclass
@@ -68,8 +71,18 @@ class Stopwatch:
         return time.time() - self.t0
 
 
+def is_logging_process() -> bool:
+    """Output is rank-0 gated, so a world of N processes prints each line once: the rank
+    of the process group when one is up, else the ``RANK`` a launcher handed this process
+    (0 when there is none)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return int(os.environ.get("RANK", "0")) == 0
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    if is_logging_process():
+        print(msg, flush=True)
 
 
 def train_progress_line(epoch: int, examples_seen: int, dataset_size: int,
@@ -88,3 +101,10 @@ def test_summary_line(avg_loss: float, correct: int, total: int,
     return (f"\nTest set: Avg. loss: {avg_loss:.4f}, "
             f"Accuracy: {correct}/{total} ({pct:.0f}%), "
             f"Time elapsed: {elapsed_s:.2f}s\n")
+
+
+def dist_epoch_summary_line(epoch: int, train_loss: float, val_loss: float,
+                            accuracy: float, elapsed_s: float) -> str:
+    """The data-parallel trainer's per-epoch summary."""
+    return (f"Epoch {epoch}: train_loss: {train_loss:.4f}, val_loss: {val_loss:.4f}, "
+            f"accuracy: {accuracy:.4f}, time_elapsed: {elapsed_s:.2f}s")

@@ -753,3 +753,69 @@ def test_engine_paged_streams_on_the_card(device, cfg):
         launched = paged.launch_counts()["paged_attend"] - before
         assert launched == (2 * engine.steps if layout == "paged" else 0)
     assert streams["paged"] == streams["contiguous"]
+
+
+# =========================================================================================
+# Data parallelism on the card: NCCL at world 1, gloo at world 2 (two ranks on one card)
+# =========================================================================================
+
+import os  # noqa: E402
+import pathlib  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (  # noqa: E402
+    data_parallel as dp,
+    mesh,
+)
+
+_PKG = "csed_514_project_distributed_training_using_pytorch_tpu_torch"
+_RENDEZVOUS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+               "MASTER_PORT")
+
+
+def test_world1_nccl_step_equals_plain_step_bitwise(device, monkeypatch):
+    """One rank on NCCL: the bucket's copies, an all-reduce over one rank and a division
+    by 1 change no bit of the gradients or the loss."""
+    for key in _RENDEZVOUS:
+        monkeypatch.delenv(key, raising=False)
+    net = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    gen = torch.Generator(device=device).manual_seed(3)
+    xs = torch.randn(5, 64, 28, 28, 1, generator=gen, device=device)
+    ys = torch.randint(0, 10, (5, 64), generator=gen, device=device)
+    torch.backends.cudnn.deterministic = True    # the two runs pick the same algorithms
+    try:
+        with mesh.cluster("cuda") as info:
+            assert info.backend == "nccl"
+            runs = []
+            for reduce in (True, False):
+                state = step.create_train_state(net, torch.Generator().manual_seed(1),
+                                                device=info.device)
+                fn = step.make_train_step(
+                    net, learning_rate=0.01, momentum=0.5,
+                    grad_reduce=dp.GradReducer(state.params) if reduce else None)
+                losses = []
+                for i in range(5):
+                    state, loss = fn(state, xs[i], ys[i], 1)
+                    losses.append(loss)
+                runs.append((state.params, torch.stack(losses)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert torch.equal(runs[0][1], runs[1][1])
+    for k in runs[0][0]:
+        assert torch.equal(runs[0][0][k], runs[1][0][k]), k
+
+
+def test_world2_gloo_on_one_card_keeps_replicas_in_sync(device, tmp_path):
+    """Two ranks share the one card, so the backend is gloo (the bucket through pinned
+    host memory); the trainer's closing replica check holds at atol 0."""
+    env = {k: v for k, v in os.environ.items() if k not in _RENDEZVOUS}
+    env["PYTHONPATH"] = str(pathlib.Path(__file__).resolve().parent.parent)
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{_PKG}.train.launch", "--num-processes", "2",
+         "--timeout", "300", "--", "-m", f"{_PKG}.train.distributed", "--device", "cuda",
+         "--epochs", "2", "--max-train-examples", "2048", "--max-test-examples", "1000"],
+        capture_output=True, text=True, timeout=400, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Collective backend: gloo (device cuda, 2 rank(s))" in proc.stdout
+    assert proc.stdout.count("Epoch 1: train_loss:") == 1

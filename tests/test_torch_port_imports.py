@@ -37,7 +37,10 @@ def test_sources_found():
     for module in ("ops/attention.py", "ops/rotary.py", "ops/flash_attention.py",
                    "models/transformer.py", "parallel/mesh.py", "train/composed.py",
                    "ops/paged_attention.py", "models/lm.py", "serving/__init__.py",
-                   "serving/engine.py", "serving/pagepool.py", "serving/scheduler.py"):
+                   "serving/engine.py", "serving/pagepool.py", "serving/scheduler.py",
+                   "parallel/collectives.py", "parallel/data_parallel.py",
+                   "train/distributed.py", "train/launch.py", "train/smoke.py",
+                   "utils/benchmarks.py", "utils/determinism.py", "bench.py"):
         assert PORT / module in SOURCES, module
 
 
