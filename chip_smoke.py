@@ -74,7 +74,23 @@ Phases (each raises on failure; nothing is caught):
     against world 1;
 16. the port's epoch bench (``python -m <port>.bench``) at world 1, the full protocol (a
     warm-up epoch and 7 timed ones), its JSON line printed and checked;
-17. one JSON line with every kernel's numbers, then, last, the JSON result line.
+17. the hop offset in B4/B5: every flash kernel, both routes, against its plain version at
+    the composed shard shape ``[64, 1024, 4, 16]`` with ``q_offset`` in {−2C, −C, +C, +2C}
+    (C = 1024), causal and not, windows 0, 100, 300 and 1000 (cases in which every row is
+    dead included: out 0, lse −1e30), dq and dk/dv from the full row's lse and Δ; then
+    each kernel's ms per call at ``q_offset = +C`` beside its ms at offset 0;
+18. the ring ops (``parallel/ring_attention.py``: the ring-of-flash non-causal and causal,
+    windows 100 and 300, the zig-zag plain and windowed) at gloo worlds 2 and 4 through the
+    port's launcher, every rank on ``cuda:0``, against the one-process ``flash_attention``
+    on the full sequence at the composed shape, forward and gradients, with each rank's
+    launches against the plan (hops × blocks within the truncated reach);
+19. the slice: ``train.composed.main`` at ``--mesh data=1,seq=2 --flash-attention
+    --seq-len 2048`` at full width for 20 steps (two gloo ranks through the launcher)
+    against ``--mesh data=1`` in this process, per-step losses and final parameters, with
+    each rank's launches against the plan; then the same with ``--zigzag-attention
+    --causal``; step ms (a time of two ranks time-slicing one card, no scaling point);
+20. one JSON line with every kernel's numbers (each flash kernel with its offset form),
+    then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -181,6 +197,23 @@ DP_W2_TRAIN, DP_W2_TEST = 8192, 10000   # phase 15: the world-2 run's split, 2 e
 DP_TRAJECTORY_ATOL = 1e-5      # world 2 vs world 1: the reduce adds two halves' gradients
 BENCH_TIMED_EPOCHS, BENCH_TIMEOUT = 7, 600
 
+# Ring-of-flash, phases 17-19: the hop offset in B4/B5, the ring ops, the seq-parallel
+# trainer. Worlds of 2 and 4 are gloo processes time-slicing the one card.
+OFFSET_SHAPE = (64, 1024, 4, 16)   # the composed trainer's shard: seq 2048 over 2 ranks
+OFFSET_MASKS = ((False, 0), (True, 0), (False, 100), (True, 100), (False, 300),
+                (True, 300), (False, 1000), (True, 1000))   # (causal, window)
+OFFSET_TIMED = ((False, 0), (False, 300), (True, 1000))     # timed at +C and at offset 0
+RING_WORLDS = (2, 4)
+RING_CASES = (("ring", False, 0), ("ring", True, 0), ("ring", False, 100),
+              ("ring", True, 100), ("ring", False, 300), ("ring", True, 300),
+              ("zigzag", True, 0), ("zigzag", True, 300))   # (schedule, causal, window)
+# ring op vs the one-process flash_attention on the full sequence, both 3xTF32 kernels on
+# the card: the same pairs in other blocks, merged in f32 (the kernels' own f32 tolerance)
+RING_TOL = {"out": (2e-5, 1e-5), "grad": (1e-4, 1e-4)}
+RING_STEPS = 20                # phase 19: trainer steps a run, batch 64, dropout off
+RING_TRAJECTORY_ATOL = 1e-4    # seq=2 vs data=1: attention split over ranks and merged,
+                               # 20 SGD steps; losses and every parameter
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -273,15 +306,16 @@ def report_window(tag: str, rows, steps: int, wall: float, ours: tuple[str, ...]
     return per_launch
 
 
-def run_fleet(tag: str, command: list[str], env: dict | None = None):
-    """``python <command>`` as a world of 2 through the port's launcher, from the root of
-    the checkout; echoes its output under ``tag`` and fails unless every rank exits 0."""
+def run_fleet(tag: str, command: list[str], env: dict | None = None, n: int = 2):
+    """``python <command>`` as a world of ``n`` through the port's launcher, from the root
+    of the checkout; echoes its output under ``tag`` and fails unless every rank exits
+    0."""
     env = {k: v for k, v in (env or os.environ).items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     env["PYTHONPATH"] = str(ROOT)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", f"{PKG}.train.launch", "--num-processes",
-                           "2", "--timeout", str(FLEET_TIMEOUT), "--", *command],
+                           str(n), "--timeout", str(FLEET_TIMEOUT), "--", *command],
                           capture_output=True, text=True, cwd=ROOT, env=env,
                           timeout=FLEET_TIMEOUT + 60)
     for line in proc.stdout.splitlines():
@@ -335,6 +369,130 @@ def dp_trajectory(out: str) -> None:
                      **{k: p.cpu().numpy() for k, p in state.params.items()})
 
 
+def ring_ops_child(out: str) -> None:
+    """Phase 18 in each rank of a world on the card: every ring op of ``RING_CASES`` at the
+    composed shape ``COMPOSED`` (f32), forward and backward, with each kernel's launches
+    read around it and gathered from every rank; rank 0 holds the full output and
+    gradients against the one-process ``flash_attention`` on the full sequence and saves
+    the results to ``out`` (JSON)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        collectives, mesh, ring_attention as ra,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import single
+
+    with mesh.cluster(single.resolve_device("cuda")) as info:
+        n, rank, dev = info.process_count, info.process_index, info.device
+        rows = []
+        for schedule, causal, window in RING_CASES:
+            gen = torch.Generator(device=dev).manual_seed(1000 + window + causal)
+            q, k, v, do = (torch.randn(*COMPOSED, generator=gen, device=dev)
+                           for _ in range(4))
+            if schedule == "zigzag":
+                op = lambda *a: ra.zigzag_ring_flash_attention(*a, window=window)
+            else:
+                op = lambda *a: ra.ring_flash_attention(*a, causal=causal, window=window)
+
+            def run():
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                out_ = op(*leaves)
+                fwd = fa.launch_counts()["flash_fwd"]
+                return out_, torch.autograd.grad(out_, leaves, do), fwd
+
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            out_, grads, fwd = run()
+            counts = fa.launch_counts()
+            planned = ra.planned_blocks(schedule, n, rank, seq_len=COMPOSED[1],
+                                        causal=causal, window=window)
+            mine = torch.tensor([fwd, counts["flash_fwd"] - fwd, counts["flash_dq"],
+                                 counts["flash_dkv"], planned])
+            everyone = collectives.all_gather(mine).tolist()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            row = {"schedule": schedule, "causal": causal, "window": window,
+                   "counts": everyone, "ms": step_ms}
+            if rank == 0:
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                ref = fa.flash_attention(*leaves, causal=causal, window=window or None)
+                ref_grads = torch.autograd.grad(ref, leaves, do)
+                for name, got, want, tol in (
+                        ("out", out_, ref, RING_TOL["out"]),
+                        *((f"d{x}", g, w, RING_TOL["grad"])
+                          for x, g, w in zip("qkv", grads, ref_grads))):
+                    torch.testing.assert_close(got, want, atol=tol[0], rtol=tol[1],
+                                               msg=lambda m: f"{schedule} {name}: {m}")
+                    row[name] = (got - want).abs().max().item()
+            rows.append(row)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"world": n, "backend": info.backend, "rows": rows}, f)
+
+
+def composed_trajectory(out: str, *flags: str) -> None:
+    """Phase 19: ``train.composed.main`` on the card for ``RING_STEPS`` steps at the
+    composed widths (seq 2048, batch 64, dropout off, one eval batch of 100), from the CLI
+    flags ``flags`` on top of those, as this process's rank (a world of 1 without a
+    launcher). It records the segment's per-step losses and the flash launch counts read
+    around ``main()``; each rank saves its counts to ``out.rank<r>.json``, rank 0 also
+    the losses, the final parameters and the epoch's seconds to ``out``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import composed
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        ComposedConfig, parse_config,
+    )
+
+    cfg = parse_config(ComposedConfig, [
+        "--flash-attention", "--seq-len", str(COMPOSED[1]), "--epochs", "1",
+        "--batch-size", str(COMPOSED[0]), "--batch-size-test", "100", "--device", "cuda",
+        "--results-dir", str(OUT_DIR / Path(out).stem), *flags])
+    splits = (mnist._synthesize_split(RING_STEPS * cfg.batch_size, 300),
+              mnist._synthesize_split(100, 301))
+    datasets = tuple(mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic")
+                     for x, y in splits)
+    losses, build = [], composed.build_segment_fn
+
+    def recording(config, model):
+        optimizer, segment = build(config, model)
+
+        def segment_and_record(*args):
+            state, step_losses = segment(*args)
+            losses.append(step_losses)
+            return state, step_losses
+
+        return optimizer, segment_and_record
+
+    composed.build_segment_fn = recording
+    try:
+        fa.reset_launch_counts()
+        state, history = composed.main(cfg, datasets=datasets)
+        counts = fa.launch_counts()
+    finally:
+        composed.build_segment_fn = build
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(counts, f)
+    if rank == 0:
+        np.savez(out, losses=torch.cat(losses).cpu().numpy(),
+                 epoch_seconds=history.epoch_seconds[0], steps=state.step,
+                 **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
 def main() -> None:
     if not (ROOT / PKG).is_dir():
         fail(f"the port's package {PKG}/ is not beside this script")
@@ -358,7 +516,7 @@ def main() -> None:
         paged_attention as paged,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
-        data_parallel as dp, mesh,
+        data_parallel as dp, mesh, ring_attention,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.sampler import (
         ShardedSampler,
@@ -685,9 +843,9 @@ def main() -> None:
         print(f"[7]   {tag}: max |err| out {e_out:.3e} lse {e_lse:.3e} dq {e_dq:.3e} "
               f"dk {e_dk:.3e} dv {e_dv:.3e}")
 
-    def visible_pairs(s: int, causal: bool, window: int) -> int:
+    def visible_pairs(s: int, causal: bool, window: int, q_offset: int = 0) -> int:
         return int(attention.visibility_mask(s, s, causal=causal, window=window or None,
-                                             device=dev).sum().item())
+                                             device=dev, q_offset=q_offset).sum().item())
 
     def flash_kernel_times(shape, dtype: str) -> dict[str, dict]:
         """Each flash kernel of the dtype's route at one shape (no mask), by name: its ms,
@@ -1345,13 +1503,177 @@ def main() -> None:
           f"samples {result['epoch_seconds_all']}, vs_baseline {result['vs_baseline']}, "
           f"test accuracy {result['test_accuracy_after_run']} [{card}]")
 
+    # -- 17. the hop offset in B4/B5: each kernel against its plain version -------------
+    c_len = OFFSET_SHAPE[1]
+    offsets = (-2 * c_len, -c_len, c_len, 2 * c_len)
+    offset_err = {name: 0.0 for name in flash_err}
+    dead_cases = 0
+    print(f"[17] the offset kernels vs plain at {list(OFFSET_SHAPE)} (the composed shard at "
+          f"seq 2048 over 2 ranks), q_offset in {offsets} (C = {c_len}), both routes, "
+          f"(atol, rtol) by dtype as [7]; dq and dk/dv from the full row's lse and delta "
+          f"(this hop merged with the diagonal block)")
+    for dtype in ("float32", "bfloat16"):
+        tol = FLASH_TOL[dtype]
+        for causal, window in OFFSET_MASKS:
+            q, k0, v0, do = flash_inputs(OFFSET_SHAPE, dtype, 17 + window + causal)
+            _, k1, v1, _ = flash_inputs(OFFSET_SHAPE, dtype, 18 + window + causal)
+            out0, lse0 = fa.flash_forward_plain(q, k0, v0, causal=causal, window=window)
+            worst = [0.0] * 5
+            for off in offsets:
+                tag = f"{dtype} q_offset {off:+d} causal={causal} window={window}"
+                mask = dict(causal=causal, window=window, q_offset=off)
+                out, lse = fa.flash_forward_with_lse(q, k1, v1, **mask)
+                out_p, lse_p = fa.flash_forward_plain(q, k1, v1, **mask)
+                e_out = close(f"offset out {tag}", out.float(), out_p.float(), *tol["out"])
+                e_lse = close(f"offset lse {tag}", lse, lse_p, *tol["lse"])
+                if (lse_p == attention.MASK_VALUE).all():     # no row sees this hop
+                    if not ((out == 0).all() and (lse == attention.MASK_VALUE).all()):
+                        fail(f"[17] {tag}: dead rows not written as out 0, lse -1e30")
+                    dead_cases += 1
+                lse_full = torch.logaddexp(lse0, lse_p)
+                rows = lambda x: x.transpose(1, 2)[..., None]
+                out_full = (out0.float() * rows(torch.exp(lse0 - lse_full))
+                            + out_p.float() * rows(torch.exp(lse_p - lse_full)))
+                delta = fa.flash_delta(out_full, do)
+                got = fa.flash_backward_blocks(q, k1, v1, do, lse_full, delta, **mask)
+                want = fa._backward_plain(q, k1, v1, lse_full, delta, do, **mask)
+                e_grads = [close(f"offset {n} {tag}", g.float(), w.float(), *tol["grad"])
+                           for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+                for i, e in enumerate((e_out, e_lse, *e_grads)):
+                    worst[i] = max(worst[i], e)
+            torch.cuda.synchronize()
+            for name, e in zip(routes[dtype], (max(worst[:2]), worst[2], max(worst[3:]))):
+                offset_err[name] = max(offset_err[name], e)
+            print(f"[17]   {dtype} causal={causal} window={window}: max |err| over the 4 "
+                  f"offsets: out {worst[0]:.3e} lse {worst[1]:.3e} dq {worst[2]:.3e} "
+                  f"dk {worst[3]:.3e} dv {worst[4]:.3e}")
+    if not dead_cases:
+        fail("[17] no case had every row dead")
+    print(f"[17] {dead_cases} case(s) with every query row dead: out 0 and lse -1e30 in "
+          f"kernel and plain version alike")
+    offset_times = {}
+    for dtype in ("float32", "bfloat16"):
+        for causal, window in OFFSET_TIMED:
+            q, k, v, do = flash_inputs(OFFSET_SHAPE, dtype, 3)
+            row = {}
+            for off in (0, c_len):      # +C last: the plain versions below reuse its lse, delta
+                mask = dict(causal=causal, window=window, q_offset=off)
+                out, lse = fa.flash_forward(q, k, v, **mask)
+                delta = fa.flash_delta(out, do)
+                row[off] = (
+                    timed_ms(lambda: fa.flash_forward(q, k, v, **mask), iters=FLASH_ITERS,
+                             warmup=FLASH_WARMUP),
+                    timed_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, **mask),
+                             iters=FLASH_ITERS, warmup=FLASH_WARMUP),
+                    timed_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, **mask),
+                             iters=FLASH_ITERS, warmup=FLASH_WARMUP),
+                    visible_pairs(c_len, causal, window, off))
+            mask = dict(causal=causal, window=window, q_offset=c_len)
+            plain_fwd = timed_ms(lambda: fa.flash_forward_plain(q, k, v, **mask), iters=3,
+                                 warmup=1)
+            plain_bwd = timed_ms(lambda: fa._backward_plain(q, k, v, lse, delta, do, **mask),
+                                 iters=3, warmup=1)
+            bounds = flash_bounds(OFFSET_SHAPE, dtype, row[c_len][3])
+            for i, name in enumerate(routes[dtype]):
+                entry = dict(ms=row[c_len][i], ms_at_offset_0=row[0][i],
+                             plain_ms=plain_fwd if i == 0 else plain_bwd,
+                             bound=bounds[("flash_fwd", "flash_dq", "flash_dkv")[i]])
+                print(f"[17] {name} {dtype} causal={causal} window={window}: q_offset +C "
+                      f"{entry['ms']:.5f} ms ({row[c_len][3]} visible pairs a head), offset "
+                      f"0 {entry['ms_at_offset_0']:.5f} ms ({row[0][3]}); plain "
+                      f"{entry['plain_ms']:.5f} ms; bound_ms {entry['bound'][0]:.5f} "
+                      f"({entry['bound'][1]}) [{card}]")
+                if (causal, window) == (False, 300):   # a windowed ring hop's block
+                    offset_times[name] = entry
+
+    # -- 18. the ring ops at gloo worlds 2 and 4 on the card -------------------------------
+    for world in RING_WORLDS:
+        path = OUT_DIR / f"ring_ops_w{world}.json"
+        run_fleet(f"[18] world {world}:", [
+            "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                  f"chip_smoke.ring_ops_child({str(path)!r})"], n=world)
+        with open(path) as f:
+            result = json.load(f)
+        if result["world"] != world or result["backend"] != "gloo":
+            fail(f"[18] world {world} ran {result['world']} rank(s) on {result['backend']}")
+        for row in result["rows"]:
+            for rank, (fwd, fwd_in_bwd, dq, dkv, planned) in enumerate(row["counts"]):
+                if not (fwd == dq == dkv == planned > 0 and fwd_in_bwd == 0):
+                    fail(f"[18] world {world} rank {rank} {row['schedule']} causal="
+                         f"{row['causal']} window={row['window']}: launches fwd {fwd} "
+                         f"(+{fwd_in_bwd} in backward), dq {dq}, dkv {dkv}, planned {planned}")
+            print(f"[18] world {world} {row['schedule']} causal={row['causal']} window="
+                  f"{row['window']} vs one-process flash_attention at {list(COMPOSED)} f32: "
+                  f"max |err| out {row['out']:.3e} dq {row['dq']:.3e} dk {row['dk']:.3e} dv "
+                  f"{row['dv']:.3e} (out {RING_TOL['out']}, grads {RING_TOL['grad']}); "
+                  f"launches per rank = hops x blocks (fwd = dq = dkv): "
+                  f"{[c[0] for c in row['counts']]}; forward+backward {row['ms']:.3f} ms "
+                  f"(gloo ranks time-slicing one card: no scaling point) [{card}]")
+
+    # -- 19. the seq-parallel trainer: train.composed --mesh data=1,seq=2 ---------------
+    ring_launches = {}
+    # (label, flags of both runs, flags of the seq=2 run): the zig-zag's reference is the
+    # one-device causal flash path
+    for label, both, seq_only in (("ring", [], []),
+                                  ("zigzag", ["--causal"], ["--zigzag-attention"])):
+        w1, w2 = OUT_DIR / f"composed_{label}_w1.npz", OUT_DIR / f"composed_{label}_w2.npz"
+        composed_trajectory(str(w1), "--mesh", "data=1", *both)      # this process
+        run_fleet(f"[19] {label} seq=2:", [
+            "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                  f"chip_smoke.composed_trajectory({str(w2)!r}, '--mesh', 'data=1,seq=2', "
+                  f"*{both + seq_only!r})"])
+        one, two = np.load(w1), np.load(w2)
+        if not int(one["steps"]) == int(two["steps"]) == RING_STEPS:
+            fail(f"[19] {label}: {int(one['steps'])} and {int(two['steps'])} steps, "
+                 f"expected {RING_STEPS}")
+        e_loss = close(f"[19] {label} losses", torch.from_numpy(two["losses"]),
+                       torch.from_numpy(one["losses"]), RING_TRAJECTORY_ATOL, 0.0)
+        params = [k for k in one.files if k not in ("losses", "epoch_seconds", "steps")]
+        e_par = max(close(f"[19] {label} {k}", torch.from_numpy(two[k]),
+                          torch.from_numpy(one[k]), RING_TRAJECTORY_ATOL, 0.0)
+                    for k in params)
+        layers = init_model.num_layers
+        schedule_causal = label == "zigzag"
+        for rank in range(2):
+            with open(f"{w2}.rank{rank}.json") as f:
+                counts = json.load(f)
+            blocks = ring_attention.planned_blocks(label, 2, rank, seq_len=COMPOSED[1],
+                                                   causal=schedule_causal)
+            want = {"flash_fwd": layers * (RING_STEPS + 1) * blocks,
+                    "flash_dq": layers * RING_STEPS * blocks,
+                    "flash_dkv": layers * RING_STEPS * blocks}
+            if counts != want:
+                fail(f"[19] {label} rank {rank}: launches {counts}, predicted {want}")
+            if rank == 0:
+                ring_launches[label] = counts
+            print(f"[19] {label} seq=2 rank {rank}: launches in composed.main() {counts} = "
+                  f"layers x (steps + 1 eval batch) x {blocks} hop blocks (fwd), "
+                  f"layers x steps x {blocks} (dq, dk/dv)")
+        with open(f"{w1}.rank0.json") as f:
+            one_counts = json.load(f)
+        print(f"[19] {label}: {RING_STEPS} steps at {list(COMPOSED)} f32, dropout off, "
+              f"--mesh data=1,seq=2 (gloo, 2 ranks) vs data=1 (one process, launches "
+              f"{one_counts}): max |dloss| {e_loss:.3e}, max |dparam| {e_par:.3e} (atol "
+              f"{RING_TRAJECTORY_ATOL:g}); replicas in sync at atol 0 (main()'s closing "
+              f"check); losses {two['losses'][0]:.4f} -> {two['losses'][-1]:.4f}")
+        step_ms = {n: float(r["epoch_seconds"]) / RING_STEPS * 1e3
+                   for n, r in (("seq=2", two), ("data=1", one))}
+        print(f"[19] {label}: step {step_ms['seq=2']:.3f} ms at seq=2 (a gloo time-slicing "
+              f"time: two ranks share one card, every hop staged through host memory; no "
+              f"scaling point), {step_ms['data=1']:.3f} ms at data=1 (one process), each "
+              f"over the epoch of {RING_STEPS} steps [{card}]")
+
     counted = ("flash_fwd", "flash_dq", "flash_dkv")
     all_launches = (launches | {"paged_attend": paged_launches}
                     | dict(zip(routes["float32"], (flash_launches[n] for n in counted)))
                     | dict(zip(routes["bfloat16"], (large_launches[n] for n in counted))))
+    # the offset form's launches: the seq=2 ring trainer's (rank 0), which promotes to f32;
+    # no main path runs the bf16 kernels with an offset
+    offset_launches = (dict(zip(routes["float32"], (ring_launches["ring"][n] for n in counted)))
+                       | dict.fromkeys(routes["bfloat16"], 0))
     all_err = err | flash_err | {"paged_attend": paged_err}
 
-    # -- 17. result ---------------------------------------------------------------------
+    # -- 20. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -1365,7 +1687,16 @@ def main() -> None:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
                for name, t in (times | flash_times | paged_times).items()]
-    print(f"[17] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    for entry in kernels:          # each flash kernel's offset form ([17], [19])
+        if entry["name"] in offset_times:
+            o = offset_times[entry["name"]]
+            entry["offset"] = {
+                "q_offsets": list(offsets), "case": "q_offset +C, window 300, non-causal",
+                "launches": offset_launches[entry["name"]],
+                "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
+                "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
+                "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
+    print(f"[20] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

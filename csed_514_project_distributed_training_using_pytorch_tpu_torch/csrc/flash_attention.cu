@@ -21,6 +21,11 @@
 //   flash_dq_mma_kernel    replaces _dq_kernel,  bf16
 //   flash_dkv_mma_kernel   replaces _dkv_kernel, bf16
 //
+// Every kernel takes the causal flag, the window and a hop offset q_offset (the TPU kernels'
+// static q_offset and traced q_offset_dyn in one runtime int): the query positions sit
+// q_offset past the keys' origin in the masks and in the live-tile ranges, for the ring
+// schedules' hops (parallel/ring_attention.py), any sign; see visible() below.
+//
 // Operands are [B, S, H, D] tensors read through their strides (D contiguous), so the
 // q/k/v views that a fused qkv projection hands over need no copy; outputs are contiguous
 // [B, S, H, D], and lse and delta are contiguous f32 [B, H, S]. Every product is taken in
@@ -67,40 +72,50 @@ struct Operand {
   int64_t sb, ss, sh;
 };
 
-// ops/attention.py's mask: causal keeps k <= q, the window keeps |q - k| < window.
+// ops/attention.py's mask: causal keeps k <= q, the window keeps |q - k| < window. q is the
+// query's position in the keys' frame: its row plus the hop offset q_offset, the TPU
+// kernels' q_offset (pallas_attention.py::_visibility_mask), which a ring hop sets to
+// delta·C and which may be negative. The mask depends on q - k alone, so the dk/dv kernels
+// shift the key instead (k - q_offset in the queries' frame).
 __device__ __forceinline__ bool visible(int q, int k, int causal, int window) {
   if (causal && q < k) return false;
   if (window > 0 && (q - k >= window || k - q >= window)) return false;
   return true;
 }
 
-// Key tiles [lo, hi) that hold a visible key for some row of the query tile at q0.
+// a / b rounded down (b > 0). C's / rounds toward zero, which is wrong for the negative
+// numerators a hop offset gives; the JAX kernels' // floors.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
+// Key tiles [lo, hi) that hold a visible key for some row of the query tile whose first
+// row sits at position q0 in the keys' frame (offset included). The range may be empty
+// (lo >= hi): a hop's tile that sees none of these keys. The kernels then walk nothing
+// and write out = 0, lse = kMaskValue (the JAX kernels' m + log(l_safe)), dq = 0.
 __device__ __forceinline__ void live_key_tiles(int q0, int S, int causal, int window,
                                                int* lo, int* hi) {
   const int q_last = q0 + kTile - 1;
   int a = 0, b = S / kTile;
-  if (causal) b = min(b, q_last / kTile + 1);
+  if (causal) b = min(b, floor_div(q_last, kTile) + 1);
   if (window > 0) {
-    const int k_first = q0 - window + 1;            // oldest key the tile's rows see
-    a = k_first > 0 ? k_first / kTile : 0;
-    if (!causal) b = min(b, (q_last + window - 1) / kTile + 1);
+    a = max(a, floor_div(q0 - window + 1, kTile));  // oldest key the tile's rows see
+    if (!causal) b = min(b, floor_div(q_last + window - 1, kTile) + 1);
   }
   *lo = a;
   *hi = b;
 }
 
-// Query tiles [lo, hi) with a row that sees some key of the key tile at k0.
+// Query tiles [lo, hi) with a row that sees some key of the key tile whose first key sits
+// at position k0 in the queries' frame (k0 - q_offset); empty when none does (dk = dv = 0).
 __device__ __forceinline__ void live_query_tiles(int k0, int S, int causal, int window,
                                                  int* lo, int* hi) {
   const int k_last = k0 + kTile - 1;
   int a = 0, b = S / kTile;
-  if (causal) a = k0 / kTile;
+  if (causal) a = max(a, floor_div(k0, kTile));
   if (window > 0) {
-    b = min(b, (k_last + window - 1) / kTile + 1);  // youngest query that sees the tile
-    if (!causal) {
-      const int q_first = k0 - window + 1;
-      a = max(a, q_first > 0 ? q_first / kTile : 0);
-    }
+    b = min(b, floor_div(k_last + window - 1, kTile) + 1);  // youngest query that sees it
+    if (!causal) a = max(a, floor_div(k0 - window + 1, kTile));
   }
   *lo = a;
   *hi = b;
@@ -200,7 +215,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// True when every (query, key) pair of the tile at (q0, k0) is visible.
+// True when every (query, key) pair of the tile at (q0, k0) is visible; q0 in the keys'
+// frame (offset included).
 __device__ __forceinline__ bool tile_interior(int q0, int k0, int causal, int window) {
   const int back = q0 + kTile - 1 - k0;    // the largest q - k in the tile
   const int ahead = k0 + kTile - 1 - q0;   // the largest k - q
@@ -442,7 +458,7 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, int H, float scale, int causal,
-                     int window) {
+                     int window, int q_offset) {
   constexpr int TILE = kTile * (D + 8);
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* sQ = reinterpret_cast<bf16*>(mma_smem);
@@ -456,7 +472,7 @@ flash_fwd_mma_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ out,
   const bf16* vb = slice<bf16>(v, b, h);
   const FragOffsets<D> off(warp, lane);
   int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  live_key_tiles(q0 + q_offset, S, causal, window, &kt_lo, &kt_hi);
 
   cp_tile<D>(sQ, slice<bf16>(q, b, h), q.ss, q0);
   if (kt_lo < kt_hi) {
@@ -490,10 +506,12 @@ flash_fwd_mma_kernel(Operand q, Operand k, Operand v, bf16* __restrict__ out,
     float s[8][4], corr[2];
     uint32_t p_frag[4][4];
     score_tile<D>(qf, sK + stage * TILE, off, s);
-    if (tile_interior(q0, k0, causal, window))
-      online_softmax<false>(s, scale, row, k0, t, causal, window, m, l, corr, p_frag);
+    if (tile_interior(q0 + q_offset, k0, causal, window))
+      online_softmax<false>(s, scale, row + q_offset, k0, t, causal, window, m, l, corr,
+                            p_frag);
     else
-      online_softmax<true>(s, scale, row, k0, t, causal, window, m, l, corr, p_frag);
+      online_softmax<true>(s, scale, row + q_offset, k0, t, causal, window, m, l, corr,
+                           p_frag);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       acc[j][0] *= corr[0];
@@ -528,7 +546,8 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dq_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int S, int H, float scale, int causal, int window) {
+                    bf16* __restrict__ dq, int S, int H, float scale, int causal, int window,
+                    int q_offset) {
   constexpr int TILE = kTile * (D + 8), NJ = 8;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* sQ = reinterpret_cast<bf16*>(mma_smem);
@@ -543,7 +562,7 @@ flash_dq_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
   const bf16* vb = slice<bf16>(v, b, h);
   const FragOffsets<D> off(warp, lane);
   int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  live_key_tiles(q0 + q_offset, S, causal, window, &kt_lo, &kt_hi);
 
   cp_tile<D>(sQ, slice<bf16>(q, b, h), q.ss, q0);
   cp_tile<D>(sDO, slice<bf16>(dout, b, h), dout.ss, q0);
@@ -575,14 +594,14 @@ flash_dq_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
     const bf16* tK = sK + stage * TILE;
     const bf16* tV = sV + stage * TILE;
     const int k0 = kt * kTile;
-    const bool interior = tile_interior(q0, k0, causal, window);
+    const bool interior = tile_interior(q0 + q_offset, k0, causal, window);
 #pragma unroll 1
     for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's keys, 8·NJ at a time
       float s[NJ][4], dp[NJ][4];
       score_tiles<D, NJ>(sQ, tK, sDO, tV, off, c0, s, dp);
       const auto stat_of = [&](int e, int) { return stat_r[e >> 1]; };
       const auto pos_of = [&](int e, int j) {
-        return make_int2(row + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1));
+        return make_int2(row + q_offset + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1));
       };
       uint32_t p_frag[NJ / 2][4], ds_frag[NJ / 2][4];
       if (interior)
@@ -602,7 +621,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
-                     int causal, int window) {
+                     int causal, int window, int q_offset) {
   constexpr int TILE = kTile * (D + 8), NJ = kDkvPassTiles<D>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* sK = reinterpret_cast<bf16*>(mma_smem);
@@ -619,7 +638,10 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
   const bf16* dob = slice<bf16>(dout, b, h);
   const FragOffsets<D> off(warp, lane);
   int qt_lo, qt_hi;
-  live_query_tiles(k0, S, causal, window, &qt_lo, &qt_hi);
+  // The key tile in the queries' frame: the mask depends on q - k alone, so the offset
+  // moves the keys and the query tiles keep their own positions.
+  const int kq0 = k0 - q_offset;
+  live_query_tiles(kq0, S, causal, window, &qt_lo, &qt_hi);
 
   // The query tile qt's rows of Q and dO, and its lse and Δ (16 floats a warp-quarter).
   const auto stage_queries = [&](int st, int qt) {
@@ -636,15 +658,18 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
   if (qt_lo < qt_hi) stage_queries(0, qt_lo);
   cp_async_commit();
 
-  const int key = k0 + 16 * warp + g;       // this thread's rows: key and key + 8
+  const int key = kq0 + 16 * warp + g;      // this thread's rows key and key + 8, shifted
   float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
+  // the stage toggles (tile qt's buffers), so qt_lo is not live in the walk: with it
+  // and the hop offset, ptxas spilled dk/dv at D = 64 (f32) and D = 128 (bf16)
+  int stage = 1;
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int stage = (qt - qt_lo) & 1;
+    stage ^= 1;
     cp_async_wait_all();
     __syncthreads();              // tile qt is in, and every warp is done with tile qt - 1
     if (qt + 1 < qt_hi) {
@@ -656,7 +681,7 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
     const float* tLse = sStat + 2 * stage * kTile;
     const float* tDelta = tLse + kTile;
     const int q0 = qt * kTile;
-    const bool interior = tile_interior(q0, k0, causal, window);
+    const bool interior = tile_interior(q0, kq0, causal, window);
 #pragma unroll 1
     for (int c0 = 0; c0 < kTile; c0 += 8 * NJ) {   // the tile's queries, 8·NJ at a time
       float s[NJ][4], dp[NJ][4];  // Sᵀ and dPᵀ: rows are keys, columns queries
@@ -677,8 +702,8 @@ flash_dkv_mma_kernel(Operand q, Operand k, Operand v, Operand dout,
       accumulate<D>(acc_k, ds_frag, tQ, off, c0);
     }
   }
-  store_rows<D>(dk, acc_k, b, key, S, H, h, t, scale);
-  store_rows<D>(dv, acc_v, b, key, S, H, h, t, 1.f);
+  store_rows<D>(dk, acc_k, b, key + q_offset, S, H, h, t, scale);
+  store_rows<D>(dv, acc_v, b, key + q_offset, S, H, h, t, 1.f);
 }
 
 // ---------------------------------------------------------------------------------------
@@ -999,7 +1024,7 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
                       float* __restrict__ lse, int S, int H, float scale, int causal,
-                      int window) {
+                      int window, int q_offset) {
   constexpr int TILE = kTile * (D + 4), SETS = kTf32FwdAccSets<D>;
   constexpr bool kOnce = kTf32SplitOnce<D>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -1015,7 +1040,7 @@ flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
   const float* kb = slice<float>(k, b, h);
   const float* vb = slice<float>(v, b, h);
   int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  live_key_tiles(q0 + q_offset, S, causal, window, &kt_lo, &kt_hi);
 
   cp_tile<D>(sQ, slice<float>(q, b, h), q.ss, q0);
   if (kt_lo < kt_hi) {
@@ -1058,7 +1083,8 @@ flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
     const auto tile_step = [&](auto masked) {
       const auto vis = [&](int e, int j) {
         if constexpr (decltype(masked)::value)
-          return visible(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), causal, window);
+          return visible(row + q_offset + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), causal,
+                         window);
         else
           return true;
       };
@@ -1107,7 +1133,7 @@ flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
         m[r] = m_new[r];
       }
     };
-    if (tile_interior(q0, k0, causal, window))
+    if (tile_interior(q0 + q_offset, k0, causal, window))
       tile_step(std::false_type{});
     else
       tile_step(std::true_type{});
@@ -1127,10 +1153,12 @@ flash_fwd_tf32_kernel(Operand q, Operand k, Operand v, float* __restrict__ out,
   }
   store_rows_f32<D>(out, acc[0], b, row, S, H, h, t, 1.f);
   if (t == 0) {
+    // a row that saw no key (l == 0, only under a hop offset) has lse = kMaskValue, as
+    // the plain version's; m is in base 2 here and would give kMaskValue·ln 2
     constexpr float kLn2 = 0.6931471805599453f;
     float* lse_row = lse + (static_cast<int64_t>(b) * H + h) * S + row;
-    lse_row[0] = m[0] * kLn2 + logf(l_safe[0]);
-    lse_row[8] = m[1] * kLn2 + logf(l_safe[1]);
+    lse_row[0] = l[0] == 0.f ? kMaskValue : m[0] * kLn2 + logf(l_safe[0]);
+    lse_row[8] = l[1] == 0.f ? kMaskValue : m[1] * kLn2 + logf(l_safe[1]);
   }
 }
 
@@ -1141,7 +1169,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_dq_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, int S, int H, float scale, int causal,
-                     int window) {
+                     int window, int q_offset) {
   constexpr int TILE = kTile * (D + 4), NJ = kTf32PassTiles<D, false>;
   constexpr bool kOnce = kTf32SplitOnce<D>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -1158,7 +1186,7 @@ flash_dq_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
   const float* kb = slice<float>(k, b, h);
   const float* vb = slice<float>(v, b, h);
   int kt_lo, kt_hi;
-  live_key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  live_key_tiles(q0 + q_offset, S, causal, window, &kt_lo, &kt_hi);
 
   cp_tile<D>(sQ, slice<float>(q, b, h), q.ss, q0);
   cp_tile<D>(sDO, slice<float>(dout, b, h), dout.ss, q0);
@@ -1211,8 +1239,8 @@ flash_dq_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
           for (int e = 0; e < 4; ++e) {
             bool vis = true;
             if constexpr (decltype(masked)::value)
-              vis = visible(row + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1), causal,
-                            window);
+              vis = visible(row + q_offset + 8 * (e >> 1), k0 + c0 + 8 * j + 2 * t + (e & 1),
+                            causal, window);
             const float p = vis ? exp2_approx(fmaf(s[j][e], scale2, neg_lse2[e >> 1])) : 0.f;
             ds[e] = p * (dp[j][e] - delta_r[e >> 1]);
           }
@@ -1223,7 +1251,7 @@ flash_dq_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
         }
       }
     };
-    if (tile_interior(q0, k0, causal, window))
+    if (tile_interior(q0 + q_offset, k0, causal, window))
       tile_passes(std::false_type{});
     else
       tile_passes(std::true_type{});
@@ -1238,7 +1266,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int S, int H,
-                      float scale, int causal, int window) {
+                      float scale, int causal, int window, int q_offset) {
   constexpr int TILE = kTile * (D + 4), NJ = kTf32PassTiles<D, true>;
   constexpr bool kOnce = kTf32SplitOnce<D>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -1257,7 +1285,10 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
   const float* qb = slice<float>(q, b, h);
   const float* dob = slice<float>(dout, b, h);
   int qt_lo, qt_hi;
-  live_query_tiles(k0, S, causal, window, &qt_lo, &qt_hi);
+  // The key tile in the queries' frame: the mask depends on q - k alone, so the offset
+  // moves the keys and the query tiles keep their own positions.
+  const int kq0 = k0 - q_offset;
+  live_query_tiles(kq0, S, causal, window, &qt_lo, &qt_hi);
 
   // The query tile qt's rows of Q and dO, and its lse and Δ (16 floats a warp-quarter).
   const auto stage_queries = [&](int st, int qt) {
@@ -1274,7 +1305,7 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
   if (qt_lo < qt_hi) stage_queries(0, qt_lo);
   cp_async_commit();
 
-  const int key = k0 + 16 * warp + g;       // this thread's rows: key and key + 8
+  const int key = kq0 + 16 * warp + g;      // this thread's rows key and key + 8, shifted
   const float scale2 = scale * kLog2e;
   float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
@@ -1286,8 +1317,11 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
   __syncthreads();
   const OwnRows<D, kOnce> ok(sK, 16 * warp, g, t), ov(sV, 16 * warp, g, t);
 
+  // the stage toggles (tile qt's buffers), so qt_lo is not live in the walk: with it
+  // and the hop offset, ptxas spilled dk/dv at D = 64 (f32) and D = 128 (bf16)
+  int stage = 1;
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int stage = (qt - qt_lo) & 1;
+    stage ^= 1;
     cp_async_wait_all();
     if constexpr (kOnce) {        // split tile qt where this thread's copies landed
       split_tile<D>(sQ + stage * TILE, sQlo + stage * TILE);
@@ -1333,13 +1367,13 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
         }
       }
     };
-    if (tile_interior(q0, k0, causal, window))
+    if (tile_interior(q0, kq0, causal, window))
       tile_passes(std::false_type{});
     else
       tile_passes(std::true_type{});
   }
-  store_rows_f32<D>(dk, acc_k, b, key, S, H, h, t, scale);
-  store_rows_f32<D>(dv, acc_v, b, key, S, H, h, t, 1.f);
+  store_rows_f32<D>(dk, acc_k, b, key + q_offset, S, H, h, t, scale);
+  store_rows_f32<D>(dv, acc_v, b, key + q_offset, S, H, h, t, 1.f);
 }
 
 // ---------------------------------------------------------------------------------------
@@ -1349,7 +1383,7 @@ flash_dkv_tf32_kernel(Operand q, Operand k, Operand v, Operand dout,
 struct Shape {
   int B, S, H;
   float scale;
-  int causal, window;
+  int causal, window, q_offset;
   dim3 grid() const { return dim3(S / kTile, H, B); }
 };
 
@@ -1373,10 +1407,12 @@ cudaError_t launch_fwd(Operand q, Operand k, Operand v, void* out, float* lse, S
                        cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>)
     return start(flash_fwd_mma_kernel<D>, kMmaThreads, 5 * mma_tile_bytes<D>(), s, stream, q,
-                 k, v, static_cast<bf16*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
+                 k, v, static_cast<bf16*>(out), lse, s.S, s.H, s.scale, s.causal, s.window,
+                 s.q_offset);
   else
     return start(flash_fwd_tf32_kernel<D>, kMmaThreads, tf32_fwd_bytes<D>(), s, stream, q, k,
-                 v, static_cast<float*>(out), lse, s.S, s.H, s.scale, s.causal, s.window);
+                 v, static_cast<float*>(out), lse, s.S, s.H, s.scale, s.causal, s.window,
+                 s.q_offset);
 }
 
 template <typename T, int D>
@@ -1385,11 +1421,11 @@ cudaError_t launch_dq(Operand q, Operand k, Operand v, Operand dout, const float
   if constexpr (std::is_same_v<T, bf16>)
     return start(flash_dq_mma_kernel<D>, kMmaThreads, 6 * mma_tile_bytes<D>(), s, stream, q,
                  k, v, dout, lse, delta, static_cast<bf16*>(dq), s.S, s.H, s.scale, s.causal,
-                 s.window);
+                 s.window, s.q_offset);
   else
     return start(flash_dq_tf32_kernel<D>, kMmaThreads, tf32_dq_bytes<D>(), s, stream, q, k, v,
                  dout, lse, delta, static_cast<float*>(dq), s.S, s.H, s.scale, s.causal,
-                 s.window);
+                 s.window, s.q_offset);
 }
 
 template <typename T, int D>
@@ -1399,11 +1435,11 @@ cudaError_t launch_dkv(Operand q, Operand k, Operand v, Operand dout, const floa
     return start(flash_dkv_mma_kernel<D>, kMmaThreads,
                  6 * mma_tile_bytes<D>() + 4 * kTile * sizeof(float), s, stream, q, k, v, dout,
                  lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.S, s.H, s.scale,
-                 s.causal, s.window);
+                 s.causal, s.window, s.q_offset);
   else
     return start(flash_dkv_tf32_kernel<D>, kMmaThreads, tf32_dkv_bytes<D>(), s, stream, q, k,
                  v, dout, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), s.S,
-                 s.H, s.scale, s.causal, s.window);
+                 s.H, s.scale, s.causal, s.window, s.q_offset);
 }
 
 // Calls fn.template run<T, D>() for the run-time dtype code and head width.
@@ -1462,13 +1498,14 @@ extern "C" {
 
 // q, k, v: [B, S, H, D] with element strides (b, s, h) in q_strides etc.; out: contiguous
 // [B, S, H, D] of the same dtype; lse: contiguous f32 [B, H, S]. S must be a multiple of
-// 64 and D one of 16, 64, 128 (the wrapper checks both).
+// 64 and D one of 16, 64, 128 (the wrapper checks both). q_offset: the query positions sit
+// q_offset past the keys' origin in the masks (a ring hop's delta·C, any sign).
 int flash_fwd(int dtype, const void* q, const int64_t* q_strides, const void* k,
               const int64_t* k_strides, const void* v, const int64_t* v_strides, void* out,
               float* lse, int B, int S, int H, int D, float scale, int causal, int window,
-              cudaStream_t stream) {
+              int q_offset, cudaStream_t stream) {
   const Fwd fn{operand(q, q_strides), operand(k, k_strides), operand(v, v_strides), out, lse,
-               Shape{B, S, H, scale, causal, window}, stream};
+               Shape{B, S, H, scale, causal, window, q_offset}, stream};
   return dispatch(dtype, D, fn);
 }
 
@@ -1477,10 +1514,11 @@ int flash_fwd(int dtype, const void* q, const int64_t* q_strides, const void* k,
 int flash_dq(int dtype, const void* q, const int64_t* q_strides, const void* k,
              const int64_t* k_strides, const void* v, const int64_t* v_strides, const void* dout,
              const int64_t* dout_strides, const float* lse, const float* delta, void* dq, int B,
-             int S, int H, int D, float scale, int causal, int window, cudaStream_t stream) {
+             int S, int H, int D, float scale, int causal, int window, int q_offset,
+             cudaStream_t stream) {
   const Dq fn{operand(q, q_strides), operand(k, k_strides), operand(v, v_strides),
               operand(dout, dout_strides), lse, delta, dq,
-              Shape{B, S, H, scale, causal, window}, stream};
+              Shape{B, S, H, scale, causal, window, q_offset}, stream};
   return dispatch(dtype, D, fn);
 }
 
@@ -1489,10 +1527,10 @@ int flash_dkv(int dtype, const void* q, const int64_t* q_strides, const void* k,
               const int64_t* k_strides, const void* v, const int64_t* v_strides, const void* dout,
               const int64_t* dout_strides, const float* lse, const float* delta, void* dk,
               void* dv, int B, int S, int H, int D, float scale, int causal, int window,
-              cudaStream_t stream) {
+              int q_offset, cudaStream_t stream) {
   const Dkv fn{operand(q, q_strides), operand(k, k_strides), operand(v, v_strides),
                operand(dout, dout_strides), lse, delta, dk, dv,
-               Shape{B, S, H, scale, causal, window}, stream};
+               Shape{B, S, H, scale, causal, window, q_offset}, stream};
   return dispatch(dtype, D, fn);
 }
 

@@ -44,15 +44,16 @@ SIGNATURES = {
     },
     "flash_attention": {
         # dtype, q, q_strides, k, k_strides, v, v_strides, out, lse,
-        # B, S, H, D, scale, causal, window, stream
-        "flash_fwd": (_I, _P, _S, _P, _S, _P, _S, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+        # B, S, H, D, scale, causal, window, q_offset, stream
+        "flash_fwd": (_I, _P, _S, _P, _S, _P, _S, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                      _P),
         # dtype, q, k, v, dout (each with strides), lse, delta, dq,
-        # B, S, H, D, scale, causal, window, stream
+        # B, S, H, D, scale, causal, window, q_offset, stream
         "flash_dq": (_I, _P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P,
-                     _I, _I, _I, _I, _F, _I, _I, _P),
+                     _I, _I, _I, _I, _F, _I, _I, _I, _P),
         # as flash_dq, writing dk and dv
         "flash_dkv": (_I, _P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _F, _I, _I, _P),
+                      _I, _I, _I, _I, _F, _I, _I, _I, _P),
     },
     "paged_attention": {
         # dtype, q, k_pool, v_pool, k_scale, v_scale (null without scales), table, t, out,

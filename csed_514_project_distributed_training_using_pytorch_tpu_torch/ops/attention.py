@@ -32,11 +32,13 @@ def windowed_attention_fn(window: int):
 
 
 def visibility_mask(s_q: int, s_k: int, *, causal: bool, window: int | None,
-                    device=None, k_offset: int = 0) -> torch.Tensor:
+                    device=None, k_offset: int = 0, q_offset: int = 0) -> torch.Tensor:
     """``[s_q, s_k]`` bool mask of the visible (query, key) pairs: causal keeps ``j <= i``,
     the window keeps ``|i - j| < window``. The keys sit at positions ``k_offset +
-    arange(s_k)`` (a key tile of a longer sequence)."""
-    i = torch.arange(s_q, device=device)[:, None]
+    arange(s_k)`` (a key tile of a longer sequence), the queries at ``q_offset +
+    arange(s_q)`` (a ring hop's queries, ``q_offset`` positions past the keys' origin; it
+    may be negative)."""
+    i = torch.arange(s_q, device=device)[:, None] + q_offset
     j = torch.arange(s_k, device=device)[None, :] + k_offset
     mask = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
     if causal:

@@ -10,6 +10,11 @@ and, beside it, a plain PyTorch version of the same function:
   after ``Δ = rowsum(dO∘out)``, which it takes in plain torch (``flash_delta``), as the
   JAX package leaves it to XLA.
 
+Every one of them takes a ``q_offset``: the query positions sit ``q_offset`` past the keys'
+origin in the masks, any sign, as the TPU kernels' hop offset (``_visibility_mask``). The
+ring schedules (``parallel/ring_attention.py``) call them through ``flash_forward_with_lse``
+and ``flash_backward_blocks`` with a hop's ``delta·C``.
+
 ``flash_attention`` joins them as one ``torch.autograd.Function`` on ``[B, S, H, D]``;
 ``dispatch_attention`` sends a sequence to it or to the dense ``full_attention`` by the
 JAX package's predicate (``dispatch_uses_flash``).
@@ -96,6 +101,13 @@ def _check_seq(s: int) -> None:
             f"(use ops.full_attention for odd lengths)")
 
 
+def _check_offset(q_offset: int) -> None:
+    """The JAX package's hop-offset check: offsets shift whole blocks (any sign)."""
+    if q_offset % BLOCK:
+        raise ValueError(
+            f"q_offset must be a multiple of block={BLOCK}, got {q_offset}")
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the plain versions' only case."""
     return all(t.device.type == "cpu" for t in tensors)
@@ -161,11 +173,13 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = False, window: int = 0):
+                        causal: bool = False, window: int = 0, q_offset: int = 0):
     """Plain version of ``flash_forward``: the kernel's online softmax over key tiles of
     ``KV_TILE``, with its masks and roundings. A key tile that no query of a row sees
     leaves that row's state as it was (p = 0, corr = 1), so walking every tile, as this
-    version does, gives what the kernel's walk over the live tiles gives."""
+    version does, gives what the kernel's walk over the live tiles gives. A row that sees
+    no key at all (possible only with a ``q_offset``) keeps out = 0 and lse =
+    ``MASK_VALUE``."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
@@ -178,7 +192,7 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vis = None
         if causal or window:
             vis = visibility_mask(s, kt.shape[2], causal=causal, window=window,
-                                  device=q.device, k_offset=k0)
+                                  device=q.device, k_offset=k0, q_offset=q_offset)
             sc = torch.where(vis, sc, MASK_VALUE)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
@@ -195,14 +209,16 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = False, window: int = 0):
+                  causal: bool = False, window: int = 0, q_offset: int = 0):
     """``q, k, v: [B, S, H, D]`` -> ``(out [B, S, H, D] in q's dtype, lse f32 [B, H, S])``:
     one launch of the forward kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on
     the tensor cores). Raises on operands that are not 16-byte aligned, which the main
-    path's q, k, v views of the fused qkv projection are."""
+    path's q, k, v views of the fused qkv projection are. ``q_offset`` shifts the query
+    positions against the keys in the masks (``visibility_mask``), any sign."""
     global flash_fwd_launches
     if _on_cpu(q, k, v):
-        return flash_forward_plain(q, k, v, causal=causal, window=window)
+        return flash_forward_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     dev = _check_operands("flash_fwd", q=q, k=k, v=v)
     _check_aligned("flash_fwd", q=q, k=k, v=v)
     b, s, h, d = q.shape
@@ -211,7 +227,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.launch("flash_attention", "flash_fwd", dev, "flash_fwd", _DTYPES[q.dtype],
                   q.data_ptr(), _strides(q), k.data_ptr(), _strides(k), v.data_ptr(),
                   _strides(v), out.data_ptr(), lse.data_ptr(), b, s, h, d,
-                  1.0 / math.sqrt(d), int(causal), int(window))
+                  1.0 / math.sqrt(d), int(causal), int(window), int(q_offset))
     flash_fwd_launches += 1
     return out, lse
 
@@ -227,7 +243,7 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
 
 
-def _backward_plain(q, k, v, lse, delta, dout, *, causal, window):
+def _backward_plain(q, k, v, lse, delta, dout, *, causal, window, q_offset=0):
     """The plain backward from the statistics lse and Δ (both ``[B, H, S]``)."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -241,7 +257,7 @@ def _backward_plain(q, k, v, lse, delta, dout, *, causal, window):
         vis = None
         if causal or window:
             vis = visibility_mask(s, kt.shape[2], causal=causal, window=window,
-                                  device=q.device, k_offset=k0)
+                                  device=q.device, k_offset=k0, q_offset=q_offset)
             sc = torch.where(vis, sc, MASK_VALUE)
         p = torch.exp(sc - lse)
         if vis is not None:
@@ -257,13 +273,13 @@ def _backward_plain(q, k, v, lse, delta, dout, *, causal, window):
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                         causal: bool = False, window: int = 0):
+                         causal: bool = False, window: int = 0, q_offset: int = 0):
     """Plain version of ``flash_backward`` (of both backward kernels): per key tile of
     ``KV_TILE``, p by recompute, ``ds = p∘(dO·vᵀ − Δ)``, p and ds narrowed to the input
     type at the products; ``dq = scale·Σ ds·k``, ``dk = scale·Σ dsᵀ·q``,
     ``dv = Σ pᵀ·dO``."""
     return _backward_plain(q, k, v, lse, flash_delta(out, dout), dout, causal=causal,
-                           window=window)
+                           window=window, q_offset=q_offset)
 
 
 def _check_stats(name: str, q: torch.Tensor, **stats: torch.Tensor) -> None:
@@ -281,39 +297,41 @@ def _backward_args(q, k, v, dout, lse, delta):
             delta.data_ptr())
 
 
-def _shape_args(q, causal, window):
+def _shape_args(q, causal, window, q_offset):
     b, s, h, d = q.shape
-    return (b, s, h, d, 1.0 / math.sqrt(d), int(causal), int(window))
+    return (b, s, h, d, 1.0 / math.sqrt(d), int(causal), int(window), int(q_offset))
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
              lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
-             window: int = 0) -> torch.Tensor:
+             window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """dq ``[B, S, H, D]`` from the statistics lse and Δ (``[B, H, S]`` f32): one launch of
     the dq kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on the tensor
     cores)."""
     global flash_dq_launches
     if _on_cpu(q, k, v, dout, lse, delta):
-        return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[0]
+        return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window,
+                               q_offset=q_offset)[0]
     dev = _check_operands("flash_dq", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dq", q, lse=lse, delta=delta)
     _check_aligned("flash_dq", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _build.launch("flash_attention", "flash_dq", dev, "flash_dq",
                   *_backward_args(q, k, v, dout, lse, delta), dq.data_ptr(),
-                  *_shape_args(q, causal, window))
+                  *_shape_args(q, causal, window, q_offset))
     flash_dq_launches += 1
     return dq
 
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
               lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = False,
-              window: int = 0):
+              window: int = 0, q_offset: int = 0):
     """(dk, dv) ``[B, S, H, D]`` from the statistics lse and Δ: one launch of the dk/dv
     kernel (3xTF32 for f32 operands, bf16 for bf16 ones; both on the tensor cores)."""
     global flash_dkv_launches
     if _on_cpu(q, k, v, dout, lse, delta):
-        return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window)[1:]
+        return _backward_plain(q, k, v, lse, delta, dout, causal=causal, window=window,
+                               q_offset=q_offset)[1:]
     dev = _check_operands("flash_dkv", q=q, k=k, v=v, dout=dout)
     _check_stats("flash_dkv", q, lse=lse, delta=delta)
     _check_aligned("flash_dkv", q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
@@ -321,20 +339,64 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
     dv = torch.empty_like(dk)
     _build.launch("flash_attention", "flash_dkv", dev, "flash_dkv",
                   *_backward_args(q, k, v, dout, lse, delta), dk.data_ptr(), dv.data_ptr(),
-                  *_shape_args(q, causal, window))
+                  *_shape_args(q, causal, window, q_offset))
     flash_dkv_launches += 1
     return dk, dv
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = False,
-                   window: int = 0):
+                   window: int = 0, q_offset: int = 0):
     """``(dq, dk, dv)`` in the operands' dtype, each ``[B, S, H, D]``, from the forward's
     out and lse and the output cotangent ``dout``: Δ in plain torch, then the dq kernel and
     the dk/dv kernel (each its plain version on the CPU)."""
     delta = flash_delta(out, dout)
-    dq = flash_dq(q, k, v, dout, lse, delta, causal=causal, window=window)
-    return (dq, *flash_dkv(q, k, v, dout, lse, delta, causal=causal, window=window))
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    dq = flash_dq(q, k, v, dout, lse, delta, **mask)
+    return (dq, *flash_dkv(q, k, v, dout, lse, delta, **mask))
+
+
+# =========================================================================================
+# The ring schedules' building blocks (parallel/ring_attention.py)
+# =========================================================================================
+
+
+def flash_forward_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           causal: bool = False, window: int = 0, q_offset: int = 0):
+    """Forward-only flash attention that also returns the per-row log-sum-exp, for the
+    ring schedules' exact merge of partial results: ``[B, S, H, D]³ -> (out [B, S, H, D],
+    lse f32 [B, H, S])``, no autograd. ``q_offset`` (a multiple of ``BLOCK``, any sign)
+    places the queries ``q_offset`` positions past the keys' origin in the causal and
+    window masks: the ring hop's offset ``delta·C``. A row that sees no key in this call
+    comes back as out 0 and lse ``MASK_VALUE``, which the merge weighs by 0.
+
+    The JAX package has a static ``q_offset`` and a traced ``q_offset_dyn`` (the zig-zag's
+    device-dependent offsets). Here the rank is a host int, so both are this one ``int``,
+    passed to the kernels as a runtime argument."""
+    _check_seq(q.shape[1])
+    _check_offset(q_offset)
+    return flash_forward(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_backward_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                          causal: bool = False, window: int = 0, q_offset: int = 0):
+    """One flash-backward pass of a query-block set against a key/value-block set, given
+    the GLOBAL statistics: ``(dq, dk, dv)`` contributions. ``lse`` and ``delta`` (f32
+    ``[B, H, S]``) are those of the full attention row, all keys of every hop, so
+    ``p = exp(q·kᵀ·scale − lse)`` is the true softmax coefficient restricted to these keys
+    and the contributions sum exactly over hops; a pair masked in this hop gives p = 0.
+    ``q_offset`` as in ``flash_forward_with_lse`` (the static and traced offsets of the
+    JAX package are this one ``int``). Requires equal q and k block sets."""
+    if k.shape != q.shape:
+        raise ValueError(
+            f"flash_backward_blocks needs equal q/k block sets, got {tuple(q.shape)} vs "
+            f"{tuple(k.shape)}")
+    _check_seq(q.shape[1])
+    _check_offset(q_offset)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    dq = flash_dq(q, k, v, dout, lse, delta, **mask)
+    return (dq, *flash_dkv(q, k, v, dout, lse, delta, **mask))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``parallel/collectives.py``: ``ring_pass`` (the
 ``ppermute`` ring of the connectivity smoke, the reference's rank 0 -> rank 1 send) and
 ``all_reduce_sum``, here explicit ``torch.distributed`` calls where the JAX package lets
 XLA insert them; plus ``all_gather`` and ``broadcast_``, which the trainer and its checks
-use.
+use, and ``all_gather_seq``, which puts the ring schedules' sequence shards back together
+(``parallel/ring_attention.py``; its hops are ``ring_pass`` in either direction).
 
 Where the tensors live is the caller's business; how they travel is chosen by backend,
 never by trying: NCCL takes tensors on the rank's card, gloo takes them on the host, so a
@@ -63,6 +64,17 @@ def all_gather(value: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(send) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, send)
     return torch.stack(parts).to(value.device)
+
+
+def all_gather_seq(shard: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Every rank's sequence shard concatenated along ``dim`` in rank order, on every rank:
+    ``[B, S/n, H, D]`` shards back to the full ``[B, S, H, D]`` (the ring schedules'
+    output, and in backward their gradients)."""
+    staged = host_staged(shard)
+    send = shard.cpu() if staged else shard.contiguous()
+    parts = [torch.empty_like(send) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, send)
+    return torch.cat(parts, dim=dim).to(shard.device)
 
 
 def ring_pass(value: torch.Tensor, *, shift: int = 1) -> torch.Tensor:

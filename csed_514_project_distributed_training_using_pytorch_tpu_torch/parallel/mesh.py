@@ -10,8 +10,10 @@ Counterpart of the JAX package's ``parallel/mesh.py`` (that module imports JAX):
 - The data world is the process group itself: one axis, ``data``, of ``process_count``
   ranks, each holding one replica. That is the JAX package's default one-axis mesh
   (``make_mesh``) with a process for each device.
-- ``parse_mesh_spec`` is the ``--mesh`` grammar of the composed trainer, which still trains
-  on one device only (meshes of more: ROADMAP A10).
+- ``parse_mesh_spec`` is the ``--mesh`` grammar of the composed trainer, and
+  ``seq_axis_size`` the meshes it trains: one device, or a ``seq`` axis alone, whose world
+  is the process group (one rank a sequence shard, ``parallel/ring_attention.py``). Every
+  other mesh of more than one device waits for ROADMAP A6/A10.
 
 The backend is chosen by rule and named in every result: ``nccl`` when the ranks run on
 CUDA and each rank on this host has a card of its own (rank r on ``cuda:LOCAL_RANK``);
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 from dataclasses import dataclass
 
@@ -157,3 +160,18 @@ def parse_mesh_spec(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
     if not names:
         raise ValueError("empty --mesh spec")
     return tuple(names), tuple(sizes)
+
+
+def seq_axis_size(spec: str) -> int:
+    """The ``seq`` axis size of a ``--mesh`` spec the port trains: every axis but ``seq``
+    of size 1 (``data=1``, ``data=1,seq=N``). The seq world is the process count, one rank
+    a sequence shard. Any other mesh of more than one device raises."""
+    names, sizes = parse_mesh_spec(spec)
+    axes = dict(zip(names, sizes))
+    others = {name: size for name, size in axes.items() if name != "seq" and size > 1}
+    if others:
+        raise ValueError(
+            f"--mesh {spec} spans {math.prod(sizes)} devices with {others}; this port "
+            f"trains on one device or on a seq axis alone (data>1, and data beside seq, "
+            f"model, expert, stage: ROADMAP A6/A10) — use --mesh data=1 or data=1,seq=N")
+    return axes.get("seq", 1)

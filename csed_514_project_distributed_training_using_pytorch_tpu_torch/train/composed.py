@@ -1,22 +1,39 @@
-"""Composed trainer for the transformer classifier, on a mesh of one device.
+"""Composed trainer for the transformer classifier: one device, or a sequence-parallel
+world of ranks.
 
-Counterpart of the JAX package's ``train/composed.py`` for ``--mesh data=1`` (any spec
-whose axes multiply to 1): the ``TransformerClassifier`` at the trainer's widths (embed 64,
-2 layers, 4 heads), SGD-momentum, ``epochs`` of ``n_train // batch_size`` steps over the
-``(seed, epoch)`` permutation (bitwise the JAX package's), the eval after each epoch, the
-``Epoch N: train_loss ...`` line and ``results/metrics.jsonl``. Per-step losses stay on
-the device; the host reads them once per epoch.
+Counterpart of the JAX package's ``train/composed.py`` for ``--mesh data=1`` (one device)
+and ``--mesh data=1,seq=N`` (sequence parallelism over N ranks): the
+``TransformerClassifier`` at the trainer's widths (embed 64, 2 layers, 4 heads),
+SGD-momentum, ``epochs`` of ``n_train // batch_size`` steps over the ``(seed, epoch)``
+permutation (bitwise the JAX package's), the eval after each epoch, the ``Epoch N:
+train_loss ...`` line and ``results/metrics.jsonl``. Per-step losses stay on the device;
+the host reads them once per epoch.
 
-``--flash-attention`` routes attention through ``ops.flash_attention.dispatch_attention``:
-the CUDA flash kernels at ``seq_len >= 2048`` (the JAX package's predicate), the dense core
-below. Run the slice's path on the card with::
+``--flash-attention`` routes attention through ``ops.flash_attention.dispatch_attention``
+on one device: the CUDA flash kernels at ``seq_len >= 2048`` (the JAX package's
+predicate), the dense core below. Under a seq axis it runs the ring-of-flash
+(``parallel.ring_attention``, the flash kernels on every hop with its offset), or with
+``--zigzag-attention --causal`` the zig-zag ring-of-flash; ``--attention-window`` binds
+the band into either. The seq world is the process group (``parallel.mesh.cluster``:
+``train.launch`` or ``torchrun`` start it; without them a world of one): every rank holds
+the whole batch and the same parameters, attention shards the sequence, the ranks draw
+the same dropout masks, and the parameter gradients agree with no reduce; the trainer
+checks that the replicas are still equal at the end. Metrics print and save on rank 0.
+Run the slice's paths on the card with::
 
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.composed \\
         --mesh data=1 --flash-attention --seq-len 2048
+    python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.launch \\
+        --num-processes 2 -- \\
+        -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.composed \\
+        --mesh data=1,seq=2 --flash-attention --seq-len 2048
 
-Not ported yet: meshes of more than one device, sequence/tensor/expert/pipeline
-parallelism and MoE (ROADMAP A6/A10), remat, AdamW, label smoothing, LR schedules, EMA,
-telemetry and the resilience hooks, and the checkpoint (ROADMAP A5).
+(two ranks on one card run gloo and time-slice it: ``parallel/mesh.py``'s backend rule).
+
+Not ported yet: meshes of more than one device other than a seq axis alone (data beside
+seq, tensor/expert/pipeline parallelism and MoE), the einsum ring and zig-zag, Ulysses
+(ROADMAP A6/A10), remat, AdamW, label smoothing, LR schedules, EMA, telemetry and the
+resilience hooks, and the checkpoint (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -41,8 +58,13 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
     flash_attention,
     optim,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    ring_attention,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+    cluster,
     parse_mesh_spec,
+    seq_axis_size,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
     resolve_device,
@@ -59,6 +81,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config 
     ComposedConfig,
     parse_config,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.determinism import (
+    assert_replicas_synced,
+)
 
 
 def epoch_plan(seed: int, epoch: int, n_train: int, steps: int, batch: int) -> np.ndarray:
@@ -68,30 +93,65 @@ def epoch_plan(seed: int, epoch: int, n_train: int, steps: int, batch: int) -> n
     return perm[:steps * batch].astype(np.int64).reshape(steps, batch)
 
 
-def validate_config(config: ComposedConfig) -> None:
-    """The flag checks that apply to one device, before any data work."""
-    names, sizes = parse_mesh_spec(config.mesh)
-    if int(np.prod(sizes)) != 1:
-        raise ValueError(
-            f"--mesh {config.mesh} spans {int(np.prod(sizes))} devices; this port trains "
-            f"on one device only (meshes of more: ROADMAP A6/A10) — use --mesh data=1")
+def validate_config(config: ComposedConfig) -> int:
+    """The flag checks, before any data work, with the JAX package's messages where it has
+    them; returns the seq axis size (the seq world)."""
+    names, _ = parse_mesh_spec(config.mesh)
+    seq = seq_axis_size(config.mesh)
     if config.kv_heads and (config.kv_heads < 0 or NUM_HEADS % config.kv_heads):
         raise ValueError(f"--kv-heads {config.kv_heads} must be a positive divisor of the "
                          f"transformer's {NUM_HEADS} heads")
     if config.attention_window:
         attention.validate_window(config.attention_window)
-    if config.flash_attention and config.seq_len % flash_attention.BLOCK:
+    if config.seq_impl not in ("ring", "ulysses"):
         raise ValueError(
-            f"--flash-attention needs seq_len divisible by seq_axis·BLOCK = "
-            f"1·{flash_attention.BLOCK}, got {config.seq_len} (e.g. --seq-len "
-            f"{flash_attention.BLOCK})")
+            f"--seq-impl must be 'ring' or 'ulysses', got {config.seq_impl!r}")
+    if config.seq_impl == "ulysses":
+        if config.zigzag_attention:
+            raise ValueError("--zigzag-attention is a ring schedule — it does not "
+                             "compose with --seq-impl ulysses")
+        raise ValueError("--seq-impl ulysses (head-scatter all-to-all) is not ported "
+                         "(ROADMAP A10) — use --seq-impl ring")
+    block = flash_attention.BLOCK
+    if config.zigzag_attention:
+        if not config.causal:
+            raise ValueError("--zigzag-attention is causal-only — add --causal")
+        if "seq" not in names:
+            raise ValueError("--zigzag-attention needs a seq axis in --mesh")
+        if not config.flash_attention:
+            raise ValueError("--zigzag-attention without --flash-attention is the einsum "
+                             "zig-zag, not ported (ROADMAP A10) — add --flash-attention")
+        if config.seq_len % (2 * seq * block):
+            raise ValueError(
+                f"--zigzag-attention --flash-attention needs seq_len divisible "
+                f"by 2·seq_axis·BLOCK = {2 * seq * block}, got {config.seq_len} "
+                f"(e.g. --seq-len {2 * seq * block})")
+    elif config.flash_attention:
+        if config.seq_len % (seq * block):
+            raise ValueError(
+                f"--flash-attention needs seq_len divisible by "
+                f"seq_axis·BLOCK = {seq}·{block}, got "
+                f"{config.seq_len} (e.g. --seq-len {seq * block})")
+    elif seq > 1:
+        raise ValueError(f"a seq axis without --flash-attention is the einsum ring, not "
+                         f"ported (ROADMAP A10) — add --flash-attention (--mesh "
+                         f"{config.mesh})")
+    return seq
 
 
 def build_classifier(config: ComposedConfig) -> TransformerClassifier:
-    """The model the trainer runs, with its attention core chosen from the flags."""
+    """The model the trainer runs, with its attention core chosen from the flags: the
+    zig-zag or plain ring-of-flash under a seq axis, else one device's flash dispatch,
+    windowed core or dense core."""
     attention_fn = attention.full_attention
     window = config.attention_window or None
-    if config.flash_attention:
+    if config.zigzag_attention:
+        attention_fn = ring_attention.make_ring_attention_fn(
+            use_flash=True, use_zigzag=True, window=config.attention_window)
+    elif config.flash_attention and seq_axis_size(config.mesh) > 1:
+        attention_fn = ring_attention.make_ring_attention_fn(
+            use_flash=True, window=config.attention_window)
+    elif config.flash_attention:
         attention_fn = functools.partial(flash_attention.dispatch_attention, window=window)
     elif window:
         attention_fn = attention.windowed_attention_fn(window)
@@ -115,14 +175,26 @@ def build_segment_fn(config: ComposedConfig, model: TransformerClassifier):
 def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
          init_params: dict[str, torch.Tensor] | None = None,
          ) -> tuple[TrainState, M.MetricsHistory]:
-    """Run composed training on one device; returns the final state and the history.
+    """Run composed training as this process's rank (every rank of the seq world calls
+    it); returns the final state (the same on every rank) and the history.
 
     ``datasets`` optionally injects a ``(train, test)`` Dataset pair; ``init_params``
     optionally replaces the drawn initial parameters (both for tests: the JAX package's
     initial parameters carried across with ``models.transformer.params_from_jax``)."""
+    seq = validate_config(config)
+    resolve_device(config.device)                     # fail fast, before any data work
+    with cluster(config.device) as info:
+        if info.process_count != seq:
+            raise ValueError(
+                f"--mesh {config.mesh} has a seq world of {seq}, but {info.process_count} "
+                f"process(es) run: the seq world is the process count — start {seq} with "
+                f"train.launch --num-processes {seq} (or torchrun)")
+        return _train(config, info, datasets, init_params)
+
+
+def _train(config: ComposedConfig, info, datasets, init_params):
     watch = M.Stopwatch()
-    validate_config(config)
-    device = resolve_device(config.device)            # fail fast, before any data work
+    device = info.device
     model = build_classifier(config)
     optimizer, segment_fn = build_segment_fn(config, model)
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
@@ -134,8 +206,9 @@ def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
     if steps_per_epoch == 0:
         raise ValueError(f"batch {batch} larger than the train split ({n_train} examples) "
                          f"— nothing to step")
-    M.log(f"Composed training: mesh {dict(zip(*parse_mesh_spec(config.mesh)))} over 1 "
-          f"devices on 1 process(es), batch {batch}, data source: {train_ds.source}")
+    M.log(f"Composed training: mesh {dict(zip(*parse_mesh_spec(config.mesh)))} over "
+          f"{info.process_count} devices on {info.process_count} process(es) "
+          f"({info.backend}), batch {batch}, data source: {train_ds.source}")
 
     state = create_train_state(model, torch.Generator().manual_seed(config.seed),
                                optimizer=optimizer, device=device)
@@ -164,7 +237,8 @@ def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
         M.log(f"Epoch {epoch}: train_loss: {epoch_loss:.4f}, val_loss: {val_loss:.4f}, "
               f"accuracy: {int(correct.item()) / n_test:.4f}, "
               f"time_elapsed: {watch.elapsed():.2f}s")
-    if config.results_dir:
+    assert_replicas_synced(state.params)      # a collective; no-op at one rank
+    if config.results_dir and info.is_coordinator:
         M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
     return state, history
 

@@ -63,17 +63,24 @@ class DistributedConfig:
 @dataclass(frozen=True)
 class ComposedConfig:
     """Knobs of the composed trainer (the transformer classifier), with the JAX package's
-    defaults. Only a mesh of one device is ported: ``--mesh data=1``."""
+    defaults. Ported meshes: one device (``--mesh data=1``), or a seq axis alone
+    (``--mesh data=1,seq=N``) over a process group of N ranks with
+    ``--flash-attention`` (the ring-of-flash)."""
 
-    mesh: str = "data=2,seq=2,model=2"  # the JAX default; a product above 1 raises
+    mesh: str = "data=2,seq=2,model=2"  # the JAX default; it raises (ROADMAP A6/A10)
     seq_len: int = 16                   # tokens per image (784 pixels zero-padded)
-    flash_attention: bool = False       # attention through the flash kernels where the
+    flash_attention: bool = False       # attention through the flash kernels: the
+                                        # ring-of-flash under a seq axis, else where the
                                         # dispatch predicate takes them (S >= 2048)
     bf16: bool = False                  # bfloat16 activations, f32 master weights
     causal: bool = False                # decoder-style (causal) attention
     attention_window: int = 0           # sliding-window width; 0 off
     kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides 4
     rope: bool = False                  # rotary position embeddings on q/k
+    zigzag_attention: bool = False      # the load-balanced zig-zag causal ring schedule
+                                        # (with --flash-attention --causal)
+    seq_impl: str = "ring"              # the sequence-parallel schedule: 'ring' only
+                                        # ('ulysses' raises, ROADMAP A10)
     epochs: int = 2
     batch_size: int = 64
     batch_size_test: int = 1000

@@ -118,7 +118,7 @@ def main() -> None:
             lse = torch.empty((b, h, s), device=dev)
             args = (1, q.data_ptr(), fa._strides(q), k.data_ptr(), fa._strides(k),
                     v.data_ptr(), fa._strides(v), out.data_ptr(), lse.data_ptr(), b, s, h, d,
-                    1.0 / math.sqrt(d), int(causal), 0, stream)
+                    1.0 / math.sqrt(d), int(causal), 0, 0, stream)
             if fwd(*args):
                 sys.exit(f"flash_probe: {name} did not launch")
             print(f"{name}: {list(SHAPE)} bf16 causal={causal}: "
@@ -147,7 +147,7 @@ def main() -> None:
     common = (0, q.data_ptr(), fa._strides(q), k.data_ptr(), fa._strides(k), v.data_ptr(),
               fa._strides(v), do.data_ptr(), fa._strides(do), lse.data_ptr(),
               delta.data_ptr())
-    shape_args = (b, s, h, d, 1.0 / math.sqrt(d), 0, 0, stream)
+    shape_args = (b, s, h, d, 1.0 / math.sqrt(d), 0, 0, 0, stream)
     fwd_args = (0, q.data_ptr(), fa._strides(q), k.data_ptr(), fa._strides(k), v.data_ptr(),
                 fa._strides(v))
     results, times = {}, {name: [] for name in f32_builds}

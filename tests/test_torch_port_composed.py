@@ -98,6 +98,8 @@ def test_composed_main_matches_jax(tmp_path, monkeypatch, capsys):
     ({"mesh": "data=2"}, "ROADMAP A6/A10"),
     ({"mesh": "data=2,seq=2,model=2"}, "ROADMAP A6/A10"),       # the JAX default mesh
     ({"mesh": "data=1,expert=4"}, "ROADMAP A6/A10"),            # MoE rides the expert axis
+    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256},
+     "ROADMAP A6/A10"),                                         # data beside seq
     ({"mesh": "data=1,pipe=1"}, "unknown mesh axis"),
     ({"mesh": "data=1", "kv_heads": 3}, "positive divisor"),
     ({"mesh": "data=1", "attention_window": -1}, "window must be >= 1"),

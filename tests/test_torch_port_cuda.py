@@ -9,7 +9,10 @@ only PyTorch; there, skip this directory's JAX-importing conftest:
 
 Tolerances as in ``chip_smoke.py``: the loss kernels within atol 1e-6 + rtol 1e-5 of the
 plain versions, the one-leaf SGD kernel up to 1e-6 * max|p| and the multi-tensor SGD step
-bitwise, 5 steps through the kernels within atol 1e-5 of the plain step.
+bitwise, 5 steps through the kernels within atol 1e-5 of the plain step. The flash kernels
+with a hop offset at the flash kernels' own tolerances; the ring ops at gloo worlds on the
+one card against the one-process flash attention within out (2e-5, 1e-5) and gradients
+(1e-4, 1e-4).
 """
 
 import math
@@ -759,6 +762,7 @@ def test_engine_paged_streams_on_the_card(device, cfg):
 # Data parallelism on the card: NCCL at world 1, gloo at world 2 (two ranks on one card)
 # =========================================================================================
 
+import json  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
 import subprocess  # noqa: E402
@@ -819,3 +823,101 @@ def test_world2_gloo_on_one_card_keeps_replicas_in_sync(device, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "Collective backend: gloo (device cuda, 2 rank(s))" in proc.stdout
     assert proc.stdout.count("Epoch 1: train_loss:") == 1
+
+
+# -- the hop offset (the ring schedules' blocks) ----------------------------------------------
+
+OFFSET_MASKS = [(False, 0), (True, 0), (False, 100), (True, 160), (False, 300)]
+
+
+@pytest.mark.parametrize("off", [-256, -128, 128, 256])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", OFFSET_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_offset_kernels_match_plain(device, off, d, causal, window, dtype):
+    """Every kernel with a hop offset against its plain version, the backward from the
+    full row's statistics (this block merged with the diagonal block), as the ring
+    schedules call them; a query tile no key of the block reaches writes out 0,
+    lse -1e30 and no gradient."""
+    q, k0, v0, do = _qkvd(device, 2, 256, 2, d, dtype, 7 + d + window,
+                          exact=dtype == torch.bfloat16)
+    _, k1, v1, _ = _qkvd(device, 2, 256, 2, d, dtype, 8 + d + window,
+                         exact=dtype == torch.bfloat16)
+    tol = FLASH_TOL[dtype]
+    mask = dict(causal=causal, window=window, q_offset=off)
+    out, lse = fa.flash_forward_with_lse(q, k1, v1, **mask)
+    out_p, lse_p = fa.flash_forward_plain(q, k1, v1, **mask)
+    _close(out, out_p, tol["out"])
+    _close(lse, lse_p, tol["lse"])
+    dead = lse_p == attention.MASK_VALUE                      # [B, H, S] rows seeing no key
+    assert (lse[dead] == attention.MASK_VALUE).all()
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    out0, lse0 = fa.flash_forward_plain(q, k0, v0, causal=causal, window=window)
+    lse_full = torch.logaddexp(lse0, lse_p)
+    rows = lambda x: x.transpose(1, 2)[..., None]
+    out_full = (out0.float() * rows(torch.exp(lse0 - lse_full))
+                + out_p.float() * rows(torch.exp(lse_p - lse_full)))
+    delta = fa.flash_delta(out_full, do)
+    grads = fa.flash_backward_blocks(q, k1, v1, do, lse_full, delta, **mask)
+    grads_p = fa._backward_plain(q, k1, v1, lse_full, delta, do, **mask)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_p):
+        _close(got, want, tol["grad"])
+    if dead.all():
+        assert all((g == 0).all() for g in grads)
+
+
+_RING_CHILD = """
+import json, sys, torch
+from {pkg}.ops import flash_attention as fa
+from {pkg}.parallel import collectives, mesh, ring_attention as ra
+rows = []
+with mesh.cluster("cuda") as info:
+    dev = info.device
+    for schedule, causal, window in (("ring", False, 0), ("ring", True, 0),
+                                     ("ring", False, 100), ("ring", True, 300),
+                                     ("zigzag", True, 0), ("zigzag", True, 300)):
+        gen = torch.Generator(device=dev).manual_seed(window + causal)
+        q, k, v, do = (torch.randn(2, 2048, 2, 16, generator=gen, device=dev)
+                       for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_counts()
+        if schedule == "zigzag":
+            out = ra.zigzag_ring_flash_attention(*leaves, window=window)
+        else:
+            out = ra.ring_flash_attention(*leaves, causal=causal, window=window)
+        grads = torch.autograd.grad(out, leaves, do)
+        counts = fa.launch_counts()
+        planned = ra.planned_blocks(schedule, info.process_count, info.process_index,
+                                    seq_len=2048, causal=causal, window=window)
+        ok = counts == dict(flash_fwd=planned, flash_dq=planned, flash_dkv=planned)
+        everyone = collectives.all_gather(torch.tensor([int(ok)])).tolist()
+        if info.process_index == 0:
+            refs = [x.clone().requires_grad_() for x in (q, k, v)]
+            ref = fa.flash_attention(*refs, causal=causal, window=window or None)
+            ref_grads = torch.autograd.grad(ref, refs, do)
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-5)
+            for got, want in zip(grads, ref_grads):
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            rows.append(everyone)
+    if info.process_index == 0:
+        json.dump(rows, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_ops_on_one_card_match_flash_attention(device, tmp_path, world):
+    """The three ring ops at a gloo world on the one card against the one-process
+    ``flash_attention`` on the full sequence (both through the 3xTF32 kernels; out within
+    the kernels' f32 tolerance, gradients within 1e-4), every rank's launches equal to
+    its plan."""
+    env = {k: v for k, v in os.environ.items() if k not in _RENDEZVOUS}
+    env["PYTHONPATH"] = str(pathlib.Path(__file__).resolve().parent.parent)
+    out = tmp_path / "ok.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{_PKG}.train.launch", "--num-processes", str(world),
+         "--timeout", "300", "--", "-c", _RING_CHILD.format(pkg=_PKG), str(out)],
+        capture_output=True, text=True, timeout=400, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = json.loads(out.read_text())
+    assert len(rows) == 6 and all(r == [[1]] * world for r in rows)

@@ -40,7 +40,8 @@ def test_sources_found():
                    "serving/engine.py", "serving/pagepool.py", "serving/scheduler.py",
                    "parallel/collectives.py", "parallel/data_parallel.py",
                    "train/distributed.py", "train/launch.py", "train/smoke.py",
-                   "utils/benchmarks.py", "utils/determinism.py", "bench.py"):
+                   "utils/benchmarks.py", "utils/determinism.py", "bench.py",
+                   "parallel/ring_attention.py"):
         assert PORT / module in SOURCES, module
 
 
