@@ -83,12 +83,15 @@ Phases (each raises on failure; nothing is caught):
     windows 100 and 300, the zig-zag plain and windowed) at gloo worlds 2 and 4 through the
     port's launcher, every rank on ``cuda:0``, against the one-process ``flash_attention``
     on the full sequence at the composed shape, forward and gradients, with each rank's
-    launches against the plan (hops × blocks within the truncated reach);
+    launches against the plan (hops × blocks within the truncated reach), those at a
+    nonzero hop offset included;
 19. the slice: ``train.composed.main`` at ``--mesh data=1,seq=2 --flash-attention
     --seq-len 2048`` at full width for 20 steps (two gloo ranks through the launcher)
     against ``--mesh data=1`` in this process, per-step losses and final parameters, with
-    each rank's launches against the plan; then the same with ``--zigzag-attention
-    --causal``; step ms (a time of two ranks time-slicing one card, no scaling point);
+    each rank's launches (all, and at a nonzero hop offset) against the plan; then the
+    same with ``--attention-window 300`` (every off-diagonal hop at its offset ±C), with
+    ``--zigzag-attention --causal``, and with both; step ms (a time of two ranks
+    time-slicing one card, no scaling point);
 20. one JSON line with every kernel's numbers (each flash kernel with its offset form),
     then, last, the JSON result line.
 
@@ -211,6 +214,10 @@ RING_CASES = (("ring", False, 0), ("ring", True, 0), ("ring", False, 100),
 # the card: the same pairs in other blocks, merged in f32 (the kernels' own f32 tolerance)
 RING_TOL = {"out": (2e-5, 1e-5), "grad": (1e-4, 1e-4)}
 RING_STEPS = 20                # phase 19: trainer steps a run, batch 64, dropout off
+RING_TRAINER_WINDOW = 300      # phase 19's windowed runs: every hop with a nonzero offset
+RING_TRAINERS = (              # phase 19: (label, schedule, causal, window)
+    ("ring", "ring", False, 0), ("ring window", "ring", False, RING_TRAINER_WINDOW),
+    ("zigzag", "zigzag", True, 0), ("zigzag window", "zigzag", True, RING_TRAINER_WINDOW))
 RING_TRAJECTORY_ATOL = 1e-4    # seq=2 vs data=1: attention split over ranks and merged,
                                # 20 SGD steps; losses and every parameter
 
@@ -228,22 +235,32 @@ def bound_ms(nbytes: float, ops: float,
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bounds(shape, dtype: str, visible_pairs: int,
-                 ops_per_s: float | None = None) -> dict[str, tuple[float, str]]:
+def flash_bounds(shape, dtype: str, visible_pairs: int, ops_per_s: float | None = None,
+                 live_rows: int | None = None,
+                 live_keys: int | None = None) -> dict[str, tuple[float, str]]:
     """Bounds of the three flash kernels on ``[B, S, H, D]`` operands: per visible
     (query, key) pair and head, 2·D flops for each product the kernel forms — q·kᵀ and p·v
     forward (4·D); q·kᵀ, dO·vᵀ, ds·k for dq (6·D); q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q for dk/dv
     (8·D) — at the least time the card can take for them: the tensor cores' bf16 rate for
     bf16, their TF32 rate taken three times (3xTF32) for f32, or ``ops_per_s`` where given
-    (the CUDA cores' FFMA rate, for comparison); bytes: each operand read once and each
-    output written once (lse and Δ are f32 [B, H, S])."""
+    (the CUDA cores' FFMA rate, for comparison). Bytes: the inputs the function needs read
+    once — q, dO, lse and Δ at the ``live_rows`` query positions that see a key, k and v at
+    the ``live_keys`` key positions that a query sees (all S of each unless given) — and
+    each output written once whole (out and lse, dq, or dk and dv; lse and Δ are f32
+    [B, H, S])."""
     b, s, h, d = shape
     elem = 4 if dtype == "float32" else 2
     rate = ops_per_s or (F32_3XTF32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S)
-    x, stat, pairs = b * s * h * d * elem, b * h * s * 4, b * h * visible_pairs
-    return {"flash_fwd": bound_ms(4 * x + stat, 4 * d * pairs, rate),
-            "flash_dq": bound_ms(5 * x + 2 * stat, 6 * d * pairs, rate),
-            "flash_dkv": bound_ms(6 * x + 2 * stat, 8 * d * pairs, rate)}
+    rows = s if live_rows is None else live_rows
+    keys = s if live_keys is None else live_keys
+    head = b * h * d * elem
+    x, x_rows, x_keys = head * s, head * rows, head * keys
+    stat, stat_rows, pairs = b * h * s * 4, b * h * rows * 4, b * h * visible_pairs
+    reads = 2 * x_keys + x_rows                            # k, v; q
+    reads_bwd = reads + x_rows + 2 * stat_rows             # and dO, lse, Δ
+    return {"flash_fwd": bound_ms(reads + x + stat, 4 * d * pairs, rate),
+            "flash_dq": bound_ms(reads_bwd + x, 6 * d * pairs, rate),
+            "flash_dkv": bound_ms(reads_bwd + 2 * x, 8 * d * pairs, rate)}
 
 
 def tensor_core_instructions(library: Path) -> dict[str, int]:
@@ -369,12 +386,13 @@ def dp_trajectory(out: str) -> None:
                      **{k: p.cpu().numpy() for k, p in state.params.items()})
 
 
-def ring_ops_child(out: str) -> None:
-    """Phase 18 in each rank of a world on the card: every ring op of ``RING_CASES`` at the
-    composed shape ``COMPOSED`` (f32), forward and backward, with each kernel's launches
-    read around it and gathered from every rank; rank 0 holds the full output and
-    gradients against the one-process ``flash_attention`` on the full sequence and saves
-    the results to ``out`` (JSON)."""
+def ring_ops_child(out: str, shape: tuple[int, int, int, int] = COMPOSED) -> None:
+    """Phase 18 in each rank of a world on the card: every ring op of ``RING_CASES`` at
+    ``shape`` (f32; the composed shape by default), forward and backward, with each
+    kernel's launches (and those at a nonzero hop offset) read around it and gathered from
+    every rank beside the plan's; rank 0 holds the full output and gradients against the
+    one-process ``flash_attention`` on the full sequence (raising beyond ``RING_TOL``) and
+    saves the results to ``out`` (JSON). ``check_ring_ops`` reads them."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -391,7 +409,7 @@ def ring_ops_child(out: str) -> None:
         rows = []
         for schedule, causal, window in RING_CASES:
             gen = torch.Generator(device=dev).manual_seed(1000 + window + causal)
-            q, k, v, do = (torch.randn(*COMPOSED, generator=gen, device=dev)
+            q, k, v, do = (torch.randn(*shape, generator=gen, device=dev)
                            for _ in range(4))
             if schedule == "zigzag":
                 op = lambda *a: ra.zigzag_ring_flash_attention(*a, window=window)
@@ -407,11 +425,12 @@ def ring_ops_child(out: str) -> None:
             torch.cuda.synchronize()
             fa.reset_launch_counts()
             out_, grads, fwd = run()
-            counts = fa.launch_counts()
-            planned = ra.planned_blocks(schedule, n, rank, seq_len=COMPOSED[1],
-                                        causal=causal, window=window)
-            mine = torch.tensor([fwd, counts["flash_fwd"] - fwd, counts["flash_dq"],
-                                 counts["flash_dkv"], planned])
+            counts, offsets = fa.launch_counts(), fa.offset_launch_counts()
+            plan = dict(seq_len=shape[1], causal=causal, window=window)
+            mine = torch.tensor([
+                fwd, counts["flash_fwd"] - fwd, counts["flash_dq"], counts["flash_dkv"],
+                ra.planned_blocks(schedule, n, rank, **plan), *offsets.values(),
+                ra.planned_blocks(schedule, n, rank, **plan, offset_only=True)])
             everyone = collectives.all_gather(mine).tolist()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -437,13 +456,38 @@ def ring_ops_child(out: str) -> None:
                 json.dump({"world": n, "backend": info.backend, "rows": rows}, f)
 
 
+def check_ring_ops(path: str, world: int) -> dict:
+    """What ``ring_ops_child`` saved at ``path`` for a gloo world of ``world``, its launch
+    counts held against the plan: on every rank, each case's flash_fwd (its forward),
+    flash_dq and flash_dkv launches all equal the planned blocks (at least one), no
+    forward kernel runs in the backward, and the launches at a nonzero hop offset equal
+    the plan's offset blocks. Raises otherwise; returns the saved results."""
+    with open(path) as f:
+        result = json.load(f)
+    if result["world"] != world or result["backend"] != "gloo":
+        raise AssertionError(f"world {world} ran {result['world']} rank(s) on "
+                             f"{result['backend']}")
+    for row in result["rows"]:
+        for rank, counts in enumerate(row["counts"]):
+            fwd, fwd_in_bwd, dq, dkv, planned, o_fwd, o_dq, o_dkv, o_planned = counts
+            if not (fwd == dq == dkv == planned > 0 and fwd_in_bwd == 0
+                    and o_fwd == o_dq == o_dkv == o_planned):
+                raise AssertionError(
+                    f"world {world} rank {rank} {row['schedule']} causal={row['causal']} "
+                    f"window={row['window']}: launches fwd {fwd} (+{fwd_in_bwd} in "
+                    f"backward), dq {dq}, dkv {dkv}, planned {planned}; at a hop offset "
+                    f"{o_fwd}, {o_dq}, {o_dkv}, planned {o_planned}")
+    return result
+
+
 def composed_trajectory(out: str, *flags: str) -> None:
     """Phase 19: ``train.composed.main`` on the card for ``RING_STEPS`` steps at the
     composed widths (seq 2048, batch 64, dropout off, one eval batch of 100), from the CLI
     flags ``flags`` on top of those, as this process's rank (a world of 1 without a
     launcher). It records the segment's per-step losses and the flash launch counts read
-    around ``main()``; each rank saves its counts to ``out.rank<r>.json``, rank 0 also
-    the losses, the final parameters and the epoch's seconds to ``out``."""
+    around ``main()``, all and at a nonzero hop offset; each rank saves its counts to
+    ``out.rank<r>.json``, rank 0 also the losses, the final parameters and the epoch's
+    seconds to ``out``."""
     import numpy as np
     import torch
 
@@ -481,7 +525,7 @@ def composed_trajectory(out: str, *flags: str) -> None:
     try:
         fa.reset_launch_counts()
         state, history = composed.main(cfg, datasets=datasets)
-        counts = fa.launch_counts()
+        counts = {"all": fa.launch_counts(), "offset": fa.offset_launch_counts()}
     finally:
         composed.build_segment_fn = build
     rank = int(os.environ.get("RANK", "0"))
@@ -844,8 +888,14 @@ def main() -> None:
               f"dk {e_dk:.3e} dv {e_dv:.3e}")
 
     def visible_pairs(s: int, causal: bool, window: int, q_offset: int = 0) -> int:
-        return int(attention.visibility_mask(s, s, causal=causal, window=window or None,
-                                             device=dev, q_offset=q_offset).sum().item())
+        return mask_counts(s, causal, window, q_offset)[0]
+
+    def mask_counts(s: int, causal: bool, window: int, q_offset: int = 0):
+        """(visible pairs, query rows that see a key, keys that a query sees) of one head."""
+        vis = attention.visibility_mask(s, s, causal=causal, window=window or None,
+                                        device=dev, q_offset=q_offset)
+        return (int(vis.sum().item()), int(vis.any(1).sum().item()),
+                int(vis.any(0).sum().item()))
 
     def flash_kernel_times(shape, dtype: str) -> dict[str, dict]:
         """Each flash kernel of the dtype's route at one shape (no mask), by name: its ms,
@@ -861,7 +911,7 @@ def main() -> None:
         plain_bwd = lambda: fa.flash_backward_plain(q, k, v, out, lse, do)
         pairs = visible_pairs(shape[1], False, 0)
         bounds = flash_bounds(shape, dtype, pairs)
-        ffma = flash_bounds(shape, dtype, pairs, F32_OPS_PER_S)
+        ffma = flash_bounds(shape, dtype, pairs, ops_per_s=F32_OPS_PER_S)
         t = lambda fn: timed_ms(fn, iters=FLASH_ITERS, warmup=FLASH_WARMUP)
         plain_bwd_ms, lib_bwd_ms = t(plain_bwd), t(lib_bwd)
         fwd, dq, dkv = routes[dtype]
@@ -1567,22 +1617,26 @@ def main() -> None:
                              iters=FLASH_ITERS, warmup=FLASH_WARMUP),
                     timed_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, **mask),
                              iters=FLASH_ITERS, warmup=FLASH_WARMUP),
-                    visible_pairs(c_len, causal, window, off))
+                    mask_counts(c_len, causal, window, off))
             mask = dict(causal=causal, window=window, q_offset=c_len)
             plain_fwd = timed_ms(lambda: fa.flash_forward_plain(q, k, v, **mask), iters=3,
                                  warmup=1)
             plain_bwd = timed_ms(lambda: fa._backward_plain(q, k, v, lse, delta, do, **mask),
                                  iters=3, warmup=1)
-            bounds = flash_bounds(OFFSET_SHAPE, dtype, row[c_len][3])
+            pairs, live_rows, live_keys = row[c_len][3]
+            bounds = flash_bounds(OFFSET_SHAPE, dtype, pairs, live_rows=live_rows,
+                                  live_keys=live_keys)
             for i, name in enumerate(routes[dtype]):
                 entry = dict(ms=row[c_len][i], ms_at_offset_0=row[0][i],
                              plain_ms=plain_fwd if i == 0 else plain_bwd,
                              bound=bounds[("flash_fwd", "flash_dq", "flash_dkv")[i]])
                 print(f"[17] {name} {dtype} causal={causal} window={window}: q_offset +C "
-                      f"{entry['ms']:.5f} ms ({row[c_len][3]} visible pairs a head), offset "
-                      f"0 {entry['ms_at_offset_0']:.5f} ms ({row[0][3]}); plain "
+                      f"{entry['ms']:.5f} ms ({pairs} visible pairs a head; {live_rows} "
+                      f"query rows see a key, {live_keys} keys are seen), offset 0 "
+                      f"{entry['ms_at_offset_0']:.5f} ms ({row[0][3][0]} pairs); plain "
                       f"{entry['plain_ms']:.5f} ms; bound_ms {entry['bound'][0]:.5f} "
-                      f"({entry['bound'][1]}) [{card}]")
+                      f"({entry['bound'][1]}; bytes of the live rows and keys read, every "
+                      f"output written) [{card}]")
                 if (causal, window) == (False, 300):   # a windowed ring hop's block
                     offset_times[name] = entry
 
@@ -1592,31 +1646,28 @@ def main() -> None:
         run_fleet(f"[18] world {world}:", [
             "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
                   f"chip_smoke.ring_ops_child({str(path)!r})"], n=world)
-        with open(path) as f:
-            result = json.load(f)
-        if result["world"] != world or result["backend"] != "gloo":
-            fail(f"[18] world {world} ran {result['world']} rank(s) on {result['backend']}")
+        result = check_ring_ops(path, world)
         for row in result["rows"]:
-            for rank, (fwd, fwd_in_bwd, dq, dkv, planned) in enumerate(row["counts"]):
-                if not (fwd == dq == dkv == planned > 0 and fwd_in_bwd == 0):
-                    fail(f"[18] world {world} rank {rank} {row['schedule']} causal="
-                         f"{row['causal']} window={row['window']}: launches fwd {fwd} "
-                         f"(+{fwd_in_bwd} in backward), dq {dq}, dkv {dkv}, planned {planned}")
             print(f"[18] world {world} {row['schedule']} causal={row['causal']} window="
                   f"{row['window']} vs one-process flash_attention at {list(COMPOSED)} f32: "
                   f"max |err| out {row['out']:.3e} dq {row['dq']:.3e} dk {row['dk']:.3e} dv "
                   f"{row['dv']:.3e} (out {RING_TOL['out']}, grads {RING_TOL['grad']}); "
                   f"launches per rank = hops x blocks (fwd = dq = dkv): "
-                  f"{[c[0] for c in row['counts']]}; forward+backward {row['ms']:.3f} ms "
+                  f"{[c[0] for c in row['counts']]}, at a hop offset "
+                  f"{[c[5] for c in row['counts']]}; forward+backward {row['ms']:.3f} ms "
                   f"(gloo ranks time-slicing one card: no scaling point) [{card}]")
 
     # -- 19. the seq-parallel trainer: train.composed --mesh data=1,seq=2 ---------------
     ring_launches = {}
-    # (label, flags of both runs, flags of the seq=2 run): the zig-zag's reference is the
-    # one-device causal flash path
-    for label, both, seq_only in (("ring", [], []),
-                                  ("zigzag", ["--causal"], ["--zigzag-attention"])):
-        w1, w2 = OUT_DIR / f"composed_{label}_w1.npz", OUT_DIR / f"composed_{label}_w2.npz"
+    layers = init_model.num_layers
+    for label, schedule, causal, window in RING_TRAINERS:
+        # the flags of both runs; the seq=2 run adds the zig-zag's. The zig-zag's reference
+        # is the one-device causal flash path
+        both = (["--causal"] if causal else []) + (
+            ["--attention-window", str(window)] if window else [])
+        seq_only = ["--zigzag-attention"] if schedule == "zigzag" else []
+        stem = f"composed_{label.replace(' ', '_')}"
+        w1, w2 = OUT_DIR / f"{stem}_w1.npz", OUT_DIR / f"{stem}_w2.npz"
         composed_trajectory(str(w1), "--mesh", "data=1", *both)      # this process
         run_fleet(f"[19] {label} seq=2:", [
             "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
@@ -1632,30 +1683,35 @@ def main() -> None:
         e_par = max(close(f"[19] {label} {k}", torch.from_numpy(two[k]),
                           torch.from_numpy(one[k]), RING_TRAJECTORY_ATOL, 0.0)
                     for k in params)
-        layers = init_model.num_layers
-        schedule_causal = label == "zigzag"
         for rank in range(2):
             with open(f"{w2}.rank{rank}.json") as f:
                 counts = json.load(f)
-            blocks = ring_attention.planned_blocks(label, 2, rank, seq_len=COMPOSED[1],
-                                                   causal=schedule_causal)
-            want = {"flash_fwd": layers * (RING_STEPS + 1) * blocks,
-                    "flash_dq": layers * RING_STEPS * blocks,
-                    "flash_dkv": layers * RING_STEPS * blocks}
+            plan = dict(seq_len=COMPOSED[1], causal=causal, window=window)
+            blocks = ring_attention.planned_blocks(schedule, 2, rank, **plan)
+            at_offset = ring_attention.planned_blocks(schedule, 2, rank, **plan,
+                                                      offset_only=True)
+            want = {key: {"flash_fwd": layers * (RING_STEPS + 1) * n,
+                          "flash_dq": layers * RING_STEPS * n,
+                          "flash_dkv": layers * RING_STEPS * n}
+                    for key, n in (("all", blocks), ("offset", at_offset))}
             if counts != want:
                 fail(f"[19] {label} rank {rank}: launches {counts}, predicted {want}")
+            if window and not at_offset:
+                fail(f"[19] {label} rank {rank}: the plan has no hop at a nonzero offset")
             if rank == 0:
                 ring_launches[label] = counts
-            print(f"[19] {label} seq=2 rank {rank}: launches in composed.main() {counts} = "
-                  f"layers x (steps + 1 eval batch) x {blocks} hop blocks (fwd), "
-                  f"layers x steps x {blocks} (dq, dk/dv)")
+            print(f"[19] {label} seq=2 rank {rank}: launches in composed.main() "
+                  f"{counts['all']} = layers x (steps + 1 eval batch) x {blocks} hop blocks "
+                  f"(fwd), layers x steps x {blocks} (dq, dk/dv); at a nonzero hop offset "
+                  f"{counts['offset']} ({at_offset} of the blocks)")
         with open(f"{w1}.rank0.json") as f:
-            one_counts = json.load(f)
+            one_counts = json.load(f)["all"]
         print(f"[19] {label}: {RING_STEPS} steps at {list(COMPOSED)} f32, dropout off, "
               f"--mesh data=1,seq=2 (gloo, 2 ranks) vs data=1 (one process, launches "
-              f"{one_counts}): max |dloss| {e_loss:.3e}, max |dparam| {e_par:.3e} (atol "
-              f"{RING_TRAJECTORY_ATOL:g}); replicas in sync at atol 0 (main()'s closing "
-              f"check); losses {two['losses'][0]:.4f} -> {two['losses'][-1]:.4f}")
+              f"{one_counts}), flags {both + seq_only}: max |dloss| {e_loss:.3e}, max "
+              f"|dparam| {e_par:.3e} (atol {RING_TRAJECTORY_ATOL:g}); replicas in sync at "
+              f"atol 0 (main()'s closing check); losses {two['losses'][0]:.4f} -> "
+              f"{two['losses'][-1]:.4f}")
         step_ms = {n: float(r["epoch_seconds"]) / RING_STEPS * 1e3
                    for n, r in (("seq=2", two), ("data=1", one))}
         print(f"[19] {label}: step {step_ms['seq=2']:.3f} ms at seq=2 (a gloo time-slicing "
@@ -1667,9 +1723,10 @@ def main() -> None:
     all_launches = (launches | {"paged_attend": paged_launches}
                     | dict(zip(routes["float32"], (flash_launches[n] for n in counted)))
                     | dict(zip(routes["bfloat16"], (large_launches[n] for n in counted))))
-    # the offset form's launches: the seq=2 ring trainer's (rank 0), which promotes to f32;
-    # no main path runs the bf16 kernels with an offset
-    offset_launches = (dict(zip(routes["float32"], (ring_launches["ring"][n] for n in counted)))
+    # the offset form's launches: those at a nonzero hop offset in the windowed seq=2 ring
+    # trainer (rank 0), which promotes to f32; no main path runs the bf16 kernels with one
+    offset_launches = (dict(zip(routes["float32"], (ring_launches["ring window"]["offset"][n]
+                                                    for n in counted)))
                        | dict.fromkeys(routes["bfloat16"], 0))
     all_err = err | flash_err | {"paged_attend": paged_err}
 
@@ -1687,7 +1744,7 @@ def main() -> None:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
                for name, t in (times | flash_times | paged_times).items()]
-    for entry in kernels:          # each flash kernel's offset form ([17], [19])
+    for entry in kernels:          # each flash kernel's offset form ([17], [19] ring window)
         if entry["name"] in offset_times:
             o = offset_times[entry["name"]]
             entry["offset"] = {

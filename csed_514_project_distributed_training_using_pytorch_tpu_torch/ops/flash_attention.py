@@ -24,7 +24,9 @@ CPU tests), CUDA tensors launch the kernels or raise. Nothing falls back. The ke
 q, k, v and dO through their strides, so a view with a contiguous last dim (q, k, v
 sliced out of a fused qkv projection) is taken as it is; a last dim that is not contiguous
 raises. Each launch adds one to its counter (``flash_fwd_launches``, ``flash_dq_launches``,
-``flash_dkv_launches``), so a run can show that it went through the kernels.
+``flash_dkv_launches``), and a launch with a nonzero ``q_offset`` one more to
+``offset_launches``, so a run can show that it went through the kernels and their offset
+form.
 
 Forward and backward each have two routes, chosen by the operands' dtype alone and counted
 alike, all on the tensor cores. float32 operands launch the 3xTF32 kernels
@@ -71,16 +73,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype codes of the C interfa
 flash_fwd_launches = 0
 flash_dq_launches = 0
 flash_dkv_launches = 0
+offset_launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}   # at q_offset != 0
 
 
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_dq_launches, flash_dkv_launches
     flash_fwd_launches = flash_dq_launches = flash_dkv_launches = 0
+    offset_launches.update(dict.fromkeys(offset_launches, 0))
 
 
 def launch_counts() -> dict[str, int]:
     return {"flash_fwd": flash_fwd_launches, "flash_dq": flash_dq_launches,
             "flash_dkv": flash_dkv_launches}
+
+
+def offset_launch_counts() -> dict[str, int]:
+    """The launches of each kernel with a nonzero ``q_offset`` (a part of its count)."""
+    return dict(offset_launches)
 
 
 def _check_block(s: int, block: int) -> None:
@@ -229,6 +238,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   _strides(v), out.data_ptr(), lse.data_ptr(), b, s, h, d,
                   1.0 / math.sqrt(d), int(causal), int(window), int(q_offset))
     flash_fwd_launches += 1
+    offset_launches["flash_fwd"] += bool(q_offset)
     return out, lse
 
 
@@ -273,13 +283,13 @@ def _backward_plain(q, k, v, lse, delta, dout, *, causal, window, q_offset=0):
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                         causal: bool = False, window: int = 0, q_offset: int = 0):
+                         causal: bool = False, window: int = 0):
     """Plain version of ``flash_backward`` (of both backward kernels): per key tile of
     ``KV_TILE``, p by recompute, ``ds = p∘(dO·vᵀ − Δ)``, p and ds narrowed to the input
     type at the products; ``dq = scale·Σ ds·k``, ``dk = scale·Σ dsᵀ·q``,
     ``dv = Σ pᵀ·dO``."""
     return _backward_plain(q, k, v, lse, flash_delta(out, dout), dout, causal=causal,
-                           window=window, q_offset=q_offset)
+                           window=window)
 
 
 def _check_stats(name: str, q: torch.Tensor, **stats: torch.Tensor) -> None:
@@ -320,6 +330,7 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
                   *_backward_args(q, k, v, dout, lse, delta), dq.data_ptr(),
                   *_shape_args(q, causal, window, q_offset))
     flash_dq_launches += 1
+    offset_launches["flash_dq"] += bool(q_offset)
     return dq
 
 
@@ -341,6 +352,7 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
                   *_backward_args(q, k, v, dout, lse, delta), dk.data_ptr(), dv.data_ptr(),
                   *_shape_args(q, causal, window, q_offset))
     flash_dkv_launches += 1
+    offset_launches["flash_dkv"] += bool(q_offset)
     return dk, dv
 
 
@@ -350,8 +362,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     """``(dq, dk, dv)`` in the operands' dtype, each ``[B, S, H, D]``, from the forward's
     out and lse and the output cotangent ``dout``: Δ in plain torch, then the dq kernel and
     the dk/dv kernel (each its plain version on the CPU)."""
-    delta = flash_delta(out, dout)
-    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    return _dq_dkv(q, k, v, dout, lse, flash_delta(out, dout), causal=causal, window=window,
+                   q_offset=q_offset)
+
+
+def _dq_dkv(q, k, v, dout, lse, delta, **mask):
+    """``(dq, dk, dv)`` from the statistics lse and Δ: the dq kernel, then the dk/dv
+    kernel."""
     dq = flash_dq(q, k, v, dout, lse, delta, **mask)
     return (dq, *flash_dkv(q, k, v, dout, lse, delta, **mask))
 
@@ -394,9 +411,7 @@ def flash_backward_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(k.shape)}")
     _check_seq(q.shape[1])
     _check_offset(q_offset)
-    mask = dict(causal=causal, window=window, q_offset=q_offset)
-    dq = flash_dq(q, k, v, dout, lse, delta, **mask)
-    return (dq, *flash_dkv(q, k, v, dout, lse, delta, **mask))
+    return _dq_dkv(q, k, v, dout, lse, delta, causal=causal, window=window, q_offset=q_offset)
 
 
 class _FlashAttention(torch.autograd.Function):

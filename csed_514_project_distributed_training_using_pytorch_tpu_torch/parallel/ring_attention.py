@@ -219,15 +219,17 @@ def _zigzag_plan(n: int, rank: int, window: int, c: int) -> list[list[_Hop]]:
 
 
 def planned_blocks(schedule: str, world: int, rank: int, *, seq_len: int,
-                   causal: bool = False, window: int = 0) -> int:
+                   causal: bool = False, window: int = 0, offset_only: bool = False) -> int:
     """The flash calls one ring op makes on ``rank`` per call, forward and backward alike:
     the launches of ``flash_fwd`` in its forward, and of ``flash_dq`` and of ``flash_dkv``
-    in its backward. ``schedule`` is ``"ring"`` or ``"zigzag"``."""
+    in its backward; with ``offset_only``, those with a nonzero ``q_offset``.
+    ``schedule`` is ``"ring"`` or ``"zigzag"``."""
     if schedule == "zigzag":
         plan = _zigzag_plan(world, rank, window, seq_len // (2 * world))
     else:
         plan = _ring_plan(world, rank, causal, window, seq_len // world)
-    return sum(len(hop.blocks) for walk in plan for hop in walk)
+    return sum(1 for walk in plan for hop in walk for blk in hop.blocks
+               if blk.q_offset or not offset_only)
 
 
 # =========================================================================================

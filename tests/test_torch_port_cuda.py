@@ -762,7 +762,6 @@ def test_engine_paged_streams_on_the_card(device, cfg):
 # Data parallelism on the card: NCCL at world 1, gloo at world 2 (two ranks on one card)
 # =========================================================================================
 
-import json  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
 import subprocess  # noqa: E402
@@ -867,57 +866,25 @@ def test_flash_offset_kernels_match_plain(device, off, d, causal, window, dtype)
         assert all((g == 0).all() for g in grads)
 
 
-_RING_CHILD = """
-import json, sys, torch
-from {pkg}.ops import flash_attention as fa
-from {pkg}.parallel import collectives, mesh, ring_attention as ra
-rows = []
-with mesh.cluster("cuda") as info:
-    dev = info.device
-    for schedule, causal, window in (("ring", False, 0), ("ring", True, 0),
-                                     ("ring", False, 100), ("ring", True, 300),
-                                     ("zigzag", True, 0), ("zigzag", True, 300)):
-        gen = torch.Generator(device=dev).manual_seed(window + causal)
-        q, k, v, do = (torch.randn(2, 2048, 2, 16, generator=gen, device=dev)
-                       for _ in range(4))
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        fa.reset_launch_counts()
-        if schedule == "zigzag":
-            out = ra.zigzag_ring_flash_attention(*leaves, window=window)
-        else:
-            out = ra.ring_flash_attention(*leaves, causal=causal, window=window)
-        grads = torch.autograd.grad(out, leaves, do)
-        counts = fa.launch_counts()
-        planned = ra.planned_blocks(schedule, info.process_count, info.process_index,
-                                    seq_len=2048, causal=causal, window=window)
-        ok = counts == dict(flash_fwd=planned, flash_dq=planned, flash_dkv=planned)
-        everyone = collectives.all_gather(torch.tensor([int(ok)])).tolist()
-        if info.process_index == 0:
-            refs = [x.clone().requires_grad_() for x in (q, k, v)]
-            ref = fa.flash_attention(*refs, causal=causal, window=window or None)
-            ref_grads = torch.autograd.grad(ref, refs, do)
-            torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-5)
-            for got, want in zip(grads, ref_grads):
-                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-            rows.append(everyone)
-    if info.process_index == 0:
-        json.dump(rows, open(sys.argv[1], "w"))
-"""
-
-
 @pytest.mark.parametrize("world", [2, 4])
 def test_ring_ops_on_one_card_match_flash_attention(device, tmp_path, world):
-    """The three ring ops at a gloo world on the one card against the one-process
+    """The three ring ops at a gloo world on the one card (``chip_smoke.ring_ops_child`` at
+    a small shape, started through the launcher) against the one-process
     ``flash_attention`` on the full sequence (both through the 3xTF32 kernels; out within
-    the kernels' f32 tolerance, gradients within 1e-4), every rank's launches equal to
-    its plan."""
+    the kernels' f32 tolerance, gradients within 1e-4), every rank's launches, and those
+    at a nonzero hop offset, equal to its plan (``chip_smoke.check_ring_ops``)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
     env = {k: v for k, v in os.environ.items() if k not in _RENDEZVOUS}
-    env["PYTHONPATH"] = str(pathlib.Path(__file__).resolve().parent.parent)
-    out = tmp_path / "ok.json"
+    env["PYTHONPATH"] = str(root)
+    out = tmp_path / "ring.json"
     proc = subprocess.run(
         [sys.executable, "-m", f"{_PKG}.train.launch", "--num-processes", str(world),
-         "--timeout", "300", "--", "-c", _RING_CHILD.format(pkg=_PKG), str(out)],
+         "--timeout", "300", "--", "-c",
+         f"import chip_smoke; chip_smoke.ring_ops_child({str(out)!r}, (2, 2048, 2, 16))"],
         capture_output=True, text=True, timeout=400, cwd=str(tmp_path), env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    rows = json.loads(out.read_text())
-    assert len(rows) == 6 and all(r == [[1]] * world for r in rows)
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    result = chip_smoke.check_ring_ops(str(out), world)
+    assert len(result["rows"]) == len(chip_smoke.RING_CASES)
+    assert any(c[5] > 0 for row in result["rows"] for c in row["counts"])

@@ -347,6 +347,30 @@ def test_plan_visits_every_live_block_once(schedule, causal, n):
             assert got == want, (n, rank, window)
 
 
+@pytest.mark.parametrize("schedule,causal", [("ring", False), ("ring", True),
+                                             ("zigzag", True)])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_plan_offsets_are_the_live_off_diagonal_blocks(schedule, causal, n):
+    """Under a window, the blocks the plans call at a nonzero ``q_offset`` are exactly the
+    live blocks off the diagonal (another shard's, or another chunk's, keys); without one,
+    none: the ring and the zig-zag then mask past and future blocks by their case alone."""
+    s = 2 * n * 128
+    for window in (0, 1, 100, 128, 129, 300, 700, 4096):
+        vis = attention.visibility_mask(s, s, causal=causal, window=window or None)
+        for rank in range(n):
+            if schedule == "ring":
+                c = s // n
+                pairs = [(rank, o) for o in range(n)]
+            else:
+                c = s // (2 * n)
+                pairs = [(qc, kc) for qc in (rank, 2 * n - 1 - rank) for kc in range(2 * n)]
+            want = sum(bool(vis[qc * c:(qc + 1) * c, kc * c:(kc + 1) * c].any())
+                       for qc, kc in pairs if qc != kc) if window else 0
+            got = ra.planned_blocks(schedule, n, rank, seq_len=s, causal=causal,
+                                    window=window, offset_only=True)
+            assert got == want, (n, rank, window)
+
+
 # -- (c) the composed trainer on a seq axis ---------------------------------------------------
 
 TRAINER_CHILD = """
