@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the hand-written CUDA kernels,
 holds each against its plain PyTorch version on the card, trains the reference CNN for one
-epoch through the fused kernels, trains the transformer classifier through the flash
-kernels (the composed trainer at seq 2048, and a few steps at the large bench widths), and
-serves the pixel LM through the paged-decode kernel (the continuous-batching engine).
+epoch through the fused kernels (a captured CUDA graph of the step, replayed), trains the
+transformer classifier through the flash kernels (the composed trainer at seq 2048, and a
+few steps at the large bench widths), and serves the pixel LM through the paged-decode
+kernel (the continuous-batching engine).
 
     python3 chip_smoke.py
 
@@ -23,7 +24,8 @@ Phases (each raises on failure; nothing is caught):
 4. a 20-step trajectory with dropout off, kernels against the plain path, on the card, and
    the kernel path on the card against the plain path on the CPU;
 5. the whole slice: ``train.single.main`` on cuda with ``use_pallas_kernels=True`` for one
-   epoch of the 60k/10k split at batch 64, with the launch counts read around it;
+   epoch of the 60k/10k split at batch 64 (its segments replayed as CUDA graphs), with
+   the launch counts read around it (replays counted);
 6. where a step spends its time: the train step's wall time with the kernels and with the
    plain path, in turns (plain, kernels, kernels, plain), then a ``torch.profiler`` window
    over the kernel path: device time by kernel, device time per launch of each fused
@@ -92,7 +94,21 @@ Phases (each raises on failure; nothing is caught):
     same with ``--attention-window 300`` (every off-diagonal hop at its offset ±C), with
     ``--zigzag-attention --causal``, and with both; step ms (a time of two ranks
     time-slicing one card, no scaling point);
-20. one JSON line with every kernel's numbers (each flash kernel with its offset form),
+20. the captured epoch: ``train.single.main`` (``--use-pallas-kernels``) and
+    ``train.distributed.main`` at world 1 on NCCL for 20 steps each, which the rule runs
+    as CUDA graphs on the card, against the eager loop of the same step from the same
+    start, dropout off and on, losses and parameters within 1e-6, with B1-B3 launches and
+    reducer calls counted at each replay; then profiler windows over replays of each
+    trainer's full-split segments beside the eager loop (step ms in turns, busy share,
+    kernel launches and host launch calls a step, the dropout key's device time), and the
+    full captured epochs of [5], [15] and the bench of [16];
+21. the step's remainder, captured on the card against the eager loop on the CPU: (a) the
+    fused kernels with grad_accum 4, clipping and the EMA, (b) AdamW, a cosine schedule
+    with warmup, label smoothing and clipping, (c) the guard with a NaN batch and a skip
+    window, within 1e-5, the guard's counters equal; then ``python -m <port>.train.single
+    --guard --anomaly-exit 1`` on a split with one NaN image: exit 65, the poison marker
+    and the step window the plan predicts;
+22. one JSON line with every kernel's numbers (each flash kernel with its offset form),
     then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
@@ -220,6 +236,17 @@ RING_TRAINERS = (              # phase 19: (label, schedule, causal, window)
     ("zigzag", "zigzag", True, 0), ("zigzag window", "zigzag", True, RING_TRAINER_WINDOW))
 RING_TRAJECTORY_ATOL = 1e-4    # seq=2 vs data=1: attention split over ranks and merged,
                                # 20 SGD steps; losses and every parameter
+
+# The captured epoch and the step's remainder, phases 20-21.
+CAPTURE_STEPS = 20             # phase 20: two segments of the trainers' log_interval 10
+CAPTURE_LOG_INTERVAL = 10
+CAPTURE_ATOL = 1e-6            # captured segment vs the eager loop, both on the card: the
+                               # same kernels on the same inputs, losses and parameters
+CAPTURE_WINDOW = 10            # phase 20: segment replays (10 steps each) under the profiler
+REMAINDER_ATOL = 1e-5          # phase 21: the card's captured program vs the CPU's eager
+                               # loop, 20 steps (conv sums in another order)
+POISON_STEP, SKIP_WINDOW = 7, (12, 14)   # phase 21 (c): a NaN batch, a replayed window
+POISON_TRAIN = 640             # phase 21: the poisoned run's split, 10 steps an epoch
 
 
 def fail(msg: str) -> None:
@@ -511,8 +538,8 @@ def composed_trajectory(out: str, *flags: str) -> None:
                      for x, y in splits)
     losses, build = [], composed.build_segment_fn
 
-    def recording(config, model):
-        optimizer, segment = build(config, model)
+    def recording(config, model, **kwargs):
+        optimizer, segment = build(config, model, **kwargs)
 
         def segment_and_record(*args):
             state, step_losses = segment(*args)
@@ -533,8 +560,408 @@ def composed_trajectory(out: str, *flags: str) -> None:
         json.dump(counts, f)
     if rank == 0:
         np.savez(out, losses=torch.cat(losses).cpu().numpy(),
-                 epoch_seconds=history.epoch_seconds[0], steps=state.step,
+                 epoch_seconds=history.epoch_seconds[0], steps=int(state.step),
                  **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    """``owner.name = value`` for the duration of the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def recording_epoch_fn(build, losses: list):
+    """Wrap a trainer's ``make_epoch_fn`` so that every segment's losses land in
+    ``losses``."""
+
+    def make(*args, **kwargs):
+        segment = build(*args, **kwargs)
+
+        def record(*call):
+            state, out = segment(*call)
+            losses.append(out)
+            return state, out
+
+        return record
+
+    return make
+
+
+def host_launch_calls(prof) -> dict[str, int]:
+    """The host's launch calls in a profiler window, by runtime API name (cudaLaunchKernel,
+    cudaGraphLaunch, ...): what the host pays per step, whatever runs on the device."""
+    counts: dict[str, int] = {}
+    for evt in prof.events():
+        if "Launch" in evt.name and not str(evt.device_type).endswith("CUDA"):
+            counts[evt.name] = counts.get(evt.name, 0) + 1
+    return counts
+
+
+def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
+    """Phase 20: the captured segment against the eager loop on the card, then profiled.
+
+    ``train.single.main`` (``--use-pallas-kernels``) and ``train.distributed.main`` at
+    world 1 on NCCL each train ``CAPTURE_STEPS`` steps on the card: the segment-program
+    rule picks the CUDA graph there. Each is held against the eager loop
+    (``make_segment_fn``) of the same step from the same start on the same plan, dropout
+    off and on (the masks come from the step's device key on both paths, so they must
+    agree), per-step losses and final parameters within ``CAPTURE_ATOL``, with the launch
+    counts read around ``main()`` (replays counted). Then a profiler window over
+    ``CAPTURE_WINDOW`` replays of each full-split segment (busy share, kernels, host launch
+    calls per step) beside an eager window of the same steps, and the full epochs of [5],
+    [15] and the bench of [16], which ran captured."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+        BatchLoader, mnist,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.sampler import (
+        ShardedSampler,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        distributed, single, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        DistributedConfig, SingleProcessConfig,
+    )
+
+    li, n = CAPTURE_LOG_INTERVAL, CAPTURE_STEPS * BATCH
+    sub = (mnist.Dataset(train_ds.images[:n], train_ds.labels[:n], train_ds.source),
+           mnist.Dataset(test_ds.images[:1000], test_ds.labels[:1000], test_ds.source))
+    x = torch.from_numpy(sub[0].images).to(dev)
+    y = torch.from_numpy(sub[0].labels.astype("int64")).to(dev)
+    net = lambda dropout: Net() if dropout else Net(conv_dropout_rate=0.0,
+                                                    fc_dropout_rate=0.0)
+    program = st.segment_program(dev)
+    print(f"[20] segment program on {dev}: {program} (the rule); on the CPU: "
+          f"{st.segment_program(torch.device('cpu'))}")
+    if program != "cuda-graph":
+        fail(f"[20] the rule chose {program} on the card")
+
+    def compare(tag, got_losses, got_params, want_losses, want_params):
+        got_l, want_l = torch.cat(got_losses).cpu(), torch.cat(want_losses).cpu()
+        if got_l.shape != (CAPTURE_STEPS,):
+            fail(f"[20] {tag}: {tuple(got_l.shape)} losses, expected {CAPTURE_STEPS}")
+        torch.testing.assert_close(got_l, want_l, atol=CAPTURE_ATOL, rtol=0.0)
+        e_l = (got_l - want_l).abs().max().item()
+        e_p = 0.0
+        for k, p in want_params.items():
+            torch.testing.assert_close(got_params[k], p, atol=CAPTURE_ATOL, rtol=0.0,
+                                       msg=lambda m: f"[20] {tag} {k}: {m}")
+            e_p = max(e_p, (got_params[k] - p).abs().max().item())
+        return e_l, e_p, got_l
+
+    for dropout in (False, True):
+        tag = f"dropout {'on' if dropout else 'off'}"
+        # train.single --use-pallas-kernels: captured in main(), eager here
+        cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device="cuda",
+                                  log_interval=li, results_dir=str(OUT_DIR / "captured"))
+        losses = []
+        fk.reset_launch_counts()
+        with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
+                                                                 losses)), \
+                patched(single, "build_model", lambda name: net(dropout)), \
+                contextlib.redirect_stdout(io.StringIO()) as said:
+            state, _ = single.main(cfg, datasets=sub)
+        counts = fk.launch_counts()
+        if "Segment program: cuda-graph on cuda" not in said.getvalue():
+            fail("[20] train.single did not print the captured program's rule line")
+        model = net(dropout)
+        e_state = st.create_train_state(model, torch.Generator().manual_seed(cfg.seed),
+                                        device=dev)
+        loader = BatchLoader(sub[0], BATCH, shuffle=True, seed=cfg.seed)
+        loader.set_epoch(1)
+        plan = torch.from_numpy(loader.epoch_index_matrix(1, allow_empty=True)).to(dev)
+        eager = st.make_segment_fn(st.make_train_step(
+            model, learning_rate=cfg.learning_rate, momentum=cfg.momentum, use_pallas=True))
+        e_losses = []
+        for s0 in range(0, CAPTURE_STEPS, li):
+            e_state, l = eager(e_state, x, y, plan[s0:s0 + li], cfg.seed)
+            e_losses.append(l)
+        e_l, e_p, got = compare(f"single {tag}", losses, state.params, e_losses,
+                                e_state.params)
+        if counts != dict.fromkeys(counts, CAPTURE_STEPS):
+            fail(f"[20] single {tag}: B1-B3 launches {counts} != {CAPTURE_STEPS} steps")
+        print(f"[20] train.single --use-pallas-kernels, {tag}: {CAPTURE_STEPS} steps "
+              f"captured (main) vs eager, max |dloss| {e_l:.3e}, max |dparam| {e_p:.3e} "
+              f"(atol {CAPTURE_ATOL:g}); B1-B3 launches in main() (replays counted) "
+              f"{counts}; losses {got[0]:.4f} -> {got[-1]:.4f}")
+
+        # train.distributed at world 1 on NCCL: the reducer inside the graph
+        dcfg = DistributedConfig(epochs=1, device="cuda", log_interval=li,
+                                 results_dir=str(OUT_DIR / "captured_dp"))
+        losses, made = [], []
+        reducer_cls = dp.GradReducer
+
+        class Recorded(reducer_cls):
+            def __init__(self, params):
+                super().__init__(params)
+                made.append(self)
+
+        fk.reset_launch_counts()
+        with mesh.cluster(dev) as info:
+            if info.backend != "nccl":
+                fail(f"[20] world 1 on the card ran {info.backend}, not nccl")
+            with patched(distributed, "make_epoch_fn", recording_epoch_fn(
+                    distributed.make_epoch_fn, losses)), \
+                    patched(distributed, "build_model", lambda name: net(dropout)), \
+                    patched(dp, "GradReducer", Recorded), \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                d_state, _ = distributed.main(dcfg, datasets=sub)
+            d_counts = fk.launch_counts()
+            if "Segment program: cuda-graph on cuda" not in said.getvalue():
+                fail("[20] train.distributed did not print the captured program's rule line")
+            model = net(dropout)
+            e_state = st.create_train_state(model, torch.Generator().manual_seed(dcfg.seed),
+                                            device=dev)
+            reducer = reducer_cls(e_state.params)
+            plan = torch.from_numpy(distributed.epoch_index_plan(
+                [ShardedSampler(n, seed=dcfg.sampler_seed)], 0, dcfg.global_batch_size)
+            ).to(dev)
+            eager = st.make_segment_fn(st.make_train_step(
+                model, learning_rate=dcfg.learning_rate, momentum=dcfg.momentum,
+                grad_reduce=reducer))
+            e_losses = []
+            for s0 in range(0, CAPTURE_STEPS, li):
+                e_state, l = eager(e_state, x, y, plan[s0:s0 + li], dcfg.seed)
+                e_losses.append(l)
+        e_l, e_p, got = compare(f"distributed {tag}", losses, d_state.params, e_losses,
+                                e_state.params)
+        calls = [r.calls for r in made]
+        if calls != [CAPTURE_STEPS] or any(d_counts.values()):
+            fail(f"[20] distributed {tag}: reducer calls {calls} (want [{CAPTURE_STEPS}]), "
+                 f"kernel launches {d_counts} (want none)")
+        print(f"[20] train.distributed world 1 (nccl), {tag}: {CAPTURE_STEPS} steps "
+              f"captured (main, all-reduce in the graph) vs eager, max |dloss| {e_l:.3e}, "
+              f"max |dparam| {e_p:.3e} (atol {CAPTURE_ATOL:g}); reducer calls (replays "
+              f"counted) {calls[0]}; losses {got[0]:.4f} -> {got[-1]:.4f}")
+
+    # profiler windows over replays of full-split segments, beside the eager loop
+    full_x = torch.from_numpy(train_ds.images).to(dev)
+    full_y = torch.from_numpy(train_ds.labels.astype("int64")).to(dev)
+    loader = BatchLoader(train_ds, BATCH, shuffle=True, seed=1)
+    loader.set_epoch(1)
+    plan = torch.from_numpy(loader.epoch_index_matrix(1)).to(dev)
+    steps = CAPTURE_WINDOW * li
+
+    def windows(tag, captured, eager, state, seed, ours):
+        state, _ = captured(state, full_x, full_y, plan[:li], seed)     # the capture
+        state, _ = eager(state, full_x, full_y, plan[:li], seed)
+        ms = {"captured": [], "eager": []}
+        for name in ("eager", "captured", "captured", "eager"):
+            fn = captured if name == "captured" else eager
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(1, CAPTURE_WINDOW + 1):
+                state, _ = fn(state, full_x, full_y, plan[i * li:(i + 1) * li], seed)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / steps * 1e3)
+        print(f"[20] {tag}: step ms in turns ({steps} steps a run): captured "
+              f"{', '.join(f'{t:.4f}' for t in ms['captured'])}; eager "
+              f"{', '.join(f'{t:.4f}' for t in ms['eager'])} [{card}]")
+        for name, fn in (("captured", captured), ("eager", eager)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(1, CAPTURE_WINDOW + 1):
+                    state, _ = fn(state, full_x, full_y, plan[i * li:(i + 1) * li], seed)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows = device_kernel_times(prof)
+            report_window(f"[20] {tag} {name}:", rows, steps, wall, ours, card)
+            keyed = [(us, n) for us, n, k in rows if "elementwise" in k and "<long" in k]
+            print(f"[20] {tag} {name}: int64 elementwise kernels (the dropout key and "
+                  f"masks, the step count) {sum(us for us, _ in keyed) / steps:.3f} us a "
+                  f"step in {sum(n for _, n in keyed) / steps:.1f} launches")
+            calls = host_launch_calls(prof)
+            print(f"[20] {tag} {name}: host launch calls {sum(calls.values()) / steps:.2f} "
+                  f"per step ({calls})")
+        return state
+
+    model = Net()
+    state = st.create_train_state(model, torch.Generator().manual_seed(1), device=dev)
+    step_fn = st.make_train_step(model, learning_rate=LR, momentum=MOMENTUM,
+                                 use_pallas=True)
+    windows("train.single step (B1-B3)", st.CapturedSegment(step_fn),
+            st.make_segment_fn(step_fn), state, 1,
+            ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_multi_kernel"))
+    with mesh.cluster(dev):
+        model = Net()
+        state = st.create_train_state(model, torch.Generator().manual_seed(1), device=dev)
+        reducer = dp.GradReducer(state.params)
+        step_fn = st.make_train_step(model, learning_rate=0.02, momentum=MOMENTUM,
+                                     grad_reduce=reducer)
+        windows("train.distributed step (world 1, nccl)",
+                st.CapturedSegment(step_fn, grad_reduce=reducer),
+                st.make_segment_fn(step_fn), state, 1, ("nccl",))
+    single_ms = earlier["single_s"] / earlier["single_steps"] * 1e3
+    dp_ms = earlier["dp_s"] / earlier["dp_steps"] * 1e3
+    print(f"[20] one full epoch each, captured: train.single {earlier['single_s']:.3f} s "
+          f"({earlier['single_steps']} steps, {single_ms:.4f} ms a step, B1-B3 launches "
+          f"{earlier['single_launches']}) [5]; train.distributed world 1 "
+          f"{earlier['dp_s']:.3f} s ({earlier['dp_steps']} steps, {dp_ms:.4f} ms a step) "
+          f"[15]; the bench's captured epoch: median {earlier['bench']['value']} s, "
+          f"samples {earlier['bench']['epoch_seconds_all']} [16] [{card}]")
+    del full_x, full_y
+    torch.cuda.empty_cache()
+
+
+POISON_CHILD = """
+import sys, runpy
+import numpy as np
+sys.path.insert(0, {root!r})
+from {pkg} import data
+from {pkg}.data import mnist
+
+def load_mnist(data_dir):
+    x, y = mnist._synthesize_split({n_train}, 400)
+    x = mnist._normalize(x)
+    x[{row}] = np.nan
+    tx, ty = mnist._synthesize_split(1000, 401)
+    return (mnist.Dataset(x, y.astype(np.int32), "synthetic"),
+            mnist.Dataset(mnist._normalize(tx), ty.astype(np.int32), "synthetic"))
+
+data.load_mnist = load_mnist
+sys.argv = ["{module}", *{argv!r}]
+runpy.run_module("{pkg}.train.{module}", run_name="__main__")
+"""
+
+
+def remainder_phase(dev, card: str) -> None:
+    """Phase 21: the step's remainder, the card's captured program against the CPU's
+    eager loop, and the guard's exit.
+
+    Three settings, 20 steps each at batch 64 on a synthetic split, dropout off, from the
+    same initial parameters: (a) the fused kernels with grad_accum 4, clipping and the EMA;
+    (b) AdamW with weight decay, a cosine schedule with warmup, label smoothing and
+    clipping; (c) the guard (fused kernels: the in-place update restored from a snapshot
+    inside the graph) with a NaN batch at ``POISON_STEP`` and the skip window
+    ``SKIP_WINDOW``. Losses (NaN where both are), parameters and the EMA within
+    ``REMAINDER_ATOL``, the guard's counters equal as integers. Then ``python -m
+    <port>.train.single --guard --anomaly-exit 1`` on a split with one NaN image: exit 65,
+    the marker and the window the plan predicts."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+        BatchLoader, mnist,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+        poison,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        step as st,
+    )
+
+    xs, ys = mnist._synthesize_split(CAPTURE_STEPS * BATCH, 500)
+    images = mnist._normalize(xs)
+    images[POISON_STEP * BATCH + 3] = np.nan           # one example of step 7's batch
+    plan = np.arange(CAPTURE_STEPS * BATCH).reshape(CAPTURE_STEPS, BATCH)
+    cases = (
+        ("(a) fused kernels, grad_accum 4, clip 0.5, EMA 0.9", {},
+         dict(use_pallas=True, grad_accum=4, clip_grad_norm=0.5, ema_decay=0.9)),
+        ("(b) AdamW wd 0.01, cosine warmup 5, label smoothing 0.1, clip 1.0",
+         dict(optimizer=optim.adamw(1e-3, weight_decay=0.01)),
+         dict(lr_schedule=optim.make_lr_schedule("cosine", warmup_steps=5,
+                                                 total_steps=CAPTURE_STEPS),
+              label_smoothing=0.1, clip_grad_norm=1.0)),
+        (f"(c) guard, fused kernels, NaN batch at step {POISON_STEP}, skip window "
+         f"{SKIP_WINDOW[0]}:{SKIP_WINDOW[1]}", {},
+         dict(use_pallas=True, guard=st.GuardSpec(skip=(SKIP_WINDOW,)))),
+    )
+    model = Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    for label, init, kw in cases:
+        clean = label.startswith("(a)") or label.startswith("(b)")
+        data = images.copy()
+        if clean:
+            data = np.nan_to_num(data, nan=0.0)
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            state = st.create_train_state(model, torch.Generator().manual_seed(7),
+                                          device=device, ema=kw.get("ema_decay", 0) > 0,
+                                          guard="guard" in kw, **init)
+            epoch = st.make_epoch_fn(model, learning_rate=LR, momentum=MOMENTUM, **init,
+                                     **kw)
+            xd = torch.from_numpy(data).to(device)
+            yd = torch.from_numpy(ys.astype("int64")).to(device)
+            pd = torch.from_numpy(plan).to(device)
+            losses = []
+            for s0 in range(0, CAPTURE_STEPS, CAPTURE_LOG_INTERVAL):
+                state, l = epoch(state, xd, yd, pd[s0:s0 + CAPTURE_LOG_INTERVAL], 1)
+                losses.append(l)
+            runs[device.type] = (torch.cat(losses).cpu(), state)
+        (l_card, s_card), (l_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+        torch.testing.assert_close(l_card, l_cpu, atol=REMAINDER_ATOL, rtol=0.0,
+                                   equal_nan=True, msg=lambda m: f"[21] {label}: {m}")
+        e_p = 0.0
+        for name, tree in (("params", "params"), ("ema", "ema")):
+            card_t, cpu_t = getattr(s_card, tree), getattr(s_cpu, tree)
+            for k in (cpu_t or {}):
+                torch.testing.assert_close(card_t[k].cpu(), cpu_t[k], atol=REMAINDER_ATOL,
+                                           rtol=0.0, msg=lambda m: f"[21] {label} {k}: {m}")
+                e_p = max(e_p, (card_t[k].cpu() - cpu_t[k]).abs().max().item())
+        e_l = (l_card - l_cpu).nan_to_num(0.0).abs().max().item()
+        guard_line = ""
+        if s_cpu.guard is not None:
+            counters = {f: (int(getattr(s_card.guard, f)), int(getattr(s_cpu.guard, f)))
+                        for f in ("anomalies", "nonfinite", "spikes", "skipped",
+                                  "first_anomaly_step", "last_anomaly_step", "count")}
+            if any(a != b for a, b in counters.values()):
+                fail(f"[21] {label}: guard counters differ (card, cpu): {counters}")
+            want = {"anomalies": 1, "nonfinite": 1, "skipped": 3,
+                    "first_anomaly_step": POISON_STEP, "last_anomaly_step": POISON_STEP}
+            if any(counters[f][0] != v for f, v in want.items()):
+                fail(f"[21] {label}: guard counters {counters}, expected {want}")
+            guard_line = f"; guard counters equal: { {f: c[0] for f, c in counters.items()} }"
+        print(f"[21] {label}: {CAPTURE_STEPS} steps, card (captured) vs CPU (eager): max "
+              f"|dloss| {e_l:.3e}, max |dparam| (and EMA) {e_p:.3e} (atol "
+              f"{REMAINDER_ATOL:g}){guard_line}")
+
+    # the guard's exit: train.single --guard --anomaly-exit 1 on a poisoned split
+    row = 5
+    loader = BatchLoader(mnist.Dataset(np.zeros((POISON_TRAIN, 28, 28, 1), np.float32),
+                                       np.zeros(POISON_TRAIN, np.int32), "synthetic"),
+                         BATCH, shuffle=True, seed=1)
+    loader.set_epoch(1)
+    bad_step = int(np.nonzero((loader.epoch_index_matrix(1) == row).any(axis=1))[0][0])
+    results = OUT_DIR / "poisoned"
+    shutil.rmtree(results, ignore_errors=True)
+    argv = ["--guard", "--anomaly-exit", "1", "--n-epochs", "2", "--use-pallas-kernels",
+            "--results-dir", str(results)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    proc = subprocess.run([sys.executable, "-c", POISON_CHILD.format(
+        root=str(ROOT), pkg=PKG, n_train=POISON_TRAIN, row=row, module="single",
+        argv=argv)], capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    marker = poison.read_marker(str(results / "checkpoints"), consume=False)
+    tail = [l for l in proc.stdout.splitlines() if l.strip()][-2:]
+    print(f"[21] python -m {PKG}.train.single {' '.join(argv[:-2])} on {POISON_TRAIN} "
+          f"examples with image {row} NaN (step {bad_step} of epoch 1): exit "
+          f"{proc.returncode}, marker {marker and marker['window']}; {tail}")
+    if proc.returncode != poison.EXIT_POISONED:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"[21] the poisoned run exited {proc.returncode}, not {poison.EXIT_POISONED}")
+    if marker is None or marker["window"] != (bad_step, bad_step + 1):
+        fail(f"[21] the poison marker {marker} does not name the window "
+             f"{bad_step}:{bad_step + 1}")
+    if "Segment program: cuda-graph" not in proc.stdout:
+        fail("[21] the poisoned run did not train through the captured program")
 
 
 def main() -> None:
@@ -806,6 +1233,7 @@ def main() -> None:
         fail(f"test NLL {test_nll:.4f} is not below 1.0")
     if not accuracy >= 0.85:
         fail(f"test accuracy {accuracy:.4f} is below 0.85")
+    earlier = {"single_s": epoch_s, "single_steps": steps, "single_launches": launches}
 
     # -- 6. where a step spends its time ------------------------------------------------
     n_prof = PROFILE_STEPS * BATCH
@@ -1421,6 +1849,7 @@ def main() -> None:
         if not (d_nll < 1.0 and d_acc >= 0.85):
             fail(f"[15] test NLL {d_nll:.4f} / accuracy {d_acc:.4f} miss the bar "
                  f"(< 1.0, >= 0.85)")
+        earlier.update(dp_s=d_epoch_s, dp_steps=int(d_state.step))
         # where the data-parallel step spends its time: the step main() trains with, over
         # the next epoch's plan, 10 warm-up steps and then a window under the profiler
         d_model = Net()
@@ -1552,6 +1981,7 @@ def main() -> None:
     print(f"[16] median epoch {result['value']} s, min {result['min_epoch_seconds']} s, "
           f"samples {result['epoch_seconds_all']}, vs_baseline {result['vs_baseline']}, "
           f"test accuracy {result['test_accuracy_after_run']} [{card}]")
+    earlier["bench"] = result
 
     # -- 17. the hop offset in B4/B5: each kernel against its plain version -------------
     c_len = OFFSET_SHAPE[1]
@@ -1730,7 +2160,13 @@ def main() -> None:
                        | dict.fromkeys(routes["bfloat16"], 0))
     all_err = err | flash_err | {"paged_attend": paged_err}
 
-    # -- 20. result ---------------------------------------------------------------------
+    # -- 20. the captured epoch against the eager loop ----------------------------------
+    captured_phase(dev, card, train_ds, test_ds, earlier)
+
+    # -- 21. the step's remainder: the card's captured program against the CPU -----------
+    remainder_phase(dev, card)
+
+    # -- 22. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -1753,7 +2189,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[20] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[22] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -67,7 +67,7 @@ def measure(device: str = "cuda", data_dir: str = "files") -> dict | None:
         timed = max(1, int(os.environ.get("BENCH_TIMED_EPOCHS", "7")))
         result = time_epochs(info, train_ds, global_batch=GLOBAL_BATCH,
                              learning_rate=LEARNING_RATE, momentum=MOMENTUM, seed=1,
-                             timed_epochs=timed)
+                             timed_epochs=timed, pregather=True)
         test_x = torch.from_numpy(test_ds.images).to(info.device)
         test_y = torch.from_numpy(test_ds.labels.astype(np.int64)).to(info.device)
         sum_nll, correct = dp.evaluate(make_eval_fn(Net(), batch_size=1000),
@@ -96,6 +96,8 @@ def measure(device: str = "cuda", data_dir: str = "files") -> dict | None:
             "platform": "gpu" if on_card else "cpu",
             "device_kind": kind,
             "collective_backend": info.backend,
+            "scan_unroll": 1,
+            "pregather": True,
             "steps_per_epoch": result.steps_per_epoch,
             "train_examples": len(train_ds),
             "steps_per_s": round(result.steps_per_epoch / result.median_seconds, 1),

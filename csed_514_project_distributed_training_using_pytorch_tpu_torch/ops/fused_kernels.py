@@ -15,7 +15,9 @@ beside it, a plain PyTorch version of the same function:
 Dispatch is by the device of the tensors alone: a CPU tensor takes the plain version (the
 CPU tests), a CUDA tensor launches the kernel or raises. Nothing falls back. Each launch
 adds one to its counter (``nll_fwd_launches``, ``nll_bwd_launches``,
-``sgd_momentum_launches``), so a run can show that it went through the kernels.
+``sgd_momentum_launches``), so a run can show that it went through the kernels. A launch
+recorded into a CUDA graph is counted at each replay instead (``train.step.CapturedSegment``
+adds the captured counts through ``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict[str, int]:
     return {"nll_fwd": nll_fwd_launches, "nll_bwd": nll_bwd_launches,
             "sgd_momentum": sgd_momentum_launches}
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keyed as ``launch_counts``) to the counters: a graph replay's
+    launches, or, negative, a capture's, which launched nothing."""
+    global nll_fwd_launches, nll_bwd_launches, sgd_momentum_launches
+    nll_fwd_launches += delta["nll_fwd"]
+    nll_bwd_launches += delta["nll_bwd"]
+    sgd_momentum_launches += delta["sgd_momentum"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:

@@ -9,14 +9,23 @@ PyTorch a permuted *view* (NCHW / OIHW / ``[out, in]``): no copy is made, and cu
 cuBLAS do the work, as XLA does for the JAX package. These are not hand kernels; the
 hand kernels of the training path are in ``ops/fused_kernels.py``.
 
-Dropout draws from an explicit ``torch.Generator`` on the tensor's device. It does not
-give the JAX package's bits: the two are compared by their statistics.
+Dropout draws from an explicit ``torch.Generator`` on the tensor's device, or from a
+``DropoutStream``: counter-based keep-masks computed with integer tensor ops from a key on
+the device (the train step's, a function of ``(seed, step, rank)``), so that the same
+masks come out on the CPU and on the card, eagerly or replayed from a captured CUDA graph
+(a graph cannot reseed a generator from the host at every step). Neither gives the JAX
+package's bits: the two are compared by their statistics.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
+
+_M32 = 0xFFFFFFFF
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -48,11 +57,18 @@ def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.log_softmax(x, dim=axis)
 
 
-def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor, *,
-             reduction: str = "mean") -> torch.Tensor:
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor, *, reduction: str = "mean",
+             label_smoothing: float = 0.0) -> torch.Tensor:
     """Negative log-likelihood of integer labels under ``log_probs`` (``F.nll_loss``
-    semantics; ``reduction="sum"`` is the evaluation's summed form)."""
+    semantics; ``reduction="sum"`` is the evaluation's summed form).
+
+    ``label_smoothing=s`` trains against the smoothed target ``(1−s)·onehot + s/C``
+    (torch ``CrossEntropyLoss(label_smoothing=s)``): the per-example loss becomes
+    ``(1−s)·nll + s·mean_c(−log_probs)``."""
     picked = torch.gather(log_probs, 1, labels.long()[:, None])[:, 0]
+    if label_smoothing:
+        smooth = log_probs.mean(dim=-1)
+        picked = (1.0 - label_smoothing) * picked + label_smoothing * smooth
     if reduction == "mean":
         return -picked.mean()
     if reduction == "sum":
@@ -85,13 +101,64 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _keep_mask(generator: torch.Generator | None, shape, keep: float,
+_MIX1, _MIX2 = 0x7FEB352D, 0x2C1B3C6D   # odd multipliers below 2^31: for x < 2^32 every
+                                         # product stays below 2^63, so int64 never wraps
+
+
+def mix32(x):
+    """A 32-bit integer finalizer (xorshift-multiply, two rounds) on values in
+    ``[0, 2^32)``, as int64 tensors or Python ints — the same bits either way."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX1) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MIX2) & _M32
+    return x ^ (x >> 16)
+
+
+@functools.lru_cache(maxsize=64)
+def _draw_base(draw: int, numel: int, device: torch.device) -> torch.Tensor:
+    """``mix32(mix32(j) ^ mix32(draw))`` for ``j < numel``: the key-free half of a draw's
+    bits, made once per (draw, size, device) and read by every step after."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a dropout draw first seen under CUDA graph capture: run the "
+                           "step once eagerly first (CapturedSegment's warm-up does)")
+    j = torch.arange(numel, dtype=torch.int64, device=device)
+    return mix32(mix32(j) ^ mix32(draw))
+
+
+class DropoutStream:
+    """Keep-masks keyed by a 32-bit key held in a 0-d int64 device tensor.
+
+    ``key`` is the tensor or a function that makes it, called at the first draw (a step
+    that draws nothing launches nothing for its key). Draw ``c`` (counted on the host: a
+    step draws in the same order every time) keeps element ``j`` when
+    ``mix32(base_c[j] ^ key) < keep·2^32``, ``base_c = mix32(mix32(j) ^ mix32(c))``
+    cached per shape: twelve integer ops on the key's device a draw, no generator state,
+    no host sync, the same masks on every device and under CUDA graph replay. (One
+    xorshift-multiply round instead of ``mix32`` leaves masks of keys a few bits apart
+    correlated, up to ±1.)"""
+
+    def __init__(self, key):
+        self._key = key
+        self.draws = 0
+
+    def keep_mask(self, shape, keep: float, device: torch.device) -> torch.Tensor:
+        if callable(self._key):
+            self._key = self._key()
+        base = _draw_base(self.draws, math.prod(shape), torch.device(device))
+        self.draws += 1
+        return (mix32(base ^ self._key) < int(keep * 2.0 ** 32)).view(shape)
+
+
+def _keep_mask(generator: torch.Generator | DropoutStream | None, shape, keep: float,
                device: torch.device) -> torch.Tensor:
+    if isinstance(generator, DropoutStream):
+        return generator.keep_mask(shape, keep, device)
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
-def dropout(generator: torch.Generator | None, x: torch.Tensor, rate: float, *,
-            deterministic: bool) -> torch.Tensor:
+def dropout(generator: torch.Generator | DropoutStream | None, x: torch.Tensor,
+            rate: float, *, deterministic: bool) -> torch.Tensor:
     """Elementwise inverted dropout; ``deterministic=True`` (eval mode) is the identity."""
     if deterministic or rate == 0.0:
         return x
@@ -100,8 +167,8 @@ def dropout(generator: torch.Generator | None, x: torch.Tensor, rate: float, *,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def dropout2d(generator: torch.Generator | None, x: torch.Tensor, rate: float, *,
-              deterministic: bool) -> torch.Tensor:
+def dropout2d(generator: torch.Generator | DropoutStream | None, x: torch.Tensor,
+              rate: float, *, deterministic: bool) -> torch.Tensor:
     """Channelwise (spatial) dropout on NHWC: zeroes whole feature maps."""
     if deterministic or rate == 0.0:
         return x

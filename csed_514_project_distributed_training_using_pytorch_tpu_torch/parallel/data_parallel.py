@@ -19,7 +19,10 @@ parameters and hooks their ``.grad``, while the port's step is functional
 the return value of ``torch.autograd.grad``.
 
 On a gloo group with CUDA tensors the bucket crosses through a pinned host buffer
-(``collectives.host_staged``), chosen from the backend.
+(``collectives.host_staged``), chosen from the backend. On NCCL the reducer can be captured
+into a CUDA graph (``train.step.CapturedSegment``): its bucket is allocated once, nothing
+crosses through the host, and the only Python state it advances is the ``calls`` count,
+which a replay adds to through ``add_launch_counts``.
 """
 
 from __future__ import annotations
@@ -50,9 +53,17 @@ class GradReducer:
         first = next(iter(params.values()))
         self.numel = sum(p.numel() for p in params.values())
         self.bucket = torch.empty(self.numel + 1, dtype=torch.float32, device=first.device)
+        self.host_staged = collectives.host_staged(self.bucket)
         self.host = (torch.empty(self.bucket.shape, dtype=torch.float32, pin_memory=True)
-                     if collectives.host_staged(self.bucket) else None)
+                     if self.host_staged else None)
         self.calls = 0
+
+    def launch_counts(self) -> dict[str, int]:
+        return {"calls": self.calls}
+
+    def add_launch_counts(self, delta: dict[str, int]) -> None:
+        """Count a graph replay's reduces (or, negative, undo a capture's)."""
+        self.calls += delta["calls"]
 
     @torch.no_grad()
     def allreduce_mean_(self, grads: dict[str, torch.Tensor], loss: torch.Tensor) -> None:

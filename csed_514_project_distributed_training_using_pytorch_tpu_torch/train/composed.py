@@ -30,10 +30,16 @@ Run the slice's paths on the card with::
 
 (two ranks on one card run gloo and time-slice it: ``parallel/mesh.py``'s backend rule).
 
+The step's options are ``train.single``'s (``utils.config.StepOptions``: AdamW, LR
+schedules, clipping, label smoothing, EMA, gradient accumulation, the guard and its
+``--anomaly-exit``). The segment stays the eager loop on every device: the f32 step at seq
+2048 is device-bound, and the seq world's gloo hops cannot be captured (ROADMAP A4,
+"composed data=1 under the graph").
+
 Not ported yet: meshes of more than one device other than a seq axis alone (data beside
 seq, tensor/expert/pipeline parallelism and MoE), the einsum ring and zig-zag, Ulysses
-(ROADMAP A6/A10), remat, AdamW, label smoothing, LR schedules, EMA, telemetry and the
-resilience hooks, and the checkpoint (ROADMAP A5).
+(ROADMAP A6/A10), remat, telemetry and the rest of the resilience hooks, and the
+checkpoint (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -66,10 +72,16 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh
     parse_mesh_spec,
     seq_axis_size,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
+    GuardRuntime,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
     resolve_device,
+    run_cli,
+    step_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+    GuardSpec,
     TrainState,
     create_train_state,
     make_eval_fn,
@@ -79,7 +91,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     ComposedConfig,
-    parse_config,
+    check_step_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.determinism import (
     assert_replicas_synced,
@@ -98,6 +110,10 @@ def validate_config(config: ComposedConfig) -> int:
     them; returns the seq axis size (the seq world)."""
     names, _ = parse_mesh_spec(config.mesh)
     seq = seq_axis_size(config.mesh)
+    check_step_options(config)
+    if config.grad_accum > 1 and config.batch_size % config.grad_accum:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by grad_accum "
+                         f"{config.grad_accum}")
     if config.kv_heads and (config.kv_heads < 0 or NUM_HEADS % config.kv_heads):
         raise ValueError(f"--kv-heads {config.kv_heads} must be a positive divisor of the "
                          f"transformer's {NUM_HEADS} heads")
@@ -161,15 +177,21 @@ def build_classifier(config: ComposedConfig) -> TransformerClassifier:
         num_kv_heads=config.kv_heads or None, rope=config.rope, attention_fn=attention_fn)
 
 
-def build_segment_fn(config: ComposedConfig, model: TransformerClassifier):
-    """The optimizer and the segment function ``main`` trains with (one call per epoch over
-    the epoch's index plan), from the flags: one definition, so that a caller timing the
-    trainer's steps runs the same ones."""
+def build_segment_fn(config: ComposedConfig, model: TransformerClassifier, *,
+                     total_steps: int = 0, guard: GuardSpec | None = None):
+    """The optimizer and the eager segment function ``main`` trains with (one call per
+    epoch over the epoch's index plan), from the flags (``total_steps``: the cosine
+    schedule's horizon; ``guard``: the guard's spec): one definition, so that a caller
+    timing the trainer's steps runs the same ones."""
     optimizer = optim.make_optimizer(config.optimizer, learning_rate=config.learning_rate,
-                                     momentum=config.momentum)
-    return optimizer, make_segment_fn(make_train_step(
-        model, learning_rate=config.learning_rate, momentum=config.momentum,
-        optimizer=optimizer))
+                                     momentum=config.momentum,
+                                     weight_decay=config.weight_decay)
+    lr_schedule = optim.make_lr_schedule(config.lr_schedule,
+                                         warmup_steps=config.warmup_steps,
+                                         total_steps=total_steps)
+    step = make_train_step(model, **step_options(config, optimizer, lr_schedule, guard),
+                           grad_accum=config.grad_accum)
+    return optimizer, make_segment_fn(step, pregather=config.pregather)
 
 
 def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
@@ -196,7 +218,8 @@ def _train(config: ComposedConfig, info, datasets, init_params):
     watch = M.Stopwatch()
     device = info.device
     model = build_classifier(config)
-    optimizer, segment_fn = build_segment_fn(config, model)
+    grt = GuardRuntime(config, store_dir=(os.path.join(config.results_dir, "checkpoints")
+                                          if config.results_dir else ""))
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
     train_ds = truncate(train_ds, config.max_train_examples)
     test_ds = truncate(test_ds, config.max_test_examples)
@@ -210,11 +233,17 @@ def _train(config: ComposedConfig, info, datasets, init_params):
           f"{info.process_count} devices on {info.process_count} process(es) "
           f"({info.backend}), batch {batch}, data source: {train_ds.source}")
 
+    optimizer, segment_fn = build_segment_fn(
+        config, model, total_steps=config.epochs * steps_per_epoch, guard=grt.spec)
     state = create_train_state(model, torch.Generator().manual_seed(config.seed),
-                               optimizer=optimizer, device=device)
+                               optimizer=optimizer, device=device,
+                               ema=config.ema_decay > 0, guard=config.guard)
     if init_params is not None:
         params = {k: p.to(device) for k, p in init_params.items()}
-        state = TrainState(params, optimizer.init(params), 0)
+        state = state._replace(params=params, velocity=optimizer.init(params),
+                               ema=(None if state.ema is None
+                                    else {k: p.clone() for k, p in params.items()}))
+    grt.baseline(state)
     eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
 
     # Device-resident splits: the one host->device transfer.
@@ -229,7 +258,8 @@ def _train(config: ComposedConfig, info, datasets, init_params):
         state, losses = segment_fn(state, train_x, train_y, plan, config.seed + 1)
         epoch_loss = losses.mean().item()               # the epoch's one host sync
         history.epoch_seconds.append(time.perf_counter() - t_epoch)
-        sum_nll, correct = eval_fn(state.params, test_x, test_y)
+        sum_nll, correct = eval_fn(state.ema if state.ema is not None else state.params,
+                                   test_x, test_y)
         val_loss = sum_nll.item() / n_test
         examples_trained = (epoch + 1) * steps_per_epoch * batch
         history.record_train(examples_trained, epoch_loss)
@@ -237,6 +267,8 @@ def _train(config: ComposedConfig, info, datasets, init_params):
         M.log(f"Epoch {epoch}: train_loss: {epoch_loss:.4f}, val_loss: {val_loss:.4f}, "
               f"accuracy: {int(correct.item()) / n_test:.4f}, "
               f"time_elapsed: {watch.elapsed():.2f}s")
+        grt.epoch_end(state, epoch, steps=steps_per_epoch)
+        grt.check_poisoned(state)               # raises Poisoned; __main__ exits 65
     assert_replicas_synced(state.params)      # a collective; no-op at one rank
     if config.results_dir and info.is_coordinator:
         M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
@@ -244,4 +276,4 @@ def _train(config: ComposedConfig, info, datasets, init_params):
 
 
 if __name__ == "__main__":
-    main(parse_config(ComposedConfig))
+    run_cli(ComposedConfig, main)

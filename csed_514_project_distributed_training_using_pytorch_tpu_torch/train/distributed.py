@@ -13,8 +13,13 @@ The whole split lives on each rank's device. Every rank builds the same global
 so each step's global batch is the one the JAX package trains on; the gradient and the
 loss are averaged over the ranks by one all-reduce a step (``GradReducer``). The final
 sub-global-batch remainder of each epoch is dropped, as in the JAX package. Training runs
-in ``log_interval``-step segments; the host syncs once a segment, for the progress line's
-global-mean loss.
+in ``log_interval``-step segments through ``train.step.make_epoch_fn``; the host syncs once
+a segment, for the progress line's global-mean loss. On NCCL (each rank on a card of its
+own: world 1 on the one H100) each segment shape is captured once as a CUDA graph with the
+reducer's all-reduce inside it and replayed; a gloo group stages the reduce through host
+memory, which a graph cannot capture, so it runs the eager loop, as the CPU does. The
+trainer prints the rule's choice. The step's options are ``train.single``'s; the guard's
+verdict reads the reduced loss and gradient norm, so every rank skips the same steps.
 
 Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the card)::
 
@@ -49,20 +54,26 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.sampler import (
     ShardedSampler,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
+    GuardRuntime,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
+    describe_program,
     resolve_device,
+    run_cli,
+    step_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     TrainState,
     create_train_state,
+    make_epoch_fn,
     make_eval_fn,
-    make_segment_fn,
-    make_train_step,
+    segment_program,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     DistributedConfig,
-    parse_config,
+    check_step_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.determinism import (
     assert_replicas_synced,
@@ -90,14 +101,21 @@ def main(config: DistributedConfig = DistributedConfig(), *,
     default MNIST is loaded from ``config.data_dir``."""
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before the rendezvous
+    check_step_options(config)
     optimizer = optim.make_optimizer(config.optimizer, learning_rate=config.learning_rate,
-                                     momentum=config.momentum)
+                                     momentum=config.momentum,
+                                     weight_decay=config.weight_decay)
+    grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"))
     with cluster(device) as info:
         world, rank = info.process_count, info.process_index
         if config.global_batch_size % world:
             raise ValueError(f"global batch {config.global_batch_size} not divisible by "
                              f"world size {world}")
         per_replica_batch = config.global_batch_size // world
+        if config.grad_accum > 1 and per_replica_batch % config.grad_accum:
+            raise ValueError(
+                f"per-replica batch {per_replica_batch} not divisible by grad_accum "
+                f"{config.grad_accum} — each microbatch must still shard evenly")
 
         train_ds, test_ds = (datasets if datasets is not None
                              else load_mnist(config.data_dir))
@@ -114,13 +132,21 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                                    seed=config.sampler_seed) for r in range(world)]
         model = build_model("cnn").to(info.device)
         state = create_train_state(model, torch.Generator().manual_seed(config.seed),
-                                   optimizer=optimizer, device=info.device)
+                                   optimizer=optimizer, device=info.device,
+                                   ema=config.ema_decay > 0, guard=config.guard)
         dp.broadcast_params_(state.params)
-        step_fn = make_train_step(model, learning_rate=config.learning_rate,
-                                  momentum=config.momentum, optimizer=optimizer,
-                                  grad_reduce=dp.GradReducer(state.params), rank=rank)
-        segment_fn = make_segment_fn(step_fn)
+        grt.baseline(state)
+        steps_per_epoch = samplers[0].num_samples // per_replica_batch
+        lr_schedule = optim.make_lr_schedule(config.lr_schedule,
+                                             warmup_steps=config.warmup_steps,
+                                             total_steps=config.epochs * steps_per_epoch)
+        reducer = dp.GradReducer(state.params)
+        segment_fn = make_epoch_fn(
+            model, **step_options(config, optimizer, lr_schedule, grt.spec),
+            grad_accum=config.grad_accum, pregather=config.pregather,
+            unroll=config.scan_unroll, grad_reduce=reducer, rank=rank)
         eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
+        M.log(describe_program(segment_program(info.device, reducer), info.device))
 
         to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(info.device)
         train_x, test_x = to_device(train_ds.images), to_device(test_ds.images)
@@ -152,12 +178,15 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                 history.record_train(epoch * plan.size + i * li * plan.shape[1],
                                      float(loss))
 
-            sum_nll, correct = dp.evaluate(eval_fn, state.params, test_x, test_y,
+            eval_params = state.ema if state.ema is not None else state.params
+            sum_nll, correct = dp.evaluate(eval_fn, eval_params, test_x, test_y,
                                            shard=config.shard_eval)
             val_loss, accuracy = sum_nll / n_test, correct / n_test
             history.record_test((epoch + 1) * plan.size, val_loss)
             M.log(M.dist_epoch_summary_line(epoch, train_loss, val_loss, accuracy,
                                             watch.elapsed()))
+            grt.epoch_end(state, epoch, steps=steps)
+            grt.check_poisoned(state)             # raises Poisoned; __main__ exits 65
 
         assert_replicas_synced(state.params)
         if info.is_coordinator:
@@ -166,4 +195,4 @@ def main(config: DistributedConfig = DistributedConfig(), *,
 
 
 if __name__ == "__main__":
-    main(parse_config(DistributedConfig))
+    run_cli(DistributedConfig, main)

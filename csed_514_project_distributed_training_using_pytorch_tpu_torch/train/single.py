@@ -6,8 +6,18 @@ metric record every ``log_interval`` batches, the ragged tail batch, eval), and 
 ``results/metrics.jsonl``.
 
 The whole training split lives on the device, and each step gathers its batch with
-``index_select`` by the sampler's plan, as the JAX package's device-resident path does. The
-host syncs once per log tick, to print the tick's loss.
+``index_select`` by the sampler's plan, as the JAX package's device-resident path does.
+Training runs in ``log_interval``-step segments through ``train.step.make_epoch_fn``: on
+the card each segment shape is captured once as a CUDA graph and replayed (the JAX
+package's scanned program; the tail segment of ``steps % log_interval`` steps gets its
+own graph), on the CPU the eager loop; the trainer prints the rule's choice. The ragged
+last batch runs as one eager step, as the JAX package runs it outside its scan. The host
+syncs once per log tick, to print the tick's loss.
+
+The step's options (``utils.config.StepOptions``): AdamW, LR schedules, clipping, label
+smoothing, EMA (evaluation then uses the EMA weights), gradient accumulation and the
+numerical guard, whose ``--anomaly-exit`` policy raises ``Poisoned`` at an epoch boundary
+after writing ``results/checkpoints/poison.json``; ``__main__`` then exits 65.
 
 The trainer runs on the card (``--device cuda``, the default) and raises when none is
 present; the CPU is used only when asked for (``--device cpu``). On CUDA it turns TF32 off
@@ -18,7 +28,7 @@ Run it with::
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \\
         --use-pallas-kernels
 
-Checkpoints, plots, telemetry and the resilience hooks are not ported yet.
+Checkpoints, plots, telemetry and the rest of the resilience hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,16 +45,24 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+    poison,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
+    GuardRuntime,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     TrainState,
     create_train_state,
+    make_epoch_fn,
     make_eval_fn,
-    make_segment_fn,
     make_train_step,
+    segment_program,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     SingleProcessConfig,
+    check_step_options,
     parse_config,
 )
 
@@ -65,6 +83,21 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def step_options(config, optimizer: optim.Optimizer, lr_schedule, guard) -> dict:
+    """The keyword arguments of ``make_train_step`` / ``make_epoch_fn`` that a trainer's
+    flags set (all but ``grad_accum``, which the ragged tail step leaves out)."""
+    return dict(learning_rate=config.learning_rate, momentum=config.momentum,
+                optimizer=optimizer, lr_schedule=lr_schedule,
+                clip_grad_norm=config.clip_grad_norm, ema_decay=config.ema_decay,
+                label_smoothing=config.label_smoothing, guard=guard)
+
+
+def describe_program(program: str, device: torch.device) -> str:
+    """The one line a trainer prints for the segment-program rule's choice."""
+    return (f"Segment program: {program} on {device} (the rule: a CUDA graph on a CUDA "
+            f"device unless the gradient reduce is staged through host memory, else eager)")
+
+
 def main(config: SingleProcessConfig = SingleProcessConfig(), *,
          datasets=None) -> tuple[TrainState, M.MetricsHistory]:
     """Run the single-process workflow; returns the final state and the metric history.
@@ -74,8 +107,17 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     """
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before any data work
+    check_step_options(config)
+    if config.grad_accum > 1 and config.batch_size_train % config.grad_accum:
+        raise ValueError(f"batch_size_train {config.batch_size_train} not divisible "
+                         f"by grad_accum {config.grad_accum}")
     optimizer = optim.make_optimizer(config.optimizer, learning_rate=config.learning_rate,
-                                     momentum=config.momentum)
+                                     momentum=config.momentum,
+                                     weight_decay=config.weight_decay)
+    if config.optimizer != "sgd" and config.use_pallas_kernels:
+        raise ValueError("--use-pallas-kernels fuses the SGD-momentum update — it "
+                         "requires --optimizer sgd")
+    grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"))
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
     M.log(f"Loaded MNIST ({train_ds.source}): {len(train_ds)} train / {len(test_ds)} test")
 
@@ -83,7 +125,19 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     train_loader = BatchLoader(train_ds, config.batch_size_train, shuffle=True,
                                seed=config.seed)
     model = build_model("cnn").to(device)
-    state = create_train_state(model, init_generator, optimizer=optimizer, device=device)
+    state = create_train_state(model, init_generator, optimizer=optimizer, device=device,
+                               ema=config.ema_decay > 0, guard=config.guard)
+    grt.baseline(state)
+    # the schedule's horizon: this run's updates (the ragged tail batch is one more each
+    # epoch, drop_last=False)
+    total_steps = config.n_epochs * -(-len(train_ds) // config.batch_size_train)
+    lr_schedule = optim.make_lr_schedule(config.lr_schedule,
+                                         warmup_steps=config.warmup_steps,
+                                         total_steps=total_steps)
+    if lr_schedule is not None and config.use_pallas_kernels:
+        raise ValueError("--use-pallas-kernels bakes the learning rate into the fused "
+                         "update kernel — use the default constant schedule without "
+                         "warmup")
 
     # Device-resident splits: the one host->device transfer.
     to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -91,18 +145,24 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     train_y = to_device(train_ds.labels.astype(np.int64))
     test_y = to_device(test_ds.labels.astype(np.int64))
 
-    step_fn = make_train_step(model, learning_rate=config.learning_rate,
-                              momentum=config.momentum,
-                              use_pallas=config.use_pallas_kernels, optimizer=optimizer)
-    segment_fn = make_segment_fn(step_fn)
+    common = step_options(config, optimizer, lr_schedule, grt.spec) | dict(
+        use_pallas=config.use_pallas_kernels)
+    segment_fn = make_epoch_fn(model, **common, grad_accum=config.grad_accum,
+                               pregather=config.pregather, unroll=config.scan_unroll)
+    # the ragged last batch need not divide by grad_accum, a memory knob: it steps
+    # unaccumulated, as in the JAX package
+    tail_step_fn = make_train_step(model, **common)
     eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
+    M.log(describe_program(segment_program(device), device))
 
     history = M.MetricsHistory()
     n_train, n_test = len(train_ds), len(test_ds)
     batch = config.batch_size_train
 
     def evaluate(state: TrainState, examples_seen: int) -> None:
-        sum_nll, correct = eval_fn(state.params, test_x, test_y)
+        # an EMA run evaluates the averaged weights (the reason to keep one)
+        eval_params = state.ema if state.ema is not None else state.params
+        sum_nll, correct = eval_fn(eval_params, test_x, test_y)
         avg = sum_nll.item() / n_test              # sum-then-divide
         history.record_test(examples_seen, avg)
         M.log(M.test_summary_line(avg, int(correct.item()), n_test, watch.elapsed()))
@@ -113,7 +173,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         idx_full = to_device(train_loader.epoch_index_matrix(epoch, allow_empty=True))
         full_steps = idx_full.shape[0]
 
-        # log_interval-sized segments, then the ragged tail.
+        # log_interval-sized segments (the last may be shorter), then the ragged tail.
         li = config.log_interval
         for seg_start in range(0, full_steps, li):
             state, losses = segment_fn(state, train_x, train_y,
@@ -128,22 +188,37 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         tail = indices[full_steps * batch:]
         if len(tail):
             tail_idx = to_device(tail)
-            state, _ = step_fn(state, train_x.index_select(0, tail_idx),
-                               train_y.index_select(0, tail_idx), config.seed)
+            state, _ = tail_step_fn(state, train_x.index_select(0, tail_idx),
+                                    train_y.index_select(0, tail_idx), config.seed)
         return state
 
     evaluate(state, 0)                                 # baseline eval
     for epoch in range(1, config.n_epochs + 1):
+        step_before = int(state.step)
         t_epoch = time.perf_counter()
         state = train_epoch(state, epoch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)             # honest wall-clock
         history.epoch_seconds.append(time.perf_counter() - t_epoch)
         evaluate(state, epoch * n_train)
+        grt.epoch_end(state, epoch, steps=int(state.step) - step_before)
+        grt.check_poisoned(state)                      # raises Poisoned; __main__ exits 65
 
     M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
     return state, history
 
 
+def run_cli(config_cls, main_fn) -> None:
+    """A trainer's ``__main__``: parse the flags, train, and exit ``EXIT_POISONED`` (65)
+    when the guard's ``--anomaly-exit`` policy stopped the run."""
+    try:
+        main_fn(parse_config(config_cls))
+    except poison.Poisoned as e:
+        M.log(f"poisoned at step {e.step} (anomaly window {e.window[0]}:{e.window[1]}); "
+              f"exiting {poison.EXIT_POISONED} — a supervisor rolls back to the newest "
+              f"healthy checkpoint and skips the window")
+        raise SystemExit(poison.EXIT_POISONED) from None
+
+
 if __name__ == "__main__":
-    main(parse_config(SingleProcessConfig))
+    run_cli(SingleProcessConfig, main)

@@ -5,9 +5,12 @@ Counterpart of the parts of the JAX package's ``utils/benchmarks.py`` that its e
 uses: the reference's headline number, time to train one epoch, measured as:
 
 - the data-parallel step of ``train/distributed.py`` (the gradient all-reduce included,
-  at any world size), over the whole epoch's column block of the global plan;
-- one untimed warm-up epoch, which pays for cuDNN's algorithm choice, the allocator's
-  first growth and the process group's first collectives;
+  at any world size), over the whole epoch's column block of the global plan, as one
+  segment program (``train.step.make_epoch_fn``): on NCCL the whole epoch captured once
+  as a CUDA graph and replayed, which is what the JAX bench times (one compiled scanned
+  epoch); on gloo (host-staged reduce) and the CPU the eager loop;
+- one untimed warm-up epoch, which pays for the capture, cuDNN's algorithm choice, the
+  allocator's first growth and the process group's first collectives;
 - N timed epochs, each closed by ``torch.cuda.synchronize()`` and a host fetch of the
   epoch's last loss plus one element of the last update's parameters, so that no step is
   still in flight when the clock stops.
@@ -38,8 +41,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.distrib
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     TrainState,
     create_train_state,
-    make_segment_fn,
-    make_train_step,
+    make_epoch_fn,
 )
 
 # The reference-parity training configuration the bench measures under (the reference's
@@ -92,9 +94,10 @@ class EpochBenchResult:
 def time_epochs(info: ProcessInfo, train_ds: Dataset, *, global_batch: int = 64,
                 learning_rate: float = 0.01, momentum: float = 0.5,
                 seed: int = 1, sampler_seed: int = 42,
-                timed_epochs: int = 3) -> EpochBenchResult:
+                timed_epochs: int = 3, pregather: bool = False) -> EpochBenchResult:
     """Measure full-epoch wall-clock of the data-parallel step in ``info``'s process group
-    under the protocol above (every rank calls it)."""
+    under the protocol above (every rank calls it). ``pregather`` gathers the epoch's
+    batches in one ``index_select`` up front (semantics unchanged)."""
     world, rank, device = info.process_count, info.process_index, info.device
     if global_batch % world:
         raise ValueError(f"global batch {global_batch} not divisible by world size "
@@ -103,9 +106,9 @@ def time_epochs(info: ProcessInfo, train_ds: Dataset, *, global_batch: int = 64,
     model = Net()
     state = create_train_state(model, torch.Generator().manual_seed(seed), device=device)
     dp.broadcast_params_(state.params)
-    segment_fn = make_segment_fn(make_train_step(
-        model, learning_rate=learning_rate, momentum=momentum,
-        grad_reduce=dp.GradReducer(state.params), rank=rank))
+    reducer = dp.GradReducer(state.params)
+    epoch_fn = make_epoch_fn(model, learning_rate=learning_rate, momentum=momentum,
+                             pregather=pregather, grad_reduce=reducer, rank=rank)
     train_x = torch.from_numpy(train_ds.images).to(device)
     train_y = torch.from_numpy(train_ds.labels.astype(np.int64)).to(device)
     samplers = [ShardedSampler(len(train_ds), num_replicas=world, rank=r,
@@ -115,7 +118,7 @@ def time_epochs(info: ProcessInfo, train_ds: Dataset, *, global_batch: int = 64,
     def one_epoch(state: TrainState, epoch: int):
         plan = epoch_index_plan(samplers, epoch, per)
         idx = torch.from_numpy(np.ascontiguousarray(plan[:, rank * per:(rank + 1) * per]))
-        state, losses = segment_fn(state, train_x, train_y, idx.to(device), seed + 1)
+        state, losses = epoch_fn(state, train_x, train_y, idx.to(device), seed + 1)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         # the host fetch: the last step's loss and an element of its update's parameters

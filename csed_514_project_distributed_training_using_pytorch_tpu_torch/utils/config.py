@@ -4,7 +4,10 @@ CNN trainer and the composed transformer trainer).
 Counterpart of the JAX package's ``utils/config.py``, holding only the knobs this port
 implements, with the JAX package's names and defaults (the reference's values), plus
 ``device``. Every field is a ``--flag``; a flag the port does not implement is an argparse
-error, never silently ignored (abbreviations are off for the same reason).
+error, never silently ignored (abbreviations are off for the same reason). The training
+step's options (``StepOptions``: optimizer, schedule, clipping, label smoothing, EMA,
+gradient accumulation, the guard, the segment program's knobs) are shared by the three
+trainers; two of their values still raise when a trainer starts (``check_step_options``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,61 @@ from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
-class SingleProcessConfig:
+class StepOptions:
+    """The training step's options, with the JAX package's names and defaults."""
+
+    optimizer: str = "sgd"            # 'sgd' (the reference's) or 'adamw' (torch AdamW
+                                      # semantics; momentum is then unused)
+    weight_decay: float = 0.0         # AdamW decoupled weight decay (adamw only)
+    lr_schedule: str = "constant"     # 'constant' or 'cosine' (half-period decay over the
+                                      # run), evaluated on the device-resident step count
+    warmup_steps: int = 0             # linear warmup ramp over the first N updates
+    clip_grad_norm: float = 0.0       # clip gradients to this global norm before the
+                                      # update (torch clip_grad_norm_ semantics); 0 off
+    label_smoothing: float = 0.0      # torch CrossEntropyLoss(label_smoothing=s)
+    ema_decay: float = 0.0            # keep an EMA of the params (torch swa_utils
+                                      # semantics); eval uses the EMA weights; 0 off
+    grad_accum: int = 1               # accumulate gradients over N equal microbatches
+                                      # per optimizer step
+    guard: bool = False               # the numerical guard: a non-finite or z-score
+                                      # verdict inside the step, the identity update on
+                                      # a poisoned step (train/step.py::GuardSpec)
+    guard_zscore: float = 8.0         # spike threshold: grad norm above
+                                      # ema_mean + z*max(ema_std, 0.5*ema_mean)
+    anomaly_exit: int = 0             # exit 65 ("poisoned") at the epoch boundary once
+                                      # >= N anomalies were detected; 0 never
+    skip_steps: str = ""              # half-open step windows "a:b[,c:d]" that take the
+                                      # identity update (a supervisor's replay)
+    scan_unroll: int = 1              # the JAX scan's unroll; only 1 (a captured segment
+                                      # has no loop body to unroll, ROADMAP A4)
+    pregather: bool = False           # gather each segment's batches in one index_select
+                                      # up front instead of one a step
+    health_stats: bool = False        # raises: the JAX package emits these only as
+                                      # telemetry events, not ported (ROADMAP A11)
+
+
+def check_scan_unroll(unroll: int) -> None:
+    """Raise unless ``unroll`` is 1: the JAX scan's unroll has no counterpart."""
+    if unroll != 1:
+        raise ValueError(f"--scan-unroll {unroll}: a captured segment has no loop body to "
+                         f"unroll (each of its steps is laid out in the CUDA graph); only "
+                         f"1 is accepted (ROADMAP A4)")
+
+
+def check_step_options(config: StepOptions) -> None:
+    """Raise on the step options the port does not run, naming the ROADMAP item, before a
+    trainer touches any data."""
+    if config.health_stats:
+        raise ValueError("--health-stats emits telemetry 'health' events and has no other "
+                         "output (the JAX package requires --telemetry with it); telemetry "
+                         "is not ported (ROADMAP A11)")
+    check_scan_unroll(config.scan_unroll)
+    if config.grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
+
+
+@dataclass(frozen=True)
+class SingleProcessConfig(StepOptions):
     """Knobs of the single-process trainer."""
 
     n_epochs: int = 3
@@ -23,7 +80,6 @@ class SingleProcessConfig:
     batch_size_test: int = 1000
     learning_rate: float = 0.01
     momentum: float = 0.5
-    optimizer: str = "sgd"            # only 'sgd' (the reference's) is ported
     log_interval: int = 10
     seed: int = 1
     data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
@@ -36,7 +92,7 @@ class SingleProcessConfig:
 
 
 @dataclass(frozen=True)
-class DistributedConfig:
+class DistributedConfig(StepOptions):
     """Knobs of the data-parallel trainer. The world size is not a knob: it comes from the
     launcher's environment (``train.launch``, ``torchrun``)."""
 
@@ -45,7 +101,6 @@ class DistributedConfig:
     batch_size_test: int = 1000
     learning_rate: float = 0.02
     momentum: float = 0.5
-    optimizer: str = "sgd"            # only 'sgd' (the reference's) is ported
     log_interval: int = 10
     seed: int = 1                     # the parameters' seed, and the dropout masks'
     sampler_seed: int = 42            # the DistributedSampler order's seed
@@ -61,7 +116,7 @@ class DistributedConfig:
 
 
 @dataclass(frozen=True)
-class ComposedConfig:
+class ComposedConfig(StepOptions):
     """Knobs of the composed trainer (the transformer classifier), with the JAX package's
     defaults. Ported meshes: one device (``--mesh data=1``), or a seq axis alone
     (``--mesh data=1,seq=N``) over a process group of N ranks with
@@ -86,7 +141,6 @@ class ComposedConfig:
     batch_size_test: int = 1000
     learning_rate: float = 0.05
     momentum: float = 0.5
-    optimizer: str = "sgd"              # only 'sgd' is ported
     dropout_rate: float = 0.0           # 0 keeps runs comparable across meshes
     seed: int = 1
     data_dir: str = "files"

@@ -86,8 +86,9 @@ def test_bench_line_has_the_reference_keys_and_says_it_is_truncated(monkeypatch,
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     payload = json.loads(lines[0])
-    want = (_reference_keys() - {"scan_unroll", "pregather"}) | {"collective_backend"}
+    want = _reference_keys() | {"collective_backend"}
     assert set(payload) == want
+    assert (payload["scan_unroll"], payload["pregather"]) == (1, True)
     assert "FUNCTIONAL TEST" in payload["metric"] and payload["vs_baseline"] is None
     assert (payload["platform"], payload["device_kind"], payload["devices"],
             payload["collective_backend"]) == ("cpu", "cpu", 1, "gloo")

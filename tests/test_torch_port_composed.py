@@ -94,6 +94,32 @@ def test_composed_main_matches_jax(tmp_path, monkeypatch, capsys):
     assert [r["kind"] for r in rows] == ["train", "train", "test", "test"]
 
 
+STEP_OPTIONS = dict(optimizer="adamw", learning_rate=2e-3, weight_decay=0.01,
+                    lr_schedule="cosine", warmup_steps=2, clip_grad_norm=1.0,
+                    label_smoothing=0.1, ema_decay=0.9, grad_accum=2)
+
+
+def test_composed_main_trains_the_step_options_like_jax(tmp_path, monkeypatch):
+    """AdamW (once rejected here), a cosine schedule with warmup, clipping, label
+    smoothing, the EMA (evaluated) and gradient accumulation: both trainers on the same
+    splits from the same parameters, every recorded loss within atol 1e-5."""
+    (port_ds, ref_ds) = _datasets(256, 100)
+    common = dict(mesh="data=1", seq_len=16, epochs=2, batch_size=64, batch_size_test=100,
+                  momentum=0.5, seed=3, **STEP_OPTIONS)
+    _, j_hist = jax_composed.main(
+        jax_config.ComposedConfig(results_dir=str(tmp_path / "jax"), **common),
+        datasets=ref_ds)
+    j_model = jax_tf.TransformerClassifier(seq_len=16, dropout_rate=0.0)
+    j_init = jax_step.create_train_state(j_model, jax.random.PRNGKey(3)).params
+    state, hist = composed.main(
+        config.ComposedConfig(results_dir=str(tmp_path / "port"), device="cpu", **common),
+        datasets=port_ds, init_params=transformer.params_from_jax(j_init))
+    assert int(state.step) == 8 and int(state.velocity["count"]) == 8
+    assert state.ema is not None
+    np.testing.assert_allclose(hist.train_losses, j_hist.train_losses, atol=LOSS_ATOL)
+    np.testing.assert_allclose(hist.test_losses, j_hist.test_losses, atol=LOSS_ATOL)
+
+
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": "data=2"}, "ROADMAP A6/A10"),
     ({"mesh": "data=2,seq=2,model=2"}, "ROADMAP A6/A10"),       # the JAX default mesh
@@ -104,7 +130,9 @@ def test_composed_main_matches_jax(tmp_path, monkeypatch, capsys):
     ({"mesh": "data=1", "kv_heads": 3}, "positive divisor"),
     ({"mesh": "data=1", "attention_window": -1}, "window must be >= 1"),
     ({"mesh": "data=1", "flash_attention": True, "seq_len": 100}, "divisible by"),
-    ({"mesh": "data=1", "optimizer": "adamw"}, "only 'sgd'"),
+    ({"mesh": "data=1", "optimizer": "lamb"}, "choose 'sgd' or 'adamw'"),
+    ({"mesh": "data=1", "scan_unroll": 2}, "ROADMAP A4"),
+    ({"mesh": "data=1", "health_stats": True}, "ROADMAP A11"),
 ])
 def test_unported_or_bad_configs_raise(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -153,10 +181,13 @@ def test_cli_flags():
         "--max-train-examples", "64"])
     assert (cfg.mesh, cfg.flash_attention, cfg.seq_len, cfg.device,
             cfg.max_train_examples) == ("data=1", True, 2048, "cpu", 64)
-    for unported in (["--fsdp"], ["--remat"], ["--label-smoothing", "0.1"]):
+    for unported in (["--fsdp"], ["--remat"], ["--pipeline-microbatches", "4"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.ComposedConfig, unported)
-    ours = {f for f in config.ComposedConfig.__dataclass_fields__} - {"device"}
+    # the trainers' shared step options include two knobs of the JAX package's other
+    # trainers that its composed config lacks (scan_unroll: only 1; pregather)
+    ours = {f for f in config.ComposedConfig.__dataclass_fields__} - {
+        "device", "scan_unroll", "pregather"}
     theirs = jax_config.ComposedConfig()
     for name in ours:
         assert getattr(config.ComposedConfig(), name) == getattr(theirs, name), name

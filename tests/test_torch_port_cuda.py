@@ -888,3 +888,162 @@ def test_ring_ops_on_one_card_match_flash_attention(device, tmp_path, world):
     result = chip_smoke.check_ring_ops(str(out), world)
     assert len(result["rows"]) == len(chip_smoke.RING_CASES)
     assert any(c[5] > 0 for row in result["rows"] for c in row["counts"])
+
+
+# =========================================================================================
+# The captured epoch (train.step.CapturedSegment) and the step's remainder on the card
+# =========================================================================================
+#
+# The captured segment against the eager loop of the same step on the card, 20 steps in two
+# segments of 10: losses and parameters within 1e-6 (the same kernels on the same inputs),
+# dropout off and on (the masks come from the step's device key on both paths). The step's
+# remainder, captured on the card, against the eager loop on the CPU: within 1e-5 (conv sums
+# in another order), the guard's counters equal as integers.
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (  # noqa: E402
+    optim,
+)
+
+CAPTURE_STEPS, CAPTURE_SEGMENT = 20, 10
+
+
+def _segment_runs(state_fn, segment_fns, xs, ys, plan):
+    """Each segment function over the plan in segments of ``CAPTURE_SEGMENT`` from its own
+    fresh state: [(losses, final state)]."""
+    runs = []
+    for segment in segment_fns:
+        state, losses = state_fn(), []
+        for s0 in range(0, plan.shape[0], CAPTURE_SEGMENT):
+            state, out = segment(state, xs, ys, plan[s0:s0 + CAPTURE_SEGMENT], 1)
+            losses.append(out[0] if isinstance(out, tuple) else out)
+        runs.append((torch.cat(losses), state))
+    return runs
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["kernels", "plain"])
+@pytest.mark.parametrize("dropout", [False, True], ids=["dropout_off", "dropout_on"])
+def test_captured_segment_matches_the_eager_loop(device, use_pallas, dropout):
+    net = cnn.Net() if dropout else cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    gen = torch.Generator(device=device).manual_seed(4)
+    xs = torch.randn(CAPTURE_STEPS * 64, 28, 28, 1, generator=gen, device=device)
+    ys = torch.randint(0, 10, (CAPTURE_STEPS * 64,), generator=gen, device=device)
+    plan = torch.randperm(CAPTURE_STEPS * 64, device=device).view(CAPTURE_STEPS, 64)
+    fn = step.make_train_step(net, learning_rate=0.01, momentum=0.5, use_pallas=use_pallas)
+    captured = step.CapturedSegment(fn)
+    new_state = lambda: step.create_train_state(net, torch.Generator().manual_seed(1),
+                                                device=device)
+    fk.reset_launch_counts()
+    (c_losses, c_state), = _segment_runs(new_state, [captured], xs, ys, plan)
+    counts = fk.launch_counts()
+    (e_losses, e_state), = _segment_runs(new_state, [step.make_segment_fn(fn)], xs, ys,
+                                         plan)
+    assert len(captured.graphs) == 1 and captured.replays == 2
+    assert counts == dict.fromkeys(counts, CAPTURE_STEPS if use_pallas else 0)
+    assert int(c_state.step) == CAPTURE_STEPS
+    torch.testing.assert_close(c_losses, e_losses, atol=1e-6, rtol=0)
+    for k in e_state.params:
+        torch.testing.assert_close(c_state.params[k], e_state.params[k], atol=1e-6, rtol=0)
+
+
+def test_captured_segment_with_the_reducer_on_nccl(device, monkeypatch):
+    """World 1 on NCCL: the all-reduce inside the graph; the reducer's calls count the
+    replays; pregather and the health accumulators as the eager loop's."""
+    for key in _RENDEZVOUS:
+        monkeypatch.delenv(key, raising=False)
+    net = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    gen = torch.Generator(device=device).manual_seed(5)
+    xs = torch.randn(CAPTURE_STEPS * 64, 28, 28, 1, generator=gen, device=device)
+    ys = torch.randint(0, 10, (CAPTURE_STEPS * 64,), generator=gen, device=device)
+    plan = torch.randperm(CAPTURE_STEPS * 64, device=device).view(CAPTURE_STEPS, 64)
+    with mesh.cluster("cuda") as info:
+        assert info.backend == "nccl"
+        new_state = lambda: step.create_train_state(net, torch.Generator().manual_seed(1),
+                                                    device=device)
+        reducer = dp.GradReducer(new_state().params)
+        assert step.segment_program(device, reducer) == "cuda-graph"
+        epoch = step.make_epoch_fn(net, learning_rate=0.02, momentum=0.5, pregather=True,
+                                   health=True, clip_grad_norm=1.0, grad_reduce=reducer)
+        state, (losses, health) = epoch(new_state(), xs, ys, plan[:CAPTURE_SEGMENT], 1)
+        state, (losses2, health2) = epoch(state, xs, ys, plan[CAPTURE_SEGMENT:], 1)
+        assert reducer.calls == CAPTURE_STEPS
+        eager = step.make_segment_fn(step.make_train_step(
+            net, learning_rate=0.02, momentum=0.5, clip_grad_norm=1.0, with_metrics=True,
+            grad_reduce=reducer), pregather=True, health=True)
+        e_state, (e_losses, e_health) = eager(new_state(), xs, ys, plan[:CAPTURE_SEGMENT], 1)
+        e_state, (e_losses2, e_health2) = eager(e_state, xs, ys, plan[CAPTURE_SEGMENT:], 1)
+    torch.testing.assert_close(torch.cat([losses, losses2]), torch.cat([e_losses, e_losses2]),
+                               atol=1e-6, rtol=0)
+    for got, want in zip(step.merge_health(health, health2),
+                         step.merge_health(e_health, e_health2)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    for k in e_state.params:
+        torch.testing.assert_close(state.params[k], e_state.params[k], atol=1e-6, rtol=0)
+
+
+REMAINDER = {
+    "a-kernels-accum-clip-ema": (dict(), dict(use_pallas=True, grad_accum=4,
+                                              clip_grad_norm=0.5, ema_decay=0.9)),
+    "b-adamw-cosine-smoothing-clip": (
+        dict(optimizer=optim.adamw(1e-3, weight_decay=0.01)),
+        dict(lr_schedule=optim.make_lr_schedule("cosine", warmup_steps=5,
+                                                total_steps=CAPTURE_STEPS),
+             label_smoothing=0.1, clip_grad_norm=1.0)),
+    "c-guard-nan-window": (dict(), dict(use_pallas=True,
+                                        guard=step.GuardSpec(skip=((12, 14),)))),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(REMAINDER))
+def test_captured_step_remainder_matches_the_cpu(device, setting):
+    init, kw = REMAINDER[setting]
+    net = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    gen = torch.Generator().manual_seed(6)
+    xs = torch.randn(CAPTURE_STEPS * 64, 28, 28, 1, generator=gen)
+    ys = torch.randint(0, 10, (CAPTURE_STEPS * 64,), generator=gen)
+    if "guard" in kw:
+        xs[7 * 64 + 3] = float("nan")                  # one example of step 7's batch
+    plan = torch.arange(CAPTURE_STEPS * 64).view(CAPTURE_STEPS, 64)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        epoch = step.make_epoch_fn(net, learning_rate=0.01, momentum=0.5, **init, **kw)
+        (losses, state), = _segment_runs(
+            lambda: step.create_train_state(
+                net, torch.Generator().manual_seed(7), device=dev,
+                ema=kw.get("ema_decay", 0) > 0, guard="guard" in kw, **init),
+            [epoch], xs.to(dev), ys.to(dev), plan.to(dev))
+        runs[dev.type] = (losses.cpu(), state)
+    (l_card, s_card), (l_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    torch.testing.assert_close(l_card, l_cpu, atol=1e-5, rtol=0, equal_nan=True)
+    for tree in ("params", "ema"):
+        for k, want in (getattr(s_cpu, tree) or {}).items():
+            torch.testing.assert_close(getattr(s_card, tree)[k].cpu(), want, atol=1e-5,
+                                       rtol=0)
+    if s_cpu.guard is not None:
+        assert [int(t) for t in s_card.guard[2:]] == [int(t) for t in s_cpu.guard[2:]]
+        assert (int(s_cpu.guard.nonfinite), int(s_cpu.guard.skipped),
+                int(s_cpu.guard.first_anomaly_step)) == (1, 3, 7)
+
+
+def test_single_trainer_on_the_card_runs_the_graph_and_exits_65_when_poisoned(device,
+                                                                            tmp_path):
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if k not in _RENDEZVOUS}
+    env["PYTHONPATH"] = str(root)
+    code = (
+        "import sys, runpy, numpy as np\n"
+        f"from {_PKG} import data\n"
+        f"from {_PKG}.data import mnist\n"
+        "x, y = mnist._synthesize_split(640, 400); x = mnist._normalize(x); x[5] = np.nan\n"
+        "tx, ty = mnist._synthesize_split(1000, 401)\n"
+        "splits = (mnist.Dataset(x, y.astype(np.int32), 'synthetic'),\n"
+        "          mnist.Dataset(mnist._normalize(tx), ty.astype(np.int32), 'synthetic'))\n"
+        "data.load_mnist = lambda data_dir: splits\n"
+        "sys.argv = ['single', '--guard', '--anomaly-exit', '1', '--n-epochs', '2',\n"
+        "            '--use-pallas-kernels', '--results-dir', 'r']\n"
+        f"runpy.run_module('{_PKG}.train.single', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 65, proc.stderr[-3000:]
+    assert "Segment program: cuda-graph on cuda" in proc.stdout
+    assert "anomaly window" in proc.stdout
+    assert (tmp_path / "r" / "checkpoints" / "poison.json").is_file()

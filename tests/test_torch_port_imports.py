@@ -41,7 +41,9 @@ def test_sources_found():
                    "parallel/collectives.py", "parallel/data_parallel.py",
                    "train/distributed.py", "train/launch.py", "train/smoke.py",
                    "utils/benchmarks.py", "utils/determinism.py", "bench.py",
-                   "parallel/ring_attention.py"):
+                   "parallel/ring_attention.py", "ops/optim.py", "train/step.py",
+                   "train/guard.py", "resilience/__init__.py", "resilience/poison.py",
+                   "utils/telemetry.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -54,7 +56,8 @@ def test_no_jax_imports(path):
 
 def test_top_level_is_a_namespace_package():
     assert not (PORT / "__init__.py").exists()
-    for sub in ("data", "ops", "models", "parallel", "serving", "train", "utils"):
+    for sub in ("data", "ops", "models", "parallel", "resilience", "serving", "train",
+                "utils"):
         assert (PORT / sub / "__init__.py").is_file(), sub
 
 

@@ -156,9 +156,12 @@ def test_sgd_update_matches_three_steps():
         np.testing.assert_allclose(params[k].numpy(), np.asarray(jp[k]), atol=1e-6)
         np.testing.assert_allclose(vel[k].numpy(), np.asarray(jv[k]), atol=1e-6)
     assert ours.hyperparams == {"learning_rate": 0.01, "momentum": 0.5}
-    with pytest.raises(ValueError, match="only 'sgd'"):
-        optim.make_optimizer("adamw", learning_rate=0.01, momentum=0.5)
+    with pytest.raises(ValueError, match="choose 'sgd' or 'adamw'"):
+        optim.make_optimizer("lamb", learning_rate=0.01, momentum=0.5)
     assert optim.make_optimizer("sgd", learning_rate=0.02, momentum=0.5).name == "sgd"
+    adamw = optim.make_optimizer("adamw", learning_rate=0.01, momentum=0.5,
+                                 weight_decay=0.1)
+    assert (adamw.name, adamw.hyperparams["weight_decay"]) == ("adamw", 0.1)
 
 
 @pytest.mark.parametrize("rows", [1, 32, 64, 300])

@@ -170,7 +170,7 @@ def test_whole_slice_matches_jax_trainer(tmp_path, monkeypatch, capsys):
     jstate, jhist = jax_single.main(jcfg, datasets=(ref_train, ref_test))
     jax_out = capsys.readouterr().out
 
-    def start_from_jax(model, generator, *, optimizer, device):
+    def start_from_jax(model, generator, *, optimizer, device, **_):
         params = {k: v.to(device) for k, v in cnn.params_from_jax(captured["params"]).items()}
         return step.TrainState(params, optimizer.init(params), 0)
 
@@ -210,9 +210,17 @@ def test_main_without_device_cpu_raises_here():
         single.resolve_device("meta")
 
 
-def test_main_rejects_unported_optimizer():
-    with pytest.raises(ValueError, match="only 'sgd'"):
-        single.main(config.SingleProcessConfig(device="cpu", optimizer="adamw"))
+def test_main_rejects_unported_optimizer(tmp_path):
+    """AdamW is ported: the trainer trains with it (the loss falls over an epoch); an
+    optimizer neither package has still raises."""
+    (train, test), _ = _datasets(256, 1000)
+    state, hist = single.main(config.SingleProcessConfig(
+        device="cpu", optimizer="adamw", learning_rate=1e-3, weight_decay=0.01,
+        n_epochs=1, log_interval=2, results_dir=str(tmp_path)), datasets=(train, test))
+    assert set(state.velocity) == {"m", "v", "count"} and int(state.velocity["count"]) == 4
+    assert hist.test_losses[-1] < hist.test_losses[0]
+    with pytest.raises(ValueError, match="choose 'sgd' or 'adamw'"):
+        single.main(config.SingleProcessConfig(device="cpu", optimizer="lamb"))
 
 
 def test_parse_config_flags():
@@ -228,7 +236,7 @@ def test_parse_config_flags():
               "optimizer", "log_interval", "seed", "data_dir", "results_dir",
               "use_pallas_kernels"):
         assert getattr(defaults, f) == getattr(ref, f), f
-    for argv in (["--use-host-pipeline"], ["--n-epoch", "2"], ["--guard"],
+    for argv in (["--use-host-pipeline"], ["--n-epoch", "2"], ["--telemetry", "t.jsonl"],
                  ["--max-train-examples", "256"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.SingleProcessConfig, argv)
