@@ -108,7 +108,18 @@ Phases (each raises on failure; nothing is caught):
     window, within 1e-5, the guard's counters equal; then ``python -m <port>.train.single
     --guard --anomaly-exit 1`` on a split with one NaN image: exit 65, the poison marker
     and the step window the plan predicts;
-22. one JSON line with every kernel's numbers (each flash kernel with its offset form),
+22. the checkpoints on the card (the JAX package's files, through the port's own msgpack
+    codec): (a) ``train.distributed`` at world 1 on NCCL, captured, with B1-B3 in the
+    graph, 2 epochs straight against 1 epoch and ``--resume-from model_dist.ckpt``,
+    within 1e-6, launches and reducer calls equal to the plan; (b) ``train.single
+    --use-pallas-kernels`` for one epoch with its 94 log-tick saves: bytes and host ms a
+    save, the epoch against saves turned off in the harness (in turns), and
+    ``--async-checkpoint``'s ``model.ckpt`` byte-identical to the sync run's; (c) the
+    card's files restored on the CPU bitwise; (d) ``--handle-preemption`` under SIGTERM in
+    epoch 2: exit 75, a verified, clean newest manifest entry, and a resume from it; (e)
+    the plots, or that matplotlib is absent. [5] runs its epoch with the saves turned off
+    in the harness, as before this phase existed;
+23. one JSON line with every kernel's numbers (each flash kernel with its offset form),
     then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
@@ -247,6 +258,9 @@ REMAINDER_ATOL = 1e-5          # phase 21: the card's captured program vs the CP
                                # loop, 20 steps (conv sums in another order)
 POISON_STEP, SKIP_WINDOW = 7, (12, 14)   # phase 21 (c): a NaN batch, a replayed window
 POISON_TRAIN = 640             # phase 21: the poisoned run's split, 10 steps an epoch
+RESUME_ATOL = 1e-6             # phase 22 (a): 1 epoch + resume vs 2 epochs straight, both
+                               # captured on the card (the tolerance of [20])
+PREEMPT_EPOCHS = 3             # phase 22 (d): SIGTERM once epoch 2 has begun
 
 
 def fail(msg: str) -> None:
@@ -669,7 +683,8 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
         tag = f"dropout {'on' if dropout else 'off'}"
         # train.single --use-pallas-kernels: captured in main(), eager here
         cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device="cuda",
-                                  log_interval=li, results_dir=str(OUT_DIR / "captured"))
+                                  log_interval=li, results_dir=str(OUT_DIR / "captured"),
+                                  images_dir=str(OUT_DIR / "images"))
         losses = []
         fk.reset_launch_counts()
         with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
@@ -703,7 +718,8 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
 
         # train.distributed at world 1 on NCCL: the reducer inside the graph
         dcfg = DistributedConfig(epochs=1, device="cuda", log_interval=li,
-                                 results_dir=str(OUT_DIR / "captured_dp"))
+                                 results_dir=str(OUT_DIR / "captured_dp"),
+                                 images_dir=str(OUT_DIR / "images"))
         losses, made = [], []
         reducer_cls = dp.GradReducer
 
@@ -943,7 +959,7 @@ def remainder_phase(dev, card: str) -> None:
     results = OUT_DIR / "poisoned"
     shutil.rmtree(results, ignore_errors=True)
     argv = ["--guard", "--anomaly-exit", "1", "--n-epochs", "2", "--use-pallas-kernels",
-            "--results-dir", str(results)]
+            "--results-dir", str(results), "--images-dir", str(results / "images")]
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     proc = subprocess.run([sys.executable, "-c", POISON_CHILD.format(
@@ -951,7 +967,7 @@ def remainder_phase(dev, card: str) -> None:
         argv=argv)], capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     marker = poison.read_marker(str(results / "checkpoints"), consume=False)
     tail = [l for l in proc.stdout.splitlines() if l.strip()][-2:]
-    print(f"[21] python -m {PKG}.train.single {' '.join(argv[:-2])} on {POISON_TRAIN} "
+    print(f"[21] python -m {PKG}.train.single {' '.join(argv[:-4])} on {POISON_TRAIN} "
           f"examples with image {row} NaN (step {bad_step} of epoch 1): exit "
           f"{proc.returncode}, marker {marker and marker['window']}; {tail}")
     if proc.returncode != poison.EXIT_POISONED:
@@ -962,6 +978,330 @@ def remainder_phase(dev, card: str) -> None:
              f"{bad_step}:{bad_step + 1}")
     if "Segment program: cuda-graph" not in proc.stdout:
         fail("[21] the poisoned run did not train through the captured program")
+
+
+class _Timed:
+    """A trainer's saver, timed on the host around each call (the harness's; the trainers
+    have no such option)."""
+
+    def __init__(self, inner):
+        self.inner, self.ms = inner, []
+
+    def save_train_state(self, path, state):
+        t0 = time.perf_counter()
+        self.inner.save_train_state(path, state)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def flush(self):
+        self.inner.flush()
+
+
+class NoSaves:
+    """A saver that writes nothing: the harness's way to run ``main`` without its
+    checkpoints ([5], and the baseline of [22] (b))."""
+
+    def save_train_state(self, path, state):
+        pass
+
+    def flush(self):
+        pass
+
+
+def checkpoint_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
+    """Phase 22: the checkpoints on the card.
+
+    cuDNN's default convolution backward is not deterministic from run to run on the card,
+    so the comparisons of one run with another ((a), and (b)'s bytes) take its
+    deterministic algorithms (``torch.backends.cudnn.deterministic``); (b)'s timed epochs
+    keep the default, as [5] does.
+
+    (a) ``train.distributed`` at world 1 on NCCL, captured, with the fused kernels (B1-B3;
+    the data-parallel trainer has no ``--use-pallas-kernels``, as the JAX package's has
+    none, so the harness passes ``use_pallas=True`` to its ``make_epoch_fn``): 2 epochs
+    straight against 1 epoch and then ``--epochs 2 --resume-from model_dist.ckpt``, losses
+    and parameters within ``RESUME_ATOL``, B1-B3 launches and reducer calls equal to the
+    steps each run trains; (b) ``train.single --use-pallas-kernels`` for one epoch with its
+    log-tick saves: bytes a save, saves an epoch, host ms a save, the epoch's seconds
+    against saves turned off in the harness, in turns, then ``--async-checkpoint``'s
+    ``model.ckpt`` against the sync run's, byte for byte; (c) the card's files decoded by
+    the port's codec and restored on the CPU, bitwise against the card's final states, and
+    ``load_params_or_state`` on ``model_dist.msgpack``; (d) ``python -m <port>.train.single
+    --handle-preemption --keep-checkpoints 2 --guard`` sent SIGTERM in epoch 2: exit 75, the
+    manifest's newest entry verifies with a clean stamp, and a resume from it finishes;
+    (e) whether the plots were written.
+
+    ``dev`` may be the CPU for a rehearsal at a small split: the eager program and gloo
+    then stand in for the graph and NCCL, and the kernels' counters count nothing."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import resilience
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        distributed, single, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        _msgpack, checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        DistributedConfig, SingleProcessConfig,
+    )
+
+    on_card = dev.type == "cuda"
+    launched = lambda n: n if on_card else 0     # the plain versions count no launch
+    rule = f"Segment program: {st.segment_program(dev)} on {dev.type}"
+    root = OUT_DIR / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    images = root / "images"
+
+    # (a) resume at world 1 on NCCL, captured, B1-B3 and the reducer in the graph
+    runs = {}
+    with mesh.cluster(dev) as info, patched(torch.backends.cudnn, "deterministic", True):
+        if info.backend != ("nccl" if on_card else "gloo"):
+            fail(f"[22] world 1 on {dev} ran {info.backend}")
+        for name, epochs, resume in (("straight", 2, ""), ("first", 1, ""),
+                                     ("resumed", 2, str(root / "first" / "model_dist.ckpt"))):
+            losses, made = [], []
+            reducer_cls = dp.GradReducer
+
+            class Recorded(reducer_cls):
+                def __init__(self, params):
+                    super().__init__(params)
+                    made.append(self)
+
+            cfg = DistributedConfig(epochs=epochs, device=dev.type, resume_from=resume,
+                                    results_dir=str(root / name), images_dir=str(images))
+            fused = lambda *a, **k: st.make_epoch_fn(*a, use_pallas=True, **k)
+            fk.reset_launch_counts()
+            with patched(distributed, "make_epoch_fn", recording_epoch_fn(fused, losses)), \
+                    patched(dp, "GradReducer", Recorded), \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                state, _ = distributed.main(cfg, datasets=(train_ds, test_ds))
+            out = said.getvalue()
+            if rule not in out:
+                fail(f"[22] (a) {name}: train.distributed did not print '{rule}'")
+            runs[name] = dict(state=state, losses=torch.cat(losses).cpu(),
+                              counts=fk.launch_counts(), calls=[r.calls for r in made],
+                              out=out)
+    steps = len(train_ds) // BATCH                    # a data-parallel epoch
+    full = -(-len(train_ds) // BATCH)                 # train.single's: the ragged tail too
+    for name, trained in (("straight", 2 * steps), ("first", steps), ("resumed", steps)):
+        r = runs[name]
+        if (r["counts"] != dict.fromkeys(r["counts"], launched(trained))
+                or r["calls"] != [trained]):
+            fail(f"[22] (a) {name}: B1-B3 launches {r['counts']}, reducer calls "
+                 f"{r['calls']}; the plan is {trained} steps")
+        print(f"[22] (a) train.distributed world 1 ({rule}, fused kernels) {name}: "
+              f"{trained} steps; B1-B3 launches {r['counts']}, reducer calls {r['calls'][0]} "
+              f"(replays counted) = the plan")
+    if f"Resumed from {root / 'first' / 'model_dist.ckpt'} at step {steps} (starting " \
+            f"epoch 1)" not in runs["resumed"]["out"]:
+        fail("[22] (a) the resumed run did not report its resume at epoch 1")
+    straight, resumed = runs["straight"], runs["resumed"]
+    if not int(resumed["state"].step) == int(straight["state"].step) == 2 * steps:
+        fail(f"[22] (a) steps {int(resumed['state'].step)} and "
+             f"{int(straight['state'].step)}, expected {2 * steps}")
+    want_l = straight["losses"][steps:]
+    torch.testing.assert_close(resumed["losses"], want_l, atol=RESUME_ATOL, rtol=0.0)
+    e_l = (resumed["losses"] - want_l).abs().max().item()
+    e_p = 0.0
+    for k, p in straight["state"].params.items():
+        got = resumed["state"].params[k]
+        torch.testing.assert_close(got, p, atol=RESUME_ATOL, rtol=0.0,
+                                   msg=lambda m: f"[22] (a) {k}: {m}")
+        e_p = max(e_p, (got - p).abs().max().item())
+    print(f"[22] (a) 1 epoch + --resume-from model_dist.ckpt vs 2 epochs straight: max "
+          f"|dloss| {e_l:.3e} over epoch 1's {steps} steps, max |dparam| {e_p:.3e} (atol "
+          f"{RESUME_ATOL:g}); losses {resumed['losses'][0]:.4f} -> "
+          f"{resumed['losses'][-1]:.4f}")
+
+    # (b) the log-tick saves of train.single, their cost, and the async saver's bytes
+    real = checkpoint.make_saver
+    timed = {"sync": [], "async": []}            # each run's host ms a save, by saver
+
+    def timed_saver(async_=False):
+        saver = _Timed(real(async_))
+        timed["async" if async_ else "sync"].append(saver.ms)
+        return saver
+
+    order = ("off", "sync", "async", "async", "sync", "off")   # timed, in turns
+    epochs = {mode: [] for mode in order}
+    finals = {}
+    for turn, mode in enumerate(order + ("sync", "async")):
+        pair = turn >= len(order)        # the byte comparison: deterministic convolutions
+        d = root / f"single_{turn}_{mode}"
+        cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device=dev.type,
+                                  async_checkpoint=mode == "async", results_dir=str(d),
+                                  images_dir=str(images))
+        factory = (lambda async_=False: NoSaves()) if mode == "off" else timed_saver
+        fk.reset_launch_counts()
+        with patched(checkpoint, "make_saver", factory), \
+                patched(torch.backends.cudnn, "deterministic", pair), \
+                contextlib.redirect_stdout(io.StringIO()):
+            state, history = single.main(cfg, datasets=(train_ds, test_ds))
+        if fk.launch_counts() != dict.fromkeys(fk.launch_counts(), launched(full)):
+            fail(f"[22] (b) {mode}: B1-B3 launches {fk.launch_counts()} != {full}")
+        if not pair:
+            epochs[mode].append(history.epoch_seconds[0])
+        else:
+            finals[mode] = (d, state)
+    ticks = -(-steps // SingleProcessConfig().log_interval)
+    for ms in timed["sync"] + timed["async"]:
+        if len(ms) != ticks + 1:               # the ticks, and the closing save
+            fail(f"[22] (b) {len(ms)} saves in one epoch, expected {ticks} + 1")
+    ckpt = {mode: (d / "model.ckpt").read_bytes() for mode, (d, _) in finals.items()}
+    nbytes = len(ckpt["sync"])
+    tick_ms = {mode: [m for ms in runs[:2] for m in ms[:-1]] for mode, runs in timed.items()}
+    print(f"[22] (b) train.single --use-pallas-kernels, one epoch: {ticks} saves an epoch "
+          f"(every log tick) + 1 closing, {nbytes} bytes a save; host ms a save "
+          f"({len(tick_ms['sync'])} each): sync median {np.median(tick_ms['sync']):.4f}, "
+          f"max {max(tick_ms['sync']):.4f}; async (the host copy) median "
+          f"{np.median(tick_ms['async']):.4f}, max {max(tick_ms['async']):.4f} [{card}]")
+    off_s = np.mean(epochs["off"])
+    cost = {mode: np.mean(epochs[mode]) - off_s for mode in ("sync", "async")}
+    print(f"[22] (b) epoch s in turns ({', '.join(order)}): "
+          f"{', '.join(f'{epochs[m][order[:k].count(m)]:.4f}' for k, m in enumerate(order))};"
+          f" the {ticks} saves cost, sync {cost['sync']:.4f} s an epoch "
+          f"({cost['sync'] / off_s * 100:.1f}%, {cost['sync'] / ticks * 1e3:.4f} ms a save), "
+          f"async {cost['async']:.4f} s ({cost['async'] / off_s * 100:.1f}%); [5]'s epoch "
+          f"without saves {earlier['single_s']:.4f} s [{card}]")
+    # where a sync save's host time goes, on the last run's final state
+    path, parts = str(root / "breakdown.ckpt"), {"host copy": [], "layout": [],
+                                                 "encode": [], "write": []}
+    for _ in range(20):
+        t0 = time.perf_counter()
+        host = checkpoint._host_copy(finals["sync"][1])
+        t1 = time.perf_counter()
+        tree = checkpoint.state_to_jax_dict(host)
+        t2 = time.perf_counter()
+        data = _msgpack.packb(tree)
+        t3 = time.perf_counter()
+        checkpoint._atomic_write(path, data)
+        t4 = time.perf_counter()
+        for name, a, b in (("host copy", t0, t1), ("layout", t1, t2), ("encode", t2, t3),
+                           ("write", t3, t4)):
+            parts[name].append((b - a) * 1e3)
+    print(f"[22] (b) a sync save's host ms by part (median of 20): "
+          f"{ {k: round(float(np.median(v)), 4) for k, v in parts.items()} } [{card}]")
+    if ckpt["async"] != ckpt["sync"]:
+        fail("[22] (b) --async-checkpoint's model.ckpt differs from the sync run's")
+    print(f"[22] (b) --async-checkpoint's model.ckpt == the sync run's, byte for byte "
+          f"({nbytes} bytes; both runs with deterministic cuDNN convolutions)")
+
+    # (c) the card's files decode with the port's codec and restore bitwise on the CPU
+    cpu_ref = st.create_train_state(Net(), torch.Generator().manual_seed(0))
+    for label, path, want in (
+            ("model_dist.ckpt (a)", root / "resumed" / "model_dist.ckpt",
+             resumed["state"]),
+            ("model.ckpt (b)", finals["sync"][0] / "model.ckpt", finals["sync"][1])):
+        raw = _msgpack.from_bytes(path.read_bytes())
+        got = checkpoint.restore_train_state(str(path), cpu_ref)
+        same = all(torch.equal(got.params[k], want.params[k].cpu()) for k in got.params)
+        same_v = all(torch.equal(got.velocity[k], want.velocity[k].cpu())
+                     for k in got.velocity)
+        if not (same and same_v and int(got.step) == int(want.step)):
+            fail(f"[22] (c) {label} restored on the CPU differs from the card's final state")
+        print(f"[22] (c) {label}: decoded ({list(raw)}, step {int(raw['step'])} "
+              f"{raw['step'].dtype}), restored on the CPU bitwise equal to the card's final "
+              f"params and velocity, step {int(got.step)}")
+    export = checkpoint.load_params_or_state(str(root / "resumed" / "model_dist.msgpack"),
+                                             cpu_ref.params)
+    if not all(torch.equal(export[k], resumed["state"].params[k].cpu()) for k in export):
+        fail("[22] (c) model_dist.msgpack differs from the final params")
+    print("[22] (c) load_params_or_state(model_dist.msgpack) == the final params, bitwise")
+
+    # (d) preemption: SIGTERM in epoch 2, exit 75, the newest entry verifies, resume
+    pre = root / "preempted"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT)
+    common = ["--guard", "--use-pallas-kernels", "--images-dir", str(images), "--device",
+              dev.type, "--max-train-examples", str(len(train_ds)), "--max-test-examples",
+              str(len(test_ds))]
+    argv = ["--handle-preemption", "--keep-checkpoints", "2", "--n-epochs",
+            str(PREEMPT_EPOCHS), "--heartbeat-dir", str(pre / "hb"), "--results-dir",
+            str(pre), *common]
+    proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.train.single", *argv], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    beat = pre / "hb" / "heartbeat_p0.json"
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                print(proc.communicate()[1][-4000:], file=sys.stderr)
+                fail(f"[22] (d) the run exited {proc.returncode} before epoch 2")
+            if time.monotonic() > deadline:
+                fail("[22] (d) no heartbeat of epoch 2 within 300 s")
+            try:
+                if json.loads(beat.read_text())["epoch"] >= 2:
+                    break
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.002)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != resilience.EXIT_PREEMPTED:
+        print(err[-4000:], file=sys.stderr)
+        fail(f"[22] (d) the preempted run exited {proc.returncode}, not "
+             f"{resilience.EXIT_PREEMPTED}")
+    store = pre / "checkpoints"
+    newest = checkpoint.load_manifest(str(store))["entries"][-1]
+    newest_path = str(store / newest["file"])
+    if checkpoint.newest_valid_checkpoint(str(store)) != newest_path:
+        fail(f"[22] (d) the manifest's newest entry {newest['file']} does not verify")
+    if not newest.get("health", {}).get("clean") or newest["step"] != 2 * full:
+        fail(f"[22] (d) newest entry {newest}: expected a clean stamp at step {2 * full} "
+             f"(the end of epoch 2)")
+    if rule not in out:
+        fail(f"[22] (d) the preempted run did not print '{rule}'")
+    print(f"[22] (d) python -m {PKG}.train.single {' '.join(argv[:5] + common[:2])}: "
+          f"SIGTERM in epoch 2, "
+          f"exit {proc.returncode}; manifest newest {newest['file']} (step {newest['step']}) "
+          f"verifies, health {newest['health']}; "
+          f"{[l for l in out.splitlines() if l.startswith('preempted')]}")
+    resume = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.train.single", "--resume-from", newest_path,
+         "--n-epochs", "1", "--results-dir", str(pre / "resumed"), *common],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if resume.returncode != 0:
+        print(resume.stderr[-4000:], file=sys.stderr)
+        fail(f"[22] (d) the resume exited {resume.returncode}")
+    final = checkpoint.restore_train_state(str(pre / "resumed" / "model.ckpt"),
+                                           st.create_train_state(Net(), torch.Generator(),
+                                                                 guard=True))
+    if int(final.step) != 3 * full or "WARNING" in resume.stdout:
+        fail(f"[22] (d) the resume ended at step {int(final.step)} (want {3 * full}) or "
+             f"warned: {resume.stdout[-2000:]}")
+    print(f"[22] (d) --resume-from {newest['file']} --n-epochs 1: exit 0 at step "
+          f"{int(final.step)}, cursor consistent (no warning)")
+
+    # (e) the plots
+    try:
+        import matplotlib  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    pngs = sorted(p.name for p in images.glob("*.png"))
+    want = ["train_images.png", "train_test_curve.png", "train_test_curve_dist.png"]
+    if have and pngs != want:
+        fail(f"[22] (e) matplotlib is present but the plots are {pngs}, not {want}")
+    if not have and pngs:
+        fail(f"[22] (e) matplotlib is absent but plots were written: {pngs}")
+    print(f"[22] (e) plots: {pngs} written" if have else
+          "[22] (e) plots: matplotlib is absent on this machine; each plot returned None")
 
 
 def main() -> None:
@@ -997,6 +1337,9 @@ def main() -> None:
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
         create_train_state, make_eval_fn, make_segment_fn, make_train_step,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
         ComposedConfig, DistributedConfig, SingleProcessConfig,
@@ -1200,12 +1543,15 @@ def main() -> None:
     print(f"[5] data ({train_ds.source}): {len(train_ds)} train / {len(test_ds)} test in "
           f"{time.perf_counter() - t0:.2f} s")
     config = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device="cuda",
-                                 results_dir=str(OUT_DIR))
+                                 results_dir=str(OUT_DIR), images_dir=str(OUT_DIR / "images"))
     full_steps, tail = divmod(len(train_ds), config.batch_size_train)
     steps = full_steps + (1 if tail else 0)
     fk.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = single.main(config, datasets=(train_ds, test_ds))
+    # the epoch without its log-tick checkpoints, as earlier smoke runs timed it; [22] (b)
+    # times it with them
+    with patched(checkpoint, "make_saver", lambda async_=False: NoSaves()):
+        state, history = single.main(config, datasets=(train_ds, test_ds))
     main_s = time.perf_counter() - t0
     launches = fk.launch_counts()
     print(f"[5] launches in main(): {launches} over {state.step} steps")
@@ -1814,7 +2160,8 @@ def main() -> None:
 
     # -- 15. the data-parallel slice ------------------------------------------------------
     dconfig = DistributedConfig(epochs=1, device="cuda",
-                                results_dir=str(OUT_DIR / "distributed"))
+                                results_dir=str(OUT_DIR / "distributed"),
+                                images_dir=str(OUT_DIR / "images"))
     full_steps = len(train_ds) // dconfig.global_batch_size
     all_counts = lambda: fk.launch_counts() | fa.launch_counts() | paged.launch_counts()
     with mesh.cluster(dev) as info:                   # world 1; main() joins this group
@@ -1925,7 +2272,7 @@ def main() -> None:
     w2_out = run_fleet("[15] world 2:", [
         "-m", f"{PKG}.train.distributed", "--device", "cuda", "--epochs", "2",
         "--max-train-examples", str(DP_W2_TRAIN), "--max-test-examples", str(DP_W2_TEST),
-        "--results-dir", str(w2_dir)])
+        "--results-dir", str(w2_dir), "--images-dir", str(w2_dir / "images")])
     w2_val = [json.loads(l)["loss"] for l in open(w2_dir / "metrics.jsonl")
               if json.loads(l)["kind"] == "test"]
     print(f"[15] world 2 (gloo, two ranks time-slicing one card: a correctness run, not a "
@@ -2166,7 +2513,10 @@ def main() -> None:
     # -- 21. the step's remainder: the card's captured program against the CPU -----------
     remainder_phase(dev, card)
 
-    # -- 22. result ---------------------------------------------------------------------
+    # -- 22. checkpoints on the card: resume, log-tick saves, restore, preemption, plots --
+    checkpoint_phase(dev, card, train_ds, test_ds, earlier)
+
+    # -- 23. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -2189,7 +2539,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[22] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[23] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

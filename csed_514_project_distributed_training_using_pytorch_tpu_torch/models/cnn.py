@@ -8,7 +8,8 @@ Counterpart of the JAX package's ``models/cnn.py`` — the reference's only mode
 21,840 trainable parameters. Input is NHWC ``[B, 28, 28, 1]`` and output is log-probs, as
 in the JAX package. Parameters are stored in PyTorch's layout (OIHW conv kernels,
 ``[out, in]`` dense kernels, ``conv1.weight``-style names) and fc1's input rows follow the
-(C, H, W) flatten order; ``params_from_jax`` carries the JAX package's parameters across.
+(C, H, W) flatten order; ``params_from_jax`` carries the JAX package's parameters across,
+and ``params_to_jax``, its exact inverse, carries them back (the checkpoints' layout).
 
 Train/eval mode is the ``deterministic`` argument, and dropout draws from the ``generator``
 passed in, so a training step's masks are a function of the step alone.
@@ -97,3 +98,25 @@ def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         "fc2.bias": p["fc2_bias"],
     }
     return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def params_to_jax(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The exact inverse of ``params_from_jax``: this module's ``state_dict`` layout (OIHW,
+    ``[out, in]``, (C, H, W) flatten order) as the JAX package's ``Net`` parameters
+    (HWIO, ``[in, out]``, (H, W, C) flatten order), host numpy arrays with their keys in
+    sorted order, as the JAX package's checkpoints hold them. Only axes move, so the
+    values are bitwise the same."""
+    p = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    fc1 = p["fc1.weight"].T.reshape(20, 4, 4, 50)          # rows in (C, H, W) order
+    fc1 = fc1.transpose(1, 2, 0, 3).reshape(320, 50)       # → (H, W, C) order
+    jax_params = {
+        "conv1_bias": p["conv1.bias"],
+        "conv1_kernel": p["conv1.weight"].transpose(2, 3, 1, 0),   # OIHW → HWIO
+        "conv2_bias": p["conv2.bias"],
+        "conv2_kernel": p["conv2.weight"].transpose(2, 3, 1, 0),
+        "fc1_bias": p["fc1.bias"],
+        "fc1_kernel": fc1,
+        "fc2_bias": p["fc2.bias"],
+        "fc2_kernel": p["fc2.weight"].T,                            # [out,in] → [in,out]
+    }
+    return {k: np.ascontiguousarray(v) for k, v in jax_params.items()}

@@ -13,7 +13,7 @@ Counterpart of the JAX package's ``parallel/mesh.py`` (that module imports JAX):
 - ``parse_mesh_spec`` is the ``--mesh`` grammar of the composed trainer, and
   ``seq_axis_size`` the meshes it trains: one device, or a ``seq`` axis alone, whose world
   is the process group (one rank a sequence shard, ``parallel/ring_attention.py``). Every
-  other mesh of more than one device waits for ROADMAP A6/A10.
+  other mesh of more than one device waits for ROADMAP A10.
 
 The backend is chosen by rule and named in every result: ``nccl`` when the ranks run on
 CUDA and each rank on this host has a card of its own (rank r on ``cuda:LOCAL_RANK``);
@@ -173,5 +173,5 @@ def seq_axis_size(spec: str) -> int:
         raise ValueError(
             f"--mesh {spec} spans {math.prod(sizes)} devices with {others}; this port "
             f"trains on one device or on a seq axis alone (data>1, and data beside seq, "
-            f"model, expert, stage: ROADMAP A6/A10) — use --mesh data=1 or data=1,seq=N")
+            f"model, expert, stage: ROADMAP A10) — use --mesh data=1 or data=1,seq=N")
     return axes.get("seq", 1)

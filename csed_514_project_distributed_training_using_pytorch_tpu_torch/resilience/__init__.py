@@ -1,1 +1,71 @@
-"""Resilience: the rollback-and-skip vocabulary (``poison.py``) the guard's host side uses."""
+"""Resilience: heartbeats, cooperative preemption and the rollback-and-skip vocabulary.
+
+Counterpart of the JAX package's ``resilience/``: ``heartbeat`` is the liveness signal that
+tells slow from hung; ``preemption`` turns SIGTERM or SIGINT into a cooperative stop at an
+epoch boundary with a durable checkpoint and a resumable exit status (75); ``poison`` is
+the guard's typed exit (65) and skip-window grammar. The supervisor, fault injection and
+network faults wait for ROADMAP A11.
+
+``RunHooks`` is the trainers' wiring: host-side epoch-boundary code only (a captured
+segment is untouched), and with every flag off it reads nothing of the state, so no step
+is fetched from the device.
+"""
+
+from __future__ import annotations
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+    heartbeat,
+    poison,
+    preemption,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience.poison import (
+    EXIT_POISONED,
+    Poisoned,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience.preemption import (
+    EXIT_PREEMPTED,
+    Preempted,
+)
+
+__all__ = ["EXIT_POISONED", "EXIT_PREEMPTED", "Poisoned", "Preempted", "RunHooks",
+           "heartbeat", "poison", "preemption"]
+
+
+class RunHooks:
+    """One trainer's heartbeat ticks and preemption checks (the JAX package's ``RunHooks``
+    without fault injection). With ``heartbeat_dir`` empty and ``handle_preemption`` off,
+    every method returns without touching ``state``."""
+
+    def __init__(self, *, heartbeat_dir: str = "", handle_preemption: bool = False,
+                 process_index: int = 0):
+        self.heartbeat = (heartbeat.HeartbeatWriter(heartbeat_dir,
+                                                    process_index=process_index)
+                          if heartbeat_dir else None)
+        self.preemption = preemption.install() if handle_preemption else None
+
+    def uninstall(self) -> None:
+        """Restore the signal handlers (the trainers' teardown ``finally``), so that an
+        in-process caller's SIGTERM and SIGINT outlive no run."""
+        if self.preemption is not None:
+            self.preemption.uninstall()
+
+    def epoch_tick(self, state, epoch: int, fingerprint: float | None = None) -> None:
+        """At the top of each epoch: beat (with the previous boundary's parameter
+        fingerprint under ``--guard``). Fetches the step only when a heartbeat is on."""
+        if self.heartbeat is None:
+            return
+        self.heartbeat.beat(step=int(state.step), epoch=epoch, fingerprint=fingerprint)
+
+    def check_preempt(self, *, epoch: int, state, checkpoint: str = "", save=None) -> None:
+        """Honour a pending preemption request at an epoch boundary: run ``save`` (for a
+        trainer whose checkpoint is not already durable here), leave a final
+        ``status=preempted`` beat, and raise ``Preempted``. A no-op when nothing was
+        requested."""
+        if self.preemption is None or not self.preemption.requested:
+            return
+        step = int(state.step)
+        if save is not None:
+            save()
+        if self.heartbeat is not None:
+            self.heartbeat.beat(step=step, epoch=epoch, status=heartbeat.STATUS_PREEMPTED)
+        raise Preempted(step, checkpoint)

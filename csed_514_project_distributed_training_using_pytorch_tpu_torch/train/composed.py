@@ -38,7 +38,7 @@ schedules, clipping, label smoothing, EMA, gradient accumulation, the guard and 
 
 Not ported yet: meshes of more than one device other than a seq axis alone (data beside
 seq, tensor/expert/pipeline parallelism and MoE), the einsum ring and zig-zag, Ulysses
-(ROADMAP A6/A10), remat, telemetry and the rest of the resilience hooks, and the
+(ROADMAP A10), remat, telemetry and the rest of the resilience hooks, and the
 checkpoint (ROADMAP A5).
 """
 

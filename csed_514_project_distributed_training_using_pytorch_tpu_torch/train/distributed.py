@@ -5,8 +5,12 @@ module; its coordinates come from the launcher's environment (``train.launch``,
 ``torchrun``), and without one it trains as a world of one. In order: rendezvous
 (``parallel.mesh.cluster``: NCCL when each rank has a card of its own, else gloo), the
 per-rank batch ``global_batch_size // world``, one ``ShardedSampler`` per rank, rank 0's
-parameters broadcast to all, then ``epochs`` rounds of (train, evaluate, print the epoch
-summary), the replica-sync check, and rank 0's ``results/metrics.jsonl``.
+parameters broadcast to all, the resume (``--resume-from``), then ``epochs`` rounds of
+(train, evaluate, print the epoch summary, the checkpoint ``results/model_dist.ckpt``,
+the versioned store under ``--keep-checkpoints``, the guard's exit, the preemption check),
+the replica-sync check, and rank 0's loss curve (``images/train_test_curve_dist.png``),
+``results/metrics.jsonl`` and final export ``results/model_dist.msgpack``: the EMA
+weights under ``--ema-decay``, the parameters otherwise.
 
 The whole split lives on each rank's device. Every rank builds the same global
 ``[steps, global_batch]`` plan (``epoch_index_plan``) and trains on its own column block,
@@ -21,6 +25,14 @@ memory, which a graph cannot capture, so it runs the eager loop, as the CPU does
 trainer prints the rule's choice. The step's options are ``train.single``'s; the guard's
 verdict reads the reduced loss and gradient norm, so every rank skips the same steps.
 
+Checkpoints are the JAX package's files, byte for byte (``utils.checkpoint``), written by
+rank 0 at each epoch end after its host copy of the state. ``--resume-from`` skips the
+completed epochs (``checkpoint.restore_for_resume``: rank 0 restores and broadcasts the
+state to every rank), so a resumed run trains the epochs the unbroken run would have, on
+the same plans, with the same dropout masks (a device function of seed, step and rank).
+``--async-checkpoint``, ``--heartbeat-dir``, ``--handle-preemption`` (exit 75) and
+``--profile`` are ``train.single``'s.
+
 Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the card)::
 
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.launch \\
@@ -28,7 +40,8 @@ Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the car
         -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.distributed \\
         --device cpu --epochs 1
 
-Not ported (ROADMAP A5): the ``model_dist.msgpack`` export and the loss-curve figure.
+Not ported: telemetry (ROADMAP A11), the host-local feed (A1), FSDP (A10) and the
+transformer model (A5).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from csed_514_project_distributed_training_using_pytorch_tpu_torch import resilience
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
     load_mnist,
     truncate,
@@ -70,6 +84,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
     make_eval_fn,
     segment_program,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+    checkpoint,
+    plotting,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     DistributedConfig,
@@ -77,6 +95,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config 
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.determinism import (
     assert_replicas_synced,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.profiling import (
+    maybe_profile,
 )
 
 
@@ -135,8 +156,22 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                                    optimizer=optimizer, device=info.device,
                                    ema=config.ema_decay > 0, guard=config.guard)
         dp.broadcast_params_(state.params)
-        grt.baseline(state)
         steps_per_epoch = samplers[0].num_samples // per_replica_batch
+        start_epoch = 0
+        if config.resume_from:
+            state, start_epoch, warning = checkpoint.restore_for_resume(
+                config.resume_from, state, process_index=rank, process_count=world,
+                steps_per_epoch=steps_per_epoch)
+            if warning:
+                M.log(f"WARNING: {warning}")
+            M.log(f"Resumed from {config.resume_from} at step {int(state.step)} "
+                  f"(starting epoch {start_epoch})")
+            note = checkpoint.check_cursor_resume(config.resume_from, seed=config.seed,
+                                                  step=int(state.step),
+                                                  start_epoch=start_epoch)
+            if note:
+                M.log(f"WARNING: {note}")
+        grt.baseline(state)
         lr_schedule = optim.make_lr_schedule(config.lr_schedule,
                                              warmup_steps=config.warmup_steps,
                                              total_steps=config.epochs * steps_per_epoch)
@@ -156,41 +191,76 @@ def main(config: DistributedConfig = DistributedConfig(), *,
 
         history = M.MetricsHistory()
         li = config.log_interval
-        for epoch in range(config.epochs):
-            t_epoch = time.perf_counter()
-            plan = epoch_index_plan(samplers, epoch, per_replica_batch)
-            idx = to_device(plan[:, columns])
-            steps = plan.shape[0]
-            segments = []
-            for seg_start in range(0, steps, li):
-                state, losses = segment_fn(state, train_x, train_y,
-                                           idx[seg_start:seg_start + li], config.seed)
-                segments.append(losses)
-                last_loss = losses[-1].item()             # the segment's one host sync
-                done = min(seg_start + li, steps) * config.global_batch_size
-                M.log(M.train_progress_line(epoch, done, n_train, last_loss))
-            if info.device.type == "cuda":
-                torch.cuda.synchronize(info.device)       # honest wall-clock
-            history.epoch_seconds.append(time.perf_counter() - t_epoch)
-            losses = torch.cat(segments).cpu().numpy()
-            train_loss = float(losses.mean())     # per-epoch mean of per-step global means
-            for i, loss in enumerate(losses[::li]):
-                history.record_train(epoch * plan.size + i * li * plan.shape[1],
-                                     float(loss))
+        ckpt_path = os.path.join(config.results_dir, "model_dist.ckpt")
+        ckpt_store = os.path.join(config.results_dir, "checkpoints")
+        saver = checkpoint.make_saver(config.async_checkpoint)
+        # host-side hooks at epoch boundaries; with both flags off they touch no state
+        rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
+                                 handle_preemption=config.handle_preemption,
+                                 process_index=rank)
+        try:
+            with maybe_profile(config.profile, config.profile_dir):
+                for epoch in range(start_epoch, config.epochs):
+                    # the heartbeat, with the previous boundary's fingerprint; no-op off
+                    rt.epoch_tick(state, epoch, fingerprint=grt.fingerprint)
+                    t_epoch = time.perf_counter()
+                    plan = epoch_index_plan(samplers, epoch, per_replica_batch)
+                    idx = to_device(plan[:, columns])
+                    steps = plan.shape[0]
+                    segments = []
+                    for seg_start in range(0, steps, li):
+                        state, losses = segment_fn(state, train_x, train_y,
+                                                   idx[seg_start:seg_start + li],
+                                                   config.seed)
+                        segments.append(losses)
+                        last_loss = losses[-1].item()     # the segment's one host sync
+                        done = min(seg_start + li, steps) * config.global_batch_size
+                        M.log(M.train_progress_line(epoch, done, n_train, last_loss))
+                    if info.device.type == "cuda":
+                        torch.cuda.synchronize(info.device)   # honest wall-clock
+                    history.epoch_seconds.append(time.perf_counter() - t_epoch)
+                    losses = torch.cat(segments).cpu().numpy()
+                    train_loss = float(losses.mean())     # mean of per-step global means
+                    for i, loss in enumerate(losses[::li]):
+                        history.record_train(epoch * plan.size + i * li * plan.shape[1],
+                                             float(loss))
 
-            eval_params = state.ema if state.ema is not None else state.params
-            sum_nll, correct = dp.evaluate(eval_fn, eval_params, test_x, test_y,
-                                           shard=config.shard_eval)
-            val_loss, accuracy = sum_nll / n_test, correct / n_test
-            history.record_test((epoch + 1) * plan.size, val_loss)
-            M.log(M.dist_epoch_summary_line(epoch, train_loss, val_loss, accuracy,
-                                            watch.elapsed()))
-            grt.epoch_end(state, epoch, steps=steps)
-            grt.check_poisoned(state)             # raises Poisoned; __main__ exits 65
+                    eval_params = state.ema if state.ema is not None else state.params
+                    sum_nll, correct = dp.evaluate(eval_fn, eval_params, test_x, test_y,
+                                                   shard=config.shard_eval)
+                    val_loss, accuracy = sum_nll / n_test, correct / n_test
+                    history.record_test((epoch + 1) * plan.size, val_loss)
+                    M.log(M.dist_epoch_summary_line(epoch, train_loss, val_loss, accuracy,
+                                                    watch.elapsed()))
+                    stamp = grt.epoch_end(state, epoch, steps=steps)
+                    # the per-epoch full-state checkpoint (rank 0), for --resume-from
+                    saver.save_train_state(ckpt_path, state)
+                    if config.keep_checkpoints:
+                        checkpoint.save_versioned(
+                            ckpt_store, state, keep=config.keep_checkpoints, health=stamp,
+                            cursor={"version": 1, "kind": "epoch", "seed": config.seed,
+                                    "epoch": epoch + 1, "batch": 0,
+                                    "step": int(state.step)})
+                    # the guard's exit after the stamped checkpoint is durable (raises
+                    # Poisoned; __main__ exits 65)
+                    grt.check_poisoned(state)
+                    # preemption with this epoch's checkpoint written (raises Preempted;
+                    # __main__ exits 75)
+                    rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path)
 
-        assert_replicas_synced(state.params)
-        if info.is_coordinator:
-            M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
+            assert_replicas_synced(state.params)
+            plotting.save_loss_curves(
+                history, os.path.join(config.images_dir, "train_test_curve_dist.png"))
+            if info.is_coordinator:
+                M.save_metrics_jsonl(history,
+                                     os.path.join(config.results_dir, "metrics.jsonl"))
+            # the export is the weights the reported metrics came from
+            checkpoint.save_params(os.path.join(config.results_dir, "model_dist.msgpack"),
+                                   state.ema if state.ema is not None else state.params)
+        finally:
+            # drain the write-behind queue however the loop ended; give the signals back
+            rt.uninstall()
+            saver.flush()
     return state, history
 
 

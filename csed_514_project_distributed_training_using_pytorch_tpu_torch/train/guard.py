@@ -6,8 +6,9 @@ sync). What the host does, at each epoch boundary:
 
 - fetch ``state.guard`` once (the epoch's sanctioned fetch) and compute this process's
   parameter fingerprint (``utils.telemetry.param_fingerprint``, host-local);
-- build the health stamp a versioned checkpoint would carry (``epoch_end`` returns it; the
-  versioned store and the telemetry event wait for ROADMAP A5 and A11);
+- build the health stamp (``epoch_end`` returns it), which the trainers write into the
+  versioned store's manifest (``utils.checkpoint.save_versioned(health=...)``) under
+  ``--keep-checkpoints``; the telemetry event waits for ROADMAP A11;
 - enforce ``--anomaly-exit``: once this attempt has detected that many anomalies, write
   the poison marker and raise ``resilience.poison.Poisoned`` with the step window to skip.
 """

@@ -1,9 +1,12 @@
 """Single-process trainer — the reference ``train.py`` workflow on one CUDA device.
 
 Counterpart of the JAX package's ``train/single.py``. In order: seeding, the index-plan
-loader, baseline eval before training, then ``n_epochs`` of (train with a progress line and
-metric record every ``log_interval`` batches, the ragged tail batch, eval), and finally
-``results/metrics.jsonl``.
+loader, the sample grid (``images/train_images.png``), the resume (``--resume-from``),
+baseline eval before training, then ``n_epochs`` of (train with a progress line, a metric
+record and the overwrite checkpoint ``results/model.ckpt`` every ``log_interval`` batches,
+the ragged tail batch, eval, the versioned store under ``--keep-checkpoints``, the guard's
+exit, the preemption check), and finally the loss curve (``train_test_curve.png``),
+``results/metrics.jsonl`` and the closing save of the final state.
 
 The whole training split lives on the device, and each step gathers its batch with
 ``index_select`` by the sampler's plan, as the JAX package's device-resident path does.
@@ -12,7 +15,16 @@ the card each segment shape is captured once as a CUDA graph and replayed (the J
 package's scanned program; the tail segment of ``steps % log_interval`` steps gets its
 own graph), on the CPU the eager loop; the trainer prints the rule's choice. The ragged
 last batch runs as one eager step, as the JAX package runs it outside its scan. The host
-syncs once per log tick, to print the tick's loss.
+syncs once per log tick, to print the tick's loss, and the tick's checkpoint copies the
+state to host memory there, before the next replay overwrites the graph's buffers.
+
+Checkpoints are the JAX package's files, byte for byte (``utils.checkpoint``): either
+package resumes from the other's. ``--resume-from`` means "train ``n_epochs`` more": the
+schedule's horizon runs from the restored step, and a versioned file's data cursor is
+checked against the config. ``--async-checkpoint`` writes behind the loop (the host copy
+stays on it). ``--heartbeat-dir`` beats each epoch; ``--handle-preemption`` turns SIGTERM
+into a stop at the next epoch boundary with the checkpoint durable, and ``__main__`` exits
+75. ``--profile`` traces the run with ``torch.profiler``.
 
 The step's options (``utils.config.StepOptions``): AdamW, LR schedules, clipping, label
 smoothing, EMA (evaluation then uses the EMA weights), gradient accumulation and the
@@ -28,7 +40,8 @@ Run it with::
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \\
         --use-pallas-kernels
 
-Checkpoints, plots, telemetry and the rest of the resilience hooks are not ported yet.
+Telemetry (ROADMAP A11), the host pipeline and the transformer model (ROADMAP A1, A5) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -39,15 +52,14 @@ import time
 import numpy as np
 import torch
 
+from csed_514_project_distributed_training_using_pytorch_tpu_torch import resilience
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
     BatchLoader,
     load_mnist,
+    truncate,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
-    poison,
-)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
     GuardRuntime,
 )
@@ -59,11 +71,19 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
     make_train_step,
     segment_program,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+    checkpoint,
+    plotting,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     SingleProcessConfig,
     check_step_options,
     parse_config,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.profiling import (
+    annotate,
+    maybe_profile,
 )
 
 
@@ -99,11 +119,13 @@ def describe_program(program: str, device: torch.device) -> str:
 
 
 def main(config: SingleProcessConfig = SingleProcessConfig(), *,
+         resume_from: str | None = None,
          datasets=None) -> tuple[TrainState, M.MetricsHistory]:
     """Run the single-process workflow; returns the final state and the metric history.
 
-    ``datasets`` optionally injects a ``(train, test)`` Dataset pair (tests, notebooks); by
-    default MNIST is loaded from ``config.data_dir``.
+    ``resume_from`` (or ``config.resume_from``) restores a checkpoint and trains
+    ``n_epochs`` more. ``datasets`` optionally injects a ``(train, test)`` Dataset pair
+    (tests, notebooks); by default MNIST is loaded from ``config.data_dir``.
     """
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before any data work
@@ -119,18 +141,31 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                          "requires --optimizer sgd")
     grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"))
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
+    train_ds = truncate(train_ds, config.max_train_examples)
+    test_ds = truncate(test_ds, config.max_test_examples)
     M.log(f"Loaded MNIST ({train_ds.source}): {len(train_ds)} train / {len(test_ds)} test")
 
     init_generator = torch.Generator().manual_seed(config.seed)
     train_loader = BatchLoader(train_ds, config.batch_size_train, shuffle=True,
                                seed=config.seed)
+    plotting.save_sample_grid(test_ds.images, test_ds.labels,
+                              os.path.join(config.images_dir, "train_images.png"))
     model = build_model("cnn").to(device)
     state = create_train_state(model, init_generator, optimizer=optimizer, device=device,
                                ema=config.ema_decay > 0, guard=config.guard)
+    resume_from = resume_from or config.resume_from or None
+    if resume_from:
+        state = checkpoint.restore_train_state(resume_from, state)
+        M.log(f"Resumed from {resume_from} at step {int(state.step)}")
+        note = checkpoint.check_cursor_resume(resume_from, seed=config.seed,
+                                              step=int(state.step))
+        if note:
+            M.log(f"WARNING: {note}")
     grt.baseline(state)
-    # the schedule's horizon: this run's updates (the ragged tail batch is one more each
-    # epoch, drop_last=False)
-    total_steps = config.n_epochs * -(-len(train_ds) // config.batch_size_train)
+    # the schedule's horizon: this run's updates after the restored step ("n_epochs
+    # more"; the ragged tail batch is one more each epoch, drop_last=False)
+    total_steps = (int(state.step)
+                   + config.n_epochs * -(-len(train_ds) // config.batch_size_train))
     lr_schedule = optim.make_lr_schedule(config.lr_schedule,
                                          warmup_steps=config.warmup_steps,
                                          total_steps=total_steps)
@@ -158,6 +193,12 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     history = M.MetricsHistory()
     n_train, n_test = len(train_ds), len(test_ds)
     batch = config.batch_size_train
+    ckpt_path = os.path.join(config.results_dir, "model.ckpt")
+    ckpt_store = os.path.join(config.results_dir, "checkpoints")
+    saver = checkpoint.make_saver(config.async_checkpoint)
+    # host-side hooks at epoch boundaries; with both flags off they touch no state
+    rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
+                             handle_preemption=config.handle_preemption)
 
     def evaluate(state: TrainState, examples_seen: int) -> None:
         # an EMA run evaluates the averaged weights (the reason to keep one)
@@ -183,6 +224,9 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
             examples_seen = (epoch - 1) * n_train + batches_done * batch
             M.log(M.train_progress_line(epoch, batches_done * batch, n_train, last_loss))
             history.record_train(examples_seen, last_loss)
+            # the every-log-tick overwrite checkpoint: the state is on the host before the
+            # next segment replays over it
+            saver.save_train_state(ckpt_path, state)
 
         # final partial batch (drop_last=False, as torch's DataLoader defaults)
         tail = indices[full_steps * batch:]
@@ -192,32 +236,66 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                                     train_y.index_select(0, tail_idx), config.seed)
         return state
 
-    evaluate(state, 0)                                 # baseline eval
-    for epoch in range(1, config.n_epochs + 1):
-        step_before = int(state.step)
-        t_epoch = time.perf_counter()
-        state = train_epoch(state, epoch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)             # honest wall-clock
-        history.epoch_seconds.append(time.perf_counter() - t_epoch)
-        evaluate(state, epoch * n_train)
-        grt.epoch_end(state, epoch, steps=int(state.step) - step_before)
-        grt.check_poisoned(state)                      # raises Poisoned; __main__ exits 65
+    try:
+        with maybe_profile(config.profile, config.profile_dir):
+            with annotate("eval"):
+                evaluate(state, 0)                     # baseline eval
+            for epoch in range(1, config.n_epochs + 1):
+                # the heartbeat, with the previous boundary's fingerprint; no-op off
+                rt.epoch_tick(state, epoch, fingerprint=grt.fingerprint)
+                step_before = int(state.step)
+                t_epoch = time.perf_counter()
+                with annotate(f"train_epoch_{epoch}"):
+                    state = train_epoch(state, epoch)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)     # honest wall-clock
+                history.epoch_seconds.append(time.perf_counter() - t_epoch)
+                with annotate("eval"):
+                    evaluate(state, epoch * n_train)
+                stamp = grt.epoch_end(state, epoch, steps=int(state.step) - step_before)
+                if config.keep_checkpoints:
+                    # the versioned store, with the guard's health stamp and the data
+                    # cursor of the (seed, epoch) permutation
+                    checkpoint.save_versioned(
+                        ckpt_store, state, keep=config.keep_checkpoints, health=stamp,
+                        cursor={"version": 1, "kind": "epoch", "seed": config.seed,
+                                "epoch": epoch + 1, "batch": 0, "step": int(state.step)})
+                # the guard's exit after the stamped checkpoint is durable (raises
+                # Poisoned; __main__ exits 65)
+                grt.check_poisoned(state)
+                # preemption at the epoch boundary: the tick checkpoint lags the tail
+                # batch, so save first (raises Preempted; __main__ exits 75)
+                rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path,
+                                 save=lambda: saver.save_train_state(ckpt_path, state))
 
-    M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
+        plotting.save_loss_curves(history,
+                                  os.path.join(config.images_dir, "train_test_curve.png"))
+        M.save_metrics_jsonl(history, os.path.join(config.results_dir, "metrics.jsonl"))
+        saver.save_train_state(ckpt_path, state)       # the final state
+    finally:
+        # drain the write-behind queue however the loop ended: the queued checkpoint is a
+        # stopped run's artifact (flush re-raises a background error); give the signals
+        # back to an in-process caller
+        rt.uninstall()
+        saver.flush()
     return state, history
 
 
 def run_cli(config_cls, main_fn) -> None:
-    """A trainer's ``__main__``: parse the flags, train, and exit ``EXIT_POISONED`` (65)
-    when the guard's ``--anomaly-exit`` policy stopped the run."""
+    """A trainer's ``__main__``: parse the flags, train, and exit ``EXIT_PREEMPTED`` (75)
+    after a cooperative stop, ``EXIT_POISONED`` (65) when the guard's ``--anomaly-exit``
+    policy stopped the run."""
     try:
         main_fn(parse_config(config_cls))
-    except poison.Poisoned as e:
+    except resilience.Preempted as e:
+        M.log(f"preempted at step {e.step} (checkpoint {e.checkpoint or 'n/a'}); exiting "
+              f"{resilience.EXIT_PREEMPTED} — resume with --resume-from")
+        raise SystemExit(resilience.EXIT_PREEMPTED) from None
+    except resilience.Poisoned as e:
         M.log(f"poisoned at step {e.step} (anomaly window {e.window[0]}:{e.window[1]}); "
-              f"exiting {poison.EXIT_POISONED} — a supervisor rolls back to the newest "
+              f"exiting {resilience.EXIT_POISONED} — a supervisor rolls back to the newest "
               f"healthy checkpoint and skips the window")
-        raise SystemExit(poison.EXIT_POISONED) from None
+        raise SystemExit(resilience.EXIT_POISONED) from None
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ error, never silently ignored (abbreviations are off for the same reason). The t
 step's options (``StepOptions``: optimizer, schedule, clipping, label smoothing, EMA,
 gradient accumulation, the guard, the segment program's knobs) are shared by the three
 trainers; two of their values still raise when a trainer starts (``check_step_options``).
+The run's options (``RunOptions``: checkpoints and resume, plots, profiling, heartbeats and
+preemption) are the two CNN trainers'.
 """
 
 from __future__ import annotations
@@ -72,7 +74,30 @@ def check_step_options(config: StepOptions) -> None:
 
 
 @dataclass(frozen=True)
-class SingleProcessConfig(StepOptions):
+class RunOptions:
+    """The CNN trainers' run options, with the JAX package's names and defaults."""
+
+    resume_from: str = ""             # a checkpoint to resume from (a full train state:
+                                      # results_dir/model.ckpt, model_dist.ckpt or a
+                                      # versioned store file)
+    keep_checkpoints: int = 0         # also keep the last N per-epoch checkpoints under
+                                      # results_dir/checkpoints/ with a checksummed
+                                      # manifest (utils/checkpoint.py); 0 off
+    async_checkpoint: bool = False    # write checkpoints on a background thread (the
+                                      # host copy stays on the loop; atomic, coalescing
+                                      # overwrites; flushed at exit)
+    images_dir: str = "images"        # the sample grid and the loss curves go here
+    profile: bool = False             # a torch.profiler trace of the run (rank 0)
+    profile_dir: str = "results/profile"
+    heartbeat_dir: str = ""           # a per-process liveness file each epoch
+                                      # (resilience/heartbeat.py); "" off
+    handle_preemption: bool = False   # SIGTERM/SIGINT request a cooperative stop at the
+                                      # next epoch boundary: checkpoint, then exit 75
+                                      # (resilience/preemption.py)
+
+
+@dataclass(frozen=True)
+class SingleProcessConfig(StepOptions, RunOptions):
     """Knobs of the single-process trainer."""
 
     n_epochs: int = 3
@@ -83,7 +108,9 @@ class SingleProcessConfig(StepOptions):
     log_interval: int = 10
     seed: int = 1
     data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
-    results_dir: str = "results"      # metrics.jsonl goes here
+    results_dir: str = "results"      # model.ckpt, metrics.jsonl and the store go here
+    max_train_examples: int = 0       # truncate the splits (0 = all)
+    max_test_examples: int = 0
     use_pallas_kernels: bool = False  # the fused loss/optimizer kernels
                                       # (ops/fused_kernels.py: CUDA on the card); the
                                       # name is the JAX package's flag
@@ -92,7 +119,7 @@ class SingleProcessConfig(StepOptions):
 
 
 @dataclass(frozen=True)
-class DistributedConfig(StepOptions):
+class DistributedConfig(StepOptions, RunOptions):
     """Knobs of the data-parallel trainer. The world size is not a knob: it comes from the
     launcher's environment (``train.launch``, ``torchrun``)."""
 
@@ -105,7 +132,8 @@ class DistributedConfig(StepOptions):
     seed: int = 1                     # the parameters' seed, and the dropout masks'
     sampler_seed: int = 42            # the DistributedSampler order's seed
     data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
-    results_dir: str = "results"      # rank 0 writes metrics.jsonl here
+    results_dir: str = "results"      # rank 0 writes model_dist.ckpt, model_dist.msgpack,
+                                      # metrics.jsonl and the store here
     shard_eval: bool = False          # False: every rank evaluates the whole test split
                                       # (the reference's way); True: each rank a block,
                                       # the sums SUM-reduced
@@ -122,7 +150,7 @@ class ComposedConfig(StepOptions):
     (``--mesh data=1,seq=N``) over a process group of N ranks with
     ``--flash-attention`` (the ring-of-flash)."""
 
-    mesh: str = "data=2,seq=2,model=2"  # the JAX default; it raises (ROADMAP A6/A10)
+    mesh: str = "data=2,seq=2,model=2"  # the JAX default; it raises (ROADMAP A10)
     seq_len: int = 16                   # tokens per image (784 pixels zero-padded)
     flash_attention: bool = False       # attention through the flash kernels: the
                                         # ring-of-flash under a seq axis, else where the

@@ -121,11 +121,11 @@ def test_composed_main_trains_the_step_options_like_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": "data=2"}, "ROADMAP A6/A10"),
-    ({"mesh": "data=2,seq=2,model=2"}, "ROADMAP A6/A10"),       # the JAX default mesh
-    ({"mesh": "data=1,expert=4"}, "ROADMAP A6/A10"),            # MoE rides the expert axis
+    ({"mesh": "data=2"}, "ROADMAP A10"),
+    ({"mesh": "data=2,seq=2,model=2"}, "ROADMAP A10"),       # the JAX default mesh
+    ({"mesh": "data=1,expert=4"}, "ROADMAP A10"),            # MoE rides the expert axis
     ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256},
-     "ROADMAP A6/A10"),                                         # data beside seq
+     "ROADMAP A10"),                                         # data beside seq
     ({"mesh": "data=1,pipe=1"}, "unknown mesh axis"),
     ({"mesh": "data=1", "kv_heads": 3}, "positive divisor"),
     ({"mesh": "data=1", "attention_window": -1}, "window must be >= 1"),

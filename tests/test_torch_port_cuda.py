@@ -1047,3 +1047,67 @@ def test_single_trainer_on_the_card_runs_the_graph_and_exits_65_when_poisoned(de
     assert "Segment program: cuda-graph on cuda" in proc.stdout
     assert "anomaly window" in proc.stdout
     assert (tmp_path / "r" / "checkpoints" / "poison.json").is_file()
+
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (  # noqa: E402
+    checkpoint,
+)
+
+
+@pytest.mark.parametrize("async_", [False, True], ids=["sync", "async"])
+def test_a_tick_checkpoint_holds_the_tick_not_the_next_replay(device, tmp_path, async_):
+    """A captured segment's state lives in static buffers that each replay overwrites. A
+    save at the tick, through either saver, copies it to the host before it returns: after
+    one more replay and a flush, the restore gives the tick's state bitwise."""
+    net = cnn.Net()
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(30 * 64, 28, 28, 1, generator=gen).to(device)
+    y = torch.randint(0, 10, (30 * 64,), generator=gen).to(device)
+    plan = torch.randperm(30 * 64, generator=gen).view(30, 64).to(device)
+    segment = step.CapturedSegment(step.make_train_step(
+        net, learning_rate=0.01, momentum=0.5, use_pallas=True))
+    state = step.create_train_state(net, torch.Generator().manual_seed(3), device=device)
+    state, _ = segment(state, x, y, plan[:10], 1)          # the capture, then a replay
+    state, losses = segment(state, x, y, plan[10:20], 1)
+    losses.cpu()                                           # the tick's host sync
+    tick = {k: v.clone() for k, v in state.params.items()}
+    tick_velocity = {k: v.clone() for k, v in state.velocity.items()}
+    path = str(tmp_path / "model.ckpt")
+    saver = checkpoint.make_saver(async_)
+    saver.save_train_state(path, state)
+    after, _ = segment(state, x, y, plan[20:30], 1)        # overwrites the same buffers
+    assert after.params["fc2.bias"] is state.params["fc2.bias"]
+    assert not torch.equal(after.params["fc2.bias"], tick["fc2.bias"])
+    saver.flush()
+    restored = checkpoint.restore_train_state(
+        path, step.create_train_state(net, torch.Generator().manual_seed(0), device=device))
+    assert int(restored.step) == 20 and restored.step.device == device
+    for k in tick:
+        assert torch.equal(restored.params[k], tick[k]), k
+        assert torch.equal(restored.velocity[k], tick_velocity[k]), k
+
+
+def test_single_trainer_async_checkpoint_writes_the_sync_bytes_on_the_card(device, tmp_path,
+                                                                          monkeypatch):
+    """``--async-checkpoint`` leaves the sync run's bytes on the card. cuDNN's default
+    convolution backward is not deterministic from run to run on the card (two sync runs
+    differ in the last bits), so both runs take its deterministic algorithms."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import single
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import config
+
+    x, y = mnist._synthesize_split(1280, 300)
+    tx, ty = mnist._synthesize_split(1000, 301)
+    splits = (mnist.Dataset(mnist._normalize(x), y.astype("int32"), "synthetic"),
+              mnist.Dataset(mnist._normalize(tx), ty.astype("int32"), "synthetic"))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    data = {}
+    for async_ in (False, True):
+        out = tmp_path / str(async_)
+        single.main(config.SingleProcessConfig(
+            n_epochs=2, use_pallas_kernels=True, async_checkpoint=async_,
+            keep_checkpoints=2, results_dir=str(out), images_dir=str(out / "img")),
+            datasets=splits)
+        data[async_] = [(out / "model.ckpt").read_bytes(),
+                        (out / "checkpoints" / checkpoint.versioned_name(40)).read_bytes()]
+    assert data[True] == data[False]

@@ -9,7 +9,8 @@ over 3 steps, dropout off, the loss within rtol 1e-5 and the parameters within r
 atol 1e-6 (the JAX package's DDP-equivalence oracle: the reduce adds the two halves'
 gradients in another order); the port's trainer at world 2 against the JAX trainer on 2
 devices, from the same parameters on the same split with dropout off, every recorded loss
-within atol 1e-5; sharded against replicated evaluation within rtol 1e-4.
+within atol 1e-5; sharded against replicated evaluation within rtol 1e-4; a run resumed
+from its ``model_dist.ckpt`` against the unbroken run, bitwise (world 1 and world 2).
 """
 
 import json
@@ -20,6 +21,8 @@ import subprocess
 import sys
 import textwrap
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu.train import (
     distributed as jax_distributed,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu.utils import (
+    checkpoint as jax_checkpoint,
     config as jax_config,
     metrics as jax_metrics,
 )
@@ -362,7 +366,8 @@ def test_trainer_trains_the_step_options_like_jax_at_world_1(tmp_path, monkeypat
         monkeypatch.delenv(key, raising=False)
     capsys.readouterr()
     state, hist = distributed.main(config.DistributedConfig(
-        device="cpu", results_dir=str(tmp_path / "port"), **kw),
+        device="cpu", results_dir=str(tmp_path / "port"),
+        images_dir=str(tmp_path / "port" / "images"), **kw),
         datasets=(port_train, port_test))
     out = capsys.readouterr().out
     assert "Segment program: eager on cpu" in out
@@ -371,6 +376,102 @@ def test_trainer_trains_the_step_options_like_jax_at_world_1(tmp_path, monkeypat
     assert hist.train_counter == jhist.train_counter
     np.testing.assert_allclose(hist.train_losses, jhist.train_losses, atol=1e-5)
     np.testing.assert_allclose(hist.test_losses, jhist.test_losses, atol=1e-5)
+
+
+def _world_1(monkeypatch):
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+
+
+def _equal_states(a, b) -> None:
+    assert int(a.step) == int(b.step)
+    for tree in ("params", "velocity"):
+        for k, v in getattr(a, tree).items():
+            assert torch.equal(v, getattr(b, tree)[k]), (tree, k)
+
+
+def test_world_1_resume_equals_the_unbroken_run_bitwise(tmp_path, monkeypatch):
+    """2 epochs straight against 1 epoch, then ``--epochs 2 --resume-from
+    model_dist.ckpt``, dropout on (the masks are a function of seed, step and rank), at
+    world 1 on a local gloo store: the same parameters, velocity and step, bitwise; the
+    resumed run trains epoch 1 alone and records the same losses for it."""
+    _world_1(monkeypatch)
+    (train, test), _ = _datasets()
+    kw = dict(global_batch_size=64, batch_size_test=100, learning_rate=LR,
+              momentum=MOMENTUM, log_interval=2, device="cpu")
+    cfg = lambda name, **more: config.DistributedConfig(
+        results_dir=str(tmp_path / name), images_dir=str(tmp_path / name / "img"),
+        **kw, **more)
+    straight, s_hist = distributed.main(cfg("straight", epochs=2), datasets=(train, test))
+    distributed.main(cfg("first", epochs=1), datasets=(train, test))
+    ckpt = str(tmp_path / "first" / "model_dist.ckpt")
+    resumed, r_hist = distributed.main(cfg("resumed", epochs=2, resume_from=ckpt),
+                                       datasets=(train, test))
+    _equal_states(resumed, straight)
+    assert int(resumed.step) == 2 * (N_TRAIN // 64)
+    assert r_hist.train_counter == s_hist.train_counter[len(r_hist.train_counter):]
+    assert r_hist.train_losses == s_hist.train_losses[len(r_hist.train_losses):]
+    assert r_hist.test_losses == s_hist.test_losses[1:]
+    assert (tmp_path / "resumed" / "model_dist.ckpt").read_bytes() == \
+        (tmp_path / "straight" / "model_dist.ckpt").read_bytes()
+    assert (tmp_path / "straight" / "img" / "train_test_curve_dist.png").is_file()
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_model_dist_export_loads_through_jax_load_params(tmp_path, monkeypatch, ema):
+    """Rank 0's ``model_dist.msgpack`` is the JAX package's params export: its
+    ``load_params`` reads it equal to ``params_to_jax`` of the final params, or of the EMA
+    under ``--ema-decay``."""
+    _world_1(monkeypatch)
+    (train, test), _ = _datasets()
+    state, _ = distributed.main(config.DistributedConfig(
+        epochs=1, batch_size_test=100, device="cpu", ema_decay=0.9 if ema else 0.0,
+        results_dir=str(tmp_path), images_dir=str(tmp_path / "img")),
+        datasets=(train, test))
+    reference = JaxNet().init({"params": jax.random.PRNGKey(0)},
+                              jnp.zeros((1, 28, 28, 1)))["params"]
+    got = jax_checkpoint.load_params(str(tmp_path / "model_dist.msgpack"), reference)
+    want = cnn.params_to_jax(state.ema if ema else state.params)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=k)
+    if ema:
+        assert not all(torch.equal(state.ema[k], p) for k, p in state.params.items())
+
+
+RESUME_CHILD = """
+from {pkg}.parallel import mesh
+out = {{}}
+with mesh.cluster("cpu") as info:
+    kw = dict(global_batch_size=64, batch_size_test=100, learning_rate=0.05, device="cpu")
+    for name, epochs, resume in (("straight", 2, ""), ("first", 1, ""),
+                                 ("resumed", 2, "first/model_dist.ckpt")):
+        cfg = config.DistributedConfig(epochs=epochs, resume_from=resume, results_dir=name,
+                                       images_dir=name + "/img", **kw)
+        state, _ = distributed.main(cfg, datasets=datasets())
+        out[name] = {{k: v.numpy() for k, v in state.params.items()}}
+        out[name]["step"] = np.asarray(int(state.step))
+np.savez(f"rank{{info.process_index}}.npz",
+         **{{f"{{n}}/{{k}}": v for n, d in out.items() for k, v in d.items()}})
+"""
+
+
+def test_world_2_resume_keeps_the_replicas_equal(tmp_path):
+    """At world 2 under the launcher (gloo), rank 0 restores ``model_dist.ckpt`` and
+    broadcasts it: the resumed run's replicas agree bitwise, and equal the unbroken run's
+    (main()'s closing replica check passes too)."""
+    proc = run_fleet(tmp_path, *child(RESUME_CHILD.format(pkg=PKG)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("Resumed from first/model_dist.ckpt at step 8 (starting "
+                             "epoch 1)") == 1
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for key in ranks[0].files:
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key], err_msg=key)
+        if key.startswith("resumed/"):
+            np.testing.assert_array_equal(ranks[0][key],
+                                          ranks[0]["straight/" + key.split("/", 1)[1]],
+                                          err_msg=key)
+    assert int(ranks[1]["resumed/step"]) == 16
 
 
 SHARD_EVAL_CHILD = """
@@ -418,9 +519,8 @@ def test_device_cuda_without_card_raises():
     assert not dist.is_initialized()
 
 
-UNPORTED = [["--resume-from", "x"], ["--fsdp"], ["--host-local-feed"],
-            ["--telemetry", "t.jsonl"], ["--profile"], ["--model", "transformer"],
-            ["--epoch", "2"]]
+UNPORTED = [["--fsdp"], ["--host-local-feed"], ["--telemetry", "t.jsonl"],
+            ["--model", "transformer"], ["--epoch", "2"]]
 
 
 def test_config_keeps_jax_defaults_and_rejects_unported_flags():
@@ -429,7 +529,9 @@ def test_config_keeps_jax_defaults_and_rejects_unported_flags():
     ref = jax_config.DistributedConfig()
     for f in ("epochs", "global_batch_size", "batch_size_test", "learning_rate", "momentum",
               "optimizer", "log_interval", "seed", "sampler_seed", "data_dir", "results_dir",
-              "shard_eval", "max_train_examples", "max_test_examples"):
+              "shard_eval", "max_train_examples", "max_test_examples", "resume_from",
+              "keep_checkpoints", "async_checkpoint", "images_dir", "profile", "profile_dir",
+              "heartbeat_dir", "handle_preemption"):
         assert getattr(defaults, f) == getattr(ref, f), f
     cfg = config.parse_config(config.DistributedConfig,
                               ["--shard-eval", "--device", "cpu", "--epochs", "2"])

@@ -310,7 +310,7 @@ def test_single_trainer_exits_65_with_the_jax_trainers_window(tmp_path, monkeypa
     with pytest.raises(poison.Poisoned) as ours:
         single.main(config.SingleProcessConfig(
             n_epochs=2, guard=True, anomaly_exit=1, device="cpu",
-            results_dir=str(tmp_path / "port")),
+            results_dir=str(tmp_path / "port"), images_dir=str(tmp_path / "port" / "images")),
             datasets=(mnist.Dataset(x, y, "synthetic"), mnist.Dataset(tx, ty, "synthetic")))
     assert (ours.value.step, ours.value.window) == (theirs.value.step, theirs.value.window)
     assert ours.value.step == N_TRAIN // 64 and ours.value.window[1] - ours.value.window[0] == 1

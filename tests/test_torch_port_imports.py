@@ -1,5 +1,5 @@
-"""PyTorch port, package boundary: the port and its chip scripts import neither JAX nor the
-JAX package, and the port's top level stays a namespace package.
+"""PyTorch port, package boundary: the port and its chip scripts import neither JAX, flax,
+msgpack nor the JAX package, and the port's top level stays a namespace package.
 
 The top level has no ``__init__.py`` because the repository's linter (``tools/graftlint``)
 expects exactly one top-level package directory with one — the JAX package.
@@ -13,7 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "csed_514_project_distributed_training_using_pytorch_tpu_torch"
 JAX_PACKAGE = "csed_514_project_distributed_training_using_pytorch_tpu"
-FORBIDDEN = ("jax", "jaxlib", "flax", JAX_PACKAGE)
+# msgpack too: the card has none, and the port's checkpoints carry their own codec
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", JAX_PACKAGE)
 
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "flash_probe.py"]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
@@ -43,7 +44,9 @@ def test_sources_found():
                    "utils/benchmarks.py", "utils/determinism.py", "bench.py",
                    "parallel/ring_attention.py", "ops/optim.py", "train/step.py",
                    "train/guard.py", "resilience/__init__.py", "resilience/poison.py",
-                   "utils/telemetry.py"):
+                   "utils/telemetry.py", "utils/_msgpack.py", "utils/checkpoint.py",
+                   "utils/plotting.py", "utils/profiling.py", "resilience/heartbeat.py",
+                   "resilience/preemption.py"):
         assert PORT / module in SOURCES, module
 
 

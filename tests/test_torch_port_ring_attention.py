@@ -454,7 +454,7 @@ def test_flag_errors_match_jax(tmp_path, kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256}, "ROADMAP A6/A10"),
+    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256}, "ROADMAP A10"),
     ({"mesh": "data=1,seq=2", "seq_len": 256}, "einsum ring, not ported \\(ROADMAP A10\\)"),
     ({"mesh": "data=1,seq=2", "seq_impl": "ulysses"}, "not ported \\(ROADMAP A10\\)"),
     ({"mesh": "data=1,seq=2", "zigzag_attention": True, "causal": True, "seq_len": 512},
@@ -503,5 +503,5 @@ def test_seq_axis_size():
     assert mesh.seq_axis_size("data=1,seq=4") == 4
     assert mesh.seq_axis_size("seq=2,model=1") == 2
     for spec in ("data=2", "data=2,seq=2", "data=1,seq=2,model=2", "stage=2"):
-        with pytest.raises(ValueError, match="ROADMAP A6/A10"):
+        with pytest.raises(ValueError, match="ROADMAP A10"):
             mesh.seq_axis_size(spec)

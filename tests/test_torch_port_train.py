@@ -5,7 +5,8 @@ Tolerances: 5 train steps with dropout off agree within atol 1e-5 in parameters 
 with the fused kernels off and on; the whole single-process trainer, run by both packages
 on the same injected dataset from the same parameters with dropout off, agrees within atol
 1e-4 in every recorded loss and in the final parameters (float32 sums in another order,
-compounded over a short epoch of updates).
+compounded over a short epoch of updates), and so does each package's resume from the
+other's checkpoint against the other package's own resume.
 """
 
 import json
@@ -22,6 +23,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu.models.cnn import N
 from csed_514_project_distributed_training_using_pytorch_tpu.train import single as jax_single
 from csed_514_project_distributed_training_using_pytorch_tpu.train import step as jax_step
 from csed_514_project_distributed_training_using_pytorch_tpu.utils import (
+    checkpoint as jax_checkpoint,
     config as jax_config,
     metrics as jax_metrics,
 )
@@ -147,38 +149,59 @@ def test_eval_fn_matches_jax():
                                                    torch.from_numpy(y))
 
 
+SLICE_KW = dict(n_epochs=1, batch_size_train=64, batch_size_test=1000, learning_rate=LR,
+                momentum=MOMENTUM, log_interval=2, use_pallas_kernels=True)
+
+
+class _Slice:
+    """The harness of both ``train.single.main``s on the same injected 300/1000 split,
+    dropout off, the port starting from the JAX trainer's initial parameters."""
+
+    def __init__(self, tmp_path, monkeypatch):
+        self.tmp = tmp_path
+        (self.port_ds, self.ref_ds) = _datasets(300, 1000)
+        self.captured = {}
+        jax_create = jax_single.create_train_state
+
+        def capture(model, rng, **kw):
+            state = jax_create(model, rng, **kw)
+            self.captured.setdefault("params", {k: np.asarray(v)
+                                                for k, v in state.params.items()})
+            return state
+
+        def start_from_jax(model, generator, *, optimizer, device, **_):
+            params = {k: v.to(device)
+                      for k, v in cnn.params_from_jax(self.captured["params"]).items()}
+            return step.TrainState(params, optimizer.init(params), 0)
+
+        monkeypatch.setattr(jax_single, "create_train_state", capture)
+        monkeypatch.setattr(jax_single, "build_model", lambda *a, **k: JaxNet(
+            conv_dropout_rate=0.0, fc_dropout_rate=0.0))
+        monkeypatch.setattr(single, "create_train_state", start_from_jax)
+        monkeypatch.setattr(single, "build_model", lambda name: cnn.Net(
+            conv_dropout_rate=0.0, fc_dropout_rate=0.0))
+
+    def jax(self, name: str, resume_from: str | None = None):
+        cfg = jax_config.SingleProcessConfig(results_dir=str(self.tmp / name / "results"),
+                                             images_dir=str(self.tmp / name / "images"),
+                                             **SLICE_KW)
+        return jax_single.main(cfg, resume_from=resume_from, datasets=self.ref_ds)
+
+    def port(self, name: str, resume_from: str | None = None):
+        cfg = config.SingleProcessConfig(results_dir=str(self.tmp / name / "results"),
+                                         images_dir=str(self.tmp / name / "images"),
+                                         device="cpu", **SLICE_KW)
+        return single.main(cfg, resume_from=resume_from, datasets=self.port_ds)
+
+
 def test_whole_slice_matches_jax_trainer(tmp_path, monkeypatch, capsys):
     """Both ``train.single.main``s, on the same injected 300/1000 split at batch 64 with
     log_interval 2 (two segments of two steps, then a ragged tail of 44), dropout off, from
     the same initial parameters, through the fused kernels."""
-    (port_train, port_test), (ref_train, ref_test) = _datasets(300, 1000)
-    captured = {}
-    jax_create = jax_single.create_train_state
-
-    def capture(model, rng, **kw):
-        state = jax_create(model, rng, **kw)
-        captured["params"] = {k: np.asarray(v) for k, v in state.params.items()}
-        return state
-
-    monkeypatch.setattr(jax_single, "create_train_state", capture)
-    monkeypatch.setattr(jax_single, "build_model", lambda *a, **k: JaxNet(
-        conv_dropout_rate=0.0, fc_dropout_rate=0.0))
-    kw = dict(n_epochs=1, batch_size_train=64, batch_size_test=1000, learning_rate=LR,
-              momentum=MOMENTUM, log_interval=2, use_pallas_kernels=True)
-    jcfg = jax_config.SingleProcessConfig(results_dir=str(tmp_path / "jax" / "results"),
-                                          images_dir=str(tmp_path / "jax" / "images"), **kw)
-    jstate, jhist = jax_single.main(jcfg, datasets=(ref_train, ref_test))
+    harness = _Slice(tmp_path, monkeypatch)
+    jstate, jhist = harness.jax("jax")
     jax_out = capsys.readouterr().out
-
-    def start_from_jax(model, generator, *, optimizer, device, **_):
-        params = {k: v.to(device) for k, v in cnn.params_from_jax(captured["params"]).items()}
-        return step.TrainState(params, optimizer.init(params), 0)
-
-    monkeypatch.setattr(single, "create_train_state", start_from_jax)
-    monkeypatch.setattr(single, "build_model", lambda name: cnn.Net(
-        conv_dropout_rate=0.0, fc_dropout_rate=0.0))
-    cfg = config.SingleProcessConfig(results_dir=str(tmp_path / "port"), device="cpu", **kw)
-    state, hist = single.main(cfg, datasets=(port_train, port_test))
+    state, hist = harness.port("port")
     port_out = capsys.readouterr().out
 
     assert state.step == int(jstate.step) == 5
@@ -193,9 +216,61 @@ def test_whole_slice_matches_jax_trainer(tmp_path, monkeypatch, capsys):
                          if l.startswith("Train Epoch")]
     assert lines(port_out) == lines(jax_out) == ["Train Epoch: 1 [128/300 (43%)]",
                                                  "Train Epoch: 1 [256/300 (85%)]"]
-    rows = [json.loads(l) for l in open(tmp_path / "port" / "metrics.jsonl")]
+    port_dir = tmp_path / "port" / "results"
+    rows = [json.loads(l) for l in open(port_dir / "metrics.jsonl")]
     assert [(r["kind"], r["examples_seen"]) for r in rows] == [
         ("train", 128), ("train", 256), ("test", 0), ("test", 300)]
+    # the closing checkpoint holds the final state, in the JAX package's layout
+    restored = jax_checkpoint.restore_train_state(str(port_dir / "model.ckpt"), jstate)
+    assert int(restored.step) == 5
+    for k, v in cnn.params_to_jax(state.params).items():
+        np.testing.assert_array_equal(np.asarray(restored.params[k]), v, err_msg=k)
+    for png in ("train_images.png", "train_test_curve.png"):
+        assert (tmp_path / "port" / "images" / png).stat().st_size > 0
+
+
+def test_single_resume_interoperates_with_jax_trainer(tmp_path, monkeypatch, capsys):
+    """``--resume-from`` across the packages, on the harness above (dropout off, atol
+    1e-4): the port resumes from the ``model.ckpt`` the JAX trainer wrote and the JAX
+    trainer from the port's, and each trajectory matches the other package's own resume
+    from the same file, one more epoch ("train n_epochs more") at equal step counts."""
+    harness = _Slice(tmp_path, monkeypatch)
+    harness.jax("jax")
+    harness.port("port")
+    for writer in ("jax", "port"):
+        ckpt = str(tmp_path / writer / "results" / "model.ckpt")
+        jstate, jhist = harness.jax(f"jax_from_{writer}", resume_from=ckpt)
+        state, hist = harness.port(f"port_from_{writer}", resume_from=ckpt)
+        assert int(state.step) == int(jstate.step) == 10, writer
+        assert hist.train_counter == jhist.train_counter == [128, 256]
+        np.testing.assert_allclose(hist.train_losses, jhist.train_losses, atol=1e-4,
+                                   err_msg=writer)
+        np.testing.assert_allclose(hist.test_losses, jhist.test_losses, atol=1e-4,
+                                   err_msg=writer)
+        _assert_params_close(state.params, jstate.params, atol=1e-4)
+    out = capsys.readouterr().out
+    assert out.count("Resumed from") == 4 and "at step 5" in out
+
+
+def test_async_trainer_writes_the_sync_trainers_checkpoints(tmp_path):
+    """``--async-checkpoint`` leaves the bytes the synchronous saver leaves: the closing
+    ``model.ckpt`` and every versioned file, with the same seed and data."""
+    (train, test), _ = _datasets(256, 1000)
+    out = {}
+    for mode in (False, True):
+        d = tmp_path / ("async" if mode else "sync")
+        state, _ = single.main(config.SingleProcessConfig(
+            device="cpu", n_epochs=2, log_interval=2, use_pallas_kernels=True,
+            async_checkpoint=mode, keep_checkpoints=3, results_dir=str(d),
+            images_dir=str(d / "images")), datasets=(train, test))
+        store = d / "checkpoints"
+        out[mode] = {name: (store / name).read_bytes() for name in os.listdir(store)
+                     if name.endswith(".msgpack")}
+        out[mode]["model.ckpt"] = (d / "model.ckpt").read_bytes()
+    assert sorted(out[True]) == ["ckpt_00000004.msgpack", "ckpt_00000008.msgpack",
+                                 "model.ckpt"]
+    assert out[True] == out[False]
+    assert out[True]["model.ckpt"] == out[True]["ckpt_00000008.msgpack"]
 
 
 def test_main_without_device_cpu_raises_here():
@@ -216,7 +291,8 @@ def test_main_rejects_unported_optimizer(tmp_path):
     (train, test), _ = _datasets(256, 1000)
     state, hist = single.main(config.SingleProcessConfig(
         device="cpu", optimizer="adamw", learning_rate=1e-3, weight_decay=0.01,
-        n_epochs=1, log_interval=2, results_dir=str(tmp_path)), datasets=(train, test))
+        n_epochs=1, log_interval=2, results_dir=str(tmp_path),
+        images_dir=str(tmp_path / "images")), datasets=(train, test))
     assert set(state.velocity) == {"m", "v", "count"} and int(state.velocity["count"]) == 4
     assert hist.test_losses[-1] < hist.test_losses[0]
     with pytest.raises(ValueError, match="choose 'sgd' or 'adamw'"):
@@ -236,8 +312,12 @@ def test_parse_config_flags():
               "optimizer", "log_interval", "seed", "data_dir", "results_dir",
               "use_pallas_kernels"):
         assert getattr(defaults, f) == getattr(ref, f), f
+    for f in ("max_train_examples", "max_test_examples", "resume_from", "keep_checkpoints",
+              "async_checkpoint", "images_dir", "profile", "profile_dir", "heartbeat_dir",
+              "handle_preemption"):
+        assert getattr(defaults, f) == getattr(ref, f), f
     for argv in (["--use-host-pipeline"], ["--n-epoch", "2"], ["--telemetry", "t.jsonl"],
-                 ["--max-train-examples", "256"]):
+                 ["--model", "transformer"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.SingleProcessConfig, argv)
 
