@@ -119,7 +119,18 @@ Phases (each raises on failure; nothing is caught):
     epoch 2: exit 75, a verified, clean newest manifest entry, and a resume from it; (e)
     the plots, or that matplotlib is absent. [5] runs its epoch with the saves turned off
     in the harness, as before this phase existed;
-23. one JSON line with every kernel's numbers (each flash kernel with its offset form),
+23. the host-fed data path (the paper's own input pipeline): (a) the native C++ loader
+    built with g++ from the repo's source and held bitwise against numpy (normalize,
+    gather, the prefetcher's order, the IDX reader on ``tests/fixtures/mnist_idx``), an
+    epoch of host batches through it and through numpy, ``download_mnist`` from a local
+    ``http.server``; (b) ``train.single --use-pallas-kernels --use-host-pipeline`` for one
+    full epoch under each host-fed program in turns (eager steps; a one-step CUDA graph
+    over static input buffers), and captured on the numpy path, each against the
+    device-resident captured epoch, B1-B3 launches = 938, with epoch seconds, ms a step,
+    the loader's data wait and host launch calls a step; (c) ``train.distributed
+    --host-local-feed`` at world 1 on NCCL against the device-resident run; (d)
+    ``BatchLoader(prefetch=2, device=cuda)`` against the host iterator, and its data wait;
+24. one JSON line with every kernel's numbers (each flash kernel with its offset form),
     then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
@@ -261,6 +272,8 @@ POISON_TRAIN = 640             # phase 21: the poisoned run's split, 10 steps an
 RESUME_ATOL = 1e-6             # phase 22 (a): 1 epoch + resume vs 2 epochs straight, both
                                # captured on the card (the tolerance of [20])
 PREEMPT_EPOCHS = 3             # phase 22 (d): SIGTERM once epoch 2 has begun
+HOST_FED_WINDOW = 100          # phase 23 (b): host-fed steps of each program under the
+                               # profiler
 
 
 def fail(msg: str) -> None:
@@ -624,8 +637,9 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
     rule picks the CUDA graph there. Each is held against the eager loop
     (``make_segment_fn``) of the same step from the same start on the same plan, dropout
     off and on (the masks come from the step's device key on both paths, so they must
-    agree), per-step losses and final parameters within ``CAPTURE_ATOL``, with the launch
-    counts read around ``main()`` (replays counted). Then a profiler window over
+    agree), per-step losses and final parameters within ``CAPTURE_ATOL``, under cuDNN's
+    deterministic algorithms, with the launch counts read around ``main()`` (replays
+    counted). Then a profiler window over
     ``CAPTURE_WINDOW`` replays of each full-split segment (busy share, kernels, host launch
     calls per step) beside an eager window of the same steps, and the full epochs of [5],
     [15] and the bench of [16], which ran captured."""
@@ -679,92 +693,103 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
             e_p = max(e_p, (got_params[k] - p).abs().max().item())
         return e_l, e_p, got_l
 
-    for dropout in (False, True):
-        tag = f"dropout {'on' if dropout else 'off'}"
-        # train.single --use-pallas-kernels: captured in main(), eager here
-        cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device="cuda",
-                                  log_interval=li, results_dir=str(OUT_DIR / "captured"),
-                                  images_dir=str(OUT_DIR / "images"))
-        losses = []
-        fk.reset_launch_counts()
-        with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
-                                                                 losses)), \
-                patched(single, "build_model", lambda name: net(dropout)), \
-                contextlib.redirect_stdout(io.StringIO()) as said:
-            state, _ = single.main(cfg, datasets=sub)
-        counts = fk.launch_counts()
-        if "Segment program: cuda-graph on cuda" not in said.getvalue():
-            fail("[20] train.single did not print the captured program's rule line")
-        model = net(dropout)
-        e_state = st.create_train_state(model, torch.Generator().manual_seed(cfg.seed),
-                                        device=dev)
-        loader = BatchLoader(sub[0], BATCH, shuffle=True, seed=cfg.seed)
-        loader.set_epoch(1)
-        plan = torch.from_numpy(loader.epoch_index_matrix(1, allow_empty=True)).to(dev)
-        eager = st.make_segment_fn(st.make_train_step(
-            model, learning_rate=cfg.learning_rate, momentum=cfg.momentum, use_pallas=True))
-        e_losses = []
-        for s0 in range(0, CAPTURE_STEPS, li):
-            e_state, l = eager(e_state, x, y, plan[s0:s0 + li], cfg.seed)
-            e_losses.append(l)
-        e_l, e_p, got = compare(f"single {tag}", losses, state.params, e_losses,
-                                e_state.params)
-        if counts != dict.fromkeys(counts, CAPTURE_STEPS):
-            fail(f"[20] single {tag}: B1-B3 launches {counts} != {CAPTURE_STEPS} steps")
-        print(f"[20] train.single --use-pallas-kernels, {tag}: {CAPTURE_STEPS} steps "
-              f"captured (main) vs eager, max |dloss| {e_l:.3e}, max |dparam| {e_p:.3e} "
-              f"(atol {CAPTURE_ATOL:g}); B1-B3 launches in main() (replays counted) "
-              f"{counts}; losses {got[0]:.4f} -> {got[-1]:.4f}")
-
-        # train.distributed at world 1 on NCCL: the reducer inside the graph
-        dcfg = DistributedConfig(epochs=1, device="cuda", log_interval=li,
-                                 results_dir=str(OUT_DIR / "captured_dp"),
-                                 images_dir=str(OUT_DIR / "images"))
-        losses, made = [], []
-        reducer_cls = dp.GradReducer
-
-        class Recorded(reducer_cls):
-            def __init__(self, params):
-                super().__init__(params)
-                made.append(self)
-
-        fk.reset_launch_counts()
-        with mesh.cluster(dev) as info:
-            if info.backend != "nccl":
-                fail(f"[20] world 1 on the card ran {info.backend}, not nccl")
-            with patched(distributed, "make_epoch_fn", recording_epoch_fn(
-                    distributed.make_epoch_fn, losses)), \
-                    patched(distributed, "build_model", lambda name: net(dropout)), \
-                    patched(dp, "GradReducer", Recorded), \
+    # the comparisons take cuDNN's deterministic algorithms: its default convolution
+    # backward is not deterministic from run to run on the card, so two runs of one
+    # step can part in the last bits whatever program runs them (the windows below
+    # keep the default, as [5] does)
+    with patched(torch.backends.cudnn, "deterministic", True):
+        for dropout in (False, True):
+            tag = f"dropout {'on' if dropout else 'off'}"
+            # train.single --use-pallas-kernels: captured in main(), eager here
+            cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device="cuda",
+                                      log_interval=li,
+                                      results_dir=str(OUT_DIR / "captured"),
+                                      images_dir=str(OUT_DIR / "images"))
+            losses = []
+            fk.reset_launch_counts()
+            with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
+                                                                     losses)), \
+                    patched(single, "build_model", lambda name: net(dropout)), \
                     contextlib.redirect_stdout(io.StringIO()) as said:
-                d_state, _ = distributed.main(dcfg, datasets=sub)
-            d_counts = fk.launch_counts()
+                state, _ = single.main(cfg, datasets=sub)
+            counts = fk.launch_counts()
             if "Segment program: cuda-graph on cuda" not in said.getvalue():
-                fail("[20] train.distributed did not print the captured program's rule line")
+                fail("[20] train.single did not print the captured program's rule line")
             model = net(dropout)
-            e_state = st.create_train_state(model, torch.Generator().manual_seed(dcfg.seed),
+            e_state = st.create_train_state(model, torch.Generator().manual_seed(cfg.seed),
                                             device=dev)
-            reducer = reducer_cls(e_state.params)
-            plan = torch.from_numpy(distributed.epoch_index_plan(
-                [ShardedSampler(n, seed=dcfg.sampler_seed)], 0, dcfg.global_batch_size)
-            ).to(dev)
+            loader = BatchLoader(sub[0], BATCH, shuffle=True, seed=cfg.seed)
+            loader.set_epoch(1)
+            plan = torch.from_numpy(loader.epoch_index_matrix(1, allow_empty=True)).to(dev)
             eager = st.make_segment_fn(st.make_train_step(
-                model, learning_rate=dcfg.learning_rate, momentum=dcfg.momentum,
-                grad_reduce=reducer))
+                model, learning_rate=cfg.learning_rate, momentum=cfg.momentum,
+                use_pallas=True))
             e_losses = []
             for s0 in range(0, CAPTURE_STEPS, li):
-                e_state, l = eager(e_state, x, y, plan[s0:s0 + li], dcfg.seed)
+                e_state, l = eager(e_state, x, y, plan[s0:s0 + li], cfg.seed)
                 e_losses.append(l)
-        e_l, e_p, got = compare(f"distributed {tag}", losses, d_state.params, e_losses,
-                                e_state.params)
-        calls = [r.calls for r in made]
-        if calls != [CAPTURE_STEPS] or any(d_counts.values()):
-            fail(f"[20] distributed {tag}: reducer calls {calls} (want [{CAPTURE_STEPS}]), "
-                 f"kernel launches {d_counts} (want none)")
-        print(f"[20] train.distributed world 1 (nccl), {tag}: {CAPTURE_STEPS} steps "
-              f"captured (main, all-reduce in the graph) vs eager, max |dloss| {e_l:.3e}, "
-              f"max |dparam| {e_p:.3e} (atol {CAPTURE_ATOL:g}); reducer calls (replays "
-              f"counted) {calls[0]}; losses {got[0]:.4f} -> {got[-1]:.4f}")
+            e_l, e_p, got = compare(f"single {tag}", losses, state.params, e_losses,
+                                    e_state.params)
+            if counts != dict.fromkeys(counts, CAPTURE_STEPS):
+                fail(f"[20] single {tag}: B1-B3 launches {counts} != {CAPTURE_STEPS} steps")
+            print(f"[20] train.single --use-pallas-kernels, {tag}: {CAPTURE_STEPS} steps "
+                  f"captured (main) vs eager, max |dloss| {e_l:.3e}, max |dparam| "
+                  f"{e_p:.3e} "
+                  f"(atol {CAPTURE_ATOL:g}); B1-B3 launches in main() (replays counted) "
+                  f"{counts}; losses {got[0]:.4f} -> {got[-1]:.4f}")
+
+            # train.distributed at world 1 on NCCL: the reducer inside the graph
+            dcfg = DistributedConfig(epochs=1, device="cuda", log_interval=li,
+                                     results_dir=str(OUT_DIR / "captured_dp"),
+                                     images_dir=str(OUT_DIR / "images"))
+            losses, made = [], []
+            reducer_cls = dp.GradReducer
+
+            class Recorded(reducer_cls):
+                def __init__(self, params):
+                    super().__init__(params)
+                    made.append(self)
+
+            fk.reset_launch_counts()
+            with mesh.cluster(dev) as info:
+                if info.backend != "nccl":
+                    fail(f"[20] world 1 on the card ran {info.backend}, not nccl")
+                with patched(distributed, "make_epoch_fn", recording_epoch_fn(
+                        distributed.make_epoch_fn, losses)), \
+                        patched(distributed, "build_model", lambda name: net(dropout)), \
+                        patched(dp, "GradReducer", Recorded), \
+                        contextlib.redirect_stdout(io.StringIO()) as said:
+                    d_state, _ = distributed.main(dcfg, datasets=sub)
+                d_counts = fk.launch_counts()
+                if "Segment program: cuda-graph on cuda" not in said.getvalue():
+                    fail("[20] train.distributed did not print the captured program's "
+                         "rule line")
+                model = net(dropout)
+                e_state = st.create_train_state(
+                    model, torch.Generator().manual_seed(dcfg.seed), device=dev)
+                reducer = reducer_cls(e_state.params)
+                plan = torch.from_numpy(distributed.epoch_index_plan(
+                    [ShardedSampler(n, seed=dcfg.sampler_seed)], 0, dcfg.global_batch_size)
+                ).to(dev)
+                eager = st.make_segment_fn(st.make_train_step(
+                    model, learning_rate=dcfg.learning_rate, momentum=dcfg.momentum,
+                    grad_reduce=reducer))
+                e_losses = []
+                for s0 in range(0, CAPTURE_STEPS, li):
+                    e_state, l = eager(e_state, x, y, plan[s0:s0 + li], dcfg.seed)
+                    e_losses.append(l)
+            e_l, e_p, got = compare(f"distributed {tag}", losses, d_state.params, e_losses,
+                                    e_state.params)
+            calls = [r.calls for r in made]
+            if calls != [CAPTURE_STEPS] or any(d_counts.values()):
+                fail(f"[20] distributed {tag}: reducer calls {calls} (want "
+                     f"[{CAPTURE_STEPS}]), "
+                     f"kernel launches {d_counts} (want none)")
+            print(f"[20] train.distributed world 1 (nccl), {tag}: {CAPTURE_STEPS} steps "
+                  f"captured (main, all-reduce in the graph) vs eager, max |dloss| "
+                  f"{e_l:.3e}, "
+                  f"max |dparam| {e_p:.3e} (atol {CAPTURE_ATOL:g}); reducer calls (replays "
+                  f"counted) {calls[0]}; losses {got[0]:.4f} -> {got[-1]:.4f}")
 
     # profiler windows over replays of full-split segments, beside the eager loop
     full_x = torch.from_numpy(train_ds.images).to(dev)
@@ -1302,6 +1327,300 @@ def checkpoint_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
         fail(f"[22] (e) matplotlib is absent but plots were written: {pngs}")
     print(f"[22] (e) plots: {pngs} written" if have else
           "[22] (e) plots: matplotlib is absent on this machine; each plot returned None")
+
+
+@contextlib.contextmanager
+def numpy_data_path(on: bool):
+    """``CSED514_TPU_NO_NATIVE`` set for the block when ``on``: the data callers take their
+    numpy paths (``data.native.available()`` reads it at each call)."""
+    name = "CSED514_TPU_NO_NATIVE"
+    old = os.environ.get(name)
+    if on:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
+    """Phase 23: the host-fed data path on the card.
+
+    (a) the native loader (``data/_native/loader.cc``): a fresh g++ build of the repo's
+    source (its seconds; the process's own library was built at first use by [5]'s
+    ``load_mnist``), ``native.available()`` asserted, then ``native.normalize`` (1 and 4
+    threads), ``native.gather`` and the ``Prefetcher``'s order over a full epoch plan held
+    bitwise against numpy on the synthetic split, the epoch's host batches timed through
+    the native prefetcher and through numpy's gather; ``tests/fixtures/mnist_idx`` read
+    through ``native.load_idx``, and ``download_mnist`` against a local ``http.server``
+    that serves that fixture (no network); (b) ``train.single --use-pallas-kernels
+    --use-host-pipeline``, one full epoch under each host-fed program in turns (eager,
+    captured, captured, eager) and once captured with ``CSED514_TPU_NO_NATIVE`` (the numpy
+    path), each against the device-resident captured epoch (the tick losses, the test loss,
+    the final parameters within ``CAPTURE_ATOL``), B1-B3 launches = the epoch's steps, the
+    bar (test NLL below 1.0, accuracy at least 0.85), epoch seconds, wall ms a step, the
+    loader's data-wait seconds, then host launch calls a step of each program in a
+    profiler window; (c) ``train.distributed --host-local-feed`` at world 1 on NCCL against
+    the device-resident world-1 epoch, reducer calls = steps; (d) ``BatchLoader(prefetch=2,
+    device=cuda)``: values and order equal the host iterator's, and the data-wait seconds
+    of an epoch fed to the eager fused step with and without the prefetch.
+
+    The runs compared with one another take cuDNN's deterministic algorithms (as [22]).
+    ``dev`` may be the CPU for a rehearsal on a cut split: every host-fed program is then
+    eager, and gloo stands in for NCCL."""
+    import functools
+    import http.server
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+        BatchLoader, download, iter_plan_batches, mnist, native,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data._native import (
+        build as native_build,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import Net
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        distributed, single, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        DistributedConfig, SingleProcessConfig,
+    )
+
+    on_card = dev.type == "cuda"
+    root = OUT_DIR / "host_fed"
+    shutil.rmtree(root, ignore_errors=True)
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+
+    # (a) the native loader
+    with patched(native_build, "BUILD_DIR", root / "native_build"):
+        built = native_build.build()
+    if not native.available():
+        fail(f"[23] (a) the native loader is not available: {native.unavailable_reason()}")
+    print(f"[23] (a) g++ built {native_build.SOURCE.relative_to(ROOT)} afresh in "
+          f"{built.seconds:.2f} s; the process's library (built at first use): "
+          f"{native_build.library_path().name}, available: {native.available()}")
+    raw, _ = mnist._synthesize_split(len(train_ds), 514)
+    for threads in (1, 4):
+        if not np.array_equal(native.normalize(raw, mnist.MNIST_MEAN, mnist.MNIST_STD,
+                                               num_threads=threads), mnist._normalize(raw)):
+            fail(f"[23] (a) native.normalize ({threads} threads) differs from numpy's")
+    loader = BatchLoader(train_ds, BATCH, shuffle=True, seed=1)
+    plan = loader.epoch_index_matrix(1)
+    for row in plan[::50]:
+        gi, gl = native.gather(train_ds.images, train_ds.labels, row)
+        if not (np.array_equal(gi, train_ds.images[row])
+                and np.array_equal(gl, train_ds.labels[row])):
+            fail("[23] (a) native.gather differs from numpy's")
+    epoch_s = {}
+    for path in ("native", "numpy", "native", "numpy"):
+        with numpy_data_path(path == "numpy"):
+            if native.path_name() != path:
+                fail(f"[23] (a) the {path} path was asked for, {native.path_name()} ran")
+            t0 = time.perf_counter()
+            got = list(iter_plan_batches(train_ds, plan))
+            epoch_s.setdefault(path, []).append(time.perf_counter() - t0)
+        if len(got) != len(plan) or not all(
+                np.array_equal(bi, train_ds.images[plan[s]])
+                and np.array_equal(bl, train_ds.labels[plan[s]])
+                for s, (bi, bl) in enumerate(got)):
+            fail(f"[23] (a) the {path} path's epoch of batches differs from the plan's")
+    print(f"[23] (a) normalize (1 and 4 threads), gather and the Prefetcher's {len(plan)} "
+          f"batches in plan order == numpy, bitwise; one epoch of host batches in turns: "
+          f"native prefetcher {', '.join(f'{t:.4f}' for t in epoch_s['native'])} s, numpy "
+          f"gather {', '.join(f'{t:.4f}' for t in epoch_s['numpy'])} s")
+    fixture = ROOT / "tests" / "fixtures" / "mnist_idx"
+    for name in sorted(os.listdir(fixture)):
+        if not np.array_equal(native.load_idx(str(fixture / name)),
+                              mnist._read_idx(str(fixture / name))):
+            fail(f"[23] (a) native.load_idx({name}) differs from numpy's reader")
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=str(fixture)))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        sums = {n: download._md5(str(fixture / n)) for n in download.FILES}
+        url = f"http://127.0.0.1:{server.server_address[1]}/"
+        paths = download.download_mnist(str(root / "files"), mirrors=(url,), checksums=sums)
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+    fetched, _ = mnist.load_mnist(str(root / "files"), allow_synthetic=False)
+    print(f"[23] (a) native.load_idx on {len(os.listdir(fixture))} fixture files == numpy, "
+          f"bitwise; download_mnist from a local http.server: {len(paths)} files checked, "
+          f"loaded ({fetched.source}, {len(fetched)} train)")
+
+    # (b) train.single --use-host-pipeline: each program against the device-resident epoch
+    full = -(-len(train_ds) // BATCH)
+    x_test = torch.from_numpy(test_ds.images).to(dev)
+    y_test = torch.from_numpy(test_ds.labels.astype("int64")).to(dev)
+    runs = {}
+    programs = ("eager", "cuda-graph") if on_card else ("eager", "eager")
+    order = [("device", None, False), ("eager", programs[0], False),
+             ("captured", programs[1], False), ("captured", programs[1], False),
+             ("eager", programs[0], False), ("captured, numpy", programs[1], True)]
+    with patched(torch.backends.cudnn, "deterministic", True):
+        for name, program, numpy_path in order:
+            cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device=dev.type,
+                                      use_host_pipeline=program is not None,
+                                      results_dir=str(root / "single"),
+                                      images_dir=str(root / "images"))
+            make = (functools.partial(st.HostFedStep, program=program) if program
+                    else st.HostFedStep)
+            fk.reset_launch_counts()
+            with patched(single, "HostFedStep", make), \
+                    patched(checkpoint, "make_saver", lambda async_=False: NoSaves()), \
+                    numpy_data_path(numpy_path), \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                state, hist = single.main(cfg, datasets=(train_ds, test_ds))
+            counts = fk.launch_counts()
+            sum_nll, correct = st.make_eval_fn(Net())(state.params, x_test, y_test)
+            line = next((l for l in said.getvalue().splitlines()
+                         if l.startswith(("Host-fed program", "Segment program"))), "")
+            runs.setdefault(name, []).append(dict(
+                state=state, hist=hist, counts=counts, line=line,
+                nll=sum_nll.item() / len(test_ds), acc=correct.item() / len(test_ds)))
+    ref = runs["device"][0]
+    print(f"[23] (b) the device-resident captured epoch: {ref['hist'].epoch_seconds[0]:.3f} s "
+          f"({ref['line']}) [{card}]")
+    for name in ("eager", "captured", "captured, numpy"):
+        program = "cuda-graph" if name != "eager" and on_card else "eager"
+        path = "numpy" if "numpy" in name else "native"
+        for r in runs[name]:
+            if not (r["line"].startswith(f"Host-fed program: {program} on {dev.type}")
+                    and r["line"].endswith(f"host batches: {path}")):
+                fail(f"[23] (b) {name}: the trainer printed {r['line']!r}")
+            if r["counts"] != dict.fromkeys(r["counts"], full if on_card else 0):
+                fail(f"[23] (b) {name}: B1-B3 launches {r['counts']}, expected {full}")
+            e_l = np.abs(np.subtract(r["hist"].train_losses,
+                                     ref["hist"].train_losses)).max()
+            e_t = abs(r["hist"].test_losses[-1] - ref["hist"].test_losses[-1])
+            e_p = max((r["state"].params[k] - p).abs().max().item()
+                      for k, p in ref["state"].params.items())
+            if max(e_l, e_t, e_p) > CAPTURE_ATOL or len(r["hist"].train_losses) != len(
+                    ref["hist"].train_losses):
+                fail(f"[23] (b) {name}: |dloss| {e_l:.3e}, |dtest| {e_t:.3e}, |dparam| "
+                     f"{e_p:.3e} against the device-resident epoch (atol {CAPTURE_ATOL:g})")
+            if on_card and not (r["nll"] < 1.0 and r["acc"] >= 0.85):  # the full split
+                fail(f"[23] (b) {name}: test NLL {r['nll']:.4f}, accuracy {r['acc']:.4f}")
+            s = r["hist"].epoch_seconds[0]
+            print(f"[23] (b) {name}: epoch {s:.3f} s, {s / full * 1e3:.4f} ms a step, data "
+                  f"wait {r['hist'].data_wait_seconds[0]:.4f} s; B1-B3 launches "
+                  f"{r['counts']}; vs the device-resident epoch: max |dloss| {e_l:.3e} over "
+                  f"{len(r['hist'].train_losses)} ticks, |dtest| {e_t:.3e}, max |dparam| "
+                  f"{e_p:.3e} (atol {CAPTURE_ATOL:g}); test NLL {r['nll']:.4f}, accuracy "
+                  f"{r['acc']:.4f} [{card}]")
+    print(f"[23] (b) the trainer's rule line: {runs['captured'][0]['line']}")
+    batches = [(train_ds.images[row], train_ds.labels[row]) for row in plan[:HOST_FED_WINDOW]]
+    for program in dict.fromkeys(programs):
+        model = Net()
+        state = st.create_train_state(model, torch.Generator().manual_seed(1), device=dev)
+        fed = st.HostFedStep(st.make_train_step(model, learning_rate=LR, momentum=MOMENTUM,
+                                                use_pallas=True), dev, program=program)
+        for bx, by in batches[:3]:                   # the capture, cuDNN's choices
+            state, _ = fed(state, bx, by, 1)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+            t0 = time.perf_counter()
+            for bx, by in batches:
+                state, _ = fed(state, bx, by, 1)
+            sync()
+            wall = time.perf_counter() - t0
+        calls = host_launch_calls(prof)
+        print(f"[23] (b) {program} host-fed step, profiler window of {len(batches)} steps: "
+              f"{wall / len(batches) * 1e3:.4f} ms a step, host launch calls "
+              f"{sum(calls.values()) / len(batches):.2f} a step ({calls}) [{card}]")
+
+    # (c) train.distributed --host-local-feed at world 1 against the device-resident run
+    steps = len(train_ds) // BATCH
+    dist_runs = {}
+    with mesh.cluster(dev) as info, patched(torch.backends.cudnn, "deterministic", True):
+        if info.backend != ("nccl" if on_card else "gloo"):
+            fail(f"[23] (c) world 1 on {dev} ran {info.backend}")
+        for name, host_local in (("device-resident", False), ("host-local", True)):
+            made = []
+            reducer_cls = dp.GradReducer
+
+            class Recorded(reducer_cls):
+                def __init__(self, params):
+                    super().__init__(params)
+                    made.append(self)
+
+            cfg = DistributedConfig(epochs=1, device=dev.type, host_local_feed=host_local,
+                                    results_dir=str(root / "dist"),
+                                    images_dir=str(root / "images"))
+            with patched(dp, "GradReducer", Recorded), \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                state, hist = distributed.main(cfg, datasets=(train_ds, test_ds))
+            dist_runs[name] = dict(state=state, hist=hist, calls=[r.calls for r in made],
+                                   out=said.getvalue())
+    d, h = dist_runs["device-resident"], dist_runs["host-local"]
+    program = "cuda-graph" if on_card else "eager"
+    if f"Host-fed program: {program} on {dev.type}" not in h["out"] or \
+            "columns [0:64]" not in h["out"]:
+        fail("[23] (c) the host-local run did not print its program and columns")
+    if d["calls"] != [steps] or h["calls"] != [steps]:
+        fail(f"[23] (c) reducer calls {d['calls']} / {h['calls']}, expected [{steps}]")
+    e_l = np.abs(np.subtract(h["hist"].train_losses, d["hist"].train_losses)).max()
+    e_p = max((h["state"].params[k] - p).abs().max().item()
+              for k, p in d["state"].params.items())
+    if max(e_l, e_p) > CAPTURE_ATOL:
+        fail(f"[23] (c) host-local vs device-resident: |dloss| {e_l:.3e}, |dparam| {e_p:.3e}")
+    print(f"[23] (c) train.distributed --host-local-feed world 1 ({info.backend}, {program}): "
+          f"{steps} steps, reducer calls {h['calls'][0]} (replays counted); vs the "
+          f"device-resident run max |dloss| {e_l:.3e}, max |dparam| {e_p:.3e} (atol "
+          f"{CAPTURE_ATOL:g}); epoch {h['hist'].epoch_seconds[0]:.3f} s against "
+          f"{d['hist'].epoch_seconds[0]:.3f} s [{card}]")
+
+    # (d) BatchLoader(prefetch=2, device=cuda): values, order, and the data wait
+    plain = BatchLoader(train_ds, BATCH, shuffle=True, seed=1)
+    pre = BatchLoader(train_ds, BATCH, shuffle=True, seed=1, prefetch=2, device=dev)
+    n = 0
+    for (hx, hy), (gx, gy) in zip(plain, pre):
+        if not (np.array_equal(gx.cpu().numpy(), hx) and np.array_equal(gy.cpu().numpy(), hy)):
+            fail(f"[23] (d) prefetched batch {n} differs from the host iterator's")
+        n += 1
+    if n != full:
+        fail(f"[23] (d) {n} prefetched batches, expected {full}")
+    model = Net()
+    step_fn = st.make_train_step(model, learning_rate=LR, momentum=MOMENTUM, use_pallas=True)
+    wait = {}
+    for depth in (0, 2, 2, 0):
+        state = st.create_train_state(model, torch.Generator().manual_seed(1), device=dev)
+        feed = BatchLoader(train_ds, BATCH, shuffle=True, seed=1, prefetch=depth,
+                           device=dev if depth else None)
+        t0 = time.perf_counter()
+        for bx, by in feed:
+            if not depth:
+                bx, by = torch.from_numpy(bx).to(dev), torch.from_numpy(by)
+            state, _ = step_fn(state, bx, by.to(dev, torch.int64), 1)
+        sync()
+        wait.setdefault(depth, []).append((feed.pop_wait_s(), time.perf_counter() - t0))
+    print(f"[23] (d) BatchLoader(prefetch=2, device={dev}): {n} batches == the host "
+          f"iterator's, in order, bitwise; an epoch fed to the eager fused step in turns "
+          f"(data wait s / epoch s): without prefetch "
+          f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[0])}; prefetch=2 "
+          f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[2])} [{card}]")
 
 
 def main() -> None:
@@ -2516,7 +2835,10 @@ def main() -> None:
     # -- 22. checkpoints on the card: resume, log-tick saves, restore, preemption, plots --
     checkpoint_phase(dev, card, train_ds, test_ds, earlier)
 
-    # -- 23. result ---------------------------------------------------------------------
+    # -- 23. the host-fed data path: the native loader, both host-fed programs, prefetch -
+    host_fed_phase(dev, card, train_ds, test_ds)
+
+    # -- 24. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -2539,7 +2861,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[23] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[24] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,8 +5,10 @@ kept as this package's own copy (the port imports nothing of the JAX package). S
 contract, same bits:
 
 - raw IDX files (``train-images-idx3-ubyte[.gz]`` etc.) are parsed from ``<data_dir>`` or
-  ``<data_dir>/MNIST/raw`` (torchvision's cache layout) with numpy;
-- normalization uses the reference constants (0.1307, 0.3081) once, ahead of time;
+  ``<data_dir>/MNIST/raw`` (torchvision's cache layout), through the native C++ reader
+  (``data.native.load_idx``) where it is built, else with numpy, bit for bit alike;
+- normalization uses the reference constants (0.1307, 0.3081) once, ahead of time
+  (``data.native.normalize``, threaded, where it is built; else numpy);
 - with no IDX files, a deterministic MNIST-shaped split (60k/10k, seed 514) is rendered
   from a built-in glyph font. It is bitwise the JAX package's split (pinned in
   ``tests/test_torch_port_data.py``).
@@ -23,6 +25,8 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import native
 
 MNIST_MEAN = 0.1307
 MNIST_STD = 0.3081
@@ -147,10 +151,11 @@ def load_mnist(data_dir: str = "files", *, synthetic_seed: int = 514,
     (60,000 train / 10,000 test 28×28 grayscale images, normalized)."""
     paths = {k: _find_idx_file(data_dir, stem) for k, stem in _IDX_FILES.items()}
     if all(paths.values()):
-        train_x = _read_idx(paths["train_images"])
-        train_y = _read_idx(paths["train_labels"]).astype(np.int64)
-        test_x = _read_idx(paths["test_images"])
-        test_y = _read_idx(paths["test_labels"]).astype(np.int64)
+        read = native.load_idx if native.available() else _read_idx
+        train_x = read(paths["train_images"])
+        train_y = read(paths["train_labels"]).astype(np.int64)
+        test_x = read(paths["test_images"])
+        test_y = read(paths["test_labels"]).astype(np.int64)
         source = "idx"
     elif allow_synthetic:
         train_x, train_y = _synthesize_split(60_000, synthetic_seed)
@@ -159,6 +164,10 @@ def load_mnist(data_dir: str = "files", *, synthetic_seed: int = 514,
     else:
         raise FileNotFoundError(
             f"no MNIST IDX files under {data_dir!r} and synthetic fallback disabled")
-    train = Dataset(_normalize(train_x), train_y.astype(np.int32), source)
-    test = Dataset(_normalize(test_x), test_y.astype(np.int32), source)
+    if native.available():
+        norm = lambda x: native.normalize(x, MNIST_MEAN, MNIST_STD)
+    else:
+        norm = _normalize
+    train = Dataset(norm(train_x), train_y.astype(np.int32), source)
+    test = Dataset(norm(test_x), test_y.astype(np.int32), source)
     return train, test

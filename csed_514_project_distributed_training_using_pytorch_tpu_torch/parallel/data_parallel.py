@@ -10,6 +10,8 @@ its shard of the global batch and calls the reducer between the backward and the
   flat f32 bucket (21,841 floats, 87 KB, for the CNN), one SUM all-reduce a step, divided
   by the world size (gloo has no AVG), copied back. Every rank then holds the gradient
   and the loss of the global batch's mean, as the JAX program computes them;
+- ``global_batch_from_host_local``: the host-local feed's contract check (each rank feeds
+  its own contiguous block of every global batch, in plan order);
 - ``evaluate``: replicated (every rank evaluates the whole split, the reference's way) or
   sharded (each rank a contiguous block, the ``(sum_nll, correct)`` pair SUM-reduced).
 
@@ -79,6 +81,28 @@ class GradReducer:
         self.calls += 1
 
     __call__ = allreduce_mean_
+
+
+def global_batch_from_host_local(local_images, local_labels, *, columns: tuple[int, int],
+                                 global_batch: int):
+    """This rank's part of the global batch from its host-local shard: the counterpart of
+    the JAX package's, which assembles a globally sharded array from each process's rows.
+    In a torch world each rank steps on its own shard and the reducer joins the gradients,
+    so the shard is returned as it is, after the contract check: ``columns`` must be this
+    rank's contiguous block of the plan, ``[r·B, (r+1)·B)`` with ``B = global_batch //
+    world`` (the plan's column order is the sampler's), and the shard must hold its ``B``
+    rows."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    per = global_batch // world
+    want = (rank * per, (rank + 1) * per)
+    if global_batch % world or tuple(columns) != want:
+        raise ValueError(f"rank {rank} of {world} feeds columns {tuple(columns)} of a global "
+                         f"batch of {global_batch}; the host-local feed needs its contiguous "
+                         f"block {want}")
+    if len(local_images) != per or len(local_labels) != per:
+        raise ValueError(f"host-local shard of {len(local_images)} images and "
+                         f"{len(local_labels)} labels, expected {per} rows")
+    return local_images, local_labels
 
 
 def evaluate(eval_fn: Callable, params, images: torch.Tensor, labels: torch.Tensor, *,

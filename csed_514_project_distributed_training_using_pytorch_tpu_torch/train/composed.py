@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+    download_mnist,
     load_mnist,
     truncate,
 )
@@ -220,6 +221,8 @@ def _train(config: ComposedConfig, info, datasets, init_params):
     model = build_classifier(config)
     grt = GuardRuntime(config, store_dir=(os.path.join(config.results_dir, "checkpoints")
                                           if config.results_dir else ""))
+    if config.download_data and datasets is None:
+        download_mnist(config.data_dir)
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
     train_ds = truncate(train_ds, config.max_train_examples)
     test_ds = truncate(test_ds, config.max_test_examples)

@@ -13,7 +13,8 @@ the replica-sync check, and rank 0's loss curve (``images/train_test_curve_dist.
 weights under ``--ema-decay``, the parameters otherwise.
 
 The whole split lives on each rank's device. Every rank builds the same global
-``[steps, global_batch]`` plan (``epoch_index_plan``) and trains on its own column block,
+``[steps, global_batch]`` plan (``epoch_index_plan``) and trains on its own column block
+(``_host_local_columns``),
 so each step's global batch is the one the JAX package trains on; the gradient and the
 loss are averaged over the ranks by one all-reduce a step (``GradReducer``). The final
 sub-global-batch remainder of each epoch is dropped, as in the JAX package. Training runs
@@ -24,6 +25,14 @@ reducer's all-reduce inside it and replayed; a gloo group stages the reduce thro
 memory, which a graph cannot capture, so it runs the eager loop, as the CPU does. The
 trainer prints the rule's choice. The step's options are ``train.single``'s; the guard's
 verdict reads the reduced loss and gradient norm, so every rank skips the same steps.
+
+``--host-local-feed`` is the multi-host input path: the split stays in host memory and
+each rank gathers only its own columns of every global batch (``iter_plan_batches``: the
+native C++ prefetcher, or numpy's gather where it is not built; the trainer's line names
+which), one step a batch through ``train.step.HostFedStep`` (on NCCL a one-step CUDA graph
+over static input buffers, the all-reduce inside it; eager on gloo), with the same plan,
+the same dropout keys and the reducer's one all-reduce a step. ``--download-data`` fetches
+the IDX archives first, on every rank (each installs whole files atomically).
 
 Checkpoints are the JAX package's files, byte for byte (``utils.checkpoint``), written by
 rank 0 at each epoch end after its host copy of the state. ``--resume-from`` skips the
@@ -40,8 +49,7 @@ Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the car
         -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.distributed \\
         --device cpu --epochs 1
 
-Not ported: telemetry (ROADMAP A11), the host-local feed (A1), FSDP (A10) and the
-transformer model (A5).
+Not ported: telemetry (ROADMAP A11), FSDP (A10) and the transformer model (A5).
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch import resilience
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+    download_mnist,
+    iter_plan_batches,
     load_mnist,
     truncate,
 )
@@ -72,16 +82,19 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard i
     GuardRuntime,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
+    describe_host_fed,
     describe_program,
     resolve_device,
     run_cli,
     step_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+    HostFedStep,
     TrainState,
     create_train_state,
     make_epoch_fn,
     make_eval_fn,
+    make_train_step,
     segment_program,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
@@ -113,6 +126,12 @@ def epoch_index_plan(samplers: list[ShardedSampler], epoch: int,
     return np.concatenate(blocks, axis=1)
 
 
+def _host_local_columns(rank: int, per_replica_batch: int) -> tuple[int, int]:
+    """Rank ``rank``'s contiguous column block ``[r·B, (r+1)·B)`` of the ``[steps,
+    global_batch]`` plan: its DistributedSampler shard, the rows it feeds and steps on."""
+    return rank * per_replica_batch, (rank + 1) * per_replica_batch
+
+
 def main(config: DistributedConfig = DistributedConfig(), *,
          datasets=None) -> tuple[TrainState, M.MetricsHistory]:
     """Run data-parallel training as this process's rank; every rank calls it. Returns the
@@ -122,6 +141,10 @@ def main(config: DistributedConfig = DistributedConfig(), *,
     default MNIST is loaded from ``config.data_dir``."""
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before the rendezvous
+    if config.health_stats and config.host_local_feed:
+        raise ValueError("--health-stats rides the compiled scan carry "
+                         "(train/step.py::HealthStats) — it is not available on the "
+                         "per-batch --host-local-feed path")
     check_step_options(config)
     optimizer = optim.make_optimizer(config.optimizer, learning_rate=config.learning_rate,
                                      momentum=config.momentum,
@@ -138,6 +161,8 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                 f"per-replica batch {per_replica_batch} not divisible by grad_accum "
                 f"{config.grad_accum} — each microbatch must still shard evenly")
 
+        if config.download_data and datasets is None:
+            download_mnist(config.data_dir)   # download=True, src/train_dist.py:22-30
         train_ds, test_ds = (datasets if datasets is not None
                              else load_mnist(config.data_dir))
         train_ds = truncate(train_ds, config.max_train_examples)
@@ -176,18 +201,29 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                                              warmup_steps=config.warmup_steps,
                                              total_steps=config.epochs * steps_per_epoch)
         reducer = dp.GradReducer(state.params)
-        segment_fn = make_epoch_fn(
-            model, **step_options(config, optimizer, lr_schedule, grt.spec),
-            grad_accum=config.grad_accum, pregather=config.pregather,
-            unroll=config.scan_unroll, grad_reduce=reducer, rank=rank)
+        options = step_options(config, optimizer, lr_schedule, grt.spec)
+        col_lo, col_hi = _host_local_columns(rank, per_replica_batch)
+        if config.host_local_feed:
+            host_step = HostFedStep(
+                make_train_step(model, **options, grad_accum=config.grad_accum,
+                                grad_reduce=reducer, rank=rank),
+                info.device, grad_reduce=reducer)
+            M.log(f"Host-local feed: this process feeds global-batch columns "
+                  f"[{col_lo}:{col_hi}]")
+            M.log(describe_host_fed(host_step.program, info.device))
+        else:
+            segment_fn = make_epoch_fn(
+                model, **options, grad_accum=config.grad_accum, pregather=config.pregather,
+                unroll=config.scan_unroll, grad_reduce=reducer, rank=rank)
+            M.log(describe_program(segment_program(info.device, reducer), info.device))
         eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
-        M.log(describe_program(segment_program(info.device, reducer), info.device))
 
         to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(info.device)
-        train_x, test_x = to_device(train_ds.images), to_device(test_ds.images)
-        train_y = to_device(train_ds.labels.astype(np.int64))
+        test_x = to_device(test_ds.images)
         test_y = to_device(test_ds.labels.astype(np.int64))
-        columns = slice(rank * per_replica_batch, (rank + 1) * per_replica_batch)
+        if not config.host_local_feed:        # the host-local feed keeps it on the host
+            train_x = to_device(train_ds.images)
+            train_y = to_device(train_ds.labels.astype(np.int64))
 
         history = M.MetricsHistory()
         li = config.log_interval
@@ -198,6 +234,42 @@ def main(config: DistributedConfig = DistributedConfig(), *,
         rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                                  handle_preemption=config.handle_preemption,
                                  process_index=rank)
+
+        def tick(epoch: int, done_steps: int, loss: torch.Tensor) -> None:
+            """The progress line of a log tick: the tick's one host sync."""
+            M.log(M.train_progress_line(epoch, done_steps * config.global_batch_size,
+                                        n_train, loss.item()))
+
+        def run_epoch_device_resident(state, plan, epoch):
+            """``log_interval``-step segments over the device-resident split."""
+            idx = to_device(plan[:, col_lo:col_hi])
+            steps, segments = plan.shape[0], []
+            for seg_start in range(0, steps, li):
+                state, losses = segment_fn(state, train_x, train_y,
+                                           idx[seg_start:seg_start + li], config.seed)
+                segments.append(losses)
+                tick(epoch, min(seg_start + li, steps), losses[-1])
+            return state, torch.cat(segments)
+
+        def run_epoch_host_local(state, plan, epoch):
+            """The multi-host input path: each step this rank gathers only its own columns
+            of the global batch on the host (the native prefetcher's workers gather step
+            s+1's while step s runs) and steps on them; the reducer joins the ranks."""
+            steps, losses = plan.shape[0], []
+            # the live bar (the reference's tqdm) draws only on a rank-0 terminal
+            with M.ProgressBar(steps, desc="train ") as bar:
+                for s, (bx, by) in enumerate(
+                        iter_plan_batches(train_ds, plan[:, col_lo:col_hi]), start=1):
+                    bx, by = dp.global_batch_from_host_local(
+                        bx, by, columns=(col_lo, col_hi), global_batch=plan.shape[1])
+                    state, loss = host_step(state, bx, by, config.seed)
+                    losses.append(loss)
+                    if s % li == 0 or s == steps:
+                        bar.close()
+                        tick(epoch, s, loss)
+                    bar.update(1)
+            return state, torch.stack(losses)
+
         try:
             with maybe_profile(config.profile, config.profile_dir):
                 for epoch in range(start_epoch, config.epochs):
@@ -205,21 +277,14 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                     rt.epoch_tick(state, epoch, fingerprint=grt.fingerprint)
                     t_epoch = time.perf_counter()
                     plan = epoch_index_plan(samplers, epoch, per_replica_batch)
-                    idx = to_device(plan[:, columns])
                     steps = plan.shape[0]
-                    segments = []
-                    for seg_start in range(0, steps, li):
-                        state, losses = segment_fn(state, train_x, train_y,
-                                                   idx[seg_start:seg_start + li],
-                                                   config.seed)
-                        segments.append(losses)
-                        last_loss = losses[-1].item()     # the segment's one host sync
-                        done = min(seg_start + li, steps) * config.global_batch_size
-                        M.log(M.train_progress_line(epoch, done, n_train, last_loss))
+                    run_epoch = (run_epoch_host_local if config.host_local_feed
+                                 else run_epoch_device_resident)
+                    state, losses = run_epoch(state, plan, epoch)
                     if info.device.type == "cuda":
                         torch.cuda.synchronize(info.device)   # honest wall-clock
                     history.epoch_seconds.append(time.perf_counter() - t_epoch)
-                    losses = torch.cat(segments).cpu().numpy()
+                    losses = losses.cpu().numpy()
                     train_loss = float(losses.mean())     # mean of per-step global means
                     for i, loss in enumerate(losses[::li]):
                         history.record_train(epoch * plan.size + i * li * plan.shape[1],

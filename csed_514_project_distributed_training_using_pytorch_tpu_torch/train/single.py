@@ -1,12 +1,13 @@
 """Single-process trainer — the reference ``train.py`` workflow on one CUDA device.
 
-Counterpart of the JAX package's ``train/single.py``. In order: seeding, the index-plan
-loader, the sample grid (``images/train_images.png``), the resume (``--resume-from``),
-baseline eval before training, then ``n_epochs`` of (train with a progress line, a metric
-record and the overwrite checkpoint ``results/model.ckpt`` every ``log_interval`` batches,
-the ragged tail batch, eval, the versioned store under ``--keep-checkpoints``, the guard's
-exit, the preemption check), and finally the loss curve (``train_test_curve.png``),
-``results/metrics.jsonl`` and the closing save of the final state.
+Counterpart of the JAX package's ``train/single.py``. In order: the download
+(``--download-data``), seeding, the loader, the sample grid (``images/train_images.png``),
+the resume (``--resume-from``), baseline eval before training, then ``n_epochs`` of
+(train with a progress line, a metric record and the overwrite checkpoint
+``results/model.ckpt`` every ``log_interval`` batches, the ragged tail batch, eval, the
+versioned store under ``--keep-checkpoints``, the guard's exit, the preemption check),
+and finally the loss curve (``train_test_curve.png``), ``results/metrics.jsonl`` and the
+closing save of the final state.
 
 The whole training split lives on the device, and each step gathers its batch with
 ``index_select`` by the sampler's plan, as the JAX package's device-resident path does.
@@ -17,6 +18,15 @@ own graph), on the CPU the eager loop; the trainer prints the rule's choice. The
 last batch runs as one eager step, as the JAX package runs it outside its scan. The host
 syncs once per log tick, to print the tick's loss, and the tick's checkpoint copies the
 state to host memory there, before the next replay overwrites the graph's buffers.
+
+``--use-host-pipeline`` trains the reference's loop shape instead: host batches in the
+same plan order through the native C++ prefetcher (``BatchLoader.prefetch_iter``; numpy's
+gather where the library is not built, and the trainer's line names which), one step a
+batch through ``train.step.HostFedStep`` (on the card a one-step CUDA graph over static
+input buffers that each batch is copied into, by the same rule), with the same dropout
+key (seed, step, rank), the same log ticks, their checkpoints and the eager tail step, and
+a live progress bar on a terminal. On the CPU its epoch equals the device-resident epoch
+bitwise; the loader's data-wait seconds go to ``MetricsHistory.data_wait_seconds``.
 
 Checkpoints are the JAX package's files, byte for byte (``utils.checkpoint``): either
 package resumes from the other's. ``--resume-from`` means "train ``n_epochs`` more": the
@@ -40,8 +50,7 @@ Run it with::
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \\
         --use-pallas-kernels
 
-Telemetry (ROADMAP A11), the host pipeline and the transformer model (ROADMAP A1, A5) are
-not ported yet.
+Telemetry (ROADMAP A11) and the transformer model (ROADMAP A5) are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,7 +64,9 @@ import torch
 from csed_514_project_distributed_training_using_pytorch_tpu_torch import resilience
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
     BatchLoader,
+    download_mnist,
     load_mnist,
+    native,
     truncate,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
@@ -64,6 +75,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard i
     GuardRuntime,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+    HostFedStep,
     TrainState,
     create_train_state,
     make_epoch_fn,
@@ -118,6 +130,14 @@ def describe_program(program: str, device: torch.device) -> str:
             f"device unless the gradient reduce is staged through host memory, else eager)")
 
 
+def describe_host_fed(program: str, device: torch.device) -> str:
+    """The one line a host-fed trainer prints: the step's program and the host data path
+    that ran (``native`` or ``numpy``)."""
+    return (f"Host-fed program: {program} on {device} (the rule: a one-step CUDA graph over "
+            f"static input buffers on a CUDA device unless the gradient reduce is staged "
+            f"through host memory, else eager); host batches: {native.path_name()}")
+
+
 def main(config: SingleProcessConfig = SingleProcessConfig(), *,
          resume_from: str | None = None,
          datasets=None) -> tuple[TrainState, M.MetricsHistory]:
@@ -129,6 +149,10 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     """
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before any data work
+    if config.health_stats and config.use_host_pipeline:
+        raise ValueError("--health-stats rides the compiled scan carry "
+                         "(train/step.py::HealthStats) — it is not available on the "
+                         "per-batch --use-host-pipeline path")
     check_step_options(config)
     if config.grad_accum > 1 and config.batch_size_train % config.grad_accum:
         raise ValueError(f"batch_size_train {config.batch_size_train} not divisible "
@@ -140,6 +164,8 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         raise ValueError("--use-pallas-kernels fuses the SGD-momentum update — it "
                          "requires --optimizer sgd")
     grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"))
+    if config.download_data and datasets is None:
+        download_mnist(config.data_dir)       # torchvision download=True, src/train.py:26-31
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
     train_ds = truncate(train_ds, config.max_train_examples)
     test_ds = truncate(test_ds, config.max_test_examples)
@@ -174,21 +200,28 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                          "update kernel — use the default constant schedule without "
                          "warmup")
 
-    # Device-resident splits: the one host->device transfer.
+    # Device-resident splits: the one host->device transfer (the host pipeline keeps its
+    # training split on the host).
     to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    train_x, test_x = to_device(train_ds.images), to_device(test_ds.images)
-    train_y = to_device(train_ds.labels.astype(np.int64))
-    test_y = to_device(test_ds.labels.astype(np.int64))
+    test_x, test_y = to_device(test_ds.images), to_device(test_ds.labels.astype(np.int64))
+    if not config.use_host_pipeline:
+        train_x = to_device(train_ds.images)
+        train_y = to_device(train_ds.labels.astype(np.int64))
 
     common = step_options(config, optimizer, lr_schedule, grt.spec) | dict(
         use_pallas=config.use_pallas_kernels)
-    segment_fn = make_epoch_fn(model, **common, grad_accum=config.grad_accum,
-                               pregather=config.pregather, unroll=config.scan_unroll)
+    if config.use_host_pipeline:
+        host_step = HostFedStep(make_train_step(model, **common,
+                                                grad_accum=config.grad_accum), device)
+        M.log(describe_host_fed(host_step.program, device))
+    else:
+        segment_fn = make_epoch_fn(model, **common, grad_accum=config.grad_accum,
+                                   pregather=config.pregather, unroll=config.scan_unroll)
+        M.log(describe_program(segment_program(device), device))
     # the ragged last batch need not divide by grad_accum, a memory knob: it steps
     # unaccumulated, as in the JAX package
     tail_step_fn = make_train_step(model, **common)
     eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
-    M.log(describe_program(segment_program(device), device))
 
     history = M.MetricsHistory()
     n_train, n_test = len(train_ds), len(test_ds)
@@ -235,6 +268,37 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
             state, _ = tail_step_fn(state, train_x.index_select(0, tail_idx),
                                     train_y.index_select(0, tail_idx), config.seed)
         return state
+
+    def train_epoch_host_pipeline(state: TrainState, epoch: int) -> TrainState:
+        """The reference-shaped loop: host batches through the native threaded prefetcher,
+        one step a batch; the same plan, dropout keys, ticks and tail as ``train_epoch``."""
+        train_loader.set_epoch(epoch)
+        train_loader.pop_wait_s()                  # this epoch's data wait starts at zero
+        full_steps = train_loader.epoch_index_matrix(epoch, allow_empty=True).shape[0]
+        li = config.log_interval
+        # the live bar (the reference's tqdm) draws only on a rank-0 terminal
+        with M.ProgressBar(full_steps, desc=f"Epoch {epoch} ") as bar:
+            for b, (bx, by) in enumerate(train_loader.prefetch_iter(epoch), start=1):
+                state, loss = host_step(state, bx, by, config.seed)
+                if b % li == 0 or b == full_steps:
+                    bar.close()                    # the log line starts on a clean line
+                    last_loss = loss.item()        # the tick's one host sync
+                    examples_seen = (epoch - 1) * n_train + b * batch
+                    M.log(M.train_progress_line(epoch, b * batch, n_train, last_loss))
+                    history.record_train(examples_seen, last_loss)
+                    # the state is on the host before the next replay overwrites it
+                    saver.save_train_state(ckpt_path, state)
+                bar.update(1)
+        history.data_wait_seconds.append(train_loader.pop_wait_s())
+        tail = train_loader.sampler.epoch_indices(epoch)[full_steps * batch:]
+        if len(tail):
+            state, _ = tail_step_fn(state, to_device(train_ds.images[tail]),
+                                    to_device(train_ds.labels[tail].astype(np.int64)),
+                                    config.seed)
+        return state
+
+    if config.use_host_pipeline:
+        train_epoch = train_epoch_host_pipeline
 
     try:
         with maybe_profile(config.profile, config.profile_dir):

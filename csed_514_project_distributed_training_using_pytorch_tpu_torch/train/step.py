@@ -18,6 +18,9 @@ replays it (the captured program):
   replayed; ``make_epoch_fn`` / ``make_epoch_from_step`` choose between the two by a rule
   (``segment_program``), never by a flag: a CUDA graph on a CUDA device unless the
   gradient reducer crosses through host memory (a gloo group), eager otherwise;
+- ``HostFedStep``: one step a host batch for the host-fed loops, by the same rule: eager,
+  or a one-step ``CapturedSegment`` over static input buffers that each batch is copied
+  into;
 - ``make_eval_fn``: full-split evaluation (sum-NLL + correct count) in batches.
 
 Dropout: the masks are a function of ``(seed, step, rank)`` only. The step derives a 32-bit
@@ -462,7 +465,15 @@ def make_segment_fn(train_step: Callable, *, pregather: bool = False,
 def segment_program(device: torch.device, grad_reduce=None) -> str:
     """The rule that picks the segment's program: ``"cuda-graph"`` on a CUDA device unless
     the gradient reducer stages its bucket through host memory (a gloo group, which a
-    graph cannot capture), ``"eager"`` otherwise."""
+    graph cannot capture), ``"eager"`` otherwise.
+
+    The host-fed step (``HostFedStep``: one step a host batch) follows the same rule: its
+    captured program is a one-step graph over static input buffers that each batch is
+    copied into. Both host-fed programs were measured on the card before the rule was
+    kept (``chip_smoke.py`` [23], PERF.md): a full epoch of ``train.single
+    --use-host-pipeline --use-pallas-kernels`` took 3.6-3.8 s eager and 0.50-0.66 s
+    captured on an NVIDIA H100 80GB HBM3 at 700 W, where the eager step is host-bound by
+    its 102 launch calls and the replay makes one."""
     if torch.device(device).type != "cuda":
         return "eager"
     if grad_reduce is not None and grad_reduce.host_staged:
@@ -571,6 +582,65 @@ class CapturedSegment:
             owner.add_launch_counts({k: b[k] - c[k] for k in b})   # undo warm-up, capture
         counts = [{k: c[k] - w[k] for k in c} for w, c in zip(warmed, captured)]
         return entry._replace(out=out if self.health else (out,), counts=counts)
+
+
+class HostFedStep:
+    """``step(state, images, labels, seed) -> (state, loss)`` on a host batch (numpy
+    ``images`` ``[B, 28, 28, 1]`` float32 and integer ``labels`` ``[B]``): the host-fed
+    loops' step (``train.single --use-host-pipeline``, ``train.distributed
+    --host-local-feed``), on ``device``, by the program ``segment_program`` picks.
+
+    On the CPU the batch is wrapped as tensors and stepped eagerly: the same step on the
+    same values as the device-resident segment's, so the two epochs agree bitwise. On a
+    CUDA device the batch is staged into pinned memory and copied without blocking into
+    static device buffers (one images/labels pair per batch shape, allocated at the first
+    batch of that shape) on the current stream, so the copy is ordered before the step that
+    reads it, and the next batch's copy after it. Then ``"eager"`` runs the step on the
+    buffers; ``"cuda-graph"`` replays a one-step ``CapturedSegment`` over them, whose graph
+    gathers the batch from the buffers by the identity plan, as the device-resident segment
+    gathers it from the split. The buffers' addresses are the graph's key, so there is one
+    graph per batch shape however many batches are fed; the launch counters count replays
+    as ``CapturedSegment`` does, and a failed capture or replay raises.
+
+    ``program`` overrides the rule (measurements that compare the two programs).
+    """
+
+    def __init__(self, train_step: Callable, device: torch.device | str, *,
+                 grad_reduce=None, program: str | None = None):
+        self.device = torch.device(device)
+        self.program = program or segment_program(self.device, grad_reduce)
+        if self.program not in ("eager", "cuda-graph"):
+            raise ValueError(f"unknown host-fed program {self.program!r}")
+        self.train_step = train_step
+        self.captured = (CapturedSegment(train_step, grad_reduce=grad_reduce)
+                         if self.program == "cuda-graph" else None)
+        self.buffers: dict[tuple, tuple] = {}
+
+    def _inputs(self, images: np.ndarray, labels: np.ndarray):
+        """The batch as the step's tensors: ``(images, labels, identity plan)`` (the plan
+        None on the CPU)."""
+        x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
+        y = torch.from_numpy(np.asarray(labels, dtype=np.int64))
+        if self.device.type != "cuda":
+            return x, y, None
+        key = (tuple(x.shape), tuple(y.shape))
+        if key not in self.buffers:
+            self.buffers[key] = (torch.empty(x.shape, dtype=x.dtype, device=self.device),
+                                 torch.empty(y.shape, dtype=y.dtype, device=self.device),
+                                 torch.arange(len(y), device=self.device).view(1, -1))
+        x_buf, y_buf, ident = self.buffers[key]
+        # pinned blocks come from torch's caching host allocator, which hands one out
+        # again only after the copy that reads it has finished
+        x_buf.copy_(x.pin_memory(), non_blocking=True)
+        y_buf.copy_(y.pin_memory(), non_blocking=True)
+        return x_buf, y_buf, ident
+
+    def __call__(self, state, images: np.ndarray, labels: np.ndarray, seed: int):
+        x, y, ident = self._inputs(images, labels)
+        if self.captured is None:
+            return self.train_step(state, x, y, seed)
+        state, losses = self.captured(state, x, y, ident, seed)
+        return state, losses[0]
 
 
 def make_epoch_from_step(train_step: Callable, *, unroll: int = 1, pregather: bool = False,

@@ -108,12 +108,20 @@ class SingleProcessConfig(StepOptions, RunOptions):
     log_interval: int = 10
     seed: int = 1
     data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
+    download_data: bool = False       # fetch the MNIST IDX archives into data_dir first
+                                      # (torchvision download=True, src/train.py:26-31;
+                                      # off by default: it needs the network)
     results_dir: str = "results"      # model.ckpt, metrics.jsonl and the store go here
     max_train_examples: int = 0       # truncate the splits (0 = all)
     max_test_examples: int = 0
     use_pallas_kernels: bool = False  # the fused loss/optimizer kernels
                                       # (ops/fused_kernels.py: CUDA on the card); the
                                       # name is the JAX package's flag
+    use_host_pipeline: bool = False   # feed host batches through the native C++
+                                      # threaded prefetcher (the DataLoader num_workers=4
+                                      # counterpart, src/train_dist.py:43-45), one step a
+                                      # batch, instead of the device-resident segments;
+                                      # same plan, same math
     device: str = "cuda"              # 'cuda' (the default: raises when no card is
                                       # present) or 'cpu', which must be asked for
 
@@ -132,11 +140,18 @@ class DistributedConfig(StepOptions, RunOptions):
     seed: int = 1                     # the parameters' seed, and the dropout masks'
     sampler_seed: int = 42            # the DistributedSampler order's seed
     data_dir: str = "files"           # MNIST IDX files; the synthetic split without them
+    download_data: bool = False       # torchvision download=True (src/train_dist.py:
+                                      # 22-30); the atomic install makes concurrent
+                                      # fetches by co-hosted ranks safe
     results_dir: str = "results"      # rank 0 writes model_dist.ckpt, model_dist.msgpack,
                                       # metrics.jsonl and the store here
     shard_eval: bool = False          # False: every rank evaluates the whole test split
                                       # (the reference's way); True: each rank a block,
                                       # the sums SUM-reduced
+    host_local_feed: bool = False     # each rank gathers and feeds only its own block of
+                                      # every global batch from host memory (the
+                                      # multi-host input path), one step a batch, instead
+                                      # of the device-resident split; same plan, same math
     max_train_examples: int = 0       # truncate the splits (0 = all)
     max_test_examples: int = 0
     device: str = "cuda"              # 'cuda' (the default: raises when no card is
@@ -172,6 +187,7 @@ class ComposedConfig(StepOptions):
     dropout_rate: float = 0.0           # 0 keeps runs comparable across meshes
     seed: int = 1
     data_dir: str = "files"
+    download_data: bool = False         # fetch the MNIST IDX archives into data_dir first
     results_dir: str = "results"        # metrics.jsonl goes here
     max_train_examples: int = 0         # truncate the splits (0 = all)
     max_test_examples: int = 0

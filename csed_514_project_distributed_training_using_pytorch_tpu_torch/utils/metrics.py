@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``utils/metrics.py``: the loss trajectories, the
 every-``log_interval`` train progress line, the post-eval test summary, the data-parallel
-epoch summary, and the ``metrics.jsonl`` artifact. The lines are character for character
-the JAX package's, and only rank 0 of a process group prints them.
+epoch summary, the ``metrics.jsonl`` artifact and the host-fed loops' live progress bar.
+The lines are character for character the JAX package's, and only rank 0 of a process
+group prints them.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -26,6 +28,8 @@ class MetricsHistory:
     test_losses: list = field(default_factory=list)
     test_counter: list = field(default_factory=list)    # examples seen at each eval point
     epoch_seconds: list = field(default_factory=list)   # device-synced wall time per epoch
+    data_wait_seconds: list = field(default_factory=list)  # host-fed epochs: seconds the
+                                                        # loop waited on the loader
 
     def record_train(self, examples_seen: int, loss: float) -> None:
         self.train_counter.append(int(examples_seen))
@@ -83,6 +87,67 @@ def is_logging_process() -> bool:
 def log(msg: str) -> None:
     if is_logging_process():
         print(msg, flush=True)
+
+
+class ProgressBar:
+    """Live per-batch progress display: the reference's tqdm bars
+    (``src/train_dist.py:76,96``) as a first-party, dependency-free counterpart of the JAX
+    package's.
+
+    Only the host-fed loops (``--use-host-pipeline``, ``--host-local-feed``) drive it, where
+    a per-step dispatch already exists; it never forces a device sync. Rendering is
+    rate-limited (``min_interval_s``), rank-0 gated and tty-gated: piped output gets
+    nothing, so logs stay byte-identical to the JAX package's.
+    """
+
+    def __init__(self, total: int, desc: str = "", *, stream=None,
+                 min_interval_s: float = 0.1, width: int = 24):
+        self.total = max(1, int(total))
+        self.desc = desc
+        self.n = 0
+        self._stream = sys.stderr if stream is None else stream
+        self._min_interval = min_interval_s
+        self._width = width
+        self._last_render = 0.0
+        self._t0 = time.time()
+        self._enabled = (is_logging_process()
+                         and bool(getattr(self._stream, "isatty", lambda: False)()))
+        self._open_line = False
+        self._last_len = 0
+
+    def update(self, n: int = 1, loss: float | None = None) -> None:
+        self.n += n
+        if not self._enabled:
+            return
+        now = time.time()
+        if self.n < self.total and now - self._last_render < self._min_interval:
+            return
+        self._last_render = now
+        filled = self._width * self.n // self.total
+        bar = "#" * filled + "-" * (self._width - filled)
+        rate = self.n / max(now - self._t0, 1e-9)
+        extra = f" loss={loss:.4f}" if loss is not None else ""
+        line = f"{self.desc}[{bar}] {self.n}/{self.total} {rate:.1f}it/s{extra}"
+        # pad to the previous render's length: a shorter line must not leave stale
+        # characters behind on the terminal
+        pad = " " * max(0, self._last_len - len(line))
+        self._last_len = len(line)
+        self._stream.write(f"\r{line}{pad}")
+        self._stream.flush()
+        self._open_line = True
+
+    def close(self) -> None:
+        """Finish the in-place line so that the next log line starts clean."""
+        if self._enabled and self._open_line:
+            self._stream.write("\n")
+            self._stream.flush()
+            self._open_line = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def train_progress_line(epoch: int, examples_seen: int, dataset_size: int,

@@ -922,7 +922,11 @@ def _segment_runs(state_fn, segment_fns, xs, ys, plan):
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["kernels", "plain"])
 @pytest.mark.parametrize("dropout", [False, True], ids=["dropout_off", "dropout_on"])
-def test_captured_segment_matches_the_eager_loop(device, use_pallas, dropout):
+def test_captured_segment_matches_the_eager_loop(device, use_pallas, dropout, monkeypatch):
+    """Captured against eager under cuDNN's deterministic algorithms: its default
+    convolution backward is not deterministic from run to run on the card, and two runs
+    of the same step parted by 1.1e-05 in conv1's weights over 20 steps without them."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     net = cnn.Net() if dropout else cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
     gen = torch.Generator(device=device).manual_seed(4)
     xs = torch.randn(CAPTURE_STEPS * 64, 28, 28, 1, generator=gen, device=device)
@@ -947,7 +951,9 @@ def test_captured_segment_matches_the_eager_loop(device, use_pallas, dropout):
 
 def test_captured_segment_with_the_reducer_on_nccl(device, monkeypatch):
     """World 1 on NCCL: the all-reduce inside the graph; the reducer's calls count the
-    replays; pregather and the health accumulators as the eager loop's."""
+    replays; pregather and the health accumulators as the eager loop's (deterministic
+    cuDNN algorithms, as above)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     for key in _RENDEZVOUS:
         monkeypatch.delenv(key, raising=False)
     net = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
@@ -1111,3 +1117,88 @@ def test_single_trainer_async_checkpoint_writes_the_sync_bytes_on_the_card(devic
         data[async_] = [(out / "model.ckpt").read_bytes(),
                         (out / "checkpoints" / checkpoint.versioned_name(40)).read_bytes()]
     assert data[True] == data[False]
+
+
+# -- the host-fed step and the device prefetch (data slice) ------------------------------
+
+import numpy as np  # noqa: E402
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (  # noqa: E402
+    BatchLoader,
+    mnist,
+)
+
+HOST_FED_ATOL = 1e-6           # captured replay vs eager steps on the card (chip_smoke [20])
+
+
+def _host_batches(n_steps: int, batch: int = 64, seed: int = 400):
+    x, y = mnist._synthesize_split(n_steps * batch, seed)
+    images = mnist._normalize(x)
+    return [(images[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch].astype(np.int32))
+            for i in range(n_steps)]
+
+
+def _host_fed_run(device, program: str, batches):
+    model = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    state = step.create_train_state(model, torch.Generator().manual_seed(1), device=device)
+    fed = step.HostFedStep(step.make_train_step(model, learning_rate=0.01, momentum=0.5,
+                                                use_pallas=True), device, program=program)
+    fk.reset_launch_counts()
+    losses = []
+    for bx, by in batches:
+        state, loss = fed(state, bx, by, 1)
+        losses.append(loss)
+    torch.cuda.synchronize(device)
+    return fed, state, torch.stack(losses).cpu(), fk.launch_counts()
+
+
+def test_host_fed_graph_takes_different_batches_through_one_capture(device, monkeypatch):
+    """Five different host batches through the one-step graph: one capture, five replays,
+    the static input buffers at the same addresses, five different losses, each within
+    1e-6 of the eager step on the same batch (deterministic cuDNN algorithms)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = _host_batches(5)
+    fed, state, losses, _ = _host_fed_run(device, "cuda-graph", batches)
+    assert len(fed.captured.graphs) == 1 and fed.captured.replays == 5
+    (x_buf, y_buf, _), = fed.buffers.values()
+    key, = fed.captured.graphs
+    assert key[2:4] == (x_buf.data_ptr(), y_buf.data_ptr())
+    assert len(set(losses.tolist())) == 5
+    np.testing.assert_array_equal(y_buf.cpu().numpy(), batches[-1][1])
+    _, e_state, e_losses, _ = _host_fed_run(device, "eager", batches)
+    torch.testing.assert_close(losses, e_losses, atol=HOST_FED_ATOL, rtol=0.0)
+    for k, p in e_state.params.items():
+        torch.testing.assert_close(state.params[k], p, atol=HOST_FED_ATOL, rtol=0.0)
+
+
+def test_host_fed_launch_counts_equal_eager_steps(device):
+    """B1-B3 counted at every replay equal the eager steps' launches; a batch of another
+    shape gets its own buffers and graph, one graph per shape."""
+    batches = _host_batches(4)
+    batches.append((batches[0][0][:32], batches[0][1][:32]))
+    fed, _, _, captured = _host_fed_run(device, "cuda-graph", batches)
+    _, _, _, eager = _host_fed_run(device, "eager", batches)
+    assert captured == eager == dict.fromkeys(eager, len(batches))
+    assert len(fed.captured.graphs) == len(fed.buffers) == 2
+
+
+def test_cuda_prefetch_keeps_its_values_under_allocator_pressure(device):
+    """``prefetch=2`` onto the card: each batch is read on the consumer's stream after a
+    spin kernel while the worker stages the next batches and the consumer's references are
+    dropped at once; what was read equals the host iterator's batches (the allocator reuses
+    no block that the consumer's stream still reads)."""
+    x, y = mnist._synthesize_split(2048, 401)
+    ds = mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic")
+    host = list(BatchLoader(ds, 64, shuffle=True, seed=7))
+    loader = BatchLoader(ds, 64, shuffle=True, seed=7, prefetch=2, device=device)
+    read = []
+    for bx, by in loader:
+        torch.cuda._sleep(200_000)                  # the consumer's stream is behind
+        read.append((bx * 1.0, by + 0))             # read after the spin
+        del bx, by
+        torch.empty(64 * 28 * 28, device=device).fill_(float("nan"))   # churn the pool
+    torch.cuda.synchronize(device)
+    assert len(read) == len(host) == 32
+    for (gx, gy), (hx, hy) in zip(read, host):
+        np.testing.assert_array_equal(gx.cpu().numpy(), hx)
+        np.testing.assert_array_equal(gy.cpu().numpy(), hy)

@@ -1,15 +1,19 @@
-"""PyTorch port, data slice: MNIST ingest, sampler and index plans against the JAX package.
+"""PyTorch port, data slice: MNIST ingest, sampler, index plans and host batches against the
+JAX package.
 
 Everything here is pinned bitwise: the synthetic split, normalization, IDX parsing,
-sampler plans and epoch index matrices are integer or numpy float work that both packages
-do with the same numpy calls.
+sampler plans, epoch index matrices and host batches (iteration with its ragged tail,
+``prefetch_iter``, ``iter_plan_batches`` on a column block, the device prefetch on the CPU)
+are integer or numpy float work, or copies, that both packages do alike.
 """
 
 import gzip
 import struct
+import threading
 
 import numpy as np
 import pytest
+import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu.data import loader as jax_loader
 from csed_514_project_distributed_training_using_pytorch_tpu.data import mnist as jax_mnist
@@ -153,3 +157,98 @@ def test_batch_loader_empty_plans():
         bl.epoch_index_matrix(1)
     with pytest.raises(ValueError):
         loader.BatchLoader(ds, 8, sampler=sampler.ShardedSampler(30), shuffle=True)
+
+
+# -- host batches: iteration, the ragged tail, the prefetchers ----------------------------
+
+
+def _pair(n: int, seed: int = 30):
+    x, y = mnist._synthesize_split(n, seed)
+    ds = mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic")
+    return ds, jax_mnist.Dataset(ds.images, ds.labels, ds.source)
+
+
+def _assert_batches_equal(ours, theirs) -> None:
+    ours, theirs = list(ours), list(theirs)
+    assert len(ours) == len(theirs)
+    for pairs in zip(ours, theirs):
+        (oi, ol), (ti, tl) = ([np.asarray(a) for a in pair] for pair in pairs)
+        assert oi.shape == ti.shape and oi.dtype == ti.dtype and ol.dtype == tl.dtype
+        np.testing.assert_array_equal(oi, ti)
+        np.testing.assert_array_equal(ol, tl)
+
+
+@pytest.mark.parametrize("n,batch,drop_last", [
+    (300, 64, False), (300, 64, True), (256, 64, False), (40, 64, False), (40, 64, True)])
+def test_batch_loader_iteration_bitwise(n, batch, drop_last):
+    """``__iter__`` (the ragged last batch unless ``drop_last``) and ``__len__`` as the
+    JAX loader's, over two epochs of the shuffled order."""
+    ds, jds = _pair(n)
+    ours = loader.BatchLoader(ds, batch, shuffle=True, seed=2, drop_last=drop_last)
+    theirs = jax_loader.BatchLoader(jds, batch, shuffle=True, seed=2, drop_last=drop_last)
+    assert len(ours) == len(theirs) == (n // batch if drop_last else -(-n // batch))
+    for epoch in (1, 2):
+        ours.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        got = list(ours)
+        assert len(got) == len(ours)
+        if got and not drop_last and n % batch:
+            assert got[-1][0].shape[0] == n % batch
+        _assert_batches_equal(got, theirs)
+        _assert_batches_equal(ours.prefetch_iter(epoch), theirs.prefetch_iter(epoch))
+    assert ours.pop_wait_s() > 0.0 and ours.pop_wait_s() == 0.0
+
+
+@pytest.mark.parametrize("columns", [slice(8, 24), slice(0, 32), slice(16, 17)])
+def test_iter_plan_batches_on_a_column_block_bitwise(columns):
+    """The host-local feed hands ``iter_plan_batches`` a column block of the global plan,
+    a view that is not contiguous."""
+    ds, jds = _pair(200)
+    plan = np.random.default_rng(13).integers(0, 200, size=(9, 32)).astype(np.int32)
+    local = plan[:, columns]
+    got = list(loader.iter_plan_batches(ds, local))
+    _assert_batches_equal(got, jax_loader.iter_plan_batches(jds, local))
+    for s, (bi, bl) in enumerate(got):
+        np.testing.assert_array_equal(bi, ds.images[local[s]])
+        np.testing.assert_array_equal(bl, ds.labels[local[s]])
+    assert list(loader.iter_plan_batches(ds, plan[:0])) == []
+
+
+def test_device_prefetch_on_the_cpu_keeps_order_values_and_stops_early():
+    """``prefetch=2`` on the CPU: tensors with the host iterator's values in its order,
+    each epoch's reshuffle, and an iterator abandoned mid-epoch stops its worker."""
+    ds, _ = _pair(100)
+    plain = loader.BatchLoader(ds, 32, shuffle=True, seed=3)
+    pre = loader.BatchLoader(ds, 32, shuffle=True, seed=3, prefetch=2, device="cpu")
+    for epoch in (0, 1):
+        plain.set_epoch(epoch)
+        pre.set_epoch(epoch)
+        got = list(pre)
+        assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for batch in got for t in batch)
+        _assert_batches_equal(got, plain)
+    it = iter(loader.BatchLoader(ds, 8, prefetch=1, device="cpu"))
+    next(it)
+    it.close()
+    for _ in range(100):
+        if not any(t.name == "loader-prefetch" for t in threading.enumerate()):
+            break
+        threading.Event().wait(0.05)
+    assert not any(t.name == "loader-prefetch" for t in threading.enumerate())
+
+
+def test_device_prefetch_reraises_the_workers_error_and_validates():
+    def failing():
+        yield np.zeros((2, 1), np.float32), np.zeros(2, np.int32)
+        raise IndexError("bad batch")
+
+    it = loader._device_prefetch_iter(failing(), 2, torch.device("cpu"))
+    assert next(it)[0].shape == (2, 1)
+    with pytest.raises(IndexError, match="bad batch"):
+        next(it)
+    ds, _ = _pair(32)
+    with pytest.raises(ValueError, match="prefetch must be >= 0"):
+        loader.BatchLoader(ds, 16, prefetch=-1)
+    with pytest.raises(ValueError, match="device="):
+        loader.BatchLoader(ds, 16, prefetch=2)
+    assert isinstance(next(iter(loader.BatchLoader(ds, 16)))[0], np.ndarray)

@@ -9,7 +9,7 @@ over 3 steps, dropout off, the loss within rtol 1e-5 and the parameters within r
 atol 1e-6 (the JAX package's DDP-equivalence oracle: the reduce adds the two halves'
 gradients in another order); the port's trainer at world 2 against the JAX trainer on 2
 devices, from the same parameters on the same split with dropout off, every recorded loss
-within atol 1e-5; sharded against replicated evaluation within rtol 1e-4; a run resumed
+within atol 1e-5 (and so with ``--host-local-feed`` in both); sharded against replicated evaluation within rtol 1e-4; a run resumed
 from its ``model_dist.ckpt`` against the unbroken run, bitwise (world 1 and world 2).
 """
 
@@ -284,11 +284,12 @@ distributed.main(cfg, datasets=datasets())
 """
 
 
-def test_trainer_at_world_2_matches_jax_trainer_on_2_devices(tmp_path, monkeypatch, capsys):
+def _world_2_against_jax(tmp_path, monkeypatch, capsys, **flags) -> str:
     """Both ``distributed.main``s on the same 512/200 split, global batch 64 over 2
-    replicas, 2 epochs, log_interval 2, dropout off, from the same parameters."""
+    replicas, 2 epochs, log_interval 2, dropout off, from the same parameters, with
+    ``flags`` set in both packages' configs; returns the port's rank-0 output."""
     kw = dict(epochs=2, global_batch_size=64, batch_size_test=100, learning_rate=LR,
-              momentum=MOMENTUM, log_interval=2)
+              momentum=MOMENTUM, log_interval=2, **flags)
     _, (ref_train, ref_test) = _datasets()
     captured = {}
     jax_create = jax_distributed.create_train_state
@@ -324,6 +325,25 @@ def test_trainer_at_world_2_matches_jax_trainer_on_2_devices(tmp_path, monkeypat
     # the printed per-epoch means (4 decimals) agree to the printed digits
     np.testing.assert_allclose([o[1:3] for o in ours], [t[1:3] for t in theirs], atol=2e-4)
     assert proc.stdout.count("Train Epoch: 0 [128/512 (25%)]") == 1
+    return proc.stdout
+
+
+def test_trainer_at_world_2_matches_jax_trainer_on_2_devices(tmp_path, monkeypatch, capsys):
+    """The device-resident split on each rank, against the JAX trainer's scanned epoch."""
+    out = _world_2_against_jax(tmp_path, monkeypatch, capsys)
+    assert "Segment program: eager on cpu" in out
+
+
+def test_host_local_feed_at_world_2_matches_jax_host_local_feed(tmp_path, monkeypatch,
+                                                               capsys):
+    """``--host-local-feed`` in both packages: each rank of the gloo world feeds its own
+    column block of every global batch from host memory, one step a batch; the JAX trainer
+    assembles its 2-device batch from the host-local rows. The recorded losses agree
+    within atol 1e-5, the printed means to their digits."""
+    out = _world_2_against_jax(tmp_path, monkeypatch, capsys, host_local_feed=True)
+    assert "Host-local feed: this process feeds global-batch columns [0:32]" in out
+    assert "Host-fed program: eager on cpu" in out
+    assert "Segment program" not in out
 
 
 def test_trainer_trains_the_step_options_like_jax_at_world_1(tmp_path, monkeypatch, capsys):
@@ -519,7 +539,7 @@ def test_device_cuda_without_card_raises():
     assert not dist.is_initialized()
 
 
-UNPORTED = [["--fsdp"], ["--host-local-feed"], ["--telemetry", "t.jsonl"],
+UNPORTED = [["--fsdp"], ["--bf16"], ["--telemetry", "t.jsonl"],
             ["--model", "transformer"], ["--epoch", "2"]]
 
 
@@ -531,7 +551,7 @@ def test_config_keeps_jax_defaults_and_rejects_unported_flags():
               "optimizer", "log_interval", "seed", "sampler_seed", "data_dir", "results_dir",
               "shard_eval", "max_train_examples", "max_test_examples", "resume_from",
               "keep_checkpoints", "async_checkpoint", "images_dir", "profile", "profile_dir",
-              "heartbeat_dir", "handle_preemption"):
+              "heartbeat_dir", "handle_preemption", "download_data", "host_local_feed"):
         assert getattr(defaults, f) == getattr(ref, f), f
     cfg = config.parse_config(config.DistributedConfig,
                               ["--shard-eval", "--device", "cpu", "--epochs", "2"])

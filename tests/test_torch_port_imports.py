@@ -35,6 +35,8 @@ def test_sources_found():
     assert len(SOURCES) >= 28
     for kernel_source in ("fused_kernels.cu", "flash_attention.cu", "paged_attention.cu"):
         assert (PORT / "csrc" / kernel_source).is_file()
+    # the native loader's own C++ source, never the JAX package's
+    assert (PORT / "data" / "_native" / "loader.cc").is_file()
     for module in ("ops/attention.py", "ops/rotary.py", "ops/flash_attention.py",
                    "models/transformer.py", "parallel/mesh.py", "train/composed.py",
                    "ops/paged_attention.py", "models/lm.py", "serving/__init__.py",
@@ -46,7 +48,8 @@ def test_sources_found():
                    "train/guard.py", "resilience/__init__.py", "resilience/poison.py",
                    "utils/telemetry.py", "utils/_msgpack.py", "utils/checkpoint.py",
                    "utils/plotting.py", "utils/profiling.py", "resilience/heartbeat.py",
-                   "resilience/preemption.py"):
+                   "resilience/preemption.py", "data/native.py", "data/download.py",
+                   "data/loader.py", "data/_native/__init__.py", "data/_native/build.py"):
         assert PORT / module in SOURCES, module
 
 

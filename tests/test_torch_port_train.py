@@ -6,11 +6,18 @@ with the fused kernels off and on; the whole single-process trainer, run by both
 on the same injected dataset from the same parameters with dropout off, agrees within atol
 1e-4 in every recorded loss and in the final parameters (float32 sums in another order,
 compounded over a short epoch of updates), and so does each package's resume from the
-other's checkpoint against the other package's own resume.
+other's checkpoint against the other package's own resume, and each package's
+``--use-host-pipeline`` against the other's. The port's host-fed epoch equals its
+device-resident epoch bitwise on the CPU.
 """
 
+import io
 import json
 import os
+import pathlib
+import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -181,16 +188,16 @@ class _Slice:
         monkeypatch.setattr(single, "build_model", lambda name: cnn.Net(
             conv_dropout_rate=0.0, fc_dropout_rate=0.0))
 
-    def jax(self, name: str, resume_from: str | None = None):
+    def jax(self, name: str, resume_from: str | None = None, **flags):
         cfg = jax_config.SingleProcessConfig(results_dir=str(self.tmp / name / "results"),
                                              images_dir=str(self.tmp / name / "images"),
-                                             **SLICE_KW)
+                                             **SLICE_KW, **flags)
         return jax_single.main(cfg, resume_from=resume_from, datasets=self.ref_ds)
 
-    def port(self, name: str, resume_from: str | None = None):
+    def port(self, name: str, resume_from: str | None = None, **flags):
         cfg = config.SingleProcessConfig(results_dir=str(self.tmp / name / "results"),
                                          images_dir=str(self.tmp / name / "images"),
-                                         device="cpu", **SLICE_KW)
+                                         device="cpu", **SLICE_KW, **flags)
         return single.main(cfg, resume_from=resume_from, datasets=self.port_ds)
 
 
@@ -198,10 +205,21 @@ def test_whole_slice_matches_jax_trainer(tmp_path, monkeypatch, capsys):
     """Both ``train.single.main``s, on the same injected 300/1000 split at batch 64 with
     log_interval 2 (two segments of two steps, then a ragged tail of 44), dropout off, from
     the same initial parameters, through the fused kernels."""
+    _whole_slice_against_jax(tmp_path, monkeypatch, capsys)
+
+
+def test_host_pipeline_matches_jax_host_pipeline(tmp_path, monkeypatch, capsys):
+    """``--use-host-pipeline`` in both packages on the harness above: host batches through
+    each package's native prefetcher, one step a batch, at the same tolerance."""
+    out = _whole_slice_against_jax(tmp_path, monkeypatch, capsys, use_host_pipeline=True)
+    assert "Host-fed program: eager on cpu" in out and "host batches: native" in out
+
+
+def _whole_slice_against_jax(tmp_path, monkeypatch, capsys, **flags) -> str:
     harness = _Slice(tmp_path, monkeypatch)
-    jstate, jhist = harness.jax("jax")
+    jstate, jhist = harness.jax("jax", **flags)
     jax_out = capsys.readouterr().out
-    state, hist = harness.port("port")
+    state, hist = harness.port("port", **flags)
     port_out = capsys.readouterr().out
 
     assert state.step == int(jstate.step) == 5
@@ -227,6 +245,89 @@ def test_whole_slice_matches_jax_trainer(tmp_path, monkeypatch, capsys):
         np.testing.assert_array_equal(np.asarray(restored.params[k]), v, err_msg=k)
     for png in ("train_images.png", "train_test_curve.png"):
         assert (tmp_path / "port" / "images" / png).stat().st_size > 0
+    return port_out
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "fused"])
+def test_host_pipeline_epoch_equals_device_resident_epoch_bitwise(tmp_path, use_pallas):
+    """The port's host-fed epochs (dropout on, 2 epochs of 11 steps with a ragged tail,
+    log_interval 3) against its device-resident epochs on the CPU: every recorded loss, the
+    final state, ``metrics.jsonl`` and ``model.ckpt`` bit for bit; the loader's data wait
+    recorded once an epoch."""
+    (train, test), _ = _datasets(700, 1000)
+    runs = {}
+    for host in (False, True):
+        d = tmp_path / ("host" if host else "device")
+        runs[host] = single.main(config.SingleProcessConfig(
+            device="cpu", n_epochs=2, log_interval=3, use_pallas_kernels=use_pallas,
+            use_host_pipeline=host, results_dir=str(d), images_dir=str(d / "images")),
+            datasets=(train, test))
+    (d_state, d_hist), (h_state, h_hist) = runs[False], runs[True]
+    assert int(h_state.step) == int(d_state.step) == 22
+    assert h_hist.train_counter == d_hist.train_counter
+    assert h_hist.train_losses == d_hist.train_losses
+    assert h_hist.test_losses == d_hist.test_losses
+    for tree in ("params", "velocity"):
+        for k, v in getattr(d_state, tree).items():
+            assert torch.equal(getattr(h_state, tree)[k], v), (tree, k)
+    for name in ("metrics.jsonl", "model.ckpt"):
+        assert (tmp_path / "host" / name).read_bytes() == \
+            (tmp_path / "device" / name).read_bytes(), name
+    assert len(h_hist.data_wait_seconds) == 2 and d_hist.data_wait_seconds == []
+
+
+def test_host_pipeline_cli_trains_one_epoch(tmp_path):
+    """``python -m <port>.train.single --device cpu --use-host-pipeline
+    --use-pallas-kernels`` end to end on a cut split."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-m", "csed_514_project_distributed_training_using_pytorch_tpu_torch"
+         ".train.single", "--device", "cpu", "--use-host-pipeline", "--use-pallas-kernels",
+         "--n-epochs", "1", "--max-train-examples", "640", "--max-test-examples", "1000",
+         "--data-dir", str(tmp_path / "none")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Host-fed program: eager on cpu" in proc.stdout
+    assert proc.stdout.count("Train Epoch: 1 [") == 1          # the tick at 640/640
+    assert proc.stdout.count("Test set: Avg. loss") == 2
+    assert (tmp_path / "results" / "model.ckpt").stat().st_size > 0
+
+
+@pytest.mark.parametrize("trainer", ["single", "distributed"])
+def test_health_stats_on_the_host_fed_paths_raises_the_jax_message(trainer):
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        distributed,
+    )
+    if trainer == "single":
+        main, cfg = single.main, config.SingleProcessConfig(
+            device="cpu", health_stats=True, use_host_pipeline=True)
+        flag = "--use-host-pipeline"
+    else:
+        main, cfg = distributed.main, config.DistributedConfig(
+            device="cpu", health_stats=True, host_local_feed=True)
+        flag = "--host-local-feed"
+    with pytest.raises(ValueError, match=f"not available on the per-batch {flag} path"):
+        main(cfg)
+
+
+def test_progress_bar_draws_the_jax_bar_on_a_terminal_only():
+    class Tty(io.StringIO):
+        def isatty(self):
+            return True
+
+    out = {}
+    for name, cls in (("port", metrics.ProgressBar), ("jax", jax_metrics.ProgressBar)):
+        tty, pipe = Tty(), io.StringIO()
+        for stream in (tty, pipe):
+            with cls(3, desc="Epoch 1 ", stream=stream, min_interval_s=0.0) as bar:
+                for _ in range(3):
+                    bar.update(1)
+        assert pipe.getvalue() == ""
+        # the rate differs from run to run: compare the bar with it cut out
+        out[name] = re.sub(r"\d+\.\dit/s", "R", tty.getvalue())
+    assert out["port"] == out["jax"]
+    assert out["port"].endswith("Epoch 1 [########################] 3/3 R\n")
 
 
 def test_single_resume_interoperates_with_jax_trainer(tmp_path, monkeypatch, capsys):
@@ -314,9 +415,12 @@ def test_parse_config_flags():
         assert getattr(defaults, f) == getattr(ref, f), f
     for f in ("max_train_examples", "max_test_examples", "resume_from", "keep_checkpoints",
               "async_checkpoint", "images_dir", "profile", "profile_dir", "heartbeat_dir",
-              "handle_preemption"):
+              "handle_preemption", "download_data", "use_host_pipeline"):
         assert getattr(defaults, f) == getattr(ref, f), f
-    for argv in (["--use-host-pipeline"], ["--n-epoch", "2"], ["--telemetry", "t.jsonl"],
+    cfg = config.parse_config(config.SingleProcessConfig,
+                              ["--use-host-pipeline", "--download-data"])
+    assert cfg.use_host_pipeline and cfg.download_data
+    for argv in (["--bf16"], ["--n-epoch", "2"], ["--telemetry", "t.jsonl"],
                  ["--model", "transformer"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.SingleProcessConfig, argv)
