@@ -4,7 +4,8 @@ holds each against its plain PyTorch version on the card, trains the reference C
 epoch through the fused kernels (a captured CUDA graph of the step, replayed), trains the
 transformer classifier through the flash kernels (the composed trainer at seq 2048, and a
 few steps at the large bench widths), and serves the pixel LM through the paged-decode
-kernel (the continuous-batching engine).
+kernel (the continuous-batching engine; quantized, with the prefix cache, and behind the
+threaded ``Server``).
 
     python3 chip_smoke.py
 
@@ -130,8 +131,22 @@ Phases (each raises on failure; nothing is caught):
     the loader's data wait and host launch calls a step; (c) ``train.distributed
     --host-local-feed`` at world 1 on NCCL against the device-resident run; (d)
     ``BatchLoader(prefetch=2, device=cuda)`` against the host iterator, and its data wait;
-24. one JSON line with every kernel's numbers (each flash kernel with its offset form),
-    then, last, the JSON result line.
+24. quantized serving at ``bench_lm.py``'s widths (bf16 weights, paged layout, 8 slots):
+    (a) int8 and fp8 KV through B6's quantized branches (the engine's own narrow pools and
+    their scale pools handed to the kernel, layers × steps launches), streams against the
+    contiguous quantized engine (plain torch) up to true ties, bytes per token from
+    ``byte_accounting`` against ``kv_dtype="model"``, tokens/s and ms a decode step;
+    (b) w8 and w8a8 weights: the int8 accumulator on the card bitwise the CPU's int32
+    product, the routes it took, every B6 call against its plain version on the same
+    operands, the streams against plain; (c) the prefix cache on 8 requests sharing a
+    392-token prefix: hits, prefill chunks saved, boundary-page copy-on-writes, streams
+    equal to the run without the cache; (d) ``serving.Server``: 32 requests from 4
+    submitter threads, two tenants, the preemptible one parked and resumed, every future
+    ``ok``, streams equal to ``engine.run``'s, TTFT/TPOT/e2e p50/p95; (e) B6's int8 and fp8
+    branches alone at ``[8, 2, 4, 32]`` and R = 8, D = 128 (ms, device µs, the bound of the
+    narrow pool and its scales, plain and SDPA ms);
+25. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+    int8 and fp8 branches as rows of their own), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -148,6 +163,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -230,6 +246,12 @@ DECODE_WINDOW = 50             # phase 12: decode steps under the profiler
 BENCH_LM = dict(vocab_size=17, seq_len=784, embed_dim=256, num_layers=4, num_heads=8,
                 num_kv_heads=2)   # bench_lm.py's widths (--kv-heads 2)
 BENCH_LM_REQUESTS, BENCH_LM_MAX_NEW = 8, 64
+# Quantized serving and the Server, phase 24, at BENCH_LM's widths.
+QUANT_REQUESTS = 8             # (a)-(c): requests a run
+SHARED_PREFIX = 392            # (c): the prompts' common prefix (a hit ends mid-page)
+PREFIX_SLOTS = 4               # (c): fewer slots than requests, so later ones find entries
+SERVER_REQUESTS = 32           # (d): from 4 submitter threads, half of each tenant
+SERVER_TENANTS = "paid:prio=2;free:preempt=1"
 
 # Data parallelism, phases 14-16. Worlds of 2 are two processes on the one card (gloo).
 FLEET_TIMEOUT = 300            # seconds; the launcher kills the fleet and exits 124
@@ -2306,12 +2328,17 @@ def main() -> None:
         return [serving.Request(prompt=ids[i, :plens[i]].copy(), max_new_tokens=int(news[i]),
                                 request_id=i) for i in range(n)]
 
-    def serve(model, params, layout, requests, warmup):
+    def serve(model, params, layout, requests, warmup, hold=None, **engine_kw):
         """A warmed-up engine's ``run`` over ``requests``, with the B6 count set to 0 just
-        before it and read just after; (engine, streams, wall s, B6 launches)."""
-        engine = serving.ContinuousBatchingEngine(model, params, num_slots=SERVE_SLOTS,
-                                                  kv_layout=layout, page_size=SERVE_PAGE,
-                                                  device=dev)
+        before it and read just after; (engine, streams, wall s, B6 launches).
+        ``engine_kw`` adds or overrides engine options (``kv_dtype``, ``quant_policy``,
+        ``num_slots``, ``prefix_cache_entries``); ``hold``, where given, receives the
+        engine before its first run (for a spy that reads the engine's slots)."""
+        engine = serving.ContinuousBatchingEngine(
+            model, params, **(dict(num_slots=SERVE_SLOTS, kv_layout=layout,
+                                   page_size=SERVE_PAGE, device=dev) | engine_kw))
+        if hold is not None:
+            hold.append(engine)
         engine.run(warmup)
         engine.reset_stats()
         torch.cuda.synchronize()
@@ -2323,11 +2350,12 @@ def main() -> None:
         return (engine, {c.request.request_id: c.tokens.tolist() for c in done}, wall,
                 paged.launch_counts()["paged_attend"])
 
-    def plain_gap(model, params_dev, stream, fill: int, p: int) -> float:
+    def plain_gap(model, params_dev, stream, fill: int, p: int, kv_dtype=None) -> float:
         """The plain (contiguous) path's top-2 log-prob gap at position ``p`` of
         ``stream``, BOS masked: replay the slot alone — its prompt in the engine's chunk
-        plan, then one decode step per position up to ``p``."""
-        cache = lm.init_cache(model, 1, device=dev)
+        plan, then one decode step per position up to ``p`` — in a cache of
+        ``kv_dtype``."""
+        cache = lm.init_cache(model, 1, kv_dtype=kv_dtype, device=dev)
         prompt = torch.zeros((1, model.seq_len), dtype=torch.int32, device=dev)
         prompt[0, :fill] = torch.as_tensor(stream[:fill], device=dev)
         for start, length, size in serving.greedy_chunk_plan(lm.PREFILL_CHUNK_SIZES, 0, fill):
@@ -2345,10 +2373,14 @@ def main() -> None:
         return (top2[0] - top2[1]).item()
 
     def compare_streams(tag, model, params_dev, requests, kernel_streams,
-                        plain_streams) -> int:
+                        plain_streams, kv_dtype=None, flipped=None) -> int:
         """Paged (kernel) streams against contiguous (plain) ones: equal, or diverging at a
-        true tie (the plain path's top-2 log-prob gap there below ``TIE_GAP``). Returns
-        the number of ties."""
+        true tie (the plain path's top-2 log-prob gap there below ``TIE_GAP``; the replay
+        in a ``kv_dtype`` cache). ``flipped``, where given, maps a request id to the first
+        stream position at which its kernel run's int8 activation codes differed from the
+        plain version's on the same operands (see [24] (b)): a divergence above the gap
+        is allowed only at or after that position of that request. Returns the number of
+        divergences."""
         ties = 0
         for req in requests:
             rid = req.request_id
@@ -2357,14 +2389,19 @@ def main() -> None:
                 continue
             p = next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b),
                      min(len(got), len(plain)))
-            gap = (plain_gap(model, params_dev, plain, len(req.prompt), p)
+            gap = (plain_gap(model, params_dev, plain, len(req.prompt), p, kv_dtype)
                    if p < min(len(got), len(plain)) else float("inf"))
             print(f"{tag} request {rid}: streams differ first at position {p} (kernel "
                   f"{got[p] if p < len(got) else None}, plain "
                   f"{plain[p] if p < len(plain) else None}); plain top-2 gap {gap:.3e}")
-            if not gap < TIE_GAP:
+            first_flip = (flipped or {}).get(rid)
+            if not gap < TIE_GAP and (first_flip is None or first_flip > p):
                 fail(f"{tag} request {rid}: kernel and plain streams differ at position {p} "
-                     f"with a top-2 gap of {gap:.3e} (not a tie below {TIE_GAP:g})")
+                     f"with a top-2 gap of {gap:.3e} (not a tie below {TIE_GAP:g}; first "
+                     f"activation code flip of this request at {first_flip})")
+            if not gap < TIE_GAP:
+                print(f"{tag} request {rid}: above the tie gap, after this request's first "
+                      f"int8 activation code flip at position {first_flip}")
             ties += 1
         return ties
 
@@ -2838,20 +2875,349 @@ def main() -> None:
     # -- 23. the host-fed data path: the native loader, both host-fed programs, prefetch -
     host_fed_phase(dev, card, train_ds, test_ds)
 
-    # -- 24. result ---------------------------------------------------------------------
+    # -- 24. quantized serving, the prefix cache and the Server at bench_lm's widths ------
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import obs
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
+
+    q_model = lm.TransformerLM(**BENCH_LM, dtype=torch.bfloat16)
+    q_params = {name: p.to(torch.bfloat16)
+                for name, p in q_model.init(torch.Generator().manual_seed(1)).items()}
+    q_layers = q_model.num_layers
+    q_requests = request_mix(test_ids, QUANT_REQUESTS, BENCH_LM_MAX_NEW, 24)
+    print(f"[24] bench_lm widths {BENCH_LM}, bf16 weights, {SERVE_SLOTS} slots, pages of "
+          f"{SERVE_PAGE}, paged layout; {QUANT_REQUESTS} greedy requests, prompts "
+          f"{min(len(r.prompt) for r in q_requests)}-{max(len(r.prompt) for r in q_requests)}"
+          f", max_new_tokens up to {BENCH_LM_MAX_NEW} [{card}]")
+
+    def pool_spy(record: list, check=None):
+        """``paged.paged_attend`` wrapped to record what each call is handed (the pool's
+        dtype, whether scale pools came along, the pool's storage) and, with ``check``,
+        to hold each call's output against the plain version on the same operands."""
+        real = paged.paged_attend
+
+        def spy(q, k_pool, v_pool, table, t, **kw):
+            record.append((k_pool.dtype, kw.get("k_scale") is not None, k_pool.data_ptr()))
+            out = real(q, k_pool, v_pool, table, t, **kw)
+            if check is not None:
+                check(out, paged.paged_attend_reference(q, k_pool, v_pool, table, t, **kw), t)
+            return out
+
+        return patched(paged, "paged_attend", spy)
+
+    # (a) int8 and fp8 KV through B6's quantized branches, against the plain engine
+    quant_launches, per_token = {}, {}
+    for kv in ("model", "int8", "fp8"):
+        seen: list = []
+        with pool_spy(seen):
+            eng, streams, wall, launches = serve(q_model, q_params, "paged", q_requests,
+                                                 warmup, kv_dtype=kv)
+        acct = eng.byte_accounting()
+        per_token[kv] = acct["decode_bytes_per_token"]
+        pool = eng._cache["block_0"]
+        pools = {eng._cache[f"block_{i}"]["k"].data_ptr() for i in range(q_layers)}
+        if launches != q_layers * eng.steps or not launches:
+            fail(f"[24] (a) {kv}: B6 launches {launches} != {q_layers} x {eng.steps}")
+        if kv != "model":
+            quant_launches[kv] = launches
+            want = (quant.resolve_kv_dtype(kv, torch.bfloat16)[0], True)
+            if ({(dt, sc) for dt, sc, _ in seen} != {want}
+                    or not {ptr for _, _, ptr in seen} <= pools or "k_scale" not in pool):
+                fail(f"[24] (a) {kv}: B6 was handed {set(seen)}, not the engine's own "
+                     f"{want[0]} pools with their scale pools")
+            plain_eng, plain_streams, _, plain_launches = serve(
+                q_model, q_params, "contiguous", q_requests, warmup, kv_dtype=kv)
+            if plain_launches:
+                fail(f"[24] (a) {kv}: the contiguous run launched B6 {plain_launches} times")
+            ties = compare_streams(f"[24] (a) {kv}", q_model, eng.params, q_requests, streams,
+                                   plain_streams, kv_dtype=kv)
+            same = sum(streams[i] == plain_streams[i] for i in plain_streams)
+            print(f"[24] (a) kv_dtype={kv}: B6 handed the engine's own {want[0]} pools and "
+                  f"their f32 scale pools in all {len(seen)} calls (no dequantized copy); "
+                  f"paged (B6) vs contiguous (plain) streams: {same}/{QUANT_REQUESTS} equal, "
+                  f"{ties} diverging at a true tie [{card}]")
+            del plain_eng
+        if sorted(streams) != list(range(QUANT_REQUESTS)):
+            fail(f"[24] (a) {kv}: {len(streams)} of {QUANT_REQUESTS} requests completed")
+        print(f"[24] (a) kv_dtype={kv}: {eng.steps} decode steps, {eng.generated_tokens} "
+              f"tokens in {wall:.4f} s ({eng.generated_tokens / wall:.1f} tokens/s, "
+              f"{wall / eng.steps * 1e3:.4f} ms per decode step, prefill included); B6 "
+              f"launches {launches} = layers x steps; byte_accounting: KV "
+              f"{acct['kv_bytes_resident']} bytes resident ({acct['kv_bytes_per_slot']} a "
+              f"slot), decode {acct['decode_bytes_per_token']:.1f} bytes per token "
+              f"({per_token[kv] / per_token['model']:.4f} of kv_dtype=model), slots at 1 GiB "
+              f"{acct['slots_at_budget']} [{card}]")
+        del eng
+    torch.cuda.empty_cache()
+
+    # (b) w8 and w8a8 weights: the int8 matmul's routes, then the streams against plain
+    acc_shapes = ((8, 256, 1024), (8, 256, 17), (32, 256, 1024), (128, 1024, 256))
+    quant.reset_route_counts()
+    for m_, k_, n_ in acc_shapes:
+        g_cpu = torch.Generator().manual_seed(m_ + k_ + n_)
+        xq = torch.randint(-127, 128, (m_, k_), dtype=torch.int8, generator=g_cpu)
+        wq = torch.randint(-127, 128, (k_, n_), dtype=torch.int8, generator=g_cpu)
+        got = quant.int8_accumulate(xq.to(dev), wq.to(dev)).cpu()
+        if not torch.equal(got, xq.int() @ wq.int()):
+            fail(f"[24] (b) the int8 accumulator at [{m_}, {k_}] x [{k_}, {n_}] differs from "
+                 f"the exact int32 product")
+    print(f"[24] (b) int8 x int8 -> int32 on the card at {acc_shapes}: bitwise the CPU's "
+          f"int32 product; routes {dict(quant.int8_matmul_routes)}")
+    for policy in ("w8", "w8a8"):
+        # a spied, untimed run: every B6 call held against the plain version on its own
+        # operands and, under w8a8, where the two outputs' int8 activation codes (the
+        # output projection quantizes each slot's row) differ, which request and position
+        n_flips, errs, seen, hold, first_flip = [0], [0.0], [], [], {}
+
+        def check(out, ref, t, n_flips=n_flips, errs=errs, hold=hold, first_flip=first_flip,
+                  policy=policy):
+            torch.testing.assert_close(out, ref, atol=PAGED_ATOL, rtol=PAGED_RTOL)
+            errs[0] = max(errs[0], (out - ref).abs().max().item())
+            if policy != "w8a8":
+                return
+            rows = out.shape[0]
+            per_row = (quant.quantize_rows(out.reshape(rows, -1), torch.int8)[0]
+                       != quant.quantize_rows(ref.reshape(rows, -1), torch.int8)[0]).sum(-1)
+            eng_ = hold[0]
+            for b, (n, pos) in enumerate(zip(per_row.tolist(), t.tolist())):
+                req = eng_._requests[b]
+                # the step at position pos emits stream[pos]; inactive slots' rows are junk
+                if n and eng_._active[b] and any(req is r for r in q_requests):
+                    n_flips[0] += n
+                    first_flip[req.request_id] = min(first_flip.get(req.request_id, pos), pos)
+
+        quant.reset_route_counts()
+        with pool_spy(seen, check):
+            eng, streams, _, launches = serve(q_model, q_params, "paged", q_requests, warmup,
+                                              hold=hold, quant_policy=policy)
+        routes = dict(quant.int8_matmul_routes)
+        if launches != q_layers * eng.steps or not launches:
+            fail(f"[24] (b) {policy}: B6 launches {launches} != {q_layers} x {eng.steps}")
+        if policy == "w8a8" and not (routes["int_mm"] and routes["f32_exact"]):
+            fail(f"[24] (b) w8a8 ran the int8 routes {routes}: expected torch._int_mm for "
+                 f"the prefill chunks and the exact f32 route for the decode rows")
+        del eng, hold[:]
+        # the timed run, without the spy: its streams must be the spied run's
+        t_eng, t_streams, wall, t_launches = serve(q_model, q_params, "paged", q_requests,
+                                                   warmup, quant_policy=policy)
+        if t_launches != q_layers * t_eng.steps or t_streams != streams:
+            fail(f"[24] (b) {policy}: the timed run (B6 launches {t_launches}, "
+                 f"{t_eng.steps} steps) differs from the spied run")
+        _, plain_streams, _, _ = serve(q_model, q_params, "contiguous", q_requests, warmup,
+                                       quant_policy=policy)
+        # w8a8 quantizes every activation row: where B6's output and the plain version's
+        # (equal within PAGED_ATOL, checked at every call above) fall on two sides of an
+        # int8 rounding boundary, the codes differ by one and the logits move by far more
+        # than TIE_GAP; a divergence above the gap is allowed only at or after a flip of
+        # its own request
+        ties = compare_streams(f"[24] (b) {policy}", q_model, t_eng.params, q_requests,
+                               t_streams, plain_streams,
+                               flipped=first_flip if policy == "w8a8" else None)
+        same = sum(t_streams[i] == plain_streams[i] for i in plain_streams)
+        flip_note = (f"; {n_flips[0]} int8 activation codes of live slots differ, in "
+                     f"requests {sorted(first_flip)}" if policy == "w8a8" else "")
+        print(f"[24] (b) quant_policy={policy}: {t_eng.steps} decode steps, "
+              f"{t_eng.generated_tokens} tokens in {wall:.4f} s "
+              f"({t_eng.generated_tokens / wall:.1f} tokens/s, {wall / t_eng.steps * 1e3:.4f} "
+              f"ms per decode step, prefill included; a run without the spy, its streams the "
+              f"spied run's); int8 matmul routes {routes}; every B6 call of the spied run "
+              f"within ({PAGED_ATOL:g}, {PAGED_RTOL:g}) of the plain version on its operands "
+              f"(max |err| {errs[0]:.3e}{flip_note}); paged (B6) vs contiguous (plain) "
+              f"streams: {same}/{QUANT_REQUESTS} equal, {ties} diverging; weights "
+              f"{t_eng.byte_accounting()['params_bytes']} bytes [{card}]")
+        del t_eng
+    torch.cuda.empty_cache()
+
+    # (c) the prefix cache on a shared-prefix mix: every prompt is the same 392 tokens,
+    # then a token of its own and a suffix; pages of 64, so a hit of 392 ends mid-page
+    prefix = test_ids[0, :SHARED_PREFIX]
+    shared = [serving.Request(prompt=np.concatenate(
+        [prefix, [i % (q_model.vocab_size - 1)], test_ids[i + 1, SHARED_PREFIX + 1:
+                                                        SHARED_PREFIX + 9 + 4 * i]])
+        .astype(np.int32), max_new_tokens=32, request_id=i) for i in range(QUANT_REQUESTS)]
+    cache_kw = dict(kv_dtype="int8", num_slots=PREFIX_SLOTS)
+    c_eng, c_streams, c_wall, c_launches = serve(q_model, q_params, "paged", shared, warmup,
+                                                 prefix_cache_entries=QUANT_REQUESTS,
+                                                 **cache_kw)
+    n_eng, n_streams, n_wall, _ = serve(q_model, q_params, "paged", shared, warmup,
+                                        **cache_kw)
+    c_stats, c_pages = c_eng.prefix_cache.stats(), c_eng.page_stats()
+    if c_launches != q_layers * c_eng.steps:
+        fail(f"[24] (c) B6 launches {c_launches} != {q_layers} x {c_eng.steps}")
+    if not c_stats["hits"] or not c_pages["cow_copies"]:
+        fail(f"[24] (c) prefix cache {c_stats}, {c_pages['cow_copies']} copy-on-writes: "
+             f"expected hits and at least one boundary-page copy")
+    ties = compare_streams("[24] (c)", q_model, c_eng.params, shared, c_streams, n_streams,
+                           kv_dtype="int8")
+    print(f"[24] (c) {QUANT_REQUESTS} requests sharing a {SHARED_PREFIX}-token prefix "
+          f"through {PREFIX_SLOTS} slots, int8 KV: {c_stats['hits']} hits of "
+          f"{c_stats['queries']} lookups ({c_stats['hit_tokens']} tokens), "
+          f"{c_pages['cow_copies']} boundary-page copy-on-writes; prefill chunks "
+          f"{c_eng.prefill_invocations} against {n_eng.prefill_invocations} without the "
+          f"cache ({n_eng.prefill_invocations - c_eng.prefill_invocations} saved), prefill "
+          f"tokens {c_eng.prefill_tokens} against {n_eng.prefill_tokens}; run {c_wall:.4f} s "
+          f"against {n_wall:.4f} s; streams vs the run without the cache: "
+          f"{sum(c_streams[i] == n_streams[i] for i in n_streams)}/{QUANT_REQUESTS} equal, "
+          f"{ties} diverging at a true tie [{card}]")
+    del c_eng, n_eng
+    torch.cuda.empty_cache()
+
+    # (e) B6's int8 and fp8 branches alone, at the serving shape and at R = 8, D = 128
+    # (before (d): each profiler window in a process that has not yet run the server's
+    # threads)
+    quant_times, quant_err = {}, {}
+    for kv, dtype in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        quant_err[kv] = 0.0
+        for label, g, r, d in (("serving", 2, 4, 32), ("r8_d128", 2, 8, 128)):
+            q, k, v, table, t, scales = paged_case(g, r, d, dtype, "random", 2400 + g + r + d)
+            out = paged.paged_attend(q, k, v, table, t, seq_len=s_len, **scales)
+            want = paged.paged_attend_reference(q, k, v, table, t, seq_len=s_len, **scales)
+            torch.cuda.synchronize()
+            e = close(f"[24] (e) paged_attend {kv} {label}", out, want, PAGED_ATOL,
+                      PAGED_RTOL)
+            quant_err[kv] = max(quant_err[kv], e)
+            t_kernel = lambda: paged.paged_attend(q, k, v, table, t, seq_len=s_len, **scales)
+            tm = dict(ms=timed_ms(t_kernel, PAGED_ITERS, PAGED_WARMUP),
+                      plain_ms=timed_ms(lambda: paged.paged_attend_reference(
+                          q, k, v, table, t, seq_len=s_len, **scales), PAGED_ITERS,
+                          PAGED_WARMUP),
+                      library_ms=timed_ms(sdpa_on_view(q, k, v, table, t, 0, scales),
+                                          PAGED_ITERS, PAGED_WARMUP),
+                      bound=paged_bound(q, k, t, 0, scales))
+            # device µs a call: each kernel's mean µs a launch as the profiler recorded it
+            # (the profiler drops launch records at times: a window that did not record all
+            # 20 launches of both kernels is taken again, at most three times)
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        t_kernel()
+                    torch.cuda.synchronize()
+                b6_us = [(re.search(r"paged_attend\w*", name).group(0), us, n)
+                         for us, n, name in device_kernel_times(prof)
+                         if "paged_attend" in name and n]
+                if b6_us and all(n == 20 for _, _, n in b6_us):
+                    break
+            us = (f"{sum(u / n for _, u, n in b6_us):.3f} ("
+                  + " + ".join(f"{u / n:.3f} {k} ({n} launches recorded of 20)"
+                               for k, u, n in b6_us) + ")"
+                  if b6_us else "not measured")
+            print(f"[24] (e) paged_attend {kv} q {list(q.shape)} pool [{n_pages}, {ps}, {g}, "
+                  f"{d}] + f32 scales, visible rows {visible_rows(t, 0)}: max |err| {e:.3e}; "
+                  f"kernel_ms {tm['ms']:.5f}, device us/call {us}, plain_ms "
+                  f"{tm['plain_ms']:.5f}, bound_ms {tm['bound'][0]:.3e} ({tm['bound'][1]}; "
+                  f"the narrow pool and its scales), {tm['bound'][0] / tm['ms']:.4f} of the "
+                  f"bound, sdpa_ms {tm['library_ms']:.5f} (gathered, dequantized view) "
+                  f"[{card}]")
+            if label == "serving":
+                quant_times[f"paged_attend_{kv}"] = tm
+            del q, k, v, table, t, scales
+    torch.cuda.empty_cache()
+
+    # (d) the Server: 32 requests from 4 submitter threads, two tenants, one preemptible
+    rng = np.random.default_rng(25)
+    server_reqs = [serving.Request(
+        prompt=test_ids[i, :int(rng.integers(1, SHARED_PREFIX))].copy(),
+        max_new_tokens=BENCH_LM_MAX_NEW if i < SERVER_REQUESTS // 2 else 16, request_id=i,
+        tenant="free" if i < SERVER_REQUESTS // 2 else "paid")
+        for i in range(SERVER_REQUESTS)]
+    s_kw = dict(num_slots=SERVE_SLOTS, kv_layout="paged", page_size=SERVE_PAGE, device=dev,
+                kv_dtype="int8", prefix_cache_entries=SERVER_REQUESTS)
+    ref_eng = serving.ContinuousBatchingEngine(q_model, q_params, **s_kw)
+    ref_streams = {c.request.request_id: c.tokens.tolist() for c in ref_eng.run(
+        [serving.Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens, request_id=i)
+         for i, r in enumerate(server_reqs)])}
+    s_eng = serving.ContinuousBatchingEngine(q_model, q_params, **s_kw)
+    s_eng.run(warmup)
+    s_eng.reset_stats()
+    server = serving.Server(s_eng, tenants=serving.parse_tenants(SERVER_TENANTS))
+    futures: dict = {}
+    lock = threading.Lock()
+
+    def submitter(part):
+        for req in part:
+            fut = server.submit(req.prompt, max_new_tokens=req.max_new_tokens,
+                                tenant=req.tenant)
+            with lock:
+                futures[req.request_id] = fut
+
+    def submit_from(parts):
+        threads = [threading.Thread(target=submitter, args=(part,)) for part in parts]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            if th.is_alive():
+                fail("[24] (d) a submitter thread did not finish within 120 s")
+
+    half = SERVER_REQUESTS // 2
+    torch.cuda.synchronize()
+    paged.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.start()
+    submit_from([server_reqs[0:half:2], server_reqs[1:half:2]])     # the preemptible tenant
+    while s_eng.num_active < SERVE_SLOTS or s_eng.steps < 2:
+        if time.perf_counter() - t0 > 120:
+            fail("[24] (d) the free tenant's requests did not fill the slots within 120 s")
+        time.sleep(0.001)
+    submit_from([server_reqs[half::2], server_reqs[half + 1::2]])   # the paid tenant
+    done = {rid: fut.result(timeout=600) for rid, fut in futures.items()}
+    server.stop(drain=True, timeout=600)
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    s_launches = paged.launch_counts()["paged_attend"]
+    got_streams = {rid: comp.tokens.tolist() for rid, comp in done.items()}
+    for rid, comp in sorted(done.items()):
+        if comp.finish != "ok":
+            fail(f"[24] (d) request {rid} resolved with finish={comp.finish!r}")
+    if len(done) != SERVER_REQUESTS:
+        fail(f"[24] (d) {len(done)} of {SERVER_REQUESTS} futures resolved")
+    if not s_eng.preemptions or not s_eng.resumes:
+        fail(f"[24] (d) {s_eng.preemptions} parks and {s_eng.resumes} resumes: the paid "
+             f"tenant's arrival should have parked a free slot")
+    if s_launches != q_layers * s_eng.steps:
+        fail(f"[24] (d) B6 launches {s_launches} != {q_layers} x {s_eng.steps}")
+    ties = compare_streams("[24] (d)", q_model, s_eng.params, server_reqs, got_streams,
+                           ref_streams, kv_dtype="int8")
+    hists = {name: obs.LogHistogram.from_json(doc)
+             for name, doc in server.latency_histograms().items()}
+    lat = {name: (hists[name].quantile(50) * 1e3, hists[name].quantile(95) * 1e3)
+           for name in ("ttft_s", "tpot_s", "e2e_s")}
+    tenants = server.tenant_summaries()
+    print(f"[24] (d) Server: {SERVER_REQUESTS} requests from 4 submitter threads, tenants "
+          f"{SERVER_TENANTS!r}, int8 KV, prefix cache: all resolved 'ok' in {s_wall:.3f} s; "
+          f"{s_eng.preemptions} parks, {s_eng.resumes} resumes; {s_eng.steps} decode steps, "
+          f"B6 launches {s_launches} = layers x steps; streams vs engine.run: "
+          f"{sum(got_streams[i] == ref_streams[i] for i in ref_streams)}/{SERVER_REQUESTS} "
+          f"equal, {ties} diverging at a true tie [{card}]")
+    print(f"[24] (d) latency_histograms p50/p95 ms: TTFT {lat['ttft_s'][0]:.3f}/"
+          f"{lat['ttft_s'][1]:.3f}, TPOT {lat['tpot_s'][0]:.4f}/{lat['tpot_s'][1]:.4f}, e2e "
+          f"{lat['e2e_s'][0]:.3f}/{lat['e2e_s'][1]:.3f} [{card}]")
+    for name, row in sorted(tenants.items()):
+        ttft = row["ttft_s"] or {}
+        print(f"[24] (d) tenant {name}: {row['requests']} requests, {row['ok']} ok, "
+              f"{row['preemptions']} preemptions (decode-ready parks), TTFT p50/p95 "
+              f"{ttft.get('p50', float('nan')) * 1e3:.3f}/"
+              f"{ttft.get('p95', float('nan')) * 1e3:.3f} ms [{card}]")
+    del s_eng, ref_eng, server
+    torch.cuda.empty_cache()
+
+    # -- 25. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
                 "flash_fwd_mma": f"{TPU_ATTENTION}:479", "flash_dq_mma": f"{TPU_ATTENTION}:666", "flash_dkv_mma": f"{TPU_ATTENTION}:731",
                 "paged_attend": f"{TPU_PAGED}:85"}
+    replaces |= {name: f"{TPU_PAGED}:85" for name in quant_times}
     sources = ({name: SOURCE for name in times} | {name: FLASH_SOURCE for name in flash_times}
-               | {"paged_attend": PAGED_SOURCE})
+               | {name: PAGED_SOURCE for name in ("paged_attend", *quant_times)})
+    # B6's int8 and fp8 branches: launches on [24] (a)'s serving runs, numbers from (e)
+    all_launches |= {f"paged_attend_{kv}": n for kv, n in quant_launches.items()}
+    all_err |= {f"paged_attend_{kv}": e for kv, e in quant_err.items()}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": all_launches[name],
                 "max_abs_err": all_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
-               for name, t in (times | flash_times | paged_times).items()]
+               for name, t in (times | flash_times | paged_times | quant_times).items()]
     for entry in kernels:          # each flash kernel's offset form ([17], [19] ring window)
         if entry["name"] in offset_times:
             o = offset_times[entry["name"]]
@@ -2861,7 +3227,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[24] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[25] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

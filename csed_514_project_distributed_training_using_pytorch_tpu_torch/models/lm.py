@@ -27,8 +27,18 @@ too). The serving
 functions take activations in f32 whatever the parameters' dtype (a bf16 weight is cast to
 f32 where it is used, as JAX promotes it), and keep the caches in the model's dtype. They
 update the cache tensors in place (JAX returns new arrays; the port saves the copy) and
-return them, so the call shapes match the JAX package's. Quantized KV planes (``kv_dtype``
-int8/fp8) and quantized weights are not ported yet (ROADMAP A9: ``ops/quant.py``).
+return them, so the call shapes match the JAX package's.
+
+Quantized execution (``ops/quant.py``) changes only the plane I/O and the matmuls:
+``init_cache``/``init_page_pool`` take a ``kv_dtype``, and int8/fp8 add f32 ``k_scale``/
+``v_scale`` planes (``[B, S, KV_H]`` contiguous, ``[num_pages, page_size, KV_H]`` paged).
+Every writer (``decode_step_slots``, ``prefill_chunk``, ``paged_decode_step_slots``,
+``paged_prefill_chunk``) quantizes each K/V row on write with one scale per KV head. The
+contiguous paths read the dequantized planes in plain torch, as the reference's einsums
+do; ``paged_decode_step_slots`` hands the narrow pool and its scale pools to
+``paged_attend``, so on the card the kernel dequantizes as it reads and no wide copy of
+the pool is made. Parameters may hold ``ops.quant.QuantizedTensor`` kernels
+(``quant.quantize_params``); a plain tensor takes the exact unquantized call.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.transf
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
     paged_attention,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
     MASK_VALUE,
     windowed_attention_fn,
@@ -150,8 +161,11 @@ class TransformerLM(_Slots):
 
 
 def _dense(params: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    """``ops.dense`` with the f32 activations; a narrower weight is cast to f32 at use."""
-    return ops.dense(x, params[f"{name}_kernel"].float(), params[f"{name}_bias"].float())
+    """``quant.dense_any`` with the f32 activations: a plain weight (cast to f32 at use)
+    takes ``ops.dense``, a ``QuantizedTensor`` its quantized matmul."""
+    w = params[f"{name}_kernel"]
+    w = w if isinstance(w, quant.QuantizedTensor) else w.float()
+    return quant.dense_any(x, w, params[f"{name}_bias"].float())
 
 
 def _embed(model: TransformerLM, params: dict, ids: torch.Tensor,
@@ -198,10 +212,35 @@ def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
     return ops.log_softmax(_dense(params, "head", h).float())
 
 
-def _check_kv_dtype(kv_dtype: str | None) -> None:
-    if (kv_dtype or "model") != "model":
-        raise ValueError(f"kv_dtype {kv_dtype!r} is not ported yet (ROADMAP A9: "
-                         f"ops/quant.py); the port keeps the cache in the model's dtype")
+def _planes(shape: tuple[int, ...], kv_dtype: str | None, model_dtype: torch.dtype,
+            device: torch.device | str) -> dict:
+    """One layer's zeroed K/V planes of ``shape`` in ``kv_dtype``'s plane dtype, with f32
+    ``k_scale``/``v_scale`` planes of ``shape[:-1]`` for the scaled formats."""
+    dtype, scaled = quant.resolve_kv_dtype(kv_dtype or "model", model_dtype)
+    planes = {"k": torch.zeros(shape, dtype=dtype, device=device),
+              "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if scaled:
+        planes["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        planes["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return planes
+
+
+def _kv_rows(layer: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """The rows to write into ``layer``, by leaf name: codes and per-head scales for a
+    quantized layer (``k_scale`` present), else ``k``/``v`` cast to the plane dtype."""
+    if "k_scale" in layer:
+        (kq, ks), (vq, vs) = (quant.quantize_rows(k, layer["k"].dtype),
+                              quant.quantize_rows(v, layer["v"].dtype))
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(layer["k"].dtype), "v": v.to(layer["v"].dtype)}
+
+
+def _read_kv(planes: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and V as attention reads them: dequantized when the planes carry scales."""
+    if "k_scale" not in planes:
+        return planes["k"], planes["v"]
+    return (quant.dequantize_rows(planes["k"], planes["k_scale"]),
+            quant.dequantize_rows(planes["v"], planes["v_scale"]))
 
 
 # =========================================================================================
@@ -211,11 +250,11 @@ def _check_kv_dtype(kv_dtype: str | None) -> None:
 
 def init_cache(model: TransformerLM, batch: int, *, kv_dtype: str | None = None,
                device: torch.device | str = "cpu") -> dict:
-    """Zeroed per-layer K/V planes ``[batch, seq_len, KV_H, Dh]`` in the model's dtype."""
-    _check_kv_dtype(kv_dtype)
+    """Zeroed per-layer K/V planes ``[batch, seq_len, KV_H, Dh]`` in ``kv_dtype``'s plane
+    dtype (``None``/``"model"``: the model's dtype); int8/fp8 add f32 ``k_scale``/
+    ``v_scale`` planes ``[batch, seq_len, KV_H]``."""
     shape = (batch, model.seq_len, model.kv_heads, model.head_dim)
-    return {f"block_{i}": {"k": torch.zeros(shape, dtype=model.dtype, device=device),
-                           "v": torch.zeros(shape, dtype=model.dtype, device=device)}
+    return {f"block_{i}": _planes(shape, kv_dtype, model.dtype, device)
             for i in range(model.num_layers)}
 
 
@@ -225,7 +264,8 @@ def decode_step_slots(model: TransformerLM, params: dict, cache: dict, ids_t: to
     ``[B, vocab]`` f32 log-probs). Each slot's K/V row is written at its own position
     (clamped into ``[0, S)``), then every slot attends over its whole ``[S]`` plane under
     its own ``pos <= t[b]`` (and window) mask (``ops.paged_attention.decode_attention``,
-    plain torch)."""
+    plain torch). A quantized cache stores each row's codes and per-head scales and is
+    read dequantized."""
     b = ids_t.shape[0]
     rows = torch.arange(b, device=ids_t.device)
     safe_t = t.long().clamp(0, model.seq_len - 1)
@@ -233,10 +273,11 @@ def decode_step_slots(model: TransformerLM, params: dict, cache: dict, ids_t: to
     for i in range(model.num_layers):
         q, k, v = _project(model, params, i, h, t)
         layer = cache[f"block_{i}"]
-        layer["k"][rows, safe_t] = k.to(layer["k"].dtype)
-        layer["v"][rows, safe_t] = v.to(layer["v"].dtype)
+        for key, row in _kv_rows(layer, k, v).items():
+            layer[key][rows, safe_t] = row
+        k_read, v_read = _read_kv(layer)
         qg = q.reshape(b, model.kv_heads, -1, model.head_dim)
-        attn = paged_attention.decode_attention(qg, layer["k"], layer["v"], t,
+        attn = paged_attention.decode_attention(qg, k_read, v_read, t,
                                                 window=model.attention_window)
         h = _block_tail(params, i, h, attn.reshape(b, model.embed_dim))
     return cache, _head(params, h)
@@ -253,7 +294,8 @@ def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch
     zeroes the slot's planes first. The chunk writes its K/V rows into the slot's full
     ``[S]`` plane and then attends against that plane under ``pos <= position`` (and the
     window), the structure of ``decode_step_slots``, so a row prefilled here is the row
-    the per-token path would have cached."""
+    the per-token path would have cached (quantized on write alike, under a quantized
+    cache)."""
     s = model.seq_len
     if not 0 < chunk <= s:
         raise ValueError(f"chunk {chunk} outside (0, {s}]")
@@ -274,16 +316,17 @@ def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch
     for i in range(model.num_layers):
         q, k, v = _project(model, params, i, h, positions)
         layer = cache[f"block_{i}"]
-        plane_k, plane_v = layer["k"][slot], layer["v"][slot]    # views: [S, KV_H, Dh]
+        planes = {key: x[slot] for key, x in layer.items()}     # views: [S, KV_H(, Dh)]
         if fresh:
-            plane_k.zero_()
-            plane_v.zero_()
-        plane_k[written] = k[:length].to(plane_k.dtype)
-        plane_v[written] = v[:length].to(plane_v.dtype)
+            for x in planes.values():
+                x.zero_()
+        for key, row in _kv_rows(layer, k, v).items():
+            planes[key][written] = row[:length]
+        k_read, v_read = _read_kv(planes)
         qg = q.reshape(chunk, model.kv_heads, -1, model.head_dim)
-        scores = torch.einsum("cgrd,sgd->cgrs", qg * scale, plane_k.float())
+        scores = torch.einsum("cgrd,sgd->cgrs", qg * scale, k_read.float())
         weights = torch.softmax(torch.where(visible, scores, MASK_VALUE), dim=-1)
-        attn = torch.einsum("cgrs,sgd->cgrd", weights, plane_v.float())
+        attn = torch.einsum("cgrs,sgd->cgrd", weights, v_read.float())
         h = _block_tail(params, i, h, attn.reshape(chunk, model.embed_dim))
     return cache
 
@@ -313,12 +356,11 @@ def pages_per_slot(seq_len: int, page_size: int) -> int:
 
 def init_page_pool(model: TransformerLM, num_pages: int, *, page_size: int,
                    kv_dtype: str | None = None, device: torch.device | str = "cpu") -> dict:
-    """Zeroed per-layer page pools ``[num_pages, page_size, KV_H, Dh]`` in the model's
-    dtype: ``init_cache``'s paged twin."""
-    _check_kv_dtype(kv_dtype)
+    """Zeroed per-layer page pools ``[num_pages, page_size, KV_H, Dh]``: ``init_cache``'s
+    paged twin, with the same dtype and scale-pool rules (int8/fp8 add f32 ``k_scale``/
+    ``v_scale`` pools ``[num_pages, page_size, KV_H]``)."""
     shape = (num_pages, page_size, model.kv_heads, model.head_dim)
-    return {f"block_{i}": {"k": torch.zeros(shape, dtype=model.dtype, device=device),
-                           "v": torch.zeros(shape, dtype=model.dtype, device=device)}
+    return {f"block_{i}": _planes(shape, kv_dtype, model.dtype, device)
             for i in range(model.num_layers)}
 
 
@@ -332,11 +374,12 @@ def paged_decode_step_slots(model: TransformerLM, params: dict, pool: dict,
                             ) -> tuple[dict, torch.Tensor]:
     """``decode_step_slots`` through a page table: ``pool`` per ``init_page_pool``,
     ``table [B, P_max]`` int32, ``ids_t``/``t [B]`` (int32 ``t`` on the card, as the
-    kernel takes it). Per layer: project, write each slot's K/V row at
-    ``(table[b, t'//ps], t' % ps)`` with ``t' = clip(t, 0, S - 1)``, then
-    ``paged_attend`` on the pool. Slots whose rows are null-mapped (inactive, or
-    mid-prefill at ``t = S - 1``) write into the null page and attend over junk the
-    engine discards."""
+    kernel takes it). Per layer: project, write each slot's K/V row (its codes and
+    per-head scales, in a quantized pool) at ``(table[b, t'//ps], t' % ps)`` with
+    ``t' = clip(t, 0, S - 1)``, then ``paged_attend`` on the pool, with the scale pools
+    when there are any: on the card the kernel reads the narrow pool and dequantizes as it
+    goes. Slots whose rows are null-mapped (inactive, or mid-prefill at ``t = S - 1``)
+    write into the null page and attend over junk the engine discards."""
     b = ids_t.shape[0]
     ps = pool_page_size(pool)
     rows = torch.arange(b, device=ids_t.device)
@@ -347,11 +390,13 @@ def paged_decode_step_slots(model: TransformerLM, params: dict, pool: dict,
     for i in range(model.num_layers):
         q, k, v = _project(model, params, i, h, t)
         layer = pool[f"block_{i}"]
-        layer["k"][pages, offs] = k.to(layer["k"].dtype)
-        layer["v"][pages, offs] = v.to(layer["v"].dtype)
+        for key, row in _kv_rows(layer, k, v).items():
+            layer[key][pages, offs] = row
         qg = q.reshape(b, model.kv_heads, -1, model.head_dim)
         attn = paged_attention.paged_attend(qg, layer["k"], layer["v"], table, t,
                                             window=model.attention_window,
+                                            k_scale=layer.get("k_scale"),
+                                            v_scale=layer.get("v_scale"),
                                             seq_len=model.seq_len)
         h = _block_tail(params, i, h, attn.reshape(b, model.embed_dim))
     return pool, _head(params, h)
@@ -361,8 +406,9 @@ def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
                         table: torch.Tensor, prompt: torch.Tensor, slot: int, start: int,
                         length: int, *, chunk: int) -> dict:
     """``prefill_chunk`` through a page table: gather the one slot's ``[1, S]`` view, run
-    the contiguous chunk on it, and scatter the chunk's valid rows to their pages. No
-    wipe: a masked row of a recycled page never reaches a softmax weight."""
+    the contiguous chunk on it, and scatter the chunk's valid rows to their pages (every
+    plane, the scale planes of a quantized pool included). No wipe: a masked row of a
+    recycled page never reaches a softmax weight."""
     s = model.seq_len
     row_table = table[slot].long()                               # [P_max]
     view = {name: {key: paged_attention.gather_view(x, row_table[None], s)

@@ -1,4 +1,18 @@
-"""Serving: the continuous-batching engine over the LM's contiguous or paged KV cache."""
+"""Serving: the continuous-batching engine over the LM's contiguous or paged KV cache.
+
+- ``engine``: ``ContinuousBatchingEngine``, one decode step over a fixed ``[num_slots]``
+  batch with chunked prefill, quantized KV and weights (``kv_dtype``, ``quant_policy``),
+  the prefix cache and park/resume;
+- ``prefix_cache``: the host-side LRU of prefilled rows keyed by prompt tokens;
+- ``pagepool``: the paged layout's allocator;
+- ``scheduler``: the request types and ``RequestQueue``, the thread-safe multi-tenant
+  queue (quotas, weighted-fair and priority dequeue, shedding);
+- ``server``: ``Server``, the in-process front end (``submit() -> Future``, a background
+  loop that owns the engine, drain, expiry, tenant caps and priority preemption).
+
+The names the JAX package's ``serving/__init__.py`` exports are exported here, except the
+fleet's ``Router``/``RouterCompletion`` (ROADMAP A11).
+"""
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engine import (
     Completion,
@@ -12,11 +26,29 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.pagep
     PagePoolExhausted,
     pages_for,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.prefix_cache import (
+    PrefixCache,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
+    Parked,
+    QueueClosed,
+    QueueFull,
+    QuotaExceeded,
     Request,
+    RequestQueue,
     SamplingParams,
+    ServerStopped,
+    Shed,
+    TenantSpec,
+    TenantTable,
+    parse_tenants,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.server import (
+    Server,
 )
 
 __all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "PagePool",
-           "PagePoolExhausted", "Request", "SamplingParams", "filter_logits_per_slot",
-           "greedy_chunk_plan", "pages_for"]
+           "PagePoolExhausted", "Parked", "PrefixCache", "QueueClosed", "QueueFull",
+           "QuotaExceeded", "Request", "RequestQueue", "SamplingParams", "Server",
+           "ServerStopped", "Shed", "TenantSpec", "TenantTable", "filter_logits_per_slot",
+           "greedy_chunk_plan", "pages_for", "parse_tenants"]

@@ -30,11 +30,27 @@ prompt_len`` is the prompt's), and the sampling filters run only in steps where 
 samples. Temperature sampling draws Gumbel noise from a ``torch.Generator`` seeded from
 ``seed``: reproducible for a seed and a request mix, not bitwise equal to ``jax.random``.
 
-Not ported yet (each raises ``ValueError`` naming ROADMAP A9): the prefix cache
-(``prefix_cache_entries``/``prefix_cache_bytes``), quantized KV planes and weights
-(``kv_dtype`` other than ``"model"``, ``quant_policy`` other than ``"off"``), speculative
-decoding (``spec``/``drafter``) and the serve mesh (``mesh``); park/preempt, the
-``Server`` front end, ``RequestQueue`` and tenancy, and tracing wait too.
+Quantized execution (``ops/quant.py``): ``kv_dtype`` picks the KV plane format
+(``"int8"``/``"fp8"``: quantize-on-write planes with per-head f32 scales, which the paged
+step hands to the paged-decode kernel as they are) and ``quant_policy`` the weight
+matmuls (``"w8"``/``"w8a8"``: ``quant.quantize_params`` at construction).
+``byte_accounting`` reports what the live buffers cost.
+
+The prefix cache (``prefix_cache_entries``/``prefix_cache_bytes``,
+``serving/prefix_cache.py``): a finished prefill, a parked stream or a mid-prefill park's
+covered prefix is stored under its tokens; a later admission sharing a token prefix
+installs the stored rows and prefills only the rest. Contiguous entries are snapshots of
+the slot's planes (one copy each way); paged entries hold refcounts on the slot's pages,
+and a hit that ends mid-page copies that one boundary page (copy-on-write).
+
+Park and resume: ``park`` evicts a preemptible slot (its emitted stream and its rows go to
+the prefix cache) and returns a ``scheduler.Parked`` record (or, mid-prefill, the plain
+request) to requeue; ``admit_many`` takes it back and re-admits the stream, prompt plus
+the tokens so far, through chunked prefill (or a cache hit), so a greedy resume continues
+token for token. The threaded front end that drives this is ``serving.server.Server``.
+
+Not ported (each raises ``ValueError`` naming its ROADMAP item): speculative decoding
+(``spec``/``drafter``, A9) and the serve mesh (``mesh``, A10); tracing waits with A11.
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ import numpy as np
 import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm as lm_mod
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
     MASK_VALUE,
 )
@@ -55,7 +72,11 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.pagep
     PagePoolExhausted,
     pages_for,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.prefix_cache import (
+    PrefixCache,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
+    Parked,
     Request,
     SamplingParams,
 )
@@ -64,8 +85,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.sched
 @dataclasses.dataclass
 class Completion:
     """A finished request: the emitted token stream (prompt prefix + generated suffix)
-    and its latency accounting. ``finish`` is ``"ok"`` or ``"timeout"`` (deadline hit —
-    for a mid-decode timeout ``tokens`` holds the partial stream)."""
+    and its latency accounting. ``finish`` is ``"ok"`` (the stream reached its length),
+    ``"timeout"`` (deadline hit — for a mid-decode timeout ``tokens`` holds the partial
+    stream) or, from the server, ``"shed"``."""
 
     request: Request
     tokens: np.ndarray
@@ -76,6 +98,7 @@ class Completion:
     ttft_s: float | None = None       # arrival -> first GENERATED token
     tpot_s: float | None = None       # mean inter-token time after the first
     e2e_s: float | None = None        # arrival -> completion
+    preemptions: int = 0              # times this request was parked mid-decode
 
     @property
     def ok(self) -> bool:
@@ -87,8 +110,9 @@ class KVPagesExhausted(RuntimeError):
     cover every requested reservation. Raised by ``admit_many`` AFTER binding what fit.
 
     ``admitted`` holds the ``(slot, request)`` pairs this call did bind; ``refused`` the
-    requests (FIFO order) left unbound with their slots free — requeue them and retry
-    once decode frees pages. ``needed``/``free`` carry the first refusal's shortfall."""
+    items (``Request``/``Parked``, FIFO order) left unbound with their slots free —
+    requeue them and retry once decode frees pages. ``needed``/``free`` carry the first
+    refusal's shortfall."""
 
     def __init__(self, admitted: list, refused: list, cause: PagePoolExhausted):
         self.admitted = admitted
@@ -145,30 +169,24 @@ def greedy_chunk_plan(sizes: tuple[int, ...], start: int,
     return plan
 
 
-def _refuse_unported(*, prefix_cache_entries, prefix_cache_bytes, kv_dtype, quant_policy,
-                     spec, drafter, mesh) -> None:
-    if prefix_cache_entries or prefix_cache_bytes:
-        raise ValueError("the prefix cache is not ported yet (ROADMAP A9: "
-                         "serving/prefix_cache.py)")
-    if kv_dtype != "model":
-        raise ValueError(f"kv_dtype {kv_dtype!r} is not ported yet (ROADMAP A9: "
-                         f"ops/quant.py); the port serves kv_dtype='model'")
-    if quant_policy != "off":
-        raise ValueError(f"quant_policy {quant_policy!r} is not ported yet (ROADMAP A9: "
-                         f"ops/quant.py); the port serves quant_policy='off'")
+def _refuse_unported(*, spec, drafter, mesh) -> None:
     if spec != "off" or drafter is not None:
         raise ValueError("speculative decoding is not ported yet (ROADMAP A9: "
                          "serving/spec/)")
     if mesh is not None:
-        raise ValueError("the serve mesh is not ported yet (ROADMAP A9: serving/shard.py)")
+        raise ValueError("the serve mesh is not ported yet (ROADMAP A10: serving/shard.py)")
+
+
 
 
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over ``models.lm``'s KV-cache decoder.
 
     ``params`` is the model's flat parameter dict (``TransformerLM.init``, or
-    ``models.transformer.params_from_jax`` of a JAX tree); it is moved to ``device``.
-    Single-threaded: callers drive ``step``/``run`` from one thread."""
+    ``models.transformer.params_from_jax`` of a JAX tree); it is moved to ``device`` and
+    quantized there for ``quant_policy``. Single-threaded: callers drive ``step``/``run``
+    from one thread (``serving.server.Server`` serializes all engine access on its loop
+    thread)."""
 
     def __init__(self, model: lm_mod.TransformerLM, params: dict, *, num_slots: int,
                  seed: int = 0,
@@ -187,20 +205,27 @@ class ContinuousBatchingEngine:
                  device: torch.device | str = "cuda"):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        _refuse_unported(prefix_cache_entries=prefix_cache_entries,
-                         prefix_cache_bytes=prefix_cache_bytes, kv_dtype=kv_dtype,
-                         quant_policy=quant_policy, spec=spec, drafter=drafter, mesh=mesh)
+        _refuse_unported(spec=spec, drafter=drafter, mesh=mesh)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise ValueError("device 'cuda' needs a CUDA device, and "
-                             "torch.cuda.is_available() is false: pass device='cpu'")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise ValueError("device 'cuda' needs a CUDA device, and "
+                                 "torch.cuda.is_available() is false: pass device='cpu'")
+            if self.device.index is None:   # pinned, so another thread can make it current
+                self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model
-        self.params = {name: p.to(self.device) for name, p in params.items()}
+        # kv_dtype picks the KV plane format, quant_policy the weight matmuls; both off
+        # is the unquantized path (quantize_params returns the dict itself).
+        self.quant = quant.QuantPolicy(kv_dtype=kv_dtype, weights=quant_policy)
+        self.params = quant.quantize_params(
+            {name: p.to(self.device) for name, p in params.items()}, self.quant)
         self.num_slots = b = int(num_slots)
         s = model.seq_len
         self.steps = 0                # decode steps executed
         self.slot_steps = 0           # sum of occupied slots over steps (occupancy)
         self.generated_tokens = 0     # emitted non-forced tokens
+        self.preemptions = 0          # slots parked (priority pressure)
+        self.resumes = 0              # parked requests re-admitted
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
@@ -222,12 +247,19 @@ class ContinuousBatchingEngine:
             self.page_size = ps
             self._pagepool = PagePool(int(num_pages), page_size=ps)
             self._cache = lm_mod.init_page_pool(model, int(num_pages), page_size=ps,
+                                                kv_dtype=self.quant.kv_dtype,
                                                 device=self.device)
+            # Paged entries are page ids, not planes: their own layout signature keeps
+            # them from installing into a contiguous engine (and the reverse).
+            self.plane_layout = f"paged:{ps}:" + quant.cache_layout(self._cache)
             self._table = np.full((b, p_max), self._pagepool.null_page(), np.int32)
             self._slot_pages: list[list[int]] = [[] for _ in range(b)]
+            self.cow_copies = 0       # boundary pages copied for prefix-cache hits
         else:
             self.page_size = None
-            self._cache = lm_mod.init_cache(model, b, device=self.device)
+            self._cache = lm_mod.init_cache(model, b, kv_dtype=self.quant.kv_dtype,
+                                            device=self.device)
+            self.plane_layout = quant.cache_layout(self._cache)
         self._ids = np.full((b,), model.vocab_size - 1, np.int32)   # BOS
         self._t = np.zeros((b,), np.int32)
         self._active = np.zeros((b,), bool)
@@ -235,8 +267,11 @@ class ContinuousBatchingEngine:
         # writes the admitted rows in one transfer.
         self._prompt = torch.zeros((b, s), dtype=torch.int32, device=self.device)
         self._prompt_len = np.zeros((b,), np.int32)
-        self._fill_len = np.zeros((b,), np.int32)      # positions that arrive by prefill
+        # Positions that arrive by prefill: the prompt's, or on a resume the parked
+        # stream's (prompt plus the tokens generated before the park).
+        self._fill_len = np.zeros((b,), np.int32)
         self._stream: list[np.ndarray | None] = [None] * b
+        self._parks = np.zeros((b,), np.int32)   # this occupant's park count
         self._total_len = np.zeros((b,), np.int32)
         self._temp = np.zeros((b,), np.float32)
         self._top_k = np.zeros((b,), np.int32)
@@ -253,10 +288,18 @@ class ContinuousBatchingEngine:
         if prefill_chunk_budget < 1:
             raise ValueError(f"prefill_chunk_budget must be >= 1, got {prefill_chunk_budget}")
         self.prefill_chunk_budget = int(prefill_chunk_budget)
+        if (prefix_cache_entries or prefix_cache_bytes) and not self.prefill_chunk_sizes:
+            raise ValueError("the prefix cache rides the chunked-prefill path — "
+                             "enable prefill_chunk_sizes to use it")
+        self._prefix_cache_entries = int(prefix_cache_entries)
+        self._prefix_cache_bytes = (None if prefix_cache_bytes is None
+                                    else int(prefix_cache_bytes))
+        self.prefix_cache = self._build_prefix_cache()
         self.prefill_invocations = 0  # chunk executions
-        self.prefill_tokens = 0       # prompt tokens prefilled
+        self.prefill_tokens = 0       # prompt tokens prefilled (cache hits excluded)
         self._pending_chunks: list[list[tuple[int, int, int]]] = [[] for _ in range(b)]
         self._prefill_fifo: collections.deque[int] = collections.deque()
+        self._hit_len = np.zeros((b,), np.int32)
         self._chunks_done = np.zeros((b,), np.int32)
 
     # ------------------------------------------------------------------ host -> device
@@ -292,9 +335,10 @@ class ContinuousBatchingEngine:
 
     def _paged_step_program(self, ids: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The decode step, paged layout: ``models.lm.paged_decode_step_slots`` through
-        the page table (the paged-decode kernel on the card), then the same sampling. No
-        wipe: recycled pages hold finite rows and every masked score is ``MASK_VALUE``,
-        so greedy decode equals the contiguous step's."""
+        the page table (the paged-decode kernel on the card, which reads a quantized pool
+        with its scale pools), then the same sampling. No wipe: recycled pages hold finite
+        rows and every masked score is ``MASK_VALUE``, so greedy decode equals the
+        contiguous step's."""
         _, log_probs = lm_mod.paged_decode_step_slots(
             self.model, self.params, self._cache, self._device_table(), ids, t)
         return self._sample_token(log_probs)
@@ -314,27 +358,112 @@ class ContinuousBatchingEngine:
         scaled = filter_logits_per_slot(log_probs / safe_temp[:, None], top_k, top_p)
         return torch.where(temp > 0.0, sample_categorical(scaled, self._gen), greedy)
 
+    def _snapshot(self, slot: int) -> dict:
+        """A contiguous slot's planes (every leaf, scales included) as a prefix-cache
+        entry: one copy."""
+        return {name: {key: x[slot].clone() for key, x in layer.items()}
+                for name, layer in self._cache.items()}
+
+    def _install(self, planes: dict, slot: int) -> None:
+        """A contiguous prefix-cache hit: copy a stored entry's planes into ``slot`` (rows
+        past the hit length are the donor's, hidden by the position mask until prefill or
+        decode overwrites them)."""
+        for name, layer in self._cache.items():
+            for key, x in layer.items():
+                x[slot].copy_(planes[name][key])
+
+    def _cow(self, dst: int, src: int) -> None:
+        """Copy-on-write: duplicate one page (every leaf's rows and scales) into a
+        freshly allocated page, so a hit whose boundary lands mid-page keeps the shared
+        entry's page intact while this slot writes past the boundary."""
+        for layer in self._cache.values():
+            for x in layer.values():
+                x[dst] = x[src]
+
     # ------------------------------------------------------------------ paging
 
-    def _page_reserve(self, slot: int, total: int) -> None:
-        """Reservation at admission: an all-or-nothing allocation of every page ``total``
-        positions can touch (raises ``PagePoolExhausted``; on failure the slot owns
-        nothing)."""
-        pages = self._pagepool.alloc(pages_for(int(total), self._pagepool.page_size))
+    def _page_bytes(self) -> int:
+        """Bytes of one page across every leaf (codes and scales)."""
+        return quant.tree_bytes(self._cache) // self._pagepool.num_pages
+
+    def _build_prefix_cache(self) -> PrefixCache | None:
+        if not self._prefix_cache_entries and not self._prefix_cache_bytes:
+            return None
+        # A bytes-only budget leaves the entry count unbounded: the measured bytes are
+        # then the only eviction pressure.
+        entries = self._prefix_cache_entries or (1 << 30)
+        return PrefixCache(entries, layout=self.plane_layout,
+                           capacity_bytes=self._prefix_cache_bytes,
+                           on_evict=(self._on_prefix_evict if self._pagepool is not None
+                                     else None))
+
+    def _on_prefix_evict(self, planes: dict) -> None:
+        """Eviction hook (paged): the entry's refcounts on its pages return to the pool."""
+        self._pagepool.unref(int(p) for p in planes["pages"])
+
+    def _page_reserve(self, slot: int, stream: np.ndarray, total: int) -> int:
+        """Reservation at admission: a prefix lookup, then an all-or-nothing allocation
+        of every page ``total`` positions can touch (raises ``PagePoolExhausted``; on
+        failure the slot owns nothing). A hit's full pages are shared by refcount; a
+        boundary page (hit length mid-page) is copied. Returns the hit length."""
+        pool = self._pagepool
+        ps = pool.page_size
+        hit_len, entry_pages = 0, None
+        if self.prefix_cache is not None and len(stream):
+            hit_len, payload = self.prefix_cache.lookup(
+                stream, min_len=min(self.prefill_chunk_sizes), layout=self.plane_layout)
+            if hit_len:
+                entry_pages = [int(p) for p in payload["pages"]]
+        shared = hit_len // ps
+        new_pages = pool.alloc(pages_for(int(total), ps) - shared)   # may raise
+        shared_pages = entry_pages[:shared] if shared else []
+        if shared_pages:
+            pool.ref(shared_pages)
+        pages = shared_pages + new_pages
+        if hit_len % ps:
+            # Boundary copy-on-write: the entry's page `shared` holds rows
+            # [0, hit_len % ps) this slot needs, in a page of its own.
+            self._cow(pages[shared], entry_pages[shared])
+            self.cow_copies += 1
         self._slot_pages[slot] = pages
         row = self._table[slot]
-        row[:] = self._pagepool.null_page()
+        row[:] = pool.null_page()
         row[:len(pages)] = pages
         self._table_dev = None
+        return hit_len
 
     def _release_pages(self, slot: int) -> None:
-        """Drop the slot's reservation (finish/expire); its table row returns to the null
-        page, so the decode step's writes for the now inactive slot land there."""
+        """Drop the slot's reservation (finish/park/expire); pages shared with prefix-cache
+        entries stay alive under the entries' refcounts. The table row returns to the
+        null page, so the decode step's writes for the now inactive slot land there."""
         if self._slot_pages[slot]:
             self._pagepool.unref(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._table[slot, :] = self._pagepool.null_page()
         self._table_dev = None
+
+    def _prefix_insert_pages(self, slot: int, tokens: np.ndarray) -> None:
+        """A paged prefix-cache insert: the entry takes a refcount on the pages covering
+        ``tokens``, no copy. The slot may keep writing the last covered page at positions
+        ``>= len(tokens)``, outside every row the entry claims."""
+        n = pages_for(len(tokens), self._pagepool.page_size)
+        pages = self._slot_pages[slot][:n]
+        if not pages:
+            return
+        self._pagepool.ref(pages)
+        self.prefix_cache.insert(np.asarray(tokens, np.int32),
+                                 {"pages": np.asarray(pages, np.int32)},
+                                 layout=self.plane_layout,
+                                 nbytes=len(pages) * self._page_bytes())
+
+    def _prefix_insert(self, slot: int, tokens: np.ndarray) -> None:
+        """Store the slot's rows ``[0, len(tokens))`` under their tokens: page refcounts
+        (paged) or a snapshot of the planes (contiguous)."""
+        if self._pagepool is not None:
+            self._prefix_insert_pages(slot, tokens)
+        else:
+            self.prefix_cache.insert(np.asarray(tokens, np.int32), self._snapshot(slot),
+                                     layout=self.plane_layout)
 
     # ------------------------------------------------------------------ slots
 
@@ -346,7 +475,8 @@ class ContinuousBatchingEngine:
         return [i for i in range(self.num_slots) if self._requests[i] is None]
 
     def validate(self, request: Request) -> int:
-        """Admission-control check. Returns the request's total stream length."""
+        """Admission-control check (the server's submit path calls it too, so callers
+        fail before queueing). Returns the request's total stream length."""
         request.sampling.validate(self.model.vocab_size)
         p = len(request.prompt)
         if p >= self.model.seq_len:
@@ -365,57 +495,76 @@ class ContinuousBatchingEngine:
         """Bind ``request`` to a free slot (single-request ``admit_many``)."""
         self.admit_many([(slot, request)], now=now)
 
-    def admit_many(self, admissions: list[tuple[int, Request]], *,
+    def admit_many(self, admissions: list[tuple[int, Request | Parked]], *,
                    now: float | None = None) -> None:
         """Bind a batch of requests to free slots: host writes plus ONE transfer of the
         admitted prompt rows into the device prompt buffer. Each prompt is then
-        chunk-prefilled (interleaved with decode by ``step``) or, with prefill disabled,
-        teacher-forced through the decode loop. In the paged layout each request's page
-        span is reserved first; what does not fit is refused with ``KVPagesExhausted``
-        after the rest is bound."""
+        chunk-prefilled (interleaved with decode by ``step``), served from the prefix
+        cache, or, with prefill disabled, teacher-forced through the decode loop. In the
+        paged layout each request's page span is reserved first; what does not fit is
+        refused with ``KVPagesExhausted`` after the rest is bound.
+
+        An admission may be a ``Parked`` record (a request evicted by ``park``): its row
+        is the emitted stream, prompt plus the tokens generated so far, re-admitted
+        through the prefix cache or chunked prefill like a prompt of those tokens."""
         if not admissions:
             return
         now = time.monotonic() if now is None else now
         seen: set[int] = set()
-        entries: list[tuple[int, Request, np.ndarray]] = []
-        for slot, request in admissions:
+        entries: list[tuple[int, Request, Parked | None, np.ndarray]] = []
+        for slot, item in admissions:
             if self._requests[slot] is not None or slot in seen:
                 raise ValueError(f"slot {slot} is occupied")
             seen.add(slot)
-            self.validate(request)
-            entries.append((slot, request, np.asarray(request.prompt, np.int32).reshape(-1)))
+            parked = item if isinstance(item, Parked) else None
+            request = parked.request if parked is not None else item
+            if parked is not None:
+                if not self.prefill_chunk_sizes:
+                    raise ValueError("preemption resume rides the chunked-prefill path — "
+                                     "enable prefill_chunk_sizes to use it")
+                stream = np.asarray(parked.tokens, np.int32).reshape(-1)
+                if not len(request.prompt) <= len(stream) < self.model.seq_len:
+                    raise ValueError(f"parked stream length {len(stream)} outside "
+                                     f"[prompt_len, seq_len)")
+            else:
+                self.validate(request)
+                stream = np.asarray(request.prompt, np.int32).reshape(-1)
+            entries.append((slot, request, parked, stream))
         b, s = self.num_slots, self.model.seq_len
         if len(admissions) > b:
             raise ValueError(f"{len(admissions)} admissions > {b} slots")
-        refused: list[Request] = []
+        page_hits: dict[int, int] = {}
+        refused: list = []
         refusal: PagePoolExhausted | None = None
         if self._pagepool is not None:
             kept = []
             for entry in entries:
-                slot, request, _ = entry
+                slot, request, parked, stream = entry
+                total = min(len(request.prompt) + request.max_new_tokens, s)
                 try:
-                    self._page_reserve(slot, min(len(request.prompt)
-                                                 + request.max_new_tokens, s))
+                    page_hits[slot] = self._page_reserve(slot, stream, total)
                     kept.append(entry)
                 except PagePoolExhausted as exc:
-                    refused.append(request)
+                    refused.append(parked if parked is not None else request)
                     refusal = refusal or exc
             entries = kept
         if entries:
             rows = np.zeros((len(entries), s), np.int32)
-            for j, (_, _, stream) in enumerate(entries):
+            for j, (_, _, _, stream) in enumerate(entries):
                 rows[j, :len(stream)] = stream
-            slots = np.asarray([slot for slot, _, _ in entries], np.int64)
+            slots = np.asarray([slot for slot, _, _, _ in entries], np.int64)
             self._prompt[self._to_device(slots)] = self._to_device(rows)
-        for slot, request, stream in entries:
+        for slot, request, parked, stream in entries:
             total = min(len(request.prompt) + request.max_new_tokens, s)
-            self._admit_one(slot, request, total, now, stream)
+            self._admit_one(slot, request, total, now, stream, parked=parked,
+                            page_hit=page_hits.get(slot))
         if refused:
-            raise KVPagesExhausted([(slot, request) for slot, request, _ in entries],
+            raise KVPagesExhausted([(slot, request) for slot, request, _, _ in entries],
                                    refused, refusal)
 
     def _admit_one(self, slot: int, request: Request, total: int, now: float,
-                   stream: np.ndarray) -> None:
+                   stream: np.ndarray, *, parked: Parked | None = None,
+                   page_hit: int | None = None) -> None:
         self._requests[slot] = request
         self._prompt_len[slot] = len(request.prompt)
         self._total_len[slot] = total
@@ -428,8 +577,26 @@ class ContinuousBatchingEngine:
         self._chunks_done[slot] = 0
         if request.arrival_s is None:
             request.arrival_s = now
-        self._admit_s[slot] = now
-        self._first_tok_s[slot] = None
+        if parked is None:
+            self._admit_s[slot] = now
+            self._first_tok_s[slot] = None
+            self._parks[slot] = 0
+        else:
+            # A resume keeps the first admission's stamps: queue wait and TTFT were paid
+            # once; e2e keeps growing through the parked gap.
+            self.resumes += 1
+            self._admit_s[slot] = parked.admit_s
+            self._first_tok_s[slot] = parked.first_tok_s
+            self._parks[slot] = parked.parks
+        hit_len = 0
+        if page_hit is not None:
+            hit_len = page_hit           # paged: looked up and shared at reservation
+        elif self.prefix_cache is not None and fill:
+            hit_len, planes = self.prefix_cache.lookup(
+                stream, min_len=min(self.prefill_chunk_sizes), layout=self.plane_layout)
+            if hit_len:
+                self._install(planes, slot)
+        self._hit_len[slot] = hit_len
         if not self.prefill_chunk_sizes or fill == 0:
             # Prefill-as-decode (or nothing to prefill): the slot joins the decode step
             # at t = 0; a contiguous slot is wiped there.
@@ -437,21 +604,24 @@ class ContinuousBatchingEngine:
             self._ids[slot] = self.model.vocab_size - 1          # BOS restart
             self._t[slot] = 0
             self._out[slot] = []
+        elif hit_len == fill:
+            # A full prefix hit: the installed rows are the prefill.
+            self._activate_prefilled(slot)
         else:
-            # Chunked prefill over [0, fill): the slot stays out of the decode batch until
-            # its plan drains. Its t parks at seq_len - 1, so the decode step's
+            # Chunked prefill over [hit_len, fill): the slot stays out of the decode batch
+            # until its plan drains. Its t parks at seq_len - 1, so the decode step's
             # unconditional per-slot write lands on a row that is rewritten before it can
             # become visible (contiguous), or on the null page (paged).
-            self._pending_chunks[slot] = self.plan_prefill(0, fill)
+            self._pending_chunks[slot] = self.plan_prefill(hit_len, fill)
             self._prefill_fifo.append(slot)
             self._active[slot] = False
             self._t[slot] = self.model.seq_len - 1
             self._out[slot] = []
 
     def _activate_prefilled(self, slot: int) -> None:
-        """Promote a slot whose cache holds its whole prompt into the decode batch: the
-        emitted stream so far is the prompt, and the next step samples position
-        ``fill``."""
+        """Promote a slot whose cache holds its whole stream into the decode batch: the
+        emitted stream so far is the prompt (prompt plus generated tokens after a
+        resume), and the next step samples position ``fill``."""
         fill = int(self._fill_len[slot])
         stream = self._stream[slot]
         self._ids[slot] = int(stream[fill - 1])
@@ -460,23 +630,81 @@ class ContinuousBatchingEngine:
         self._active[slot] = True
 
     def reset_stats(self) -> None:
-        """Zero the perf counters (benchmark hygiene: warm up, then measure from a clean
-        ledger). Only valid while no request is in flight."""
+        """Zero the perf counters and the prefix cache's contents (benchmark hygiene: warm
+        up, then measure from a clean ledger). Only valid while no request is in
+        flight."""
         if self.num_active:
             raise RuntimeError("reset_stats with requests in flight")
         self.steps = 0
         self.slot_steps = 0
         self.generated_tokens = 0
+        self.preemptions = 0
+        self.resumes = 0
         self.prefill_invocations = 0
         self.prefill_tokens = 0
+        if self.prefix_cache is not None:
+            # clear() fires the eviction hook per entry: paged refcounts return first.
+            self.prefix_cache.clear()
+            self.prefix_cache = self._build_prefix_cache()
         if self._pagepool is not None:
             self._pagepool.reset_counters()
+            self.cow_copies = 0
+
+    # The reference budget of ``slots_at_budget``: the A/B ratio it feeds is
+    # budget-independent past the parameters.
+    HBM_BUDGET_BYTES = 1 << 30
+
+    def byte_accounting(self, *, hbm_budget_bytes: int | None = None) -> dict:
+        """Byte-true accounting of the decode working set from the live tensors, in the
+        JAX engine's keys: ``decode_bytes_per_step`` (the whole KV store, the parameters
+        and the prompt buffer: every step reads all ``[B, S]`` rows), over ``num_slots``
+        as ``decode_bytes_per_token``; ``kv_bytes_per_slot``; ``slots_at_budget`` under a
+        reference budget. One device, so ``per_chip`` has one entry."""
+        budget = (self.HBM_BUDGET_BYTES if hbm_budget_bytes is None
+                  else int(hbm_budget_bytes))
+        params_bytes = quant.tree_bytes(self.params)
+        kv_bytes = quant.tree_bytes(self._cache)
+        prompt_bytes = quant.tree_bytes(self._prompt)
+        if self._pagepool is not None:
+            # A paged slot's cost is its reservation; the conservative figure is the
+            # full-context span (P_max pages).
+            per_slot = self._table.shape[1] * self._page_bytes()
+        else:
+            per_slot = kv_bytes // self.num_slots
+        per_step = kv_bytes + params_bytes + prompt_bytes
+        doc = {
+            "kv_layout": self.kv_layout,
+            "kv_dtype": self.quant.kv_dtype,
+            "quant_policy": self.quant.weights,
+            "plane_layout": self.plane_layout,
+            "params_bytes": params_bytes,
+            "kv_bytes_resident": kv_bytes,
+            "kv_bytes_per_slot": per_slot,
+            "prompt_bytes": prompt_bytes,
+            "decode_bytes_per_step": per_step,
+            "decode_bytes_per_token": per_step / self.num_slots,
+            "hbm_budget_bytes": budget,
+            "slots_at_budget": max(
+                (budget - params_bytes) // (per_slot + prompt_bytes // self.num_slots), 0),
+        }
+        if self._pagepool is not None:
+            doc["page_size"] = self._pagepool.page_size
+            doc["num_pages"] = self._pagepool.num_pages
+            doc["page_bytes"] = self._page_bytes()
+            doc["page_token_capacity"] = (self._pagepool.usable_pages
+                                          * self._pagepool.page_size)
+        chip = {"params_bytes": params_bytes, "kv_bytes": kv_bytes,
+                "prompt_bytes": prompt_bytes, "total_bytes": per_step}
+        doc["per_chip"] = {self.device.index or 0: chip}
+        doc["bytes_per_chip_max"] = per_step
+        doc["params_kv_bytes_per_chip_max"] = params_bytes + kv_bytes
+        doc["mesh"] = None
+        return doc
 
     def page_stats(self) -> dict | None:
         """The allocator ledger plus internal fragmentation (reserved-but-unwritten share
-        of slot-held pages), in the JAX engine's keys; None in the contiguous layout.
-        ``cow_copies`` (boundary pages copied for prefix-cache hits) is 0: the prefix
-        cache is not ported."""
+        of slot-held pages) and the copy-on-write count, in the JAX engine's keys; None
+        in the contiguous layout."""
         if self._pagepool is None:
             return None
         s = self._pagepool.stats()
@@ -496,8 +724,20 @@ class ContinuousBatchingEngine:
         s["slot_tokens_live"] = live
         s["fragmentation"] = (round(1.0 - live / (held * self._pagepool.page_size), 4)
                               if held else 0.0)
-        s["cow_copies"] = 0
+        s["cow_copies"] = self.cow_copies
         return s
+
+    def _vacate(self, slot: int) -> None:
+        """Free a slot after finish or park: host state back to empty, pages released."""
+        self._requests[slot] = None
+        self._active[slot] = False
+        self._out[slot] = []
+        self._first_tok_s[slot] = None
+        self._hit_len[slot] = 0
+        self._stream[slot] = None
+        self._parks[slot] = 0
+        if self._pagepool is not None:
+            self._release_pages(slot)
 
     def _finish(self, slot: int, finish: str, now: float) -> Completion:
         req = self._requests[slot]
@@ -518,14 +758,8 @@ class ContinuousBatchingEngine:
             queue_wait_s=self._admit_s[slot] - arrival,
             ttft_s=None if first is None else first - arrival,
             tpot_s=(now - first) / (new - 1) if first is not None and new > 1 else None,
-            e2e_s=now - arrival)
-        self._requests[slot] = None
-        self._active[slot] = False
-        self._out[slot] = []
-        self._first_tok_s[slot] = None
-        self._stream[slot] = None
-        if self._pagepool is not None:
-            self._release_pages(slot)
+            e2e_s=now - arrival, preemptions=int(self._parks[slot]))
+        self._vacate(slot)
         return comp
 
     # ------------------------------------------------------------------ stepping
@@ -552,15 +786,17 @@ class ContinuousBatchingEngine:
                                            self._device_table(), self._prompt, slot, start,
                                            length, chunk=size)
             else:
+                fresh = self._chunks_done[slot] == 0 and self._hit_len[slot] == 0
                 lm_mod.prefill_chunk(self.model, self.params, self._cache, self._prompt,
-                                     slot, start, length, self._chunks_done[slot] == 0,
-                                     chunk=size)
+                                     slot, start, length, fresh, chunk=size)
             self.prefill_invocations += 1
             self.prefill_tokens += length
             self._chunks_done[slot] += 1
             budget -= 1
             if not self._pending_chunks[slot]:
                 self._prefill_fifo.remove(slot)
+                if self.prefix_cache is not None:
+                    self._prefix_insert(slot, self._stream[slot])
                 self._activate_prefilled(slot)
 
     def step(self) -> list[Completion]:
@@ -601,6 +837,88 @@ class ContinuousBatchingEngine:
                 done.append(self._finish(i, "ok", now))
         return done
 
+    # ------------------------------------------------------------------ preemption
+
+    def preemptible_slots(self) -> list[tuple[int, int]]:
+        """The park candidates, ``(slot, priority)``: occupied slots whose request is
+        preemptible, decode-ready with at least one row or mid-prefill. Order: lowest
+        priority first; within a tier mid-prefill slots first (no generated tokens yet),
+        then the most recently admitted."""
+        out = []
+        for i, req in enumerate(self._requests):
+            if req is None or not req.preemptible:
+                continue
+            if self._pending_chunks[i] or (self._active[i] and self._t[i] >= 1):
+                out.append((i, req.priority))
+        return sorted(out, key=lambda ip: (ip[1], bool(self._active[ip[0]]),
+                                           -self._admit_s[ip[0]]))
+
+    def park(self, slot: int, *, now: float | None = None) -> Parked | Request:
+        """Evict one occupied slot (priority preemption): its rows so far go to the prefix
+        cache (when there is one), the slot frees, and the returned record requeues for
+        re-admission. A decode-ready slot returns a ``Parked`` (its emitted stream is the
+        resume key); a mid-prefill slot returns its plain ``Request``
+        (``_park_mid_prefill``).
+        A greedy resume continues token for token: the stream is re-admitted like a prompt
+        of the same tokens, whose rows are a function of the tokens and the parameters;
+        a cache hit only skips the recompute."""
+        if not self.prefill_chunk_sizes:
+            raise RuntimeError("park/resume rides the chunked-prefill path — "
+                               "enable prefill_chunk_sizes to use it")
+        req = self._requests[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is empty")
+        now = time.monotonic() if now is None else now
+        if self._pending_chunks[slot]:
+            return self._park_mid_prefill(slot, req, now)
+        if not self._active[slot]:
+            raise ValueError(f"slot {slot} is not decode-ready")
+        t = int(self._t[slot])
+        if t < 1:
+            raise ValueError(f"slot {slot} has no cache rows to park")
+        tokens = np.asarray(self._out[slot], np.int32)
+        if len(tokens) != t:
+            raise RuntimeError(f"slot {slot}: emitted stream of {len(tokens)} tokens at "
+                               f"position {t}")
+        if self.prefix_cache is not None:
+            self._prefix_insert(slot, tokens)
+        parked = Parked(request=req, tokens=tokens, first_tok_s=self._first_tok_s[slot],
+                        admit_s=float(self._admit_s[slot]), parked_s=now,
+                        parks=int(self._parks[slot]) + 1)
+        self.preemptions += 1
+        self._vacate(slot)
+        return parked
+
+    def _park_mid_prefill(self, slot: int, req: Request, now: float) -> Parked | Request:
+        """The mid-prefill eviction: the covered prefix's rows (``[0, start)``, settled:
+        chunks run in order) go to the prefix cache under their tokens and the request
+        requeues. A fresh occupant requeues as its plain request; a resumed one (parked
+        before) keeps its ``Parked`` identity, its full stream and its first stamps."""
+        start = self._pending_chunks[slot][0][0]
+        if self.prefix_cache is not None and start > 0:
+            self._prefix_insert(slot, np.asarray(self._stream[slot][:start], np.int32))
+        self._pending_chunks[slot] = []
+        self._prefill_fifo.remove(slot)
+        parks = int(self._parks[slot])
+        if parks > 0:
+            back = Parked(request=req, tokens=np.asarray(self._stream[slot], np.int32),
+                          first_tok_s=self._first_tok_s[slot],
+                          admit_s=float(self._admit_s[slot]), parked_s=now,
+                          parks=parks + 1)
+        else:
+            back = req
+        self.preemptions += 1
+        self._vacate(slot)
+        return back
+
+    def active_tenant_counts(self) -> dict[str, int]:
+        """Occupied slots per tenant (the server's per-tenant slot caps)."""
+        counts: dict[str, int] = {}
+        for req in self._requests:
+            if req is not None:
+                counts[req.tenant] = counts.get(req.tenant, 0) + 1
+        return counts
+
     def expire(self, now: float | None = None) -> list[Completion]:
         """Force-finish in-flight requests whose deadline passed (``finish="timeout"``,
         partial tokens)."""
@@ -616,7 +934,8 @@ class ContinuousBatchingEngine:
 
     def run(self, requests: list[Request], *,
             max_steps: int | None = None) -> list[Completion]:
-        """Serve ``requests`` FIFO to completion: the minimal drive loop."""
+        """Serve ``requests`` FIFO to completion: the minimal drive loop (the threaded
+        front end is ``serving.server.Server``)."""
         pending = list(requests)
         out: list[Completion] = []
         budget = max_steps
@@ -630,10 +949,14 @@ class ContinuousBatchingEngine:
                 self.admit_many(batch)
             except KVPagesExhausted as exc:
                 # Typed backpressure, not an error: requeue the refused requests in order
-                # and let the in-flight work drain pages. With nothing in flight, stepping
-                # cannot free anything: the pool cannot fit one request.
+                # and let the in-flight work drain pages. With nothing in flight, drop the
+                # prefix cache's holdings (droppable by definition) and retry; still stuck
+                # means the pool cannot fit one request.
                 pending[:0] = exc.refused
                 if not exc.admitted and self.num_active == 0:
+                    if self.prefix_cache is not None and len(self.prefix_cache):
+                        self.prefix_cache.clear()
+                        continue
                     raise
             out.extend(self.step())
             if budget is not None:
@@ -643,6 +966,6 @@ class ContinuousBatchingEngine:
         return out
 
 
-__all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "Request",
-           "SamplingParams", "filter_logits_per_slot", "greedy_chunk_plan",
+__all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "Parked",
+           "Request", "SamplingParams", "filter_logits_per_slot", "greedy_chunk_plan",
            "sample_categorical"]

@@ -758,6 +758,176 @@ def test_engine_paged_streams_on_the_card(device, cfg):
     assert streams["paged"] == streams["contiguous"]
 
 
+# B6's quantized branches inside the engine, quantized weights, and the Server.
+# Streams: paged (B6) against contiguous (plain torch), greedy, equal or first diverging at
+# a true tie: the plain path's top-2 log-prob gap there below TIE_GAP (chip_smoke.py's
+# rule; a K/V element within an f32 ulp of a rounding boundary takes neighbouring codes
+# on the two paths).
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant  # noqa: E402
+
+TIE_GAP = 1e-5
+QUANT_LM = dict(vocab_size=9, seq_len=16, embed_dim=32, num_layers=2, num_heads=4)
+
+
+def _plain_gap(model, params, kv, stream, fill, p, device):
+    """The plain path's top-2 gap (BOS masked) at position ``p``, replayed alone."""
+    cache = lm.init_cache(model, 1, kv_dtype=kv, device=device)
+    prompt = torch.zeros((1, model.seq_len), dtype=torch.int32, device=device)
+    prompt[0, :fill] = torch.as_tensor(stream[:fill], device=device)
+    for start, length, size in serving.greedy_chunk_plan(
+            tuple(min(c, model.seq_len) for c in lm.PREFILL_CHUNK_SIZES), 0, fill):
+        lm.prefill_chunk(model, params, cache, prompt, 0, start, length, start == 0,
+                         chunk=size)
+    for pos in range(fill, p + 1):
+        ids = stream[pos - 1] if pos else model.vocab_size - 1
+        _, lp = lm.decode_step_slots(model, params, cache, torch.tensor([ids], device=device),
+                                     torch.tensor([pos], dtype=torch.int32, device=device))
+    lp = lp[0].clone()
+    lp[model.vocab_size - 1] = float("-inf")
+    top2 = lp.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def _assert_equal_up_to_ties(got, want, requests, model, params, kv, device):
+    assert sorted(got) == sorted(want)
+    for req in requests:
+        a, b = got[req.request_id], want[req.request_id]
+        if a != b:
+            p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap = _plain_gap(model, params, kv, b, len(req.prompt), p, device)
+            assert gap < TIE_GAP, f"request {req.request_id} differs at {p}, gap {gap:.3e}"
+
+
+def _quant_requests():
+    rng = torch.Generator().manual_seed(2)
+    return [serving.Request(
+        prompt=torch.randint(0, 8, (int(torch.randint(0, 10, (1,), generator=rng)),),
+                             generator=rng).numpy().astype("int32"),
+        max_new_tokens=int(torch.randint(1, 7, (1,), generator=rng)), request_id=i)
+        for i in range(6)]
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("cfg", [dict(), dict(num_kv_heads=2), dict(attention_window=5),
+                                 dict(rope=True), dict(num_heads=8, num_kv_heads=1)],
+                         ids=["mha", "gqa", "window", "rope", "mqa_r8"])
+def test_engine_quantized_paged_streams_on_the_card(device, cfg, kv, monkeypatch):
+    """B6's int8/fp8 branches inside the engine: every call is handed the engine's own
+    narrow pools and their scale pools (no dequantized copy), its output is within
+    PAGED_TOL of the plain version on the same operands, B6 launches once per layer and
+    decode step, and the streams equal the contiguous quantized engine's up to ties."""
+    model = lm.TransformerLM(**(QUANT_LM | cfg))
+    params = model.init(torch.Generator().manual_seed(0))
+    real, seen = paged.paged_attend, []
+
+    def spy(q, k_pool, v_pool, table, t, **kw):
+        out = real(q, k_pool, v_pool, table, t, **kw)
+        seen.append((k_pool.dtype, kw.get("k_scale") is not None, k_pool.data_ptr()))
+        torch.testing.assert_close(
+            out, paged.paged_attend_reference(q, k_pool, v_pool, table, t, **kw), **PAGED_TOL)
+        return out
+
+    streams, engines = {}, {}
+    for layout in ("contiguous", "paged"):
+        engine = serving.ContinuousBatchingEngine(model, params, num_slots=3,
+                                                  kv_layout=layout, page_size=4, kv_dtype=kv)
+        before = paged.launch_counts()["paged_attend"]
+        with monkeypatch.context() as m:
+            m.setattr(paged, "paged_attend", spy)
+            streams[layout] = {c.request.request_id: c.tokens.tolist()
+                               for c in engine.run(_quant_requests())}
+        launched = paged.launch_counts()["paged_attend"] - before
+        assert launched == (model.num_layers * engine.steps if layout == "paged" else 0)
+        engines[layout] = engine
+    pools = {layer["k"].data_ptr() for layer in engines["paged"]._cache.values()}
+    want = quant.resolve_kv_dtype(kv, torch.float32)[0]
+    assert {(dt, sc) for dt, sc, _ in seen} == {(want, True)}
+    assert {ptr for _, _, ptr in seen} <= pools
+    _assert_equal_up_to_ties(streams["paged"], streams["contiguous"], _quant_requests(), model,
+                             engines["contiguous"].params, kv, device)
+
+
+def test_engine_quantized_weights_on_the_card(device):
+    """w8 with int8 KV on the card against the same engine on the CPU: streams equal up to
+    ties (f32 sums in another order). w8a8 on the card serves every request through its
+    int8 routes (its accumulators are held bitwise in the next test; a w8a8 stream is not
+    compared across devices: an f32 difference at an activation's rounding boundary moves
+    a code, and the logits, by more than the tie gap)."""
+    model = lm.TransformerLM(**QUANT_LM)
+    params = model.init(torch.Generator().manual_seed(3))
+    streams = {}
+    for dev in (device, torch.device("cpu")):
+        engine = serving.ContinuousBatchingEngine(model, params, num_slots=3,
+                                                  kv_layout="paged", page_size=4,
+                                                  kv_dtype="int8", quant_policy="w8",
+                                                  device=dev)
+        streams[dev.type] = {c.request.request_id: c.tokens.tolist()
+                             for c in engine.run(_quant_requests())}
+    cpu_params = quant.quantize_params(params, quant.QuantPolicy(weights="w8"))
+    _assert_equal_up_to_ties(streams["cuda"], streams["cpu"], _quant_requests(), model,
+                             cpu_params, "int8", torch.device("cpu"))
+    quant.reset_route_counts()
+    engine = serving.ContinuousBatchingEngine(model, params, num_slots=3, kv_layout="paged",
+                                              page_size=4, kv_dtype="int8",
+                                              quant_policy="w8a8")
+    done = engine.run(_quant_requests())
+    assert sorted(c.request.request_id for c in done) == list(range(6))
+    assert all(c.finish == "ok" and max(c.tokens.tolist() or [0]) < 8 for c in done)
+    assert quant.int8_matmul_routes["f32_exact"] > 0
+
+
+@pytest.mark.parametrize("shape,route", [((8, 256, 768), "f32_exact"),
+                                         ((32, 256, 768), "int_mm"),
+                                         ((17, 64, 24), "int_mm"),
+                                         ((40, 1024, 17), "f32_exact")])
+def test_int8_accumulator_routes_on_the_card(device, shape, route):
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+    wq = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen)
+    quant.reset_route_counts()
+    got = quant.int8_accumulate(xq.to(device), wq.to(device))
+    assert quant.int8_matmul_routes[route] == 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), xq.int() @ wq.int())
+    with pytest.raises(ValueError, match="exact f32 route"):
+        quant.int8_accumulate(torch.zeros((8, 2048), dtype=torch.int8, device=device),
+                              torch.zeros((2048, 17), dtype=torch.int8, device=device))
+
+
+def test_server_serves_on_the_card(device):
+    """Threaded submits through ``serving.Server`` on the card (int8 KV, paged, prefix
+    cache): every future resolves ``ok`` with ``engine.run``'s stream."""
+    import threading
+
+    model = lm.TransformerLM(**QUANT_LM)
+    params = model.init(torch.Generator().manual_seed(4))
+    kw = dict(num_slots=3, kv_layout="paged", page_size=4, kv_dtype="int8",
+              prefix_cache_entries=4)
+    want = {c.request.request_id: c.tokens.tolist()
+            for c in serving.ContinuousBatchingEngine(model, params, **kw).run(
+                _quant_requests())}
+    server = serving.Server(serving.ContinuousBatchingEngine(model, params, **kw)).start()
+    futures = {}
+
+    def submit(reqs):
+        for req in reqs:
+            futures[req.request_id] = server.submit(req.prompt,
+                                                    max_new_tokens=req.max_new_tokens)
+
+    reqs = _quant_requests()
+    threads = [threading.Thread(target=submit, args=(reqs[i::2],)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    done = {rid: fut.result(timeout=120) for rid, fut in futures.items()}
+    server.stop(timeout=120)
+    assert all(c.finish == "ok" for c in done.values())
+    assert {rid: c.tokens.tolist() for rid, c in done.items()} == want
+
+
 # =========================================================================================
 # Data parallelism on the card: NCCL at world 1, gloo at world 2 (two ranks on one card)
 # =========================================================================================

@@ -49,7 +49,9 @@ def test_sources_found():
                    "utils/telemetry.py", "utils/_msgpack.py", "utils/checkpoint.py",
                    "utils/plotting.py", "utils/profiling.py", "resilience/heartbeat.py",
                    "resilience/preemption.py", "data/native.py", "data/download.py",
-                   "data/loader.py", "data/_native/__init__.py", "data/_native/build.py"):
+                   "data/loader.py", "data/_native/__init__.py", "data/_native/build.py",
+                   "ops/quant.py", "serving/prefix_cache.py", "serving/server.py",
+                   "obs/__init__.py", "obs/hist.py", "obs/slo.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -62,8 +64,8 @@ def test_no_jax_imports(path):
 
 def test_top_level_is_a_namespace_package():
     assert not (PORT / "__init__.py").exists()
-    for sub in ("data", "ops", "models", "parallel", "resilience", "serving", "train",
-                "utils"):
+    for sub in ("data", "ops", "models", "obs", "parallel", "resilience", "serving",
+                "train", "utils"):
         assert (PORT / sub / "__init__.py").is_file(), sub
 
 

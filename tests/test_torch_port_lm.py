@@ -204,9 +204,20 @@ def test_pool_helpers_and_unported_kv_dtypes():
     assert lm.PREFILL_CHUNK_SIZES == jax_lm.PREFILL_CHUNK_SIZES
     with pytest.raises(ValueError, match="page_size"):
         lm.pages_per_slot(16, 0)
-    for fn in (lambda: lm.init_cache(tm, 2, kv_dtype="int8"),
-               lambda: lm.init_page_pool(tm, 4, page_size=4, kv_dtype="fp8")):
-        with pytest.raises(ValueError, match="ROADMAP A9"):
+    # int8/fp8 planes: the JAX package's dtypes and scale planes
+    jm = jax_lm.TransformerLM(**SMALL, num_kv_heads=2)
+    for kv in ("int8", "fp8"):
+        for got, want in ((lm.init_cache(tm, 2, kv_dtype=kv),
+                           jax_lm.init_cache(jm, 2, kv_dtype=kv)),
+                          (lm.init_page_pool(tm, 4, page_size=4, kv_dtype=kv),
+                           jax_lm.init_page_pool(jm, 4, page_size=4, kv_dtype=kv))):
+            assert {n: {k: (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+                        for k, x in layer.items()} for n, layer in got.items()} == {
+                n: {k: (tuple(x.shape), str(x.dtype)) for k, x in layer.items()}
+                for n, layer in want.items()}
+    for fn in (lambda: lm.init_cache(tm, 2, kv_dtype="int4"),
+               lambda: lm.init_page_pool(tm, 4, page_size=4, kv_dtype="fp16")):
+        with pytest.raises(ValueError, match="unknown kv_dtype"):
             fn()
     with pytest.raises(ValueError, match="remat"):
         lm.TransformerLM(**SMALL, remat=True)

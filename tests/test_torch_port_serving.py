@@ -260,15 +260,35 @@ def test_expire_returns_partial_streams():
     assert engine.free_slots() == [0] and engine.num_active == 1
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache_entries=4), dict(kv_dtype="int8"),
-                                dict(quant_policy="w8"), dict(spec="ngram"),
-                                dict(mesh=object())],
-                         ids=["prefix_cache", "kv_int8", "w8", "spec", "mesh"])
-def test_unported_engine_options_raise(kw):
+@pytest.mark.parametrize("kw,item", [(dict(spec="ngram"), "A9"),
+                                     (dict(drafter=object()), "A9"),
+                                     (dict(mesh=object()), "A10")],
+                         ids=["spec", "drafter", "mesh"])
+def test_unported_engine_options_raise(kw, item):
     tm = lm.TransformerLM(**SMALL)
-    with pytest.raises(ValueError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         ContinuousBatchingEngine(tm, tm.init(torch.Generator().manual_seed(0)),
                                  num_slots=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(prefix_cache_entries=4), dict(kv_dtype="int8"),
+                                dict(quant_policy="w8")],
+                         ids=["prefix_cache", "kv_int8", "w8"])
+def test_ported_engine_options_are_accepted(kw):
+    """The quantization and prefix-cache options (ported from ROADMAP A9): each builds,
+    takes effect, and serves."""
+    tm = lm.TransformerLM(**SMALL)
+    engine = ContinuousBatchingEngine(tm, tm.init(torch.Generator().manual_seed(0)),
+                                      num_slots=2, device="cpu", **kw)
+    if "prefix_cache_entries" in kw:
+        assert engine.prefix_cache.capacity == 4
+    if "kv_dtype" in kw:
+        assert engine._cache["block_0"]["k"].dtype == torch.int8
+        assert "k_scale" in engine.plane_layout
+    if "quant_policy" in kw:
+        assert type(engine.params["head_kernel"]).__name__ == "QuantizedTensor"
+    done = engine.run([Request(prompt=np.arange(5, dtype=np.int32), max_new_tokens=3)])
+    assert [c.finish for c in done] == ["ok"] and len(done[0].tokens) == 8
 
 
 def test_engine_validation_matches_jax():
