@@ -145,7 +145,18 @@ Phases (each raises on failure; nothing is caught):
     ``ok``, streams equal to ``engine.run``'s, TTFT/TPOT/e2e p50/p95; (e) B6's int8 and fp8
     branches alone at ``[8, 2, 4, 32]`` and R = 8, D = 128 (ms, device µs, the bound of the
     narrow pool and its scales, plain and SDPA ms);
-25. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+25. the pixel LM trained on the card and served through B6: (a) ``train.lm`` for one
+    epoch at ``LMConfig``'s defaults (937 steps in captured segments; epoch seconds, ms a
+    step, the loss falls, test NLL per token below ln 17, perplexity), 20 captured steps
+    against the eager loop and a profiler window over each (host launch calls a step);
+    (b) one epoch and ``--resume-from model_lm.ckpt`` against two epochs straight; (c) the
+    card's ``model_lm.ckpt`` restored on the CPU bitwise; (d) the trained parameters
+    through ``load_params_or_state`` into the paged engine: 8 greedy requests prompted with
+    the top half of test images, streams against greedy ``generate`` up to true ties, B6
+    launches = layers x decode steps, then int8 and fp8 KV: the greedy token-match rate
+    and the teacher-forced ``decode_nll`` delta against the unquantized model (a bar at
+    0.05); (e) ``python -m <port>.bench_lm`` at its defaults, its JSON line printed;
+26. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
@@ -296,6 +307,13 @@ RESUME_ATOL = 1e-6             # phase 22 (a): 1 epoch + resume vs 2 epochs stra
 PREEMPT_EPOCHS = 3             # phase 22 (d): SIGTERM once epoch 2 has begun
 HOST_FED_WINDOW = 100          # phase 23 (b): host-fed steps of each program under the
                                # profiler
+
+# The pixel LM trained on the card and served through B6, phase 25.
+LM_CAPTURE_STEPS = 20          # (a): captured vs eager, and the profiler windows
+LM_CAPTURE_ATOL = 1e-5         # (a): the same operations on the same inputs on the card
+LM_PROMPT = 392                # (d): the top half of a test image
+LM_REQUESTS = 8                # (d): greedy requests, one a slot
+TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
 
 
 def fail(msg: str) -> None:
@@ -1643,6 +1661,160 @@ def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
           f"(data wait s / epoch s): without prefetch "
           f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[0])}; prefetch=2 "
           f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[2])} [{card}]")
+
+
+def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
+    """Phase 25 (a)-(c): the pixel LM trained on the card.
+
+    (a) ``python -m <port>.train.lm --epochs 1``'s flags through ``parse_config`` and
+    ``train.lm.main`` at ``LMConfig``'s defaults (vocab 16 + BOS, seq 784, embed 64, 2
+    layers, 4 heads, batch 64, AdamW 1e-3, clip 1.0) on the synthetic seed-514 split: 937
+    steps in captured segments; the epoch's seconds, ms a step, the first and last
+    segments' mean losses (the loss must fall), the test NLL per token (below ln 17) and
+    its perplexity. Then 20 steps of the trainer's step (``train.lm.make_lm_step`` at the
+    same flags) captured against the eager loop from the trainer's start on its first plan
+    rows, within ``LM_CAPTURE_ATOL``, and a profiler window over each (ms a step, busy
+    share, host launch calls a step).
+    (b) ``--epochs 2 --resume-from`` (a)'s ``model_lm.ckpt`` against 2 epochs straight:
+    parameters and AdamW moments within ``RESUME_ATOL``; the straight run's two epoch
+    seconds (the first includes the segment captures). (c) the straight run's
+    ``model_lm.ckpt`` decoded and restored on the CPU, bitwise the card's final state.
+
+    Returns the straight run's checkpoint path and final state for (d)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+        data_parallel as dp, mesh,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        lm as lm_train, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        _msgpack, checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig, parse_config,
+    )
+
+    root = OUT_DIR / "lm"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def train(tag: str, argv: list[str]):
+        argv = argv + ["--results-dir", str(root / tag), "--images-dir",
+                       str(root / tag / "images")]
+        segments: list = []
+        with patched(lm_train, "make_epoch_from_step",
+                     recording_epoch_fn(st.make_epoch_from_step, segments)):
+            t0 = time.perf_counter()
+            state, hist = lm_train.main(parse_config(LMConfig, argv),
+                                        datasets=(train_ds, test_ds))
+            torch.cuda.synchronize()
+        return state, hist, time.perf_counter() - t0, segments, argv
+
+    # (a) one epoch at the defaults, captured
+    state, hist, wall, segments, argv = train("a", ["--epochs", "1"])
+    steps = int(state.step)
+    first, last = segments[0].mean().item(), segments[-1].mean().item()
+    nll = hist.test_losses[-1]
+    if steps != len(train_ds) // 64 or len(segments) != -(-steps // lm_train.SEGMENT_STEPS):
+        fail(f"[25] (a) {steps} steps in {len(segments)} segments")
+    if not last < first:
+        fail(f"[25] (a) the train loss did not fall: first segment {first}, last {last}")
+    if not nll < math.log(17):
+        fail(f"[25] (a) test NLL per token {nll} is not below ln 17 = {math.log(17):.4f}")
+    epoch_s = hist.epoch_seconds[0]
+    print(f"[25] (a) python -m {PKG}.train.lm {' '.join(argv)}: {steps} steps in "
+          f"{len(segments)} captured segments of up to {lm_train.SEGMENT_STEPS}; epoch "
+          f"{epoch_s:.3f} s ({epoch_s / steps * 1e3:.4f} ms a step, the captures included), "
+          f"{wall:.1f} s in all (eval, grids); train loss {first:.4f} (first segment) -> "
+          f"{last:.4f} (last), epoch mean {hist.train_losses[0]:.4f}; test NLL per token "
+          f"{nll:.4f} < ln 17 = {math.log(17):.4f}, perplexity {math.exp(nll):.4f} [{card}]")
+
+    # (a) 20 steps of the trainer's step (train.lm.make_lm_step at (a)'s flags), captured
+    # against the eager loop, from the trainer's start on its first plan rows
+    cfg = parse_config(LMConfig, argv)
+    perm = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0])).permutation(
+        len(train_ds))
+    plan = torch.from_numpy(perm[:LM_CAPTURE_STEPS * 64].reshape(LM_CAPTURE_STEPS, 64)).to(dev)
+    tokens = lm.tokenize_images_to_ids(torch.from_numpy(train_ds.images)).to(dev)
+    zeros = torch.zeros(len(train_ds), dtype=torch.int64, device=dev)
+    model = lm_train.lm_model(cfg, vocab=cfg.num_levels, seq_len=tokens.shape[1]).to(dev)
+    opt = lm_train.lm_optimizer(cfg)
+    with mesh.cluster(dev):
+        start = st.create_train_state(model, torch.Generator().manual_seed(cfg.seed),
+                                      optimizer=opt, device=dev, ema=cfg.ema_decay > 0,
+                                      guard=cfg.guard)
+        reducer = dp.GradReducer(start.params)
+        step_fn = lm_train.make_lm_step(model, cfg, optimizer=opt, steps_per_epoch=steps,
+                                        grad_reduce=reducer)
+        captured, eager = st.CapturedSegment(step_fn, grad_reduce=reducer), st.make_segment_fn(
+            step_fn)
+        copy = lambda s: st._tree_map(torch.clone, s)
+        got_state, got = captured(copy(start), tokens, zeros, plan, cfg.seed + 1)
+        want_state, want = eager(copy(start), tokens, zeros, plan, cfg.seed + 1)
+        diff = max([(got - want).abs().max().item()]
+                   + [(got_state.params[k] - want_state.params[k]).abs().max().item()
+                      for k in want_state.params])
+        if diff > LM_CAPTURE_ATOL:
+            fail(f"[25] (a) captured vs eager: max |diff| {diff:.3e} > {LM_CAPTURE_ATOL:g}")
+        print(f"[25] (a) {LM_CAPTURE_STEPS} steps of train.lm.make_lm_step captured (one CUDA "
+              f"graph, the all-reduce inside) vs the eager loop, from the same start: max "
+              f"|diff| of losses and "
+              f"parameters {diff:.3e} <= {LM_CAPTURE_ATOL:g}")
+        for name, fn in (("captured", captured), ("eager", eager)):
+            s = copy(start)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                s, _ = fn(s, tokens, zeros, plan, cfg.seed + 1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report_window(f"[25] (a) {name}:", device_kernel_times(prof), LM_CAPTURE_STEPS,
+                          wall, (), card)
+            calls = host_launch_calls(prof)
+            print(f"[25] (a) {name}: host launch calls {sum(calls.values()) / LM_CAPTURE_STEPS:.2f} "
+                  f"a step ({calls})")
+    del tokens, zeros, captured, eager
+    torch.cuda.empty_cache()
+
+    # (b) one epoch, then --resume-from, against two epochs straight
+    resumed, r_hist, _, _, _ = train("b_resumed", [
+        "--epochs", "2", "--generate", "0", "--resume-from", str(root / "a" / "model_lm.ckpt")])
+    straight, s_hist, _, _, _ = train("b_straight", ["--epochs", "2", "--generate", "0"])
+    if not int(resumed.step) == int(straight.step) == 2 * steps:
+        fail(f"[25] (b) steps {int(resumed.step)} (resumed), {int(straight.step)} (straight)")
+    trees = (("params", resumed.params, straight.params),
+             ("m", resumed.velocity["m"], straight.velocity["m"]),
+             ("v", resumed.velocity["v"], straight.velocity["v"]))
+    diff = max((a[k] - b[k]).abs().max().item() for _, a, b in trees for k in b)
+    if diff > RESUME_ATOL:
+        fail(f"[25] (b) resumed vs straight: max |diff| {diff:.3e} > {RESUME_ATOL:g}")
+    print(f"[25] (b) 1 epoch + --resume-from model_lm.ckpt (epoch {r_hist.epoch_seconds[0]:.3f} "
+          f"s) vs 2 epochs straight (epochs {', '.join(f'{t:.3f}' for t in s_hist.epoch_seconds)}"
+          f" s; the first captures the segments): params and AdamW moments max |diff| "
+          f"{diff:.3e} <= {RESUME_ATOL:g}; test NLL per token {r_hist.test_losses[-1]:.6f} vs "
+          f"{s_hist.test_losses[-1]:.6f} [{card}]")
+
+    # (c) the card's file decoded and restored on the CPU, bitwise
+    path = root / "b_straight" / "model_lm.ckpt"
+    raw = _msgpack.from_bytes(path.read_bytes())
+    cpu_ref = st.create_train_state(lm.TransformerLM(), torch.Generator().manual_seed(0),
+                                    optimizer=opt)
+    got = checkpoint.restore_train_state(str(path), cpu_ref)
+    same = all(torch.equal(a[k], b[k].cpu()) for a, b in (
+        (got.params, straight.params), (got.velocity["m"], straight.velocity["m"]),
+        (got.velocity["v"], straight.velocity["v"])) for k in b)
+    if not (same and int(got.step) == int(straight.step)
+            and int(got.velocity["count"]) == int(straight.velocity["count"])):
+        fail("[25] (c) model_lm.ckpt restored on the CPU differs from the card's final state")
+    print(f"[25] (c) {path.name} ({path.stat().st_size} bytes): decoded ({list(raw)}, params "
+          f"{sorted(raw['params'])[:3]}..., step {int(raw['step'])} {raw['step'].dtype}), "
+          f"restored on the CPU bitwise equal to the card's final params, AdamW moments and "
+          f"count")
+    return {"path": path, "state": straight}
 
 
 def main() -> None:
@@ -3200,7 +3372,87 @@ def main() -> None:
     del s_eng, ref_eng, server
     torch.cuda.empty_cache()
 
-    # -- 25. result ---------------------------------------------------------------------
+    # -- 25. the pixel LM trained on the card, then served through B6 --------------------
+    trained = lm_phase(dev, card, train_ds, test_ds)
+
+    # (d) the trained checkpoint served: the paged engine (B6) against greedy generate
+    t_model = lm.TransformerLM(**SERVE_LM)
+    t_params = checkpoint.load_params_or_state(str(trained["path"]),
+                                               t_model.init(torch.Generator()))
+    t_params_dev = {name: p.to(dev) for name, p in t_params.items()}
+    for name, p in trained["state"].params.items():
+        if not torch.equal(t_params_dev[name], p):
+            fail(f"[25] (d) load_params_or_state's {name} differs from the trained state's")
+    t_ids = test_ids[:LM_REQUESTS]
+    t_requests = [serving.Request(prompt=t_ids[i, :LM_PROMPT].copy(),
+                                  max_new_tokens=SERVE_LM["seq_len"] - LM_PROMPT,
+                                  request_id=i) for i in range(LM_REQUESTS)]
+    t0 = time.perf_counter()
+    gen = lm.generate(t_model, t_params_dev, batch=LM_REQUESTS, temperature=0.0,
+                      prompt=torch.from_numpy(t_ids).to(dev), prompt_len=LM_PROMPT).cpu()
+    gen_s = time.perf_counter() - t0
+    gen_streams = {i: gen[i].tolist() for i in range(LM_REQUESTS)}
+    served = {}
+    for kv in ("model", "int8", "fp8"):
+        eng, streams, wall, launches = serve(t_model, t_params, "paged", t_requests, warmup,
+                                             kv_dtype=kv)
+        if sorted(streams) != list(range(LM_REQUESTS)):
+            fail(f"[25] (d) kv_dtype={kv}: {len(streams)} of {LM_REQUESTS} requests completed")
+        if launches != t_model.num_layers * eng.steps or not launches:
+            fail(f"[25] (d) kv_dtype={kv}: B6 launches {launches} != "
+                 f"{t_model.num_layers} x {eng.steps} decode steps")
+        served[kv] = (streams, eng.steps, wall, launches)
+        del eng
+    streams, n_steps, wall, launches = served["model"]
+    ties = compare_streams("[25] (d)", t_model, t_params_dev, t_requests, streams, gen_streams)
+    same = sum(streams[i] == gen_streams[i] for i in gen_streams)
+    print(f"[25] (d) the trained model_lm.ckpt through load_params_or_state into "
+          f"ContinuousBatchingEngine (paged, {SERVE_SLOTS} slots, pages of {SERVE_PAGE}): "
+          f"{LM_REQUESTS} greedy requests prompted with the top {LM_PROMPT} tokens of test "
+          f"images, {LM_PROMPT} new tokens each: {same}/{LM_REQUESTS} streams equal to "
+          f"greedy generate ({gen_s:.3f} s), {ties} diverging at a true tie; B6 launches "
+          f"{launches} = {t_model.num_layers} layers x {n_steps} decode steps; "
+          f"{wall:.4f} s ({LM_REQUESTS * (SERVE_LM['seq_len'] - LM_PROMPT) / wall:.1f} "
+          f"tokens/s, prefill included) [{card}]")
+    targets = torch.from_numpy(t_ids).to(dev)
+    nll = {kv: lm.decode_nll(t_model, t_params_dev, targets,
+                             kv_dtype=None if kv == "model" else kv).item()
+           for kv in ("model", "int8", "fp8")}
+    for kv in ("int8", "fp8"):
+        q_streams, q_steps, q_wall, q_launches = served[kv]
+        new = [(a[LM_PROMPT:], b[LM_PROMPT:]) for a, b in
+               ((q_streams[i], streams[i]) for i in range(LM_REQUESTS))]
+        match = sum(sum(x == y for x, y in zip(a, b)) for a, b in new) / sum(
+            len(b) for _, b in new)
+        delta = nll[kv] - nll["model"]
+        if abs(delta) > NLL_DELTA_BUDGET:
+            fail(f"[25] (d) kv_dtype={kv}: teacher-forced decode_nll delta {delta:+.6f} "
+                 f"beyond {NLL_DELTA_BUDGET}")
+        print(f"[25] (d) kv_dtype={kv} on the trained weights: B6 launches {q_launches} = "
+              f"{t_model.num_layers} x {q_steps}; greedy token match against the "
+              f"unquantized engine {match:.4f} (the JAX package's budget "
+              f"{TOKEN_MATCH_BUDGET}, printed only: one flip cascades through a stream); "
+              f"teacher-forced decode_nll {nll[kv]:.6f} vs {nll['model']:.6f}, delta "
+              f"{delta:+.6f} (bar |delta| <= {NLL_DELTA_BUDGET}); {q_wall:.4f} s [{card}]")
+    del served, t_params_dev
+    torch.cuda.empty_cache()
+
+    # (e) the port's bench_lm at its defaults
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench_lm"], capture_output=True,
+                          text=True, cwd=ROOT, timeout=BENCH_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"[25] (e) bench_lm exited {proc.returncode}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    if len(lines) != 1:
+        fail(f"[25] (e) bench_lm printed {len(lines)} JSON lines, not one")
+    bench = json.loads(lines[0])
+    if bench.get("platform") != "gpu" or bench.get("train_program") != "cuda-graph":
+        fail(f"[25] (e) bench_lm ran {bench.get('platform')}, {bench.get('train_program')}")
+    print(f"[25] (e) bench_lm ({time.perf_counter() - t0:.1f} s) [{card}]: {lines[0]}")
+
+    # -- 26. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -3227,7 +3479,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[25] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[26] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

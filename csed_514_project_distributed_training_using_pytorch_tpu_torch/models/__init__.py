@@ -8,6 +8,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.cnn im
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.transformer import (
     NUM_HEADS,
     TransformerClassifier,
+    validate_remat_policy,
 )
 
 VALID_MODELS = ("cnn", "transformer")
@@ -15,14 +16,16 @@ VALID_MODELS = ("cnn", "transformer")
 
 def validate_model_config(name: str, *, remat: bool = False, causal: bool = False,
                           attention_window: int = 0, kv_heads: int = 0,
-                          rope: bool = False) -> None:
+                          rope: bool = False, remat_policy: str = "") -> None:
     """Fail fast on a bad model name or model/knob combination, with the JAX package's
-    messages; ``remat`` is not ported yet."""
+    messages."""
     if name not in VALID_MODELS:
         raise ValueError(
             f"unknown model {name!r} — choose one of {', '.join(VALID_MODELS)}")
-    if remat:
-        raise ValueError("--remat is not ported yet (ROADMAP A10)")
+    if remat and name == "cnn":
+        raise ValueError("--remat applies to the transformer family only "
+                         "(the CNN's activations are a few hundred KB)")
+    validate_remat_policy(remat, remat_policy)
     for flag, value in (("causal", causal), ("attention-window", attention_window),
                         ("kv-heads", kv_heads), ("rope", rope)):
         if value and name == "cnn":
@@ -46,4 +49,4 @@ def build_model(name: str, **kwargs):
 
 
 __all__ = ["Net", "TransformerClassifier", "VALID_MODELS", "build_model", "param_count",
-           "params_from_jax", "validate_model_config"]
+           "params_from_jax", "validate_model_config", "validate_remat_policy"]

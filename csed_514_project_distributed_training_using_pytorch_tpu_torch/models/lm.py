@@ -1,10 +1,18 @@
-"""The autoregressive pixel LM and its serving decode: the contiguous and paged KV caches.
+"""The autoregressive pixel LM: training, sampling and the serving decode.
 
-Counterpart of the JAX package's ``models/lm.py``, for the serving slice:
+Counterpart of the JAX package's ``models/lm.py``:
 
 - ``tokenize_images_to_ids``: normalized MNIST images -> ``[B, 784]`` gray-level ids;
+  ``ids_to_images`` back to raw [0, 1] images (for the sample grids);
 - ``TransformerLM``: the decoder-only LM (the port's ``TransformerBlock``s with
-  ``causal=True``), ``[B, S]`` ids -> ``[B, S, vocab]`` f32 log-probs, ``shift_right``;
+  ``causal=True``, each rematerialized under ``remat``), ``[B, S]`` ids -> ``[B, S,
+  vocab]`` f32 log-probs, ``shift_right``; ``next_token_loss``, the training objective;
+- sampling: ``decode_step`` (one position of the whole batch over the contiguous cache,
+  reading a static ``prefix_len`` of it), ``filter_logits`` (top-k, top-p),
+  ``sample_categorical`` and ``generate`` (``DECODE_SEGMENT``-long segments over a growing
+  prefix, greedy or sampled from an explicit ``torch.Generator``, optionally prompted);
+  ``decode_nll``, the teacher-forced NLL through the serving decode (the quantized KV
+  caches' accuracy probe);
 - the contiguous serving cache: ``init_cache`` (per-layer ``[B, S, KV_H, Dh]`` planes),
   ``decode_step_slots`` (one token per slot at per-slot positions), ``prefill_chunk``
   (``chunk`` prompt positions of one slot in one causal forward), ``reset_slots``;
@@ -23,7 +31,9 @@ version (the same gather and einsums) on the CPU. The function is the same.
 
 Parameters are a flat dict with the JAX package's names (``block_0.attn.qkv_kernel`` for
 ``block_0/attn/qkv_kernel``; ``params_from_jax``, the classifier's, flattens an LM tree
-too). The serving
+too, and ``params_to_jax`` nests it back). Sampled streams cannot match the JAX package's:
+its draws come from threefry keys, these from a ``torch.Generator``; greedy streams match
+token for token. The serving
 functions take activations in f32 whatever the parameters' dtype (a bf16 weight is cast to
 f32 where it is used, as JAX promotes it), and keep the caches in the model's dtype. They
 update the cache tensors in place (JAX returns new arrays; the port saves the copy) and
@@ -46,6 +56,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.func import functional_call
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch import ops
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.data.mnist import (
@@ -59,6 +70,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.transf
     TransformerBlock,
     _Slots,
     params_from_jax,
+    params_to_jax,
+    run_blocks,
+    validate_remat_policy,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
     paged_attention,
@@ -73,6 +87,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.rotary im
 )
 
 PREFILL_CHUNK_SIZES = (32, 128, 512)   # the serving engine's default static chunk set
+DECODE_SEGMENT = 128   # generate()'s prefix growth: segment j reads min((j+1)·128, S) rows
 
 
 def tokenize_images_to_ids(x: torch.Tensor, *, num_levels: int = 16) -> torch.Tensor:
@@ -84,13 +99,23 @@ def tokenize_images_to_ids(x: torch.Tensor, *, num_levels: int = 16) -> torch.Te
     return ids.reshape(x.shape[0], -1).to(torch.int32)
 
 
+def ids_to_images(ids: torch.Tensor, *, num_levels: int = 16,
+                  shape: tuple[int, ...] = (28, 28, 1)) -> torch.Tensor:
+    """Invert ``tokenize_images_to_ids`` (up to quantization): token ids -> ``[B, H, W,
+    C]`` raw [0, 1] intensity images (for saving sampled digits)."""
+    raw = ids.float() / (num_levels - 1)
+    return raw.reshape((ids.shape[0],) + tuple(shape))
+
+
 class TransformerLM(_Slots):
     """Decoder-only LM over pixel tokens: ``[B, S]`` ids -> ``[B, S, vocab]`` log-probs.
 
     ``vocab_size`` counts the BOS id (``num_levels + 1``). The input is the shift-right
     stream (BOS first); position ``t``'s output predicts the t-th target. ``rope=True``
     rotates q/k and drops the learned ``pos_embed``; ``attention_window`` masks a causal
-    sliding window (with the default dense core only). Remat is not ported (ROADMAP A8).
+    sliding window (with the default dense core only); ``remat`` recomputes each block in
+    the backward (``models.transformer.remat_call``; ``remat_policy`` ``"save-dots"`` keeps
+    the matmul outputs).
     """
 
     def __init__(self, vocab_size: int = 17, seq_len: int = 784, embed_dim: int = 64,
@@ -100,8 +125,7 @@ class TransformerLM(_Slots):
                  rope: bool = False, dtype: torch.dtype = torch.float32,
                  remat: bool = False, remat_policy: str = ""):
         super().__init__()
-        if remat or remat_policy:
-            raise ValueError("remat is not ported yet (ROADMAP A8)")
+        validate_remat_policy(remat, remat_policy)
         if attention_window and attention_fn is not ops.full_attention:
             raise ValueError(
                 "attention_window composes with the default dense core only — "
@@ -110,6 +134,7 @@ class TransformerLM(_Slots):
         self.num_layers, self.num_heads, self.num_kv_heads = num_layers, num_heads, num_kv_heads
         self.mlp_ratio, self.dropout_rate = mlp_ratio, dropout_rate
         self.attention_window, self.rope, self.dtype = attention_window, rope, dtype
+        self.remat, self.remat_policy = remat, remat_policy
         core = windowed_attention_fn(attention_window) if attention_window else attention_fn
         self._slot("tok_embed", (vocab_size, embed_dim), NORMAL)
         if not rope:
@@ -139,11 +164,16 @@ class TransformerLM(_Slots):
         if s != self.seq_len:
             raise ValueError(f"expected seq_len {self.seq_len}, got {s}")
         cast = lambda w: w.to(self.dtype)
-        h = cast(self.tok_embed)[ids.long()]
+        # the token embedding as a one-hot product: the rows come out exactly, and the
+        # table's gradient is a matmul, the same bits every run; a gather's backward sums
+        # in an order that changes from run to run (indexing's on the CPU, F.embedding's
+        # on the card: lm_probe.py), so two runs of one seed would part in the last bits
+        # and drift apart over an epoch
+        onehot = torch.nn.functional.one_hot(ids.long(), self.vocab_size).to(self.dtype)
+        h = onehot @ cast(self.tok_embed)
         if not self.rope:
             h = h + cast(self.pos_embed)[None]
-        for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h, deterministic, generator)
+        h = run_blocks(self, h, deterministic, generator)
         h = ops.layer_norm(h, self.ln_f_scale, self.ln_f_bias)
         logits = ops.dense(h, cast(self.head_kernel), cast(self.head_bias))
         return ops.log_softmax(logits.float())
@@ -153,6 +183,23 @@ class TransformerLM(_Slots):
         bos = torch.full((targets.shape[0], 1), self.vocab_size - 1, dtype=targets.dtype,
                          device=targets.device)
         return torch.cat([bos, targets[:, :-1]], dim=1)
+
+
+def next_token_loss(model: TransformerLM, params: dict, targets: torch.Tensor, rng, *,
+                    deterministic: bool = False, label_smoothing: float = 0.0
+                    ) -> torch.Tensor:
+    """The mean next-token NLL over all ``B·S`` positions (the LM's training objective),
+    the forward's dropout drawn from ``rng`` (the step's ``DropoutStream``).
+    ``label_smoothing`` follows torch ``CrossEntropyLoss`` semantics (the smoothed target
+    ``(1−s)·onehot + s/V`` over the vocabulary)."""
+    log_probs = functional_call(model, params, (model.shift_right(targets),),
+                                {"deterministic": deterministic,
+                                 "generator": None if deterministic else rng})
+    picked = torch.gather(log_probs, -1, targets.long()[..., None])[..., 0]
+    if label_smoothing:
+        smooth = log_probs.mean(dim=-1)
+        picked = (1.0 - label_smoothing) * picked + label_smoothing * smooth
+    return -picked.mean()
 
 
 # =========================================================================================
@@ -343,6 +390,151 @@ def reset_slots(cache: dict, fresh: torch.Tensor) -> dict:
 
 
 # =========================================================================================
+# Sampling: one position of a batch at a time over the contiguous cache
+# =========================================================================================
+
+
+def decode_step(model: TransformerLM, params: dict, cache: dict, ids_t: torch.Tensor,
+                t, *, prefix_len: int | None = None) -> tuple[dict, torch.Tensor]:
+    """One incremental step of the whole batch at position ``t`` (an int, or a 0-d
+    tensor): ``ids_t [B]`` -> (cache, ``[B, vocab]`` f32 log-probs of position ``t``'s
+    prediction), every layer's K/V row written at ``t``.
+
+    ``prefix_len`` (an int, default ``seq_len``) bounds the cache rows attention reads:
+    a caller that knows ``t < prefix_len`` (``generate``'s segments) reads
+    ``cache[:, :prefix_len]``. Rows past ``t`` inside it are masked, so the math is the
+    full-cache step's. A quantized cache raises: its writers are ``decode_step_slots`` and
+    ``prefill_chunk``."""
+    if "k_scale" in cache.get("block_0", {}):
+        raise ValueError("decode_step reads raw K/V planes only — use decode_step_slots/"
+                         "prefill_chunk for a quantized cache, or init_cache() without "
+                         "kv_dtype")
+    pl = model.seq_len if prefix_len is None else prefix_len
+    if not 0 < pl <= model.seq_len:
+        raise ValueError(f"prefix_len {pl} outside (0, {model.seq_len}]")
+    b = ids_t.shape[0]
+    t_b = torch.full((b,), int(t), dtype=torch.int64, device=ids_t.device)
+    h = _embed(model, params, ids_t, t_b)
+    for i in range(model.num_layers):
+        q, k, v = _project(model, params, i, h, t_b)
+        layer = cache[f"block_{i}"]
+        layer["k"][:, t] = k.to(layer["k"].dtype)
+        layer["v"][:, t] = v.to(layer["v"].dtype)
+        qg = q.reshape(b, model.kv_heads, -1, model.head_dim)
+        attn = paged_attention.decode_attention(qg, layer["k"][:, :pl], layer["v"][:, :pl],
+                                                t_b, window=model.attention_window)
+        h = _block_tail(params, i, h, attn.reshape(b, model.embed_dim))
+    return cache, _head(params, h)
+
+
+@torch.no_grad()
+def decode_nll(model: TransformerLM, params: dict, targets: torch.Tensor, *,
+               kv_dtype: str | None = None) -> torch.Tensor:
+    """The teacher-forced mean next-token NLL of ``targets [B, seq_len]`` scored through
+    the serving decode (``decode_step_slots``, one position a step, every cached row
+    quantized on write under ``kv_dtype``): the accuracy probe of quantized execution.
+    Its difference from the ``kv_dtype=None`` value is the policy's NLL cost."""
+    b, s = targets.shape
+    if s != model.seq_len:
+        raise ValueError(f"expected seq_len {model.seq_len}, got {s}")
+    dev = targets.device
+    targets = targets.long()
+    cache = init_cache(model, b, kv_dtype=kv_dtype, device=dev)
+    inputs = model.shift_right(targets)
+    picked = []
+    for t in range(s):
+        cache, logp = decode_step_slots(model, params, cache, inputs[:, t],
+                                        torch.full((b,), t, dtype=torch.int32, device=dev))
+        picked.append(torch.gather(logp, -1, targets[:, t, None])[:, 0])
+    return -torch.stack(picked).mean()
+
+
+def filter_logits(log_probs: torch.Tensor, *, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """Mask ``[..., V]`` logits outside the top-k set and/or the top-p nucleus, as the
+    JAX package does.
+
+    ``top_k = 0`` disables the k filter; ``top_p = 1.0`` the nucleus filter. The nucleus
+    is the smallest prefix of the probability-sorted vocabulary whose mass reaches
+    ``top_p`` (the argmax always survives; ties at the threshold all survive). The two
+    compose. Masked entries become ``MASK_VALUE``."""
+    if top_k:
+        kth = torch.topk(log_probs, top_k, dim=-1).values[..., -1:]
+        log_probs = torch.where(log_probs < kth, MASK_VALUE, log_probs)
+    if top_p < 1.0:
+        sorted_lp = torch.sort(log_probs, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_lp, dim=-1)
+        before = torch.cumsum(probs, dim=-1) - probs            # the mass before j
+        kept = before < top_p
+        thresh = torch.where(kept, sorted_lp, torch.inf).amin(dim=-1, keepdim=True)
+        log_probs = torch.where(log_probs < thresh, MASK_VALUE, log_probs)
+    return log_probs
+
+
+def sample_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from ``softmax(logits)`` by the Gumbel-max rule, with noise from
+    ``generator`` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, params: dict, generator: torch.Generator | None = None,
+             *, batch: int = 1, temperature: float = 1.0, top_k: int = 0,
+             top_p: float = 1.0, prompt: torch.Tensor | None = None,
+             prompt_len: int = 0) -> torch.Tensor:
+    """Sample ``[batch, seq_len]`` int32 token streams from BOS, one position a step, on
+    the parameters' device.
+
+    ``temperature <= 0`` decodes greedily (the first maximum, as the JAX package's
+    ``argmax``); otherwise each step draws from ``filter_logits(log_probs / temperature,
+    top_k=, top_p=)`` with noise from ``generator`` (required then). BOS is masked out of
+    every step's choice. The steps run in ``DECODE_SEGMENT``-long segments, segment ``j``
+    reading a cache prefix of ``min((j+1)·DECODE_SEGMENT, S)`` rows (``decode_step``'s
+    ``prefix_len``), as the JAX package's segmented scan does.
+
+    ``prompt`` (``[batch, seq_len]`` ids) with ``prompt_len = K`` teacher-forces the
+    first ``K`` output positions to the prompt (their K/V still fill the cache) and samples
+    positions ``K..S-1``: digit completion from the top rows of a real image."""
+    if not 0 <= top_k <= model.vocab_size:
+        raise ValueError(f"top_k {top_k} outside [0, {model.vocab_size}]")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p {top_p} outside (0, 1]")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling at temperature > 0 draws from an explicit "
+                         "torch.Generator; pass one (or temperature <= 0 for greedy)")
+    dev = params["tok_embed"].device
+    s = model.seq_len
+    if prompt is None:
+        prompt = torch.zeros((batch, s), dtype=torch.int32, device=dev)
+        prompt_len = 0
+    if not 0 <= prompt_len <= s:
+        raise ValueError(f"prompt_len {prompt_len} outside [0, {s}]")
+    if tuple(prompt.shape) != (batch, s):
+        raise ValueError(f"prompt shape {tuple(prompt.shape)} != (batch, seq_len) = "
+                         f"({batch}, {s})")
+    prompt = prompt.to(device=dev, dtype=torch.int64)
+    cache = init_cache(model, batch, device=dev)
+    ids_t = torch.full((batch,), model.vocab_size - 1, dtype=torch.int64, device=dev)
+    out = torch.empty((batch, s), dtype=torch.int32, device=dev)
+    for start in range(0, s, DECODE_SEGMENT):
+        stop = min(start + DECODE_SEGMENT, s)
+        for t in range(start, stop):
+            cache, log_probs = decode_step(model, params, cache, ids_t, t, prefix_len=stop)
+            log_probs[:, model.vocab_size - 1] = MASK_VALUE
+            if t < prompt_len:
+                nxt = prompt[:, t]
+            elif temperature > 0:
+                scaled = filter_logits(log_probs / temperature, top_k=top_k, top_p=top_p)
+                nxt = sample_categorical(scaled, generator)
+            else:
+                nxt = torch.argmax(log_probs, dim=-1)
+            out[:, t] = nxt
+            ids_t = nxt
+    return out
+
+
+# =========================================================================================
 # The paged serving cache
 # =========================================================================================
 
@@ -426,7 +618,9 @@ def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
     return pool
 
 
-__all__ = ["PREFILL_CHUNK_SIZES", "TransformerLM", "decode_step_slots", "init_cache",
-           "init_page_pool", "paged_decode_step_slots", "paged_prefill_chunk",
-           "pages_per_slot", "params_from_jax", "pool_page_size", "prefill_chunk",
-           "reset_slots", "tokenize_images_to_ids"]
+__all__ = ["DECODE_SEGMENT", "PREFILL_CHUNK_SIZES", "TransformerLM", "decode_nll",
+           "decode_step", "decode_step_slots", "filter_logits", "generate",
+           "ids_to_images", "init_cache", "init_page_pool", "next_token_loss",
+           "paged_decode_step_slots", "paged_prefill_chunk", "pages_per_slot",
+           "params_from_jax", "params_to_jax", "pool_page_size", "prefill_chunk",
+           "reset_slots", "sample_categorical", "tokenize_images_to_ids"]

@@ -15,22 +15,38 @@ JAX package does. The attention core is pluggable (``attention_fn(q, k, v, *, ca
 ``[B, S, H, D]``): the dense ``ops.full_attention`` by default, or the flash kernels
 (``ops.flash_attention``).
 
-Not ported yet (ROADMAP A10): the Switch/GShard MoE feed-forward (``num_experts > 0``),
-rematerialization (``remat``) and the expert mesh; each raises ``ValueError``.
+Rematerialization (``remat``; ``remat_call``) recomputes each block in the backward, as the
+JAX package's ``flax.linen.remat`` does: ``torch.utils.checkpoint`` (non-reentrant) around
+the block, with the block's parameters passed in (``torch.func.functional_call`` swaps them
+back after the forward, so the recomputation must not read them off the module), and the
+dropout masks redrawn from the step's ``ops.nn.DropoutStream`` at the draw the block first
+made, so the recomputation sees the forward's masks. ``remat_policy`` ``"save-dots"`` keeps
+the matmul outputs (``mm``, ``bmm``, ``addmm``) and recomputes the rest (a selective
+checkpoint, ``jax.checkpoint_policies.dots_saveable``'s counterpart). A policy changes only
+what is saved: the trajectory is bitwise the one without remat.
+
+Not ported yet (ROADMAP A10): the Switch/GShard MoE feed-forward (``num_experts > 0``) and
+the expert mesh; each raises ``ValueError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils import checkpoint as torch_checkpoint
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch import ops
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.cnn import (
     param_count,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.nn import (
+    DropoutStream,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.rotary import (
     apply_rotary,
@@ -151,6 +167,79 @@ class MultiHeadSelfAttention(_Slots):
         return self._dense(out, "out")
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy_fn(name: str):
+    """A ``--remat-policy`` name as a ``torch.utils.checkpoint`` ``context_fn``, or None
+    for the default (save nothing). ``"recompute-all"`` (and ``""``) recomputes the whole
+    block; ``"save-dots"`` keeps the matmul outputs and recomputes the elementwise work
+    between them."""
+    if name in ("", "recompute-all"):
+        return None
+    if name == "save-dots":
+        return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                 _save_dots)
+    raise ValueError(f"unknown remat policy {name!r} — choose "
+                     f"'recompute-all' or 'save-dots'")
+
+
+def validate_remat_policy(remat: bool, remat_policy: str) -> None:
+    """The shared fail-fast of every ``--remat-policy`` surface: the policy modifies
+    ``--remat`` (alone it does nothing), and the name must be known."""
+    if remat_policy:
+        if not remat:
+            raise ValueError("--remat-policy modifies --remat; add --remat")
+        remat_policy_fn(remat_policy)   # raises on unknown names
+
+
+def remat_call(block: nn.Module, x: torch.Tensor, deterministic: bool, generator, *,
+               policy: str = "") -> torch.Tensor:
+    """``block(x, deterministic, generator)``, rematerialized: its activations are
+    recomputed in the backward instead of saved (all of them, or all but the matmul
+    outputs under ``policy="save-dots"``).
+
+    The block's parameters as it reads them now (``functional_call``'s tensors) are
+    arguments of the checkpointed function, and a ``DropoutStream`` is replayed from the
+    draw the block starts at, so the recomputation sees the forward's parameters and
+    masks. A ``torch.Generator`` would draw new masks, so dropout with one raises."""
+    names = list(block.param_inits())
+    leaves = [_attr(block, n) for n in names]
+    stream = generator if isinstance(generator, DropoutStream) else None
+    if (stream is None and generator is not None and not deterministic
+            and getattr(block, "dropout_rate", 0.0)):
+        raise ValueError("remat with dropout needs the step's DropoutStream: a "
+                         "torch.Generator would draw other masks in the recomputation")
+    start = stream.draws if stream is not None else 0
+    replays = []
+
+    def run(x, *leaves):
+        g = generator
+        if stream is not None:
+            g = stream.replay_from(start)
+            replays.append(g)
+        return functional_call(block, dict(zip(names, leaves)), (x, deterministic, g))
+
+    context_fn = remat_policy_fn(policy)
+    kwargs = {"context_fn": context_fn} if context_fn is not None else {}
+    out = torch_checkpoint.checkpoint(run, x, *leaves, use_reentrant=False,
+                                      preserve_rng_state=False, **kwargs)
+    if stream is not None:
+        stream.draws = replays[0].draws      # the forward's draws, for the next block
+    return out
+
+
+def _attr(module: nn.Module, dotted: str) -> torch.Tensor:
+    for part in dotted.split("."):
+        module = getattr(module, part)
+    return module
+
+
 class TransformerBlock(_Slots):
     """Pre-LN encoder block with the dense MLP: ``x + MHA(LN(x))``, ``x + MLP(LN(x))``."""
 
@@ -199,14 +288,14 @@ class TransformerClassifier(_Slots):
                  mlp_ratio: int = 4, dropout_rate: float = 0.1,
                  attention_fn: Callable = ops.full_attention, causal: bool = False,
                  rope: bool = False, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, num_experts: int = 0, expert_mesh: object = None,
-                 token_features: int | None = None):
+                 remat: bool = False, remat_policy: str = "", num_experts: int = 0,
+                 expert_mesh: object = None, token_features: int | None = None):
         super().__init__()
         if num_experts > 0 or expert_mesh is not None:
             raise ValueError("the MoE feed-forward (num_experts > 0, the expert mesh) is "
                              "not ported yet (ROADMAP A10)")
-        if remat:
-            raise ValueError("remat (rematerialized blocks) is not ported yet (ROADMAP A10)")
+        validate_remat_policy(remat, remat_policy)
+        self.remat, self.remat_policy = remat, remat_policy
         self.num_classes, self.seq_len, self.embed_dim = num_classes, seq_len, embed_dim
         self.num_layers, self.num_heads, self.num_kv_heads = num_layers, num_heads, num_kv_heads
         self.dropout_rate, self.causal, self.rope, self.dtype = (
@@ -235,11 +324,23 @@ class TransformerClassifier(_Slots):
         cast = lambda w: w.to(self.dtype)
         h = ops.dense(x.to(self.dtype), cast(self.embed_kernel), cast(self.embed_bias))
         h = h + cast(self.pos_embed)[None]
-        for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h, deterministic, generator)
+        h = run_blocks(self, h, deterministic, generator)
         h = ops.layer_norm(h, self.ln_f_scale, self.ln_f_bias).mean(dim=1)
         logits = ops.dense(h, cast(self.head_kernel), cast(self.head_bias))
         return ops.log_softmax(logits.float())
+
+
+def run_blocks(model: nn.Module, h: torch.Tensor, deterministic: bool,
+               generator) -> torch.Tensor:
+    """``model``'s blocks ``block_0 .. block_{num_layers-1}`` in order, each through
+    ``remat_call`` when ``model.remat`` is set."""
+    for i in range(model.num_layers):
+        block = getattr(model, f"block_{i}")
+        if model.remat:
+            h = remat_call(block, h, deterministic, generator, policy=model.remat_policy)
+        else:
+            h = block(h, deterministic, generator)
+    return h
 
 
 def params_from_jax(params) -> dict[str, torch.Tensor]:
@@ -258,5 +359,26 @@ def params_from_jax(params) -> dict[str, torch.Tensor]:
     return flat
 
 
+def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_jax``: the flat dict as the JAX package's nested tree
+    (``block_0.attn.qkv_kernel`` -> ``["block_0"]["attn"]["qkv_kernel"]``) of host numpy
+    arrays, every dict's keys in sorted order, as the JAX package's checkpoints hold them.
+    The layouts are the same, so the values are bitwise the same."""
+    tree: dict = {}
+    for name, value in params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value.detach().cpu().numpy())
+
+    def ordered(node):
+        return {k: ordered(node[k]) if isinstance(node[k], dict) else node[k]
+                for k in sorted(node)}
+
+    return ordered(tree)
+
+
 __all__ = ["MultiHeadSelfAttention", "TransformerBlock", "TransformerClassifier",
-           "param_count", "params_from_jax", "tokenize_images"]
+           "param_count", "params_from_jax", "params_to_jax", "remat_call",
+           "remat_policy_fn", "run_blocks", "tokenize_images", "validate_remat_policy"]

@@ -142,12 +142,24 @@ class DropoutStream:
         self._key = key
         self.draws = 0
 
-    def keep_mask(self, shape, keep: float, device: torch.device) -> torch.Tensor:
+    def key(self) -> torch.Tensor:
+        """The key tensor, made at the first call when it was given as a function."""
         if callable(self._key):
             self._key = self._key()
+        return self._key
+
+    def replay_from(self, draws: int) -> "DropoutStream":
+        """A stream that draws what this one drew from its draw ``draws`` on: the same key
+        (made by this stream, once), its own draw counter. A rematerialized block
+        recomputes its masks through one (``models.transformer.remat_call``)."""
+        stream = DropoutStream(self.key)
+        stream.draws = draws
+        return stream
+
+    def keep_mask(self, shape, keep: float, device: torch.device) -> torch.Tensor:
         base = _draw_base(self.draws, math.prod(shape), torch.device(device))
         self.draws += 1
-        return (mix32(base ^ self._key) < int(keep * 2.0 ** 32)).view(shape)
+        return (mix32(base ^ self.key()) < int(keep * 2.0 ** 32)).view(shape)
 
 
 def _keep_mask(generator: torch.Generator | DropoutStream | None, shape, keep: float,

@@ -145,13 +145,6 @@ def filter_logits_per_slot(log_probs: torch.Tensor, top_k: torch.Tensor,
     return torch.where(out < thresh, MASK_VALUE, out)
 
 
-def sample_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One draw per row from ``softmax(logits)`` by the Gumbel-max rule, with noise from
-    ``generator`` (on the logits' device)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
 def greedy_chunk_plan(sizes: tuple[int, ...], start: int,
                       end: int) -> list[tuple[int, int, int]]:
     """``(start, length, chunk_size)`` triples covering ``[start, end)``: greedily the
@@ -356,7 +349,7 @@ class ContinuousBatchingEngine:
         temp, top_p, top_k = policy[0], policy[1], policy[2].long()
         safe_temp = torch.where(temp > 0.0, temp, 1.0)
         scaled = filter_logits_per_slot(log_probs / safe_temp[:, None], top_k, top_p)
-        return torch.where(temp > 0.0, sample_categorical(scaled, self._gen), greedy)
+        return torch.where(temp > 0.0, lm_mod.sample_categorical(scaled, self._gen), greedy)
 
     def _snapshot(self, slot: int) -> dict:
         """A contiguous slot's planes (every leaf, scales included) as a prefix-cache
@@ -967,5 +960,4 @@ class ContinuousBatchingEngine:
 
 
 __all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "Parked",
-           "Request", "SamplingParams", "filter_logits_per_slot", "greedy_chunk_plan",
-           "sample_categorical"]
+           "Request", "SamplingParams", "filter_logits_per_slot", "greedy_chunk_plan"]

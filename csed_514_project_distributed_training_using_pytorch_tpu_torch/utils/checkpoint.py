@@ -11,10 +11,12 @@ The layout is the JAX package's state dict (``state_to_jax_dict``):
 
 - top-level keys ``params, velocity, step[, ema][, guard]``: an absent ``ema`` or
   ``guard`` is omitted, not stored as nil;
-- ``params``, ``ema`` and the optimizer state in the JAX ``Net``'s layout
-  (``models.cnn.params_to_jax``: HWIO kernels, ``[in, out]`` dense kernels, (H, W, C)
-  flatten order), every dict's keys in sorted order, as ``jax.device_get`` rebuilds them.
-  SGD's velocity is a params dict; AdamW's state is ``{"count", "m", "v"}``;
+- ``params``, ``ema`` and the optimizer state in the JAX model's layout, every dict's keys
+  in sorted order, as ``jax.device_get`` rebuilds them: the CNN's through
+  ``models.cnn.params_to_jax`` (HWIO kernels, ``[in, out]`` dense kernels, (H, W, C)
+  flatten order), the transformer family's (the LM's ``model_lm.ckpt``, the classifier's)
+  as the nested tree ``models.transformer.params_to_jax`` makes of the flat dict. SGD's
+  velocity is a params dict; AdamW's state is ``{"count", "m", "v"}``;
 - ``step`` and AdamW's ``count`` as int32 0-d arrays (the port counts in int64);
 - ``guard`` as the nine ``GuardState`` fields in field order, f32 and int32.
 
@@ -23,8 +25,10 @@ so a captured segment's next replay, which overwrites the state's static buffers
 tear a write. Writes are atomic (tmp + ``os.replace``) and gated to rank 0 (the process
 group's rank, else the launcher's ``RANK``).
 
-Only the CNN's parameter layout is carried across; the transformer's ``params_to_jax``
-waits for ROADMAP A5's remainder (the composed trainer's checkpoints).
+The store's manifest carries the data cursor beside each file: the in-memory trainers'
+``kind: "epoch"`` cursor (``check_cursor_resume`` warns on a mismatch), or the LM's token
+stream's ``kind: "stream"`` cursor (``data.stream.StreamLoader.verify_cursor`` raises on
+one); ``cursor_for`` reads either.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ import time
 import numpy as np
 import torch
 
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.cnn import (
-    params_from_jax,
-    params_to_jax,
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+    cnn,
+    transformer,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.optim import (
     is_adam_state,
@@ -101,12 +105,11 @@ def _decode_msgpack(path: str):
 # -- the layout -------------------------------------------------------------------------
 
 
-def _params_to_jax(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    if set(params) != _CNN_KEYS:
-        raise ValueError(f"only the CNN's parameter layout is carried to the JAX package's "
-                         f"(got keys {sorted(params)[:4]}...); the transformer's waits "
-                         f"for ROADMAP A5")
-    return params_to_jax(params)
+def _params_to_jax(params: dict[str, torch.Tensor]) -> dict:
+    """The CNN's layout by its keys, else the transformer family's nested tree."""
+    if set(params) == _CNN_KEYS:
+        return cnn.params_to_jax(params)
+    return transformer.params_to_jax(params)
 
 
 def _count_to_jax(count) -> np.ndarray:
@@ -148,10 +151,17 @@ def _tensor_like(value, ref: torch.Tensor, where: str) -> torch.Tensor:
 def _params_from_raw(raw: dict, ref: dict[str, torch.Tensor], where: str) -> dict:
     if not isinstance(raw, dict):
         raise ValueError(f"checkpoint {where} is a {type(raw).__name__}, not a params dict")
-    if set(raw) != _JAX_CNN_KEYS:
-        raise ValueError(f"checkpoint {where} has keys {sorted(raw)}, the CNN's are "
-                         f"{sorted(_JAX_CNN_KEYS)}")
-    ported = params_from_jax(raw)
+    if set(ref) == _CNN_KEYS:
+        if set(raw) != _JAX_CNN_KEYS:
+            raise ValueError(f"checkpoint {where} has keys {sorted(raw)}, the CNN's are "
+                             f"{sorted(_JAX_CNN_KEYS)}")
+        ported = cnn.params_from_jax(raw)
+    else:
+        ported = transformer.params_from_jax(raw)
+        if set(ported) != set(ref):
+            raise ValueError(f"checkpoint {where} holds {sorted(set(ported) - set(ref))[:4]} "
+                             f"beyond the model's and lacks "
+                             f"{sorted(set(ref) - set(ported))[:4]}")
     return {k: _tensor_like(ported[k], r, f"{where}/{k}") for k, r in ref.items()}
 
 

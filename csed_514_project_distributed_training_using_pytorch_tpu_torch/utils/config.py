@@ -1,5 +1,5 @@
 """Configuration of the port's trainers (the single-process CNN trainer, the data-parallel
-CNN trainer and the composed transformer trainer).
+CNN trainer, the composed transformer trainer and the pixel-LM trainer).
 
 Counterpart of the JAX package's ``utils/config.py``, holding only the knobs this port
 implements, with the JAX package's names and defaults (the reference's values), plus
@@ -193,6 +193,93 @@ class ComposedConfig(StepOptions):
     max_test_examples: int = 0
     device: str = "cuda"                # 'cuda' (the default: raises when no card is
                                         # present) or 'cpu', which must be asked for
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """Knobs of the pixel-LM trainer (``train/lm.py``), every field of the JAX package's
+    ``LMConfig`` with its default, plus ``device``. Ported meshes: none or ``data=N`` over
+    a process group of N ranks; a ``seq`` or ``model`` axis and ``zigzag_attention`` raise
+    naming ROADMAP A10, ``plan``, ``telemetry`` and ``health_stats`` naming A11
+    (``check_lm_config``)."""
+
+    epochs: int = 2
+    batch_size: int = 64                # global batch, split over the data ranks
+    num_levels: int = 16                # gray-level vocabulary (BOS id = num_levels)
+    embed_dim: int = 64
+    num_layers: int = 2
+    num_heads: int = 4
+    dropout_rate: float = 0.0
+    attention_window: int = 0           # sliding-window causal attention width; 0 full
+    kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides heads
+    mesh: str = ""                      # "" or "data=N" (N = the launcher's world size)
+    plan: str = ""                      # raises: automatic planning (ROADMAP A11)
+    zigzag_attention: bool = False      # raises: needs a seq axis (ROADMAP A10)
+    rope: bool = False                  # rotary position embeddings (no pos_embed)
+    learning_rate: float = 1e-3
+    momentum: float = 0.5               # sgd only (adamw is the LM's default)
+    optimizer: str = "adamw"
+    weight_decay: float = 0.01
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    clip_grad_norm: float = 1.0         # the LM convention; 0 off
+    label_smoothing: float = 0.0        # torch label-smoothing semantics
+    ema_decay: float = 0.0              # eval and generation then use the EMA weights
+    async_checkpoint: bool = False      # write checkpoints on a background thread
+    grad_accum: int = 1
+    bf16: bool = False                  # bfloat16 activations, f32 master weights
+    remat: bool = False                 # recompute each block in the backward
+    remat_policy: str = ""              # '' / 'recompute-all' or 'save-dots' (with remat)
+    eval_batch: int = 500               # the test NLL's batch (must divide the split)
+    generate: int = 6                   # sample this many digits after training (0 off)
+    temperature: float = 1.0            # sampling temperature (<= 0 decodes greedily)
+    top_k: int = 0                      # sample only the k most likely tokens (0 off)
+    top_p: float = 1.0                  # nucleus sampling mass cutoff (1.0 off)
+    seed: int = 1
+    data_dir: str = "files"
+    download_data: bool = False
+    corpus: str = ""                    # a token-shard corpus directory (data/stream.py)
+                                        # to train on instead of MNIST's pixel streams
+    data_throttle_s: float = 0.0        # the stream loader's per-batch brake; 0 off
+    results_dir: str = "results"        # model_lm.ckpt, metrics.jsonl and the store
+    images_dir: str = "images"          # the sample grids and the loss curve
+    resume_from: str = ""               # a per-epoch checkpoint to resume from
+    heartbeat_dir: str = ""             # a per-process liveness file each epoch
+    handle_preemption: bool = False     # SIGTERM: stop at the next epoch boundary, exit 75
+    keep_checkpoints: int = 0           # the keep-last-N versioned store; 0 off
+    guard: bool = False                 # the numerical guard (see StepOptions)
+    guard_zscore: float = 8.0
+    anomaly_exit: int = 0               # exit 65 once >= N anomalies; 0 never
+    skip_steps: str = ""                # identity-update windows "a:b[,c:d]"
+    telemetry: str = ""                 # raises: telemetry (ROADMAP A11)
+    health_stats: bool = False          # raises: telemetry (ROADMAP A11)
+    max_train_examples: int = 0
+    max_test_examples: int = 0
+    device: str = "cuda"                # 'cuda' (the default: raises when no card is
+                                        # present) or 'cpu', which must be asked for
+
+
+def check_lm_config(config: LMConfig) -> None:
+    """Raise on the LM trainer's knobs the port does not run, naming the ROADMAP item,
+    and on values the JAX package refuses, before any data or rendezvous work."""
+    if config.plan:
+        raise ValueError("--plan (automatic parallelism planning) is not ported yet "
+                         "(ROADMAP A11)")
+    if config.telemetry:
+        raise ValueError("--telemetry (the JSONL run-telemetry stream) is not ported yet "
+                         "(ROADMAP A11)")
+    if config.health_stats:
+        raise ValueError("--health-stats emits telemetry 'health' events and has no other "
+                         "output (the JAX package requires --telemetry with it); telemetry "
+                         "is not ported (ROADMAP A11)")
+    if config.zigzag_attention:
+        raise ValueError("--zigzag-attention needs a seq axis in --mesh; the LM's seq axis "
+                         "is not ported yet (ROADMAP A10)")
+    if config.grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
+    if config.kv_heads and (config.kv_heads < 0 or config.num_heads % config.kv_heads):
+        raise ValueError(f"--kv-heads {config.kv_heads} must be a positive divisor of "
+                         f"--num-heads {config.num_heads}")
 
 
 def _add_args(parser: argparse.ArgumentParser, cfg) -> None:

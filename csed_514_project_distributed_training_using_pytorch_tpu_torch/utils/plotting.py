@@ -1,9 +1,10 @@
 """Plot artifacts: the sample grid and the loss curves (matplotlib, optional).
 
-Counterpart of the JAX package's ``utils/plotting.py`` for the CNN trainers: the 6-digit
+Counterpart of the JAX package's ``utils/plotting.py`` for the trainers: the 6-digit
 sample grid (``images/train_images.png``), the single-process train/test loss curve
-(``train_test_curve.png``) and the data-parallel one (``train_test_curve_dist.png``), with
-the JAX package's file names and figures. Plotting is rank-0 gated. matplotlib is imported
+(``train_test_curve.png``), the data-parallel one (``train_test_curve_dist.png``), and the
+pixel LM's generated digits (``lm_samples.png``, ``lm_completions.png``) and loss curve
+(``lm_loss_curve.png``), with the JAX package's file names and figures. Plotting is rank-0 gated. matplotlib is imported
 at the first plot, not with the module; without it every function logs one line and
 returns None, and training goes on.
 """
@@ -72,6 +73,14 @@ def save_sample_grid(images: np.ndarray, labels: np.ndarray, path: str,
     de-normalised."""
     imgs = np.asarray(images[:n]) * MNIST_STD + MNIST_MEAN
     return _save_grid(imgs, [f"Ground Truth: {int(l)}" for l in labels[:n]], path)
+
+
+def save_generated_grid(images_raw: np.ndarray, path: str, n: int = 6) -> str | None:
+    """``n`` model-generated digits (raw [0, 1] intensity NHWC, the pixel LM's
+    ``ids_to_images`` output; samples have no labels)."""
+    n = min(n, len(images_raw))
+    return _save_grid(np.asarray(images_raw[:n]), [f"Sample {i}" for i in range(n)], path,
+                      vmin=0.0, vmax=1.0)
 
 
 def save_loss_curves(history: MetricsHistory, path: str) -> str | None:

@@ -354,8 +354,12 @@ def test_restore_raises_on_a_state_of_another_structure(tmp_path):
     )
     model = TransformerClassifier()
     tstate = step.create_train_state(model, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        checkpoint.save_train_state(str(tmp_path / "t.ckpt"), tstate)
+    checkpoint.save_train_state(str(tmp_path / "t.ckpt"), tstate)     # the nested tree
+    with pytest.raises(ValueError, match="keys"):
+        checkpoint.restore_train_state(str(tmp_path / "t.ckpt"), _port_reference(
+            "sgd", False, False))
+    with pytest.raises(ValueError, match="beyond the model's"):
+        checkpoint.restore_train_state(path, tstate)
 
 
 # -- the store --------------------------------------------------------------------------

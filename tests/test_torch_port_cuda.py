@@ -1372,3 +1372,109 @@ def test_cuda_prefetch_keeps_its_values_under_allocator_pressure(device):
     for (gx, gy), (hx, hy) in zip(read, host):
         np.testing.assert_array_equal(gx.cpu().numpy(), hx)
         np.testing.assert_array_equal(gy.cpu().numpy(), hy)
+
+
+# -- the pixel LM's training and sampling on the card -------------------------------------
+
+LM_SMALL = dict(vocab_size=17, seq_len=128, embed_dim=64, num_layers=2, num_heads=4)
+
+
+def _lm_segments(device, remat_policy=None, dropout=0.0):
+    """10 steps of the trainer's step (``train.lm.make_lm_step`` at ``LMConfig``'s defaults:
+    AdamW, clip 1.0; ``LM_SMALL``'s widths), captured and eagerly, from one start on one
+    plan; ``remat_policy`` None trains without remat."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        lm as lm_train,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig,
+    )
+
+    cfg = LMConfig(dropout_rate=dropout, remat=remat_policy is not None,
+                   remat_policy=remat_policy or "")
+    model = lm_train.lm_model(cfg, vocab=LM_SMALL["vocab_size"] - 1,
+                              seq_len=LM_SMALL["seq_len"]).to(device)
+    opt = lm_train.lm_optimizer(cfg)
+    fn = lm_train.make_lm_step(model, cfg, optimizer=opt, steps_per_epoch=10)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, 16, (160, 128), generator=gen, device=device,
+                           dtype=torch.int32)
+    zeros = torch.zeros(160, dtype=torch.int64, device=device)
+    plan = torch.randperm(160, generator=gen, device=device).view(10, 16)
+    runs = {}
+    for name, seg in (("captured", step.CapturedSegment(fn)),
+                      ("eager", step.make_segment_fn(fn))):
+        state = step.create_train_state(model, torch.Generator().manual_seed(1),
+                                        optimizer=opt, device=device)
+        state, losses = seg(state, tokens, zeros, plan, 3)
+        torch.cuda.synchronize(device)
+        runs[name] = (losses, {k: v.clone() for k, v in state.params.items()})
+    return runs
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["dropout_off", "dropout_on"])
+def test_captured_lm_segment_matches_the_eager_loop(device, dropout):
+    runs = _lm_segments(device, dropout=dropout)
+    (c_losses, c_params), (e_losses, e_params) = runs["captured"], runs["eager"]
+    assert c_losses[-1] < c_losses[0]
+    torch.testing.assert_close(c_losses, e_losses, atol=1e-6, rtol=0)
+    for k in e_params:
+        torch.testing.assert_close(c_params[k], e_params[k], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("policy", ["recompute-all", "save-dots"])
+def test_remat_under_capture_matches_no_remat(device, policy):
+    """Non-reentrant checkpoint recomputes inside the captured backward, the dropout masks
+    redrawn from the step's key: the same losses and parameters as without remat."""
+    plain = _lm_segments(device, dropout=0.1)["captured"]
+    remat = _lm_segments(device, remat_policy=policy, dropout=0.1)["captured"]
+    torch.testing.assert_close(remat[0], plain[0], atol=1e-6, rtol=0)
+    for k in plain[1]:
+        torch.testing.assert_close(remat[1][k], plain[1][k], atol=1e-6, rtol=0)
+
+
+def test_greedy_generate_on_the_card_matches_the_cpu(device):
+    """Greedy ``generate`` (prompted, GQA) on the card against the CPU, token for token up
+    to a true tie (the CPU's top-2 log-prob gap at the first difference below 1e-5)."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+
+    model = lm.TransformerLM(**{**LM_SMALL, "seq_len": 200}, num_kv_heads=2)
+    params = model.init(torch.Generator().manual_seed(2))
+    prompt = torch.randint(0, 16, (4, 200), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    cpu = lm.generate(model, params, batch=4, temperature=0.0, prompt=prompt, prompt_len=50)
+    card = lm.generate(model, {k: v.to(device) for k, v in params.items()}, batch=4,
+                       temperature=0.0, prompt=prompt.to(device), prompt_len=50).cpu()
+    assert torch.equal(card[:, :50], prompt[:, :50])
+    for row in range(4):
+        diff = (card[row] != cpu[row]).nonzero()
+        if len(diff):
+            p = int(diff[0])
+            lp = torch.func.functional_call(model, params, (model.shift_right(
+                cpu[row:row + 1].long()),))[0, p].clone()
+            lp[model.vocab_size - 1] = float("-inf")
+            top2 = lp.topk(2).values
+            assert (top2[0] - top2[1]).item() < 1e-5, (row, p)
+    sampled = lm.generate(model, {k: v.to(device) for k, v in params.items()},
+                          torch.Generator(device=device).manual_seed(0), batch=4,
+                          top_k=5, top_p=0.9)
+    assert sampled.device.type == "cuda" and int(sampled.max()) < model.vocab_size - 1
+
+
+def test_lm_gradients_are_the_same_run_to_run(device):
+    """One LM step's gradients twice from the same inputs, bitwise: the token embedding is
+    a one-hot product, whose gradient is a matmul (a gather's backward accumulates with
+    atomics on the card), so a resumed run can equal an unbroken one."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+
+    model = lm.TransformerLM().to(device)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    targets = torch.randint(0, 16, (64, 784), generator=torch.Generator(
+        device=device).manual_seed(1), device=device)
+    grads = []
+    for _ in range(2):
+        leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
+        loss = lm.next_token_loss(model, leaves, targets, None, deterministic=True)
+        grads.append(torch.autograd.grad(loss, list(leaves.values())))
+    for name, a, b in zip(params, *grads):
+        assert torch.equal(a, b), name

@@ -16,7 +16,7 @@ JAX_PACKAGE = "csed_514_project_distributed_training_using_pytorch_tpu"
 # msgpack too: the card has none, and the port's checkpoints carry their own codec
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", JAX_PACKAGE)
 
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "flash_probe.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "flash_probe.py", ROOT / "lm_probe.py"]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
@@ -51,7 +51,8 @@ def test_sources_found():
                    "resilience/preemption.py", "data/native.py", "data/download.py",
                    "data/loader.py", "data/_native/__init__.py", "data/_native/build.py",
                    "ops/quant.py", "serving/prefix_cache.py", "serving/server.py",
-                   "obs/__init__.py", "obs/hist.py", "obs/slo.py"):
+                   "obs/__init__.py", "obs/hist.py", "obs/slo.py", "data/stream.py",
+                   "train/lm.py", "bench_lm.py"):
         assert PORT / module in SOURCES, module
 
 

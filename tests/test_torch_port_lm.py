@@ -7,7 +7,14 @@ window and RoPE.
 
 Tolerances: token ids bitwise; float32 log-probs and cache rows within atol 1e-5 (the same
 arithmetic, f32 sums in another order, over two layers and up to 16 decode steps whose
-rows feed the later ones).
+rows feed the later ones). The training and sampling half: ``next_token_loss`` and
+``decode_nll`` within 1e-5 absolute plus 1e-5 relative; ``decode_step`` at every position
+within 1e-5 of the full forward and of the JAX package's ``decode_step``; greedy
+``generate`` token for token, a divergence allowed only at a true tie (the top-2 log-prob
+gap of the port's own teacher-forced forward at the first differing position below
+``TIE_GAP`` = 1e-5, the rule of ``tests/test_torch_port_quant.py``); ``filter_logits``
+the same masks (random rows whose every kept/masked decision lies more than 1e-4 from the
+``top_p`` boundary, checked, so f32 sums in another order cannot flip one).
 """
 
 import jax
@@ -30,11 +37,19 @@ CONFIGS = [dict(), dict(num_kv_heads=2), dict(attention_window=5), dict(rope=Tru
 CONFIG_IDS = ["mha", "gqa", "window", "rope"]
 
 
+_PAIRS = {}
+
+
 def _pair(cfg):
-    """The JAX LM and its parameters, and the port's LM with those parameters."""
-    jm = jax_lm.TransformerLM(**SMALL, **cfg)
-    jp = jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 16), jnp.int32))["params"]
-    return jm, jp, lm.TransformerLM(**SMALL, **cfg), params_from_jax(jp)
+    """The JAX LM and its parameters, and the port's LM with those parameters: made once
+    a configuration for the module (the JAX init compiles once), read only."""
+    key = tuple(sorted(cfg.items()))
+    if key not in _PAIRS:
+        jm = jax_lm.TransformerLM(**SMALL, **cfg)
+        jp = jm.init({"params": jax.random.PRNGKey(0)},
+                     jnp.zeros((1, 16), jnp.int32))["params"]
+        _PAIRS[key] = (jm, jp, lm.TransformerLM(**SMALL, **cfg), params_from_jax(jp))
+    return _PAIRS[key]
 
 
 def _jcache(tree):
@@ -220,4 +235,204 @@ def test_pool_helpers_and_unported_kv_dtypes():
         with pytest.raises(ValueError, match="unknown kv_dtype"):
             fn()
     with pytest.raises(ValueError, match="remat"):
-        lm.TransformerLM(**SMALL, remat=True)
+        lm.TransformerLM(**SMALL, remat_policy="save-dots")
+
+
+# -- the training and sampling half ------------------------------------------------------
+
+RTOL = 1e-5
+TIE_GAP = 1e-5
+
+
+def test_ids_to_images_and_params_to_jax_are_bitwise():
+    ids = np.random.default_rng(7).integers(0, 16, size=(3, 784)).astype(np.int32)
+    want = np.asarray(jax_lm.ids_to_images(jnp.asarray(ids), num_levels=16))
+    got = lm.ids_to_images(torch.from_numpy(ids), num_levels=16)
+    assert got.shape == (3, 28, 28, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for cfg in CONFIGS:
+        _, jp, _, params = _pair(cfg)
+        want = jax.device_get(jp)
+        got = lm.params_to_jax(params)
+
+        def same(a, b, where=""):
+            assert isinstance(a, dict) == isinstance(b, dict), where
+            if isinstance(b, dict):
+                assert list(a) == sorted(b), where            # keys in sorted order
+                for k in b:
+                    same(a[k], b[k], f"{where}/{k}")
+            else:
+                assert a.dtype == np.float32 and a.shape == b.shape, where
+                np.testing.assert_array_equal(a, np.asarray(b), err_msg=where)
+
+        same(got, want)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=CONFIG_IDS)
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_next_token_loss_matches_jax(cfg, smoothing):
+    jm, jp, tm, params = _pair(cfg)
+    targets = np.random.default_rng(8).integers(0, 8, size=(4, 16)).astype(np.int32)
+    want = float(jax_lm.next_token_loss(jm, jp, jnp.asarray(targets), None,
+                                        deterministic=True, label_smoothing=smoothing))
+    got = lm.next_token_loss(tm, params, torch.from_numpy(targets), None,
+                             deterministic=True, label_smoothing=smoothing)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=CONFIG_IDS)
+def test_decode_step_matches_the_full_forward_and_jax(cfg):
+    """Teacher-forced: every position's log-probs against the port's full forward and the
+    JAX package's ``decode_step`` (reading the whole cache, and a 12-row prefix where
+    ``t < 12``), then the cache planes."""
+    jm, jp, tm, params = _pair(cfg)
+    targets = np.random.default_rng(9).integers(0, 8, size=(2, 16)).astype(np.int32)
+    inputs = tm.shift_right(torch.from_numpy(targets))
+    ref = torch.func.functional_call(tm, params, (inputs,))
+    jinputs = np.asarray(jm.shift_right(jnp.asarray(targets)))
+    jcache, tcache = jax_lm.init_cache(jm, 2), lm.init_cache(tm, 2)
+    for t in range(16):
+        prefix = 12 if t < 12 else None
+        jcache, jlp = jax_lm.decode_step(jm, jp, jcache, jnp.asarray(jinputs[:, t]),
+                                         jnp.asarray(t, jnp.int32), prefix_len=prefix)
+        tcache, tlp = lm.decode_step(tm, params, tcache, inputs[:, t], t, prefix_len=prefix)
+        np.testing.assert_allclose(tlp.numpy(), ref[:, t].numpy(), atol=ATOL, rtol=RTOL,
+                                   err_msg=f"position {t} vs the full forward")
+        np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), atol=ATOL, rtol=RTOL,
+                                   err_msg=f"position {t} vs JAX")
+    _assert_cache_close(tcache, _jcache(jcache))
+    with pytest.raises(ValueError, match="prefix_len"):
+        lm.decode_step(tm, params, tcache, inputs[:, 0], 0, prefix_len=17)
+    with pytest.raises(ValueError, match="raw K/V planes"):
+        lm.decode_step(tm, params, lm.init_cache(tm, 2, kv_dtype="int8"), inputs[:, 0], 0)
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+def test_decode_nll_matches_jax(kv):
+    jm, jp, tm, params = _pair(dict(num_kv_heads=2))
+    targets = np.random.default_rng(10).integers(0, 8, size=(3, 16)).astype(np.int32)
+    want = float(jax_lm.decode_nll(jm, jp, jnp.asarray(targets), kv_dtype=kv))
+    got = lm.decode_nll(tm, params, torch.from_numpy(targets), kv_dtype=kv)
+    np.testing.assert_allclose(got.item(), want, atol=ATOL, rtol=RTOL)
+    if kv is None:        # the serving decode's NLL is the training loss's
+        loss = lm.next_token_loss(tm, params, torch.from_numpy(targets), None,
+                                  deterministic=True)
+        np.testing.assert_allclose(got.item(), loss.item(), atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="seq_len"):
+        lm.decode_nll(tm, params, torch.zeros(2, 15, dtype=torch.int32))
+
+
+def _top2_gap(tm, params, stream, p):
+    """The top-2 log-prob gap of position ``p``'s prediction under the port's own
+    teacher-forced forward of ``stream`` (BOS masked, as ``generate`` masks it)."""
+    lp = torch.func.functional_call(tm, params, (tm.shift_right(
+        torch.as_tensor(stream, dtype=torch.int64)[None]),))[0, p].clone()
+    lp[tm.vocab_size - 1] = float("-inf")
+    top2 = lp.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def assert_greedy_streams_equal_up_to_ties(got, want, tm, params, first: int = 0):
+    """Row by row: equal, or a first divergence at a true tie. Returns the ties."""
+    ties = 0
+    for row, (a, b) in enumerate(zip(got, want)):
+        if np.array_equal(a, b):
+            continue
+        p = int(np.flatnonzero(a != b)[0])
+        assert p >= first, f"row {row} differs at forced position {p}"
+        gap = _top2_gap(tm, params, a, p)
+        assert gap < TIE_GAP, f"row {row}: streams differ at {p} with a top-2 gap of {gap:.3e}"
+        ties += 1
+    return ties
+
+
+@pytest.mark.parametrize("prompted", [False, True], ids=["bos", "prompt"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=CONFIG_IDS)
+def test_greedy_generate_matches_jax(cfg, prompted):
+    jm, jp, tm, params = _pair(cfg)
+    prompt = np.random.default_rng(11).integers(0, 8, size=(3, 16)).astype(np.int32)
+    kw = dict(prompt_len=7) if prompted else {}
+    want = np.asarray(jax.jit(lambda key: jax_lm.generate(
+        jm, jp, key, batch=3, temperature=0.0,
+        prompt=jnp.asarray(prompt) if prompted else None, **kw))(jax.random.PRNGKey(0)))
+    got = lm.generate(tm, params, batch=3, temperature=0.0,
+                      prompt=torch.from_numpy(prompt) if prompted else None, **kw)
+    assert got.dtype == torch.int32 and got.shape == (3, 16)
+    got = got.numpy()
+    assert got.max() < tm.vocab_size - 1                         # BOS never emitted
+    if prompted:
+        np.testing.assert_array_equal(got[:, :7], prompt[:, :7])
+    assert_greedy_streams_equal_up_to_ties(got, want, tm, params, first=7 if prompted else 0)
+
+
+def test_greedy_generate_over_two_decode_segments_matches_jax():
+    """seq 144: a 128-row segment, then the full cache (``DECODE_SEGMENT`` growth)."""
+    assert lm.DECODE_SEGMENT == jax_lm.DECODE_SEGMENT == 128
+    shape = {**SMALL, "seq_len": 144}
+    jm = jax_lm.TransformerLM(**shape)
+    jp = jm.init({"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 144), jnp.int32))["params"]
+    tm, params = lm.TransformerLM(**shape), params_from_jax(jp)
+    prompt = np.random.default_rng(12).integers(0, 8, size=(2, 144)).astype(np.int32)
+    want = np.asarray(jax.jit(lambda key: jax_lm.generate(
+        jm, jp, key, batch=2, temperature=0.0, prompt=jnp.asarray(prompt),
+        prompt_len=100))(jax.random.PRNGKey(0)))
+    got = lm.generate(tm, params, batch=2, temperature=0.0,
+                      prompt=torch.from_numpy(prompt), prompt_len=100).numpy()
+    assert_greedy_streams_equal_up_to_ties(got, want, tm, params, first=100)
+
+
+def test_sampled_generate_statistics_and_argument_checks():
+    """Sampling cannot match JAX's threefry draws: it is held by its statistics. A fixed
+    ``torch.Generator`` seed repeats its streams; ``top_k=1`` and a vanishing nucleus are
+    greedy; at temperature 1 the first token's empirical distribution over 4,000 streams
+    lies within 0.05 total variation of the model's softmax."""
+    _, _, tm, params = _pair({})
+    greedy = lm.generate(tm, params, batch=3, temperature=0.0)
+    draw = lambda seed, **kw: lm.generate(tm, params, torch.Generator().manual_seed(seed),
+                                          batch=3, **kw)
+    assert torch.equal(draw(5), draw(5)) and not torch.equal(draw(5), draw(6))
+    for kw in (dict(top_k=1), dict(top_p=1e-6)):
+        assert torch.equal(draw(5, **kw), greedy)
+    assert torch.equal(draw(5, top_k=tm.vocab_size, top_p=1.0), draw(5))
+    first = torch.func.functional_call(tm, params, (torch.full((1, 16), 8),))[0, 0].clone()
+    first[tm.vocab_size - 1] = float("-inf")
+    probs = torch.softmax(first, -1)
+    gen = torch.Generator().manual_seed(0)
+    lp = first.expand(4000, -1)
+    counts = torch.bincount(lm.sample_categorical(lp, gen), minlength=tm.vocab_size)
+    tv = 0.5 * (counts / 4000 - probs).abs().sum().item()
+    assert tv < 0.05, tv
+    with pytest.raises(ValueError, match="top_k"):
+        lm.generate(tm, params, batch=1, temperature=0.0, top_k=tm.vocab_size + 1)
+    with pytest.raises(ValueError, match="top_p"):
+        lm.generate(tm, params, batch=1, temperature=0.0, top_p=0.0)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        lm.generate(tm, params, batch=1, temperature=1.0)
+    with pytest.raises(ValueError, match="prompt_len"):
+        lm.generate(tm, params, batch=2, temperature=0.0,
+                    prompt=torch.zeros(2, 16, dtype=torch.int32), prompt_len=17)
+    with pytest.raises(ValueError, match="prompt shape"):
+        lm.generate(tm, params, batch=2, temperature=0.0,
+                    prompt=torch.zeros(1, 16, dtype=torch.int32), prompt_len=3)
+
+
+def test_filter_logits_masks_match_jax():
+    lp = np.log(np.array([[0.5, 0.25, 0.15, 0.07, 0.03]], np.float32))
+    cases = [dict(top_k=2), dict(top_p=0.7), dict(top_p=0.76), dict(top_k=4, top_p=0.7),
+             dict()]
+    rng = np.random.default_rng(13)
+    rows = (rng.normal(size=(64, 17)) * 2.0).astype(np.float32)
+    for top_p in (0.3, 0.6, 0.9):
+        # the premise: no kept/masked decision within 1e-4 of the top_p boundary
+        srt = np.sort(rows.astype(np.float64), axis=-1)[:, ::-1]
+        prob = np.exp(srt - srt.max(-1, keepdims=True))
+        prob /= prob.sum(-1, keepdims=True)
+        before = np.cumsum(prob, -1) - prob
+        assert np.abs(before - top_p).min() > 1e-4
+    for x in (lp, rows):
+        for kw in cases + [dict(top_k=3), dict(top_p=0.3), dict(top_p=0.6, top_k=5),
+                           dict(top_p=0.9)]:
+            want = np.asarray(jax_lm.filter_logits(jnp.asarray(x), **kw))
+            got = lm.filter_logits(torch.from_numpy(x), **kw).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=str(kw))

@@ -212,18 +212,46 @@ def test_eval_fn_runs_the_classifier():
     assert int(correct) == int(j_correct)
 
 
+@pytest.mark.parametrize("policy", ["recompute-all", "save-dots"])
+def test_classifier_remat_is_bitwise_the_run_without_it(policy):
+    """The classifier's blocks rematerialized (dropout 0.1, the step's masks replayed in
+    the recomputation): three SGD steps, losses and parameters bitwise."""
+    rng = np.random.default_rng(21)
+    xs = torch.from_numpy(rng.normal(size=(3, 8, 28, 28, 1)).astype(np.float32))
+    ys = torch.from_numpy(rng.integers(0, 10, size=(3, 8)))
+    runs = []
+    for remat in (False, True):
+        model = transformer.TransformerClassifier(dropout_rate=0.1, remat=remat,
+                                                  remat_policy=policy if remat else "")
+        state = step.create_train_state(model, torch.Generator().manual_seed(2))
+        train_step = step.make_train_step(model, learning_rate=0.05, momentum=0.5)
+        losses = []
+        for x, y in zip(xs, ys):
+            state, loss = train_step(state, x, y, 3)
+            losses.append(loss)
+        runs.append((torch.stack(losses), state.params))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
 def test_unported_knobs_raise():
-    for kw in ({"num_experts": 4}, {"remat": True}, {"expert_mesh": object()}):
+    for kw in ({"num_experts": 4}, {"expert_mesh": object()}):
         with pytest.raises(ValueError, match="ROADMAP A10"):
             transformer.TransformerClassifier(**kw)
+    with pytest.raises(ValueError, match="add --remat"):
+        transformer.TransformerClassifier(remat_policy="save-dots")
     with pytest.raises(ValueError, match="not divisible"):
         transformer.TransformerClassifier(num_kv_heads=3)
     assert isinstance(models.build_model("transformer", seq_len=32),
                       transformer.TransformerClassifier)
     with pytest.raises(ValueError, match="unknown model"):
         models.build_model("mlp")
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        models.validate_model_config("transformer", remat=True)
+    models.validate_model_config("transformer", remat=True, remat_policy="save-dots")
+    with pytest.raises(ValueError, match="transformer family only"):
+        models.validate_model_config("cnn", remat=True)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        models.validate_model_config("transformer", remat=True, remat_policy="dots")
 
 
 def _bf16_operands(case):
