@@ -22,6 +22,8 @@ Phases (each raises on failure; nothing is caught):
    with its time, its plain version's time, its bound and, where one PyTorch call computes
    the same function, that call's time (a yardstick only; the port never calls it); the
    SGD step (one multi-tensor launch over every leaf) and one leaf (a table of one) bitwise;
+   and B1/B2's launch floor: 1,000 launches captured in one CUDA graph and replayed, at
+   one row and at 64, in µs a launch;
 4. a 20-step trajectory with dropout off, kernels against the plain path, on the card, and
    the kernel path on the card against the plain path on the CPU;
 5. the whole slice: ``train.single.main`` on cuda with ``use_pallas_kernels=True`` for one
@@ -156,8 +158,16 @@ Phases (each raises on failure; nothing is caught):
     launches = layers x decode steps, then int8 and fp8 KV: the greedy token-match rate
     and the teacher-forced ``decode_nll`` delta against the unquantized model (a bar at
     0.05); (e) ``python -m <port>.bench_lm`` at its defaults, its JSON line printed;
-26. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
-    int8 and fp8 branches as rows of their own), then, last, the JSON result line.
+26. speculative decoding on [25]'s trained LM (``spec_phase``): (a) ``verify_chunk`` and
+    ``paged_verify_chunk`` in f32, int8 and fp8 planes against ``decode_step_slots`` at
+    t + j (rows past ``seq_len`` dropped, the rows written quantize_rows' own); (b)
+    ``bench_spec_ab``'s chat A/B on the paged layout, spec off (B6) against ngram and the
+    draft LM (seeded, and trained in the phase), streams up to true ties, B6 and the decode
+    step never run under spec; (c) the sampled accept rule against its target and a
+    ``Server`` park/resume over spec; (d) ``serve_loadgen`` in process, open loop and chat;
+27. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+    int8 and fp8 branches as rows of their own; B1/B2 with their launch floor), then,
+    last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -195,6 +205,8 @@ F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3   # an f32 product as three TF32 produ
 NLL_SHAPES = ((64, 10), (32, 10), (1, 10), (300, 130), (4096, 1000))
 NLL_ATOL, NLL_RTOL = 1e-6, 1e-5
 CNN_LEAVES = (250, 10, 5000, 20, 16000, 50, 500, 10)
+FLOOR_ROWS = (1, 64)            # phase 3: B1/B2's launch floor at one row and the path's 64
+FLOOR_LAUNCHES, FLOOR_REPLAYS = 1000, 5   # launches captured in one graph; replays timed
 TRAJECTORY_STEPS = 20
 TRAJECTORY_ATOL = 1e-5         # kernels vs plain path, both on the card
 CROSS_DEVICE_ATOL = 1e-4       # card vs CPU: conv sums run in another order
@@ -313,6 +325,16 @@ LM_CAPTURE_STEPS = 20          # (a): captured vs eager, and the profiler window
 LM_CAPTURE_ATOL = 1e-5         # (a): the same operations on the same inputs on the card
 LM_PROMPT = 392                # (d): the top half of a test image
 LM_REQUESTS = 8                # (d): greedy requests, one a slot
+SPEC_K = 4                     # phase 26: drafts a verify pass scores (bench_spec_ab's -k)
+SPEC_PROMPTS = (96, 300, 500, 782)   # (a): four slots' prefilled lengths; 782 + 4 > 783
+SPEC_ATOL = 1e-5               # (a): verify row j vs decode at t + j, |diff| <= atol +
+                               # atol·|decode| (f32, int8 and fp8 planes alike: the planes'
+                               # written rows must be bitwise equal, so the reads are too)
+SPEC_DRAWS = 40_000            # (c): vectorised draws of the sampled accept rule
+SPEC_STEADY_NEW = 200          # (b): new tokens a slot in the steady-tick run (96-token prompts)
+SPEC_AB = dict(sessions=6, turns=3, max_new_tokens=48, prompt_lens="32,64,96", num_slots=4,
+               spec_k=SPEC_K, seed=0)   # bench_spec_ab.py's defaults, on the paged layout
+SPEC_JAX_GATES = (1.0, 1.5, 1.5)   # the JAX tool's token match, tok/step, invocation ratio
 TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
 
 
@@ -1817,6 +1839,391 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     return {"path": path, "state": straight}
 
 
+def tv_bound(p, n: int) -> float:
+    """Three times the expected total-variation distance between ``n`` draws' empirical
+    distribution and ``p`` (``E|count_x/n - p_x| ≈ sqrt(2 p_x (1 - p_x) / (π n))``, the
+    normal approximation of a binomial's mean absolute deviation, halved and summed)."""
+    import numpy as np
+
+    return 3.0 * 0.5 * float(np.sum(np.sqrt(2.0 * p * (1.0 - p) / (math.pi * n))))
+
+
+def spec_phase(dev, card: str, model, params: dict, ckpt: Path, train_ds, test_ds,
+               test_ids, compare_streams) -> None:
+    """Phase 26: speculative decoding on the card, with [25]'s trained LM.
+
+    (a) ``verify_chunk`` (contiguous) and ``paged_verify_chunk`` (pages of 64 through a
+    shuffled table, pages past each slot's reservation on the null page) on four slots
+    prefilled to ``SPEC_PROMPTS`` positions with test images, fed the image's next
+    ``SPEC_K`` tokens as drafts, in f32, int8 and fp8 planes: row j against
+    ``decode_step_slots`` at t + j on a copy of the slot's prefilled planes fed the same
+    tokens (within ``SPEC_ATOL``), the rows verify writes bitwise the rows the per-token
+    path writes, every other row (and every page but the null page) bitwise unchanged, so
+    the rows past ``seq_len`` of the slot at 782 were dropped.
+    (b) ``bench_spec_ab``'s chat scenario at its defaults on the paged layout: spec off
+    (B6 launches = layers x decode steps), ``ngram``, ``draft-lm`` at the recipe's seeded
+    init and ``draft-lm`` trained here by ``train.lm`` (one epoch, 1 layer, embed 32):
+    B6 launches and decode-step calls 0 on the spec sides, every spec side's streams equal
+    to spec off's up to true ties (``compare_streams``), tokens/s, invocations per token,
+    ms per verify tick against ms per decode step in a steady run, accepted tokens per step,
+    acceptance rate, the invocation ratio; the JAX tool's gates printed beside them.
+    (c) the sampled accept rule on the card: ``SPEC_DRAWS`` draws at temperature 1 on
+    (a)'s first verify row and a fixed draft, the first token's distribution against the
+    target within ``tv_bound``; then a ``Server`` over an ngram spec engine with a park
+    and a resume, every future ``ok``.
+    (d) ``serve_loadgen.main`` in process on the trained checkpoint: the open loop at its
+    defaults on [12]'s paged layout, then the chat scenario with ``--spec ngram``; their
+    summaries' headline keys, every request ``ok``."""
+    import argparse
+    import types
+
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import (
+        bench_spec_ab, serve_loadgen, serving,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        paged_attention as paged, quant,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
+        MASK_VALUE,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        engine as engine_mod,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        lm as lm_train,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig, parse_config,
+    )
+
+    t_phase = time.perf_counter()
+    root = OUT_DIR / "spec"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    params_dev = {name: p.to(dev) for name, p in params.items()}
+    k, s, vocab = SPEC_K, model.seq_len, model.vocab_size
+
+    # (a) verify against sequential decode ------------------------------------------------
+    b = len(SPEC_PROMPTS)
+    fills = np.asarray(SPEC_PROMPTS)
+    streams = test_ids[:b].astype(np.int32)
+    prompt = torch.from_numpy(streams).to(dev)
+    draft_np = np.zeros((b, k), np.int32)
+    for i in range(b):
+        row = streams[i, fills[i]:fills[i] + k]
+        draft_np[i, :len(row)] = row
+    ids_np = streams[np.arange(b), fills - 1]
+    inputs = np.concatenate([ids_np[:, None], draft_np], axis=1)       # [b, k+1]
+    ids, t = torch.from_numpy(ids_np).to(dev), torch.from_numpy(fills.astype(np.int32)).to(dev)
+    draft = torch.from_numpy(draft_np).to(dev)
+    window = [list(range(f, min(f + k + 1, s))) for f in fills]      # the rows verify writes
+    ps = SERVE_PAGE
+    p_max = lm.pages_per_slot(s, ps)
+    verify_rows = None
+    quantize_rows = quant.quantize_rows
+    for layout in ("contiguous", "paged"):
+        for kv in (None, "int8", "fp8"):
+            base = lm.init_cache(model, b, kv_dtype=kv, device=dev)
+            with torch.no_grad():
+                for i in range(b):
+                    for start, length, size in serving.greedy_chunk_plan(
+                            lm.PREFILL_CHUNK_SIZES, 0, int(fills[i])):
+                        lm.prefill_chunk(model, params_dev, base, prompt, i, start, length,
+                                         start == 0, chunk=size)
+            # verify's own quantize-on-write calls, in order (layer 0 k, v, layer 1 k, v)
+            quantized: list = []
+
+            def recording(x, qdtype):
+                out = quantize_rows(x, qdtype)
+                quantized.append(tuple(y.reshape((b, k + 1) + tuple(y.shape[1:]))
+                                       for y in out))
+                return out
+
+            if layout == "paged":
+                perm = torch.randperm(b * p_max, generator=torch.Generator().manual_seed(26))
+                table = (1 + perm).reshape(b, p_max).to(torch.int32)
+                for i in range(b):              # pages past the reservation: the null page
+                    table[i, (int(fills[i]) + k) // ps + 1:] = 0
+                table_dev = table.to(dev)
+                pool = lm.init_page_pool(model, 1 + b * p_max, page_size=ps, kv_dtype=kv,
+                                         device=dev)
+                for name, layer in pool.items():
+                    for key, x in layer.items():
+                        for i in range(b):
+                            for j in range(p_max):
+                                if int(table[i, j]):
+                                    rows = base[name][key][i, j * ps:(j + 1) * ps]
+                                    x[int(table[i, j]), :rows.shape[0]] = rows
+                before = {n: {key: x.clone() for key, x in layer.items()}
+                          for n, layer in pool.items()}
+                with torch.no_grad(), patched(quant, "quantize_rows", recording):
+                    _, vlp = lm.paged_verify_chunk(model, params_dev, pool, table_dev, ids,
+                                                   t, draft, k=k)
+                after = pool
+
+                def written(name, key, i, p):
+                    return pool[name][key][int(table[i, p // ps]), p % ps]
+            else:
+                before = {n: {key: x.clone() for key, x in layer.items()}
+                          for n, layer in base.items()}
+                with torch.no_grad(), patched(quant, "quantize_rows", recording):
+                    _, vlp = lm.verify_chunk(model, params_dev, base, ids, t, draft, k=k)
+                after = base
+
+                def written(name, key, i, p):
+                    return base[name][key][i, p]
+            torch.cuda.synchronize()
+            err = worst = row_err = 0.0
+            same_quant = codes_equal = codes_total = rows_total = 0
+            for i in range(b):
+                # the slot's prefilled planes: the clone taken before verify (contiguous),
+                # or the contiguous cache the pool was filled from (paged)
+                src = before if layout == "contiguous" else base
+                ref = {n: {key: x[i:i + 1].clone() for key, x in layer.items()}
+                       for n, layer in src.items()}
+                for j, pos in enumerate(window[i]):
+                    with torch.no_grad():
+                        _, dlp = lm.decode_step_slots(
+                            model, params_dev, ref,
+                            torch.tensor([int(inputs[i, j])], device=dev),
+                            torch.tensor([pos], dtype=torch.int32, device=dev))
+                    diff = (vlp[i, j] - dlp[0]).abs()
+                    err = max(err, diff.max().item())
+                    worst = max(worst, (diff - SPEC_ATOL * dlp[0].abs()).max().item())
+                    for li, name in enumerate(ref):
+                        layer = ref[name]
+                        rows_total += 1
+                        if kv is None:
+                            for key in ("k", "v"):
+                                row_err = max(row_err, (written(name, key, i, pos)
+                                                        - layer[key][0, pos]).abs().max().item())
+                            continue
+                        for which, key in enumerate(("k", "v")):
+                            codes, scales = quantized[2 * li + which]
+                            # verify writes quantize_rows' own output, codes and scales
+                            same_quant += bool(
+                                torch.equal(written(name, key, i, pos), codes[i, j])
+                                and torch.equal(written(name, f"{key}_scale", i, pos),
+                                                scales[i, j]))
+                            got = written(name, key, i, pos)
+                            want = layer[key][0, pos]
+                            codes_total += got.numel()
+                            codes_equal += int((got.view(torch.int8)
+                                                == want.view(torch.int8)).sum())
+                            deq = lambda x, sc: x.float() * sc[..., None]   # noqa: E731
+                            row_err = max(row_err, (
+                                deq(got, written(name, f"{key}_scale", i, pos))
+                                - deq(want, layer[f"{key}_scale"][0, pos])).abs().max().item())
+            tag = f"[26] (a) {layout} kv={kv or 'f32'}"
+            if worst > SPEC_ATOL:
+                fail(f"{tag}: verify vs sequential decode max |diff| {err:.3e} beyond "
+                     f"{SPEC_ATOL:g} + {SPEC_ATOL:g}·|decode|")
+            if kv is None and row_err > SPEC_ATOL:
+                fail(f"{tag}: rows verify wrote differ from decode's by {row_err:.3e}")
+            if kv is not None and same_quant != 2 * rows_total:
+                fail(f"{tag}: {2 * rows_total - same_quant} of {2 * rows_total} rows verify "
+                     f"wrote are not quantize_rows' own codes and scales")
+            untouched = True
+            for name, layer in after.items():
+                for key, x in layer.items():
+                    mask = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+                    for i in range(b):
+                        for pos in window[i]:
+                            if layout == "paged":
+                                mask[int(table[i, pos // ps]), pos % ps] = False
+                            else:
+                                mask[i, pos] = False
+                    if layout == "paged":
+                        mask[0] = False            # the null page takes whatever lands there
+                    untouched &= bool(torch.equal(x[mask], before[name][key][mask]))
+            if not untouched:
+                fail(f"{tag}: verify changed a row outside its window (rows past seq_len "
+                     f"must drop)")
+            if layout == "contiguous" and kv is None:
+                verify_rows = vlp.clone()
+            rows_note = (f"written rows within {row_err:.3e} of decode's" if kv is None else
+                         f"written rows are quantize_rows' own codes and scales "
+                         f"{same_quant}/{2 * rows_total}, codes equal to decode's "
+                         f"{codes_equal}/{codes_total}, dequantized within {row_err:.3e}")
+            print(f"{tag}: verify over t = {list(SPEC_PROMPTS)}, k = {k} vs "
+                  f"decode_step_slots at t + j: max |diff| {err:.3e} (bar {SPEC_ATOL:g} + "
+                  f"{SPEC_ATOL:g}·|decode|); {rows_note}; the slot at {SPEC_PROMPTS[-1]}'s "
+                  f"{SPEC_PROMPTS[-1] + k + 1 - s} rows past seq_len dropped, every other row "
+                  f"unchanged [{card}]")
+            del base, before, after
+    torch.cuda.empty_cache()
+
+    # (b) the A/B through bench_spec_ab's path --------------------------------------------
+    draft_dir = root / "draft"
+    t0 = time.perf_counter()
+    argv = ["--epochs", "1", "--num-layers", "1", "--embed-dim", str(model.embed_dim // 2),
+            "--num-heads", str(model.num_heads), "--generate", "0", "--device", dev.type,
+            "--results-dir", str(draft_dir), "--images-dir", str(draft_dir / "images")]
+    _, d_hist = lm_train.main(parse_config(LMConfig, argv), datasets=(train_ds, test_ds))
+    torch.cuda.synchronize()
+    d_train_s = time.perf_counter() - t0
+    print(f"[26] (b) draft LM trained: python -m {PKG}.train.lm {' '.join(argv[:8])} in "
+          f"{d_train_s:.1f} s (epoch {d_hist.epoch_seconds[0]:.3f} s), test NLL per token "
+          f"{d_hist.test_losses[-1]:.4f} [{card}]")
+    args = argparse.Namespace(**SPEC_AB, kv_layout="paged", device=str(dev),
+                              draft_checkpoint="")
+    trained_args = argparse.Namespace(**vars(args))
+    trained_args.draft_checkpoint = str(draft_dir / "model_lm.ckpt")
+    sides = [("off", "off", args), ("ngram", "ngram", args),
+             ("draft-lm (seeded init)", "draft-lm", args),
+             ("draft-lm (trained)", "draft-lm", trained_args)]
+    results = {}
+    for label, spec, side_args in sides:
+        engine = bench_spec_ab.build_side(model, params, side_args, spec=spec)
+        torch.cuda.synchronize()
+        paged.reset_launch_counts()
+        metrics, toks, engine = bench_spec_ab.run_side(model, params, side_args, spec=spec,
+                                                       engine=engine)
+        torch.cuda.synchronize()
+        launches = paged.launch_counts()["paged_attend"]
+        if spec == "off":
+            if launches != model.num_layers * engine.decode_calls or not launches:
+                fail(f"[26] (b) spec off: B6 launches {launches} != {model.num_layers} x "
+                     f"{engine.decode_calls} decode steps")
+        elif launches or engine.decode_calls or not engine.verify_calls:
+            fail(f"[26] (b) {label}: B6 launches {launches}, decode-step calls "
+                 f"{engine.decode_calls}, verify calls {engine.verify_calls}: spec mode "
+                 f"must verify every tick and never decode")
+        chat_calls = (engine.decode_calls, dict(engine.verify_calls))
+        # steady ticks: every slot decoding, no prefill pending (a budget long enough that
+        # the first slot is still decoding when the last one's prefill drains, even at
+        # k + 1 tokens a tick)
+        engine.reset_stats()
+        engine.admit_many([(i, serving.Request(prompt=test_ids[i, :96].copy(),
+                                               max_new_tokens=SPEC_STEADY_NEW, request_id=i))
+                           for i in range(args.num_slots)])
+        ticks = []
+        while engine.num_active:
+            busy = engine.num_prefilling
+            t1 = time.perf_counter()
+            engine.step()
+            if not busy and engine.num_active == args.num_slots:
+                ticks.append(time.perf_counter() - t1)
+        if not ticks:
+            fail(f"[26] (b) {label}: no steady tick with every slot decoding")
+        records = engine.take_spec_records()
+        results[label] = (metrics, toks, launches, float(np.median(ticks)) * 1e3,
+                          chat_calls[1], chat_calls[0], records)
+        del engine
+    off_metrics, off_toks = results["off"][0], results["off"][1]
+    for label, (metrics, toks, launches, tick_ms, verify_calls, decode_calls,
+                records) in results.items():
+        keys = sorted(set(off_toks) | set(toks))
+        reqs = [types.SimpleNamespace(request_id=j, prompt=np.asarray(key, np.int32))
+                for j, key in enumerate(keys) if key in off_toks and key in toks]
+        ties = compare_streams(f"[26] (b) {label}", model, params_dev, reqs,
+                               {r.request_id: toks[tuple(r.prompt)].tolist() for r in reqs},
+                               {r.request_id: off_toks[tuple(r.prompt)].tolist() for r in reqs})
+        if len(reqs) != len(keys) and not ties:
+            fail(f"[26] (b) {label}: {len(keys) - len(reqs)} chat turns differ from spec "
+                 f"off's without a true tie before them")
+        match = bench_spec_ab.token_match_rate(off_toks, toks)
+        sp = metrics["spec_stats"] or {}
+        ratio = off_metrics["invocations_per_token"] / metrics["invocations_per_token"]
+        rate = f"{sp['acceptance_rate']:.4f}" if sp.get("acceptance_rate") is not None else "n/a"
+        tick = ("decode step" if label == "off" else
+                f"verify tick (draft {np.median([r['draft_wall_s'] for r in records]) * 1e3:.3f}"
+                f" ms + verify and fetch "
+                f"{np.median([r['verify_wall_s'] for r in records]) * 1e3:.3f} ms)")
+        print(f"[26] (b) {label}: {metrics['requests']} chat turns, {metrics['new_tokens']} "
+              f"tokens, {metrics['tokens_per_s']:.1f} tokens/s, "
+              f"{metrics['invocations_per_token']:.4f} invocations per generated token "
+              f"(ratio to off {ratio:.3f}), {tick_ms:.3f} ms per {tick} in a steady run of "
+              f"{args.num_slots} slots; accepted tok/step "
+              f"{sp.get('accepted_tokens_per_step') or 1.0:.3f}, acceptance rate "
+              f"{rate}; B6 launches {launches}, "
+              f"decode-step calls {decode_calls}, verify calls {verify_calls}; streams vs "
+              f"off: token match {match:.3f}, {ties} diverging at a true tie [{card}]")
+        if label != "off":
+            print(f"[26] (b) {label}: the JAX tool's gates, readings only: token match "
+                  f"{match:.3f} (gate {SPEC_JAX_GATES[0]}), tok/step "
+                  f"{sp.get('accepted_tokens_per_step') or 0:.3f} (gate {SPEC_JAX_GATES[1]}), "
+                  f"invocation ratio {ratio:.3f} (gate {SPEC_JAX_GATES[2]})")
+    del results
+    torch.cuda.empty_cache()
+
+    # (c) sampled speculation --------------------------------------------------------------
+    logp = verify_rows[0].clone()
+    logp[:, vocab - 1] = MASK_VALUE
+    order = torch.argsort(logp[0], descending=True)
+    fixed = int(order[1])
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n = SPEC_DRAWS
+    tokens, counts = engine_mod.accept_fold(
+        logp.expand(n, k + 1, vocab).clone(), torch.full((n, k), fixed, device=dev),
+        torch.full((n,), k, device=dev), torch.ones(n, device=dev),
+        torch.zeros(n, dtype=torch.long, device=dev), torch.ones(n, device=dev), gen)
+    p = torch.softmax(logp[0], dim=-1).double().cpu().numpy()
+    emp = np.bincount(tokens[:, 0].cpu().numpy(), minlength=vocab) / n
+    tv = 0.5 * float(np.abs(emp - p).sum())
+    bound = tv_bound(p, n)
+    if tv > bound:
+        fail(f"[26] (c) sampled accept rule: total variation {tv:.5f} > {bound:.5f}")
+    accepted = (counts - 1).float().mean().item()
+    print(f"[26] (c) accept_fold at temperature 1 on the card: {n} draws, draft = the "
+          f"second most likely token (p {p[fixed]:.4f}) k = {k}: first-token total variation "
+          f"{tv:.5f} against exp(log_probs) (bound {bound:.5f} = 3x its expectation at this "
+          f"draw count); {accepted:.4f} drafts accepted a draw [{card}]")
+    eng = serving.ContinuousBatchingEngine(model, params, num_slots=4, kv_layout="paged",
+                                           page_size=SERVE_PAGE, spec="ngram", spec_k=k,
+                                           prefix_cache_entries=16, device=dev)
+    server = serving.Server(eng, tenants=serving.parse_tenants(SERVER_TENANTS))
+    server.start()
+    futures = [server.submit(test_ids[i, :64].copy(), max_new_tokens=200, tenant="free")
+               for i in range(4)]
+    t0 = time.perf_counter()
+    while eng.num_active < 4 or eng.num_prefilling or eng.steps < 2:
+        if time.perf_counter() - t0 > 120:
+            fail("[26] (c) the free tenant's requests did not fill the slots within 120 s")
+        time.sleep(0.001)
+    futures += [server.submit(test_ids[4 + i, :64].copy(), max_new_tokens=16, tenant="paid",
+                              sampling=serving.SamplingParams(temperature=1.0))
+                for i in range(2)]
+    done = [f.result(timeout=600) for f in futures]
+    server.stop(drain=True, timeout=600)
+    if not all(c.ok for c in done) or not eng.preemptions or not eng.resumes:
+        fail(f"[26] (c) Server over spec: finishes {[c.finish for c in done]}, "
+             f"{eng.preemptions} parks, {eng.resumes} resumes")
+    print(f"[26] (c) Server over an ngram spec engine (paged, tenants {SERVER_TENANTS!r}): "
+          f"{len(done)} futures ok ({sum(c.new_tokens for c in done)} tokens, two paid "
+          f"requests sampled at temperature 1), {eng.preemptions} parks, {eng.resumes} "
+          f"resumes, {eng.spec_steps} verify ticks, decode-step calls {eng.decode_calls} "
+          f"[{card}]")
+    del eng, server
+
+    # (d) the port's serve_loadgen in process -------------------------------------------
+    for label, extra in (("open loop", ["--kv-layout", "paged"]),
+                         ("chat, --spec ngram", ["--scenario", "chat", "--spec", "ngram"])):
+        out = root / f"loadgen_{extra[1]}.json"
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_loadgen.main(["--checkpoint", str(ckpt), "--summary-json", str(out),
+                                     "--device", str(dev)] + extra)
+        doc = json.loads(out.read_text())
+        if rc != 0 or doc["ok"] != doc["requests"] or not doc["requests"]:
+            fail(f"[26] (d) serve_loadgen {label}: rc {rc}, {doc['ok']} of {doc['requests']} ok")
+        head = {key: doc[key] for key in ("scenario", "mode", "requests", "ok", "new_tokens",
+                                          "tokens_per_s", "ttft_s", "e2e_s",
+                                          "decode_invocations", "generated_tokens")}
+        head["spec_stats"] = doc["spec_stats"]
+        print(f"[26] (d) serve_loadgen {label} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(head)} [{card}]")
+    print(f"[26] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> None:
     if not (ROOT / PKG).is_dir():
         fail(f"the port's package {PKG}/ is not beside this script")
@@ -2022,6 +2429,38 @@ def main() -> None:
         print(f"[3] {name}: kernel_ms {t['ms']:.5f}, plain_ms {t['plain_ms']:.5f}, "
               f"library_ms {lib_ms}, bound_ms {t['bound'][0]:.3e} ({t['bound'][1]}) "
               f"[{card}]")
+    # B1/B2's launch floor: FLOOR_LAUNCHES launches of one kernel captured in one CUDA
+    # graph and replayed, at one row and at the main path's 64 rows
+    for name, call in (("nll_fwd", lambda xr, yr: fk.nll_fwd(xr, yr)),
+                       ("nll_bwd", lambda xr, yr: fk.nll_bwd(xr, yr, ct, 1.0 / len(yr)))):
+        floor = {}
+        for r in FLOOR_ROWS:
+            xr, yr = x[:r].clone(), y[:r].clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    call(xr, yr)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(FLOOR_LAUNCHES):
+                    call(xr, yr)
+            graph.replay()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(FLOOR_REPLAYS):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            floor[r] = start.elapsed_time(end) / (FLOOR_REPLAYS * FLOOR_LAUNCHES)
+            del graph
+        times[name]["launch_floor_ms"] = floor
+        print(f"[3] {name}: launch floor, {FLOOR_LAUNCHES} launches replayed in one CUDA "
+              f"graph ({FLOOR_REPLAYS} replays): "
+              + ", ".join(f"{r} row(s) {ms * 1e3:.4f} us a launch" for r, ms in floor.items())
+              + f"; bytes bound at 64 rows {times[name]['bound'][0] * 1e3:.6f} us [{card}]")
 
     # -- 4. trajectory ------------------------------------------------------------------
     xs, ys = mnist._synthesize_split(TRAJECTORY_STEPS * BATCH, 2024)
@@ -3452,7 +3891,12 @@ def main() -> None:
         fail(f"[25] (e) bench_lm ran {bench.get('platform')}, {bench.get('train_program')}")
     print(f"[25] (e) bench_lm ({time.perf_counter() - t0:.1f} s) [{card}]: {lines[0]}")
 
-    # -- 26. result ---------------------------------------------------------------------
+    # -- 26. speculative decoding, the A/B and the load generator -----------------------
+    spec_phase(dev, card, t_model, t_params, trained["path"], train_ds, test_ds, test_ids,
+               compare_streams)
+    torch.cuda.empty_cache()
+
+    # -- 27. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -3470,6 +3914,10 @@ def main() -> None:
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
                for name, t in (times | flash_times | paged_times | quant_times).items()]
+    for entry in kernels:          # B1/B2's launch floor ([3]), in ms a launch by rows
+        if "launch_floor_ms" in times.get(entry["name"], {}):
+            entry["launch_floor_ms"] = {str(r): ms for r, ms in
+                                        times[entry["name"]]["launch_floor_ms"].items()}
     for entry in kernels:          # each flash kernel's offset form ([17], [19] ring window)
         if entry["name"] in offset_times:
             o = offset_times[entry["name"]]
@@ -3479,7 +3927,7 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[26] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[27] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

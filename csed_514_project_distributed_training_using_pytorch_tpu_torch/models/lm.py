@@ -15,11 +15,13 @@ Counterpart of the JAX package's ``models/lm.py``:
   caches' accuracy probe);
 - the contiguous serving cache: ``init_cache`` (per-layer ``[B, S, KV_H, Dh]`` planes),
   ``decode_step_slots`` (one token per slot at per-slot positions), ``prefill_chunk``
-  (``chunk`` prompt positions of one slot in one causal forward), ``reset_slots``;
+  (``chunk`` prompt positions of one slot in one causal forward), ``verify_chunk`` (the
+  speculative verify: ``k + 1`` positions of every slot in one forward), ``reset_slots``;
 - the paged serving cache: ``pages_per_slot``, ``init_page_pool`` (per-layer
   ``[num_pages, page_size, KV_H, Dh]`` pools), ``pool_page_size``,
-  ``paged_prefill_chunk`` (gather one slot's view, ``prefill_chunk`` on it, scatter the
-  written rows back, as the JAX package does) and ``paged_decode_step_slots``.
+  ``paged_prefill_chunk`` and ``paged_verify_chunk`` (gather the view, run the contiguous
+  function on it, scatter the written rows back, as the JAX package does) and
+  ``paged_decode_step_slots``.
 
 ``paged_decode_step_slots`` is where the port departs from the JAX package's code and
 follows its design instead: the JAX engine gathers every slot's view, runs the contiguous
@@ -378,6 +380,83 @@ def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch
     return cache
 
 
+def _window_rows(model: TransformerLM, t: torch.Tensor, w: int):
+    """The verify window's positions ``[B, W]`` (``t[b] + j``), their clamp into
+    ``[0, S)``, the rows that lie inside the cache (``positions < S``), and each row's
+    write column: its own, or column 0 for a row past ``seq_len``. That is the scatter's
+    drop without a host sync (a mask in front of an index would need one): a dropped row
+    writes column 0's value onto column 0's target, so every index written twice gets one
+    value and nothing lands on a live row."""
+    positions = t.long()[:, None] + torch.arange(w, device=t.device)
+    valid = positions < model.seq_len
+    cols = torch.where(valid, torch.arange(w, device=t.device), 0)
+    return positions, positions.clamp(0, model.seq_len - 1), valid, cols
+
+
+def verify_chunk(model: TransformerLM, params: dict, cache: dict, ids: torch.Tensor,
+                 t: torch.Tensor, draft: torch.Tensor, *, k: int
+                 ) -> tuple[dict, torch.Tensor]:
+    """Batched k-token verify: score ``k`` draft tokens per slot in one causal forward
+    over the slot planes, the JAX package's ``verify_chunk``.
+
+    ``ids [B]`` is each slot's last accepted token, ``t [B]`` its position
+    (``decode_step_slots``'s conventions), ``draft [B, k]`` the proposals for positions
+    ``t+1 .. t+k``. The chunk's inputs are ``[ids, d_1 .. d_k]`` at positions ``t .. t+k``;
+    row ``j``'s log-probs are what decode at position ``t+j`` returns, the target
+    distribution after input ``j``. Returns ``(cache, log_probs [B, k+1, V])``; acceptance
+    is the caller's.
+
+    The chunk writes all ``k+1`` K/V rows of every slot into its ``[S]`` plane first
+    (quantized on write by ``_kv_rows``, the per-token path's own call), then attends
+    against the plane under ``pos <= t+j`` (and the window), with decode's einsums. Rows
+    past ``seq_len`` are dropped, never clamped onto a live row. Every projection runs on
+    the ``[B·W, E]`` rows, the 2-D shape decode uses, so w8a8's per-row activation codes
+    are position for position decode's. Rows written for rejected drafts lie past the new
+    position and are rewritten before any query can see them."""
+    s = model.seq_len
+    if not 1 <= k < s:
+        raise ValueError(f"k {k} outside [1, {s})")
+    w = k + 1
+    b = ids.shape[0]
+    nh, kvh, hd, e = model.num_heads, model.kv_heads, model.head_dim, model.embed_dim
+    dev = ids.device
+    x = torch.cat([ids.long()[:, None], draft.long()], dim=1)         # [B, W]
+    positions, safe_pos, valid, cols = _window_rows(model, t, w)
+    write_pos = torch.gather(safe_pos, 1, cols)
+    slot_idx = torch.arange(b, device=dev)[:, None].expand(b, w)
+    h = _embed(model, params, x.reshape(-1), safe_pos.reshape(-1))     # [B·W, E]
+    pos_s = torch.arange(s, device=dev)
+    visible = pos_s[None, None] <= positions[:, :, None]               # [B, W, S]
+    if model.attention_window:
+        visible &= positions[:, :, None] - pos_s[None, None] < model.attention_window
+    visible = visible[:, None, :, None, :]                             # [B, 1, W, 1, S]
+    scale = paged_attention.attention_scale(hd)
+    for i in range(model.num_layers):
+        q, kk, v = _project(model, params, i, h, safe_pos.reshape(-1))
+        layer = cache[f"block_{i}"]
+        for key, row in _kv_rows(layer, kk, v).items():
+            row = row.reshape((b, w) + tuple(row.shape[1:]))
+            plane = layer[key]
+            # column 0's value; where t >= S even column 0 drops: the plane's own row
+            own = plane[torch.arange(b, device=dev), safe_pos[:, 0]]
+            first = torch.where(valid[:, 0].reshape((b,) + (1,) * (row.dim() - 2)),
+                                row[:, 0], own)
+            keep = valid.reshape(valid.shape + (1,) * (row.dim() - 2))
+            plane[slot_idx, write_pos] = torch.where(keep, row, first[:, None])
+        k_read, v_read = _read_kv(layer)
+        # [B, G, W·R, D]: decode's einsums with the window's rows stacked on R
+        qg = q.reshape(b, w, kvh, nh // kvh, hd).permute(0, 2, 1, 3, 4).reshape(
+            b, kvh, -1, hd)
+        scores = torch.einsum("bgrd,bsgd->bgrs", qg.float() * scale, k_read.float())
+        scores = scores.reshape(b, kvh, w, nh // kvh, s)
+        weights = torch.softmax(torch.where(visible, scores, MASK_VALUE), dim=-1)
+        attn = torch.einsum("bgrs,bsgd->bgrd", weights.reshape(b, kvh, -1, s),
+                            v_read.float())
+        attn = attn.reshape(b, kvh, w, nh // kvh, hd).permute(0, 2, 1, 3, 4)
+        h = _block_tail(params, i, h, attn.reshape(b * w, e))
+    return cache, _head(params, h).reshape(b, w, -1)
+
+
 def reset_slots(cache: dict, fresh: torch.Tensor) -> dict:
     """Zero the K/V rows of the slots where ``fresh`` (``[B]`` bool) is set: slot
     recycling. The mask already hides rows past a slot's position; the wipe keeps a
@@ -618,9 +697,37 @@ def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
     return pool
 
 
+def paged_verify_chunk(model: TransformerLM, params: dict, pool: dict,
+                       table: torch.Tensor, ids: torch.Tensor, t: torch.Tensor,
+                       draft: torch.Tensor, *, k: int) -> tuple[dict, torch.Tensor]:
+    """``verify_chunk`` through a page table, as the JAX package does it: gather every
+    slot's ``[S]`` view (``ops.paged_attention.gather_view``; verify reads every slot's
+    cache, as decode does), run the contiguous verify on it, then scatter each slot's
+    ``[k+1]`` written rows (codes and scales alike) to ``(table[b, p // ps], p % ps)``.
+    Rows past ``seq_len`` are dropped; rows past a slot's reservation land in the null
+    page through the table. The paged-decode kernel is not called: the JAX package also
+    verifies on the gathered view."""
+    s = model.seq_len
+    b = ids.shape[0]
+    ps = pool_page_size(pool)
+    w = k + 1
+    view = {name: {key: paged_attention.gather_view(x, table, s) for key, x in layer.items()}
+            for name, layer in pool.items()}
+    _, log_probs = verify_chunk(model, params, view, ids, t, draft, k=k)
+    _, safe_pos, _, cols = _window_rows(model, t, w)
+    at = torch.gather(safe_pos, 1, cols)                               # [B, W]
+    rows = torch.arange(b, device=ids.device)[:, None].expand(b, w)
+    pages, offs = torch.gather(table.long(), 1, at // ps), at % ps
+    for name, layer in pool.items():
+        for key, x in layer.items():
+            x[pages, offs] = view[name][key][rows, at]
+    return pool, log_probs
+
+
 __all__ = ["DECODE_SEGMENT", "PREFILL_CHUNK_SIZES", "TransformerLM", "decode_nll",
            "decode_step", "decode_step_slots", "filter_logits", "generate",
            "ids_to_images", "init_cache", "init_page_pool", "next_token_loss",
-           "paged_decode_step_slots", "paged_prefill_chunk", "pages_per_slot",
-           "params_from_jax", "params_to_jax", "pool_page_size", "prefill_chunk",
-           "reset_slots", "sample_categorical", "tokenize_images_to_ids"]
+           "paged_decode_step_slots", "paged_prefill_chunk", "paged_verify_chunk",
+           "pages_per_slot", "params_from_jax", "params_to_jax", "pool_page_size",
+           "prefill_chunk", "reset_slots", "sample_categorical", "tokenize_images_to_ids",
+           "verify_chunk"]

@@ -49,8 +49,21 @@ request) to requeue; ``admit_many`` takes it back and re-admits the stream, prom
 the tokens so far, through chunked prefill (or a cache hit), so a greedy resume continues
 token for token. The threaded front end that drives this is ``serving.server.Server``.
 
-Not ported (each raises ``ValueError`` naming its ROADMAP item): speculative decoding
-(``spec``/``drafter``, A9) and the serve mesh (``mesh``, A10); tracing waits with A11.
+Speculative decoding (``spec``/``spec_k``/``drafter``, ``serving/spec/``) replaces the
+decode tick with propose -> verify -> accept: a drafter guesses up to ``spec_k`` tokens per
+slot, one verify pass (``models.lm.verify_chunk``, or ``paged_verify_chunk`` on the
+table's gathered view, as the JAX package does) scores them, and ``accept_fold`` emits the
+longest correct prefix plus a correction, 1..spec_k+1 tokens per pass over the cache, with
+one host fetch (tokens and counts) per tick. Greedy acceptance is token-identical to
+sequential decode; temperature > 0 is exact rejection sampling (drafters are
+deterministic, so the residual is ``p`` with the draft masked), with draws from the
+engine's ``torch.Generator``. Spec mode never runs the decode step: ``decode_calls`` and
+``verify_calls`` (per width) count the two programs, so on the paged layout the
+paged-decode kernel is not launched under speculation. Rollback is position bookkeeping
+only.
+
+Not ported: the serve mesh (``mesh`` raises ``ValueError`` naming ROADMAP A10); tracing,
+the spec mode's ``draft``/``verify`` spans included, waits with A11.
 """
 
 from __future__ import annotations
@@ -79,6 +92,11 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.sched
     Parked,
     Request,
     SamplingParams,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.spec.drafter import (
+    Drafter,
+    NGramDrafter,
+    greedy_chunk_plan,
 )
 
 
@@ -145,30 +163,60 @@ def filter_logits_per_slot(log_probs: torch.Tensor, top_k: torch.Tensor,
     return torch.where(out < thresh, MASK_VALUE, out)
 
 
-def greedy_chunk_plan(sizes: tuple[int, ...], start: int,
-                      end: int) -> list[tuple[int, int, int]]:
-    """``(start, length, chunk_size)`` triples covering ``[start, end)``: greedily the
-    biggest configured size that fits, then the smallest size PADDED for the tail, so a
-    single configured size ``c`` costs exactly ``ceil((end - start) / c)`` invocations
-    (the JAX package's ``serving.spec.drafter.greedy_chunk_plan``)."""
-    plan = []
-    while start < end:
-        rem = end - start
-        fit = [c for c in sizes if c <= rem]
-        size = max(fit) if fit else sizes[0]
-        length = min(rem, size)
-        plan.append((start, length, size))
-        start += length
-    return plan
+def accept_fold(log_probs: torch.Tensor, draft: torch.Tensor, draft_len: torch.Tensor,
+                temp: torch.Tensor | None, top_k: torch.Tensor | None,
+                top_p: torch.Tensor | None, generator: torch.Generator
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The verify pass's accept rule, the JAX engine's ``_accept_fold``: ``log_probs [B,
+    k+1, V]`` (BOS already masked), ``draft [B, k]``, ``draft_len [B]`` -> ``(tokens [B,
+    k+1], counts [B])``, ``counts[b]`` = accepted drafts + 1 (the correction or bonus row);
+    rows past it are junk the host never reads. A draft at ``j >= draft_len[b]`` is never
+    accepted, so a slot without proposals takes one plain decode row.
+
+    - greedy (``temp[b] <= 0``, or ``temp`` None for an all-greedy batch): accept the
+      longest prefix on which the draft equals the argmax; every emitted row is the
+      argmax, so the stream is sequential decode's;
+    - ``temp[b] > 0``: exact rejection sampling against ``p`` = ``filter_logits_per_slot``
+      of the temperature-scaled row. Accept draft ``d`` with probability ``p(d)``; the
+      stopping row emits a draw from ``p`` with ``d`` masked after a rejection, or a plain
+      draw from ``p`` where it had no draft. The emitted token at each position is then
+      distributed exactly as ``p``. Uniforms and Gumbel noise come from ``generator``."""
+    b, w, v = log_probs.shape
+    k = w - 1
+    dev = log_probs.device
+    greedy_tok = torch.argmax(log_probs, dim=-1)                     # [B, W]
+    valid = torch.arange(k, device=dev)[None] < draft_len[:, None]
+    draft = draft.long()
+    acc = (greedy_tok[:, :k] == draft) & valid
+    if temp is None:
+        accepted = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+        return greedy_tok, accepted + 1
+    sampling = temp > 0.0
+    safe_temp = torch.where(sampling, temp, 1.0)
+    filt = filter_logits_per_slot((log_probs / safe_temp[:, None, None]).reshape(b * w, v),
+                                  top_k.repeat_interleave(w), top_p.repeat_interleave(w)
+                                  ).reshape(b, w, v)
+    probs = torch.softmax(filt, dim=-1)
+    p_draft = torch.gather(probs[:, :k], -1, draft[..., None])[..., 0]   # [B, k]
+    u = torch.rand((b, k), generator=generator, device=dev)
+    acc = torch.where(sampling[:, None], (u < p_draft) & valid, acc)
+    accepted = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+    masked = torch.where(torch.nn.functional.one_hot(draft, v).bool(), MASK_VALUE,
+                         filt[:, :k])
+    resampled = lm_mod.sample_categorical(masked, generator)          # [B, k]
+    plain = lm_mod.sample_categorical(filt, generator)                # [B, W]
+    rows = torch.arange(w, device=dev)[None]
+    pad = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    stop_tok = torch.where(rows < draft_len[:, None], torch.cat([resampled, pad], dim=1),
+                           plain)
+    sampled_tok = torch.where(rows < accepted[:, None], torch.cat([draft, pad], dim=1),
+                              stop_tok)
+    return torch.where(sampling[:, None], sampled_tok, greedy_tok), accepted + 1
 
 
-def _refuse_unported(*, spec, drafter, mesh) -> None:
-    if spec != "off" or drafter is not None:
-        raise ValueError("speculative decoding is not ported yet (ROADMAP A9: "
-                         "serving/spec/)")
+def _refuse_unported(*, mesh) -> None:
     if mesh is not None:
         raise ValueError("the serve mesh is not ported yet (ROADMAP A10: serving/shard.py)")
-
 
 
 
@@ -193,12 +241,13 @@ class ContinuousBatchingEngine:
                  page_size: int = 64,
                  num_pages: int | None = None,
                  spec: str = "off",
-                 drafter: object = None,
+                 spec_k: int = 4,
+                 drafter: Drafter | None = None,
                  mesh: object = None,
                  device: torch.device | str = "cuda"):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        _refuse_unported(spec=spec, drafter=drafter, mesh=mesh)
+        _refuse_unported(mesh=mesh)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -214,7 +263,8 @@ class ContinuousBatchingEngine:
             {name: p.to(self.device) for name, p in params.items()}, self.quant)
         self.num_slots = b = int(num_slots)
         s = model.seq_len
-        self.steps = 0                # decode steps executed
+        self.steps = 0                # decode (or verify) steps executed
+        self.decode_calls = 0         # decode-step invocations (never under spec)
         self.slot_steps = 0           # sum of occupied slots over steps (occupancy)
         self.generated_tokens = 0     # emitted non-forced tokens
         self.preemptions = 0          # slots parked (priority pressure)
@@ -294,6 +344,45 @@ class ContinuousBatchingEngine:
         self._prefill_fifo: collections.deque[int] = collections.deque()
         self._hit_len = np.zeros((b,), np.int32)
         self._chunks_done = np.zeros((b,), np.int32)
+        # --- speculative decoding (serving/spec/): ``spec`` names the mode, ``drafter``
+        # injects the implementation (required for "draft-lm"). The two must agree: a
+        # drafter with spec="off", or with another mode's name, is refused, so an A/B that
+        # toggles ``spec`` with a drafter held fixed never runs speculation on both sides.
+        if drafter is not None:
+            if spec == "off":
+                raise ValueError(
+                    "a drafter was injected but spec='off' — pass spec=drafter.name to "
+                    "enable it (speculation is never enabled implicitly)")
+            if spec != drafter.name:
+                raise ValueError(f"spec={spec!r} does not match the injected drafter's "
+                                 f"mode {drafter.name!r}")
+        elif spec == "draft-lm":
+            raise ValueError("spec='draft-lm' needs a constructed DraftLMDrafter passed "
+                             "as drafter=")
+        elif spec == "ngram":
+            drafter = NGramDrafter()
+        elif spec != "off":
+            raise ValueError(f"unknown spec mode {spec!r} (choices: off, ngram, draft-lm "
+                             f"— or inject a custom drafter with spec=drafter.name)")
+        self.drafter = drafter
+        self.spec = "off" if drafter is None else drafter.name
+        self.spec_k = int(spec_k)
+        self.verify_calls: dict[int, int] = {}   # verify invocations per width k
+        self.spec_steps = 0           # verify invocations
+        self.spec_slot_steps = 0      # per-slot verify participations
+        self.spec_proposed = 0        # draft tokens offered to verify
+        self.spec_accepted = 0        # draft tokens that survived verify
+        self._spec_records: list[dict] = []
+        if self.drafter is not None:
+            if not 1 <= self.spec_k < s:
+                raise ValueError(f"spec_k {self.spec_k} outside [1, {s})")
+            if not self.prefill_chunk_sizes:
+                # prefill-as-decode forces prompt tokens in the decode step; the verify
+                # pass has no forcing path (prompts enter through chunked prefill)
+                raise ValueError("speculative decoding rides the chunked-prefill path — "
+                                 "enable prefill_chunk_sizes to use it")
+            self.drafter.bind(num_slots=b, vocab_size=model.vocab_size, seq_len=s,
+                              device=self.device)
 
     # ------------------------------------------------------------------ host -> device
 
@@ -320,6 +409,7 @@ class ContinuousBatchingEngine:
                       fresh: np.ndarray) -> torch.Tensor:
         """The decode step, contiguous layout: wipe the recycled slots joining at t = 0,
         advance every slot one position, sample."""
+        self.decode_calls += 1
         if fresh.any():
             lm_mod.reset_slots(self._cache, self._to_device(fresh))
         _, log_probs = lm_mod.decode_step_slots(self.model, self.params, self._cache,
@@ -332,6 +422,7 @@ class ContinuousBatchingEngine:
         with its scale pools), then the same sampling. No wipe: recycled pages hold finite
         rows and every masked score is ``MASK_VALUE``, so greedy decode equals the
         contiguous step's."""
+        self.decode_calls += 1
         _, log_probs = lm_mod.paged_decode_step_slots(
             self.model, self.params, self._cache, self._device_table(), ids, t)
         return self._sample_token(log_probs)
@@ -350,6 +441,41 @@ class ContinuousBatchingEngine:
         safe_temp = torch.where(temp > 0.0, temp, 1.0)
         scaled = filter_logits_per_slot(log_probs / safe_temp[:, None], top_k, top_p)
         return torch.where(temp > 0.0, lm_mod.sample_categorical(scaled, self._gen), greedy)
+
+    def _verify_program(self, k: int, ids: torch.Tensor, t: torch.Tensor,
+                        draft: torch.Tensor, draft_len: torch.Tensor,
+                        fresh: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """The speculative step, contiguous layout: wipe the recycled slots joining at
+        t = 0, score ``[ids, d_1..d_k]`` with ``models.lm.verify_chunk``, accept."""
+        self.verify_calls[k] = self.verify_calls.get(k, 0) + 1
+        if fresh.any():
+            lm_mod.reset_slots(self._cache, self._to_device(fresh))
+        _, log_probs = lm_mod.verify_chunk(self.model, self.params, self._cache, ids, t,
+                                           draft, k=k)
+        return self._accept(log_probs, draft, draft_len)
+
+    def _paged_verify_program(self, k: int, ids: torch.Tensor, t: torch.Tensor,
+                              draft: torch.Tensor, draft_len: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The speculative step, paged layout: ``models.lm.paged_verify_chunk`` on the
+        table's gathered view, then the same accept rule. No wipe (the paged decode
+        step's argument)."""
+        self.verify_calls[k] = self.verify_calls.get(k, 0) + 1
+        _, log_probs = lm_mod.paged_verify_chunk(self.model, self.params, self._cache,
+                                                 self._device_table(), ids, t, draft, k=k)
+        return self._accept(log_probs, draft, draft_len)
+
+    def _accept(self, log_probs: torch.Tensor, draft: torch.Tensor,
+                draft_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``accept_fold`` with BOS masked (input-only, as in the decode step) and the
+        per-slot sampling parameters sent only in ticks where an active slot samples."""
+        log_probs[:, :, self.model.vocab_size - 1] = MASK_VALUE
+        if not (self._active & (self._temp > 0.0)).any():
+            return accept_fold(log_probs, draft, draft_len, None, None, None, self._gen)
+        policy = self._to_device(np.stack([self._temp, self._top_p,
+                                           self._top_k.astype(np.float32)]))
+        return accept_fold(log_probs, draft, draft_len, policy[0], policy[2].long(),
+                           policy[1], self._gen)
 
     def _snapshot(self, slot: int) -> dict:
         """A contiguous slot's planes (every leaf, scales included) as a prefix-cache
@@ -597,6 +723,8 @@ class ContinuousBatchingEngine:
             self._ids[slot] = self.model.vocab_size - 1          # BOS restart
             self._t[slot] = 0
             self._out[slot] = []
+            if self.drafter is not None:         # spec mode implies fill == 0 here
+                self.drafter.on_activate(slot, [])
         elif hit_len == fill:
             # A full prefix hit: the installed rows are the prefill.
             self._activate_prefilled(slot)
@@ -621,6 +749,10 @@ class ContinuousBatchingEngine:
         self._t[slot] = fill
         self._out[slot] = [int(x) for x in stream]
         self._active[slot] = True
+        if self.drafter is not None:
+            # the drafter follows the slot's stream from here (the draft LM installs the
+            # prompt into its own cache through the chunk plan)
+            self.drafter.on_activate(slot, self._out[slot])
 
     def reset_stats(self) -> None:
         """Zero the perf counters and the prefix cache's contents (benchmark hygiene: warm
@@ -635,6 +767,13 @@ class ContinuousBatchingEngine:
         self.resumes = 0
         self.prefill_invocations = 0
         self.prefill_tokens = 0
+        self.decode_calls = 0
+        self.verify_calls = {}
+        self.spec_steps = 0
+        self.spec_slot_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self._spec_records = []
         if self.prefix_cache is not None:
             # clear() fires the eviction hook per entry: paged refcounts return first.
             self.prefix_cache.clear()
@@ -721,7 +860,8 @@ class ContinuousBatchingEngine:
         return s
 
     def _vacate(self, slot: int) -> None:
-        """Free a slot after finish or park: host state back to empty, pages released."""
+        """Free a slot after finish or park: host state back to empty, pages released,
+        the drafter told."""
         self._requests[slot] = None
         self._active[slot] = False
         self._out[slot] = []
@@ -731,6 +871,8 @@ class ContinuousBatchingEngine:
         self._parks[slot] = 0
         if self._pagepool is not None:
             self._release_pages(slot)
+        if self.drafter is not None:
+            self.drafter.on_release(slot)
 
     def _finish(self, slot: int, finish: str, now: float) -> Completion:
         req = self._requests[slot]
@@ -794,13 +936,16 @@ class ContinuousBatchingEngine:
 
     def step(self) -> list[Completion]:
         """Advance the engine: up to ``prefill_chunk_budget`` prefill chunks, then one
-        decode step over every decode-ready slot; returns the requests that finished.
-        One host sync: the ``[num_slots]`` token fetch."""
+        decode (or speculative propose -> verify -> accept) step over every decode-ready
+        slot; returns the requests that finished. One host sync either way: the
+        ``[num_slots]`` token fetch (tokens and counts under spec)."""
         if self.num_active == 0:
             return []
         self._run_prefill()
         if not self._active.any():            # everything in flight is prefilling
             return []
+        if self.drafter is not None:
+            return self._spec_tick()
         ids_t = self._to_device(np.stack([self._ids, self._t]))
         ids, t = ids_t[0], ids_t[1]
         if self._pagepool is not None:
@@ -829,6 +974,99 @@ class ContinuousBatchingEngine:
             if self._t[i] >= self._total_len[i]:
                 done.append(self._finish(i, "ok", now))
         return done
+
+    def _spec_tick(self) -> list[Completion]:
+        """One propose -> verify -> accept round: host drafts for every decode-ready
+        slot, one verify invocation over the whole slot batch, then per-slot variable
+        acceptance. Rollback after a partial acceptance is position bookkeeping only
+        (``_t`` advances by the emitted count; the next pass's write-before-attend covers
+        every stale row); accepted rows are never rewritten."""
+        k = self.spec_k
+        b = self.num_slots
+        vocab = self.model.vocab_size
+        entries = [(i, self._out[i], int(self._ids[i])) for i in range(b) if self._active[i]]
+        draft = np.zeros((b, k), np.int32)
+        dlen = np.zeros((b,), np.int32)
+        t0 = time.monotonic()
+        for (i, _, _), d in zip(entries, self.drafter.propose_batch(entries, k)):
+            d = np.asarray(d, np.int32).reshape(-1)[:k]
+            # The window's last row always emits the correction or bonus, so only
+            # remaining - 1 drafts can land: never draft past the request's budget.
+            room = int(self._total_len[i]) - int(self._t[i]) - 1
+            n = max(min(len(d), room), 0)
+            if n and not ((d[:n] >= 0) & (d[:n] < vocab)).all():
+                raise ValueError(f"drafter {self.drafter.name!r} proposed ids outside "
+                                 f"[0, {vocab}) for slot {i}: {d[:n].tolist()}")
+            draft[i, :n] = d[:n]
+            dlen[i] = n
+        t_draft = time.monotonic()
+        staged = self._to_device(np.concatenate(
+            [self._ids[:, None], self._t[:, None], dlen[:, None], draft], axis=1))
+        ids, t, draft_dev, dlen_dev = staged[:, 0], staged[:, 1], staged[:, 3:], staged[:, 2]
+        if self._pagepool is not None:
+            tok, counts = self._paged_verify_program(k, ids, t, draft_dev, dlen_dev)
+        else:
+            tok, counts = self._verify_program(k, ids, t, draft_dev, dlen_dev,
+                                               self._active & (self._t == 0))
+        # THE per-tick host sync: one fetch of the tokens and the counts
+        fetched = torch.cat([tok, counts[:, None]], dim=1).cpu().numpy()
+        tok, counts = fetched[:, :-1], fetched[:, -1]
+        now = time.monotonic()
+        self.steps += 1
+        self.spec_steps += 1
+        self.slot_steps += self.num_active
+        done: list[Completion] = []
+        proposed = accepted = emitted = 0
+        for i in range(b):
+            if not self._active[i]:
+                continue
+            n = min(int(counts[i]), int(self._total_len[i]) - int(self._t[i]))
+            self._out[i].extend(int(x) for x in tok[i, :n])
+            if self._first_tok_s[i] is None and n:
+                self._first_tok_s[i] = now
+            proposed += int(dlen[i])
+            accepted += max(n - 1, 0)
+            emitted += n
+            self._t[i] += n
+            self._ids[i] = int(tok[i, n - 1])
+            if self._t[i] >= self._total_len[i]:
+                done.append(self._finish(i, "ok", now))
+        self.generated_tokens += emitted
+        self.spec_slot_steps += len(entries)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self._spec_records.append({
+            "step": self.spec_steps, "active": len(entries), "proposed": proposed,
+            "accepted": accepted, "emitted": emitted, "draft_wall_s": t_draft - t0,
+            "verify_wall_s": now - t_draft})
+        return done
+
+    def spec_stats(self) -> dict | None:
+        """The speculative-decoding ledger (None with spec off), in the JAX engine's keys:
+        proposal and acceptance totals, the acceptance rate, and
+        ``accepted_tokens_per_step``, emitted tokens per slot per verify invocation (plain
+        decode is exactly 1.0)."""
+        if self.drafter is None:
+            return None
+        return {
+            "mode": self.spec,
+            "k": self.spec_k,
+            "steps": self.spec_steps,
+            "slot_steps": self.spec_slot_steps,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else None),
+            "accepted_tokens_per_step": (self.generated_tokens / self.spec_slot_steps
+                                         if self.spec_slot_steps else None),
+        }
+
+    def take_spec_records(self) -> list[dict]:
+        """Drain the per-tick accept records (one dict per verify invocation: active
+        slots, proposed/accepted/emitted, draft and verify wall) gathered since the last
+        call."""
+        records, self._spec_records = self._spec_records, []
+        return records
 
     # ------------------------------------------------------------------ preemption
 
@@ -960,4 +1198,5 @@ class ContinuousBatchingEngine:
 
 
 __all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "Parked",
-           "Request", "SamplingParams", "filter_logits_per_slot", "greedy_chunk_plan"]
+           "Request", "SamplingParams", "accept_fold", "filter_logits_per_slot",
+           "greedy_chunk_plan"]

@@ -360,6 +360,9 @@ class Server:
             if eng.num_active:
                 for comp in eng.step():
                     self._resolve(comp)
+                # the JAX server emits these as "spec" telemetry events (ROADMAP A11);
+                # drained here so that a long-lived spec server holds no per-tick history
+                eng.take_spec_records()
             elif len(self.queue) == 0 and self.queue.closed:
                 break
             else:

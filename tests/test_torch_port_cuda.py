@@ -1478,3 +1478,131 @@ def test_lm_gradients_are_the_same_run_to_run(device):
         grads.append(torch.autograd.grad(loss, list(leaves.values())))
     for name, a, b in zip(params, *grads):
         assert torch.equal(a, b), name
+
+
+# Speculative decoding on the card: verify against sequential decode, spec streams against
+# spec off up to true ties (the verify pass's GEMMs have M = B·(k+1), not B), B6 never
+# launched under spec, and the sampled accept rule against the target distribution.
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (  # noqa: E402
+    engine as engine_mod,
+)
+
+SPEC_ATOL = 1e-5     # verify row j vs decode at t + j: |diff| <= atol + atol·|decode|
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_verify_matches_sequential_decode_on_the_card(device, layout, kv):
+    """Three slots (one at t = 14, whose rows past seq_len 16 drop): row j of one verify
+    pass against ``decode_step_slots`` at t + j fed the same tokens, within SPEC_ATOL; the
+    rows every other position holds are unchanged, bitwise."""
+    model = lm.TransformerLM(**QUANT_LM)
+    params = {k_: v.to(device) for k_, v in model.init(
+        torch.Generator().manual_seed(4)).items()}
+    k = 3
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, 8, (3,), generator=gen)
+    draft = torch.randint(0, 8, (3, k), generator=gen)
+    t = torch.tensor([0, 6, 14], dtype=torch.int32)
+    base = lm.init_cache(model, 3, kv_dtype=kv, device=device)
+    for layer in base.values():                   # rows already cached, as a real slot has
+        for key, x in layer.items():
+            x.copy_((torch.rand(x.shape, generator=gen) * 0.05 if "scale" in key else
+                     torch.randint(-100, 100, x.shape, generator=gen) if x.dtype == torch.int8
+                     else torch.randn(x.shape, generator=gen)).to(x.dtype))
+    before = {n: {key: x.clone() for key, x in layer.items()} for n, layer in base.items()}
+    if layout == "paged":
+        ps, p_max = 4, 4
+        table = (1 + torch.randperm(3 * p_max, generator=gen)).reshape(3, p_max).int()
+        pool = lm.init_page_pool(model, 1 + 3 * p_max, page_size=ps, kv_dtype=kv,
+                                 device=device)
+        for name, layer in pool.items():
+            for key, x in layer.items():
+                for i in range(3):
+                    for j in range(p_max):
+                        x[int(table[i, j])] = base[name][key][i, j * ps:(j + 1) * ps]
+        pool_before = {n: {key: x.clone() for key, x in layer.items()}
+                       for n, layer in pool.items()}
+        _, vlp = lm.paged_verify_chunk(model, params, pool, table.to(device), ids.to(device),
+                                       t.to(device), draft.to(device), k=k)
+    else:
+        _, vlp = lm.verify_chunk(model, params, base, ids.to(device), t.to(device),
+                                 draft.to(device), k=k)
+    inputs = torch.cat([ids[:, None], draft], dim=1)
+    for i in range(3):
+        ref = {n: {key: x[i:i + 1].clone() for key, x in layer.items()}
+               for n, layer in before.items()}
+        for j in range(k + 1):
+            pos = int(t[i]) + j
+            if pos >= model.seq_len:
+                break
+            _, dlp = lm.decode_step_slots(model, params, ref, inputs[i, j:j + 1].to(device),
+                                          torch.tensor([pos], dtype=torch.int32, device=device))
+            assert ((vlp[i, j] - dlp[0]).abs() <= SPEC_ATOL + SPEC_ATOL * dlp[0].abs()).all()
+    if layout == "paged":
+        written = {(int(table[i, p // 4]), p % 4) for i in range(3)
+                   for p in range(int(t[i]), min(int(t[i]) + k + 1, 16))}
+        for name, layer in pool.items():
+            for key, x in layer.items():
+                for page in range(x.shape[0]):
+                    for off in range(4):
+                        if (page, off) not in written:
+                            assert torch.equal(x[page, off], pool_before[name][key][page, off])
+    else:
+        for name, layer in base.items():
+            for key, x in layer.items():
+                for i in range(3):
+                    keep = [p for p in range(16)
+                            if not int(t[i]) <= p <= min(int(t[i]) + k, 15)]
+                    assert torch.equal(x[i, keep], before[name][key][i, keep])
+
+
+@pytest.mark.parametrize("spec", ["ngram", "draft-lm"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_spec_engine_streams_on_the_card(device, layout, spec):
+    """The spec engine on the card against the engine without spec: streams equal up to
+    true ties; the spec engine never runs the decode step, so B6 is never launched."""
+    model = lm.TransformerLM(**QUANT_LM)
+    params = model.init(torch.Generator().manual_seed(0))
+    kw = dict(spec=spec, spec_k=3)
+    if spec == "draft-lm":
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.spec import (
+            DraftLMDrafter,
+        )
+
+        kw["drafter"] = DraftLMDrafter(model, params, chunk_sizes=(8,))
+    plain = serving.ContinuousBatchingEngine(model, params, num_slots=3, kv_layout=layout,
+                                             page_size=4)
+    want = {c.request.request_id: c.tokens.tolist() for c in plain.run(_quant_requests())}
+    engine = serving.ContinuousBatchingEngine(model, params, num_slots=3, kv_layout=layout,
+                                              page_size=4, **kw)
+    before = paged.launch_counts()["paged_attend"]
+    got = {c.request.request_id: c.tokens.tolist() for c in engine.run(_quant_requests())}
+    assert paged.launch_counts()["paged_attend"] == before
+    assert engine.decode_calls == 0 and engine.verify_calls == {3: engine.steps}
+    _assert_equal_up_to_ties(got, want, _quant_requests(), model, plain.params, None, device)
+    if spec == "draft-lm":
+        assert engine.spec_stats()["accepted_tokens_per_step"] > 1.0
+
+
+def test_sampled_accept_fold_on_the_card(device):
+    """``accept_fold`` at temperature 1 with 40,000 seeded draws on the card: the first
+    emitted token's distribution against the target's within three times the expected
+    total variation at that draw count (``tests/test_torch_port_spec.py``'s bound)."""
+    n, k, v = 40_000, 3, 9
+    gen = torch.Generator().manual_seed(21)
+    logp = torch.log_softmax(torch.randn(k + 1, v, generator=gen) * 1.5, dim=-1)
+    logp[:, v - 1] = -1e30
+    fixed = int(torch.argsort(logp[0], descending=True)[1])
+    tokens, counts = engine_mod.accept_fold(
+        logp.to(device).expand(n, k + 1, v).clone(),
+        torch.full((n, k), fixed, device=device), torch.full((n,), k, device=device),
+        torch.ones(n, device=device), torch.zeros(n, dtype=torch.long, device=device),
+        torch.ones(n, device=device), torch.Generator(device=device).manual_seed(5))
+    p = torch.softmax(logp[0], dim=-1).double()
+    emp = torch.bincount(tokens[:, 0].cpu(), minlength=v).double() / n
+    tv = 0.5 * float((emp - p).abs().sum())
+    bound = 3.0 * 0.5 * float(torch.sqrt(2.0 * p * (1.0 - p) / (math.pi * n)).sum())
+    assert tv <= bound, (tv, bound)
+    assert ((counts >= 1) & (counts <= k + 1)).all()

@@ -52,7 +52,9 @@ def test_sources_found():
                    "data/loader.py", "data/_native/__init__.py", "data/_native/build.py",
                    "ops/quant.py", "serving/prefix_cache.py", "serving/server.py",
                    "obs/__init__.py", "obs/hist.py", "obs/slo.py", "data/stream.py",
-                   "train/lm.py", "bench_lm.py"):
+                   "train/lm.py", "bench_lm.py", "serving/spec/__init__.py",
+                   "serving/spec/drafter.py", "serving/spec/draft_lm.py",
+                   "serving/replica.py", "serve_loadgen.py", "bench_spec_ab.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -66,7 +68,7 @@ def test_no_jax_imports(path):
 def test_top_level_is_a_namespace_package():
     assert not (PORT / "__init__.py").exists()
     for sub in ("data", "ops", "models", "obs", "parallel", "resilience", "serving",
-                "train", "utils"):
+                "serving/spec", "train", "utils"):
         assert (PORT / sub / "__init__.py").is_file(), sub
 
 

@@ -45,6 +45,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving impor
     greedy_chunk_plan,
     pages_for,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.spec import (
+    NGramDrafter,
+)
 
 SMALL = dict(vocab_size=9, seq_len=16, embed_dim=32, num_layers=2, num_heads=4)
 
@@ -260,13 +263,17 @@ def test_expire_returns_partial_streams():
     assert engine.free_slots() == [0] and engine.num_active == 1
 
 
-@pytest.mark.parametrize("kw,item", [(dict(spec="ngram"), "A9"),
-                                     (dict(drafter=object()), "A9"),
-                                     (dict(mesh=object()), "A10")],
+@pytest.mark.parametrize("kw,match", [(dict(spec="turbo"), "unknown spec mode"),
+                                      (dict(drafter=NGramDrafter()),
+                                       "never enabled implicitly"),
+                                      (dict(mesh=object()), "ROADMAP A10")],
                          ids=["spec", "drafter", "mesh"])
-def test_unported_engine_options_raise(kw, item):
+def test_unported_engine_options_raise(kw, match):
+    """The serve mesh is refused naming its ROADMAP item. Speculative decoding is ported
+    (``tests/test_torch_port_spec.py``): what stays refused there is what the JAX engine
+    refuses, an unknown mode and a drafter without ``spec``."""
     tm = lm.TransformerLM(**SMALL)
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match=match):
         ContinuousBatchingEngine(tm, tm.init(torch.Generator().manual_seed(0)),
                                  num_slots=2, device="cpu", **kw)
 
