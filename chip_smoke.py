@@ -3,9 +3,9 @@
 holds each against its plain PyTorch version on the card, trains the reference CNN for one
 epoch through the fused kernels (a captured CUDA graph of the step, replayed), trains the
 transformer classifier through the flash kernels (the composed trainer at seq 2048, and a
-few steps at the large bench widths), and serves the pixel LM through the paged-decode
-kernel (the continuous-batching engine; quantized, with the prefix cache, and behind the
-threaded ``Server``).
+few steps at the large bench widths) and on every trainer and sequence schedule, and
+serves the pixel LM through the paged-decode kernel (the continuous-batching engine;
+quantized, with the prefix cache, and behind the threaded ``Server``).
 
     python3 chip_smoke.py
 
@@ -35,7 +35,8 @@ Phases (each raises on failure; nothing is caught):
    kernel, and the device's busy share of the window (the rest is idle, waiting on the
    host);
 7. the flash kernels (B4, B5) against their plain versions on the card, at the composed
-   trainer's shape, the large bench shape and test shapes (masks, widths, bf16), with the
+   trainer's shape, Ulysses' local shape of [27] (a), the large bench shape and test shapes
+   (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
    f32 operands take the 3xTF32 tensor-core kernels, bf16 ones the bf16 tensor-core
@@ -91,12 +92,13 @@ Phases (each raises on failure; nothing is caught):
     launches against the plan (hops × blocks within the truncated reach), those at a
     nonzero hop offset included;
 19. the slice: ``train.composed.main`` at ``--mesh data=1,seq=2 --flash-attention
-    --seq-len 2048`` at full width for 20 steps (two gloo ranks through the launcher)
-    against ``--mesh data=1`` in this process, per-step losses and final parameters, with
-    each rank's launches (all, and at a nonzero hop offset) against the plan; then the
-    same with ``--attention-window 300`` (every off-diagonal hop at its offset ±C), with
-    ``--zigzag-attention --causal``, and with both; step ms (a time of two ranks
-    time-slicing one card, no scaling point);
+    --seq-len 2048`` at full width for 20 steps against ``--mesh data=1`` in this process,
+    per-step losses and final parameters, with each rank's launches (all, and at a nonzero
+    hop offset) against the plan; then the same with ``--attention-window 300`` (every
+    off-diagonal hop at its offset ±C), with ``--zigzag-attention --causal``, and with
+    both; the four seq=2 runs one after another in one fleet of two gloo ranks through the
+    launcher (``seq_fleet_child``); step ms (a time of two ranks time-slicing one card,
+    no scaling point);
 20. the captured epoch: ``train.single.main`` (``--use-pallas-kernels``) and
     ``train.distributed.main`` at world 1 on NCCL for 20 steps each, which the rule runs
     as CUDA graphs on the card, against the eager loop of the same step from the same
@@ -165,9 +167,23 @@ Phases (each raises on failure; nothing is caught):
     draft LM (seeded, and trained in the phase), streams up to true ties, B6 and the decode
     step never run under spec; (c) the sampled accept rule against its target and a
     ``Server`` park/resume over spec; (d) ``serve_loadgen`` in process, open loop and chat;
-27. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
-    int8 and fp8 branches as rows of their own; B1/B2 with their launch floor), then,
-    last, the JSON result line.
+27. the transformer on every trainer and every sequence schedule
+    (``transformer_trainers_phase``): (a) ``train.composed --mesh data=1,seq=2 --seq-impl
+    ulysses --flash-attention`` at the composed widths for 20 steps on two gloo ranks
+    sharing the card (B4/B5 at ``[64, 2048, 2, 16]`` on each) against ``--mesh data=1``,
+    launches against the plan; (b) ``python -m <port>.bench_transformer --large --flash``
+    (its ``main`` in this process): its JSON line, the bf16 flash route, B4/B5 launches =
+    layers x runs x steps; (c) B3's table over the transformer's leaves bitwise the plain
+    update; ``train.single --model transformer --use-pallas-kernels`` for 20 steps, captured,
+    dropout off and on, against the eager loop with the kernels (within 1e-6) and the eager
+    plain step (within 1e-5), losses and parameters; then for one epoch, B1-B3 launches =
+    steps, the loss falling, ``model.ckpt`` restored on the CPU bitwise; (d) composed ``--resume-from`` against the straight run,
+    and SIGTERM inside an epoch giving exit 75; (e) the composed trainer's einsum ring
+    (causal, ``--remat``) and windowed einsum zig-zag, and the LM's einsum ring and
+    zig-zag, at seq=2 against data=1 for 10 steps each (no kernel launched on these paths);
+28. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+    int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
+    their launches on [27]'s paths), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -217,8 +233,10 @@ PROFILE_WINDOW = 100           # steps under the profiler
 # Flash attention, phases 7-10. Shapes are [batch, seq, heads, head dim].
 COMPOSED = (64, 2048, 4, 16)   # train.composed --seq-len 2048: embed 64 over 4 heads, f32
 LARGE = (16, 2048, 8, 128)     # bench_transformer.py --large: d_model 1024, 8 heads, bf16
+ULYSSES_LOCAL = (64, 2048, 2, 16)   # [27] (a): B4/B5's operands on each rank (heads 4 over 2)
 FLASH_CASES = (                # (shape, dtype, causal, window)
     (COMPOSED, "float32", False, 0), (LARGE, "bfloat16", False, 0),
+    (ULYSSES_LOCAL, "float32", False, 0),
     ((2, 128, 4, 16), "float32", True, 0), ((2, 256, 2, 64), "float32", False, 160),
     ((2, 256, 2, 64), "bfloat16", True, 160), ((2, 2048, 2, 128), "float32", True, 160),
     ((2, 2048, 2, 128), "bfloat16", False, 100), ((2, 2048, 2, 128), "bfloat16", True, 160),
@@ -335,6 +353,14 @@ SPEC_STEADY_NEW = 200          # (b): new tokens a slot in the steady-tick run (
 SPEC_AB = dict(sessions=6, turns=3, max_new_tokens=48, prompt_lens="32,64,96", num_slots=4,
                spec_k=SPEC_K, seed=0)   # bench_spec_ab.py's defaults, on the paged layout
 SPEC_JAX_GATES = (1.0, 1.5, 1.5)   # the JAX tool's token match, tok/step, invocation ratio
+# phase 27: the transformer on every trainer and every sequence schedule
+SEQ_TRAJECTORY_ATOL = 1e-4     # (a), (e): seq=2 vs data=1, as [19]
+SEQ_WINDOW = 300               # (e): the windowed einsum zig-zag
+SEQ_SHORT_STEPS = 10           # (e): steps of the einsum runs (the LM's at its defaults)
+BENCH_LARGE_STEPS = 10         # (b): bench_transformer --large's steps a run
+BENCH_RUNS = 4                 # (b): its warm-up and three timed runs
+RESUME_TRAIN = 4096            # (d): the composed runs' split, 64 steps an epoch
+PREEMPT_TRAIN = 1024           # (d): the preempted run's split, 16 steps an epoch
 TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
 
 
@@ -596,8 +622,8 @@ def check_ring_ops(path: str, world: int) -> dict:
     return result
 
 
-def composed_trajectory(out: str, *flags: str) -> None:
-    """Phase 19: ``train.composed.main`` on the card for ``RING_STEPS`` steps at the
+def composed_trajectory(out: str, *flags: str, steps: int = RING_STEPS) -> None:
+    """Phase 19: ``train.composed.main`` on the card for ``steps`` steps at the
     composed widths (seq 2048, batch 64, dropout off, one eval batch of 100), from the CLI
     flags ``flags`` on top of those, as this process's rank (a world of 1 without a
     launcher). It records the segment's per-step losses and the flash launch counts read
@@ -621,7 +647,7 @@ def composed_trajectory(out: str, *flags: str) -> None:
         "--flash-attention", "--seq-len", str(COMPOSED[1]), "--epochs", "1",
         "--batch-size", str(COMPOSED[0]), "--batch-size-test", "100", "--device", "cuda",
         "--results-dir", str(OUT_DIR / Path(out).stem), *flags])
-    splits = (mnist._synthesize_split(RING_STEPS * cfg.batch_size, 300),
+    splits = (mnist._synthesize_split(steps * cfg.batch_size, 300),
               mnist._synthesize_split(100, 301))
     datasets = tuple(mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic")
                      for x, y in splits)
@@ -651,6 +677,412 @@ def composed_trajectory(out: str, *flags: str) -> None:
         np.savez(out, losses=torch.cat(losses).cpu().numpy(),
                  epoch_seconds=history.epoch_seconds[0], steps=int(state.step),
                  **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
+def lm_trajectory(out: str, *flags: str, steps: int = 20) -> None:
+    """Phase 27 (e): ``train.lm.main`` on the card for ``steps`` steps at
+    ``LMConfig``'s widths (seq 784, embed 64, 2 layers, 4 heads, batch 64, AdamW, clip 1),
+    from the CLI flags ``flags``, as this process's rank; rank 0 saves the epoch's train
+    loss, the test NLL, the step count, the epoch's seconds and the final parameters to
+    ``out``."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig, parse_config,
+    )
+
+    cfg = parse_config(LMConfig, [
+        "--epochs", "1", "--device", "cuda", "--generate", "0", "--eval-batch", "500",
+        "--results-dir", str(OUT_DIR / Path(out).stem),
+        "--images-dir", str(OUT_DIR / "images"), *flags])
+    splits = (mnist._synthesize_split(steps * cfg.batch_size, 300),
+              mnist._synthesize_split(500, 301))
+    datasets = tuple(mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic")
+                     for x, y in splits)
+    state, history = lm.main(cfg, datasets=datasets)
+    if int(os.environ.get("RANK", "0")) == 0:
+        np.savez(out, train=np.array(history.train_losses),
+                 test=np.array(history.test_losses), steps=int(state.step),
+                 epoch_seconds=history.epoch_seconds[0],
+                 **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
+SEQ_RUNS = (   # phase 27 (a), (e): (label, seq=2 flags, data=1 flags, trainer, steps)
+    ("ulysses of flash", ["--seq-impl", "ulysses"], [], "composed", RING_STEPS),
+    ("einsum ring, causal, remat", ["--no-flash-attention", "--causal", "--remat"],
+     ["--no-flash-attention", "--causal"], "composed", SEQ_SHORT_STEPS),
+    ("einsum zig-zag, window 300",
+     ["--no-flash-attention", "--causal", "--zigzag-attention", "--attention-window",
+      str(SEQ_WINDOW)],
+     ["--no-flash-attention", "--causal", "--attention-window", str(SEQ_WINDOW)], "composed",
+     SEQ_SHORT_STEPS),
+    ("LM einsum ring", [], [], "lm", SEQ_SHORT_STEPS),
+    ("LM einsum zig-zag, window 100", ["--zigzag-attention", "--attention-window", "100"],
+     ["--attention-window", "100"], "lm", SEQ_SHORT_STEPS),
+)
+
+
+def seq_fleet_child(runs: list) -> None:
+    """Phases 19 and 27's seq=2 runs in one seq world: for each ``(trainer, out, flags,
+    steps)`` in turn, ``composed_trajectory`` or ``lm_trajectory`` (``trainer``) of
+    ``(out, *flags, steps=steps)``, on one process group (the trainers reuse a group that
+    is up)."""
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import mesh
+
+    with mesh.cluster("cuda"):
+        for trainer, out, flags, steps in runs:
+            run = composed_trajectory if trainer == "composed" else lm_trajectory
+            run(out, *flags, steps=steps)
+
+
+def run_seq_fleet(tag: str, runs: list) -> None:
+    """``seq_fleet_child(runs)`` on two ranks of the launcher."""
+    run_fleet(tag, ["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                          f"chip_smoke.seq_fleet_child({runs!r})"])
+
+
+PREEMPT_CHILD = """
+import os, signal, sys
+import numpy as np
+sys.path.insert(0, {root!r})
+from {pkg}.data import mnist
+from {pkg}.train import composed, single
+from {pkg}.utils import config
+splits = []
+for n, seed in (({n}, 400), (500, 401)):
+    x, y = mnist._synthesize_split(n, seed)
+    splits.append(mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic"))
+plan = composed.epoch_plan
+def plan_then_term(seed, epoch, *a):
+    if epoch == 1:
+        os.kill(os.getpid(), signal.SIGTERM)   # inside epoch 1: stop at its boundary
+    return plan(seed, epoch, *a)
+composed.epoch_plan = plan_then_term
+single.run_cli(config.ComposedConfig, lambda cfg: composed.main(cfg, datasets=tuple(splits)))
+"""
+
+
+def transformer_step_check(dev, card: str, train_ds, test_ds) -> None:
+    """Phase 27 (c)'s hold on the transformer's step with the kernels, on the card.
+
+    B3's multi-tensor table over the transformer classifier's own leaves (one launch a
+    step) against the plain update, 3 steps, bitwise. Then ``train.single.main --model
+    transformer --use-pallas-kernels`` trains ``CAPTURE_STEPS`` steps (the rule's CUDA
+    graph), dropout off and at the model's default 0.1, against two eager loops of the same
+    step from the same start on the same plan: with the kernels (captured vs eager,
+    within ``CAPTURE_ATOL``) and with the plain loss and update (kernels vs plain, within
+    ``TRAJECTORY_ATOL``), per-step losses and final parameters, B1-B3 launched once a step
+    in ``main()`` (replays counted). The dropout masks come from the step's device key on
+    every path, so they agree."""
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
+        BatchLoader, mnist,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+        build_model,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        single, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        SingleProcessConfig, model_options,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    leaves = st.create_train_state(build_model("transformer"), torch.Generator().manual_seed(1),
+                                   device=dev).params
+    p0, v0, g0 = ({k: torch.randn(t.shape, generator=gen, device=dev) for k, t in leaves.items()}
+                  for _ in range(3))
+    runs = {name: ({k: t.clone() for k, t in p0.items()}, {k: t.clone() for k, t in v0.items()})
+            for name in ("multi", "plain")}
+    before = fk.launch_counts()["sgd_momentum"]
+    for _ in range(3):
+        fk.sgd_momentum_step(*runs["multi"], g0, learning_rate=LR, momentum=MOMENTUM)
+        for k, g in g0.items():
+            fk.sgd_momentum_leaf_plain(runs["plain"][0][k], runs["plain"][1][k], g,
+                                       learning_rate=LR, momentum=MOMENTUM)
+    launches = fk.launch_counts()["sgd_momentum"] - before
+    for got, want in zip(runs["multi"], runs["plain"]):
+        for k in g0:
+            if not torch.equal(got[k], want[k]):
+                fail(f"[27] (c) sgd_momentum_step's {k} {tuple(want[k].shape)} differs from "
+                     f"the plain update")
+    if launches != 3 * -(-len(g0) // fk.SGD_TABLE_LEAVES):
+        fail(f"[27] (c) sgd_momentum_step made {launches} launches in 3 steps over "
+             f"{len(g0)} leaves")
+    print(f"[27] (c) sgd_momentum_step over the transformer's {len(g0)} leaves "
+          f"({sum(t.numel() for t in g0.values())} parameters), 3 steps: bitwise the plain "
+          f"update; {launches} launches")
+    del p0, v0, g0, runs, leaves
+
+    li, n = CAPTURE_LOG_INTERVAL, CAPTURE_STEPS * BATCH
+    sub = (mnist.Dataset(train_ds.images[:n], train_ds.labels[:n], train_ds.source),
+           mnist.Dataset(test_ds.images[:1000], test_ds.labels[:1000], test_ds.source))
+    x = torch.from_numpy(sub[0].images).to(dev)
+    y = torch.from_numpy(sub[0].labels.astype("int64")).to(dev)
+    for rate in (0.0, 0.1):
+        make = lambda name, **kw: build_model(name, **kw, dropout_rate=rate)
+        cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, model="transformer",
+                                  device="cuda", log_interval=li,
+                                  results_dir=str(OUT_DIR / "captured_tf"),
+                                  images_dir=str(OUT_DIR / "images"))
+        losses = []
+        fk.reset_launch_counts()
+        with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
+                                                                 losses)), \
+                patched(single, "build_model", make), \
+                contextlib.redirect_stdout(io.StringIO()) as said:
+            state, _ = single.main(cfg, datasets=sub)
+        counts = fk.launch_counts()
+        if "Segment program: cuda-graph on cuda" not in said.getvalue():
+            fail("[27] (c) train.single --model transformer did not run the captured program")
+        if counts != dict.fromkeys(counts, CAPTURE_STEPS):
+            fail(f"[27] (c) dropout {rate}: B1-B3 launches {counts} != {CAPTURE_STEPS} steps")
+        got = torch.cat(losses).cpu()
+        if got.shape != (CAPTURE_STEPS,):
+            fail(f"[27] (c) dropout {rate}: {tuple(got.shape)} losses, expected "
+                 f"{CAPTURE_STEPS}")
+        loader = BatchLoader(sub[0], BATCH, shuffle=True, seed=cfg.seed)
+        loader.set_epoch(1)
+        plan = torch.from_numpy(loader.epoch_index_matrix(1, allow_empty=True)).to(dev)
+        shown = []
+        for name, use_pallas, atol in (("eager with the kernels", True, CAPTURE_ATOL),
+                                       ("eager plain", False, TRAJECTORY_ATOL)):
+            model = make("transformer", **model_options(cfg))
+            e_state = st.create_train_state(model, torch.Generator().manual_seed(cfg.seed),
+                                            device=dev)
+            eager = st.make_segment_fn(st.make_train_step(
+                model, learning_rate=cfg.learning_rate, momentum=cfg.momentum,
+                use_pallas=use_pallas))
+            e_losses = []
+            for s0 in range(0, CAPTURE_STEPS, li):
+                e_state, l = eager(e_state, x, y, plan[s0:s0 + li], cfg.seed)
+                e_losses.append(l)
+            want = torch.cat(e_losses).cpu()
+            torch.testing.assert_close(got, want, atol=atol, rtol=0.0,
+                                       msg=lambda m: f"[27] (c) {name} losses: {m}")
+            e_p = 0.0
+            for k, p in e_state.params.items():
+                torch.testing.assert_close(state.params[k], p, atol=atol, rtol=0.0,
+                                           msg=lambda m: f"[27] (c) {name} {k}: {m}")
+                e_p = max(e_p, (state.params[k] - p).abs().max().item())
+            shown.append(f"vs {name} max |dloss| {(got - want).abs().max().item():.3e}, max "
+                         f"|dparam| {e_p:.3e} (atol {atol:g})")
+        print(f"[27] (c) train.single --model transformer --use-pallas-kernels, dropout "
+              f"{rate}: {CAPTURE_STEPS} steps captured (main) {'; '.join(shown)}; B1-B3 "
+              f"launches in main() {counts}; losses {got[0]:.4f} -> {got[-1]:.4f} [{card}]")
+
+
+def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
+    """Phase 27: the transformer on every trainer and every sequence schedule, on the card.
+
+    (a) ``train.composed --mesh data=1,seq=2 --seq-impl ulysses --flash-attention`` at the
+    composed widths (seq 2048) for 20 steps on two gloo ranks sharing the card, against
+    ``--mesh data=1`` in this process, each rank's B4/B5 launches against the plan;
+    (b) ``python -m <port>.bench_transformer --large --flash`` (its ``main``, in this
+    process, so that its launches can be read): its JSON line, the flash route, B4/B5
+    launches = layers x steps; (c) ``transformer_step_check``, then ``train.single --model
+    transformer --use-pallas-kernels`` for one epoch, captured, B1-B3 launches = steps, the
+    loss falling, ``model.ckpt`` restored on the CPU bitwise; (d) composed ``--resume-from`` against the straight run,
+    and SIGTERM inside an epoch giving exit 75; (e) the einsum ring (causal, with remat) and
+    the windowed einsum zig-zag on the composed trainer, and the LM's einsum ring and
+    zig-zag, at seq=2 against data=1 for ``SEQ_SHORT_STEPS`` steps (no kernel on these paths:
+    their launches are 0).
+    Returns each new path's launches by kernel counter."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import (
+        bench_transformer,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+        TransformerClassifier,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        flash_attention as fa, fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        composed, single,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+        create_train_state, segment_program,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        ComposedConfig, SingleProcessConfig,
+    )
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    found: dict = {}
+
+    def max_diff(got, want) -> float:
+        return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+    # -- (a), (e): every seq=2 run in one fleet, the data=1 references here ----------------
+    stem = str(OUT_DIR / "seq_run")
+    t0 = time.perf_counter()
+    run_seq_fleet("[27] seq=2:", [
+        (trainer, f"{stem}{i}_w2.npz", ["--mesh", "data=1,seq=2", *flags], steps)
+        for i, (_, flags, _, trainer, steps) in enumerate(SEQ_RUNS)])
+    fleet_s = time.perf_counter() - t0
+    layers = 2
+    for i, (label, _, ref_flags, trainer, n_steps) in enumerate(SEQ_RUNS):
+        w1, w2 = f"{stem}{i}_w1.npz", f"{stem}{i}_w2.npz"
+        run = composed_trajectory if trainer == "composed" else lm_trajectory
+        run(w1, "--mesh", "data=1", *ref_flags, steps=n_steps)
+        one, two = np.load(w1), np.load(w2)
+        params = [k for k in one.files
+                  if k not in ("losses", "train", "test", "epoch_seconds", "steps")]
+        if not int(one["steps"]) == int(two["steps"]) == n_steps:
+            fail(f"[27] {label}: {int(two['steps'])} steps at seq=2, {int(one['steps'])} at "
+                 f"data=1, expected {n_steps}")
+        losses = ("losses",) if trainer == "composed" else ("train", "test")
+        e_loss = max(max_diff(two[k], one[k]) for k in losses)
+        e_par = max(max_diff(two[k], one[k]) for k in params)
+        if not (e_loss <= SEQ_TRAJECTORY_ATOL and e_par <= SEQ_TRAJECTORY_ATOL):
+            fail(f"[27] {label}: seq=2 vs data=1 max |dloss| {e_loss:.3e}, max |dparam| "
+                 f"{e_par:.3e} beyond {SEQ_TRAJECTORY_ATOL:g}")
+        counts = []
+        if trainer == "composed":
+            for rank in range(2):
+                with open(f"{w2}.rank{rank}.json") as f:
+                    counts.append(json.load(f)["all"])
+            steps = int(one["steps"])
+            if i == 0:      # Ulysses of flash: one local flash call a layer, every rank
+                want = {"flash_fwd": layers * (steps + 1), "flash_dq": layers * steps,
+                        "flash_dkv": layers * steps}
+                found["ulysses_rank0"] = counts[0]
+            else:           # the einsum schedules launch no kernel
+                want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+            if any(c != want for c in counts):
+                fail(f"[27] {label}: launches by rank {counts}, predicted {want} each")
+        shown = (f"losses {two['losses'][0]:.4f} -> {two['losses'][-1]:.4f}"
+                 if trainer == "composed" else
+                 f"train loss {float(two['train'][0]):.4f}, test NLL/token "
+                 f"{float(two['test'][0]):.4f}")
+        step_ms = float(two["epoch_seconds"]) / int(two["steps"]) * 1e3
+        print(f"[27] ({'a' if i == 0 else 'e'}) {trainer} {label}: {int(two['steps'])} steps, "
+              f"--mesh data=1,seq=2 (gloo, 2 ranks on one card) vs data=1: max |dloss| "
+              f"{e_loss:.3e}, max |dparam| {e_par:.3e} (atol {SEQ_TRAJECTORY_ATOL:g}); "
+              f"{shown}; launches by rank {counts or 'n/a (the LM runs no kernel)'}; step "
+              f"{step_ms:.3f} ms at seq=2 (two ranks time-slicing one card, every transfer "
+              f"staged through host memory: no scaling point) [{card}]")
+    print(f"[27] (a), (e) the seq=2 fleet: {fleet_s:.1f} s for {len(SEQ_RUNS)} runs; "
+          f"Ulysses' B4/B5 operands on each rank {list(ULYSSES_LOCAL)} f32")
+
+    # -- (b) bench_transformer --large --flash ---------------------------------------------
+    fa.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = bench_transformer.main(["--large", "--flash"])
+    bench_s = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    lines = [l for l in out.getvalue().splitlines() if l.startswith("{")]
+    if code != 0 or len(lines) != 1:
+        fail(f"[27] (b) bench_transformer returned {code} with {len(lines)} JSON lines")
+    bench = json.loads(lines[0])
+    want = LARGE_LAYERS * BENCH_RUNS * BENCH_LARGE_STEPS
+    if set(launches.values()) != {want}:
+        fail(f"[27] (b) flash launches {launches} != {LARGE_LAYERS} layers x "
+             f"{BENCH_RUNS} runs x {BENCH_LARGE_STEPS} steps = {want} each")
+    if ("attn-dispatch(flash)" not in bench["metric"] or bench["flash_layout"] != "mma-bf16"
+            or bench["platform"] != "gpu" or not np.isfinite(bench["final_train_loss"])
+            or bench["mfu_vs_bf16_peak"] is None):
+        fail(f"[27] (b) bench_transformer's line: {lines[0]}")
+    found["bench"] = launches
+    print(f"[27] (b) python -m {PKG}.bench_transformer --large --flash ({bench_s:.1f} s, in "
+          f"process) [{card}]: {lines[0]}")
+    print(f"[27] (b) flash launches {launches} = {LARGE_LAYERS} layers x {BENCH_RUNS} "
+          f"runs (warm-up + 3 timed) x {BENCH_LARGE_STEPS} steps (bf16: the tensor-core "
+          f"kernels)")
+
+    # -- (c) train.single --model transformer --use-pallas-kernels -------------------------
+    transformer_step_check(dev, card, train_ds, test_ds)
+    config = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, model="transformer",
+                                 device="cuda", results_dir=str(OUT_DIR / "single_tf"),
+                                 images_dir=str(OUT_DIR / "images"))
+    full_steps, tail = divmod(len(train_ds), config.batch_size_train)
+    steps = full_steps + (1 if tail else 0)
+    fk.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = single.main(config, datasets=(train_ds, test_ds))
+    main_s = time.perf_counter() - t0
+    launches = fk.launch_counts()
+    if int(state.step) != steps or set(launches.values()) != {steps}:
+        fail(f"[27] (c) launches {launches} over {int(state.step)} steps, expected {steps} "
+             f"each (the transformer's leaves fit one B3 launch)")
+    if any(fa.launch_counts().values()):
+        fail(f"[27] (c) flash launched at seq 16: {fa.launch_counts()}")
+    if not (history.test_losses[-1] < history.test_losses[0]
+            and history.train_losses[-1] < history.train_losses[0]):
+        fail(f"[27] (c) the loss did not fall: train {history.train_losses[0]:.4f} -> "
+             f"{history.train_losses[-1]:.4f}, test {history.test_losses}")
+    model = TransformerClassifier()
+    restored = checkpoint.restore_train_state(
+        str(OUT_DIR / "single_tf" / "model.ckpt"),
+        create_train_state(model, torch.Generator()))
+    for k, p in state.params.items():
+        if not torch.equal(restored.params[k], p.cpu()):
+            fail(f"[27] (c) model.ckpt's {k} restored on the CPU differs from the card's")
+    found["single_transformer"] = launches
+    epoch_s = history.epoch_seconds[0]
+    print(f"[27] (c) train.single --model transformer --use-pallas-kernels, one epoch "
+          f"({segment_program(dev)}): launches {launches} over {steps} steps; test NLL "
+          f"{history.test_losses[0]:.4f} -> {history.test_losses[-1]:.4f}, train loss "
+          f"{history.train_losses[0]:.4f} -> {history.train_losses[-1]:.4f}; epoch "
+          f"{epoch_s:.3f} s ({epoch_s / steps * 1e3:.3f} ms a step, saves included), main() "
+          f"{main_s:.2f} s; model.ckpt restored on the CPU bitwise [{card}]")
+
+    # -- (d) composed resume and preemption ------------------------------------------------
+    kw = dict(mesh="data=1", epochs=2, device="cuda", max_train_examples=RESUME_TRAIN,
+              max_test_examples=1000)
+    runs = {}
+    for name, more in (("straight", {}), ("first", dict(epochs=1)),
+                       ("resumed", dict(resume_from=str(OUT_DIR / "c_first" /
+                                                        "model_composed.ckpt")))):
+        runs[name] = composed.main(ComposedConfig(
+            **{**kw, **more}, results_dir=str(OUT_DIR / f"c_{name}")),
+            datasets=(train_ds, test_ds))
+    (s_state, s_hist), (r_state, r_hist) = runs["straight"], runs["resumed"]
+    e_res = max((r_state.params[k] - p).abs().max().item() for k, p in s_state.params.items())
+    if int(r_state.step) != int(s_state.step) or e_res > RESUME_ATOL:
+        fail(f"[27] (d) resumed run at step {int(r_state.step)}, max |dparam| {e_res:.3e} vs "
+             f"the straight run at {int(s_state.step)} (atol {RESUME_ATOL:g})")
+    print(f"[27] (d) train.composed --mesh data=1, 2 epochs of {RESUME_TRAIN // 64} steps "
+          f"straight vs 1 epoch + --resume-from model_composed.ckpt: step "
+          f"{int(r_state.step)}, max |dparam| {e_res:.3e} (atol {RESUME_ATOL:g}), val loss "
+          f"{r_hist.test_losses[-1]:.6f} vs {s_hist.test_losses[-1]:.6f} [{card}]")
+    args = ["--device", "cuda", "--mesh", "data=1", "--epochs", "3", "--batch-size-test",
+            "500", "--handle-preemption",
+            "--results-dir", str(OUT_DIR / "c_preempt"), "--heartbeat-dir",
+            str(OUT_DIR / "c_preempt_hb")]
+    proc = subprocess.run(
+        [sys.executable, "-c", PREEMPT_CHILD.format(root=str(ROOT), pkg=PKG,
+                                                    n=PREEMPT_TRAIN), *args],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    preempt_step = 2 * PREEMPT_TRAIN // 64
+    beat = json.loads((OUT_DIR / "c_preempt_hb" / "heartbeat_p0.json").read_text())
+    if (proc.returncode != 75 or f"preempted at step {preempt_step}" not in proc.stdout
+            or beat.get("status") != "preempted"):
+        print(proc.stdout[-2000:], proc.stderr[-2000:], file=sys.stderr)
+        fail(f"[27] (d) the preempted composed run exited {proc.returncode}, beat {beat}")
+    print(f"[27] (d) train.composed --handle-preemption, SIGTERM inside epoch 1: exit "
+          f"{proc.returncode} at step {preempt_step}, the last beat {beat.get('status')!r}")
+    print(f"[27] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return found
 
 
 @contextlib.contextmanager
@@ -771,7 +1203,7 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
             fk.reset_launch_counts()
             with patched(single, "make_epoch_fn", recording_epoch_fn(single.make_epoch_fn,
                                                                      losses)), \
-                    patched(single, "build_model", lambda name: net(dropout)), \
+                    patched(single, "build_model", lambda name, **_: net(dropout)), \
                     contextlib.redirect_stdout(io.StringIO()) as said:
                 state, _ = single.main(cfg, datasets=sub)
             counts = fk.launch_counts()
@@ -818,7 +1250,7 @@ def captured_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
                     fail(f"[20] world 1 on the card ran {info.backend}, not nccl")
                 with patched(distributed, "make_epoch_fn", recording_epoch_fn(
                         distributed.make_epoch_fn, losses)), \
-                        patched(distributed, "build_model", lambda name: net(dropout)), \
+                        patched(distributed, "build_model", lambda name, **_: net(dropout)), \
                         patched(dp, "GradReducer", Recorded), \
                         contextlib.redirect_stdout(io.StringIO()) as said:
                     d_state, _ = distributed.main(dcfg, datasets=sub)
@@ -3404,6 +3836,7 @@ def main() -> None:
     # -- 19. the seq-parallel trainer: train.composed --mesh data=1,seq=2 ---------------
     ring_launches = {}
     layers = init_model.num_layers
+    ring_runs = {}
     for label, schedule, causal, window in RING_TRAINERS:
         # the flags of both runs; the seq=2 run adds the zig-zag's. The zig-zag's reference
         # is the one-device causal flash path
@@ -3411,12 +3844,15 @@ def main() -> None:
             ["--attention-window", str(window)] if window else [])
         seq_only = ["--zigzag-attention"] if schedule == "zigzag" else []
         stem = f"composed_{label.replace(' ', '_')}"
-        w1, w2 = OUT_DIR / f"{stem}_w1.npz", OUT_DIR / f"{stem}_w2.npz"
+        ring_runs[label] = (both, seq_only, OUT_DIR / f"{stem}_w1.npz",
+                            OUT_DIR / f"{stem}_w2.npz")
+    # every seq=2 run in one fleet, one after another on one process group
+    run_seq_fleet("[19] seq=2:", [
+        ("composed", str(w2), ["--mesh", "data=1,seq=2", *both, *seq_only], RING_STEPS)
+        for both, seq_only, _, w2 in ring_runs.values()])
+    for label, schedule, causal, window in RING_TRAINERS:
+        both, seq_only, w1, w2 = ring_runs[label]
         composed_trajectory(str(w1), "--mesh", "data=1", *both)      # this process
-        run_fleet(f"[19] {label} seq=2:", [
-            "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-                  f"chip_smoke.composed_trajectory({str(w2)!r}, '--mesh', 'data=1,seq=2', "
-                  f"*{both + seq_only!r})"])
         one, two = np.load(w1), np.load(w2)
         if not int(one["steps"]) == int(two["steps"]) == RING_STEPS:
             fail(f"[19] {label}: {int(one['steps'])} and {int(two['steps'])} steps, "
@@ -3896,7 +4332,11 @@ def main() -> None:
                compare_streams)
     torch.cuda.empty_cache()
 
-    # -- 27. result ---------------------------------------------------------------------
+    # -- 27. the transformer on every trainer and every sequence schedule ----------------
+    slice16 = transformer_trainers_phase(dev, card, train_ds, test_ds)
+    torch.cuda.empty_cache()
+
+    # -- 28. result ---------------------------------------------------------------------
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -3927,7 +4367,20 @@ def main() -> None:
                 "max_abs_err": offset_err[entry["name"]], "ms": o["ms"],
                 "ms_at_offset_0": o["ms_at_offset_0"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound"][0], "bound_by": o["bound"][1], "library_ms": None}
-    print(f"[27] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    # B1-B5's launches on phase 27's paths beside those of the paths above
+    new_paths = {"train.single --model transformer [27] (c)": (
+        slice16["single_transformer"], {n: n for n in ("nll_fwd", "nll_bwd", "sgd_momentum")}),
+        "composed ulysses seq=2, rank 0 [27] (a)": (
+            slice16["ulysses_rank0"],
+            dict(zip(("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32"), counted))),
+        "bench_transformer --large --flash [27] (b)": (
+            slice16["bench"],
+            dict(zip(("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"), counted)))}
+    for entry in kernels:
+        for path, (counts, names) in new_paths.items():
+            if entry["name"] in names:
+                entry.setdefault("launches_by_path", {})[path] = counts[names[entry["name"]]]
+    print(f"[28] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,7 @@
 """Model zoo: the reference's MNIST CNN and the transformer classifier family."""
 
+import torch
+
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.cnn import (
     Net,
     param_count,
@@ -9,6 +11,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models.transf
     NUM_HEADS,
     TransformerClassifier,
     validate_remat_policy,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
+    windowed_attention_fn,
 )
 
 VALID_MODELS = ("cnn", "transformer")
@@ -39,13 +44,29 @@ def validate_model_config(name: str, *, remat: bool = False, causal: bool = Fals
                          f"{NUM_HEADS} heads")
 
 
-def build_model(name: str, **kwargs):
-    """Model factory by family name, as the JAX package's ``--model`` names them:
-    ``"cnn"`` -> ``Net()``; ``"transformer"`` -> ``TransformerClassifier(**kwargs)``."""
-    validate_model_config(name)
+def build_model(name: str, *, bf16: bool = False, remat: bool = False,
+                causal: bool = False, attention_window: int = 0, kv_heads: int = 0,
+                rope: bool = False, remat_policy: str = "", **widths):
+    """Model factory behind the trainers' ``--model`` flag, mapping the knobs as the JAX
+    package does: ``bf16`` becomes the activation dtype (of ``Net`` as well),
+    ``attention_window`` the windowed dense core (``ops.attention.windowed_attention_fn``),
+    ``kv_heads`` ``num_kv_heads``. The knobs are validated first
+    (``validate_model_config``). ``widths`` go to the constructor unchanged (``seq_len``,
+    ``dropout_rate``, ...)."""
+    validate_model_config(name, remat=remat, causal=causal,
+                          attention_window=attention_window, kv_heads=kv_heads,
+                          rope=rope, remat_policy=remat_policy)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if name == "cnn":
-        return Net(**kwargs)
-    return TransformerClassifier(**kwargs)
+        return Net(dtype=dtype, **widths)
+    if rope:
+        widths["rope"] = True
+    if kv_heads:
+        widths["num_kv_heads"] = kv_heads
+    if attention_window:
+        widths["attention_fn"] = windowed_attention_fn(attention_window)
+    return TransformerClassifier(dtype=dtype, remat=remat, causal=causal,
+                                 remat_policy=remat_policy, **widths)
 
 
 __all__ = ["Net", "TransformerClassifier", "VALID_MODELS", "build_model", "param_count",

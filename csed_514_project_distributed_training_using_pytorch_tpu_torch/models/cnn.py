@@ -12,7 +12,10 @@ in the JAX package. Parameters are stored in PyTorch's layout (OIHW conv kernels
 and ``params_to_jax``, its exact inverse, carries them back (the checkpoints' layout).
 
 Train/eval mode is the ``deterministic`` argument, and dropout draws from the ``generator``
-passed in, so a training step's masks are a function of the step alone.
+passed in, so a training step's masks are a function of the step alone. ``dtype`` is the
+activations' type (``torch.bfloat16`` for ``--bf16``): the input and each weight are cast
+where they are used, the parameters stay f32, and the log-softmax runs in f32, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ class Net(nn.Module):
     """MNIST classifier emitting log-probabilities."""
 
     def __init__(self, num_classes: int = 10, conv_dropout_rate: float = 0.5,
-                 fc_dropout_rate: float = 0.5):
+                 fc_dropout_rate: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_classes = num_classes
+        self.num_classes, self.dtype = num_classes, dtype
         self.conv_dropout_rate = conv_dropout_rate   # nn.Dropout2d default p
         self.fc_dropout_rate = fc_dropout_rate       # F.dropout default p
         self.conv1 = skip_init(nn.Conv2d, 1, 10, kernel_size=5)
@@ -61,16 +64,18 @@ class Net(nn.Module):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``x: [B, 28, 28, 1]`` float. Returns ``[B, num_classes]`` log-probs."""
-        hwio = lambda conv: conv.weight.permute(2, 3, 1, 0)   # OIHW -> HWIO view
-        x = ops.conv2d(x, hwio(self.conv1), self.conv1.bias)           # [B,24,24,10]
+        cast = lambda w: w.to(self.dtype)
+        hwio = lambda conv: cast(conv.weight).permute(2, 3, 1, 0)      # OIHW -> HWIO view
+        x = x.to(self.dtype)
+        x = ops.conv2d(x, hwio(self.conv1), cast(self.conv1.bias))     # [B,24,24,10]
         x = ops.relu(ops.max_pool2d(x, 2))                             # [B,12,12,10]
-        x = ops.conv2d(x, hwio(self.conv2), self.conv2.bias)           # [B,8,8,20]
+        x = ops.conv2d(x, hwio(self.conv2), cast(self.conv2.bias))     # [B,8,8,20]
         x = ops.dropout2d(generator, x, self.conv_dropout_rate, deterministic=deterministic)
         x = ops.relu(ops.max_pool2d(x, 2))                             # [B,4,4,20]
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)              # [B,320], (C,H,W)
-        x = ops.relu(ops.dense(x, self.fc1.weight.t(), self.fc1.bias))
+        x = ops.relu(ops.dense(x, cast(self.fc1.weight).t(), cast(self.fc1.bias)))
         x = ops.dropout(generator, x, self.fc_dropout_rate, deterministic=deterministic)
-        x = ops.dense(x, self.fc2.weight.t(), self.fc2.bias)
+        x = ops.dense(x, cast(self.fc2.weight).t(), cast(self.fc2.bias))
         return ops.log_softmax(x.float())
 
 

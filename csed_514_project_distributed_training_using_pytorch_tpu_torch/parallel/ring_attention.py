@@ -1,7 +1,22 @@
-"""Ring-of-flash: sequence-parallel attention over the process group, the flash kernels on
-every hop.
+"""Ring attention: sequence-parallel attention over the process group, as einsums or with the
+flash kernels on every hop.
 
-Counterpart of the JAX package's ``parallel/ring_attention.py``, its flash schedules:
+Counterpart of the JAX package's ``parallel/ring_attention.py``. Its einsum schedules:
+
+- ``ring_attention``: rank ``r`` of ``n`` keeps its query shard; K/V blocks travel one rank
+  a hop (``collectives.ring_pass_diff``), each folded into f32 online-softmax accumulators
+  (``_online_softmax_update``) with masks from global positions: causal hops are whole
+  past, diagonal or future blocks (unmasked, masked, skipped), and with ``window=W`` the
+  blocks outside the band skip their einsums;
+- ``zigzag_ring_attention``: causal only; the sequence in ``2n`` chunks, rank ``r`` holding
+  the pair ``(r, 2n−1−r)``, so every rank folds the same number of chunk pairs a hop; with a
+  window each pair is band-masked from global positions and dead pairs are skipped.
+
+These run no kernel and differentiate by autograd through their hops, as the JAX ones do
+through ``ppermute``: K and V travel as one message, and the last block is tied into the
+output (``_anchor``) so that every rank runs the backward of every pass, in the same order.
+
+Its flash schedules:
 
 - ``ring_flash_attention``: rank ``r`` of ``n`` holds sequence shard ``r`` (``C = S/n``
   rows); K/V blocks travel one rank a hop. Causal hops are whole past, diagonal or future
@@ -37,12 +52,13 @@ Each hop's kernel calls are planned from ``(n, rank, causal, window, shard lengt
 alone (``_ring_plan``, ``_zigzag_plan``): forward and backward walk the same plan, and
 ``planned_blocks`` counts its calls, i.e. each kernel's launches per rank per call.
 
-Not ported (ROADMAP A10): the einsum ring and the einsum zig-zag (they run no kernel),
-Ulysses, and batch or head dims sharded over further mesh axes (``_qkv_spec``).
+Not ported (ROADMAP A10): batch or head dims sharded over further mesh axes
+(``_qkv_spec``). Ulysses is ``parallel.ulysses``.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -64,6 +80,141 @@ _ALL = slice(None)
 # =========================================================================================
 # Hop classification and the blockwise-softmax merge (the JAX package's helpers)
 # =========================================================================================
+
+
+def _online_softmax_update(carry, q_scaled, k_blk, v_blk, visible):
+    """Fold one K/V block into the online-softmax accumulators ``carry = (acc [B,Sq,H,D],
+    m [B,H,Sq], l [B,H,Sq])`` (f32); ``q_scaled`` is the f32, pre-scaled query block,
+    ``visible`` a ``[Sq, Sk]`` bool mask or None for a fully visible block. A fully masked
+    row keeps ``m`` at ``MASK_VALUE`` and adds nothing to the normalizer."""
+    acc, m, l = carry
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_scaled, k_blk.float())
+    if visible is not None:
+        scores = torch.where(visible[None, None], scores, MASK_VALUE)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    if visible is not None:
+        p = torch.where(visible[None, None], p, 0.0)
+    correction = torch.exp(m - m_new)
+    l_new = l * correction + p.sum(dim=-1)
+    acc_new = acc * _rows(correction) + torch.einsum("bhqk,bkhd->bqhd", p, v_blk.float())
+    return acc_new, m_new, l_new
+
+
+def _init_carry(q: torch.Tensor, rows: int):
+    b, _, h, d = q.shape
+    return (q.new_zeros((b, rows, h, d), dtype=torch.float32),
+            q.new_full((b, h, rows), MASK_VALUE, dtype=torch.float32),
+            q.new_zeros((b, h, rows), dtype=torch.float32))
+
+
+def _finish(carry) -> torch.Tensor:
+    acc, _, l = carry
+    return acc / _rows(torch.where(l == 0.0, 1.0, l))
+
+
+class _Anchor(torch.autograd.Function):
+    """``out`` unchanged, with ``travelled`` (the last block a schedule's ring carried)
+    given a zero gradient: so the backward reaches every ``ring_pass_diff`` on every rank,
+    also where the last block was skipped."""
+
+    @staticmethod
+    def forward(ctx, out, travelled):
+        ctx.travelled = (travelled.shape, travelled.dtype)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype = ctx.travelled
+        return g, torch.zeros(shape, dtype=dtype, device=g.device)
+
+
+def _anchor(out: torch.Tensor, travelled: torch.Tensor) -> torch.Tensor:
+    return _Anchor.apply(out, travelled)
+
+
+def _ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, *,
+                          n: int, rank: int, causal: bool, window: int = 0) -> torch.Tensor:
+    """Rank ``rank``'s part of the einsum ring: its query shard ``ql`` stays, the K/V
+    blocks arrive through the ring (``[B, S/n, H, D]`` each). Causal hops fold past
+    blocks unmasked, the diagonal masked and skip future ones; with ``window=W`` a block
+    is folded (masked from global positions) only when its closest pair is in the band."""
+    _, s_q, _, d = ql.shape
+    s_k = kl.shape[1]
+    qf = ql.float() * (1.0 / math.sqrt(d))
+    q_pos = rank * s_q + torch.arange(s_q, device=ql.device)
+
+    def update(carry, kv, origin: int, masked: bool):
+        visible = None
+        if masked:
+            k_pos = origin * s_k + torch.arange(s_k, device=ql.device)
+            rel = q_pos[:, None] - k_pos[None, :]
+            visible = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
+            if window:
+                visible = visible & (rel < window) & (rel > -window)
+        return _online_softmax_update(carry, qf, kv[0], kv[1], visible)
+
+    carry = _init_carry(ql, s_q)
+    kv = torch.stack([kl, vl])                  # one message a hop
+    for t in range(n):
+        if t:
+            kv = collectives.ring_pass_diff(kv, shift=1)
+        origin = (rank - t) % n
+        if window:
+            live = (abs(rank - origin) - 1) * s_k + 1 < window
+            if live and not (causal and origin > rank):
+                carry = update(carry, kv, origin, masked=True)
+        elif not causal:
+            carry = update(carry, kv, origin, masked=False)
+        else:
+            case = _case_index(origin, rank)
+            if case:
+                carry = update(carry, kv, origin, masked=case == 2)
+    return _anchor(_finish(carry).to(ql.dtype), kv)
+
+
+def _zigzag_ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, *,
+                                 n: int, rank: int, window: int = 0) -> torch.Tensor:
+    """Rank ``rank``'s part of the einsum zig-zag: its chunk pair ``(rank, 2n−1−rank)`` of
+    queries (``[B, 2c, H, D]``) against each visiting pair ``(o, 2n−1−o)``. The early
+    queries never see a late chunk, the late queries see the early chunk whole (band-checked
+    under a window), and the same-parity pairs are past, diagonal (lower-triangular mask)
+    or future; with a window every live pair is masked from global positions."""
+    c, d = ql.shape[1] // 2, ql.shape[3]
+    qf = ql.float() * (1.0 / math.sqrt(d))
+    qa, qb = qf[:, :c], qf[:, c:]
+    ar = torch.arange(c, device=ql.device)
+    tri = ar[:, None] >= ar[None, :]
+
+    def pair_fold(carry, qx, k_blk, v_blk, q_chunk: int, k_chunk: int):
+        if window:
+            delta = q_chunk - k_chunk
+            if not (delta >= 0 and (delta - 1) * c + 1 < window):
+                return carry
+            rel = (q_chunk * c + ar)[:, None] - (k_chunk * c + ar)[None, :]
+            return _online_softmax_update(carry, qx, k_blk, v_blk,
+                                          (rel >= 0) & (rel < window))
+        case = _case_index(k_chunk, q_chunk)
+        if not case:
+            return carry
+        return _online_softmax_update(carry, qx, k_blk, v_blk, tri if case == 2 else None)
+
+    ca, cb = _init_carry(ql, c), _init_carry(ql, c)
+    kv = torch.stack([kl, vl])
+    late = 2 * n - 1 - rank
+    for t in range(n):
+        if t:
+            kv = collectives.ring_pass_diff(kv, shift=1)
+        o = (rank - t) % n
+        ko, k2, vo, v2 = kv[0][:, :c], kv[0][:, c:], kv[1][:, :c], kv[1][:, c:]
+        ca = pair_fold(ca, qa, ko, vo, rank, o)
+        if window:
+            cb = pair_fold(cb, qb, ko, vo, late, o)
+        else:
+            cb = _online_softmax_update(cb, qb, ko, vo, None)
+        cb = pair_fold(cb, qb, k2, v2, late, 2 * n - 1 - o)
+    out = torch.cat([_finish(ca), _finish(cb)], dim=1).to(ql.dtype)
+    return _anchor(out, kv)
 
 
 def _case_index(origin: int, my_index: int) -> int:
@@ -399,22 +550,70 @@ def zigzag_ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return _RingFlash.apply(q, k, v, True, True, int(window))
 
 
+def zigzag_positions(s: int, n: int) -> torch.Tensor:
+    """The zig-zag layout's sequence positions, rank by rank: rank ``r``'s run is chunk
+    ``r`` then chunk ``2n−1−r`` (``collectives.seq_shard``'s ``order``)."""
+    order, _ = _zigzag_order(n)
+    return torch.arange(s).reshape(2 * n, s // (2 * n))[order].reshape(s)
+
+
+def _einsum_schedule(local, q, k, v, order: torch.Tensor, n: int, rank: int, **kw):
+    """Shard q, k and v together (one gather in the backward), run ``local`` on this
+    rank's shard and gather the full output on every rank."""
+    qkv = collectives.seq_shard(torch.stack([q, k, v]), order, dim=2)
+    out = local(qkv[0], qkv[1], qkv[2], n=n, rank=rank, **kw)
+    return collectives.seq_gather(out, order, dim=1)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = False, window: int = 0) -> torch.Tensor:
+    """The einsum ring over the process group: ``[B, S, H, D]`` q, k, v, the same on every
+    rank, -> the full ``[B, S, H, D]`` attention on every rank, differentiable
+    (``ops.full_attention``'s semantics, ``window`` its band). ``S % ranks == 0``."""
+    n, rank = _world()
+    s = q.shape[1]
+    if s % n:
+        raise ValueError(
+            f"sequence length {s} not divisible by mesh axis 'seq' size {n} — ring "
+            f"attention shards the sequence evenly")
+    _check_window(window)
+    return _einsum_schedule(_ring_attention_local, q, k, v, torch.arange(s), n, rank,
+                            causal=bool(causal), window=int(window))
+
+
+def zigzag_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """The einsum zig-zag over the process group: causal attention with the same number
+    of live chunk pairs on every rank a hop, ``S % (2·ranks) == 0``; ``window=W`` adds the
+    causal band."""
+    n, rank = _world()
+    s = q.shape[1]
+    if s % (2 * n):
+        raise ValueError(
+            f"zigzag ring attention needs sequence length divisible by 2·shards = "
+            f"{2 * n}, got {s}")
+    _check_window(window)
+    return _einsum_schedule(_zigzag_ring_attention_local, q, k, v,
+                            zigzag_positions(s, n), n, rank, window=int(window))
+
+
 def make_ring_attention_fn(*, use_flash: bool = False, use_zigzag: bool = False,
                            window: int = 0):
     """A ``(q, k, v, *, causal) -> out`` callable with ``ops.full_attention``'s signature
-    over the process group: the ring-of-flash, or with ``use_zigzag`` the zig-zag
-    ring-of-flash (causal only); ``window=W`` binds the band into either. The einsum
-    schedules (``use_flash=False``) run no kernel and are not ported (ROADMAP A10)."""
-    if not use_flash:
-        raise ValueError("the einsum ring and zig-zag schedules are not ported (ROADMAP "
-                         "A10): pass use_flash=True for the ring-of-flash")
+    over the process group: the einsum ring, or with ``use_zigzag`` the einsum zig-zag
+    (causal only); with ``use_flash`` their ring-of-flash counterparts. ``window=W`` binds
+    the band into each."""
 
     def attention_fn(q, k, v, *, causal: bool = False):
         if use_zigzag:
             if not causal:
                 raise ValueError("the zig-zag schedule is causal-only — use "
                                  "ring_attention for bidirectional attention")
-            return zigzag_ring_flash_attention(q, k, v, window=window)
-        return ring_flash_attention(q, k, v, causal=causal, window=window)
+            if use_flash:
+                return zigzag_ring_flash_attention(q, k, v, window=window)
+            return zigzag_ring_attention(q, k, v, window=window)
+        if use_flash:
+            return ring_flash_attention(q, k, v, causal=causal, window=window)
+        return ring_attention(q, k, v, causal=causal, window=window)
 
     return attention_fn

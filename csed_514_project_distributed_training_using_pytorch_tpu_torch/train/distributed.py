@@ -49,7 +49,11 @@ Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the car
         -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.distributed \\
         --device cpu --epochs 1
 
-Not ported: telemetry (ROADMAP A11), FSDP (A10) and the transformer model (A5).
+``--model transformer`` and its knobs (``utils.config.ModelOptions``) are
+``train.single``'s: at world 1 on NCCL the segments are captured on the card, at world 2
+they run on gloo.
+
+Not ported: telemetry (ROADMAP A11) and FSDP (A10).
 """
 
 from __future__ import annotations
@@ -67,7 +71,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
     load_mnist,
     truncate,
 )
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+    build_model,
+    validate_model_config,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
     data_parallel as dp,
@@ -105,6 +112,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     DistributedConfig,
     check_step_options,
+    model_options,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.determinism import (
     assert_replicas_synced,
@@ -141,6 +149,10 @@ def main(config: DistributedConfig = DistributedConfig(), *,
     default MNIST is loaded from ``config.data_dir``."""
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before the rendezvous
+    validate_model_config(config.model, remat=config.remat,
+                          remat_policy=config.remat_policy, causal=config.causal,
+                          attention_window=config.attention_window,
+                          kv_heads=config.kv_heads, rope=config.rope)
     if config.health_stats and config.host_local_feed:
         raise ValueError("--health-stats rides the compiled scan carry "
                          "(train/step.py::HealthStats) — it is not available on the "
@@ -176,7 +188,7 @@ def main(config: DistributedConfig = DistributedConfig(), *,
 
         samplers = [ShardedSampler(n_train, num_replicas=world, rank=r,
                                    seed=config.sampler_seed) for r in range(world)]
-        model = build_model("cnn").to(info.device)
+        model = build_model(config.model, **model_options(config)).to(info.device)
         state = create_train_state(model, torch.Generator().manual_seed(config.seed),
                                    optimizer=optimizer, device=info.device,
                                    ema=config.ema_decay > 0, guard=config.guard)

@@ -2,9 +2,10 @@
 checkpoints, and the digits it samples.
 
 Counterpart of the JAX package's ``train/lm.py``. In order: rendezvous
-(``parallel.mesh.cluster``: the data world is the process group; ``--mesh data=N`` must name
-it), the data (MNIST images tokenized once into ``[N, 784]`` gray-level streams, or a token
-corpus, ``--corpus``, through ``data.stream.StreamLoader``), the model and its state, the
+(``parallel.mesh.cluster``: the process group is the data world, ``--mesh data=N``, or the
+seq world, ``--mesh data=1,seq=N``; the spec must name it), the data (MNIST images
+tokenized once into ``[N, 784]`` gray-level streams, or a token corpus, ``--corpus``,
+through ``data.stream.StreamLoader``), the model and its state, the
 resume (``--resume-from``, with the manifest cursor's rules), then ``epochs`` rounds of
 (train one epoch, the test NLL per token and its perplexity, the checkpoint
 ``results/model_lm.ckpt``, the versioned store under ``--keep-checkpoints`` with the data
@@ -26,6 +27,14 @@ gradient and loss are averaged over the ranks by one all-reduce (``GradReducer``
 world 1 on the card, gloo otherwise), so a world of N trains on the global batch the JAX
 package's data axis shards.
 
+``--mesh data=1,seq=N`` is context parallelism: every rank holds the whole batch, and each
+attention call shards the pixel stream over the ranks through the einsum ring
+(``parallel.ring_attention.ring_attention``), or with ``--zigzag-attention`` the einsum
+zig-zag; ``--attention-window`` binds the band into the schedule, and the decode model
+keeps the window as its own field, as in the JAX package. The parameter gradients agree
+on every rank with no reduce. The ring's gloo hops stage through host memory, which a CUDA
+graph cannot capture, so a seq world runs eager segments on the card too.
+
 The LM runs no port kernel: its loss takes ``gather`` over ``log_softmax`` and its attention
 is the dense core, as the JAX package's LM training runs no Pallas kernel.
 
@@ -37,8 +46,8 @@ raises when none is present; the CPU is used only when asked for::
         --device cpu --epochs 1 --max-train-examples 256 --max-test-examples 100 \\
         --eval-batch 100 --embed-dim 32 --num-layers 1 --num-heads 2
 
-Not ported: the seq and model mesh axes (ROADMAP A10), ``--plan`` and ``--telemetry``
-(A11); each raises naming its item.
+Not ported: the model mesh axis and data beside seq (ROADMAP A10), ``--plan`` and
+``--telemetry`` (A11); each raises naming its item.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
     data_parallel as dp,
+    ring_attention,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
     cluster,
@@ -87,6 +97,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
     TrainState,
     create_train_state,
     make_epoch_from_step,
+    make_segment_fn,
     make_train_step,
     segment_program,
 )
@@ -136,16 +147,23 @@ def lm_optimizer(config: LMConfig) -> optim.Optimizer:
                                 momentum=config.momentum, weight_decay=config.weight_decay)
 
 
-def lm_model(config: LMConfig, *, vocab: int, seq_len: int) -> lm_mod.TransformerLM:
+def lm_model(config: LMConfig, *, vocab: int, seq_len: int,
+             seq_world: int = 1) -> lm_mod.TransformerLM:
     """The trainer's model from ``config``: ``vocab`` token levels plus BOS (built on the
-    CPU; the caller moves it)."""
+    CPU; the caller moves it). Under a seq world of more than one rank its attention is
+    the einsum ring (or zig-zag) with the window bound into the schedule, and the model's
+    own ``attention_window`` stays 0; the decode model is the one of a seq world of 1."""
+    ring = {}
+    if seq_world > 1:
+        ring = dict(attention_fn=ring_attention.make_ring_attention_fn(
+            use_zigzag=config.zigzag_attention, window=config.attention_window))
     return lm_mod.TransformerLM(
         vocab_size=vocab + 1, seq_len=seq_len, embed_dim=config.embed_dim,
         num_layers=config.num_layers, num_heads=config.num_heads,
         num_kv_heads=config.kv_heads or None, dropout_rate=config.dropout_rate,
-        attention_window=config.attention_window, rope=config.rope,
+        attention_window=0 if ring else config.attention_window, rope=config.rope,
         dtype=torch.bfloat16 if config.bf16 else torch.float32, remat=config.remat,
-        remat_policy=config.remat_policy)
+        remat_policy=config.remat_policy, **ring)
 
 
 def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
@@ -173,26 +191,31 @@ def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
                            loss_fn=lm_loss, guard=guard, grad_reduce=grad_reduce, rank=rank)
 
 
-def data_world(mesh: str, world: int) -> int:
-    """The data-parallel world of a ``--mesh`` spec: ``""`` or ``data=N`` with ``N`` the
-    process group's size. A seq or model axis raises naming ROADMAP A10, as do the axes the
-    JAX package's LM trainer refuses."""
+def mesh_worlds(mesh: str, world: int, *, zigzag: bool = False) -> tuple[int, int]:
+    """``(data world, seq world)`` of a ``--mesh`` spec: ``""`` or ``data=N`` (data
+    parallelism over the process group), or ``data=1,seq=N`` (context parallelism), with
+    ``N`` the process group's size. A model axis, and data beside seq, raise naming
+    ROADMAP A10, as do the axes the JAX package's LM trainer refuses; ``zigzag`` needs a
+    seq axis."""
     if not mesh:
-        return world
-    names, sizes = parse_mesh_spec(mesh)
-    axes = dict(zip(names, sizes))
-    if any(n not in ("data", "seq", "model") for n in names) or "data" not in axes:
-        raise ValueError("the LM trainer's --mesh needs a data axis and supports data, "
-                         f"seq, and model axes only, got {mesh!r}")
-    if axes.get("seq", 1) > 1 or axes.get("model", 1) > 1:
-        raise ValueError(f"--mesh {mesh}: the LM's seq (context-parallel) and model "
-                         f"(tensor-parallel) axes are not ported yet (ROADMAP A10); use "
-                         f"--mesh data=N")
-    if axes["data"] != world:
-        raise ValueError(f"--mesh {mesh} names a data axis of {axes['data']}, but the "
-                         f"process group has {world} rank(s) (the launcher's "
-                         f"--num-processes)")
-    return world
+        axes = {"data": world}
+    else:
+        names, sizes = parse_mesh_spec(mesh)
+        axes = dict(zip(names, sizes))
+        if any(n not in ("data", "seq", "model") for n in names) or "data" not in axes:
+            raise ValueError("the LM trainer's --mesh needs a data axis and supports data, "
+                             f"seq, and model axes only, got {mesh!r}")
+    seq = axes.get("seq", 1)
+    if zigzag and seq < 2:
+        raise ValueError("--zigzag-attention needs a seq axis in --mesh")
+    if axes.get("model", 1) > 1 or (seq > 1 and axes["data"] > 1):
+        raise ValueError(f"--mesh {mesh}: the LM's model (tensor-parallel) axis and data "
+                         f"beside seq are not ported yet (ROADMAP A10); use --mesh data=N "
+                         f"or data=1,seq=N")
+    if axes["data"] * seq != world:
+        raise ValueError(f"--mesh {mesh} spans {axes['data'] * seq} rank(s), but the "
+                         f"process group has {world} (the launcher's --num-processes)")
+    return axes["data"], seq
 
 
 def main(config: LMConfig = LMConfig(), *,
@@ -209,7 +232,12 @@ def main(config: LMConfig = LMConfig(), *,
     store_dir = os.path.join(config.results_dir, "checkpoints") if config.results_dir else ""
     grt = GuardRuntime(config, store_dir=store_dir)
     with cluster(device) as info:
-        world, rank = data_world(config.mesh, info.process_count), info.process_index
+        world, seq_world = mesh_worlds(config.mesh, info.process_count,
+                                       zigzag=config.zigzag_attention)
+        rank = info.process_index
+        # a seq world's ranks hold the whole batch and draw the same dropout masks: each
+        # is data rank 0
+        data_rank = rank if seq_world == 1 else 0
         if config.batch_size % world:
             raise ValueError(f"batch {config.batch_size} not divisible by data axis "
                              f"{world}")
@@ -256,8 +284,18 @@ def main(config: LMConfig = LMConfig(), *,
             raise ValueError(f"top_k {config.top_k} outside [0, {vocab + 1}]")
         if not 0.0 < config.top_p <= 1.0:
             raise ValueError(f"top_p {config.top_p} outside (0, 1]")
-        model = lm_model(config, vocab=vocab, seq_len=seq_len).to(info.device)
-        M.log(f"LM training: {world} process(es) ({info.backend}), batch "
+        need = 2 * seq_world if config.zigzag_attention else seq_world
+        if seq_len % need:
+            raise ValueError(f"seq_len {seq_len} must divide by "
+                             f"{'2*seq axis' if config.zigzag_attention else 'the seq axis'}"
+                             f" = {need}")
+        model = lm_model(config, vocab=vocab, seq_len=seq_len,
+                         seq_world=seq_world).to(info.device)
+        # decoding runs on one rank, with the default core and the window as a model field
+        decode_model = (model if seq_world == 1 else
+                        lm_model(config, vocab=vocab, seq_len=seq_len).to(info.device))
+        M.log(f"LM training: {info.process_count} process(es) ({info.backend}"
+              f"{f', seq world {seq_world}' if seq_world > 1 else ''}), batch "
               f"{config.batch_size}, vocab {vocab}+BOS, seq {seq_len}, data source: "
               f"{data_source}")
 
@@ -272,7 +310,8 @@ def main(config: LMConfig = LMConfig(), *,
         start_epoch = 0
         if config.resume_from:
             state, start_epoch, warning = checkpoint.restore_for_resume(
-                config.resume_from, state, process_index=rank, process_count=world,
+                config.resume_from, state, process_index=rank,
+                process_count=info.process_count,
                 steps_per_epoch=steps_per_epoch)
             if warning:
                 M.log(f"WARNING: {warning}")
@@ -281,12 +320,18 @@ def main(config: LMConfig = LMConfig(), *,
             start_epoch = _resume_epoch(config, loader, int(state.step), start_epoch)
         grt.baseline(state)
 
-        reducer = dp.GradReducer(state.params)
+        # a seq world's gradients agree on every rank already: no reduce
+        reducer = dp.GradReducer(state.params) if seq_world == 1 else None
         step_fn = make_lm_step(model, config, optimizer=optimizer,
                                steps_per_epoch=steps_per_epoch, grad_reduce=reducer,
-                               guard=grt.spec, rank=rank)
-        epoch_fn = make_epoch_from_step(step_fn, grad_reduce=reducer)
-        M.log(describe_program(segment_program(info.device, reducer), info.device))
+                               guard=grt.spec, rank=data_rank)
+        if seq_world == 1:
+            epoch_fn = make_epoch_from_step(step_fn, grad_reduce=reducer)
+            M.log(describe_program(segment_program(info.device, reducer), info.device))
+        else:
+            epoch_fn = make_segment_fn(step_fn)
+            M.log(f"Segment program: eager on {info.device} (a seq world of {seq_world}: "
+                  f"the ring's hops cross the process group outside a graph)")
         eval_fn = make_eval_nll_fn(model, batch_size=eval_batch)
 
         to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(info.device)
@@ -301,7 +346,7 @@ def main(config: LMConfig = LMConfig(), *,
         rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                                  handle_preemption=config.handle_preemption,
                                  process_index=rank)
-        cols = slice(rank * per_rank, (rank + 1) * per_rank)   # this rank's block
+        cols = slice(data_rank * per_rank, (data_rank + 1) * per_rank)   # this rank's block
 
         def epoch_plan(epoch: int) -> torch.Tensor:
             """The epoch's ``[steps, global batch]`` plan, this rank's columns, on the
@@ -380,7 +425,7 @@ def main(config: LMConfig = LMConfig(), *,
         def sample_grid(filename: str, seed_offset: int, batch: int, **gen_kw) -> None:
             generator = torch.Generator(device=info.device).manual_seed(
                 config.seed + seed_offset)
-            ids = lm_mod.generate(model, gen_params, generator, batch=batch,
+            ids = lm_mod.generate(decode_model, gen_params, generator, batch=batch,
                                   temperature=config.temperature, top_k=config.top_k,
                                   top_p=config.top_p, **gen_kw)
             path = os.path.join(config.images_dir, filename)

@@ -50,7 +50,17 @@ Run it with::
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \\
         --use-pallas-kernels
 
-Telemetry (ROADMAP A11) and the transformer model (ROADMAP A5) are not ported yet.
+``--model transformer`` trains the transformer classifier (``models.transformer``) on the
+same paths, with the JAX package's knobs (``utils.config.ModelOptions``: ``--bf16``,
+``--remat``, ``--remat-policy``, ``--causal``, ``--attention-window``, ``--kv-heads``,
+``--rope``; ``--bf16`` applies to the CNN too): captured on the card with B1-B3 inside the
+graph under ``--use-pallas-kernels``, its dropout masks drawn from the step's device key,
+and ``model.ckpt`` in the JAX package's transformer layout::
+
+    python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \
+        --model transformer --use-pallas-kernels
+
+Telemetry (ROADMAP A11) is not ported yet.
 """
 
 from __future__ import annotations
@@ -69,7 +79,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import (
     native,
     truncate,
 )
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import build_model
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import (
+    build_model,
+    validate_model_config,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
     GuardRuntime,
@@ -91,6 +104,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     SingleProcessConfig,
     check_step_options,
+    model_options,
     parse_config,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.profiling import (
@@ -149,6 +163,10 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     """
     watch = M.Stopwatch()
     device = resolve_device(config.device)            # fail fast, before any data work
+    validate_model_config(config.model, remat=config.remat,
+                          remat_policy=config.remat_policy, causal=config.causal,
+                          attention_window=config.attention_window,
+                          kv_heads=config.kv_heads, rope=config.rope)
     if config.health_stats and config.use_host_pipeline:
         raise ValueError("--health-stats rides the compiled scan carry "
                          "(train/step.py::HealthStats) — it is not available on the "
@@ -176,7 +194,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                                seed=config.seed)
     plotting.save_sample_grid(test_ds.images, test_ds.labels,
                               os.path.join(config.images_dir, "train_images.png"))
-    model = build_model("cnn").to(device)
+    model = build_model(config.model, **model_options(config)).to(device)
     state = create_train_state(model, init_generator, optimizer=optimizer, device=device,
                                ema=config.ema_decay > 0, guard=config.guard)
     resume_from = resume_from or config.resume_from or None

@@ -9,7 +9,10 @@ step's options (``StepOptions``: optimizer, schedule, clipping, label smoothing,
 gradient accumulation, the guard, the segment program's knobs) are shared by the three
 trainers; two of their values still raise when a trainer starts (``check_step_options``).
 The run's options (``RunOptions``: checkpoints and resume, plots, profiling, heartbeats and
-preemption) are the two CNN trainers'.
+preemption) are the two CNN trainers'; the composed trainer takes all of them but the plots
+(``ResilienceOptions``), as in the JAX package. The model's knobs (``ModelKnobs``:
+``--bf16`` and the transformer family's) are shared by the three; ``--model`` is the two CNN
+trainers' (``ModelOptions``).
 """
 
 from __future__ import annotations
@@ -74,8 +77,9 @@ def check_step_options(config: StepOptions) -> None:
 
 
 @dataclass(frozen=True)
-class RunOptions:
-    """The CNN trainers' run options, with the JAX package's names and defaults."""
+class ResilienceOptions:
+    """The run options every image trainer takes, with the JAX package's names and
+    defaults: checkpoints and resume, profiling, heartbeats and preemption."""
 
     resume_from: str = ""             # a checkpoint to resume from (a full train state:
                                       # results_dir/model.ckpt, model_dist.ckpt or a
@@ -86,7 +90,6 @@ class RunOptions:
     async_checkpoint: bool = False    # write checkpoints on a background thread (the
                                       # host copy stays on the loop; atomic, coalescing
                                       # overwrites; flushed at exit)
-    images_dir: str = "images"        # the sample grid and the loss curves go here
     profile: bool = False             # a torch.profiler trace of the run (rank 0)
     profile_dir: str = "results/profile"
     heartbeat_dir: str = ""           # a per-process liveness file each epoch
@@ -97,7 +100,44 @@ class RunOptions:
 
 
 @dataclass(frozen=True)
-class SingleProcessConfig(StepOptions, RunOptions):
+class RunOptions(ResilienceOptions):
+    """The CNN trainers' run options: ``ResilienceOptions`` and the plots."""
+
+    images_dir: str = "images"        # the sample grid and the loss curves go here
+
+
+@dataclass(frozen=True)
+class ModelKnobs:
+    """The model knobs every classifier trainer takes, with the JAX package's names and
+    defaults (``models.build_model`` maps them; all but ``bf16`` apply to the transformer
+    family only)."""
+
+    bf16: bool = False                # bfloat16 activations, f32 master weights and
+                                      # f32 softmax/loss statistics
+    remat: bool = False               # recompute each transformer block in the backward
+    remat_policy: str = ""            # what remat saves: 'recompute-all' (default) or
+                                      # 'save-dots' (the matmul outputs)
+    causal: bool = False              # decoder-style (causal) attention
+    attention_window: int = 0         # sliding-window attention width; 0 full
+    kv_heads: int = 0                 # grouped-query K/V heads (0 = MHA); divides 4
+    rope: bool = False                # rotary position embeddings on q/k
+
+
+@dataclass(frozen=True)
+class ModelOptions(ModelKnobs):
+    """The CNN trainers' model options: ``--model`` and ``ModelKnobs``."""
+
+    model: str = "cnn"                # 'cnn' (the reference's Net) or 'transformer'
+                                      # (models/transformer.py), same data and trainer
+
+
+def model_options(config: ModelKnobs) -> dict:
+    """``models.build_model``'s keyword arguments (the knobs) from a trainer's config."""
+    return {f.name: getattr(config, f.name) for f in dataclasses.fields(ModelKnobs)}
+
+
+@dataclass(frozen=True)
+class SingleProcessConfig(StepOptions, RunOptions, ModelOptions):
     """Knobs of the single-process trainer."""
 
     n_epochs: int = 3
@@ -127,7 +167,7 @@ class SingleProcessConfig(StepOptions, RunOptions):
 
 
 @dataclass(frozen=True)
-class DistributedConfig(StepOptions, RunOptions):
+class DistributedConfig(StepOptions, RunOptions, ModelOptions):
     """Knobs of the data-parallel trainer. The world size is not a knob: it comes from the
     launcher's environment (``train.launch``, ``torchrun``)."""
 
@@ -159,26 +199,24 @@ class DistributedConfig(StepOptions, RunOptions):
 
 
 @dataclass(frozen=True)
-class ComposedConfig(StepOptions):
+class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
     """Knobs of the composed trainer (the transformer classifier), with the JAX package's
     defaults. Ported meshes: one device (``--mesh data=1``), or a seq axis alone
-    (``--mesh data=1,seq=N``) over a process group of N ranks with
-    ``--flash-attention`` (the ring-of-flash)."""
+    (``--mesh data=1,seq=N``) over a process group of N ranks: the einsum ring or
+    zig-zag, the ring-of-flash (``--flash-attention``), or Ulysses (``--seq-impl
+    ulysses``, dense or of flash)."""
 
     mesh: str = "data=2,seq=2,model=2"  # the JAX default; it raises (ROADMAP A10)
     seq_len: int = 16                   # tokens per image (784 pixels zero-padded)
     flash_attention: bool = False       # attention through the flash kernels: the
                                         # ring-of-flash under a seq axis, else where the
                                         # dispatch predicate takes them (S >= 2048)
-    bf16: bool = False                  # bfloat16 activations, f32 master weights
-    causal: bool = False                # decoder-style (causal) attention
-    attention_window: int = 0           # sliding-window width; 0 off
-    kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides 4
-    rope: bool = False                  # rotary position embeddings on q/k
     zigzag_attention: bool = False      # the load-balanced zig-zag causal ring schedule
-                                        # (with --flash-attention --causal)
-    seq_impl: str = "ring"              # the sequence-parallel schedule: 'ring' only
-                                        # ('ulysses' raises, ROADMAP A10)
+                                        # (with --causal; of flash with
+                                        # --flash-attention)
+    seq_impl: str = "ring"              # the sequence-parallel schedule under a seq
+                                        # axis: 'ring' (K/V rotation) or 'ulysses'
+                                        # (head-scatter all-to-all; heads % seq == 0)
     epochs: int = 2
     batch_size: int = 64
     batch_size_test: int = 1000
@@ -188,7 +226,8 @@ class ComposedConfig(StepOptions):
     seed: int = 1
     data_dir: str = "files"
     download_data: bool = False         # fetch the MNIST IDX archives into data_dir first
-    results_dir: str = "results"        # metrics.jsonl goes here
+    results_dir: str = "results"        # model_composed.ckpt, metrics.jsonl and the
+                                        # store go here
     max_train_examples: int = 0         # truncate the splits (0 = all)
     max_test_examples: int = 0
     device: str = "cuda"                # 'cuda' (the default: raises when no card is
@@ -198,10 +237,11 @@ class ComposedConfig(StepOptions):
 @dataclass(frozen=True)
 class LMConfig:
     """Knobs of the pixel-LM trainer (``train/lm.py``), every field of the JAX package's
-    ``LMConfig`` with its default, plus ``device``. Ported meshes: none or ``data=N`` over
-    a process group of N ranks; a ``seq`` or ``model`` axis and ``zigzag_attention`` raise
-    naming ROADMAP A10, ``plan``, ``telemetry`` and ``health_stats`` naming A11
-    (``check_lm_config``)."""
+    ``LMConfig`` with its default, plus ``device``. Ported meshes: none, ``data=N`` or
+    ``data=1,seq=N`` over a process group of N ranks (the einsum ring, or the einsum
+    zig-zag with ``zigzag_attention``); ``data`` beside ``seq`` and a ``model`` axis
+    raise naming ROADMAP A10, ``plan``, ``telemetry`` and ``health_stats`` naming A11
+    (``check_lm_config``, ``train.lm.mesh_worlds``)."""
 
     epochs: int = 2
     batch_size: int = 64                # global batch, split over the data ranks
@@ -212,9 +252,11 @@ class LMConfig:
     dropout_rate: float = 0.0
     attention_window: int = 0           # sliding-window causal attention width; 0 full
     kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides heads
-    mesh: str = ""                      # "" or "data=N" (N = the launcher's world size)
+    mesh: str = ""                      # "", "data=N" or "data=1,seq=N" (N = the
+                                        # launcher's world size)
     plan: str = ""                      # raises: automatic planning (ROADMAP A11)
-    zigzag_attention: bool = False      # raises: needs a seq axis (ROADMAP A10)
+    zigzag_attention: bool = False      # the zig-zag causal ring on the seq axis
+                                        # (seq_len % (2·seq) == 0)
     rope: bool = False                  # rotary position embeddings (no pos_embed)
     learning_rate: float = 1e-3
     momentum: float = 0.5               # sgd only (adamw is the LM's default)
@@ -272,9 +314,6 @@ def check_lm_config(config: LMConfig) -> None:
         raise ValueError("--health-stats emits telemetry 'health' events and has no other "
                          "output (the JAX package requires --telemetry with it); telemetry "
                          "is not ported (ROADMAP A11)")
-    if config.zigzag_attention:
-        raise ValueError("--zigzag-attention needs a seq axis in --mesh; the LM's seq axis "
-                         "is not ported yet (ROADMAP A10)")
     if config.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
     if config.kv_heads and (config.kv_heads < 0 or config.num_heads % config.kv_heads):

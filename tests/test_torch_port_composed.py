@@ -181,7 +181,12 @@ def test_cli_flags():
         "--max-train-examples", "64"])
     assert (cfg.mesh, cfg.flash_attention, cfg.seq_len, cfg.device,
             cfg.max_train_examples) == ("data=1", True, 2048, "cpu", 64)
-    for unported in (["--fsdp"], ["--remat"], ["--pipeline-microbatches", "4"]):
+    cfg = config.parse_config(config.ComposedConfig, [
+        "--remat", "--seq-impl", "ulysses", "--keep-checkpoints", "2", "--profile"])
+    assert (cfg.remat, cfg.seq_impl, cfg.keep_checkpoints, cfg.profile) == (
+        True, "ulysses", 2, True)
+    for unported in (["--fsdp"], ["--telemetry", "t.jsonl"],
+                     ["--pipeline-microbatches", "4"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.ComposedConfig, unported)
     # the trainers' shared step options include two knobs of the JAX package's other

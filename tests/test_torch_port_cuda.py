@@ -1606,3 +1606,87 @@ def test_sampled_accept_fold_on_the_card(device):
     bound = 3.0 * 0.5 * float(torch.sqrt(2.0 * p * (1.0 - p) / (math.pi * n)).sum())
     assert tv <= bound, (tv, bound)
     assert ((counts >= 1) & (counts <= k + 1)).all()
+
+
+# =========================================================================================
+# The transformer on every trainer and every sequence schedule
+# =========================================================================================
+#
+# Ulysses of flash as a gloo world of 2 on the one card (B4/B5 over the full sequence of
+# each rank's head group) against the plain flash version on the CPU: out within the
+# kernels' f32 tolerance (2e-5, 1e-5), gradients within (1e-4, 1e-4); each rank one launch
+# of each kernel. bench_transformer's flash route at S = 2048 in bf16.
+
+import io  # noqa: E402
+import json  # noqa: E402
+import contextlib  # noqa: E402
+
+from csed_514_project_distributed_training_using_pytorch_tpu_torch import (  # noqa: E402
+    bench_transformer,
+)
+
+ULYSSES_CHILD = """
+import json, sys
+import numpy as np, torch
+from {pkg}.ops import flash_attention as fa
+from {pkg}.parallel import mesh, ulysses
+torch.backends.cuda.matmul.allow_tf32 = False
+with mesh.cluster("cuda") as info:
+    q, k, v, g = np.random.default_rng(0).normal(size=(4, 2, 512, 4, 16)).astype(np.float32)
+    leaves = [torch.from_numpy(x).cuda().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    out = ulysses.ulysses_attention(*leaves, causal=True, use_flash=True)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g).cuda())
+    torch.cuda.synchronize()
+    with open({out!r} + f".rank{{info.process_index}}.json", "w") as f:
+        json.dump(fa.launch_counts(), f)
+    if info.process_index == 0:
+        np.savez({out!r}, out=out.detach().cpu().numpy(),
+                 **{{"d" + n: d.cpu().numpy() for n, d in zip("qkv", grads)}})
+"""
+
+
+def test_ulysses_of_flash_on_one_card_matches_the_plain_version(device, tmp_path):
+    """``ulysses_attention(use_flash=True)`` at a gloo world of 2 on the card, causal, at
+    ``[2, 512, 4, 16]`` f32 (each rank's B4/B5 on ``[2, 512, 2, 16]``), against
+    ``flash_attention`` on the CPU (the plain versions)."""
+    import numpy as np
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if k not in _RENDEZVOUS}
+    env["PYTHONPATH"] = str(root)
+    out = tmp_path / "ulysses.npz"
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{_PKG}.train.launch", "--num-processes", "2", "--timeout",
+         "300", "--", "-c", ULYSSES_CHILD.format(pkg=_PKG, out=str(out))],
+        capture_output=True, text=True, timeout=400, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    q, k, v, g = np.random.default_rng(0).normal(size=(4, 2, 512, 4, 16)).astype(np.float32)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    want = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(want, leaves, torch.from_numpy(g))
+    got = np.load(out)
+    torch.testing.assert_close(torch.from_numpy(got["out"]), want.detach(), atol=2e-5,
+                               rtol=1e-5)
+    for name, grad in zip("qkv", grads):
+        torch.testing.assert_close(torch.from_numpy(got["d" + name]), grad, atol=1e-4,
+                                   rtol=1e-4)
+    for rank in range(2):
+        counts = json.loads((tmp_path / f"ulysses.npz.rank{rank}.json").read_text())
+        assert counts == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+def test_bench_transformer_runs_the_flash_kernels_on_the_card(device):
+    """``bench_transformer --flash`` at S = 2048 in bf16: the dispatcher takes the flash
+    route (``mma-bf16``), B4/B5 launch layers x (warm-up + 3 runs) x steps times, the loss
+    is finite and the MFU is reported against the H100's peak."""
+    fa.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert bench_transformer.main(["--d-model", "256", "--seq", "2048", "--batch", "2",
+                                       "--layers", "2", "--heads", "4", "--steps", "2",
+                                       "--flash"]) == 0
+    line = json.loads(buf.getvalue())
+    assert "attn-dispatch(flash)" in line["metric"] and line["flash_layout"] == "mma-bf16"
+    assert line["platform"] == "gpu" and line["segment_program"] == "eager"
+    assert math.isfinite(line["final_train_loss"]) and line["mfu_vs_bf16_peak"] is not None
+    assert fa.launch_counts() == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16}

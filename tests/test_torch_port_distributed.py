@@ -88,7 +88,7 @@ def datasets():
     return tuple(out)
 
 def dropout_off():
-    distributed.build_model = lambda name: cnn.Net(conv_dropout_rate=0.0,
+    distributed.build_model = lambda name, **_: cnn.Net(conv_dropout_rate=0.0,
                                                    fc_dropout_rate=0.0)
 """
 
@@ -380,7 +380,7 @@ def test_trainer_trains_the_step_options_like_jax_at_world_1(tmp_path, monkeypat
                               ema={n: p.clone() for n, p in params.items()})
 
     monkeypatch.setattr(distributed, "create_train_state", start)
-    monkeypatch.setattr(distributed, "build_model", lambda name: cnn.Net(
+    monkeypatch.setattr(distributed, "build_model", lambda name, **_: cnn.Net(
         conv_dropout_rate=0.0, fc_dropout_rate=0.0))
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
@@ -539,8 +539,9 @@ def test_device_cuda_without_card_raises():
     assert not dist.is_initialized()
 
 
-UNPORTED = [["--fsdp"], ["--bf16"], ["--telemetry", "t.jsonl"],
-            ["--model", "transformer"], ["--epoch", "2"]]
+UNPORTED = [["--fsdp"], ["--telemetry", "t.jsonl"], ["--epoch", "2"]]
+MODEL_FIELDS = ("model", "bf16", "remat", "remat_policy", "causal", "attention_window",
+                "kv_heads", "rope")
 
 
 def test_config_keeps_jax_defaults_and_rejects_unported_flags():
@@ -551,11 +552,15 @@ def test_config_keeps_jax_defaults_and_rejects_unported_flags():
               "optimizer", "log_interval", "seed", "sampler_seed", "data_dir", "results_dir",
               "shard_eval", "max_train_examples", "max_test_examples", "resume_from",
               "keep_checkpoints", "async_checkpoint", "images_dir", "profile", "profile_dir",
-              "heartbeat_dir", "handle_preemption", "download_data", "host_local_feed"):
+              "heartbeat_dir", "handle_preemption", "download_data", "host_local_feed",
+              *MODEL_FIELDS):
         assert getattr(defaults, f) == getattr(ref, f), f
     cfg = config.parse_config(config.DistributedConfig,
                               ["--shard-eval", "--device", "cpu", "--epochs", "2"])
     assert (cfg.shard_eval, cfg.device, cfg.epochs) == (True, "cpu", 2)
+    cfg = config.parse_config(config.DistributedConfig,
+                              ["--model", "transformer", "--bf16", "--kv-heads", "2"])
+    assert (cfg.model, cfg.bf16, cfg.kv_heads) == ("transformer", True, 2)
     for argv in UNPORTED:
         with pytest.raises(SystemExit):
             config.parse_config(config.DistributedConfig, argv)

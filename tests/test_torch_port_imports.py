@@ -54,7 +54,9 @@ def test_sources_found():
                    "obs/__init__.py", "obs/hist.py", "obs/slo.py", "data/stream.py",
                    "train/lm.py", "bench_lm.py", "serving/spec/__init__.py",
                    "serving/spec/drafter.py", "serving/spec/draft_lm.py",
-                   "serving/replica.py", "serve_loadgen.py", "bench_spec_ab.py"):
+                   "serving/replica.py", "serve_loadgen.py", "bench_spec_ab.py",
+                   "parallel/ulysses.py", "bench_transformer.py", "models/__init__.py",
+                   "models/cnn.py", "train/single.py"):
         assert PORT / module in SOURCES, module
 
 

@@ -95,18 +95,19 @@ def test_lm_config_is_the_jax_packages_and_refuses_the_unported(monkeypatch):
     for kw, match in ((dict(plan="auto"), "ROADMAP A11"), (dict(telemetry="t.jsonl"),
                                                            "ROADMAP A11"),
                       (dict(health_stats=True), "ROADMAP A11"),
-                      (dict(zigzag_attention=True), "ROADMAP A10"),
+                      (dict(zigzag_attention=True), "needs a seq axis"),
                       (dict(grad_accum=0), "grad_accum"), (dict(kv_heads=3), "kv-heads"),
                       (dict(remat_policy="save-dots"), "add --remat"),
                       (dict(attention_window=-1), "window")):
         with pytest.raises(ValueError, match=match):
             lm_train.main(dataclasses.replace(base, **kw))
-    for mesh, match in (("data=1,seq=2", "ROADMAP A10"), ("data=1,model=2", "ROADMAP A10"),
+    for mesh, match in (("data=2,seq=2", "ROADMAP A10"), ("data=1,model=2", "ROADMAP A10"),
                         ("data=2", "process group has 1"), ("seq=2", "needs a data axis"),
                         ("data=1,stage=2", "needs a data axis")):
         with pytest.raises(ValueError, match=match):
-            lm_train.data_world(mesh, 1)
-    assert lm_train.data_world("", 3) == lm_train.data_world("data=3", 3) == 3
+            lm_train.mesh_worlds(mesh, 1)
+    assert lm_train.mesh_worlds("", 3) == lm_train.mesh_worlds("data=3", 3) == (3, 1)
+    assert lm_train.mesh_worlds("data=1,seq=2", 2, zigzag=True) == (1, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):      # the default: the card
         lm_train.main(config.LMConfig())

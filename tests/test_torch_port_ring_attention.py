@@ -455,10 +455,10 @@ def test_flag_errors_match_jax(tmp_path, kw):
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256}, "ROADMAP A10"),
-    ({"mesh": "data=1,seq=2", "seq_len": 256}, "einsum ring, not ported \\(ROADMAP A10\\)"),
-    ({"mesh": "data=1,seq=2", "seq_impl": "ulysses"}, "not ported \\(ROADMAP A10\\)"),
-    ({"mesh": "data=1,seq=2", "zigzag_attention": True, "causal": True, "seq_len": 512},
-     "einsum zig-zag, not ported \\(ROADMAP A10\\)"),
+    ({"mesh": "data=1,seq=2,model=2", "seq_len": 256}, "ROADMAP A10"),
+    ({"mesh": "data=2,seq=2", "seq_impl": "ulysses"}, "ROADMAP A10"),
+    ({"mesh": "data=2,seq=2", "zigzag_attention": True, "causal": True, "seq_len": 512},
+     "ROADMAP A10"),
     ({"mesh": "data=1,seq=2", "flash_attention": True, "seq_len": 256},
      "seq world of 2, but 1 process"),
 ])
@@ -492,8 +492,12 @@ def test_ring_function_errors_match_jax():
             with pytest.raises(ValueError) as want:
                 jax_call()
             assert str(got.value) == str(want.value)
-        with pytest.raises(ValueError, match="ROADMAP A10"):
-            ra.make_ring_attention_fn()
+        # the einsum zig-zag refuses bidirectional attention as the JAX one does
+        with pytest.raises(ValueError) as got:
+            ra.make_ring_attention_fn(use_zigzag=True)(*[torch.from_numpy(x128)] * 3)
+        with pytest.raises(ValueError) as want:
+            jax_make_ring_attention_fn(jmesh, use_zigzag=True)(*[jnp.asarray(x128)] * 3)
+        assert str(got.value) == str(want.value)
     with pytest.raises(RuntimeError, match="process group"):
         ra.ring_flash_attention(*[torch.from_numpy(x128)] * 3)
 

@@ -185,7 +185,7 @@ class _Slice:
         monkeypatch.setattr(jax_single, "build_model", lambda *a, **k: JaxNet(
             conv_dropout_rate=0.0, fc_dropout_rate=0.0))
         monkeypatch.setattr(single, "create_train_state", start_from_jax)
-        monkeypatch.setattr(single, "build_model", lambda name: cnn.Net(
+        monkeypatch.setattr(single, "build_model", lambda name, **_: cnn.Net(
             conv_dropout_rate=0.0, fc_dropout_rate=0.0))
 
     def jax(self, name: str, resume_from: str | None = None, **flags):
@@ -420,8 +420,13 @@ def test_parse_config_flags():
     cfg = config.parse_config(config.SingleProcessConfig,
                               ["--use-host-pipeline", "--download-data"])
     assert cfg.use_host_pipeline and cfg.download_data
-    for argv in (["--bf16"], ["--n-epoch", "2"], ["--telemetry", "t.jsonl"],
-                 ["--model", "transformer"]):
+    for f in ("model", "bf16", "remat", "remat_policy", "causal", "attention_window",
+              "kv_heads", "rope"):
+        assert getattr(defaults, f) == getattr(ref, f), f
+    cfg = config.parse_config(config.SingleProcessConfig,
+                              ["--model", "transformer", "--bf16", "--rope", "--remat"])
+    assert (cfg.model, cfg.bf16, cfg.rope, cfg.remat) == ("transformer", True, True, True)
+    for argv in (["--n-epoch", "2"], ["--telemetry", "t.jsonl"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.SingleProcessConfig, argv)
 
