@@ -35,7 +35,8 @@ Phases (each raises on failure; nothing is caught):
    kernel, and the device's busy share of the window (the rest is idle, waiting on the
    host);
 7. the flash kernels (B4, B5) against their plain versions on the card, at the composed
-   trainer's shape, Ulysses' local shape of [27] (a), the large bench shape and test shapes
+   trainer's shape, Ulysses' local shape of [27] (a), [28]'s stage microbatch and
+   data=2,model=2 shapes, the large bench shape and test shapes
    (masks, widths, bf16), with the
    time of each kernel, of its plain version and of ``F.scaled_dot_product_attention``
    (a yardstick only), its bound, and its device time per launch from a profiler window;
@@ -88,17 +89,17 @@ Phases (each raises on failure; nothing is caught):
 18. the ring ops (``parallel/ring_attention.py``: the ring-of-flash non-causal and causal,
     windows 100 and 300, the zig-zag plain and windowed) at gloo worlds 2 and 4 through the
     port's launcher, every rank on ``cuda:0``, against the one-process ``flash_attention``
-    on the full sequence at the composed shape, forward and gradients, with each rank's
-    launches against the plan (hops × blocks within the truncated reach), those at a
-    nonzero hop offset included;
+    on the full sequence at ``[16, 2048, 4, 16]`` (the composed shape at batch 16),
+    forward and gradients, with each rank's launches against the plan (hops × blocks
+    within the truncated reach), those at a nonzero hop offset included;
 19. the slice: ``train.composed.main`` at ``--mesh data=1,seq=2 --flash-attention
-    --seq-len 2048`` at full width for 20 steps against ``--mesh data=1`` in this process,
+    --seq-len 2048`` at full width for 5 steps against ``--mesh data=1`` in this process,
     per-step losses and final parameters, with each rank's launches (all, and at a nonzero
     hop offset) against the plan; then the same with ``--attention-window 300`` (every
     off-diagonal hop at its offset ±C), with ``--zigzag-attention --causal``, and with
-    both; the four seq=2 runs one after another in one fleet of two gloo ranks through the
-    launcher (``seq_fleet_child``); step ms (a time of two ranks time-slicing one card,
-    no scaling point);
+    both; the four seq=2 runs one after another in [18]'s world-2 fleet, after its ring
+    ops (``seq_fleet_child``); step ms (a time of two ranks time-slicing one card, no
+    scaling point);
 20. the captured epoch: ``train.single.main`` (``--use-pallas-kernels``) and
     ``train.distributed.main`` at world 1 on NCCL for 20 steps each, which the rule runs
     as CUDA graphs on the card, against the eager loop of the same step from the same
@@ -149,17 +150,19 @@ Phases (each raises on failure; nothing is caught):
     ``ok``, streams equal to ``engine.run``'s, TTFT/TPOT/e2e p50/p95; (e) B6's int8 and fp8
     branches alone at ``[8, 2, 4, 32]`` and R = 8, D = 128 (ms, device µs, the bound of the
     narrow pool and its scales, plain and SDPA ms);
-25. the pixel LM trained on the card and served through B6: (a) ``train.lm`` for one
-    epoch at ``LMConfig``'s defaults (937 steps in captured segments; epoch seconds, ms a
-    step, the loss falls, test NLL per token below ln 17, perplexity), 20 captured steps
-    against the eager loop and a profiler window over each (host launch calls a step);
-    (b) one epoch and ``--resume-from model_lm.ckpt`` against two epochs straight; (c) the
+25. the pixel LM trained on the card and served through B6: (a) ``train.lm`` for two
+    epochs at ``LMConfig``'s defaults (937 steps an epoch in captured segments; of the
+    first: epoch seconds, ms a step, the loss falls, test NLL per token below ln 17,
+    perplexity), 20 captured steps against the eager loop and a profiler window over each
+    (host launch calls a step); (b) ``--resume-from`` (a)'s first-epoch store checkpoint
+    against (a)'s two epochs straight; (c) the
     card's ``model_lm.ckpt`` restored on the CPU bitwise; (d) the trained parameters
     through ``load_params_or_state`` into the paged engine: 8 greedy requests prompted with
     the top half of test images, streams against greedy ``generate`` up to true ties, B6
     launches = layers x decode steps, then int8 and fp8 KV: the greedy token-match rate
     and the teacher-forced ``decode_nll`` delta against the unquantized model (a bar at
-    0.05); (e) ``python -m <port>.bench_lm`` at its defaults, its JSON line printed;
+    0.05); (e) ``bench_lm.main([])`` (the module's defaults, in process), its JSON line
+    printed;
 26. speculative decoding on [25]'s trained LM (``spec_phase``): (a) ``verify_chunk`` and
     ``paged_verify_chunk`` in f32, int8 and fp8 planes against ``decode_step_slots`` at
     t + j (rows past ``seq_len`` dropped, the rows written quantize_rows' own); (b)
@@ -169,7 +172,7 @@ Phases (each raises on failure; nothing is caught):
     ``Server`` park/resume over spec; (d) ``serve_loadgen`` in process, open loop and chat;
 27. the transformer on every trainer and every sequence schedule
     (``transformer_trainers_phase``): (a) ``train.composed --mesh data=1,seq=2 --seq-impl
-    ulysses --flash-attention`` at the composed widths for 20 steps on two gloo ranks
+    ulysses --flash-attention`` at the composed widths for 5 steps on two gloo ranks
     sharing the card (B4/B5 at ``[64, 2048, 2, 16]`` on each) against ``--mesh data=1``,
     launches against the plan; (b) ``python -m <port>.bench_transformer --large --flash``
     (its ``main`` in this process): its JSON line, the bf16 flash route, B4/B5 launches =
@@ -180,10 +183,23 @@ Phases (each raises on failure; nothing is caught):
     steps, the loss falling, ``model.ckpt`` restored on the CPU bitwise; (d) composed ``--resume-from`` against the straight run,
     and SIGTERM inside an epoch giving exit 75; (e) the composed trainer's einsum ring
     (causal, ``--remat``) and windowed einsum zig-zag, and the LM's einsum ring and
-    zig-zag, at seq=2 against data=1 for 10 steps each (no kernel launched on these paths);
-28. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+    zig-zag, at seq=2 against data=1 for 5 steps each (no kernel launched on these paths);
+28. the training meshes (``mesh_phase``), every world of gloo ranks time-slicing the one
+    card (correctness runs, no scaling points): (a)-(d) ``train.composed`` at the composed
+    widths (``--seq-len 2048 --flash-attention``) for 20 steps at ``data=1,model=2``;
+    ``data=1,stage=2 --pipeline-microbatches 4`` under gpipe and 1f1b (the bubble
+    printed); ``data=2 --fsdp`` and ``data=2,model=2 --fsdp``; ``data=1,expert=2`` at
+    ``--moe-top-k`` 1 and 2; each within 1e-4 of ``--mesh data=1`` (the MoE runs of one
+    rank running the same MoE model), each rank's B4/B5 launches against the plan (local
+    operands ``[64, 2048, 2, 16]``, ``[16, 2048, 4, 16]``, ``[32, 2048, 4, 16]``,
+    ``[32, 2048, 2, 16]``); (e) the JAX default mesh ``data=2,seq=2,model=2`` through
+    ``train.launch --num-processes 8`` for one short epoch with ``--sharded-checkpoint``,
+    its ``model_composed.ckpt`` and sharded directory restored on the CPU bitwise equal;
+    (f) the LM at ``data=1,model=2`` and ``data=2,seq=2`` against data=1, and
+    ``train.distributed --fsdp`` at world 1 on NCCL, captured, against plain DP;
+29. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
-    their launches on [27]'s paths), then, last, the JSON result line.
+    their launches on [27]'s and [28]'s paths), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -234,9 +250,13 @@ PROFILE_WINDOW = 100           # steps under the profiler
 COMPOSED = (64, 2048, 4, 16)   # train.composed --seq-len 2048: embed 64 over 4 heads, f32
 LARGE = (16, 2048, 8, 128)     # bench_transformer.py --large: d_model 1024, 8 heads, bf16
 ULYSSES_LOCAL = (64, 2048, 2, 16)   # [27] (a): B4/B5's operands on each rank (heads 4 over 2)
+                                    # and [28] (a) model=2's local heads
+STAGE_LOCAL = (16, 2048, 4, 16)     # [28] (b): a stage's microbatch (64 over 4)
+DATA_MODEL_LOCAL = (32, 2048, 2, 16)   # [28] (c): data=2,model=2's batch shard, local heads
 FLASH_CASES = (                # (shape, dtype, causal, window)
     (COMPOSED, "float32", False, 0), (LARGE, "bfloat16", False, 0),
-    (ULYSSES_LOCAL, "float32", False, 0),
+    (ULYSSES_LOCAL, "float32", False, 0), (STAGE_LOCAL, "float32", False, 0),
+    (DATA_MODEL_LOCAL, "float32", False, 0),
     ((2, 128, 4, 16), "float32", True, 0), ((2, 256, 2, 64), "float32", False, 160),
     ((2, 256, 2, 64), "bfloat16", True, 160), ((2, 2048, 2, 128), "float32", True, 160),
     ((2, 2048, 2, 128), "bfloat16", False, 100), ((2, 2048, 2, 128), "bfloat16", True, 160),
@@ -253,7 +273,7 @@ BF16_RTOL = 2.0 ** -7
 FLASH_TOL = {"float32": {"out": (2e-5, 1e-5), "lse": (1e-4, 1e-4), "grad": (1e-4, 1e-4)},
              "bfloat16": {"out": (1e-3, BF16_RTOL), "lse": (1e-4, 1e-4),
                           "grad": (1e-3, BF16_RTOL)}}
-FLASH_ITERS, FLASH_WARMUP = 10, 2
+FLASH_ITERS, FLASH_WARMUP = 5, 2   # timed calls a case, after the warm-up
 CROSSOVER_SEQS = (512, 1024, 2048)
 COMPOSED_TRAIN = 60000         # phase 9: the whole synthetic train split, 937 steps of 64
                                # (about 40 s on the card; 150 steps did not lower the val
@@ -296,8 +316,8 @@ SERVER_TENANTS = "paid:prio=2;free:preempt=1"
 
 # Data parallelism, phases 14-16. Worlds of 2 are two processes on the one card (gloo).
 FLEET_TIMEOUT = 300            # seconds; the launcher kills the fleet and exits 124
-DP_PROFILE_STEPS = 200         # phase 15: the data-parallel step under the profiler
-DP_W2_TRAIN, DP_W2_TEST = 8192, 10000   # phase 15: the world-2 run's split, 2 epochs
+DP_PROFILE_STEPS = 100         # phase 15: the data-parallel step under the profiler
+DP_W2_TRAIN, DP_W2_TEST = 4096, 10000   # phase 15: the world-2 run's split, 2 epochs
 DP_TRAJECTORY_ATOL = 1e-5      # world 2 vs world 1: the reduce adds two halves' gradients
 BENCH_TIMED_EPOCHS, BENCH_TIMEOUT = 7, 600
 
@@ -308,13 +328,16 @@ OFFSET_MASKS = ((False, 0), (True, 0), (False, 100), (True, 100), (False, 300),
                 (True, 300), (False, 1000), (True, 1000))   # (causal, window)
 OFFSET_TIMED = ((False, 0), (False, 300), (True, 1000))     # timed at +C and at offset 0
 RING_WORLDS = (2, 4)
+RING_OPS_SHAPE = (16, 2048, 4, 16)   # phase 18's operands: the composed shape's sequence
+                                     # and heads at batch 16
 RING_CASES = (("ring", False, 0), ("ring", True, 0), ("ring", False, 100),
               ("ring", True, 100), ("ring", False, 300), ("ring", True, 300),
               ("zigzag", True, 0), ("zigzag", True, 300))   # (schedule, causal, window)
 # ring op vs the one-process flash_attention on the full sequence, both 3xTF32 kernels on
 # the card: the same pairs in other blocks, merged in f32 (the kernels' own f32 tolerance)
 RING_TOL = {"out": (2e-5, 1e-5), "grad": (1e-4, 1e-4)}
-RING_STEPS = 20                # phase 19: trainer steps a run, batch 64, dropout off
+RING_STEPS = 5                 # phases 19, 27 (a): trainer steps a run, batch 64, dropout
+                               # off (few: the smoke's time limit holds [28] too)
 RING_TRAINER_WINDOW = 300      # phase 19's windowed runs: every hop with a nonzero offset
 RING_TRAINERS = (              # phase 19: (label, schedule, causal, window)
     ("ring", "ring", False, 0), ("ring window", "ring", False, RING_TRAINER_WINDOW),
@@ -356,15 +379,34 @@ SPEC_JAX_GATES = (1.0, 1.5, 1.5)   # the JAX tool's token match, tok/step, invoc
 # phase 27: the transformer on every trainer and every sequence schedule
 SEQ_TRAJECTORY_ATOL = 1e-4     # (a), (e): seq=2 vs data=1, as [19]
 SEQ_WINDOW = 300               # (e): the windowed einsum zig-zag
-SEQ_SHORT_STEPS = 10           # (e): steps of the einsum runs (the LM's at its defaults)
+SEQ_SHORT_STEPS = 5            # (e): steps of the einsum runs (the LM's at its defaults)
 BENCH_LARGE_STEPS = 10         # (b): bench_transformer --large's steps a run
 BENCH_RUNS = 4                 # (b): its warm-up and three timed runs
 RESUME_TRAIN = 4096            # (d): the composed runs' split, 64 steps an epoch
 PREEMPT_TRAIN = 1024           # (d): the preempted run's split, 16 steps an epoch
 TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
+# phase 28: the training meshes. Worlds of 2, 4 and 8 are gloo processes time-slicing the
+# one card (correctness runs: every collective staged through host memory, no scaling)
+MESH_STEPS = 20                # (a)-(d): composed steps a run, at the composed widths
+MESH_LM_STEPS = 10             # (f): the LM's steps a run, at LMConfig's widths
+MESH_MICROBATCHES = 4          # (b): the pipeline's microbatches a step
+MESH_ATOL = 1e-4               # every run vs its data=1 (or one-rank) reference: losses and
+                               # every parameter (the sums of another layout, 20 SGD steps)
+DEFAULT_MESH_TRAIN = 1280      # (e): the JAX default mesh's short epoch, 20 steps of 64
+
+
+PHASE_START: dict[int, float] = {}   # main()'s phases by number: when each began
+
+
+def phase_seconds() -> dict[int, float]:
+    """Each of main()'s phases that has begun, with its seconds (up to the next one)."""
+    marks = sorted(PHASE_START.items()) + [(None, time.perf_counter())]
+    return {n: round(t1 - t0, 1) for (n, t0), (_, t1) in zip(marks, marks[1:])}
 
 
 def fail(msg: str) -> None:
+    if PHASE_START:
+        print(f"chip_smoke: seconds by phase: {phase_seconds()}", file=sys.stderr)
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
@@ -465,26 +507,50 @@ def report_window(tag: str, rows, steps: int, wall: float, ours: tuple[str, ...]
     return per_launch
 
 
-def run_fleet(tag: str, command: list[str], env: dict | None = None, n: int = 2):
+def start_fleet(command: list[str], env: dict | None = None, n: int = 2) -> dict:
     """``python <command>`` as a world of ``n`` through the port's launcher, from the root
-    of the checkout; echoes its output under ``tag`` and fails unless every rank exits
-    0."""
+    of the checkout, started and not waited for (its output goes to files under
+    ``OUT_DIR``); ``finish_fleet`` waits for it."""
     env = {k: v for k, v in (env or os.environ).items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     env["PYTHONPATH"] = str(ROOT)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"{PKG}.train.launch", "--num-processes",
-                           str(n), "--timeout", str(FLEET_TIMEOUT), "--", *command],
-                          capture_output=True, text=True, cwd=ROOT, env=env,
-                          timeout=FLEET_TIMEOUT + 60)
-    for line in proc.stdout.splitlines():
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    stem = OUT_DIR / f"fleet_{time.monotonic_ns()}"
+    out, err = open(f"{stem}.out", "w+"), open(f"{stem}.err", "w+")
+    proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.train.launch", "--num-processes",
+                             str(n), "--timeout", str(FLEET_TIMEOUT), "--", *command],
+                            stdout=out, stderr=err, text=True, cwd=ROOT, env=env)
+    return {"proc": proc, "out": out, "err": err, "t0": time.perf_counter()}
+
+
+def finish_fleet(tag: str, fleet: dict) -> str:
+    """Wait for a ``start_fleet`` world; echo its output under ``tag`` and fail unless every
+    rank exited 0 (a fleet past the launcher's own timeout is killed)."""
+    proc = fleet["proc"]
+    try:
+        proc.wait(timeout=FLEET_TIMEOUT + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    outputs = []
+    for f in (fleet["out"], fleet["err"]):
+        f.seek(0)
+        outputs.append(f.read())
+        f.close()
+    for line in outputs[0].splitlines():
         if line.strip():
             print(f"{tag} {line}")
-    print(f"{tag} launcher exit {proc.returncode} after {time.perf_counter() - t0:.2f} s")
+    print(f"{tag} launcher exit {proc.returncode} after "
+          f"{time.perf_counter() - fleet['t0']:.2f} s")
     if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
+        print(outputs[1][-4000:], file=sys.stderr)
         fail(f"{tag} a rank failed: the launcher exited {proc.returncode}")
-    return proc.stdout
+    return outputs[0]
+
+
+def run_fleet(tag: str, command: list[str], env: dict | None = None, n: int = 2):
+    """``start_fleet`` then ``finish_fleet``: a world of ``n`` run to its end."""
+    return finish_fleet(tag, start_fleet(command, env, n))
 
 
 def dp_trajectory(out: str) -> None:
@@ -726,8 +792,9 @@ SEQ_RUNS = (   # phase 27 (a), (e): (label, seq=2 flags, data=1 flags, trainer, 
 
 
 def seq_fleet_child(runs: list) -> None:
-    """Phases 19 and 27's seq=2 runs in one seq world: for each ``(trainer, out, flags,
-    steps)`` in turn, ``composed_trajectory`` or ``lm_trajectory`` (``trainer``) of
+    """Phases 18, 19, 27 and 28's runs in one world of gloo ranks: for each ``(trainer,
+    out, flags, steps)`` in turn, ``ring_ops_child(out, flags)`` (``trainer`` "ring_ops",
+    ``flags`` the shape), or ``composed_trajectory`` or ``lm_trajectory`` (``trainer``) of
     ``(out, *flags, steps=steps)``, on one process group (the trainers reuse a group that
     is up)."""
     sys.path.insert(0, str(ROOT))
@@ -735,14 +802,22 @@ def seq_fleet_child(runs: list) -> None:
 
     with mesh.cluster("cuda"):
         for trainer, out, flags, steps in runs:
+            if trainer == "ring_ops":
+                ring_ops_child(out, tuple(flags))
+                continue
             run = composed_trajectory if trainer == "composed" else lm_trajectory
             run(out, *flags, steps=steps)
 
 
-def run_seq_fleet(tag: str, runs: list) -> None:
-    """``seq_fleet_child(runs)`` on two ranks of the launcher."""
-    run_fleet(tag, ["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-                          f"chip_smoke.seq_fleet_child({runs!r})"])
+def seq_fleet_command(runs: list) -> list[str]:
+    """The launcher command that runs ``seq_fleet_child(runs)`` in each rank."""
+    return ["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                  f"chip_smoke.seq_fleet_child({runs!r})"]
+
+
+def run_seq_fleet(tag: str, runs: list, n: int = 2) -> None:
+    """``seq_fleet_child(runs)`` on ``n`` ranks of the launcher."""
+    run_fleet(tag, seq_fleet_command(runs), n=n)
 
 
 PREEMPT_CHILD = """
@@ -885,7 +960,7 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
     """Phase 27: the transformer on every trainer and every sequence schedule, on the card.
 
     (a) ``train.composed --mesh data=1,seq=2 --seq-impl ulysses --flash-attention`` at the
-    composed widths (seq 2048) for 20 steps on two gloo ranks sharing the card, against
+    composed widths (seq 2048) for 5 steps on two gloo ranks sharing the card, against
     ``--mesh data=1`` in this process, each rank's B4/B5 launches against the plan;
     (b) ``python -m <port>.bench_transformer --large --flash`` (its ``main``, in this
     process, so that its launches can be read): its JSON line, the flash route, B4/B5
@@ -1082,6 +1157,240 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
     print(f"[27] (d) train.composed --handle-preemption, SIGTERM inside epoch 1: exit "
           f"{proc.returncode} at step {preempt_step}, the last beat {beat.get('status')!r}")
     print(f"[27] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return found
+
+
+def moe_reference(out: str, top_k: int, steps: int = MESH_STEPS) -> None:
+    """Phase 28 (d)'s reference: the same MoE classifier that ``--mesh data=1,expert=2``
+    trains (two experts, ``top_k``, the flash core at seq 2048, the same seeded initial
+    parameters), trained by one rank with both experts local, through the composed
+    trainer's own segment function over the same plan; the losses, step count and final
+    parameters to ``out``, as ``composed_trajectory`` saves them."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import composed
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+        create_train_state,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        ComposedConfig,
+    )
+
+    cfg = ComposedConfig(mesh="data=1,expert=2", moe_top_k=top_k, flash_attention=True,
+                         seq_len=COMPOSED[1], batch_size=COMPOSED[0], device="cuda")
+    model = composed.build_classifier(cfg).cuda()      # no grid: both experts here
+    optimizer, segment = composed.build_segment_fn(cfg, model)
+    state = create_train_state(model, torch.Generator().manual_seed(cfg.seed),
+                               optimizer=optimizer, device="cuda")
+    x, y = mnist._synthesize_split(steps * cfg.batch_size, 300)
+    images = torch.from_numpy(mnist._normalize(x)).cuda()
+    labels = torch.from_numpy(y.astype(np.int64)).cuda()
+    plan = torch.from_numpy(composed.epoch_plan(cfg.seed, 0, steps * cfg.batch_size, steps,
+                                                cfg.batch_size)).cuda()
+    state, losses = segment(state, images, labels, plan, cfg.seed + 1)
+    np.savez(out, losses=losses.cpu().numpy(), steps=int(state.step),
+             epoch_seconds=0.0, **{k: p.cpu().numpy() for k, p in state.params.items()})
+
+
+def mesh_plan(flags: list, steps: int, layers: int = 2) -> dict:
+    """B4/B5 launches a rank makes in ``composed_trajectory`` (``steps`` steps, one eval
+    batch) under ``flags``: every layer once a step and once at the eval, except under a
+    stage axis, where a rank runs its ``layers / 2`` layers on each of the microbatches
+    (the eval's too), and ``1f1b`` runs each microbatch's forward again in its
+    backward."""
+    if "--mesh" in flags and "stage=2" in flags[flags.index("--mesh") + 1]:
+        per = (layers // 2) * MESH_MICROBATCHES
+        again = "1f1b" in flags
+        return {"flash_fwd": per * (steps * (2 if again else 1) + 1),
+                "flash_dq": per * steps, "flash_dkv": per * steps}
+    return {"flash_fwd": layers * (steps + 1), "flash_dq": layers * steps,
+            "flash_dkv": layers * steps}
+
+
+MESH_RUNS = (   # phase 28: (label, flags, world, flash operand shape on each rank)
+    ("(a) data=1,model=2", ["--mesh", "data=1,model=2"], 2, ULYSSES_LOCAL),
+    ("(b) data=1,stage=2 gpipe",
+     ["--mesh", "data=1,stage=2", "--pipeline-microbatches", str(MESH_MICROBATCHES)], 2,
+     STAGE_LOCAL),
+    ("(b) data=1,stage=2 1f1b",
+     ["--mesh", "data=1,stage=2", "--pipeline-microbatches", str(MESH_MICROBATCHES),
+      "--pipeline-schedule", "1f1b"], 2, STAGE_LOCAL),
+    ("(c) data=2 --fsdp", ["--mesh", "data=2", "--fsdp"], 2, (32, 2048, 4, 16)),
+    ("(d) data=1,expert=2 top-1", ["--mesh", "data=1,expert=2", "--moe-top-k", "1"], 2,
+     COMPOSED),
+    ("(d) data=1,expert=2 top-2", ["--mesh", "data=1,expert=2", "--moe-top-k", "2"], 2,
+     COMPOSED),
+    ("(c) data=2,model=2 --fsdp", ["--mesh", "data=2,model=2", "--fsdp"], 4,
+     DATA_MODEL_LOCAL),
+)
+MESH_LM_RUNS = (("(f) LM data=1,model=2", "data=1,model=2", 2),
+                ("(f) LM data=2,seq=2", "data=2,seq=2", 4))
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """Phase 28: the training meshes on the card, every world of gloo ranks time-slicing
+    the one card (correctness runs, not scaling points).
+
+    (a)-(d) ``composed_trajectory`` for ``MESH_STEPS`` steps at the composed widths
+    (``--seq-len 2048 --flash-attention``) under each of ``MESH_RUNS``' meshes, in one
+    fleet of 2 ranks (and one of 4 for ``data=2,model=2``), against ``--mesh data=1`` in
+    this process ((d): against ``moe_reference``, one rank running the same MoE model),
+    within ``MESH_ATOL``, with each rank's B4/B5 launches against ``mesh_plan`` and the
+    pipeline's bubble printed; (e) the JAX default mesh, ``python -m <port>.train.launch
+    --num-processes 8 -- -m <port>.train.composed`` with its defaults for one short epoch
+    with ``--sharded-checkpoint``, its ``model_composed.ckpt`` and its sharded directory
+    restored on the CPU bitwise equal to each other, and within ``MESH_ATOL`` of the same
+    flags at ``--mesh data=1``; (f) the LM at ``data=1,model=2`` and ``data=2,seq=2`` against
+    data=1 (``lm_trajectory``), and ``train.distributed --fsdp`` at world 1 on NCCL, captured,
+    against the plain run. Returns each run's rank-0 launches by label."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        composed, distributed,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
+        create_train_state,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        ComposedConfig, DistributedConfig,
+    )
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    stem = str(OUT_DIR / "mesh_run")
+    found: dict = {}
+
+    def max_diff(a, b) -> float:
+        return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+    def held(label: str, got: str, want: str, *loss_keys) -> tuple[float, float]:
+        one, two = np.load(want), np.load(got)
+        params = [k for k in one.files
+                  if k not in ("losses", "train", "test", "epoch_seconds", "steps")]
+        if int(one["steps"]) != int(two["steps"]):
+            fail(f"[28] {label}: {int(two['steps'])} steps, the reference "
+                 f"{int(one['steps'])}")
+        e_loss = max(max_diff(two[k], one[k]) for k in loss_keys)
+        e_par = max(max_diff(two[k], one[k]) for k in params)
+        if not (e_loss <= MESH_ATOL and e_par <= MESH_ATOL):
+            fail(f"[28] {label}: max |dloss| {e_loss:.3e}, max |dparam| {e_par:.3e} "
+                 f"beyond {MESH_ATOL:g}")
+        return e_loss, e_par
+
+    # -- every fleet at once ((a)-(d), (f) on 2 and 4 ranks, (e) on 8), the references here
+    runs = {2: [], 4: []}
+    for i, (label, flags, world, _) in enumerate(MESH_RUNS):
+        runs[world].append(("composed", f"{stem}{i}.npz", flags, MESH_STEPS))
+    for i, (label, mesh_spec, world) in enumerate(MESH_LM_RUNS):
+        runs[world].append(("lm", f"{stem}_lm{i}.npz", ["--mesh", mesh_spec],
+                            MESH_LM_STEPS))
+    out_dir = OUT_DIR / "default_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    no_idx = str(OUT_DIR / "no_idx_files")     # the synthetic split, in both runs
+    default_flags = ["--epochs", "1", "--max-train-examples", str(DEFAULT_MESH_TRAIN),
+                     "--max-test-examples", "1000", "--sharded-checkpoint"]
+    t_fleets = time.perf_counter()
+    fleets = {world: start_fleet(seq_fleet_command(world_runs), n=world)
+              for world, world_runs in runs.items()}
+    fleets[8] = start_fleet(["-m", f"{PKG}.train.composed", *default_flags,
+                             "--data-dir", no_idx, "--results-dir", str(out_dir)], n=8)
+    ref = f"{stem}_ref.npz"
+    composed_trajectory(ref, "--mesh", "data=1", steps=MESH_STEPS)
+    for k in (1, 2):
+        moe_reference(f"{stem}_moe{k}.npz", k)
+    lm_ref = f"{stem}_lm_ref.npz"
+    lm_trajectory(lm_ref, steps=MESH_LM_STEPS)
+    cfg = ComposedConfig(mesh="data=1", epochs=1, max_train_examples=DEFAULT_MESH_TRAIN,
+                         max_test_examples=1000, device="cuda", data_dir=no_idx,
+                         results_dir=str(OUT_DIR / "default_mesh_ref"))
+    ref_state, _ = composed.main(cfg)
+    for world in (2, 4, 8):
+        finish_fleet(f"[28] world {world}:" if world < 8 else "[28] (e) default mesh:",
+                     fleets[world])
+    fleets_s = time.perf_counter() - t_fleets
+    for i, (label, flags, world, shape) in enumerate(MESH_RUNS):
+        got = f"{stem}{i}.npz"
+        want = (f"{stem}_moe{flags[-1]}.npz" if "expert" in label else ref)
+        e_loss, e_par = held(label, got, want, "losses")
+        counts = []
+        for rank in range(world):
+            with open(f"{got}.rank{rank}.json") as f:
+                counts.append(json.load(f)["all"])
+        plan = mesh_plan(flags, MESH_STEPS)
+        if any(c != plan for c in counts):
+            fail(f"[28] {label}: launches by rank {counts}, planned {plan} each")
+        found[label] = counts[0]
+        two = np.load(got)
+        print(f"[28] {label}: {MESH_STEPS} steps at --seq-len {COMPOSED[1]} "
+              f"--flash-attention, {world} gloo ranks on one card vs "
+              f"{'one rank running the same MoE model' if 'expert' in label else 'data=1'}: "
+              f"max |dloss| {e_loss:.3e}, max |dparam| {e_par:.3e} (atol {MESH_ATOL:g}); "
+              f"losses {two['losses'][0]:.4f} -> {two['losses'][-1]:.4f}; B4/B5 on "
+              f"{list(shape)} f32, launches a rank {counts[0]} = the plan; step "
+              f"{float(two['epoch_seconds']) / MESH_STEPS * 1e3:.3f} ms (time-slicing, "
+              f"host-staged collectives: no scaling point) [{card}]")
+    for i, (label, mesh_spec, world) in enumerate(MESH_LM_RUNS):
+        e_loss, e_par = held(label, f"{stem}_lm{i}.npz", lm_ref, "train", "test")
+        print(f"[28] {label}: {MESH_LM_STEPS} steps at LMConfig's widths, {world} gloo ranks "
+              f"vs data=1: max |dloss| {e_loss:.3e}, max |dparam| {e_par:.3e} (atol "
+              f"{MESH_ATOL:g}) [{card}]")
+    print(f"[28] the three fleets (2, 4 and 8 ranks) at once, the references in this process "
+          f"meanwhile: {fleets_s:.1f} s")
+
+    # -- (e) the JAX default mesh through the launcher: its checkpoints ---------------------
+    cpu_ref = create_train_state(composed.build_classifier(cfg),
+                                 torch.Generator().manual_seed(0))
+    full = checkpoint.restore_train_state(str(out_dir / "model_composed.ckpt"), cpu_ref)
+    sharded = checkpoint.restore_train_state_sharded(
+        str(out_dir / "model_composed.ckpt.sharded"), cpu_ref)
+    for k in full.params:
+        if not (torch.equal(full.params[k], sharded.params[k])
+                and torch.equal(full.velocity[k], sharded.velocity[k])):
+            fail(f"[28] (e) the sharded directory's {k} differs from model_composed.ckpt's")
+    e_par = max(max_diff(full.params[k], ref_state.params[k].cpu()) for k in full.params)
+    if int(full.step) != DEFAULT_MESH_TRAIN // 64 or not e_par <= MESH_ATOL:
+        fail(f"[28] (e) step {int(full.step)}, max |dparam| vs data=1 {e_par:.3e}")
+    print(f"[28] (e) python -m {PKG}.train.launch --num-processes 8 -- -m "
+          f"{PKG}.train.composed (--mesh data=2,seq=2,model=2, seq 16, dense core) "
+          f"{' '.join(default_flags)}: 8 gloo ranks on one card; "
+          f"model_composed.ckpt and the sharded directory restored on the CPU bitwise "
+          f"equal ({len(full.params)} leaves, params and velocity); max |dparam| vs data=1 "
+          f"{e_par:.3e} (atol {MESH_ATOL:g}) [{card}]")
+
+    # -- (f) train.distributed --fsdp at world 1 on NCCL, captured ---------------------------
+    results = {}
+    for fsdp in (False, True):
+        dcfg = DistributedConfig(epochs=1, max_train_examples=CAPTURE_STEPS * 64,
+                                 max_test_examples=1000, log_interval=CAPTURE_LOG_INTERVAL,
+                                 device="cuda", fsdp=fsdp, data_dir=no_idx,
+                                 results_dir=str(OUT_DIR / f"dist_fsdp{int(fsdp)}"),
+                                 images_dir=str(OUT_DIR / "images"))
+        buf = io.StringIO()
+        with patched(torch.backends.cudnn, "deterministic", True), \
+                contextlib.redirect_stdout(buf):
+            state, _ = distributed.main(dcfg)
+        if "Segment program: cuda-graph" not in buf.getvalue():
+            fail(f"[28] (f) train.distributed fsdp={fsdp} at world 1 did not run the "
+                 f"captured program:\n{buf.getvalue()[-2000:]}")
+        results[fsdp] = state
+    e_par = max(max_diff(results[True].params[k].cpu(), results[False].params[k].cpu())
+                for k in results[False].params)
+    if not e_par <= CAPTURE_ATOL:
+        fail(f"[28] (f) train.distributed --fsdp vs plain DP at world 1: max |dparam| "
+             f"{e_par:.3e} beyond {CAPTURE_ATOL:g}")
+    print(f"[28] (f) train.distributed --fsdp at world 1 on NCCL, {CAPTURE_STEPS} steps in "
+          f"captured segments (every split the whole leaf, no collective), vs plain DP: max "
+          f"|dparam| {e_par:.3e} (atol {CAPTURE_ATOL:g}) [{card}]")
+    print(f"[28] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return found
 
 
@@ -2120,19 +2429,19 @@ def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
 def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     """Phase 25 (a)-(c): the pixel LM trained on the card.
 
-    (a) ``python -m <port>.train.lm --epochs 1``'s flags through ``parse_config`` and
-    ``train.lm.main`` at ``LMConfig``'s defaults (vocab 16 + BOS, seq 784, embed 64, 2
-    layers, 4 heads, batch 64, AdamW 1e-3, clip 1.0) on the synthetic seed-514 split: 937
-    steps in captured segments; the epoch's seconds, ms a step, the first and last
-    segments' mean losses (the loss must fall), the test NLL per token (below ln 17) and
-    its perplexity. Then 20 steps of the trainer's step (``train.lm.make_lm_step`` at the
+    (a) ``python -m <port>.train.lm --epochs 2 --keep-checkpoints 2``'s flags through
+    ``parse_config`` and ``train.lm.main`` at ``LMConfig``'s defaults (vocab 16 + BOS, seq
+    784, embed 64, 2 layers, 4 heads, batch 64, AdamW 1e-3, clip 1.0) on the synthetic
+    seed-514 split, 937 steps an epoch in captured segments; of the first epoch: its
+    seconds, ms a step, the first and last segments' mean losses (the loss must fall), the
+    test NLL per token (below ln 17) and its perplexity. Then 20 steps of the trainer's step (``train.lm.make_lm_step`` at the
     same flags) captured against the eager loop from the trainer's start on its first plan
     rows, within ``LM_CAPTURE_ATOL``, and a profiler window over each (ms a step, busy
     share, host launch calls a step).
-    (b) ``--epochs 2 --resume-from`` (a)'s ``model_lm.ckpt`` against 2 epochs straight:
-    parameters and AdamW moments within ``RESUME_ATOL``; the straight run's two epoch
-    seconds (the first includes the segment captures). (c) the straight run's
-    ``model_lm.ckpt`` decoded and restored on the CPU, bitwise the card's final state.
+    (b) ``--epochs 2 --resume-from`` the store's first-epoch checkpoint of (a) against
+    (a)'s 2 epochs straight: parameters and AdamW moments within ``RESUME_ATOL``; (a)'s two
+    epoch seconds (the first includes the segment captures). (c) (a)'s ``model_lm.ckpt``
+    decoded and restored on the CPU, bitwise the card's final state.
 
     Returns the straight run's checkpoint path and final state for (d)."""
     import numpy as np
@@ -2168,24 +2477,28 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
             torch.cuda.synchronize()
         return state, hist, time.perf_counter() - t0, segments, argv
 
-    # (a) one epoch at the defaults, captured
-    state, hist, wall, segments, argv = train("a", ["--epochs", "1"])
-    steps = int(state.step)
-    first, last = segments[0].mean().item(), segments[-1].mean().item()
-    nll = hist.test_losses[-1]
-    if steps != len(train_ds) // 64 or len(segments) != -(-steps // lm_train.SEGMENT_STEPS):
-        fail(f"[25] (a) {steps} steps in {len(segments)} segments")
+    # (a) two epochs at the defaults, captured, the store keeping each epoch's checkpoint
+    # ((b) resumes from the first); (a)'s readings are the first epoch's
+    state, hist, wall, segments, argv = train("a", ["--epochs", "2", "--keep-checkpoints",
+                                                    "2"])
+    steps = int(state.step) // 2
+    per_epoch = -(-steps // lm_train.SEGMENT_STEPS)
+    first, last = segments[0].mean().item(), segments[per_epoch - 1].mean().item()
+    nll = hist.test_losses[0]
+    if steps != len(train_ds) // 64 or len(segments) != 2 * per_epoch:
+        fail(f"[25] (a) {2 * steps} steps in {len(segments)} segments")
     if not last < first:
         fail(f"[25] (a) the train loss did not fall: first segment {first}, last {last}")
     if not nll < math.log(17):
         fail(f"[25] (a) test NLL per token {nll} is not below ln 17 = {math.log(17):.4f}")
     epoch_s = hist.epoch_seconds[0]
-    print(f"[25] (a) python -m {PKG}.train.lm {' '.join(argv)}: {steps} steps in "
-          f"{len(segments)} captured segments of up to {lm_train.SEGMENT_STEPS}; epoch "
+    print(f"[25] (a) python -m {PKG}.train.lm {' '.join(argv)}, its first epoch: {steps} "
+          f"steps in {per_epoch} captured segments of up to {lm_train.SEGMENT_STEPS}; epoch "
           f"{epoch_s:.3f} s ({epoch_s / steps * 1e3:.4f} ms a step, the captures included), "
-          f"{wall:.1f} s in all (eval, grids); train loss {first:.4f} (first segment) -> "
-          f"{last:.4f} (last), epoch mean {hist.train_losses[0]:.4f}; test NLL per token "
-          f"{nll:.4f} < ln 17 = {math.log(17):.4f}, perplexity {math.exp(nll):.4f} [{card}]")
+          f"{wall:.1f} s for both epochs (eval, grids); train loss {first:.4f} (first "
+          f"segment) -> {last:.4f} (last), epoch mean {hist.train_losses[0]:.4f}; test NLL "
+          f"per token {nll:.4f} < ln 17 = {math.log(17):.4f}, perplexity "
+          f"{math.exp(nll):.4f} [{card}]")
 
     # (a) 20 steps of the trainer's step (train.lm.make_lm_step at (a)'s flags), captured
     # against the eager loop, from the trainer's start on its first plan rows
@@ -2234,10 +2547,11 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     del tokens, zeros, captured, eager
     torch.cuda.empty_cache()
 
-    # (b) one epoch, then --resume-from, against two epochs straight
+    # (b) --resume-from (a)'s first-epoch checkpoint, against (a)'s two epochs straight
     resumed, r_hist, _, _, _ = train("b_resumed", [
-        "--epochs", "2", "--generate", "0", "--resume-from", str(root / "a" / "model_lm.ckpt")])
-    straight, s_hist, _, _, _ = train("b_straight", ["--epochs", "2", "--generate", "0"])
+        "--epochs", "2", "--generate", "0", "--resume-from",
+        str(root / "a" / "checkpoints" / checkpoint.versioned_name(steps))])
+    straight, s_hist = state, hist
     if not int(resumed.step) == int(straight.step) == 2 * steps:
         fail(f"[25] (b) steps {int(resumed.step)} (resumed), {int(straight.step)} (straight)")
     trees = (("params", resumed.params, straight.params),
@@ -2246,14 +2560,15 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     diff = max((a[k] - b[k]).abs().max().item() for _, a, b in trees for k in b)
     if diff > RESUME_ATOL:
         fail(f"[25] (b) resumed vs straight: max |diff| {diff:.3e} > {RESUME_ATOL:g}")
-    print(f"[25] (b) 1 epoch + --resume-from model_lm.ckpt (epoch {r_hist.epoch_seconds[0]:.3f} "
-          f"s) vs 2 epochs straight (epochs {', '.join(f'{t:.3f}' for t in s_hist.epoch_seconds)}"
-          f" s; the first captures the segments): params and AdamW moments max |diff| "
+    print(f"[25] (b) --resume-from (a)'s first-epoch checkpoint (epoch "
+          f"{r_hist.epoch_seconds[0]:.3f} s) vs (a)'s 2 epochs straight (epochs "
+          f"{', '.join(f'{t:.3f}' for t in s_hist.epoch_seconds)} s; the first captures the "
+          f"segments): params and AdamW moments max |diff| "
           f"{diff:.3e} <= {RESUME_ATOL:g}; test NLL per token {r_hist.test_losses[-1]:.6f} vs "
           f"{s_hist.test_losses[-1]:.6f} [{card}]")
 
     # (c) the card's file decoded and restored on the CPU, bitwise
-    path = root / "b_straight" / "model_lm.ckpt"
+    path = root / "a" / "model_lm.ckpt"
     raw = _msgpack.from_bytes(path.read_bytes())
     cpu_ref = st.create_train_state(lm.TransformerLM(), torch.Generator().manual_seed(0),
                                     optimizer=opt)
@@ -2703,6 +3018,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- 1. device ---------------------------------------------------------------------
+    PHASE_START[1] = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2713,6 +3029,7 @@ def main() -> None:
     print(f"[1] nvidia-smi name, power.limit: {card}")
 
     # -- 2. build ----------------------------------------------------------------------
+    PHASE_START[2] = time.perf_counter()
     t0 = time.perf_counter()
     builds = _build.build()                   # one nvcc per source, all started together
     print(f"[2] {len(builds)} kernel libraries built in {time.perf_counter() - t0:.2f} s of "
@@ -2745,6 +3062,7 @@ def main() -> None:
                 fail(f"{kernel}<{d}> has no HMMA (tensor-core) instruction in its SASS")
 
     # -- 3. kernels against their plain versions ------------------------------------------
+    PHASE_START[3] = time.perf_counter()
     def timed_ms(fn, iters: int = 200, warmup: int = 20) -> float:
         for _ in range(warmup):
             fn()
@@ -2895,6 +3213,7 @@ def main() -> None:
               + f"; bytes bound at 64 rows {times[name]['bound'][0] * 1e3:.6f} us [{card}]")
 
     # -- 4. trajectory ------------------------------------------------------------------
+    PHASE_START[4] = time.perf_counter()
     xs, ys = mnist._synthesize_split(TRAJECTORY_STEPS * BATCH, 2024)
     images = torch.from_numpy(mnist._normalize(xs))
     labels = torch.from_numpy(ys)
@@ -2922,6 +3241,7 @@ def main() -> None:
           f"the CPU max |dp| {e_cpu:.3e} (atol {CROSS_DEVICE_ATOL:g})")
 
     # -- 5. the whole slice -------------------------------------------------------------
+    PHASE_START[5] = time.perf_counter()
     t0 = time.perf_counter()
     train_ds, test_ds = load_mnist(str(ROOT / "files"))
     print(f"[5] data ({train_ds.source}): {len(train_ds)} train / {len(test_ds)} test in "
@@ -2966,6 +3286,7 @@ def main() -> None:
     earlier = {"single_s": epoch_s, "single_steps": steps, "single_launches": launches}
 
     # -- 6. where a step spends its time ------------------------------------------------
+    PHASE_START[6] = time.perf_counter()
     n_prof = PROFILE_STEPS * BATCH
     prof_x = torch.from_numpy(train_ds.images[:n_prof]).to(dev)
     prof_y = torch.from_numpy(train_ds.labels[:n_prof].astype("int64")).to(dev)
@@ -3008,6 +3329,7 @@ def main() -> None:
                   ("nll_fwd_kernel", "nll_bwd_kernel", "sgd_momentum_multi_kernel"), card)
 
     # -- 7. flash kernels against their plain versions ------------------------------------
+    PHASE_START[7] = time.perf_counter()
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
     def flash_inputs(shape, dtype: str, seed: int):
@@ -3116,6 +3438,7 @@ def main() -> None:
     flash_times = flash_by_shape["composed"] | flash_by_shape["large"]
 
     # -- 8. flash against the dense core: the card's crossover -------------------------
+    PHASE_START[8] = time.perf_counter()
     b, _, h, d = COMPOSED
     print(f"[8] flash_attention vs full_attention at [{b}, S, {h}, {d}] f32, ms per call "
           f"(the JAX package's dispatch takes flash at S >= {fa.FLASH_MIN_SEQ}) [{card}]")
@@ -3137,6 +3460,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # -- 9. the slice's path: the composed trainer through the flash kernels --------------
+    PHASE_START[9] = time.perf_counter()
     cfg = ComposedConfig(mesh="data=1", flash_attention=True, seq_len=COMPOSED[1],
                          epochs=1, max_train_examples=COMPOSED_TRAIN,
                          max_test_examples=COMPOSED_TEST, device="cuda",
@@ -3197,6 +3521,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 10. the large bench widths in bf16 --------------------------------------------
+    PHASE_START[10] = time.perf_counter()
     lb, ls, lh, ld = LARGE
     large = TransformerClassifier(seq_len=ls, embed_dim=lh * ld, num_layers=LARGE_LAYERS,
                                   num_heads=lh, dropout_rate=0.0, dtype=torch.bfloat16,
@@ -3238,6 +3563,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 11. the paged-decode kernel against its plain version ----------------------------
+    PHASE_START[11] = time.perf_counter()
     s_len, ps = SERVE_LM["seq_len"], SERVE_PAGE
     p_max = lm.pages_per_slot(s_len, ps)
     n_pages = SERVE_SLOTS * p_max + 1            # the engine's default pool: 105 pages
@@ -3357,6 +3683,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 12. the slice: the serving engine through B6 -------------------------------------
+    PHASE_START[12] = time.perf_counter()
     lm_model = lm.TransformerLM(**SERVE_LM)
     lm_params = lm_model.init(torch.Generator().manual_seed(0))
     lm_params_dev = {name: p.to(dev) for name, p in lm_params.items()}
@@ -3518,6 +3845,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 13. bench_lm.py's widths in bf16 ---------------------------------------------------
+    PHASE_START[13] = time.perf_counter()
     big = lm.TransformerLM(**BENCH_LM, dtype=torch.bfloat16)
     big_params = {name: p.to(torch.bfloat16)
                   for name, p in big.init(torch.Generator().manual_seed(1)).items()}
@@ -3545,6 +3873,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 14. rendezvous -----------------------------------------------------------------
+    PHASE_START[14] = time.perf_counter()
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
         ring_ok = smoke.main("cuda")                  # world 1, this process
@@ -3558,6 +3887,7 @@ def main() -> None:
         fail("[14] the world-2 smoke did not verify its ring on gloo")
 
     # -- 15. the data-parallel slice ------------------------------------------------------
+    PHASE_START[15] = time.perf_counter()
     dconfig = DistributedConfig(epochs=1, device="cuda",
                                 results_dir=str(OUT_DIR / "distributed"),
                                 images_dir=str(OUT_DIR / "images"))
@@ -3700,6 +4030,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 16. the epoch bench ---------------------------------------------------------------
+    PHASE_START[16] = time.perf_counter()
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
                         "BENCH_MAX_TRAIN_EXAMPLES")}
@@ -3730,6 +4061,7 @@ def main() -> None:
     earlier["bench"] = result
 
     # -- 17. the hop offset in B4/B5: each kernel against its plain version -------------
+    PHASE_START[17] = time.perf_counter()
     c_len = OFFSET_SHAPE[1]
     offsets = (-2 * c_len, -c_len, c_len, 2 * c_len)
     offset_err = {name: 0.0 for name in flash_err}
@@ -3817,25 +4149,8 @@ def main() -> None:
                     offset_times[name] = entry
 
     # -- 18. the ring ops at gloo worlds 2 and 4 on the card -------------------------------
-    for world in RING_WORLDS:
-        path = OUT_DIR / f"ring_ops_w{world}.json"
-        run_fleet(f"[18] world {world}:", [
-            "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-                  f"chip_smoke.ring_ops_child({str(path)!r})"], n=world)
-        result = check_ring_ops(path, world)
-        for row in result["rows"]:
-            print(f"[18] world {world} {row['schedule']} causal={row['causal']} window="
-                  f"{row['window']} vs one-process flash_attention at {list(COMPOSED)} f32: "
-                  f"max |err| out {row['out']:.3e} dq {row['dq']:.3e} dk {row['dk']:.3e} dv "
-                  f"{row['dv']:.3e} (out {RING_TOL['out']}, grads {RING_TOL['grad']}); "
-                  f"launches per rank = hops x blocks (fwd = dq = dkv): "
-                  f"{[c[0] for c in row['counts']]}, at a hop offset "
-                  f"{[c[5] for c in row['counts']]}; forward+backward {row['ms']:.3f} ms "
-                  f"(gloo ranks time-slicing one card: no scaling point) [{card}]")
-
-    # -- 19. the seq-parallel trainer: train.composed --mesh data=1,seq=2 ---------------
-    ring_launches = {}
-    layers = init_model.num_layers
+    PHASE_START[18] = time.perf_counter()
+    # [19]'s seq=2 runs share world 2's fleet with its ring ops: one fleet start less
     ring_runs = {}
     for label, schedule, causal, window in RING_TRAINERS:
         # the flags of both runs; the seq=2 run adds the zig-zag's. The zig-zag's reference
@@ -3846,10 +4161,30 @@ def main() -> None:
         stem = f"composed_{label.replace(' ', '_')}"
         ring_runs[label] = (both, seq_only, OUT_DIR / f"{stem}_w1.npz",
                             OUT_DIR / f"{stem}_w2.npz")
-    # every seq=2 run in one fleet, one after another on one process group
-    run_seq_fleet("[19] seq=2:", [
-        ("composed", str(w2), ["--mesh", "data=1,seq=2", *both, *seq_only], RING_STEPS)
-        for both, seq_only, _, w2 in ring_runs.values()])
+    for world in RING_WORLDS:
+        path = OUT_DIR / f"ring_ops_w{world}.json"
+        runs = [("ring_ops", str(path), list(RING_OPS_SHAPE), 0)]
+        if world == 2:
+            runs += [("composed", str(w2), ["--mesh", "data=1,seq=2", *both, *seq_only],
+                      RING_STEPS) for both, seq_only, _, w2 in ring_runs.values()]
+        run_seq_fleet(f"[18] world {world}:", runs, n=world)
+        result = check_ring_ops(path, world)
+        for row in result["rows"]:
+            print(f"[18] world {world} {row['schedule']} causal={row['causal']} window="
+                  f"{row['window']} vs one-process flash_attention at {list(RING_OPS_SHAPE)} "
+                  f"f32: "
+                  f"max |err| out {row['out']:.3e} dq {row['dq']:.3e} dk {row['dk']:.3e} dv "
+                  f"{row['dv']:.3e} (out {RING_TOL['out']}, grads {RING_TOL['grad']}); "
+                  f"launches per rank = hops x blocks (fwd = dq = dkv): "
+                  f"{[c[0] for c in row['counts']]}, at a hop offset "
+                  f"{[c[5] for c in row['counts']]}; forward+backward {row['ms']:.3f} ms "
+                  f"(gloo ranks time-slicing one card: no scaling point) [{card}]")
+
+    # -- 19. the seq-parallel trainer: train.composed --mesh data=1,seq=2 ---------------
+    PHASE_START[19] = time.perf_counter()
+    ring_launches = {}
+    layers = init_model.num_layers
+    # every seq=2 run ran in [18]'s world-2 fleet, one after another on one process group
     for label, schedule, causal, window in RING_TRAINERS:
         both, seq_only, w1, w2 = ring_runs[label]
         composed_trajectory(str(w1), "--mesh", "data=1", *both)      # this process
@@ -3911,18 +4246,23 @@ def main() -> None:
     all_err = err | flash_err | {"paged_attend": paged_err}
 
     # -- 20. the captured epoch against the eager loop ----------------------------------
+    PHASE_START[20] = time.perf_counter()
     captured_phase(dev, card, train_ds, test_ds, earlier)
 
     # -- 21. the step's remainder: the card's captured program against the CPU -----------
+    PHASE_START[21] = time.perf_counter()
     remainder_phase(dev, card)
 
     # -- 22. checkpoints on the card: resume, log-tick saves, restore, preemption, plots --
+    PHASE_START[22] = time.perf_counter()
     checkpoint_phase(dev, card, train_ds, test_ds, earlier)
 
     # -- 23. the host-fed data path: the native loader, both host-fed programs, prefetch -
+    PHASE_START[23] = time.perf_counter()
     host_fed_phase(dev, card, train_ds, test_ds)
 
     # -- 24. quantized serving, the prefix cache and the Server at bench_lm's widths ------
+    PHASE_START[24] = time.perf_counter()
     from csed_514_project_distributed_training_using_pytorch_tpu_torch import obs
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
 
@@ -4248,6 +4588,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 25. the pixel LM trained on the card, then served through B6 --------------------
+    PHASE_START[25] = time.perf_counter()
     trained = lm_phase(dev, card, train_ds, test_ds)
 
     # (d) the trained checkpoint served: the paged engine (B6) against greedy generate
@@ -4312,14 +4653,17 @@ def main() -> None:
     del served, t_params_dev
     torch.cuda.empty_cache()
 
-    # (e) the port's bench_lm at its defaults
+    # (e) the port's bench_lm at its defaults (its main() in this process: one process
+    # start less than `python -m <port>.bench_lm`, the same flags and line)
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import bench_lm
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench_lm"], capture_output=True,
-                          text=True, cwd=ROOT, timeout=BENCH_TIMEOUT)
-    if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
-        fail(f"[25] (e) bench_lm exited {proc.returncode}")
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = bench_lm.main([])
+    torch.cuda.empty_cache()
+    if code != 0:
+        fail(f"[25] (e) bench_lm returned {code}")
+    lines = [l for l in out.getvalue().splitlines() if l.startswith("{")]
     if len(lines) != 1:
         fail(f"[25] (e) bench_lm printed {len(lines)} JSON lines, not one")
     bench = json.loads(lines[0])
@@ -4328,15 +4672,23 @@ def main() -> None:
     print(f"[25] (e) bench_lm ({time.perf_counter() - t0:.1f} s) [{card}]: {lines[0]}")
 
     # -- 26. speculative decoding, the A/B and the load generator -----------------------
+    PHASE_START[26] = time.perf_counter()
     spec_phase(dev, card, t_model, t_params, trained["path"], train_ds, test_ds, test_ids,
                compare_streams)
     torch.cuda.empty_cache()
 
     # -- 27. the transformer on every trainer and every sequence schedule ----------------
+    PHASE_START[27] = time.perf_counter()
     slice16 = transformer_trainers_phase(dev, card, train_ds, test_ds)
     torch.cuda.empty_cache()
 
-    # -- 28. result ---------------------------------------------------------------------
+    # -- 28. the training meshes ----------------------------------------------------------
+    PHASE_START[28] = time.perf_counter()
+    slice17 = mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 29. result ---------------------------------------------------------------------
+    PHASE_START[29] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -4376,12 +4728,15 @@ def main() -> None:
         "bench_transformer --large --flash [27] (b)": (
             slice16["bench"],
             dict(zip(("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"), counted)))}
+    tf32 = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
+    new_paths |= {f"composed {label}, rank 0 [28]": (launches, dict(zip(tf32, counted)))
+                  for label, launches in slice17.items()}
     for entry in kernels:
         for path, (counts, names) in new_paths.items():
             if entry["name"] in names:
                 entry.setdefault("launches_by_path", {})[path] = counts[names[entry["name"]]]
-    print(f"[28] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
-          f"to here, the builds included")
+    print(f"[29] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+          f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

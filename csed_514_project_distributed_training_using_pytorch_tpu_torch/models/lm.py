@@ -87,6 +87,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.rotary import (
     apply_rotary,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+    NO_SHARDING,
+    ShardContext,
+)
 
 PREFILL_CHUNK_SIZES = (32, 128, 512)   # the serving engine's default static chunk set
 DECODE_SEGMENT = 128   # generate()'s prefix growth: segment j reads min((j+1)·128, S) rows
@@ -117,7 +121,9 @@ class TransformerLM(_Slots):
     rotates q/k and drops the learned ``pos_embed``; ``attention_window`` masks a causal
     sliding window (with the default dense core only); ``remat`` recomputes each block in
     the backward (``models.transformer.remat_call``; ``remat_policy`` ``"save-dots"`` keeps
-    the matmul outputs).
+    the matmul outputs). ``shard`` places the blocks on a model axis (Megatron TP:
+    ``models.transformer``); the embeddings, the final LayerNorm and the head replicate,
+    and the decode functions below read whole parameters on one device.
     """
 
     def __init__(self, vocab_size: int = 17, seq_len: int = 784, embed_dim: int = 64,
@@ -125,9 +131,11 @@ class TransformerLM(_Slots):
                  mlp_ratio: int = 4, dropout_rate: float = 0.0,
                  attention_fn: Callable = ops.full_attention, attention_window: int = 0,
                  rope: bool = False, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, remat_policy: str = ""):
+                 remat: bool = False, remat_policy: str = "",
+                 shard: ShardContext = NO_SHARDING):
         super().__init__()
         validate_remat_policy(remat, remat_policy)
+        self.shard = shard
         if attention_window and attention_fn is not ops.full_attention:
             raise ValueError(
                 "attention_window composes with the default dense core only — "
@@ -145,7 +153,7 @@ class TransformerLM(_Slots):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, num_kv_heads, mlp_ratio=mlp_ratio,
                 dropout_rate=dropout_rate, attention_fn=core, causal=True, rope=rope,
-                dtype=dtype))
+                dtype=dtype, shard=shard))
         self._slot("ln_f_scale", (embed_dim,), ONES)
         self._slot("ln_f_bias", (embed_dim,), ZEROS)
         self._slot("head_kernel", (embed_dim, vocab_size), NORMAL)

@@ -25,8 +25,23 @@ the matmul outputs (``mm``, ``bmm``, ``addmm``) and recomputes the rest (a selec
 checkpoint, ``jax.checkpoint_policies.dots_saveable``'s counterpart). A policy changes only
 what is saved: the trajectory is bitwise the one without remat.
 
-Not ported yet (ROADMAP A10): the Switch/GShard MoE feed-forward (``num_experts > 0``) and
-the expert mesh; each raises ``ValueError``.
+The mesh (``shard``, a ``parallel.mesh.ShardContext``; ``NO_SHARDING`` runs one device,
+bitwise the model without a grid):
+
+- under a ``model`` axis of ``n`` ranks each block runs its ``H/n`` local heads and
+  ``4E/n`` hidden units (``parallel.tensor_parallel``'s column/row split): Megatron's *f*
+  (``collectives.copy_to_group``) before the QKV and MLP-up projections, *g*
+  (``collectives.reduce_from_group``) after the attention-out and MLP-down projections,
+  and the row-parallel biases added after *g*. The dropouts sit on the replicated
+  activations, so every model rank draws the same masks;
+- ``num_experts > 0`` makes each block's feed-forward the routed MoE
+  (``parallel.expert_parallel.moe_apply``: ``expert_top_k`` 1 is Switch, 2 GShard,
+  ``expert_capacity_factor`` its capacity), expert-parallel over the ``expert`` axis.
+  The blocks return their load-balance auxiliaries, and the classifier's ``with_aux``
+  call sums them for the step (``train.step``'s ``aux_loss_weight``);
+- ``shard.fsdp`` names the leaves split over ``data`` (``parallel.fsdp``): the classifier
+  gathers its own where it uses them and each block's just before the block runs, inside
+  the rematerialized function under ``remat``, so the recomputation gathers again.
 """
 
 from __future__ import annotations
@@ -50,6 +65,17 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.nn import
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.rotary import (
     apply_rotary,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    collectives,
+    expert_parallel,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.fsdp import (
+    gather_leaf,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+    NO_SHARDING,
+    ShardContext,
 )
 
 NORMAL, ZEROS, ONES = "normal", "zeros", "ones"   # initializers, by parameter
@@ -114,11 +140,14 @@ class MultiHeadSelfAttention(_Slots):
 
     MHA (``num_kv_heads`` None or equal to ``num_heads``) uses one fused ``qkv_kernel``;
     grouped-query attention (fewer K/V heads) uses ``q_kernel`` and ``kv_kernel`` and
-    repeats each K/V head over its query-head group before the core, after RoPE."""
+    repeats each K/V head over its query-head group before the core, after RoPE. Under a
+    model axis the projections hold this rank's heads (query and K/V heads must divide
+    by its size) and the core sees only them."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int | None = None, *,
                  attention_fn: Callable = ops.full_attention, causal: bool = False,
-                 rope: bool = False, dtype: torch.dtype = torch.float32):
+                 rope: bool = False, dtype: torch.dtype = torch.float32,
+                 shard: ShardContext = NO_SHARDING):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed dim {embed_dim} not divisible by {num_heads} heads")
@@ -126,7 +155,11 @@ class MultiHeadSelfAttention(_Slots):
         if kv_heads < 1 or num_heads % kv_heads:
             raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads "
                              f"{kv_heads} (need a positive divisor)")
-        self.num_heads, self.kv_heads = num_heads, kv_heads
+        m = shard.model.size
+        if num_heads % m or kv_heads % m:
+            raise ValueError(f"{num_heads} query and {kv_heads} K/V heads do not split over "
+                             f"the model axis of {m}")
+        self.num_heads, self.kv_heads, self.shard = num_heads, kv_heads, shard
         self.head_dim = embed_dim // num_heads
         self.attention_fn, self.causal, self.rope, self.dtype = (
             attention_fn, causal, rope, dtype)
@@ -149,22 +182,29 @@ class MultiHeadSelfAttention(_Slots):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, e = x.shape
-        h, d = self.num_heads, self.head_dim
-        if self.kv_heads == h:
+        model = self.shard.model
+        h, d, kv_heads = (self.num_heads // model.size, self.head_dim,
+                          self.kv_heads // model.size)
+        if model.size > 1:
+            x = collectives.copy_to_group(x, model.group)        # Megatron's f
+        if self.kv_heads == self.num_heads:
             qkv = self._dense(x, "qkv").reshape(b, s, 3, h, d)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
             q = self._dense(x, "q").reshape(b, s, h, d)
-            kv = self._dense(x, "kv").reshape(b, s, 2, self.kv_heads, d)
+            kv = self._dense(x, "kv").reshape(b, s, 2, kv_heads, d)
             k, v = kv[:, :, 0], kv[:, :, 1]
         if self.rope:
             positions = torch.arange(s, device=x.device)
             q, k = apply_rotary(q, positions), apply_rotary(k, positions)
-        if self.kv_heads != h:
-            rep = h // self.kv_heads
+        if kv_heads != h:
+            rep = h // kv_heads
             k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
-        out = self.attention_fn(q, k, v, causal=self.causal).reshape(b, s, e)
-        return self._dense(out, "out")
+        out = self.attention_fn(q, k, v, causal=self.causal).reshape(b, s, h * d)
+        if model.size == 1:
+            return self._dense(out, "out")
+        out = ops.dense(out, self.out_kernel.to(self.dtype))     # the local rows' part
+        return collectives.reduce_from_group(out, model.group) + self.out_bias.to(self.dtype)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
@@ -199,7 +239,7 @@ def validate_remat_policy(remat: bool, remat_policy: str) -> None:
 
 
 def remat_call(block: nn.Module, x: torch.Tensor, deterministic: bool, generator, *,
-               policy: str = "") -> torch.Tensor:
+               policy: str = "", prepare: Callable | None = None):
     """``block(x, deterministic, generator)``, rematerialized: its activations are
     recomputed in the backward instead of saved (all of them, or all but the matmul
     outputs under ``policy="save-dots"``).
@@ -207,7 +247,9 @@ def remat_call(block: nn.Module, x: torch.Tensor, deterministic: bool, generator
     The block's parameters as it reads them now (``functional_call``'s tensors) are
     arguments of the checkpointed function, and a ``DropoutStream`` is replayed from the
     draw the block starts at, so the recomputation sees the forward's parameters and
-    masks. A ``torch.Generator`` would draw new masks, so dropout with one raises."""
+    masks. A ``torch.Generator`` would draw new masks, so dropout with one raises.
+    ``prepare(leaves)`` maps the leaves inside the recomputed function (FSDP's gathers,
+    which the recomputation then runs again)."""
     names = list(block.param_inits())
     leaves = [_attr(block, n) for n in names]
     stream = generator if isinstance(generator, DropoutStream) else None
@@ -223,7 +265,10 @@ def remat_call(block: nn.Module, x: torch.Tensor, deterministic: bool, generator
         if stream is not None:
             g = stream.replay_from(start)
             replays.append(g)
-        return functional_call(block, dict(zip(names, leaves)), (x, deterministic, g))
+        params = dict(zip(names, leaves))
+        if prepare is not None:
+            params = prepare(params)
+        return functional_call(block, params, (x, deterministic, g))
 
     context_fn = remat_policy_fn(policy)
     kwargs = {"context_fn": context_fn} if context_fn is not None else {}
@@ -241,38 +286,82 @@ def _attr(module: nn.Module, dotted: str) -> torch.Tensor:
 
 
 class TransformerBlock(_Slots):
-    """Pre-LN encoder block with the dense MLP: ``x + MHA(LN(x))``, ``x + MLP(LN(x))``."""
+    """Pre-LN encoder block: ``x + MHA(LN(x))``, then ``x + MLP(LN(x))`` with the dense
+    MLP, or with ``num_experts > 0`` the routed MoE feed-forward (the expert-stacked
+    leaves and the router keep ``expert_parallel``'s names), in which case the block
+    returns ``(x, aux)``, its load-balance auxiliary beside it."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int | None = None, *,
                  mlp_ratio: int = 4, dropout_rate: float = 0.1,
                  attention_fn: Callable = ops.full_attention, causal: bool = False,
-                 rope: bool = False, dtype: torch.dtype = torch.float32):
+                 rope: bool = False, dtype: torch.dtype = torch.float32,
+                 num_experts: int = 0, expert_capacity_factor: float = 1.25,
+                 expert_top_k: int = 1, shard: ShardContext = NO_SHARDING):
         super().__init__()
         e, hidden = embed_dim, mlp_ratio * embed_dim
-        self.dropout_rate, self.dtype = dropout_rate, dtype
+        self.dropout_rate, self.dtype, self.shard = dropout_rate, dtype, shard
+        self.num_experts, self.expert_capacity_factor, self.expert_top_k = (
+            num_experts, expert_capacity_factor, expert_top_k)
+        if hidden % shard.model.size:
+            raise ValueError(f"MLP hidden {hidden} does not split over the model axis of "
+                             f"{shard.model.size}")
+        if num_experts and num_experts % shard.expert.size:
+            raise ValueError(f"{num_experts} experts do not split over the expert axis of "
+                             f"{shard.expert.size}")
         self._slot("ln1_scale", (e,), ONES)
         self._slot("ln1_bias", (e,), ZEROS)
         self.attn = MultiHeadSelfAttention(e, num_heads, num_kv_heads,
                                            attention_fn=attention_fn, causal=causal,
-                                           rope=rope, dtype=dtype)
+                                           rope=rope, dtype=dtype, shard=shard)
         self._slot("ln2_scale", (e,), ONES)
         self._slot("ln2_bias", (e,), ZEROS)
-        self._slot("mlp_up_kernel", (e, hidden), NORMAL)
-        self._slot("mlp_up_bias", (hidden,), ZEROS)
-        self._slot("mlp_down_kernel", (hidden, e), NORMAL)
-        self._slot("mlp_down_bias", (e,), ZEROS)
+        if num_experts > 0:
+            self._slot("router_kernel", (e, num_experts), NORMAL)
+            self._slot("up_kernel", (num_experts, e, hidden), NORMAL)
+            self._slot("up_bias", (num_experts, hidden), ZEROS)
+            self._slot("down_kernel", (num_experts, hidden, e), NORMAL)
+            self._slot("down_bias", (num_experts, e), ZEROS)
+        else:
+            self._slot("mlp_up_kernel", (e, hidden), NORMAL)
+            self._slot("mlp_up_bias", (hidden,), ZEROS)
+            self._slot("mlp_down_kernel", (hidden, e), NORMAL)
+            self._slot("mlp_down_bias", (e,), ZEROS)
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        cast = lambda w: w.to(self.dtype)
+        model = self.shard.model
+        if model.size == 1:
+            h = ops.gelu(ops.dense(h, cast(self.mlp_up_kernel), cast(self.mlp_up_bias)))
+            return ops.dense(h, cast(self.mlp_down_kernel), cast(self.mlp_down_bias))
+        h = collectives.copy_to_group(h, model.group)               # Megatron's f
+        h = ops.gelu(ops.dense(h, cast(self.mlp_up_kernel), cast(self.mlp_up_bias)))
+        h = ops.dense(h, cast(self.mlp_down_kernel))                 # the local rows' part
+        return collectives.reduce_from_group(h, model.group) + cast(self.mlp_down_bias)
+
+    def _moe(self, h: torch.Tensor):
+        b, s, e = h.shape
+        params = {k: getattr(self, k).to(self.dtype) for k in
+                  ("router_kernel", "up_kernel", "up_bias", "down_kernel", "down_bias")}
+        shard = self.shard
+        routed, aux = expert_parallel.moe_apply(
+            params, h.to(self.dtype).reshape(b * s, e),
+            capacity_factor=self.expert_capacity_factor, num_selected=self.expert_top_k,
+            expert=shard.expert, data=shard.data if shard.tokens_sharded else None)
+        return routed.reshape(b, s, e), aux
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        cast = lambda w: w.to(self.dtype)
+                generator: torch.Generator | None = None):
         h = self.attn(ops.layer_norm(x, self.ln1_scale, self.ln1_bias))
         h = ops.dropout(generator, h, self.dropout_rate, deterministic=deterministic)
         x = x + h
         h = ops.layer_norm(x, self.ln2_scale, self.ln2_bias)
-        h = ops.gelu(ops.dense(h, cast(self.mlp_up_kernel), cast(self.mlp_up_bias)))
-        h = ops.dense(h, cast(self.mlp_down_kernel), cast(self.mlp_down_bias))
+        aux = None
+        if self.num_experts > 0:
+            h, aux = self._moe(h)
+        else:
+            h = self._mlp(h)
         h = ops.dropout(generator, h, self.dropout_rate, deterministic=deterministic)
-        return x + h
+        return x + h if aux is None else (x + h, aux)
 
 
 class TransformerClassifier(_Slots):
@@ -280,7 +369,8 @@ class TransformerClassifier(_Slots):
 
     Takes ``[B, 28, 28, 1]`` images (tokenized to ``seq_len`` tokens) or pre-tokenized
     ``[B, seq_len, token_features]`` input; ``token_features`` defaults to what the images
-    tokenize to, ``ceil(784 / seq_len)``. Returns ``[B, num_classes]`` f32 log-probs."""
+    tokenize to, ``ceil(784 / seq_len)``. Returns ``[B, num_classes]`` f32 log-probs, and
+    with ``with_aux=True`` the blocks' summed MoE auxiliary beside them."""
 
     def __init__(self, num_classes: int = 10, seq_len: int = 16, embed_dim: int = 64,
                  num_layers: int = 2, num_heads: int = NUM_HEADS,
@@ -289,12 +379,11 @@ class TransformerClassifier(_Slots):
                  attention_fn: Callable = ops.full_attention, causal: bool = False,
                  rope: bool = False, dtype: torch.dtype = torch.float32,
                  remat: bool = False, remat_policy: str = "", num_experts: int = 0,
-                 expert_mesh: object = None, token_features: int | None = None):
+                 expert_capacity_factor: float = 1.25, expert_top_k: int = 1,
+                 shard: ShardContext = NO_SHARDING, token_features: int | None = None):
         super().__init__()
-        if num_experts > 0 or expert_mesh is not None:
-            raise ValueError("the MoE feed-forward (num_experts > 0, the expert mesh) is "
-                             "not ported yet (ROADMAP A10)")
         validate_remat_policy(remat, remat_policy)
+        self.num_experts, self.shard = num_experts, shard
         self.remat, self.remat_policy = remat, remat_policy
         self.num_classes, self.seq_len, self.embed_dim = num_classes, seq_len, embed_dim
         self.num_layers, self.num_heads, self.num_kv_heads = num_layers, num_heads, num_kv_heads
@@ -308,38 +397,68 @@ class TransformerClassifier(_Slots):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, num_kv_heads, mlp_ratio=mlp_ratio,
                 dropout_rate=dropout_rate, attention_fn=attention_fn, causal=causal,
-                rope=rope, dtype=dtype))
+                rope=rope, dtype=dtype, num_experts=num_experts,
+                expert_capacity_factor=expert_capacity_factor, expert_top_k=expert_top_k,
+                shard=shard))
         self._slot("ln_f_scale", (embed_dim,), ONES)
         self._slot("ln_f_bias", (embed_dim,), ZEROS)
         self._slot("head_kernel", (embed_dim, num_classes), NORMAL)
         self._slot("head_bias", (num_classes,), ZEROS)
         self._fill_slots()
 
+    def _leaf(self, name: str) -> torch.Tensor:
+        """One of the classifier's own leaves as the forward uses it: gathered over
+        ``data`` where FSDP splits it."""
+        dims = self.shard.fsdp_dims
+        return gather_leaf(getattr(self, name), dims.get(name), self.shard.data)
+
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, with_aux: bool = False):
         if x.dim() == 4:
             x = tokenize_images(x, self.seq_len)
         if x.shape[1] != self.seq_len:
             raise ValueError(f"expected seq_len {self.seq_len}, got {x.shape[1]}")
-        cast = lambda w: w.to(self.dtype)
-        h = ops.dense(x.to(self.dtype), cast(self.embed_kernel), cast(self.embed_bias))
-        h = h + cast(self.pos_embed)[None]
-        h = run_blocks(self, h, deterministic, generator)
-        h = ops.layer_norm(h, self.ln_f_scale, self.ln_f_bias).mean(dim=1)
-        logits = ops.dense(h, cast(self.head_kernel), cast(self.head_bias))
-        return ops.log_softmax(logits.float())
+        w = lambda name: self._leaf(name).to(self.dtype)
+        h = ops.dense(x.to(self.dtype), w("embed_kernel"), w("embed_bias"))
+        h = h + w("pos_embed")[None]
+        aux = []
+        h = run_blocks(self, h, deterministic, generator, aux=aux)
+        h = ops.layer_norm(h, self._leaf("ln_f_scale"), self._leaf("ln_f_bias")).mean(dim=1)
+        logits = ops.dense(h, w("head_kernel"), w("head_bias"))
+        out = ops.log_softmax(logits.float())
+        return (out, sum(aux)) if with_aux else out
 
 
 def run_blocks(model: nn.Module, h: torch.Tensor, deterministic: bool,
-               generator) -> torch.Tensor:
+               generator, *, aux: list | None = None) -> torch.Tensor:
     """``model``'s blocks ``block_0 .. block_{num_layers-1}`` in order, each through
-    ``remat_call`` when ``model.remat`` is set."""
+    ``remat_call`` when ``model.remat`` is set. A block's FSDP-split leaves are gathered
+    just before it runs (inside the rematerialized function); an MoE block's auxiliary
+    is appended to ``aux``."""
+    shard = getattr(model, "shard", NO_SHARDING)
     for i in range(model.num_layers):
         block = getattr(model, f"block_{i}")
+        dims = {n[len(f"block_{i}."):]: d for n, d in shard.fsdp
+                if n.startswith(f"block_{i}.")}
+        prepare = None
+        if dims:
+            prepare = lambda leaves, dims=dims: {
+                n: gather_leaf(p, dims.get(n), shard.data) for n, p in leaves.items()}
         if model.remat:
-            h = remat_call(block, h, deterministic, generator, policy=model.remat_policy)
+            out = remat_call(block, h, deterministic, generator, policy=model.remat_policy,
+                             prepare=prepare)
+        elif prepare is not None:
+            names = list(block.param_inits())
+            out = functional_call(block, prepare({n: _attr(block, n) for n in names}),
+                                  (h, deterministic, generator))
         else:
-            h = block(h, deterministic, generator)
+            out = block(h, deterministic, generator)
+        if isinstance(out, tuple):
+            h, block_aux = out
+            if aux is not None:
+                aux.append(block_aux)
+        else:
+            h = out
     return h
 
 

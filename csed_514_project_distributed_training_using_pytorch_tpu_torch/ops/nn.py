@@ -134,12 +134,18 @@ class DropoutStream:
     step draws in the same order every time) keeps element ``j`` when
     ``mix32(base_c[j] ^ key) < keep·2^32``, ``base_c = mix32(mix32(j) ^ mix32(c))``
     cached per shape: twelve integer ops on the key's device a draw, no generator state,
-    no host sync, the same masks on every device and under CUDA graph replay. (One
+    no host sync, the same masks on every device and under CUDA graph replay.
+
+    ``rows=(offset, total)`` draws for a rank that holds rows ``offset ..`` of a leading
+    batch dim of ``total`` rows: its mask is those rows of the global batch's mask, as the
+    JAX package draws a mask for the global tensor and shards it, so a data-sharded run
+    drops what one device would. (One
     xorshift-multiply round instead of ``mix32`` leaves masks of keys a few bits apart
     correlated, up to ±1.)"""
 
-    def __init__(self, key):
+    def __init__(self, key, rows: tuple[int, int] | None = None):
         self._key = key
+        self.rows = rows
         self.draws = 0
 
     def key(self) -> torch.Tensor:
@@ -152,12 +158,17 @@ class DropoutStream:
         """A stream that draws what this one drew from its draw ``draws`` on: the same key
         (made by this stream, once), its own draw counter. A rematerialized block
         recomputes its masks through one (``models.transformer.remat_call``)."""
-        stream = DropoutStream(self.key)
+        stream = DropoutStream(self.key, self.rows)
         stream.draws = draws
         return stream
 
     def keep_mask(self, shape, keep: float, device: torch.device) -> torch.Tensor:
-        base = _draw_base(self.draws, math.prod(shape), torch.device(device))
+        shape = tuple(shape)
+        full = shape if self.rows is None else (self.rows[1],) + shape[1:]
+        base = _draw_base(self.draws, math.prod(full), torch.device(device))
+        if self.rows is not None:        # this rank's rows of the global batch's mask
+            row = math.prod(shape[1:])
+            base = base[self.rows[0] * row:(self.rows[0] + shape[0]) * row]
         self.draws += 1
         return (mix32(base ^ self.key()) < int(keep * 2.0 ** 32)).view(shape)
 

@@ -130,12 +130,14 @@ def global_l2_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
-                        eps: float = 1e-6) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+                        eps: float = 1e-6, norm_fn: Callable | None = None
+                        ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """Global-norm clipping with ``torch.nn.utils.clip_grad_norm_``'s semantics (its
     ``eps`` in the denominator): returns ``(clipped_grads, global_norm)``, the grads scaled
     by ``min(1, max_norm / (norm + eps))`` — a no-op whenever the norm is within bounds.
-    No host sync: the scale stays on the device."""
-    gnorm = global_l2_norm(grads)
+    No host sync: the scale stays on the device. ``norm_fn`` replaces ``global_l2_norm``
+    (a sharded layout's norm sums its shards over their groups)."""
+    gnorm = (norm_fn or global_l2_norm)(grads)
     scale = torch.clamp(max_norm / (gnorm + eps), max=1.0)
     return {k: g * scale for k, g in grads.items()}, gnorm
 

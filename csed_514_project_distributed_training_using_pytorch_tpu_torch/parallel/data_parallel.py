@@ -48,13 +48,16 @@ def broadcast_params_(params: dict[str, torch.Tensor], src: int = 0) -> None:
 class GradReducer:
     """``reducer(grads, loss)``: the mean over ranks of the gradients and the loss, in
     place, through one flat bucket and one all-reduce. Built once for a parameter layout;
-    the bucket (and, host-staged, its pinned twin) is reused every step."""
+    the bucket (and, host-staged, its pinned twin) is reused every step. ``group`` is the
+    data axis's group on a mesh (None: the whole process group)."""
 
-    def __init__(self, params: dict[str, torch.Tensor]):
-        self.world = dist.get_world_size()
-        first = next(iter(params.values()))
+    def __init__(self, params: dict[str, torch.Tensor], *, group=None,
+                 device: torch.device | None = None):
+        self.world, self.group = dist.get_world_size(group), group
+        if device is None:
+            device = next(iter(params.values())).device
         self.numel = sum(p.numel() for p in params.values())
-        self.bucket = torch.empty(self.numel + 1, dtype=torch.float32, device=first.device)
+        self.bucket = torch.empty(self.numel + 1, dtype=torch.float32, device=device)
         self.host_staged = collectives.host_staged(self.bucket)
         self.host = (torch.empty(self.bucket.shape, dtype=torch.float32, pin_memory=True)
                      if self.host_staged else None)
@@ -71,7 +74,7 @@ class GradReducer:
     def allreduce_mean_(self, grads: dict[str, torch.Tensor], loss: torch.Tensor) -> None:
         flat = [g.reshape(-1) for g in grads.values()] + [loss.reshape(1).float()]
         torch.cat(flat, out=self.bucket)
-        collectives.all_reduce_sum_(self.bucket, host=self.host)
+        collectives.all_reduce_sum_(self.bucket, host=self.host, group=self.group)
         self.bucket.div_(self.world)
         start = 0
         for g in grads.values():

@@ -10,10 +10,11 @@ Counterpart of the JAX package's ``parallel/mesh.py`` (that module imports JAX):
 - The data world is the process group itself: one axis, ``data``, of ``process_count``
   ranks, each holding one replica. That is the JAX package's default one-axis mesh
   (``make_mesh``) with a process for each device.
-- ``parse_mesh_spec`` is the ``--mesh`` grammar of the composed trainer, and
-  ``seq_axis_size`` the meshes it trains: one device, or a ``seq`` axis alone, whose world
-  is the process group (one rank a sequence shard, ``parallel/ring_attention.py``). Every
-  other mesh of more than one device waits for ROADMAP A10.
+- ``parse_mesh_spec`` is the ``--mesh`` grammar of the composed and LM trainers, and
+  ``ProcessGrid`` lays the process group out as that mesh: each rank's coordinates and
+  its group along each axis (``data``, ``seq``, ``model``, ``expert``, ``stage``), which
+  every mesh collective takes (``parallel/collectives.py``). ``shard_slices`` is the one
+  rule for which part of a sharded dim a rank holds.
 
 The backend is chosen by rule and named in every result: ``nccl`` when the ranks run on
 CUDA and each rank on this host has a card of its own (rank r on ``cuda:LOCAL_RANK``);
@@ -24,11 +25,13 @@ on one device). A failed NCCL rendezvous raises; it is never retried on gloo.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import math
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -162,16 +165,127 @@ def parse_mesh_spec(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
     return tuple(names), tuple(sizes)
 
 
-def seq_axis_size(spec: str) -> int:
-    """The ``seq`` axis size of a ``--mesh`` spec the port trains: every axis but ``seq``
-    of size 1 (``data=1``, ``data=1,seq=N``). The seq world is the process count, one rank
-    a sequence shard. Any other mesh of more than one device raises."""
+def mesh_axes(spec: str) -> dict[str, int]:
+    """``{axis: size}`` of a ``--mesh`` spec, in the spec's order."""
     names, sizes = parse_mesh_spec(spec)
-    axes = dict(zip(names, sizes))
-    others = {name: size for name, size in axes.items() if name != "seq" and size > 1}
-    if others:
-        raise ValueError(
-            f"--mesh {spec} spans {math.prod(sizes)} devices with {others}; this port "
-            f"trains on one device or on a seq axis alone (data>1, and data beside seq, "
-            f"model, expert, stage: ROADMAP A10) — use --mesh data=1 or data=1,seq=N")
-    return axes.get("seq", 1)
+    return dict(zip(names, sizes))
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One axis of the grid as this rank sees it: its size, this rank's index along it,
+    the global ranks along it (in axis order, this rank's other coordinates fixed) and
+    their ``torch.distributed`` group (None for a size-1 axis: nothing to communicate)."""
+
+    name: str
+    size: int = 1
+    index: int = 0
+    ranks: tuple[int, ...] = (0,)
+    group: object = None
+
+
+def _trivial(name: str, rank: int = 0) -> Axis:
+    return Axis(name, 1, 0, (rank,), None)
+
+
+class ProcessGrid:
+    """The process group laid out as the ``--mesh`` spec's grid: rank -> coordinates in
+    row-major order over the spec's axes (the first axis slowest), as the JAX package's
+    ``make_mesh`` reshapes its device list. For every axis of size > 1 one group is built
+    for each slice along it (``dist.new_group``, every rank in the same order, once), so
+    each rank holds its ``data``, ``seq``, ``model``, ``expert`` and ``stage`` group and
+    its index in each; an axis the spec lacks, or of size 1, has no group.
+
+    The spec's product must equal the process group's size: a spec asking for more ranks
+    than run raises with the JAX package's words (``make_mesh``), and one asking for fewer
+    raises too (the JAX package leaves the other devices idle; a torch rank outside the
+    grid would have no coordinates)."""
+
+    def __init__(self, spec: str, *, rank: int | None = None, world: int | None = None):
+        self.spec = spec
+        self.names, self.sizes = parse_mesh_spec(spec)
+        initialized = dist.is_initialized()
+        self.world = world if world is not None else (
+            dist.get_world_size() if initialized else 1)
+        self.rank = rank if rank is not None else (dist.get_rank() if initialized else 0)
+        n = math.prod(self.sizes)
+        if n > self.world:
+            raise ValueError(f"requested {n} devices, have {self.world}")
+        if n != self.world:
+            raise ValueError(f"axis_shape {self.sizes} != {self.world} devices — the "
+                             f"--mesh product must equal the launcher's world "
+                             f"(--num-processes {n})")
+        grid = np.arange(self.world).reshape(self.sizes)
+        self.coords = dict(zip(self.names,
+                               (int(c) for c in np.unravel_index(self.rank, self.sizes))))
+        self.axes: dict[str, Axis] = {}
+        for i, name in enumerate(self.names):
+            size = self.sizes[i]
+            if size == 1:
+                self.axes[name] = _trivial(name, self.rank)
+                continue
+            lines = np.moveaxis(grid, i, -1).reshape(-1, size)
+            mine = None
+            for line in lines:               # every rank builds every group, in order
+                ranks = tuple(int(r) for r in line)
+                group = dist.new_group(list(ranks)) if initialized else None
+                if self.rank in ranks:
+                    mine = (ranks, group)
+            self.axes[name] = Axis(name, size, self.coords[name], mine[0], mine[1])
+
+    def axis(self, name: str) -> Axis:
+        """The named axis (a trivial size-1 axis when the spec lacks it)."""
+        return self.axes.get(name) or _trivial(name, self.rank)
+
+    def size(self, name: str) -> int:
+        return self.axis(name).size
+
+    def index(self, name: str) -> int:
+        return self.axis(name).index
+
+    def __repr__(self) -> str:
+        return f"ProcessGrid({self.spec!r}, rank {self.rank}, coords {self.coords})"
+
+
+@dataclass(frozen=True)
+class ShardContext:
+    """What a model's layers need to know of the grid: the ``model`` axis (Megatron TP:
+    local heads and hidden units), the ``expert`` axis (the MoE's experts), the ``data``
+    axis and whether the batch differs across it (``tokens_sharded``: the training batch
+    does, the replicated eval batch does not; the MoE's queues and auxiliary span it), and
+    ``fsdp``: ``{parameter name: dim}`` of the leaves split over ``data``, which the model
+    gathers where it uses them. ``NO_SHARDING`` (every axis of one rank) is the
+    one-device model, bitwise the model without a grid."""
+
+    model: Axis = Axis("model")
+    expert: Axis = Axis("expert")
+    data: Axis = Axis("data")
+    tokens_sharded: bool = True
+    fsdp: tuple = ()                     # ((name, dim), ...): hashable, frozen
+
+    @classmethod
+    def of(cls, grid: "ProcessGrid", *, fsdp: dict[str, int] | None = None,
+           tokens_sharded: bool = True) -> "ShardContext":
+        return cls(grid.axis("model"), grid.axis("expert"), grid.axis("data"),
+                   tokens_sharded, tuple(sorted((fsdp or {}).items())))
+
+    @property
+    def fsdp_dims(self) -> dict[str, int]:
+        return dict(self.fsdp)
+
+    def replicated_batch(self) -> "ShardContext":
+        """The same context for a batch every data rank holds whole (the eval)."""
+        return dataclasses.replace(self, tokens_sharded=False)
+
+
+NO_SHARDING = ShardContext()
+
+
+def shard_slices(full_len: int, size: int, index: int, groups: int = 1) -> list[slice]:
+    """The ranges of a dim of ``full_len`` that rank ``index`` of ``size`` holds: its
+    contiguous ``1/size`` (``groups`` 1, the JAX boxes), or its ``1/size`` of each of
+    ``groups`` equal parts (a fused ``qkv`` or ``kv`` column dim, split by heads so that
+    each rank holds q, k and v of its own heads)."""
+    part = full_len // groups
+    w = part // size
+    return [slice(g * part + index * w, g * part + (index + 1) * w) for g in range(groups)]

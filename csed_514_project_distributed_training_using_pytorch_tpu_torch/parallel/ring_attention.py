@@ -40,8 +40,8 @@ rounded bf16 partials would lose what the f32 merge keeps), so the 3xTF32 kernel
 the hops on the card.
 
 Interface. As the JAX functions take global arrays that ``shard_map`` shards, these take
-the full ``[B, S, H, D]`` q, k and v on every rank of the process group (the seq world,
-``parallel.mesh.seq_axis_size``). Each rank takes its own shard (its chunk pair for the
+the full ``[B, S, H, D]`` q, k and v on every rank of the seq group (the grid's ``seq``
+axis, ``parallel.mesh.ProcessGrid``). Each rank takes its own shard (its chunk pair for the
 zig-zag) and nothing else of its copy: the peers' K/V blocks arrive by
 ``collectives.ring_pass``. ``collectives.all_gather_seq`` then puts the full output
 together, and in backward the full dq, dk and dv. So the layers outside attention compute
@@ -52,8 +52,11 @@ Each hop's kernel calls are planned from ``(n, rank, causal, window, shard lengt
 alone (``_ring_plan``, ``_zigzag_plan``): forward and backward walk the same plan, and
 ``planned_blocks`` counts its calls, i.e. each kernel's launches per rank per call.
 
-Not ported (ROADMAP A10): batch or head dims sharded over further mesh axes
-(``_qkv_spec``). Ulysses is ``parallel.ulysses``.
+The seq world is the grid's ``seq`` group (``group``; None: the whole process group). The
+batch and head dims are whatever the caller holds: under ``data`` beside ``seq`` each data
+coordinate runs its own ring over its batch shard, and under ``model`` each model rank
+its own ring over its local heads (the JAX ring spec's ``P("data", "seq", "model")``),
+so ``data=2,seq=2,model=2`` composes. Ulysses is ``parallel.ulysses``.
 """
 
 from __future__ import annotations
@@ -134,7 +137,8 @@ def _anchor(out: torch.Tensor, travelled: torch.Tensor) -> torch.Tensor:
 
 
 def _ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, *,
-                          n: int, rank: int, causal: bool, window: int = 0) -> torch.Tensor:
+                          n: int, rank: int, causal: bool, window: int = 0,
+                          group=None) -> torch.Tensor:
     """Rank ``rank``'s part of the einsum ring: its query shard ``ql`` stays, the K/V
     blocks arrive through the ring (``[B, S/n, H, D]`` each). Causal hops fold past
     blocks unmasked, the diagonal masked and skip future ones; with ``window=W`` a block
@@ -158,7 +162,7 @@ def _ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, 
     kv = torch.stack([kl, vl])                  # one message a hop
     for t in range(n):
         if t:
-            kv = collectives.ring_pass_diff(kv, shift=1)
+            kv = collectives.ring_pass_diff(kv, shift=1, group=group)
         origin = (rank - t) % n
         if window:
             live = (abs(rank - origin) - 1) * s_k + 1 < window
@@ -174,7 +178,8 @@ def _ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, 
 
 
 def _zigzag_ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, *,
-                                 n: int, rank: int, window: int = 0) -> torch.Tensor:
+                                 n: int, rank: int, window: int = 0,
+                                 group=None) -> torch.Tensor:
     """Rank ``rank``'s part of the einsum zig-zag: its chunk pair ``(rank, 2n−1−rank)`` of
     queries (``[B, 2c, H, D]``) against each visiting pair ``(o, 2n−1−o)``. The early
     queries never see a late chunk, the late queries see the early chunk whole (band-checked
@@ -204,7 +209,7 @@ def _zigzag_ring_attention_local(ql: torch.Tensor, kl: torch.Tensor, vl: torch.T
     late = 2 * n - 1 - rank
     for t in range(n):
         if t:
-            kv = collectives.ring_pass_diff(kv, shift=1)
+            kv = collectives.ring_pass_diff(kv, shift=1, group=group)
         o = (rank - t) % n
         ko, k2, vo, v2 = kv[0][:, :c], kv[0][:, c:], kv[1][:, :c], kv[1][:, c:]
         ca = pair_fold(ca, qa, ko, vo, rank, o)
@@ -388,7 +393,7 @@ def planned_blocks(schedule: str, world: int, rank: int, *, seq_len: int,
 # =========================================================================================
 
 
-def _plan_forward(plan, q, k, v, parts, window: int):
+def _plan_forward(plan, q, k, v, parts, window: int, group=None):
     """Out ``[B, C', H, D]`` and lse ``[B, H, C']`` of the local queries (f32), walking
     ``plan``'s hops; one accumulator set per query part."""
     b, _, h, d = q.shape
@@ -401,7 +406,7 @@ def _plan_forward(plan, q, k, v, parts, window: int):
         kv = torch.stack([k, v])                    # one message a hop
         for hop in walk:
             if hop.shift:
-                kv = collectives.ring_pass(kv, shift=hop.shift)
+                kv = collectives.ring_pass(kv, shift=hop.shift, group=group)
             for blk in hop.blocks:
                 out, lse = fa.flash_forward_with_lse(
                     q[:, parts[blk.q]], kv[0][:, blk.k], kv[1][:, blk.k],
@@ -412,7 +417,8 @@ def _plan_forward(plan, q, k, v, parts, window: int):
             torch.cat([l for _, l in finished], dim=2))
 
 
-def _plan_backward(plan, q, k, v, out, lse, g, parts, window: int, n: int):
+def _plan_backward(plan, q, k, v, out, lse, g, parts, window: int, n: int,
+                   group=None):
     """dq, dk, dv of the local shard (f32): per hop ``flash_backward_blocks`` from the
     global lse and Δ; dk/dv accumulate in the travelling message beside their K/V block
     and go home in one ``ring_pass`` at the end of each walk."""
@@ -424,7 +430,7 @@ def _plan_backward(plan, q, k, v, out, lse, g, parts, window: int, n: int):
         travelled = 0
         for hop in walk:
             if hop.shift:
-                buf = collectives.ring_pass(buf, shift=hop.shift)
+                buf = collectives.ring_pass(buf, shift=hop.shift, group=group)
                 travelled += hop.shift
             for blk in hop.blocks:
                 part = parts[blk.q]
@@ -436,17 +442,18 @@ def _plan_backward(plan, q, k, v, out, lse, g, parts, window: int, n: int):
                 buf[3][:, blk.k] += dv_h
         home = buf[2:]
         if travelled % n:
-            home = collectives.ring_pass(home, shift=-travelled)   # straight home
+            home = collectives.ring_pass(home, shift=-travelled, group=group)   # straight home
         dk += home[0]
         dv += home[1]
     return dq, dk, dv
 
 
-def _world() -> tuple[int, int]:
+def _world(group=None) -> tuple[int, int]:
+    """``(size, rank)`` of the seq group (None: the whole process group)."""
     if not dist.is_initialized():
         raise RuntimeError("ring attention runs over the process group: join it first "
                            "(parallel.mesh.initialize_cluster or mesh.cluster)")
-    return dist.get_world_size(), dist.get_rank()
+    return dist.get_world_size(group), dist.get_rank(group)
 
 
 def _ring_shard(x: torch.Tensor, n: int, rank: int) -> torch.Tensor:
@@ -475,8 +482,8 @@ class _RingFlash(torch.autograd.Function):
     gathered on every rank."""
 
     @staticmethod
-    def forward(ctx, q, k, v, zigzag: bool, causal: bool, window: int):
-        n, rank = _world()
+    def forward(ctx, q, k, v, zigzag: bool, causal: bool, window: int, group):
+        n, rank = _world(group)
         if zigzag:
             c = q.shape[1] // (2 * n)
             plan = _zigzag_plan(n, rank, window, c)
@@ -485,12 +492,12 @@ class _RingFlash(torch.autograd.Function):
             plan = _ring_plan(n, rank, causal, window, q.shape[1] // n)
             parts, shard = [_ALL], _ring_shard
         q_r, k_r, v_r = (shard(x, n, rank) for x in (q, k, v))
-        out_r, lse_r = _plan_forward(plan, q_r, k_r, v_r, parts, window)
+        out_r, lse_r = _plan_forward(plan, q_r, k_r, v_r, parts, window, group)
         ctx.save_for_backward(q_r, k_r, v_r, out_r, lse_r)
         ctx.plan, ctx.parts, ctx.shard, ctx.window, ctx.zigzag, ctx.n = (
             plan, parts, shard, window, zigzag, n)
-        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
-        out = collectives.all_gather_seq(out_r)
+        ctx.dtypes, ctx.group = (q.dtype, k.dtype, v.dtype), group
+        out = collectives.all_gather_seq(out_r, group=group)
         if zigzag:
             out = _from_zigzag(out, n, 1)
         return out.to(q.dtype)
@@ -499,13 +506,14 @@ class _RingFlash(torch.autograd.Function):
     def backward(ctx, g):
         q_r, k_r, v_r, out_r, lse_r = ctx.saved_tensors
         n = ctx.n
-        g_r = ctx.shard(g, n, dist.get_rank()).contiguous()   # the kernels' dO operand
+        g_r = ctx.shard(g, n, dist.get_rank(ctx.group)).contiguous()   # the kernels' dO operand
         grads = _plan_backward(ctx.plan, q_r, k_r, v_r, out_r, lse_r, g_r, ctx.parts,
-                               ctx.window, n)
-        full = collectives.all_gather_seq(torch.stack(grads), dim=2)   # one collective
+                               ctx.window, n, ctx.group)
+        full = collectives.all_gather_seq(torch.stack(grads), dim=2, group=ctx.group)   # one collective
         if ctx.zigzag:
             full = _from_zigzag(full, n, 2)
-        return (*(x.to(dtype) for x, dtype in zip(full, ctx.dtypes)), None, None, None)
+        return (*(x.to(dtype) for x, dtype in zip(full, ctx.dtypes)), None, None, None,
+                None)
 
 
 # =========================================================================================
@@ -519,35 +527,36 @@ def _check_window(window: int) -> None:
 
 
 def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = False, window: int = 0) -> torch.Tensor:
+                         causal: bool = False, window: int = 0,
+                         group=None) -> torch.Tensor:
     """Ring-of-flash over the process group: ``[B, S, H, D]`` q, k, v, the same on every
     rank, -> the full ``[B, S, H, D]`` attention on every rank, differentiable. The
     sequence is sharded over the ranks, ``S % (ranks·128) == 0``. ``window=W`` is the
     windowed ring (``full_attention``'s band: distance < W), truncated to the band's hop
     reach and bidirectional when non-causal."""
-    n, _ = _world()
+    n, _ = _world(group)
     s = q.shape[1]
     if s % (n * fa.BLOCK):
         raise ValueError(
             f"ring_flash_attention needs sequence length divisible by "
             f"shards·BLOCK = {n}·{fa.BLOCK}, got {s}")
     _check_window(window)
-    return _RingFlash.apply(q, k, v, False, bool(causal), int(window))
+    return _RingFlash.apply(q, k, v, False, bool(causal), int(window), group)
 
 
 def zigzag_ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                                window: int = 0) -> torch.Tensor:
+                                window: int = 0, group=None) -> torch.Tensor:
     """Zig-zag ring-of-flash over the process group: causal attention with the same live
     work on every rank a hop, ``S % (2·ranks·128) == 0``; ``window=W`` adds the causal
     band, each live past chunk pair masked with its ``q_offset``."""
-    n, _ = _world()
+    n, _ = _world(group)
     s = q.shape[1]
     if s % (2 * n * fa.BLOCK):
         raise ValueError(
             f"zigzag ring-of-flash needs sequence length divisible by "
             f"2·shards·BLOCK = 2·{n}·{fa.BLOCK}, got {s}")
     _check_window(window)
-    return _RingFlash.apply(q, k, v, True, True, int(window))
+    return _RingFlash.apply(q, k, v, True, True, int(window), group)
 
 
 def zigzag_positions(s: int, n: int) -> torch.Tensor:
@@ -557,20 +566,21 @@ def zigzag_positions(s: int, n: int) -> torch.Tensor:
     return torch.arange(s).reshape(2 * n, s // (2 * n))[order].reshape(s)
 
 
-def _einsum_schedule(local, q, k, v, order: torch.Tensor, n: int, rank: int, **kw):
+def _einsum_schedule(local, q, k, v, order: torch.Tensor, n: int, rank: int, group=None,
+                     **kw):
     """Shard q, k and v together (one gather in the backward), run ``local`` on this
     rank's shard and gather the full output on every rank."""
-    qkv = collectives.seq_shard(torch.stack([q, k, v]), order, dim=2)
-    out = local(qkv[0], qkv[1], qkv[2], n=n, rank=rank, **kw)
-    return collectives.seq_gather(out, order, dim=1)
+    qkv = collectives.seq_shard(torch.stack([q, k, v]), order, dim=2, group=group)
+    out = local(qkv[0], qkv[1], qkv[2], n=n, rank=rank, group=group, **kw)
+    return collectives.seq_gather(out, order, dim=1, group=group)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = False, window: int = 0) -> torch.Tensor:
+                   causal: bool = False, window: int = 0, group=None) -> torch.Tensor:
     """The einsum ring over the process group: ``[B, S, H, D]`` q, k, v, the same on every
     rank, -> the full ``[B, S, H, D]`` attention on every rank, differentiable
     (``ops.full_attention``'s semantics, ``window`` its band). ``S % ranks == 0``."""
-    n, rank = _world()
+    n, rank = _world(group)
     s = q.shape[1]
     if s % n:
         raise ValueError(
@@ -578,15 +588,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"attention shards the sequence evenly")
     _check_window(window)
     return _einsum_schedule(_ring_attention_local, q, k, v, torch.arange(s), n, rank,
-                            causal=bool(causal), window=int(window))
+                            group, causal=bool(causal), window=int(window))
 
 
 def zigzag_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, group=None) -> torch.Tensor:
     """The einsum zig-zag over the process group: causal attention with the same number
     of live chunk pairs on every rank a hop, ``S % (2·ranks) == 0``; ``window=W`` adds the
     causal band."""
-    n, rank = _world()
+    n, rank = _world(group)
     s = q.shape[1]
     if s % (2 * n):
         raise ValueError(
@@ -594,11 +604,11 @@ def zigzag_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{2 * n}, got {s}")
     _check_window(window)
     return _einsum_schedule(_zigzag_ring_attention_local, q, k, v,
-                            zigzag_positions(s, n), n, rank, window=int(window))
+                            zigzag_positions(s, n), n, rank, group, window=int(window))
 
 
 def make_ring_attention_fn(*, use_flash: bool = False, use_zigzag: bool = False,
-                           window: int = 0):
+                           window: int = 0, group=None):
     """A ``(q, k, v, *, causal) -> out`` callable with ``ops.full_attention``'s signature
     over the process group: the einsum ring, or with ``use_zigzag`` the einsum zig-zag
     (causal only); with ``use_flash`` their ring-of-flash counterparts. ``window=W`` binds
@@ -610,10 +620,10 @@ def make_ring_attention_fn(*, use_flash: bool = False, use_zigzag: bool = False,
                 raise ValueError("the zig-zag schedule is causal-only — use "
                                  "ring_attention for bidirectional attention")
             if use_flash:
-                return zigzag_ring_flash_attention(q, k, v, window=window)
-            return zigzag_ring_attention(q, k, v, window=window)
+                return zigzag_ring_flash_attention(q, k, v, window=window, group=group)
+            return zigzag_ring_attention(q, k, v, window=window, group=group)
         if use_flash:
-            return ring_flash_attention(q, k, v, causal=causal, window=window)
-        return ring_attention(q, k, v, causal=causal, window=window)
+            return ring_flash_attention(q, k, v, causal=causal, window=window, group=group)
+        return ring_attention(q, k, v, causal=causal, window=window, group=group)
 
     return attention_fn

@@ -53,7 +53,16 @@ Run it with (a world of 2 on the CPU; ``--device cuda``, the default, on the car
 ``train.single``'s: at world 1 on NCCL the segments are captured on the card, at world 2
 they run on gloo.
 
-Not ported: telemetry (ROADMAP A11) and FSDP (A10).
+``--fsdp`` is ZeRO/FSDP over the world (``parallel.fsdp``): each leaf of at least 2,048
+elements is split over the ranks on its largest divisible dim (the JAX package's rule), its
+optimizer state and EMA with it, so the update runs on the local shard; the forward
+gathers each split leaf (``fsdp.gather_params``, whose backward reduce-scatters the
+gradient) and ``fsdp.FsdpReducer`` finishes the reduction. The trajectory is plain DP's.
+At world 1 every split is the whole leaf and no collective runs: on the card the segment
+is still captured, with no new host sync. The eval, the checkpoints and the export read
+the gathered state.
+
+Not ported: telemetry (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -76,6 +85,13 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import
     validate_model_config,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    fsdp,
+    tensor_parallel as tp,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+    ProcessGrid,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
     data_parallel as dp,
 )
@@ -212,8 +228,20 @@ def main(config: DistributedConfig = DistributedConfig(), *,
         lr_schedule = optim.make_lr_schedule(config.lr_schedule,
                                              warmup_steps=config.warmup_steps,
                                              total_steps=config.epochs * steps_per_epoch)
-        reducer = dp.GradReducer(state.params)
-        options = step_options(config, optimizer, lr_schedule, grt.spec)
+        full_state = lambda st: st                  # the state as eval and saves read it
+        if config.fsdp:
+            grid = ProcessGrid(f"data={world}")
+            specs = fsdp.fsdp_partition_specs(state.params, world)
+            dims = fsdp.data_dims(specs)
+            state = tp.shard_train_state(state, specs, grid)
+            reducer = fsdp.FsdpReducer(state.params, dims)
+            options = step_options(config, optimizer, lr_schedule, grt.spec)
+            options["param_view"] = lambda p: fsdp.gather_params(p, dims, grid.axis("data"))
+            full_state = lambda st: tp.unshard_train_state(st, specs, grid)
+            M.log(f"FSDP: {len(dims)} of {len(specs)} leaves split over {world} rank(s)")
+        else:
+            reducer = dp.GradReducer(state.params)
+            options = step_options(config, optimizer, lr_schedule, grt.spec)
         col_lo, col_hi = _host_local_columns(rank, per_replica_batch)
         if config.host_local_feed:
             host_step = HostFedStep(
@@ -302,7 +330,9 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                         history.record_train(epoch * plan.size + i * li * plan.shape[1],
                                              float(loss))
 
-                    eval_params = state.ema if state.ema is not None else state.params
+                    host_state = full_state(state)
+                    eval_params = (host_state.ema if host_state.ema is not None
+                                   else host_state.params)
                     sum_nll, correct = dp.evaluate(eval_fn, eval_params, test_x, test_y,
                                                    shard=config.shard_eval)
                     val_loss, accuracy = sum_nll / n_test, correct / n_test
@@ -311,10 +341,11 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                                                     watch.elapsed()))
                     stamp = grt.epoch_end(state, epoch, steps=steps)
                     # the per-epoch full-state checkpoint (rank 0), for --resume-from
-                    saver.save_train_state(ckpt_path, state)
+                    saver.save_train_state(ckpt_path, host_state)
                     if config.keep_checkpoints:
                         checkpoint.save_versioned(
-                            ckpt_store, state, keep=config.keep_checkpoints, health=stamp,
+                            ckpt_store, host_state, keep=config.keep_checkpoints,
+                            health=stamp,
                             cursor={"version": 1, "kind": "epoch", "seed": config.seed,
                                     "epoch": epoch + 1, "batch": 0,
                                     "step": int(state.step)})
@@ -325,6 +356,7 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                     # __main__ exits 75)
                     rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path)
 
+            state = full_state(state)
             assert_replicas_synced(state.params)
             plotting.save_loss_curves(
                 history, os.path.join(config.images_dir, "train_test_curve_dist.png"))

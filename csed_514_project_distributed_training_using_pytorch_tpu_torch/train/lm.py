@@ -2,8 +2,8 @@
 checkpoints, and the digits it samples.
 
 Counterpart of the JAX package's ``train/lm.py``. In order: rendezvous
-(``parallel.mesh.cluster``: the process group is the data world, ``--mesh data=N``, or the
-seq world, ``--mesh data=1,seq=N``; the spec must name it), the data (MNIST images
+(``parallel.mesh.cluster``, the process group laid out as the ``--mesh`` grid, by default
+a data axis over every rank), the data (MNIST images
 tokenized once into ``[N, 784]`` gray-level streams, or a token corpus, ``--corpus``,
 through ``data.stream.StreamLoader``), the model and its state, the
 resume (``--resume-from``, with the manifest cursor's rules), then ``epochs`` rounds of
@@ -27,13 +27,19 @@ gradient and loss are averaged over the ranks by one all-reduce (``GradReducer``
 world 1 on the card, gloo otherwise), so a world of N trains on the global batch the JAX
 package's data axis shards.
 
-``--mesh data=1,seq=N`` is context parallelism: every rank holds the whole batch, and each
-attention call shards the pixel stream over the ranks through the einsum ring
-(``parallel.ring_attention.ring_attention``), or with ``--zigzag-attention`` the einsum
-zig-zag; ``--attention-window`` binds the band into the schedule, and the decode model
-keeps the window as its own field, as in the JAX package. The parameter gradients agree
-on every rank with no reduce. The ring's gloo hops stage through host memory, which a CUDA
-graph cannot capture, so a seq world runs eager segments on the card too.
+``--mesh`` lays the process group out as a grid (``parallel.mesh.ProcessGrid``) of ``data``,
+``seq`` and ``model`` axes, as the JAX package's LM trainer does. A ``seq`` axis is context
+parallelism: each attention call shards the pixel stream over the seq group through the
+einsum ring (``parallel.ring_attention.ring_attention``), or with ``--zigzag-attention``
+the einsum zig-zag; ``--attention-window`` binds the band into the schedule, and the
+decode model keeps the window as its own field, as in the JAX package. A ``model`` axis is
+Megatron TP over the blocks (``parallel.tensor_parallel``: local heads and hidden units;
+the embeddings and the head replicate). Each data coordinate steps on its block of the
+batch, and the gradient and the loss are averaged over the data group. The checkpoints
+and the decode read the unsharded parameters (decode runs on one device, from the host
+parameters, as in the JAX package). gloo collectives stage through host memory, which a
+CUDA graph cannot capture, so a mesh with a seq or model axis runs eager segments on the
+card too; a world of more than one rank on the one H100 is a correctness run.
 
 The LM runs no port kernel: its loss takes ``gather`` over ``log_softmax`` and its attention
 is the dense core, as the JAX package's LM training runs no Pallas kernel.
@@ -46,8 +52,7 @@ raises when none is present; the CPU is used only when asked for::
         --device cpu --epochs 1 --max-train-examples 256 --max-test-examples 100 \\
         --eval-batch 100 --embed-dim 32 --num-layers 1 --num-heads 2
 
-Not ported: the model mesh axis and data beside seq (ROADMAP A10), ``--plan`` and
-``--telemetry`` (A11); each raises naming its item.
+Not ported: ``--plan`` and ``--telemetry`` (ROADMAP A11); each raises naming its item.
 """
 
 from __future__ import annotations
@@ -80,10 +85,14 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
     data_parallel as dp,
     ring_attention,
+    tensor_parallel as tp,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+    NO_SHARDING,
+    ProcessGrid,
+    ShardContext,
     cluster,
-    parse_mesh_spec,
+    mesh_axes,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
     GuardRuntime,
@@ -147,28 +156,30 @@ def lm_optimizer(config: LMConfig) -> optim.Optimizer:
                                 momentum=config.momentum, weight_decay=config.weight_decay)
 
 
-def lm_model(config: LMConfig, *, vocab: int, seq_len: int,
-             seq_world: int = 1) -> lm_mod.TransformerLM:
+def lm_model(config: LMConfig, *, vocab: int, seq_len: int, seq_world: int = 1,
+             seq_group=None, shard: ShardContext = NO_SHARDING) -> lm_mod.TransformerLM:
     """The trainer's model from ``config``: ``vocab`` token levels plus BOS (built on the
-    CPU; the caller moves it). Under a seq world of more than one rank its attention is
-    the einsum ring (or zig-zag) with the window bound into the schedule, and the model's
-    own ``attention_window`` stays 0; the decode model is the one of a seq world of 1."""
+    CPU; the caller moves it). Under a seq axis of more than one rank (``seq_group``) its
+    attention is the einsum ring (or zig-zag) with the window bound into the schedule, and
+    the model's own ``attention_window`` stays 0; ``shard`` places its blocks on a model
+    axis. The decode model is the one of one device."""
     ring = {}
     if seq_world > 1:
         ring = dict(attention_fn=ring_attention.make_ring_attention_fn(
-            use_zigzag=config.zigzag_attention, window=config.attention_window))
+            use_zigzag=config.zigzag_attention, window=config.attention_window,
+            group=seq_group))
     return lm_mod.TransformerLM(
         vocab_size=vocab + 1, seq_len=seq_len, embed_dim=config.embed_dim,
         num_layers=config.num_layers, num_heads=config.num_heads,
         num_kv_heads=config.kv_heads or None, dropout_rate=config.dropout_rate,
         attention_window=0 if ring else config.attention_window, rope=config.rope,
         dtype=torch.bfloat16 if config.bf16 else torch.float32, remat=config.remat,
-        remat_policy=config.remat_policy, **ring)
+        remat_policy=config.remat_policy, shard=shard, **ring)
 
 
 def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
                  optimizer: optim.Optimizer, steps_per_epoch: int, grad_reduce=None,
-                 guard=None, rank: int = 0):
+                 guard=None, rank: int = 0, norm_fn=None):
     """The trainer's step: ``train.step.make_train_step`` with the LM's next-token loss
     (label smoothing from ``config``, dropout on when ``config.dropout_rate`` is not 0) and
     ``config``'s clip, EMA, gradient accumulation and learning-rate schedule over
@@ -188,34 +199,23 @@ def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
                            momentum=config.momentum, grad_accum=config.grad_accum,
                            optimizer=optimizer, lr_schedule=lr_schedule,
                            clip_grad_norm=config.clip_grad_norm, ema_decay=config.ema_decay,
-                           loss_fn=lm_loss, guard=guard, grad_reduce=grad_reduce, rank=rank)
+                           loss_fn=lm_loss, guard=guard, grad_reduce=grad_reduce, rank=rank,
+                           norm_fn=norm_fn)
 
 
-def mesh_worlds(mesh: str, world: int, *, zigzag: bool = False) -> tuple[int, int]:
-    """``(data world, seq world)`` of a ``--mesh`` spec: ``""`` or ``data=N`` (data
-    parallelism over the process group), or ``data=1,seq=N`` (context parallelism), with
-    ``N`` the process group's size. A model axis, and data beside seq, raise naming
-    ROADMAP A10, as do the axes the JAX package's LM trainer refuses; ``zigzag`` needs a
-    seq axis."""
-    if not mesh:
-        axes = {"data": world}
-    else:
-        names, sizes = parse_mesh_spec(mesh)
-        axes = dict(zip(names, sizes))
-        if any(n not in ("data", "seq", "model") for n in names) or "data" not in axes:
-            raise ValueError("the LM trainer's --mesh needs a data axis and supports data, "
-                             f"seq, and model axes only, got {mesh!r}")
-    seq = axes.get("seq", 1)
-    if zigzag and seq < 2:
+def lm_mesh(mesh: str, world: int, *, zigzag: bool = False) -> str:
+    """The grid spec of a ``--mesh`` value: ``""`` is ``data=<world>`` (data parallelism
+    over the process group); otherwise the spec must name a data axis and only data, seq
+    and model axes, as the JAX package's LM trainer requires, and ``zigzag`` needs a seq
+    axis. The grid (``ProcessGrid``) then checks the product against the world."""
+    axes = mesh_axes(mesh) if mesh else {"data": world}
+    if any(n not in ("data", "seq", "model") for n in axes) or "data" not in axes:
+        raise ValueError("the LM trainer's --mesh needs a data axis and supports data, "
+                         f"seq, and model axes only, got {mesh!r} (use data=1,seq=N for "
+                         f"pure context parallelism)")
+    if zigzag and axes.get("seq", 1) < 2:
         raise ValueError("--zigzag-attention needs a seq axis in --mesh")
-    if axes.get("model", 1) > 1 or (seq > 1 and axes["data"] > 1):
-        raise ValueError(f"--mesh {mesh}: the LM's model (tensor-parallel) axis and data "
-                         f"beside seq are not ported yet (ROADMAP A10); use --mesh data=N "
-                         f"or data=1,seq=N")
-    if axes["data"] * seq != world:
-        raise ValueError(f"--mesh {mesh} spans {axes['data'] * seq} rank(s), but the "
-                         f"process group has {world} (the launcher's --num-processes)")
-    return axes["data"], seq
+    return mesh or f"data={world}"
 
 
 def main(config: LMConfig = LMConfig(), *,
@@ -232,12 +232,14 @@ def main(config: LMConfig = LMConfig(), *,
     store_dir = os.path.join(config.results_dir, "checkpoints") if config.results_dir else ""
     grt = GuardRuntime(config, store_dir=store_dir)
     with cluster(device) as info:
-        world, seq_world = mesh_worlds(config.mesh, info.process_count,
-                                       zigzag=config.zigzag_attention)
+        grid = ProcessGrid(lm_mesh(config.mesh, info.process_count,
+                                   zigzag=config.zigzag_attention))
+        data, seq, tp_axis = grid.axis("data"), grid.axis("seq"), grid.axis("model")
+        world, seq_world = data.size, seq.size
         rank = info.process_index
-        # a seq world's ranks hold the whole batch and draw the same dropout masks: each
-        # is data rank 0
-        data_rank = rank if seq_world == 1 else 0
+        # the ranks of one data coordinate hold the same batch and draw the same dropout
+        # masks
+        data_rank = data.index
         if config.batch_size % world:
             raise ValueError(f"batch {config.batch_size} not divisible by data axis "
                              f"{world}")
@@ -289,17 +291,19 @@ def main(config: LMConfig = LMConfig(), *,
             raise ValueError(f"seq_len {seq_len} must divide by "
                              f"{'2*seq axis' if config.zigzag_attention else 'the seq axis'}"
                              f" = {need}")
-        model = lm_model(config, vocab=vocab, seq_len=seq_len,
-                         seq_world=seq_world).to(info.device)
+        sharded = seq_world > 1 or tp_axis.size > 1
+        model = lm_model(config, vocab=vocab, seq_len=seq_len, seq_world=seq_world,
+                         seq_group=seq.group,
+                         shard=ShardContext.of(grid)).to(info.device)
         # decoding runs on one rank, with the default core and the window as a model field
-        decode_model = (model if seq_world == 1 else
-                        lm_model(config, vocab=vocab, seq_len=seq_len).to(info.device))
+        decode_model = (lm_model(config, vocab=vocab, seq_len=seq_len).to(info.device)
+                        if sharded else model)
         M.log(f"LM training: {info.process_count} process(es) ({info.backend}"
-              f"{f', seq world {seq_world}' if seq_world > 1 else ''}), batch "
+              f"{f', mesh {mesh_axes(grid.spec)}' if sharded else ''}), batch "
               f"{config.batch_size}, vocab {vocab}+BOS, seq {seq_len}, data source: "
               f"{data_source}")
 
-        state = create_train_state(model, torch.Generator().manual_seed(config.seed),
+        state = create_train_state(decode_model, torch.Generator().manual_seed(config.seed),
                                    optimizer=optimizer, device=info.device,
                                    ema=config.ema_decay > 0, guard=config.guard)
         dp.broadcast_params_(state.params)
@@ -318,20 +322,28 @@ def main(config: LMConfig = LMConfig(), *,
             M.log(f"Resumed from {config.resume_from} at step {int(state.step)} "
                   f"(starting epoch {start_epoch})")
             start_epoch = _resume_epoch(config, loader, int(state.step), start_epoch)
+        # this rank's shards (the model axis's column/row split; whole otherwise)
+        specs = tp.filter_to_grid(tp.param_partition_specs(state.params), grid.names)
+        state = tp.shard_train_state(state, specs, grid)
+        full_state = lambda st: tp.unshard_train_state(st, specs, grid)
         grt.baseline(state)
 
-        # a seq world's gradients agree on every rank already: no reduce
-        reducer = dp.GradReducer(state.params) if seq_world == 1 else None
+        # the seq and model ranks of a data coordinate hold agreeing gradients already:
+        # the reduce spans the data axis only (the whole group when nothing else is split)
+        reducer = (dp.GradReducer(state.params, group=data.group)
+                   if world > 1 or not sharded else None)
         step_fn = make_lm_step(model, config, optimizer=optimizer,
                                steps_per_epoch=steps_per_epoch, grad_reduce=reducer,
-                               guard=grt.spec, rank=data_rank)
-        if seq_world == 1:
+                               guard=grt.spec, rank=data_rank,
+                               norm_fn=tp.sharded_norm_fn(specs, grid))
+        if not sharded:
             epoch_fn = make_epoch_from_step(step_fn, grad_reduce=reducer)
             M.log(describe_program(segment_program(info.device, reducer), info.device))
         else:
             epoch_fn = make_segment_fn(step_fn)
-            M.log(f"Segment program: eager on {info.device} (a seq world of {seq_world}: "
-                  f"the ring's hops cross the process group outside a graph)")
+            M.log(f"Segment program: eager on {info.device} (mesh {mesh_axes(grid.spec)}: "
+                  f"the seq and model collectives cross the process group outside a "
+                  f"graph)")
         eval_fn = make_eval_nll_fn(model, batch_size=eval_batch)
 
         to_device = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(info.device)
@@ -389,15 +401,16 @@ def main(config: LMConfig = LMConfig(), *,
                       f"{history.epoch_seconds[-1]:.3f}, data_s: {t_exec - t_data:.3f}, "
                       f"time_elapsed: {watch.elapsed():.2f}s")
                 stamp = grt.epoch_end(state, epoch, steps_per_epoch)
+                host_state = full_state(state) if sharded else state
                 if ckpt_path:
-                    saver.save_train_state(ckpt_path, state)
+                    saver.save_train_state(ckpt_path, host_state)
                     if store_dir and config.keep_checkpoints:
                         # the NEXT epoch's data position, in the manifest beside the file
                         cursor = (loader.cursor(epoch + 1, 0) if loader is not None
                                   else {"version": 1, "kind": "epoch", "seed": config.seed,
                                         "epoch": epoch + 1, "batch": 0,
                                         "step": int(state.step)})
-                        checkpoint.save_versioned(store_dir, state,
+                        checkpoint.save_versioned(store_dir, host_state,
                                                   keep=config.keep_checkpoints,
                                                   health=stamp, cursor=cursor)
                 # the guard's exit after the stamped checkpoint is durable (raises
@@ -409,6 +422,8 @@ def main(config: LMConfig = LMConfig(), *,
 
         try:
             state = run_epochs(state)
+            if sharded:
+                state = full_state(state)
         finally:
             # drain the write-behind queue however the loop ended; give the signals back
             rt.uninstall()

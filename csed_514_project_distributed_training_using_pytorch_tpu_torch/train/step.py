@@ -230,6 +230,20 @@ def _tree_leaves(tree) -> list[torch.Tensor]:
 # -- the step -------------------------------------------------------------------------
 
 
+def apply_model(model, params: dict[str, torch.Tensor], x: torch.Tensor, *,
+                deterministic: bool = True, generator=None, with_aux: bool = False):
+    """``model``'s log-probs on ``x`` under ``params`` (``torch.func.functional_call``;
+    a model that lays its parameters out its own way, the pipeline's, runs through its
+    ``apply_params``). ``with_aux`` also returns an MoE model's summed auxiliary."""
+    kwargs = {"deterministic": deterministic, "generator": generator}
+    if with_aux:
+        kwargs["with_aux"] = True
+    if hasattr(model, "apply_params"):
+        return model.apply_params(params, x, **kwargs)
+    return functional_call(model, params, (x,), kwargs)
+
+
+
 def make_train_step(model, *, learning_rate: float, momentum: float,
                     use_pallas: bool = False, grad_accum: int = 1,
                     optimizer: Optimizer | None = None,
@@ -240,7 +254,11 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
                     loss_fn: Callable | None = None,
                     with_metrics: bool = False,
                     guard: GuardSpec | None = None,
-                    grad_reduce: Callable | None = None, rank: int = 0) -> Callable:
+                    grad_reduce: Callable | None = None, rank: int = 0,
+                    aux_loss_weight: float = 0.01,
+                    dropout_rows: tuple[int, int] | None = None,
+                    param_view: Callable | None = None,
+                    norm_fn: Callable | None = None) -> Callable:
     """Build ``step(state, images, labels, seed) -> (state, loss)``.
 
     The loss is ``nll(log_probs)``. ``use_pallas=True`` routes it through the fused kernel
@@ -274,6 +292,15 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
     replaces both, in place, by their mean over the data-parallel ranks
     (``parallel.data_parallel.GradReducer``); the step then returns the global batch's
     loss. ``rank`` keys this rank's dropout masks.
+
+    The mesh's hooks: a model with MoE blocks (``num_experts > 0``) returns its
+    load-balance auxiliaries, and ``aux_loss_weight · Σ aux`` joins the objective (the JAX
+    package's ``aux_loss_weight``; every other model's loss is unchanged bitwise).
+    ``dropout_rows=(offset, total)`` draws this rank's rows of a ``total``-row
+    microbatch's masks (``ops.nn.DropoutStream``). ``param_view(params)`` maps the state's
+    leaves to what the forward uses, differentiably (FSDP's gathers). ``norm_fn(grads)``
+    replaces the global L2 norm of the clip, the guard and the metrics (a sharded layout
+    sums its shards over their groups).
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -292,12 +319,17 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
         raise ValueError("use_pallas fuses the standard NLL loss kernel — a custom "
                          "loss_fn is not supported there")
 
+    has_aux = getattr(model, "num_experts", 0) > 0
+
     def default_loss_fn(params, images, labels, rng):
-        log_probs = functional_call(model, params, (images,),
-                                    {"deterministic": False, "generator": rng})
+        out = apply_model(model, params, images, deterministic=False, generator=rng,
+                          with_aux=has_aux)
+        log_probs, aux = out if has_aux else (out, None)
         if use_pallas:
-            return fused_kernels.nll_from_logits(log_probs, labels)
-        return ops.nll_loss(log_probs, labels, label_smoothing=label_smoothing)
+            loss = fused_kernels.nll_from_logits(log_probs, labels)
+        else:
+            loss = ops.nll_loss(log_probs, labels, label_smoothing=label_smoothing)
+        return loss + aux_loss_weight * aux if has_aux else loss
 
     if loss_fn is None:
         loss_fn = default_loss_fn
@@ -307,16 +339,17 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
 
     def value_and_grad(params, images, labels, rng):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-        loss = loss_fn(leaves, images, labels, rng)
+        loss = loss_fn(param_view(leaves) if param_view is not None else leaves,
+                       images, labels, rng)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
     def apply_update(state: TrainState, step_t: torch.Tensor, grads, loss):
         gnorm = None
         if clip_grad_norm > 0.0:
-            grads, gnorm = clip_by_global_norm(grads, clip_grad_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_grad_norm, norm_fn=norm_fn)
         elif with_metrics or guard is not None:
-            gnorm = global_l2_norm(grads)
+            gnorm = (norm_fn or global_l2_norm)(grads)
         if guard is not None and state.guard is None:
             raise ValueError("a guarded step needs create_train_state(..., guard=True)")
         if ema_decay > 0.0 and state.ema is None:
@@ -390,7 +423,7 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor, seed: int):
         step_t = _step_tensor(state.step, images.device)
-        rng = DropoutStream(lambda: dropout_key(seed, step_t, rank))
+        rng = DropoutStream(lambda: dropout_key(seed, step_t, rank), dropout_rows)
         if grad_accum == 1:
             loss, grads = value_and_grad(state.params, images, labels, rng)
         else:
@@ -676,9 +709,11 @@ def make_epoch_fn(model, *, learning_rate: float, momentum: float,
                   label_smoothing: float = 0.0,
                   health: bool = False,
                   guard: GuardSpec | None = None,
-                  grad_reduce: Callable | None = None, rank: int = 0) -> Callable:
+                  grad_reduce: Callable | None = None, rank: int = 0,
+                  **step_kwargs) -> Callable:
     """Build ``epoch(state, images, labels, idx_matrix, seed) -> (state, losses)``: the
-    step of ``make_train_step`` (same options) over a ``[steps, batch]`` index plan, as
+    step of ``make_train_step`` (same options, ``step_kwargs`` its mesh hooks) over a
+    ``[steps, batch]`` index plan, as
     the segment program ``make_epoch_from_step`` picks. ``health=True`` builds the step
     with ``with_metrics`` and returns ``(state, (losses, HealthStats))``."""
     train_step = make_train_step(model, learning_rate=learning_rate, momentum=momentum,
@@ -686,7 +721,8 @@ def make_epoch_fn(model, *, learning_rate: float, momentum: float,
                                  optimizer=optimizer, lr_schedule=lr_schedule,
                                  clip_grad_norm=clip_grad_norm, ema_decay=ema_decay,
                                  label_smoothing=label_smoothing, with_metrics=health,
-                                 guard=guard, grad_reduce=grad_reduce, rank=rank)
+                                 guard=guard, grad_reduce=grad_reduce, rank=rank,
+                                 **step_kwargs)
     return make_epoch_from_step(train_step, unroll=unroll, pregather=pregather,
                                 health=health, grad_reduce=grad_reduce)
 
@@ -708,7 +744,7 @@ def make_eval_fn(model, *, batch_size: int = 1000) -> Callable:
         for start in range(0, n, batch_size):
             x = images[start:start + batch_size]
             y = labels[start:start + batch_size]
-            log_probs = functional_call(model, params, (x,))
+            log_probs = apply_model(model, params, x)
             sum_nll += ops.nll_loss(log_probs, y, reduction="sum")
             correct += (log_probs.argmax(dim=-1) == y).sum()
         return sum_nll, correct

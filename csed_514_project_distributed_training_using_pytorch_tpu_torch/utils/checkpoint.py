@@ -1,8 +1,8 @@
 """Checkpoints in the JAX package's byte layout: save, restore, resume, the versioned store,
 write-behind saves and the params-only export.
 
-Counterpart of the JAX package's ``utils/checkpoint.py`` (its sharded store is FSDP's and
-waits for ROADMAP A10; its fault-injection hook waits for A11). A file either package
+Counterpart of the JAX package's ``utils/checkpoint.py`` (its fault-injection hook waits
+for ROADMAP A11). A file either package
 writes, the other reads: for the same state the port writes the same bytes as the JAX
 package, through its own msgpack codec (``utils/_msgpack.py``: the subset flax emits, so
 no machine needs flax or msgpack).
@@ -29,11 +29,24 @@ The store's manifest carries the data cursor beside each file: the in-memory tra
 ``kind: "epoch"`` cursor (``check_cursor_resume`` warns on a mismatch), or the LM's token
 stream's ``kind: "stream"`` cursor (``data.stream.StreamLoader.verify_cursor`` raises on
 one); ``cursor_for`` reads either.
+
+The sharded store (``save_train_state_sharded``, ``restore_train_state_sharded``) is the
+JAX package's directory format: ``meta.msgpack`` (rank 0: every leaf's global shape and
+dtype, or ``{"none": True}`` for an absent ``ema``/``guard``, and the writer count) and
+one ``shards_p{rank}.msgpack`` a rank, mapping flat leaf paths (``params/block_0/attn/
+qkv_kernel``) to ``{start, data}`` blocks: the global offsets of each range the rank holds
+and its data. Every rank writes only what it holds, each block by one replica (the rank
+whose coordinates on the leaf's unsplit axes are 0), with no gather. The restore
+reassembles the full leaves from any writer's layout by box arithmetic (a region no block
+covers raises) onto the standard layout, so a directory from any mesh, of either package,
+restores on any other.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
+import itertools
 import json
 import os
 import queue
@@ -52,6 +65,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.optim imp
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
     collectives,
+    tensor_parallel as tp,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     GuardState,
@@ -257,8 +271,9 @@ def restore_for_resume(path: str, reference_state: TrainState, *, process_index:
     step is not a whole number of this config's epochs (a mid-epoch checkpoint, or one
     written under another batch size)."""
     if os.path.isdir(path):
-        raise ValueError(f"{path} is a directory: the sharded checkpoint store waits for "
-                         f"ROADMAP A10")
+        # every rank reads the sharded directory (shared filesystem): no broadcast
+        return _derive_resume_epoch(restore_train_state_sharded(path, reference_state),
+                                    steps_per_epoch)
     state = reference_state
     if process_index == 0:
         state = restore_train_state(path, state)
@@ -278,6 +293,151 @@ def _derive_resume_epoch(state: TrainState, steps_per_epoch: int):
                    f"a mid-epoch checkpoint, or one written under a different batch size; "
                    f"resuming at epoch {start_epoch} replays the partial epoch")
     return state, start_epoch, warning
+
+
+# -- the sharded store -------------------------------------------------------------------
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """A nested state dict -> ``{"a/b/c": leaf}``; a None subtree stays a None leaf."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def _param_of(key: str) -> str | None:
+    """The parameter name whose layout a flat state key follows (params, the SGD
+    velocity, AdamW's moments, the EMA), or None for the scalars (step, count, guard)."""
+    for head in ("params/", "ema/", "velocity/m/", "velocity/v/", "velocity/"):
+        if key.startswith(head):
+            rest = key[len(head):]
+            return None if rest == "count" else rest.replace("/", ".")
+    return None
+
+
+def save_train_state_sharded(dir_path: str, state: TrainState, specs: dict[str, tuple],
+                             grid) -> None:
+    """The JAX package's distributed checkpoint (the module docstring): every rank writes
+    the blocks it holds of ``state``, this rank's shards, laid out by ``specs``
+    (``{parameter name: spec}``, the standard names) over ``grid``. A collective only in
+    that every rank writes its file; rank 0 also writes the meta file and removes the
+    shard files of a larger earlier writer."""
+    flat = _flatten(state_to_jax_dict(_host_copy(state)))
+    flat.setdefault("ema", None)
+    flat.setdefault("guard", None)
+    meta, shards = {}, {}
+    for key, leaf in flat.items():
+        if leaf is None:
+            meta[key] = {"none": True}
+            continue
+        leaf = np.asarray(leaf)
+        name = _param_of(key)
+        spec = specs.get(name, (None,) * leaf.ndim) if name else (None,) * leaf.ndim
+        shape = [n * grid.size(a) if a else n for n, a in zip(leaf.shape, spec)]
+        meta[key] = {"shape": shape, "dtype": leaf.dtype.name}
+        if any(grid.index(ax) for ax in grid.names if ax not in spec):
+            continue                           # another replica writes these blocks
+        ranges = tp.held_ranges(name or key, shape, spec, grid)
+        blocks = []
+        for pieces in itertools.product(*(list(enumerate(r)) for r in ranges)):
+            start = [sl.start for _, sl in pieces]
+            local = tuple(slice(j * (sl.stop - sl.start), (j + 1) * (sl.stop - sl.start))
+                          for j, sl in pieces)
+            blocks.append({"start": np.asarray(start, np.int64),
+                           "data": np.ascontiguousarray(leaf[local])})
+        shards[key] = blocks
+    os.makedirs(dir_path, exist_ok=True)
+    if grid.rank == 0:
+        _atomic_write(os.path.join(dir_path, "meta.msgpack"),
+                      _msgpack.packb({"meta": meta, "process_count": grid.world}))
+        for old in glob.glob(os.path.join(dir_path, "shards_p*.msgpack")):
+            idx = os.path.basename(old)[len("shards_p"):-len(".msgpack")]
+            if idx.isdigit() and int(idx) >= grid.world:
+                os.remove(old)
+    _atomic_write(os.path.join(dir_path, f"shards_p{grid.rank}.msgpack"),
+                  _msgpack.packb(shards))
+
+
+def _box_subtract(box: tuple, cut: tuple) -> list:
+    """Axis-aligned box difference ``box \\ cut`` as disjoint boxes (per-dim half-open
+    ``(lo, hi)`` ranges; a 0-d box is removed by any cut): clip the cut to the box; if
+    they are disjoint the box survives whole, else slice off the slabs below and above
+    the cut dim by dim, shrinking toward the (covered) intersection."""
+    inter = [(max(lo, clo), min(hi, chi)) for (lo, hi), (clo, chi) in zip(box, cut)]
+    if any(lo >= hi for lo, hi in inter):
+        return [box]
+    pieces, cur = [], list(box)
+    for d, (ilo, ihi) in enumerate(inter):
+        lo, hi = cur[d]
+        if lo < ilo:
+            pieces.append(tuple(cur[:d]) + ((lo, ilo),) + tuple(cur[d + 1:]))
+        if ihi < hi:
+            pieces.append(tuple(cur[:d]) + ((ihi, hi),) + tuple(cur[d + 1:]))
+        cur[d] = (ilo, ihi)
+    return pieces
+
+
+def restore_train_state_sharded(dir_path: str, reference_state: TrainState) -> TrainState:
+    """Reassemble a sharded checkpoint directory (either package's, any writer's layout)
+    onto fresh tensors in the standard layout, shaped and placed like
+    ``reference_state``. Every writer's shard file must be present (the recorded writer
+    count pins the file set, so a larger earlier run's stale files are never read); a
+    region no block covers raises. ``ema`` and ``guard`` reconcile across the flags as
+    ``restore_train_state``'s do."""
+    raw_meta = _decode_msgpack(os.path.join(dir_path, "meta.msgpack"))
+    meta, count = raw_meta["meta"], int(raw_meta["process_count"])
+    none_keys = {k for k, m in meta.items() if m.get("none")}
+    meta = {k: m for k, m in meta.items() if k not in none_keys}
+    full = {k: np.zeros(m["shape"], np.dtype(m["dtype"])) for k, m in meta.items()}
+    files = [os.path.join(dir_path, f"shards_p{i}.msgpack") for i in range(count)]
+    missing = [f for f in files if not os.path.exists(f)]
+    if missing:
+        raise FileNotFoundError(
+            f"sharded checkpoint {dir_path} was written by {count} process(es) but "
+            f"{len(missing)} shard file(s) are absent (e.g. {os.path.basename(missing[0])})"
+            f" — shared filesystem required")
+    uncovered = {k: ([] if 0 in m["shape"] else [tuple((0, n) for n in m["shape"])])
+                 for k, m in meta.items()}
+    for path in files:
+        for key, blocks in _decode_msgpack(path).items():
+            for blk in blocks:
+                start, data = np.asarray(blk["start"]), np.asarray(blk["data"])
+                cut = tuple((int(a), int(a) + n) for a, n in zip(start, data.shape))
+                full[key][tuple(slice(lo, hi) for lo, hi in cut)] = data
+                uncovered[key] = [piece for box in uncovered[key]
+                                  for piece in _box_subtract(box, cut)]
+    short = [k for k, boxes in uncovered.items() if boxes]
+    if short:
+        raise ValueError(f"sharded checkpoint {dir_path} is missing blocks for {short[:3]}"
+                         f"{'...' if len(short) > 3 else ''} — were all processes' shard "
+                         f"files written and visible?")
+    raw = _unflatten({**full, **{k: None for k in none_keys}})
+    ref = reference_state
+    if ref.ema is not None and raw.get("ema") is None:
+        raw["ema"] = raw["params"]
+    elif ref.ema is None:
+        raw.pop("ema", None)
+    if ref.guard is not None and raw.get("guard") is None:
+        raw["guard"] = _guard_to_jax(ref.guard)
+    elif ref.guard is None:
+        raw.pop("guard", None)
+    return state_from_jax_dict(raw, ref)
 
 
 # -- the versioned store ----------------------------------------------------------------

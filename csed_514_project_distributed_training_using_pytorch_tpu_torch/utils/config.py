@@ -196,17 +196,34 @@ class DistributedConfig(StepOptions, RunOptions, ModelOptions):
     max_test_examples: int = 0
     device: str = "cuda"              # 'cuda' (the default: raises when no card is
                                       # present) or 'cpu', which must be asked for
+    fsdp: bool = False                # ZeRO/FSDP: params and optimizer state split over
+                                      # the data ranks (parallel/fsdp.py); the same
+                                      # trajectory as plain DP
 
 
 @dataclass(frozen=True)
 class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
     """Knobs of the composed trainer (the transformer classifier), with the JAX package's
-    defaults. Ported meshes: one device (``--mesh data=1``), or a seq axis alone
-    (``--mesh data=1,seq=N``) over a process group of N ranks: the einsum ring or
-    zig-zag, the ring-of-flash (``--flash-attention``), or Ulysses (``--seq-impl
-    ulysses``, dense or of flash)."""
+    defaults. Every mesh of ``data``, ``seq``, ``model``, ``expert`` and ``stage`` trains,
+    over a process group of the mesh's product of ranks (``parallel.mesh.ProcessGrid``);
+    ``dcn_data`` raises naming ROADMAP A10."""
 
-    mesh: str = "data=2,seq=2,model=2"  # the JAX default; it raises (ROADMAP A10)
+    mesh: str = "data=2,seq=2,model=2"  # named axes (data: DP, seq: ring/Ulysses, model:
+                                        # Megatron TP, expert: MoE, stage: pipeline);
+                                        # product = the launcher's world
+    pipeline_microbatches: int = 4      # microbatches a step under a stage axis (bubble
+                                        # (S-1)/(M+S-1)); batch/grad_accum must divide
+                                        # by it, and the microbatch by the data axis
+    pipeline_schedule: str = "gpipe"    # the backward under a stage axis: 'gpipe' or
+                                        # '1f1b' (stage inputs saved, stage recomputed)
+    moe_top_k: int = 1                  # MoE router: 1 Switch, 2 GShard (expert axis)
+    fsdp: bool = False                  # ZeRO x TP: params and optimizer state also
+                                        # split over data on each leaf's largest free
+                                        # dim (parallel/fsdp.py); not with a stage axis
+    dcn_data: int = 0                   # raises: the hybrid ICI x DCN mesh (ROADMAP A10)
+    sharded_checkpoint: bool = False    # also write results/model_composed.ckpt.sharded/
+                                        # each epoch: every rank its own blocks, no
+                                        # gather; --resume-from takes the directory
     seq_len: int = 16                   # tokens per image (784 pixels zero-padded)
     flash_attention: bool = False       # attention through the flash kernels: the
                                         # ring-of-flash under a seq axis, else where the
@@ -237,11 +254,11 @@ class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
 @dataclass(frozen=True)
 class LMConfig:
     """Knobs of the pixel-LM trainer (``train/lm.py``), every field of the JAX package's
-    ``LMConfig`` with its default, plus ``device``. Ported meshes: none, ``data=N`` or
-    ``data=1,seq=N`` over a process group of N ranks (the einsum ring, or the einsum
-    zig-zag with ``zigzag_attention``); ``data`` beside ``seq`` and a ``model`` axis
-    raise naming ROADMAP A10, ``plan``, ``telemetry`` and ``health_stats`` naming A11
-    (``check_lm_config``, ``train.lm.mesh_worlds``)."""
+    ``LMConfig`` with its default, plus ``device``. Meshes: none (``data`` over the
+    process group), or ``data``, ``seq`` and ``model`` axes whose product is the process
+    count (the einsum ring, or the einsum zig-zag with ``zigzag_attention``, on seq;
+    Megatron TP over the blocks on model); ``plan``, ``telemetry`` and ``health_stats``
+    raise naming ROADMAP A11 (``check_lm_config``)."""
 
     epochs: int = 2
     batch_size: int = 64                # global batch, split over the data ranks
@@ -252,8 +269,8 @@ class LMConfig:
     dropout_rate: float = 0.0
     attention_window: int = 0           # sliding-window causal attention width; 0 full
     kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides heads
-    mesh: str = ""                      # "", "data=N" or "data=1,seq=N" (N = the
-                                        # launcher's world size)
+    mesh: str = ""                      # "" (data over every rank) or data/seq/model
+                                        # axes, e.g. "data=2,seq=2", "data=1,model=2"
     plan: str = ""                      # raises: automatic planning (ROADMAP A11)
     zigzag_attention: bool = False      # the zig-zag causal ring on the seq axis
                                         # (seq_len % (2·seq) == 0)

@@ -121,11 +121,11 @@ def test_composed_main_trains_the_step_options_like_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": "data=2"}, "ROADMAP A10"),
-    ({"mesh": "data=2,seq=2,model=2"}, "ROADMAP A10"),       # the JAX default mesh
-    ({"mesh": "data=1,expert=4"}, "ROADMAP A10"),            # MoE rides the expert axis
-    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256},
-     "ROADMAP A10"),                                         # data beside seq
+    # the mesh refusals the JAX package makes, in its words, and the one left (A10)
+    ({"mesh": "data=1,seq=2,stage=2"}, "a stage axis composes with data and model only"),
+    ({"mesh": "data=2,stage=2", "fsdp": True}, "--fsdp does not compose with a stage"),
+    ({"mesh": "data=1,expert=2", "moe_top_k": 3}, r"--moe-top-k must be in \[1, expert"),
+    ({"mesh": "data=2", "dcn_data": 2}, "ROADMAP A10"),      # the hybrid ICI x DCN mesh
     ({"mesh": "data=1,pipe=1"}, "unknown mesh axis"),
     ({"mesh": "data=1", "kv_heads": 3}, "positive divisor"),
     ({"mesh": "data=1", "attention_window": -1}, "window must be >= 1"),
@@ -164,8 +164,8 @@ def test_flash_path_at_seq_2048_runs_the_plain_versions(tmp_path, monkeypatch):
     monkeypatch.setattr(fa, "_backward_plain", counted("backward", bwd))
     state, hist = composed.main(
         config.ComposedConfig(mesh="data=1", flash_attention=True, seq_len=2048, epochs=1,
-                              batch_size=16, batch_size_test=16, max_train_examples=32,
-                              max_test_examples=16, device="cpu",
+                              batch_size=2, batch_size_test=2, max_train_examples=4,
+                              max_test_examples=2, device="cpu",
                               results_dir=str(tmp_path)),
         datasets=_datasets(40, 20)[0])
     assert state.step == 2
@@ -185,8 +185,13 @@ def test_cli_flags():
         "--remat", "--seq-impl", "ulysses", "--keep-checkpoints", "2", "--profile"])
     assert (cfg.remat, cfg.seq_impl, cfg.keep_checkpoints, cfg.profile) == (
         True, "ulysses", 2, True)
-    for unported in (["--fsdp"], ["--telemetry", "t.jsonl"],
-                     ["--pipeline-microbatches", "4"]):
+    cfg = config.parse_config(config.ComposedConfig, [
+        "--fsdp", "--pipeline-microbatches", "8", "--pipeline-schedule", "1f1b",
+        "--moe-top-k", "2", "--sharded-checkpoint"])
+    assert (cfg.fsdp, cfg.pipeline_microbatches, cfg.pipeline_schedule, cfg.moe_top_k,
+            cfg.sharded_checkpoint) == (True, 8, "1f1b", 2, True)
+    for unported in (["--plan", "auto"], ["--telemetry", "t.jsonl"],
+                     ["--epoch", "2"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.ComposedConfig, unported)
     # the trainers' shared step options include two knobs of the JAX package's other
@@ -210,3 +215,13 @@ def test_parse_mesh_spec_matches_jax():
         with pytest.raises(ValueError) as want:
             jax_parse(bad)
         assert str(got.value) == str(want.value)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -229,6 +229,29 @@ def test_flash_kernels_match_plain(device, s, d, causal, window, dtype):
         _close(got, want, tol["grad"])
 
 
+# the composed trainer's local flash shapes on the mesh slice's paths, f32: a stage of 2
+# with 4 microbatches [16, 2048, 4, 16]; data=2,model=2 [32, 2048, 2, 16]
+MESH_SHAPES = [(16, 2048, 4, 16), (32, 2048, 2, 16)]
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES, ids=["stage-microbatch", "data2-model2"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_kernels_match_plain_at_the_mesh_shapes(device, shape, causal):
+    """B4 and B5 against their plain versions at the local shapes the meshes hand them,
+    f32 (3xTF32), within FLASH_TOL's f32 bounds."""
+    q, k, v, do = _qkvd(device, *shape, torch.float32, sum(shape) + causal)
+    tol = FLASH_TOL[torch.float32]
+    out, lse = fa.flash_forward(q, k, v, causal=causal)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal=causal)
+    _close(out, out_p, tol["out"])
+    _close(lse, lse_p, tol["lse"])
+    grads = fa.flash_backward(q, k, v, out_p, lse_p, do, causal=causal)
+    grads_p = fa.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=causal)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_p):
+        _close(got, want, tol["grad"])
+
+
 @pytest.mark.parametrize("causal,window", [(False, 0), (True, 160)])
 def test_flash_bf16_forward_on_randn_operands(device, causal, window):
     """The tensor-core forward against its plain version on randn operands (off the exact

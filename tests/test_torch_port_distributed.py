@@ -539,7 +539,7 @@ def test_device_cuda_without_card_raises():
     assert not dist.is_initialized()
 
 
-UNPORTED = [["--fsdp"], ["--telemetry", "t.jsonl"], ["--epoch", "2"]]
+UNPORTED = [["--plan", "auto"], ["--telemetry", "t.jsonl"], ["--epoch", "2"]]
 MODEL_FIELDS = ("model", "bf16", "remat", "remat_policy", "causal", "attention_window",
                 "kv_heads", "rope")
 
@@ -553,7 +553,7 @@ def test_config_keeps_jax_defaults_and_rejects_unported_flags():
               "shard_eval", "max_train_examples", "max_test_examples", "resume_from",
               "keep_checkpoints", "async_checkpoint", "images_dir", "profile", "profile_dir",
               "heartbeat_dir", "handle_preemption", "download_data", "host_local_feed",
-              *MODEL_FIELDS):
+              "fsdp", *MODEL_FIELDS):
         assert getattr(defaults, f) == getattr(ref, f), f
     cfg = config.parse_config(config.DistributedConfig,
                               ["--shard-eval", "--device", "cpu", "--epochs", "2"])
@@ -626,3 +626,13 @@ def test_metrics_log_is_rank0_gated_and_lines_match_jax(monkeypatch, capsys):
     monkeypatch.setenv("RANK", "0")
     metrics.log("from rank 0")
     assert capsys.readouterr().out == "from rank 0\n"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

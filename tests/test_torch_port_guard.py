@@ -346,3 +346,13 @@ def test_distributed_trainer_at_world_2_exits_65_with_the_jax_trainers_window(
     marker = poison.read_marker(str(tmp_path / "port" / "checkpoints"))
     assert (marker["step"], marker["window"]) == (theirs.value.step, theirs.value.window)
     assert proc.stdout.count("poisoned at step") == 1                    # rank 0 prints
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

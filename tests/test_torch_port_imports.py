@@ -56,7 +56,9 @@ def test_sources_found():
                    "serving/spec/drafter.py", "serving/spec/draft_lm.py",
                    "serving/replica.py", "serve_loadgen.py", "bench_spec_ab.py",
                    "parallel/ulysses.py", "bench_transformer.py", "models/__init__.py",
-                   "models/cnn.py", "train/single.py"):
+                   "models/cnn.py", "train/single.py", "parallel/tensor_parallel.py",
+                   "parallel/fsdp.py", "parallel/expert_parallel.py",
+                   "parallel/pipeline.py"):
         assert PORT / module in SOURCES, module
 
 

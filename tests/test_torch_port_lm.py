@@ -436,3 +436,13 @@ def test_filter_logits_masks_match_jax():
             want = np.asarray(jax_lm.filter_logits(jnp.asarray(x), **kw))
             got = lm.filter_logits(torch.from_numpy(x), **kw).numpy()
             np.testing.assert_array_equal(got, want, err_msg=str(kw))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

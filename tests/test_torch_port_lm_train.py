@@ -45,6 +45,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import
     transformer,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import optim
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    mesh as mesh_mod,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import lm as lm_train
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import step
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
@@ -101,13 +104,18 @@ def test_lm_config_is_the_jax_packages_and_refuses_the_unported(monkeypatch):
                       (dict(attention_window=-1), "window")):
         with pytest.raises(ValueError, match=match):
             lm_train.main(dataclasses.replace(base, **kw))
-    for mesh, match in (("data=2,seq=2", "ROADMAP A10"), ("data=1,model=2", "ROADMAP A10"),
-                        ("data=2", "process group has 1"), ("seq=2", "needs a data axis"),
+    # data beside seq and the model axis train now: at a world of 1 the grid refuses them
+    # with the JAX package's make_mesh words, as it does any product other than the world
+    for mesh, match in (("data=2,seq=2", "requested 4 devices, have 1"),
+                        ("data=1,model=2", "requested 2 devices, have 1"),
+                        ("data=2", "requested 2 devices, have 1"),
+                        ("seq=2", "needs a data axis"),
                         ("data=1,stage=2", "needs a data axis")):
         with pytest.raises(ValueError, match=match):
-            lm_train.mesh_worlds(mesh, 1)
-    assert lm_train.mesh_worlds("", 3) == lm_train.mesh_worlds("data=3", 3) == (3, 1)
-    assert lm_train.mesh_worlds("data=1,seq=2", 2, zigzag=True) == (1, 2)
+            mesh_mod.ProcessGrid(lm_train.lm_mesh(mesh, 1))
+    assert lm_train.lm_mesh("", 3) == "data=3"
+    assert lm_train.lm_mesh("data=1,seq=2", 2, zigzag=True) == "data=1,seq=2"
+    assert mesh_mod.ProcessGrid("data=1,seq=1,model=1").world == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):      # the default: the card
         lm_train.main(config.LMConfig())

@@ -312,3 +312,13 @@ def test_ctypes_signatures_match_the_c_entry_points():
         source = (_build.CSRC / f"{library}.cu").read_text()
         for entry, argtypes in entries.items():
             assert _c_parameter_kinds(source, entry) == [kind_of[a] for a in argtypes], entry
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -160,3 +160,13 @@ def test_prefix_cache_needs_chunked_prefill_and_a_matching_layout():
     i8.run([Request(prompt=np.arange(12, dtype=np.int32) % 8, max_new_tokens=2)])
     assert f32.prefix_cache.stats()["layout_rejects"] == 1
     assert f32.prefix_cache.stats()["hits"] == 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

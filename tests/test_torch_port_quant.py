@@ -358,7 +358,9 @@ def assert_streams_equal_up_to_ties(got, want, requests, tm, params, kv, chunk_s
     return ties
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+# the contiguous layout's cases here, the paged layout's in test_torch_port_quant_paged.py
+# (the same test, split over two files so that two workers share its JAX engine builds)
+@pytest.mark.parametrize("layout", ["contiguous"])
 @pytest.mark.parametrize("policy", ["off", "w8", "w8a8"])
 @pytest.mark.parametrize("kv", ["int8", "fp8"])
 @pytest.mark.parametrize("cfg", CONFIGS, ids=CONFIG_IDS)
@@ -366,6 +368,11 @@ def test_quantized_engine_streams_equal_jax(cfg, kv, policy, layout):
     """Four requests through 3 slots (slots and pages freed and reused mid-stream), pages
     of 8: the streams (up to true ties), the counters, the byte accounting and, paged,
     the allocator's ledger after the run are the JAX engine's."""
+    check_engine_streams(cfg, kv, policy, layout)
+
+
+def check_engine_streams(cfg, kv, policy, layout):
+    """The body of ``test_quantized_engine_streams_equal_jax`` for one case."""
     jm, jp, tm, params = _pair(cfg)
     kw = dict(num_slots=3, kv_layout=layout, page_size=8, kv_dtype=kv, quant_policy=policy)
     je = jax_engine.ContinuousBatchingEngine(jm, jp, **kw)
@@ -383,3 +390,13 @@ def test_quantized_engine_streams_equal_jax(cfg, kv, policy, layout):
     assert tb == {**jb, "per_chip": {0: jb["per_chip"][min(jb["per_chip"])]}}
     if layout == "paged":
         assert te.page_stats() == je.page_stats() and te.page_stats()["in_use"] == 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -248,3 +248,13 @@ def test_maybe_profile_writes_a_chrome_trace_with_the_annotations(tmp_path, caps
         with profiling.annotate("eval"):
             pass
     assert not (tmp_path / "off").exists()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -454,13 +454,16 @@ def test_flag_errors_match_jax(tmp_path, kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256}, "ROADMAP A10"),
-    ({"mesh": "data=1,seq=2,model=2", "seq_len": 256}, "ROADMAP A10"),
-    ({"mesh": "data=2,seq=2", "seq_impl": "ulysses"}, "ROADMAP A10"),
+    # each mesh trains now; what is refused is a launcher world other than its product,
+    # with the JAX package's make_mesh words
+    ({"mesh": "data=2,seq=2", "flash_attention": True, "seq_len": 256},
+     "requested 4 devices, have 1"),
+    ({"mesh": "data=1,seq=2,model=2", "seq_len": 256}, "requested 4 devices, have 1"),
+    ({"mesh": "data=2,seq=2", "seq_impl": "ulysses"}, "requested 4 devices, have 1"),
     ({"mesh": "data=2,seq=2", "zigzag_attention": True, "causal": True, "seq_len": 512},
-     "ROADMAP A10"),
+     "requested 4 devices, have 1"),
     ({"mesh": "data=1,seq=2", "flash_attention": True, "seq_len": 256},
-     "seq world of 2, but 1 process"),
+     "requested 2 devices, have 1"),
 ])
 def test_unported_seq_configs_raise(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -503,9 +506,26 @@ def test_ring_function_errors_match_jax():
 
 
 def test_seq_axis_size():
-    assert mesh.seq_axis_size("data=1") == 1
-    assert mesh.seq_axis_size("data=1,seq=4") == 4
-    assert mesh.seq_axis_size("seq=2,model=1") == 2
+    """The seq axis is the grid's: its size, and each rank's index along it, row-major
+    over the spec as the JAX package's make_mesh lays out its devices."""
+    assert mesh.ProcessGrid("data=1").size("seq") == 1
+    assert mesh.ProcessGrid("data=1,seq=4", rank=3, world=4).axis("seq").index == 3
+    grid = mesh.ProcessGrid("data=2,seq=2,model=2", rank=5, world=8)
+    assert grid.coords == {"data": 1, "seq": 0, "model": 1}
+    assert grid.axis("seq").ranks == (5, 7) and grid.axis("data").ranks == (1, 5)
+    assert grid.axis("model").ranks == (4, 5) and grid.size("stage") == 1
     for spec in ("data=2", "data=2,seq=2", "data=1,seq=2,model=2", "stage=2"):
-        with pytest.raises(ValueError, match="ROADMAP A10"):
-            mesh.seq_axis_size(spec)
+        with pytest.raises(ValueError, match="devices, have 1"):
+            mesh.ProcessGrid(spec)
+    with pytest.raises(ValueError, match="must equal the launcher's world"):
+        mesh.ProcessGrid("data=2", rank=0, world=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

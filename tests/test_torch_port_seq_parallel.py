@@ -385,3 +385,13 @@ def test_lm_seq_axis_matches_data_1(fleets, tmp_path, name):
     got = np.load(fleets("lm") / f"lm-{name}.npz")
     _check_run(got, hist.train_losses, hist.test_losses,
                {k: p.numpy() for k, p in state.params.items()})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -427,3 +427,13 @@ def test_server_loop_error_fails_pending_futures():
         fut.result(timeout=RESULT_TIMEOUT)
     with pytest.raises(RuntimeError, match="serving loop died"):
         server.stop(timeout=RESULT_TIMEOUT)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

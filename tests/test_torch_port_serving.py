@@ -316,3 +316,13 @@ def test_engine_validation_matches_jax():
     if not torch.cuda.is_available():      # the card is the default; the CPU is asked for
         with pytest.raises(ValueError, match="device='cpu'"):
             ContinuousBatchingEngine(tm, params, num_slots=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -471,3 +471,13 @@ def test_sampled_accept_fold_emits_the_target_distribution(case):
     g_tokens, g_counts = port_engine.accept_fold(
         logp.expand(4, k + 1, v).clone(), draft[:4], dlen[:4], None, None, None, gen)
     assert (g_tokens == logp.argmax(-1)).all()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -347,3 +347,13 @@ def test_every_step_flag_parses_with_the_jax_defaults(trainer):
             cfg.guard, cfg.guard_zscore, cfg.anomaly_exit, cfg.skip_steps, cfg.scan_unroll,
             cfg.pregather) == ("adamw", 0.01, "cosine", 3, 1.0, 0.1, 0.9, 2, True, 6.0, 1,
                                "4:6", 1, True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

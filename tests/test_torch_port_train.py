@@ -456,3 +456,13 @@ def test_launch_counters_untouched_by_cpu_training():
     fn = step.make_train_step(net, learning_rate=LR, momentum=MOMENTUM, use_pallas=True)
     fn(state, torch.randn(4, 28, 28, 1), torch.randint(0, 10, (4,)), 0)
     assert fused_kernels.launch_counts() == {"nll_fwd": 0, "nll_bwd": 0, "sgd_momentum": 0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -236,9 +236,20 @@ def test_classifier_remat_is_bitwise_the_run_without_it(policy):
 
 
 def test_unported_knobs_raise():
-    for kw in ({"num_experts": 4}, {"expert_mesh": object()}):
-        with pytest.raises(ValueError, match="ROADMAP A10"):
+    # the MoE and the model axis are ported: what remains refused is a split that does
+    # not divide (experts over the expert axis, heads over the model axis)
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+        Axis,
+        ShardContext,
+    )
+    for kw, match in (
+            ({"num_experts": 3, "shard": ShardContext(expert=Axis("expert", 2))},
+             "experts do not split over the expert axis of 2"),
+            ({"shard": ShardContext(model=Axis("model", 3))},
+             "split over the model axis of 3")):
+        with pytest.raises(ValueError, match=match):
             transformer.TransformerClassifier(**kw)
+    assert transformer.TransformerClassifier(num_experts=4).num_experts == 4
     with pytest.raises(ValueError, match="add --remat"):
         transformer.TransformerClassifier(remat_policy="save-dots")
     with pytest.raises(ValueError, match="not divisible"):
@@ -286,3 +297,13 @@ def test_bf16_flash_backward_alignment_rule(case, raises):
             fa._check_aligned("flash_dkv", **operands)
     else:
         fa._check_aligned("flash_dkv", **operands)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -345,3 +345,13 @@ def test_bench_transformer_prints_the_root_scripts_keys(capsys):
                                    "--no-bf16", "--flash", "--device", "cpu"]) == 0
     flash = json.loads(capsys.readouterr().out)
     assert "attn-dispatch(flash)" in flash["metric"] and flash["flash_layout"] == "tf32x3"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module's torch work: the suite runs several workers
+    on the host's cores, and torch's default of one thread a core each oversubscribes it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
