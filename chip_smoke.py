@@ -197,9 +197,21 @@ Phases (each raises on failure; nothing is caught):
     its ``model_composed.ckpt`` and sharded directory restored on the CPU bitwise equal;
     (f) the LM at ``data=1,model=2`` and ``data=2,seq=2`` against data=1, and
     ``train.distributed --fsdp`` at world 1 on NCCL, captured, against plain DP;
-29. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+29. the serve mesh and the telemetry stream (``serve_mesh_phase``): (a) [25]'s trained LM
+    in the paged engine on ``build_serve_mesh(2, 2)``, four gloo ranks time-slicing the
+    card (``serve_mesh_child``: a correctness run, no speed), 16 greedy requests whose
+    streams equal the unsharded engine's (run in this process meanwhile) up to true ties,
+    each rank's B6 launches = layers x decode steps at its own ``[4, 2, 1, 16]`` (the
+    unsharded call is ``[8, 4, 1, 16]``), every call held against the plain version,
+    params + KV per rank <= the unsharded / 1.8, the replica check, then ``serve_loadgen
+    --shard tp=2,dp=2 --telemetry`` (the ``Server`` on rank 0 over ``MeshLeader``); (b)
+    ``train.single --use-pallas-kernels --telemetry --health-stats`` for one short epoch:
+    the stream has the JAX package's kinds and keys, and parameters and B1-B3 launches
+    equal the run without the flags; (c) [24] (d)'s ``Server(telemetry=...)`` stream;
+30. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
-    their launches on [27]'s and [28]'s paths), then, last, the JSON result line.
+    their launches on [27]'s and [28]'s paths; B6 with its serve-mesh run of [29]), then,
+    last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -1160,6 +1172,300 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
     return found
 
 
+def serve_mesh_child(ckpt: str, requests_path: str, out: str) -> None:
+    """Phase 29 (a), one rank of the ``tp=2,dp=2`` serve mesh on the card: [25]'s trained LM
+    (``ckpt``) in the paged engine at ``serve_loadgen``'s widths on
+    ``serving.shard.build_serve_mesh(2, 2)``, warmed up, then the requests of
+    ``requests_path`` served by ``engine.run`` with the B6 count set to 0 just before and
+    read just after, every B6 call held against ``paged_attend_reference`` on the same
+    operands (the plain version launches nothing); the byte accounting, the replica check;
+    then ``serve_loadgen --shard tp=2,dp=2 --telemetry`` (the ``Server`` on rank 0 over
+    ``MeshLeader``, the others following). Writes ``out``-rank<r>.json."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import (
+        serve_loadgen,
+        serving,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        paged_attention as paged,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import mesh
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import shard
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+
+    spec = json.loads(Path(requests_path).read_text())
+    make = lambda rows: [serving.Request(prompt=np.asarray(p, np.int32), max_new_tokens=n,
+                                         request_id=i) for i, (p, n) in enumerate(rows)]
+    with mesh.cluster("cuda"):
+        rank = dist.get_rank()
+        model = lm.TransformerLM(**SERVE_LM)
+        params = checkpoint.load_params_or_state(ckpt, model.init(torch.Generator()))
+        sm = shard.build_serve_mesh(2, 2)
+        eng = serving.ContinuousBatchingEngine(model, params, num_slots=SERVE_SLOTS,
+                                               kv_layout="paged", page_size=SERVE_PAGE,
+                                               mesh=sm, device="cuda")
+        eng.run(make(spec["warmup"]))
+        eng.reset_stats()
+        errs, excess, shapes = [], [], set()
+        real = paged.paged_attend
+
+        def spy(q, k_pool, v_pool, table, t, **kw):
+            out_ = real(q, k_pool, v_pool, table, t, **kw)
+            want = paged.paged_attend_reference(q, k_pool, v_pool, table, t, **kw)
+            errs.append((out_ - want).abs().max().item())
+            excess.append(errs[-1] - PAGED_RTOL * want.abs().max().item())
+            shapes.add((tuple(q.shape), tuple(k_pool.shape)))
+            return out_
+
+        torch.cuda.synchronize()
+        paged.reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched(paged, "paged_attend", spy):
+            done = eng.run(make(spec["requests"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paged.launch_counts()["paged_attend"]
+        acct = eng.byte_accounting()
+        shard.check_replicas(eng)
+        doc = {"rank": rank, "group": eng._group, "launches": launches, "steps": eng.steps,
+               "layers": model.num_layers, "calls": len(errs),
+               "max_abs_err": max(errs) if errs else None,
+               "excess": max(excess) if excess else None,
+               "shapes": sorted(map(list, shapes)), "wall_s": wall,
+               "streams": {c.request.request_id: c.tokens.tolist() for c in done},
+               "bytes": acct}
+        tele = str(OUT_DIR / "serve_mesh_loadgen.jsonl")
+        summary = str(OUT_DIR / "serve_mesh_loadgen.json")
+        argv = ["--device", "cuda", "--checkpoint", ckpt, "--num-slots", str(SERVE_SLOTS),
+                "--kv-layout", "paged", "--page-size", str(SERVE_PAGE), "--requests", "8",
+                "--max-new-tokens", "16", "--prompt-lens", "0,64,200", "--rate", "50",
+                "--shard", "tp=2,dp=2", "--telemetry", tele, "--summary-json", summary]
+        t0 = time.perf_counter()
+        doc["loadgen_rc"] = serve_loadgen.main(argv)
+        doc["loadgen_s"] = time.perf_counter() - t0
+        Path(f"{out}-rank{rank}.json").write_text(json.dumps(doc))
+
+
+# The telemetry stream's keys per event kind, the JAX package's (utils/telemetry.py's
+# event functions there); [29] holds the port's streams to them.
+TELEMETRY_KEYS = {
+    "manifest": ("schema_version", "run_type", "unix_time", "platform", "device_kind",
+                 "device_count", "local_device_count", "process_count", "process_index",
+                 "jax_version", "jaxlib_version", "python_version"),
+    "compile": ("fn", "lower_s", "compile_s", "flops_per_call", "steps_per_call",
+                "flops_per_step", "bytes_accessed_per_call", "bytes_accessed_per_step"),
+    "epoch": ("epoch", "examples", "steps", "wall_s", "execute_s", "eval_s", "data_s",
+              "compile_s", "examples_per_s", "steps_per_s", "flops_per_step", "train_loss",
+              "val_loss", "mfu"),
+    "health": ("epoch", "steps", "grad_norm", "grad_norm_max", "loss_min", "loss_max",
+               "loss_mean", "param_norm"),
+    "mfu": ("flops_per_step", "step_s", "achieved_flops_per_s_per_device", "device_kind",
+            "devices", "peak_flops_per_s_per_device", "mfu", "bytes_accessed_per_step",
+            "achieved_bytes_per_s_per_device", "peak_hbm_bytes_per_s", "hbm_frac"),
+    "serve": ("request_id", "prompt_len", "new_tokens", "finish", "queue_wait_s", "ttft_s",
+              "tpot_s", "e2e_s", "tokens_per_s", "tenant", "preemptions"),
+    "prefill": ("request_id", "prompt_len", "chunks", "tokens", "cache_hit_len", "wall_s",
+                "latency_s", "tokens_per_s"),
+    "tenant_summary": ("source", "tenant", "requests", "ok", "timeout", "shed",
+                       "new_tokens", "preemptions", "ttft_s", "e2e_s", "slo"),
+    "serve_summary": ("requests", "ok", "timeout", "new_tokens", "wall_s", "tokens_per_s",
+                      "steps", "decode_invocations", "generated_tokens",
+                      "tokens_per_invocation", "spec", "slot_occupancy", "prefill_tokens",
+                      "prefill_chunks", "prefill_wall_s", "prefill_tokens_per_s",
+                      "prefix_cache", "queue", "bytes", "kv_pages", "slo", "shed",
+                      "preemptions", "resumes", "tenants", "ttft_s", "tpot_s", "e2e_s",
+                      "queue_wait_s"),
+}
+MESH_REQUESTS, MESH_MAX_NEW = 16, 64   # [29] (a): greedy requests on the tp=2,dp=2 mesh
+MESH_BYTES_RATIO = 1.8          # [29] (a): params + KV per rank <= the unsharded / 1.8
+TELEMETRY_TRAIN = 1280          # [29] (b): the train.single runs' split (20 steps)
+
+
+def check_stream(tag: str, path: Path, counts: dict[str, int]) -> list[dict]:
+    """The telemetry stream at ``path``: valid JSONL, every kind in the registry, the
+    JAX package's keys on each kind ``TELEMETRY_KEYS`` names, the manifest first, and
+    ``counts`` (kind -> events) met; returns its events."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        jsonl,
+        telemetry_events,
+    )
+
+    rows = jsonl.read_jsonl(str(path))
+    if not rows or rows[0].get("event") != "manifest":
+        fail(f"{tag} {path.name}: the stream does not open with its manifest")
+    for row in rows:
+        kind = row.get("event")
+        if telemetry_events.describe(kind) is None:
+            fail(f"{tag} {path.name}: event kind {kind!r} is not in the registry")
+        missing = [k for k in TELEMETRY_KEYS.get(kind, ()) if k not in row]
+        if missing:
+            fail(f"{tag} {path.name}: a {kind!r} event lacks {missing}")
+    got = {kind: sum(r["event"] == kind for r in rows) for kind in counts}
+    if got != counts:
+        fail(f"{tag} {path.name}: events {got}, expected {counts}")
+    return rows
+
+
+def serve_mesh_phase(dev, card: str, model, params: dict, ckpt: Path, test_ids, warmup,
+                     serve, compare_streams, request_mix, train_ds, test_ds,
+                     server_stream: Path) -> dict:
+    """Phase 29: (a) the serve mesh ``tp=2,dp=2``, four gloo ranks time-slicing the card
+    (``serve_mesh_child``; a correctness run, no speed), against the unsharded paged
+    engine run in this process meanwhile; (b) ``train.single --telemetry --health-stats``
+    against the same run without them; (c) [24] (d)'s ``Server(telemetry=...)`` stream.
+    Returns B6's serve-mesh entry for the kernels line."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import single
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        SingleProcessConfig,
+    )
+
+    t_phase = time.perf_counter()
+    requests = request_mix(test_ids, MESH_REQUESTS, MESH_MAX_NEW, 29)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    req_path = OUT_DIR / "serve_mesh_requests.json"
+    req_path.write_text(json.dumps(
+        {name: [[r.prompt.tolist(), r.max_new_tokens] for r in rs]
+         for name, rs in (("warmup", warmup), ("requests", requests))}))
+    out = str(OUT_DIR / "serve_mesh")
+    fleet = start_fleet(["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                               f"import chip_smoke; chip_smoke.serve_mesh_child("
+                               f"{str(ckpt)!r}, {str(req_path)!r}, {out!r})"], n=4)
+
+    # (a), meanwhile: the unsharded paged engine on the same requests
+    ref_eng, ref_streams, ref_wall, ref_launches = serve(model, params, "paged", requests,
+                                                         warmup)
+    single_acct = ref_eng.byte_accounting()
+    del ref_eng
+
+    # (b), meanwhile: train.single with and without --telemetry --health-stats
+    small = (mnist.truncate(train_ds, TELEMETRY_TRAIN), mnist.truncate(test_ds, 1000))
+    stream = OUT_DIR / "single_telemetry.jsonl"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True      # two runs of one seed, bit for bit
+    runs = {}
+    for name, kw in (("off", {}), ("on", dict(telemetry=str(stream), health_stats=True))):
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, _ = single.main(SingleProcessConfig(
+                n_epochs=1, use_pallas_kernels=True, device="cuda",
+                results_dir=str(OUT_DIR / f"telemetry_{name}"),
+                images_dir=str(OUT_DIR / "telemetry_images"), **kw), datasets=small)
+        torch.cuda.synchronize()
+        runs[name] = (state, fk.launch_counts())
+    torch.backends.cudnn.deterministic = deterministic
+    (s_off, n_off), (s_on, n_on) = runs["off"], runs["on"]
+    if n_on != n_off or not all(n_off.values()):
+        fail(f"[29] (b) B1-B3 launches with telemetry and health stats {n_on}, without "
+             f"{n_off}")
+    differ = [k for k in s_off.params if not torch.equal(s_off.params[k], s_on.params[k])]
+    if differ:
+        fail(f"[29] (b) parameters differ with --telemetry --health-stats: {differ}")
+    rows = check_stream("[29] (b)", stream, {"manifest": 1, "compile": 1, "epoch": 1,
+                                             "health": 1, "mfu": 1})
+    ev = {r["event"]: r for r in rows}
+    h, e, m = ev["health"], ev["epoch"], ev["mfu"]
+    if not (ev["compile"]["flops_per_step"] or 0) > 0 or not (m["mfu"] or 0) > 0 or not (
+            h["grad_norm"] > 0 and h["param_norm"] > 0
+            and h["loss_min"] <= h["loss_mean"] <= h["loss_max"]):
+        fail(f"[29] (b) stream values: compile {ev['compile']}, health {h}, mfu {m}")
+    print(f"[29] (b) train.single --use-pallas-kernels --telemetry --health-stats, one epoch "
+          f"of {TELEMETRY_TRAIN} examples ({e['steps']} steps), under cudnn.deterministic: "
+          f"parameters bitwise those of the run without them, B1-B3 launches {n_on} equal; "
+          f"the stream ({len(rows)} events) has the JAX package's kinds and keys: "
+          f"compile_s {ev['compile']['compile_s']:.4f} (the first segment call: warm-up, "
+          f"capture, first replay), flops/step {e['flops_per_step']:.4e} (FlopCounterMode "
+          f"+ B1-B3 by formula), epoch execute_s {e['execute_s']:.4f}, grad norm mean "
+          f"{h['grad_norm']:.5f}, param norm {h['param_norm']:.5f}, mfu {m['mfu']:.3e} "
+          f"(bf16 peak; the CNN is f32 and tiny) [{card}]")
+
+    # (c): [24] (d)'s Server stream
+    rows = check_stream("[29] (c)", server_stream, {
+        "manifest": 1, "serve_config": 1, "serve": SERVER_REQUESTS, "kv_pages": 1,
+        "tenant_summary": 2, "serve_summary": 1})
+    summ = rows[-1]
+    if summ["event"] != "serve_summary" or summ["requests"] != SERVER_REQUESTS or len(
+            summ["bytes"]["per_chip"]) != 1:
+        fail(f"[29] (c) the stream's last event: {summ}")
+    print(f"[29] (c) [24] (d)'s Server(telemetry=...): {len(rows)} events (manifest, "
+          f"serve_config, {SERVER_REQUESTS} serve, "
+          f"{sum(r['event'] == 'prefill' for r in rows)} prefill, kv_pages, 2 tenant_summary, "
+          f"serve_summary: {summ['ok']} ok, ttft p95 {summ['ttft_s']['p95']:.4f} s) with the "
+          f"JAX package's kinds and keys [{card}]")
+
+    # (a): the fleet's ranks against the unsharded engine
+    finish_fleet("[29] (a) tp=2,dp=2:", fleet)
+    ranks = [json.loads(Path(f"{out}-rank{r}.json").read_text()) for r in range(4)]
+    layers = model.num_layers
+    local = [SERVE_SLOTS // 2, model.kv_heads // 2, 1, model.head_dim]
+    for row in ranks:
+        tag = f"[29] (a) rank {row['rank']}"
+        if row["launches"] != layers * row["steps"] or not row["launches"]:
+            fail(f"{tag}: B6 launches {row['launches']} != {layers} x {row['steps']} steps")
+        if row["calls"] != row["launches"] or {tuple(s[0]) for s in row["shapes"]} != {
+                tuple(local)}:
+            fail(f"{tag}: {row['calls']} held calls at q {row['shapes']}, expected "
+                 f"{row['launches']} at {local}")
+        if row["excess"] > PAGED_ATOL:
+            fail(f"{tag}: B6 vs its plain version beyond atol {PAGED_ATOL} + rtol "
+                 f"{PAGED_RTOL}: excess {row['excess']:.3e}")
+        if row["loadgen_rc"] != 0:
+            fail(f"{tag}: serve_loadgen --shard returned {row['loadgen_rc']}")
+    got = {int(k): v for k, v in ranks[0]["streams"].items()}
+    params_dev = {k: p.to(dev) for k, p in params.items()}
+    ties = compare_streams("[29] (a)", model, params_dev, requests, got, ref_streams)
+    acct = ranks[0]["bytes"]
+    single_total = single_acct["params_bytes"] + single_acct["kv_bytes_resident"]
+    if len(acct["per_chip"]) != 4 or acct["params_kv_bytes_per_chip_max"] > (
+            single_total / MESH_BYTES_RATIO):
+        fail(f"[29] (a) per-chip params+kv {acct['params_kv_bytes_per_chip_max']} over "
+             f"{len(acct['per_chip'])} ranks vs the unsharded {single_total} / "
+             f"{MESH_BYTES_RATIO}")
+    loadgen = json.loads((OUT_DIR / "serve_mesh_loadgen.json").read_text())
+    l_rows = check_stream("[29] (a) serve_loadgen", OUT_DIR / "serve_mesh_loadgen.jsonl",
+                          {"manifest": 1, "serve": 8, "serve_summary": 1})
+    if loadgen["shard"] != "tp=2,dp=2" or loadgen["ok"] != 8 or len(
+            loadgen["bytes"]["per_chip"]) != 4 or len(l_rows[-1]["bytes"]["per_chip"]) != 4:
+        fail(f"[29] (a) serve_loadgen --shard summary: {loadgen}")
+    same = sum(got[i] == ref_streams[i] for i in ref_streams)
+    print(f"[29] (a) ContinuousBatchingEngine(mesh=build_serve_mesh(2, 2)), paged, "
+          f"{SERVE_SLOTS} slots, pages of {SERVE_PAGE}, [25]'s trained LM {SERVE_LM}: "
+          f"{MESH_REQUESTS} greedy requests, {same}/{MESH_REQUESTS} streams equal to the "
+          f"unsharded engine's, {ties} diverging at a true tie; every rank's B6 calls at q "
+          f"{local} (the unsharded {[SERVE_SLOTS, model.kv_heads, 1, model.head_dim]}) held "
+          f"against the plain version (max |err| {max(r['max_abs_err'] for r in ranks):.3e}, "
+          f"within atol {PAGED_ATOL} + rtol {PAGED_RTOL}); B6 launches by rank "
+          f"{[r['launches'] for r in ranks]} = "
+          f"{layers} layers x {ranks[0]['steps']} decode steps; params+kv per rank "
+          f"{acct['params_kv_bytes_per_chip_max']} B max vs {single_total} B unsharded "
+          f"(ratio {single_total / acct['params_kv_bytes_per_chip_max']:.2f} >= "
+          f"{MESH_BYTES_RATIO}); the replica check passed; serve_loadgen --shard tp=2,dp=2 "
+          f"(Server on rank 0 over MeshLeader): {loadgen['ok']}/8 ok in "
+          f"{ranks[0]['loadgen_s']:.1f} s, its stream {len(l_rows)} events "
+          f"(4 gloo ranks on one card: a correctness run, never a speed) [{card}]")
+    print(f"[29] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"path": "ContinuousBatchingEngine(mesh=build_serve_mesh(2, 2)), paged, "
+                    "serve_loadgen's widths [29] (a)",
+            "local_q_shape": local, "launches_by_rank": [r["launches"] for r in ranks],
+            "decode_steps": ranks[0]["steps"],
+            "max_abs_err_by_rank": [r["max_abs_err"] for r in ranks],
+            "streams_equal": same, "streams": MESH_REQUESTS, "ties": ties}
+
+
 def moe_reference(out: str, top_k: int, steps: int = MESH_STEPS) -> None:
     """Phase 28 (d)'s reference: the same MoE classifier that ``--mesh data=1,expert=2``
     trains (two experts, ``top_k``, the flash core at seq 2048, the same seeded initial
@@ -1955,8 +2261,8 @@ def checkpoint_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
     real = checkpoint.make_saver
     timed = {"sync": [], "async": []}            # each run's host ms a save, by saver
 
-    def timed_saver(async_=False):
-        saver = _Timed(real(async_))
+    def timed_saver(async_=False, tele=None):
+        saver = _Timed(real(async_, tele=tele))
         timed["async" if async_ else "sync"].append(saver.ms)
         return saver
 
@@ -1969,7 +2275,7 @@ def checkpoint_phase(dev, card: str, train_ds, test_ds, earlier: dict) -> None:
         cfg = SingleProcessConfig(n_epochs=1, use_pallas_kernels=True, device=dev.type,
                                   async_checkpoint=mode == "async", results_dir=str(d),
                                   images_dir=str(images))
-        factory = (lambda async_=False: NoSaves()) if mode == "off" else timed_saver
+        factory = (lambda async_=False, tele=None: NoSaves()) if mode == "off" else timed_saver
         fk.reset_launch_counts()
         with patched(checkpoint, "make_saver", factory), \
                 patched(torch.backends.cudnn, "deterministic", pair), \
@@ -2291,7 +2597,7 @@ def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
                     else st.HostFedStep)
             fk.reset_launch_counts()
             with patched(single, "HostFedStep", make), \
-                    patched(checkpoint, "make_saver", lambda async_=False: NoSaves()), \
+                    patched(checkpoint, "make_saver", lambda async_=False, tele=None: NoSaves()), \
                     numpy_data_path(numpy_path), \
                     contextlib.redirect_stdout(io.StringIO()) as said:
                 state, hist = single.main(cfg, datasets=(train_ds, test_ds))
@@ -3254,7 +3560,7 @@ def main() -> None:
     t0 = time.perf_counter()
     # the epoch without its log-tick checkpoints, as earlier smoke runs timed it; [22] (b)
     # times it with them
-    with patched(checkpoint, "make_saver", lambda async_=False: NoSaves()):
+    with patched(checkpoint, "make_saver", lambda async_=False, tele=None: NoSaves()):
         state, history = single.main(config, datasets=(train_ds, test_ds))
     main_s = time.perf_counter() - t0
     launches = fk.launch_counts()
@@ -4515,7 +4821,9 @@ def main() -> None:
     s_eng = serving.ContinuousBatchingEngine(q_model, q_params, **s_kw)
     s_eng.run(warmup)
     s_eng.reset_stats()
-    server = serving.Server(s_eng, tenants=serving.parse_tenants(SERVER_TENANTS))
+    server_stream = OUT_DIR / "server_24d.jsonl"
+    server = serving.Server(s_eng, tenants=serving.parse_tenants(SERVER_TENANTS),
+                            telemetry=str(server_stream))
     futures: dict = {}
     lock = threading.Lock()
 
@@ -4687,8 +4995,15 @@ def main() -> None:
     slice17 = mesh_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # -- 29. result ---------------------------------------------------------------------
+    # -- 29. the serve mesh and the telemetry stream --------------------------------------
     PHASE_START[29] = time.perf_counter()
+    slice18 = serve_mesh_phase(dev, card, t_model, t_params, trained["path"], test_ids,
+                               warmup, serve, compare_streams, request_mix, train_ds,
+                               test_ds, server_stream)
+    torch.cuda.empty_cache()
+
+    # -- 30. result ---------------------------------------------------------------------
+    PHASE_START[30] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -4735,7 +5050,9 @@ def main() -> None:
         for path, (counts, names) in new_paths.items():
             if entry["name"] in names:
                 entry.setdefault("launches_by_path", {})[path] = counts[names[entry["name"]]]
-    print(f"[29] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+        if entry["name"] == "paged_attend":      # B6 on each rank's own heads and pages
+            entry["serve_mesh"] = slice18
+    print(f"[30] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

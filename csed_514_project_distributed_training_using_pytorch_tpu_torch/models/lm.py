@@ -41,6 +41,11 @@ f32 where it is used, as JAX promotes it), and keep the caches in the model's dt
 update the cache tensors in place (JAX returns new arrays; the port saves the copy) and
 return them, so the call shapes match the JAX package's.
 
+On a serve mesh (``tp``, a ``parallel.mesh.Axis`` of size n) every serving function computes
+the rank's ``H/n`` query and ``KV_H/n`` KV heads with its shards of the parameters
+(``serving.shard.param_shardings``) and reads and writes planes of those heads only; the
+embeddings, norms and head replicate (``_project``, ``_row_parallel``, ``_block_tail``).
+
 Quantized execution (``ops/quant.py``) changes only the plane I/O and the matmuls:
 ``init_cache``/``init_page_pool`` take a ``kv_dtype``, and int8/fp8 add f32 ``k_scale``/
 ``v_scale`` planes (``[B, S, KV_H]`` contiguous, ``[num_pages, page_size, KV_H]`` paged).
@@ -87,12 +92,17 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.rotary import (
     apply_rotary,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    collectives,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
     NO_SHARDING,
+    Axis,
     ShardContext,
 )
 
 PREFILL_CHUNK_SIZES = (32, 128, 512)   # the serving engine's default static chunk set
+NO_TP = Axis("model")   # the serving functions' default: every head on this rank
 DECODE_SEGMENT = 128   # generate()'s prefix growth: segment j reads min((j+1)·128, S) rows
 
 
@@ -122,8 +132,10 @@ class TransformerLM(_Slots):
     sliding window (with the default dense core only); ``remat`` recomputes each block in
     the backward (``models.transformer.remat_call``; ``remat_policy`` ``"save-dots"`` keeps
     the matmul outputs). ``shard`` places the blocks on a model axis (Megatron TP:
-    ``models.transformer``); the embeddings, the final LayerNorm and the head replicate,
-    and the decode functions below read whole parameters on one device.
+    ``models.transformer``); the embeddings, the final LayerNorm and the head replicate.
+    The serving functions below take their own ``tp`` axis (the serve mesh,
+    ``serving/shard.py``): column-parallel q/k/v over the rank's heads, the attention
+    output and MLP down projections row-parallel with one SUM all-reduce each.
     """
 
     def __init__(self, vocab_size: int = 17, seq_len: int = 784, embed_dim: int = 64,
@@ -233,15 +245,25 @@ def _embed(model: TransformerLM, params: dict, ids: torch.Tensor,
     return h
 
 
+def _local_heads(model: TransformerLM, tp: Axis) -> tuple[int, int, int]:
+    """``(heads, kv_heads, width)`` a rank of the ``tp`` axis computes: its ``1/size`` of
+    the query and KV heads, and of the attention width."""
+    n = tp.size
+    return model.num_heads // n, model.kv_heads // n, model.embed_dim // n
+
+
 def _project(model: TransformerLM, params: dict, i: int, h: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, tp: Axis = NO_TP):
     """Layer ``i``'s pre-LN projections of ``[N, E]`` rows at ``positions [N]``:
-    ``q [N, H, Dh]``, ``k, v [N, KV_H, Dh]``, RoPE applied."""
-    n, e = h.shape
-    nh, kvh, hd = model.num_heads, model.kv_heads, model.head_dim
+    ``q [N, H, Dh]``, ``k, v [N, KV_H, Dh]``, RoPE applied. On a ``tp`` axis of size n the
+    column-parallel kernels hold this rank's heads (the fused columns split by heads), so
+    the projections are ``H/n`` and ``KV_H/n`` heads wide."""
+    n = h.shape[0]
+    nh, kvh, e = _local_heads(model, tp)
+    hd = model.head_dim
     p = f"block_{i}."
     x = ops.layer_norm(h, params[p + "ln1_scale"], params[p + "ln1_bias"])
-    if kvh == nh:
+    if model.kv_heads == model.num_heads:
         qkv = _dense(params, p + "attn.qkv", x)
         q = qkv[:, :e].reshape(n, nh, hd)
         k = qkv[:, e:2 * e].reshape(n, kvh, hd)
@@ -255,13 +277,46 @@ def _project(model: TransformerLM, params: dict, i: int, h: torch.Tensor,
     return q, k, v
 
 
-def _block_tail(params: dict, i: int, h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+def _row_parallel(params: dict, name: str, x: torch.Tensor, tp: Axis) -> torch.Tensor:
+    """A row-parallel projection on a ``tp`` axis of size > 1: this rank's input slice
+    times its rows of the kernel, SUMmed over the axis's group, then the replicated bias.
+    A ``QuantizedTensor`` keeps its replicated per-column scales after the sum; under
+    ``w8a8`` the activation rows take the scale of the whole row (an amax all-reduced MAX)
+    and the int32 accumulators are summed, exact, so the result is the unsharded one."""
+    w = params[f"{name}_kernel"]
+    b = params[f"{name}_bias"].float()
+    if not isinstance(w, quant.QuantizedTensor):
+        out = x.float() @ w.float()
+        collectives.all_reduce_sum_(out, group=tp.group)
+        return out + b
+    if w.mode == "w8a8":
+        amax = x.float().abs().amax(dim=-1)
+        collectives.all_reduce_max_(amax, group=tp.group)
+        xscale = torch.where(amax > 0, amax / quant.INT8_QMAX, torch.ones_like(amax))
+        xq = torch.clamp(torch.round(x.float() / xscale[..., None]), -quant.INT8_QMAX,
+                         quant.INT8_QMAX).to(torch.int8)
+        acc = quant.int8_accumulate(xq, w.q)
+        collectives.all_reduce_sum_(acc, group=tp.group)
+        return acc.float() * xscale[..., None] * w.scale + b
+    out = torch.matmul(x.float(), w.q.float())
+    collectives.all_reduce_sum_(out, group=tp.group)
+    return out * w.scale + b
+
+
+def _block_tail(params: dict, i: int, h: torch.Tensor, attn: torch.Tensor,
+                tp: Axis = NO_TP) -> torch.Tensor:
     """The rest of block ``i`` after attention: the output projection's residual, then
-    the MLP's."""
+    the MLP's. On a ``tp`` axis of size > 1 both row-parallel projections sum over its
+    group (``_row_parallel``)."""
     p = f"block_{i}."
-    h = h + _dense(params, p + "attn.out", attn)
+    if tp.size == 1:
+        h = h + _dense(params, p + "attn.out", attn)
+        x = ops.layer_norm(h, params[p + "ln2_scale"], params[p + "ln2_bias"])
+        return h + _dense(params, p + "mlp_down", ops.gelu(_dense(params, p + "mlp_up", x)))
+    h = h + _row_parallel(params, p + "attn.out", attn, tp)
     x = ops.layer_norm(h, params[p + "ln2_scale"], params[p + "ln2_bias"])
-    return h + _dense(params, p + "mlp_down", ops.gelu(_dense(params, p + "mlp_up", x)))
+    return h + _row_parallel(params, p + "mlp_down",
+                             ops.gelu(_dense(params, p + "mlp_up", x)), tp)
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -306,42 +361,46 @@ def _read_kv(planes: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def init_cache(model: TransformerLM, batch: int, *, kv_dtype: str | None = None,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cpu", tp: Axis = NO_TP) -> dict:
     """Zeroed per-layer K/V planes ``[batch, seq_len, KV_H, Dh]`` in ``kv_dtype``'s plane
     dtype (``None``/``"model"``: the model's dtype); int8/fp8 add f32 ``k_scale``/
-    ``v_scale`` planes ``[batch, seq_len, KV_H]``."""
-    shape = (batch, model.seq_len, model.kv_heads, model.head_dim)
+    ``v_scale`` planes ``[batch, seq_len, KV_H]``. On a ``tp`` axis the planes hold this
+    rank's ``KV_H / size`` heads."""
+    shape = (batch, model.seq_len, model.kv_heads // tp.size, model.head_dim)
     return {f"block_{i}": _planes(shape, kv_dtype, model.dtype, device)
             for i in range(model.num_layers)}
 
 
 def decode_step_slots(model: TransformerLM, params: dict, cache: dict, ids_t: torch.Tensor,
-                      t: torch.Tensor) -> tuple[dict, torch.Tensor]:
+                      t: torch.Tensor, *, tp: Axis = NO_TP) -> tuple[dict, torch.Tensor]:
     """One incremental step at per-slot positions: ``ids_t [B]``, ``t [B]`` -> (cache,
     ``[B, vocab]`` f32 log-probs). Each slot's K/V row is written at its own position
     (clamped into ``[0, S)``), then every slot attends over its whole ``[S]`` plane under
     its own ``pos <= t[b]`` (and window) mask (``ops.paged_attention.decode_attention``,
     plain torch). A quantized cache stores each row's codes and per-head scales and is
-    read dequantized."""
+    read dequantized. On a ``tp`` axis (the serve mesh) the rank computes its own heads
+    with its shards of the parameters and planes (``_project``, ``_block_tail``)."""
     b = ids_t.shape[0]
+    _, kvh, e = _local_heads(model, tp)
     rows = torch.arange(b, device=ids_t.device)
     safe_t = t.long().clamp(0, model.seq_len - 1)
     h = _embed(model, params, ids_t, safe_t)     # JAX's gather clamps the same way
     for i in range(model.num_layers):
-        q, k, v = _project(model, params, i, h, t)
+        q, k, v = _project(model, params, i, h, t, tp)
         layer = cache[f"block_{i}"]
         for key, row in _kv_rows(layer, k, v).items():
             layer[key][rows, safe_t] = row
         k_read, v_read = _read_kv(layer)
-        qg = q.reshape(b, model.kv_heads, -1, model.head_dim)
+        qg = q.reshape(b, kvh, -1, model.head_dim)
         attn = paged_attention.decode_attention(qg, k_read, v_read, t,
                                                 window=model.attention_window)
-        h = _block_tail(params, i, h, attn.reshape(b, model.embed_dim))
+        h = _block_tail(params, i, h, attn.reshape(b, e), tp)
     return cache, _head(params, h)
 
 
 def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch.Tensor,
-                  slot: int, start: int, length: int, fresh: bool, *, chunk: int) -> dict:
+                  slot: int, start: int, length: int, fresh: bool, *, chunk: int,
+                  tp: Axis = NO_TP) -> dict:
     """Write ``length`` prompt positions of one slot's planes in one ``[chunk]``-wide
     causal forward: the JAX package's ``prefill_chunk``.
 
@@ -370,8 +429,9 @@ def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch
     visible = visible[:, None, None, :]                          # [C, 1, 1, S]
     scale = paged_attention.attention_scale(model.head_dim)
     written = safe_pos[:length]
+    _, kvh, e = _local_heads(model, tp)
     for i in range(model.num_layers):
-        q, k, v = _project(model, params, i, h, positions)
+        q, k, v = _project(model, params, i, h, positions, tp)
         layer = cache[f"block_{i}"]
         planes = {key: x[slot] for key, x in layer.items()}     # views: [S, KV_H(, Dh)]
         if fresh:
@@ -380,11 +440,11 @@ def prefill_chunk(model: TransformerLM, params: dict, cache: dict, prompt: torch
         for key, row in _kv_rows(layer, k, v).items():
             planes[key][written] = row[:length]
         k_read, v_read = _read_kv(planes)
-        qg = q.reshape(chunk, model.kv_heads, -1, model.head_dim)
+        qg = q.reshape(chunk, kvh, -1, model.head_dim)
         scores = torch.einsum("cgrd,sgd->cgrs", qg * scale, k_read.float())
         weights = torch.softmax(torch.where(visible, scores, MASK_VALUE), dim=-1)
         attn = torch.einsum("cgrs,sgd->cgrd", weights, v_read.float())
-        h = _block_tail(params, i, h, attn.reshape(chunk, model.embed_dim))
+        h = _block_tail(params, i, h, attn.reshape(chunk, e), tp)
     return cache
 
 
@@ -402,7 +462,7 @@ def _window_rows(model: TransformerLM, t: torch.Tensor, w: int):
 
 
 def verify_chunk(model: TransformerLM, params: dict, cache: dict, ids: torch.Tensor,
-                 t: torch.Tensor, draft: torch.Tensor, *, k: int
+                 t: torch.Tensor, draft: torch.Tensor, *, k: int, tp: Axis = NO_TP
                  ) -> tuple[dict, torch.Tensor]:
     """Batched k-token verify: score ``k`` draft tokens per slot in one causal forward
     over the slot planes, the JAX package's ``verify_chunk``.
@@ -426,7 +486,8 @@ def verify_chunk(model: TransformerLM, params: dict, cache: dict, ids: torch.Ten
         raise ValueError(f"k {k} outside [1, {s})")
     w = k + 1
     b = ids.shape[0]
-    nh, kvh, hd, e = model.num_heads, model.kv_heads, model.head_dim, model.embed_dim
+    nh, kvh, e = _local_heads(model, tp)
+    hd = model.head_dim
     dev = ids.device
     x = torch.cat([ids.long()[:, None], draft.long()], dim=1)         # [B, W]
     positions, safe_pos, valid, cols = _window_rows(model, t, w)
@@ -440,7 +501,7 @@ def verify_chunk(model: TransformerLM, params: dict, cache: dict, ids: torch.Ten
     visible = visible[:, None, :, None, :]                             # [B, 1, W, 1, S]
     scale = paged_attention.attention_scale(hd)
     for i in range(model.num_layers):
-        q, kk, v = _project(model, params, i, h, safe_pos.reshape(-1))
+        q, kk, v = _project(model, params, i, h, safe_pos.reshape(-1), tp)
         layer = cache[f"block_{i}"]
         for key, row in _kv_rows(layer, kk, v).items():
             row = row.reshape((b, w) + tuple(row.shape[1:]))
@@ -461,7 +522,7 @@ def verify_chunk(model: TransformerLM, params: dict, cache: dict, ids: torch.Ten
         attn = torch.einsum("bgrs,bsgd->bgrd", weights.reshape(b, kvh, -1, s),
                             v_read.float())
         attn = attn.reshape(b, kvh, w, nh // kvh, hd).permute(0, 2, 1, 3, 4)
-        h = _block_tail(params, i, h, attn.reshape(b * w, e))
+        h = _block_tail(params, i, h, attn.reshape(b * w, e), tp)
     return cache, _head(params, h).reshape(b, w, -1)
 
 
@@ -634,11 +695,12 @@ def pages_per_slot(seq_len: int, page_size: int) -> int:
 
 
 def init_page_pool(model: TransformerLM, num_pages: int, *, page_size: int,
-                   kv_dtype: str | None = None, device: torch.device | str = "cpu") -> dict:
+                   kv_dtype: str | None = None, device: torch.device | str = "cpu",
+                   tp: Axis = NO_TP) -> dict:
     """Zeroed per-layer page pools ``[num_pages, page_size, KV_H, Dh]``: ``init_cache``'s
     paged twin, with the same dtype and scale-pool rules (int8/fp8 add f32 ``k_scale``/
-    ``v_scale`` pools ``[num_pages, page_size, KV_H]``)."""
-    shape = (num_pages, page_size, model.kv_heads, model.head_dim)
+    ``v_scale`` pools ``[num_pages, page_size, KV_H]``) and the same ``tp`` heads."""
+    shape = (num_pages, page_size, model.kv_heads // tp.size, model.head_dim)
     return {f"block_{i}": _planes(shape, kv_dtype, model.dtype, device)
             for i in range(model.num_layers)}
 
@@ -649,8 +711,8 @@ def pool_page_size(pool: dict) -> int:
 
 
 def paged_decode_step_slots(model: TransformerLM, params: dict, pool: dict,
-                            table: torch.Tensor, ids_t: torch.Tensor, t: torch.Tensor
-                            ) -> tuple[dict, torch.Tensor]:
+                            table: torch.Tensor, ids_t: torch.Tensor, t: torch.Tensor, *,
+                            tp: Axis = NO_TP) -> tuple[dict, torch.Tensor]:
     """``decode_step_slots`` through a page table: ``pool`` per ``init_page_pool``,
     ``table [B, P_max]`` int32, ``ids_t``/``t [B]`` (int32 ``t`` on the card, as the
     kernel takes it). Per layer: project, write each slot's K/V row (its codes and
@@ -658,8 +720,11 @@ def paged_decode_step_slots(model: TransformerLM, params: dict, pool: dict,
     ``t' = clip(t, 0, S - 1)``, then ``paged_attend`` on the pool, with the scale pools
     when there are any: on the card the kernel reads the narrow pool and dequantizes as it
     goes. Slots whose rows are null-mapped (inactive, or mid-prefill at ``t = S - 1``)
-    write into the null page and attend over junk the engine discards."""
+    write into the null page and attend over junk the engine discards. On a ``tp`` axis
+    the kernel runs on this rank's heads and its pool (the table then holds indices into
+    that pool: the serve mesh's page range of the rank's slot group)."""
     b = ids_t.shape[0]
+    _, kvh, e = _local_heads(model, tp)
     ps = pool_page_size(pool)
     rows = torch.arange(b, device=ids_t.device)
     safe_t = t.long().clamp(0, model.seq_len - 1)
@@ -667,23 +732,23 @@ def paged_decode_step_slots(model: TransformerLM, params: dict, pool: dict,
     offs = safe_t % ps
     h = _embed(model, params, ids_t, safe_t)
     for i in range(model.num_layers):
-        q, k, v = _project(model, params, i, h, t)
+        q, k, v = _project(model, params, i, h, t, tp)
         layer = pool[f"block_{i}"]
         for key, row in _kv_rows(layer, k, v).items():
             layer[key][pages, offs] = row
-        qg = q.reshape(b, model.kv_heads, -1, model.head_dim)
+        qg = q.reshape(b, kvh, -1, model.head_dim)
         attn = paged_attention.paged_attend(qg, layer["k"], layer["v"], table, t,
                                             window=model.attention_window,
                                             k_scale=layer.get("k_scale"),
                                             v_scale=layer.get("v_scale"),
                                             seq_len=model.seq_len)
-        h = _block_tail(params, i, h, attn.reshape(b, model.embed_dim))
+        h = _block_tail(params, i, h, attn.reshape(b, e), tp)
     return pool, _head(params, h)
 
 
 def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
                         table: torch.Tensor, prompt: torch.Tensor, slot: int, start: int,
-                        length: int, *, chunk: int) -> dict:
+                        length: int, *, chunk: int, tp: Axis = NO_TP) -> dict:
     """``prefill_chunk`` through a page table: gather the one slot's ``[1, S]`` view, run
     the contiguous chunk on it, and scatter the chunk's valid rows to their pages (every
     plane, the scale planes of a quantized pool included). No wipe: a masked row of a
@@ -694,7 +759,7 @@ def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
                    for key, x in layer.items()}
             for name, layer in pool.items()}
     prefill_chunk(model, params, view, prompt[slot][None], 0, start, length, False,
-                  chunk=chunk)
+                  chunk=chunk, tp=tp)
     ps = pool_page_size(pool)
     n = max(0, min(length, s - start))
     written = torch.arange(start, start + n, device=table.device)
@@ -707,7 +772,8 @@ def paged_prefill_chunk(model: TransformerLM, params: dict, pool: dict,
 
 def paged_verify_chunk(model: TransformerLM, params: dict, pool: dict,
                        table: torch.Tensor, ids: torch.Tensor, t: torch.Tensor,
-                       draft: torch.Tensor, *, k: int) -> tuple[dict, torch.Tensor]:
+                       draft: torch.Tensor, *, k: int, tp: Axis = NO_TP
+                       ) -> tuple[dict, torch.Tensor]:
     """``verify_chunk`` through a page table, as the JAX package does it: gather every
     slot's ``[S]`` view (``ops.paged_attention.gather_view``; verify reads every slot's
     cache, as decode does), run the contiguous verify on it, then scatter each slot's
@@ -721,7 +787,7 @@ def paged_verify_chunk(model: TransformerLM, params: dict, pool: dict,
     w = k + 1
     view = {name: {key: paged_attention.gather_view(x, table, s) for key, x in layer.items()}
             for name, layer in pool.items()}
-    _, log_probs = verify_chunk(model, params, view, ids, t, draft, k=k)
+    _, log_probs = verify_chunk(model, params, view, ids, t, draft, k=k, tp=tp)
     _, safe_pos, _, cols = _window_rows(model, t, w)
     at = torch.gather(safe_pos, 1, cols)                               # [B, W]
     rows = torch.arange(b, device=ids.device)[:, None].expand(b, w)
@@ -734,7 +800,7 @@ def paged_verify_chunk(model: TransformerLM, params: dict, pool: dict,
 
 __all__ = ["DECODE_SEGMENT", "PREFILL_CHUNK_SIZES", "TransformerLM", "decode_nll",
            "decode_step", "decode_step_slots", "filter_logits", "generate",
-           "ids_to_images", "init_cache", "init_page_pool", "next_token_loss",
+           "ids_to_images", "init_cache", "init_page_pool", "next_token_loss", "NO_TP",
            "paged_decode_step_slots", "paged_prefill_chunk", "paged_verify_chunk",
            "pages_per_slot", "params_from_jax", "params_to_jax", "pool_page_size",
            "prefill_chunk", "reset_slots", "sample_categorical", "tokenize_images_to_ids",

@@ -51,8 +51,10 @@ kernels read ``[B, S, H, D]`` in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import _build
@@ -74,6 +76,34 @@ flash_fwd_launches = 0
 flash_dq_launches = 0
 flash_dkv_launches = 0
 offset_launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}   # at q_offset != 0
+# The floating-point operations of the launches above, by formula (a flop counter over
+# torch's operators cannot see a kernel launched through the C entry): 2·D a visible
+# (query, key) pair for each of the kernel's matmuls, 2 in the forward (q·k, p·v), 3 in dq
+# (q·k, dO·v, ds·k) and 4 in dk/dv (q·k, p·dO, dO·v, ds·q), over the pairs its causal,
+# window and offset masks leave (``visible_pairs``). ``utils.telemetry`` reads it.
+launched_flops = 0.0
+
+
+@functools.lru_cache(maxsize=64)
+def visible_pairs(s: int, *, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs of one ``[S, S]`` head that the masks leave visible (the
+    count of ``attention.visibility_mask``'s true entries, in O(S))."""
+    i = np.arange(s) + q_offset
+    hi = np.full(s, s - 1)
+    if causal:
+        hi = np.minimum(hi, i)
+    if window:
+        hi = np.minimum(hi, i + window - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _add_flops(q: torch.Tensor, matmuls: int, causal: bool, window: int,
+               q_offset: int) -> None:
+    global launched_flops
+    b, s, h, d = q.shape
+    launched_flops += matmuls * 2 * d * b * h * visible_pairs(
+        s, causal=causal, window=window, q_offset=q_offset)
 
 
 def reset_launch_counts() -> None:
@@ -239,6 +269,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   1.0 / math.sqrt(d), int(causal), int(window), int(q_offset))
     flash_fwd_launches += 1
     offset_launches["flash_fwd"] += bool(q_offset)
+    _add_flops(q, 2, causal, window, q_offset)
     return out, lse
 
 
@@ -331,6 +362,7 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tens
                   *_shape_args(q, causal, window, q_offset))
     flash_dq_launches += 1
     offset_launches["flash_dq"] += bool(q_offset)
+    _add_flops(q, 3, causal, window, q_offset)
     return dq
 
 
@@ -353,6 +385,7 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
                   *_shape_args(q, causal, window, q_offset))
     flash_dkv_launches += 1
     offset_launches["flash_dkv"] += bool(q_offset)
+    _add_flops(q, 4, causal, window, q_offset)
     return dk, dv
 
 

@@ -33,6 +33,11 @@ SGD_TABLE_LEAVES = 64   # leaves per multi-tensor launch (kSgdTableLeaves in the
 nll_fwd_launches = 0
 nll_bwd_launches = 0
 sgd_momentum_launches = 0
+# The floating-point operations the launches above did, by formula (a flop counter over
+# torch's operators cannot see a kernel launched through the C entry): 4 a logit for the
+# NLL forward (max, subtract, exp, sum) and backward (exp, divide, subtract, scale), 4 an
+# element for the SGD update (v = mu*v + g, p = p - lr*v). ``utils.telemetry`` reads it.
+launched_flops = 0.0
 
 
 def reset_launch_counts() -> None:
@@ -52,6 +57,11 @@ def add_launch_counts(delta: dict[str, int]) -> None:
     nll_fwd_launches += delta["nll_fwd"]
     nll_bwd_launches += delta["nll_bwd"]
     sgd_momentum_launches += delta["sgd_momentum"]
+
+
+def _add_flops(n: int) -> None:
+    global launched_flops
+    launched_flops += n
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -109,6 +119,7 @@ def nll_fwd(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     _build.launch("fused_kernels", "nll_fwd", dev, "nll_fwd_f32", logits.data_ptr(),
                   labels.data_ptr(), out.data_ptr(), rows, cols)
     nll_fwd_launches += 1
+    _add_flops(4 * rows * cols)
     return out
 
 
@@ -151,6 +162,7 @@ def nll_bwd(logits: torch.Tensor, labels: torch.Tensor, ct: torch.Tensor,
                   labels.data_ptr(), ct.data_ptr(), ct_stride, scale, out.data_ptr(), rows,
                   cols)
     nll_bwd_launches += 1
+    _add_flops(4 * rows * cols)
     return out
 
 
@@ -236,6 +248,7 @@ def _sgd_launch(device: torch.device, ps: list[torch.Tensor], vs: list[torch.Ten
                       *[t.buffer_info()[0] for t in tables], len(numels), learning_rate,
                       momentum)
         sgd_momentum_launches += 1
+        _add_flops(4 * sum(numels))
 
 
 @torch.no_grad()

@@ -82,19 +82,29 @@ def _global(group, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
+def _all_reduce_(tensor: torch.Tensor, op, host: torch.Tensor | None, group) -> None:
+    if not host_staged(tensor):
+        dist.all_reduce(tensor, op=op, group=group)
+        return
+    if host is None:
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor)
+    dist.all_reduce(host, op=op, group=group)
+    tensor.copy_(host)
+
+
 def all_reduce_sum_(tensor: torch.Tensor, *, host: torch.Tensor | None = None,
                     group=None) -> None:
     """SUM ``tensor`` over the group's ranks, in place. A host-staged tensor is reduced in
     ``host`` (a same-shape CPU buffer, pinned for the fast copies; one is made when not
     given) and copied back."""
-    if not host_staged(tensor):
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
-        return
-    if host is None:
-        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    host.copy_(tensor)
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-    tensor.copy_(host)
+    _all_reduce_(tensor, dist.ReduceOp.SUM, host, group)
+
+
+def all_reduce_max_(tensor: torch.Tensor, *, group=None) -> None:
+    """MAX ``tensor`` over the group's ranks, in place (host-staged as
+    ``all_reduce_sum_``): a row's amax over a row-parallel input's slices."""
+    _all_reduce_(tensor, dist.ReduceOp.MAX, None, group)
 
 
 def all_reduce_sum(values: torch.Tensor, *, group=None) -> torch.Tensor:

@@ -15,6 +15,10 @@ Counterpart of the JAX package's ``parallel/mesh.py`` (that module imports JAX):
   its group along each axis (``data``, ``seq``, ``model``, ``expert``, ``stage``), which
   every mesh collective takes (``parallel/collectives.py``). ``shard_slices`` is the one
   rule for which part of a sharded dim a rank holds.
+- ``hybrid_rank_order`` is the JAX package's ``make_hybrid_mesh`` as a rank order for
+  ``ProcessGrid`` (``--dcn-data``): the ``data`` axis's leading factor strides over
+  ``num_slices`` equal, contiguous granules of ranks (one per slice), so that only that
+  factor's collectives cross between granules.
 
 The backend is chosen by rule and named in every result: ``nccl`` when the ranks run on
 CUDA and each rank on this host has a card of its own (rank r on ``cuda:LOCAL_RANK``);
@@ -188,11 +192,44 @@ def _trivial(name: str, rank: int = 0) -> Axis:
     return Axis(name, 1, 0, (rank,), None)
 
 
+def hybrid_rank_order(axis_names: tuple[str, ...], axis_shape: tuple[int, ...], *,
+                      num_slices: int, dcn_axis: str = "data") -> np.ndarray:
+    """The ranks laid out for a multi-slice (ICI x DCN) grid: the JAX package's
+    ``make_hybrid_mesh`` over ``prod(axis_shape)`` ranks split into ``num_slices`` equal,
+    contiguous granules (its virtual granules: the ranks in order, one slice a block). The
+    leading factor of ``dcn_axis`` strides over the slices; its remainder and every other
+    axis stay inside a slice. Returns the ``axis_shape`` array of global ranks, whose entry
+    at a grid position is the rank that sits there (``make_hybrid_mesh``'s device ids);
+    the same errors, in the same words."""
+    if dcn_axis not in axis_names:
+        raise ValueError(f"dcn_axis {dcn_axis!r} not in axis_names {axis_names}")
+    n = math.prod(axis_shape)
+    if num_slices < 1 or n % num_slices:
+        raise ValueError(f"num_slices {num_slices} must be >= 1 and divide the {n} devices")
+    granules = np.arange(n).reshape(num_slices, n // num_slices)
+    sizes = {len(g) for g in granules}
+    if len(sizes) != 1:
+        raise ValueError(f"uneven slices: {sorted(sizes)} devices per granule")
+    pos = axis_names.index(dcn_axis)
+    if axis_shape[pos] % num_slices:
+        raise ValueError(
+            f"{dcn_axis} axis size {axis_shape[pos]} must divide by the {num_slices} slices "
+            f"(its leading factor is the DCN dimension)")
+    per_slice = tuple(axis_shape[:pos]) + (axis_shape[pos] // num_slices,) + tuple(
+        axis_shape[pos + 1:])
+    if math.prod(per_slice) != sizes.pop():
+        raise ValueError(f"per-slice shape {per_slice} != slice device count")
+    stacked = np.stack([g.reshape(per_slice) for g in granules], axis=pos)
+    return stacked.reshape(axis_shape)
+
+
 class ProcessGrid:
     """The process group laid out as the ``--mesh`` spec's grid: rank -> coordinates in
     row-major order over the spec's axes (the first axis slowest), as the JAX package's
-    ``make_mesh`` reshapes its device list. For every axis of size > 1 one group is built
-    for each slice along it (``dist.new_group``, every rank in the same order, once), so
+    ``make_mesh`` reshapes its device list; or, given ``order`` (an array of the spec's
+    shape holding every rank once, ``hybrid_rank_order``'s), the rank at each position.
+    For every axis of size > 1 one group is built for each slice along it
+    (``dist.new_group``, every rank in the same order, once), so
     each rank holds its ``data``, ``seq``, ``model``, ``expert`` and ``stage`` group and
     its index in each; an axis the spec lacks, or of size 1, has no group.
 
@@ -201,7 +238,8 @@ class ProcessGrid:
     raises too (the JAX package leaves the other devices idle; a torch rank outside the
     grid would have no coordinates)."""
 
-    def __init__(self, spec: str, *, rank: int | None = None, world: int | None = None):
+    def __init__(self, spec: str, *, rank: int | None = None, world: int | None = None,
+                 order: np.ndarray | None = None):
         self.spec = spec
         self.names, self.sizes = parse_mesh_spec(spec)
         initialized = dist.is_initialized()
@@ -215,9 +253,14 @@ class ProcessGrid:
             raise ValueError(f"axis_shape {self.sizes} != {self.world} devices — the "
                              f"--mesh product must equal the launcher's world "
                              f"(--num-processes {n})")
-        grid = np.arange(self.world).reshape(self.sizes)
-        self.coords = dict(zip(self.names,
-                               (int(c) for c in np.unravel_index(self.rank, self.sizes))))
+        grid = np.arange(self.world) if order is None else np.asarray(order)
+        if sorted(grid.reshape(-1).tolist()) != list(range(self.world)):
+            raise ValueError(f"rank order {grid.tolist()} must hold every rank of the world "
+                             f"({self.world}) once")
+        grid = grid.reshape(self.sizes)
+        self.order = grid
+        position = np.argwhere(grid == self.rank)[0]
+        self.coords = dict(zip(self.names, (int(c) for c in position)))
         self.axes: dict[str, Axis] = {}
         for i, name in enumerate(self.names):
             size = self.sizes[i]

@@ -56,7 +56,8 @@ class RunHooks:
             return
         self.heartbeat.beat(step=int(state.step), epoch=epoch, fingerprint=fingerprint)
 
-    def check_preempt(self, *, epoch: int, state, checkpoint: str = "", save=None) -> None:
+    def check_preempt(self, *, epoch: int, state, checkpoint: str = "", save=None,
+                      tele=None) -> None:
         """Honour a pending preemption request at an epoch boundary: run ``save`` (for a
         trainer whose checkpoint is not already durable here), leave a final
         ``status=preempted`` beat, and raise ``Preempted``. A no-op when nothing was
@@ -68,4 +69,9 @@ class RunHooks:
             save()
         if self.heartbeat is not None:
             self.heartbeat.beat(step=step, epoch=epoch, status=heartbeat.STATUS_PREEMPTED)
+        if tele is not None:            # a TelemetryWriter: the 'preempt' event
+            from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+                telemetry,
+            )
+            tele.emit(telemetry.preempt_event(epoch=epoch, step=step, checkpoint=checkpoint))
         raise Preempted(step, checkpoint)

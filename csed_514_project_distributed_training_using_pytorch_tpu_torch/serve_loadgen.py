@@ -24,10 +24,16 @@ while it serves. ``prefill_wall_s`` and ``prefill_tokens_per_s`` are None too: t
 engine puts no device fence around a prefill chunk, so it has no honest host wall for one.
 
 The engine runs on ``--device`` (``cuda`` by default; ``--device cpu`` must be asked for).
+``--telemetry PATH`` writes the server's JSONL stream (``tools/telemetry_report.py``
+renders it). ``--shard tp=T,dp=D`` serves on the serve mesh (``serving/shard.py``): run it
+as a world of ``T * D`` ranks through ``train.launch``. Every rank builds and warms the
+engine; rank 0 runs the server, the workload and the clock, the other ranks replay its
+engine calls (``serving.shard.follow``); then every rank gathers the byte accounting and
+the replica check compares the ranks' ledgers. Only rank 0 prints. On one card the ranks
+time-slice it over gloo: a correctness run, not a speed.
 Not ported, each refused naming its ROADMAP item: the fleet (``--replicas`` and every
-router, affinity, echo, elasticity, gray-failure and framed-wire flag) and ``--tiers``
-(A11), ``--telemetry``, ``--trace-dir`` and ``--snapshot-interval-s`` (A11), ``--shard``
-(A10).
+router, affinity, echo, elasticity, gray-failure and framed-wire flag) and ``--tiers``,
+``--trace-dir`` and ``--snapshot-interval-s`` (A11).
 
 Usage::
 
@@ -65,12 +71,9 @@ UNPORTED_FLAGS = {
     "hedge": _FLEET, "hedge_after_s": _FLEET, "hedge_quantile": _FLEET,
     "hedge_factor": _FLEET, "chaos": _FLEET, "chaos_seed": _FLEET, "framed_wire": _FLEET,
     "tiers": "prefill/decode tiers are not ported yet (ROADMAP A11: serving/tiers.py)",
-    "telemetry": "the serving telemetry stream is not ported yet (ROADMAP A11: "
-                 "utils/telemetry.py)",
     "trace_dir": "distributed tracing is not ported yet (ROADMAP A11: utils/trace.py)",
     "snapshot_interval_s": "fleet snapshots are not ported yet (ROADMAP A11: "
                            "serving/router.py)",
-    "shard": "the serve mesh is not ported yet (ROADMAP A10: serving/shard.py)",
 }
 
 
@@ -404,7 +407,9 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--warmup", type=int, default=1,
                    help="warm-up rounds before measuring (every prefill chunk size, the "
                         "prefix-cache hit path), then the counters reset; 0 = off")
-    e.add_argument("--shard", default="", help="not ported (ROADMAP A10)")
+    e.add_argument("--shard", default="",
+                   help="the serve mesh, tp=<n>,dp=<n>: a world of tp*dp ranks "
+                        "(train.launch --num-processes)")
     f = p.add_argument_group("fleet: not ported (ROADMAP A11); each flag is refused")
     f.add_argument("--tiers", default="")
     f.add_argument("--replicas", type=int, default=0)
@@ -467,7 +472,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-k", type=int, default=0)
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--seed", type=int, default=0)
-    p.add_argument("--telemetry", default="", help="not ported (ROADMAP A11)")
+    p.add_argument("--telemetry", default="", help="the server's JSONL telemetry stream")
     p.add_argument("--trace-dir", default="", help="not ported (ROADMAP A11)")
     p.add_argument("--snapshot-interval-s", type=float, default=0.0,
                    help="not ported (ROADMAP A11)")
@@ -498,8 +503,10 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
                              f"--tenants names {sorted(known) or '(none declared)'}")
 
 
-def summarize(args, engine, server, comps, rejections, sessions_done, wall) -> dict:
-    """The run summary in the JAX tool's single-server keys."""
+def summarize(args, engine, server, comps, rejections, sessions_done, wall,
+              acct: dict) -> dict:
+    """The run summary in the JAX tool's single-server keys (``acct``: the engine's
+    ``byte_accounting``)."""
     ok = sum(c.ok for c in comps)
     prefix = engine.prefix_cache.stats() if engine.prefix_cache else None
     new_tokens = sum(c.new_tokens for c in comps)
@@ -537,8 +544,8 @@ def summarize(args, engine, server, comps, rejections, sessions_done, wall) -> d
         doc.update(sessions=args.sessions, turns=args.turns,
                    turn_user_tokens=args.turn_user_tokens, sessions_done=sessions_done)
     doc.update(
-        shard=None,
-        bytes=engine.byte_accounting(),
+        shard=args.shard or None,
+        bytes=acct,
         prefill_chunk_sizes=list(engine.prefill_chunk_sizes),
         prefill_tokens=engine.prefill_tokens,
         prefill_chunks=engine.prefill_invocations,
@@ -607,23 +614,55 @@ def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     check_args(p, args)
-    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.replica import (
-        build_engine_server,
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+        cluster,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.shard import (
+        parse_shard_spec,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
         resolve_device,
     )
 
     args.device = str(resolve_device(args.device))
+    tp, dp = parse_shard_spec(args.shard)
+    if tp * dp > 1:
+        with cluster(args.device):
+            return _serve(args)
+    return _serve(args)
+
+
+def _serve(args) -> int:
+    """Build, serve, summarize; under a serve mesh every rank calls it."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        shard as shard_mod,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.replica import (
+        build_engine_server,
+    )
+
     engine, server = build_engine_server(args)
+    sharded = engine.mesh is not None
+    if server is None:                        # a follower rank of the serve mesh
+        shard_mod.follow(engine)
+        engine.byte_accounting()
+        shard_mod.check_replicas(engine)
+        return 0
     server.start()
     try:
-        comps, rejections, sessions_done, wall = run(args, engine, server)
-    except BaseException:
-        server.stop(drain=False)
-        raise
-    server.stop()
-    doc = summarize(args, engine, server, comps, rejections, sessions_done, wall)
+        try:
+            comps, rejections, sessions_done, wall = run(args, engine, server)
+        except BaseException:
+            server.stop(drain=False)
+            raise
+        server.stop()
+    finally:
+        if sharded:
+            server.engine.close()             # the followers leave their loops
+    acct = engine.byte_accounting()
+    if sharded:
+        shard_mod.check_replicas(engine)
+    doc = summarize(args, engine, server, comps, rejections, sessions_done, wall, acct)
     label = (f"chat ({args.sessions} sessions x {args.turns} turns)"
              if args.scenario == "chat" else f"{args.mode}-loop")
     print(f"{label}: {doc['requests']} completed ({doc['ok']} ok, {doc['timeout']} timeout, "
@@ -663,6 +702,11 @@ def main(argv: list[str] | None = None) -> int:
           f"{acct['kv_bytes_per_slot']} B/slot, {acct['decode_bytes_per_token']:.0f} B "
           f"decode read/token, {acct['slots_at_budget']} slots per "
           f"{acct['hbm_budget_bytes'] >> 30} GiB budget")
+    if sharded:
+        print(f"shard {args.shard}: {len(acct['per_chip'])} ranks, params+kv "
+              f"{acct['params_kv_bytes_per_chip_max']} B/chip max (unsharded "
+              f"{acct['params_bytes'] + acct['kv_bytes_resident']} B), "
+              f"{acct['bytes_per_chip_max']} B/chip max in all; replica check passed")
     if args.summary_json:
         with open(args.summary_json, "w") as fh:
             json.dump(doc, fh, indent=1)

@@ -14,7 +14,9 @@
 - ``server``: ``Server``, the in-process front end (``submit() -> Future``, a background
   loop that owns the engine, drain, expiry, tenant caps and priority preemption);
 - ``replica``: ``build_engine_server``, the engine and server from the load generator's
-  flags (the replica process and its wire protocol wait with ROADMAP A11).
+  flags (the replica process and its wire protocol wait with ROADMAP A11);
+- ``shard``: the serve mesh, one replica's engine over ``tp * dp`` ranks
+  (``build_serve_mesh``, the engine's ``mesh=``, ``MeshLeader``/``follow``).
 
 The load generator is ``<port>.serve_loadgen`` and the speculative A/B ``<port>.bench_spec_ab``.
 

@@ -62,8 +62,21 @@ engine's ``torch.Generator``. Spec mode never runs the decode step: ``decode_cal
 paged-decode kernel is not launched under speculation. Rollback is position bookkeeping
 only.
 
-Not ported: the serve mesh (``mesh`` raises ``ValueError`` naming ROADMAP A10); tracing,
-the spec mode's ``draft``/``verify`` spans included, waits with A11.
+The serve mesh (``mesh=serving.shard.build_serve_mesh(tp, dp)``, a world of ``tp * dp``
+ranks each running this engine): every rank keeps the same host state and runs the same
+programs on what it holds (``serving/shard.py``): its shards of the parameters (the
+``model`` axis: its own query and KV heads, two row-parallel all-reduces a layer), and the
+planes of its own heads for its own slot group (contiguous) or its group's page range
+(paged: ``PagePool(groups=dp)``, the table's global page ids turned into indices of the
+rank's pool before the paged-decode kernel sees them, so on the card B6 runs on each
+rank's own heads and pages). The step's fetch gathers the slot groups' log-probs over the
+``data`` axis, and every rank then runs the emission tail on the whole batch, drawing
+what the unsharded engine draws. A contiguous prefix-cache entry holds each rank's own
+head planes of the slot (broadcast over the ``data`` axis from the slot's group, so any
+group can install it); a paged entry stays in its group's pages, and a hit from another
+group is a miss, as in the JAX package. ``byte_accounting`` gathers every rank's row into
+``per_chip``. Tracing, the spec mode's ``draft``/``verify`` spans included, waits with
+ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -79,6 +92,12 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops.attention import (
     MASK_VALUE,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import (
+    collectives,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+    shard as shard_mod,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.pagepool import (
     PagePool,
@@ -214,12 +233,6 @@ def accept_fold(log_probs: torch.Tensor, draft: torch.Tensor, draft_len: torch.T
     return torch.where(sampling[:, None], sampled_tok, greedy_tok), accepted + 1
 
 
-def _refuse_unported(*, mesh) -> None:
-    if mesh is not None:
-        raise ValueError("the serve mesh is not ported yet (ROADMAP A10: serving/shard.py)")
-
-
-
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over ``models.lm``'s KV-cache decoder.
 
@@ -243,11 +256,18 @@ class ContinuousBatchingEngine:
                  spec: str = "off",
                  spec_k: int = 4,
                  drafter: Drafter | None = None,
-                 mesh: object = None,
+                 mesh: shard_mod.ServeMesh | None = None,
                  device: torch.device | str = "cuda"):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        _refuse_unported(mesh=mesh)
+        # The serve mesh: None is the one-device engine. With a mesh this rank holds its
+        # parameter shards, and the planes of its own heads for its own slot group.
+        self.mesh = mesh
+        if mesh is not None:
+            shard_mod.validate_engine_mesh(model, int(num_slots), mesh)
+        self._tp = mesh.model if mesh is not None else lm_mod.NO_TP
+        self._dp = mesh.dp if mesh is not None else 1
+        self._group = mesh.data.index if mesh is not None else 0
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -261,7 +281,15 @@ class ContinuousBatchingEngine:
         self.quant = quant.QuantPolicy(kv_dtype=kv_dtype, weights=quant_policy)
         self.params = quant.quantize_params(
             {name: p.to(self.device) for name, p in params.items()}, self.quant)
+        self._params_bytes = quant.tree_bytes(self.params)     # the logical total
+        if mesh is not None:
+            # quantized whole, then split: the scales are the unsharded engine's
+            self.params = shard_mod.param_shardings(self.params, mesh)
         self.num_slots = b = int(num_slots)
+        self._local_slots = bl = b // self._dp       # this rank's slot group
+        self._slot0 = self._group * bl
+        self._crc = 0                 # host_digest: the finished requests' ids and tokens
+        self._finished = 0
         s = model.seq_len
         self.steps = 0                # decode (or verify) steps executed
         self.decode_calls = 0         # decode-step invocations (never under spec)
@@ -282,33 +310,37 @@ class ContinuousBatchingEngine:
                 raise ValueError("the paged KV layout rides the chunked-prefill path — "
                                  "enable prefill_chunk_sizes to use it")
             # The page size clips to seq_len; the default pool matches the contiguous
-            # layout token for token (full-context reservations plus the null page).
+            # layout token for token (each dp group's full-context reservations plus its
+            # null page). A rank's pool is its group's page range.
             ps = max(1, min(int(page_size), s))
             p_max = lm_mod.pages_per_slot(s, ps)
             if num_pages is None:
-                num_pages = b * p_max + 1
+                num_pages = self._dp * (max(bl, 1) * p_max + 1)
             self.page_size = ps
-            self._pagepool = PagePool(int(num_pages), page_size=ps)
-            self._cache = lm_mod.init_page_pool(model, int(num_pages), page_size=ps,
+            self._pagepool = PagePool(int(num_pages), page_size=ps, groups=self._dp)
+            self._pages_per_group = int(num_pages) // self._dp
+            self._cache = lm_mod.init_page_pool(model, self._pages_per_group, page_size=ps,
                                                 kv_dtype=self.quant.kv_dtype,
-                                                device=self.device)
+                                                device=self.device, tp=self._tp)
             # Paged entries are page ids, not planes: their own layout signature keeps
             # them from installing into a contiguous engine (and the reverse).
             self.plane_layout = f"paged:{ps}:" + quant.cache_layout(self._cache)
-            self._table = np.full((b, p_max), self._pagepool.null_page(), np.int32)
+            self._table = np.empty((b, p_max), np.int32)
+            for i in range(b):
+                self._table[i, :] = self._pagepool.null_page(self._slot_group(i))
             self._slot_pages: list[list[int]] = [[] for _ in range(b)]
             self.cow_copies = 0       # boundary pages copied for prefix-cache hits
         else:
             self.page_size = None
-            self._cache = lm_mod.init_cache(model, b, kv_dtype=self.quant.kv_dtype,
-                                            device=self.device)
+            self._cache = lm_mod.init_cache(model, bl, kv_dtype=self.quant.kv_dtype,
+                                            device=self.device, tp=self._tp)
             self.plane_layout = quant.cache_layout(self._cache)
         self._ids = np.full((b,), model.vocab_size - 1, np.int32)   # BOS
         self._t = np.zeros((b,), np.int32)
         self._active = np.zeros((b,), bool)
-        # The [B, S] prompt buffer stays on the device (prefill reads it there); admission
-        # writes the admitted rows in one transfer.
-        self._prompt = torch.zeros((b, s), dtype=torch.int32, device=self.device)
+        # The prompt buffer stays on the device (prefill reads it there), the rank's slot
+        # group's rows of it; admission writes the admitted rows in one transfer.
+        self._prompt = torch.zeros((bl, s), dtype=torch.int32, device=self.device)
         self._prompt_len = np.zeros((b,), np.int32)
         # Positions that arrive by prefill: the prompt's, or on a resume the parked
         # stream's (prompt plus the tokens generated before the park).
@@ -344,6 +376,8 @@ class ContinuousBatchingEngine:
         self._prefill_fifo: collections.deque[int] = collections.deque()
         self._hit_len = np.zeros((b,), np.int32)
         self._chunks_done = np.zeros((b,), np.int32)
+        self._prefill_t0 = np.zeros((b,), np.float64)
+        self._prefill_records: list[dict] = []
         # --- speculative decoding (serving/spec/): ``spec`` names the mode, ``drafter``
         # injects the implementation (required for "draft-lm"). The two must agree: a
         # drafter with spec="off", or with another mode's name, is refused, so an A/B that
@@ -397,11 +431,34 @@ class ContinuousBatchingEngine:
         return host.pin_memory().to(self.device, non_blocking=True)
 
     def _device_table(self) -> torch.Tensor:
-        """The page table on the device, sent again only after admission or release
-        changed it."""
+        """The page table of this rank's slot group on the device, its global page ids
+        turned into indices of the rank's pool (the group's page range), sent again only
+        after admission or release changed it."""
         if self._table_dev is None:
-            self._table_dev = self._to_device(self._table)
+            rows = self._table[self._slot0:self._slot0 + self._local_slots]
+            self._table_dev = self._to_device(rows - self._group * self._pages_per_group)
         return self._table_dev
+
+    # ------------------------------------------------------------------ the serve mesh
+
+    def _slot_group(self, slot: int) -> int:
+        """The dp group that holds ``slot``'s planes (and allocates its pages)."""
+        return slot // max(self.num_slots // self._dp, 1)
+
+    def _own(self, slot: int) -> bool:
+        """True when ``slot`` lies in this rank's slot group."""
+        return self._slot_group(slot) == self._group
+
+    def _mine(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of a ``[num_slots, ...]`` tensor that this rank's slot group holds."""
+        return x[self._slot0:self._slot0 + self._local_slots]
+
+    def _gather_slots(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every slot group's rows of a step's output, in slot order, on every rank: the
+        all-gather of the step's fetch over the ``data`` axis (a no-op unsharded)."""
+        if self._dp == 1:
+            return rows
+        return collectives.all_gather(rows, group=self.mesh.data.group).flatten(0, 1)
 
     # ------------------------------------------------------------------ step programs
 
@@ -410,11 +467,12 @@ class ContinuousBatchingEngine:
         """The decode step, contiguous layout: wipe the recycled slots joining at t = 0,
         advance every slot one position, sample."""
         self.decode_calls += 1
+        fresh = fresh[self._slot0:self._slot0 + self._local_slots]
         if fresh.any():
             lm_mod.reset_slots(self._cache, self._to_device(fresh))
         _, log_probs = lm_mod.decode_step_slots(self.model, self.params, self._cache,
-                                                ids, t)
-        return self._sample_token(log_probs)
+                                                self._mine(ids), self._mine(t), tp=self._tp)
+        return self._sample_token(self._gather_slots(log_probs))
 
     def _paged_step_program(self, ids: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The decode step, paged layout: ``models.lm.paged_decode_step_slots`` through
@@ -424,8 +482,9 @@ class ContinuousBatchingEngine:
         contiguous step's."""
         self.decode_calls += 1
         _, log_probs = lm_mod.paged_decode_step_slots(
-            self.model, self.params, self._cache, self._device_table(), ids, t)
-        return self._sample_token(log_probs)
+            self.model, self.params, self._cache, self._device_table(), self._mine(ids),
+            self._mine(t), tp=self._tp)
+        return self._sample_token(self._gather_slots(log_probs))
 
     def _sample_token(self, log_probs: torch.Tensor) -> torch.Tensor:
         """The emission tail shared by both layouts: mask BOS (input-only), then greedy,
@@ -448,11 +507,13 @@ class ContinuousBatchingEngine:
         """The speculative step, contiguous layout: wipe the recycled slots joining at
         t = 0, score ``[ids, d_1..d_k]`` with ``models.lm.verify_chunk``, accept."""
         self.verify_calls[k] = self.verify_calls.get(k, 0) + 1
+        fresh = fresh[self._slot0:self._slot0 + self._local_slots]
         if fresh.any():
             lm_mod.reset_slots(self._cache, self._to_device(fresh))
-        _, log_probs = lm_mod.verify_chunk(self.model, self.params, self._cache, ids, t,
-                                           draft, k=k)
-        return self._accept(log_probs, draft, draft_len)
+        _, log_probs = lm_mod.verify_chunk(self.model, self.params, self._cache,
+                                           self._mine(ids), self._mine(t), self._mine(draft),
+                                           k=k, tp=self._tp)
+        return self._accept(self._gather_slots(log_probs), draft, draft_len)
 
     def _paged_verify_program(self, k: int, ids: torch.Tensor, t: torch.Tensor,
                               draft: torch.Tensor, draft_len: torch.Tensor
@@ -461,9 +522,10 @@ class ContinuousBatchingEngine:
         table's gathered view, then the same accept rule. No wipe (the paged decode
         step's argument)."""
         self.verify_calls[k] = self.verify_calls.get(k, 0) + 1
-        _, log_probs = lm_mod.paged_verify_chunk(self.model, self.params, self._cache,
-                                                 self._device_table(), ids, t, draft, k=k)
-        return self._accept(log_probs, draft, draft_len)
+        _, log_probs = lm_mod.paged_verify_chunk(
+            self.model, self.params, self._cache, self._device_table(), self._mine(ids),
+            self._mine(t), self._mine(draft), k=k, tp=self._tp)
+        return self._accept(self._gather_slots(log_probs), draft, draft_len)
 
     def _accept(self, log_probs: torch.Tensor, draft: torch.Tensor,
                 draft_len: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -479,31 +541,49 @@ class ContinuousBatchingEngine:
 
     def _snapshot(self, slot: int) -> dict:
         """A contiguous slot's planes (every leaf, scales included) as a prefix-cache
-        entry: one copy."""
-        return {name: {key: x[slot].clone() for key, x in layer.items()}
-                for name, layer in self._cache.items()}
+        entry: one copy. Under the serve mesh the entry holds this rank's heads of the
+        slot, broadcast over the ``data`` axis from the slot's group, so a slot of any
+        group can install it."""
+        group = self._slot_group(slot)
+        local = slot - group * self._local_slots
+        out = {}
+        for name, layer in self._cache.items():
+            out[name] = {}
+            for key, x in layer.items():
+                plane = x[local].clone() if group == self._group else torch.empty_like(x[0])
+                if self._dp > 1:
+                    collectives.broadcast_(plane, src=group, group=self.mesh.data.group)
+                out[name][key] = plane
+        return out
 
     def _install(self, planes: dict, slot: int) -> None:
         """A contiguous prefix-cache hit: copy a stored entry's planes into ``slot`` (rows
         past the hit length are the donor's, hidden by the position mask until prefill or
-        decode overwrites them)."""
+        decode overwrites them). Only the slot's group holds its planes."""
+        if not self._own(slot):
+            return
         for name, layer in self._cache.items():
             for key, x in layer.items():
-                x[slot].copy_(planes[name][key])
+                x[slot - self._slot0].copy_(planes[name][key])
 
     def _cow(self, dst: int, src: int) -> None:
         """Copy-on-write: duplicate one page (every leaf's rows and scales) into a
         freshly allocated page, so a hit whose boundary lands mid-page keeps the shared
-        entry's page intact while this slot writes past the boundary."""
+        entry's page intact while this slot writes past the boundary. Only the ranks of
+        the pages' group hold them."""
+        if self._pagepool.group_of(dst) != self._group:
+            return
+        off = self._group * self._pages_per_group
         for layer in self._cache.values():
             for x in layer.values():
-                x[dst] = x[src]
+                x[dst - off] = x[src - off]
 
     # ------------------------------------------------------------------ paging
 
     def _page_bytes(self) -> int:
-        """Bytes of one page across every leaf (codes and scales)."""
-        return quant.tree_bytes(self._cache) // self._pagepool.num_pages
+        """Bytes of one page across every leaf (codes and scales) and every head: the
+        rank's pool holds its heads' share of its group's pages."""
+        return quant.tree_bytes(self._cache) * self._tp.size // self._pages_per_group
 
     def _build_prefix_cache(self) -> PrefixCache | None:
         if not self._prefix_cache_entries and not self._prefix_cache_bytes:
@@ -527,14 +607,18 @@ class ContinuousBatchingEngine:
         boundary page (hit length mid-page) is copied. Returns the hit length."""
         pool = self._pagepool
         ps = pool.page_size
+        group = self._slot_group(slot)
         hit_len, entry_pages = 0, None
         if self.prefix_cache is not None and len(stream):
             hit_len, payload = self.prefix_cache.lookup(
                 stream, min_len=min(self.prefill_chunk_sizes), layout=self.plane_layout)
             if hit_len:
                 entry_pages = [int(p) for p in payload["pages"]]
+                if pool.group_of(entry_pages[0]) != group:
+                    # another dp group's pages: a miss (they are not in this slot's pool)
+                    hit_len, entry_pages = 0, None
         shared = hit_len // ps
-        new_pages = pool.alloc(pages_for(int(total), ps) - shared)   # may raise
+        new_pages = pool.alloc(pages_for(int(total), ps) - shared, group=group)  # may raise
         shared_pages = entry_pages[:shared] if shared else []
         if shared_pages:
             pool.ref(shared_pages)
@@ -546,7 +630,7 @@ class ContinuousBatchingEngine:
             self.cow_copies += 1
         self._slot_pages[slot] = pages
         row = self._table[slot]
-        row[:] = pool.null_page()
+        row[:] = pool.null_page(group)
         row[:len(pages)] = pages
         self._table_dev = None
         return hit_len
@@ -558,7 +642,7 @@ class ContinuousBatchingEngine:
         if self._slot_pages[slot]:
             self._pagepool.unref(self._slot_pages[slot])
         self._slot_pages[slot] = []
-        self._table[slot, :] = self._pagepool.null_page()
+        self._table[slot, :] = self._pagepool.null_page(self._slot_group(slot))
         self._table_dev = None
 
     def _prefix_insert_pages(self, slot: int, tokens: np.ndarray) -> None:
@@ -580,9 +664,13 @@ class ContinuousBatchingEngine:
         (paged) or a snapshot of the planes (contiguous)."""
         if self._pagepool is not None:
             self._prefix_insert_pages(slot, tokens)
-        else:
-            self.prefix_cache.insert(np.asarray(tokens, np.int32), self._snapshot(slot),
-                                     layout=self.plane_layout)
+            return
+        planes = self._snapshot(slot)
+        # the logical entry's bytes (every head's planes), whatever share this rank holds:
+        # the byte budget's evictions are the unsharded engine's
+        self.prefix_cache.insert(np.asarray(tokens, np.int32), planes,
+                                 layout=self.plane_layout,
+                                 nbytes=quant.tree_bytes(planes) * self._tp.size)
 
     # ------------------------------------------------------------------ slots
 
@@ -667,11 +755,12 @@ class ContinuousBatchingEngine:
                     refused.append(parked if parked is not None else request)
                     refusal = refusal or exc
             entries = kept
-        if entries:
-            rows = np.zeros((len(entries), s), np.int32)
-            for j, (_, _, _, stream) in enumerate(entries):
+        mine = [(slot, stream) for slot, _, _, stream in entries if self._own(slot)]
+        if mine:
+            rows = np.zeros((len(mine), s), np.int32)
+            for j, (_, stream) in enumerate(mine):
                 rows[j, :len(stream)] = stream
-            slots = np.asarray([slot for slot, _, _, _ in entries], np.int64)
+            slots = np.asarray([slot - self._slot0 for slot, _ in mine], np.int64)
             self._prompt[self._to_device(slots)] = self._to_device(rows)
         for slot, request, parked, stream in entries:
             total = min(len(request.prompt) + request.max_new_tokens, s)
@@ -696,6 +785,9 @@ class ContinuousBatchingEngine:
         self._chunks_done[slot] = 0
         if request.arrival_s is None:
             request.arrival_s = now
+        # a request that arrived after the caller read its clock is admitted on arrival
+        # (a server's loop stamps a pass once; a submit may land inside the pass)
+        now = max(now, request.arrival_s)
         if parked is None:
             self._admit_s[slot] = now
             self._first_tok_s[slot] = None
@@ -727,6 +819,7 @@ class ContinuousBatchingEngine:
                 self.drafter.on_activate(slot, [])
         elif hit_len == fill:
             # A full prefix hit: the installed rows are the prefill.
+            self._prefill_t0[slot] = now
             self._activate_prefilled(slot)
         else:
             # Chunked prefill over [hit_len, fill): the slot stays out of the decode batch
@@ -735,6 +828,7 @@ class ContinuousBatchingEngine:
             # become visible (contiguous), or on the null page (paged).
             self._pending_chunks[slot] = self.plan_prefill(hit_len, fill)
             self._prefill_fifo.append(slot)
+            self._prefill_t0[slot] = now
             self._active[slot] = False
             self._t[slot] = self.model.seq_len - 1
             self._out[slot] = []
@@ -753,6 +847,22 @@ class ContinuousBatchingEngine:
             # the drafter follows the slot's stream from here (the draft LM installs the
             # prompt into its own cache through the chunk plan)
             self.drafter.on_activate(slot, self._out[slot])
+        # the "prefill" telemetry record: admission to decode-ready on the host clock; no
+        # chunk wall (no device fence is put around a chunk, so none is measured)
+        req = self._requests[slot]
+        self._prefill_records.append({
+            "request_id": req.request_id, "prompt_len": int(self._prompt_len[slot]),
+            "chunks": int(self._chunks_done[slot]),
+            "tokens": fill - int(self._hit_len[slot]),
+            "cache_hit_len": int(self._hit_len[slot]), "wall_s": None,
+            "latency_s": time.monotonic() - float(self._prefill_t0[slot])})
+
+    def take_prefill_records(self) -> list[dict]:
+        """Drain the completed-prefill records (one dict per prompt: chunks, tokens,
+        cache_hit_len, latency_s; ``wall_s`` None) gathered since the last call: the
+        server's ``"prefill"`` telemetry events."""
+        records, self._prefill_records = self._prefill_records, []
+        return records
 
     def reset_stats(self) -> None:
         """Zero the perf counters and the prefix cache's contents (benchmark hygiene: warm
@@ -774,6 +884,7 @@ class ContinuousBatchingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self._spec_records = []
+        self._prefill_records = []
         if self.prefix_cache is not None:
             # clear() fires the eviction hook per entry: paged refcounts return first.
             self.prefix_cache.clear()
@@ -791,12 +902,22 @@ class ContinuousBatchingEngine:
         JAX engine's keys: ``decode_bytes_per_step`` (the whole KV store, the parameters
         and the prompt buffer: every step reads all ``[B, S]`` rows), over ``num_slots``
         as ``decode_bytes_per_token``; ``kv_bytes_per_slot``; ``slots_at_budget`` under a
-        reference budget. One device, so ``per_chip`` has one entry."""
+        reference budget. ``per_chip`` has one row (key 0) on one device, equal to the
+        logical totals; under the serve mesh one row a rank, keyed by global rank
+        (``serving.shard.per_device_bytes``: a collective, every rank calls it), the
+        logical totals then counting each array once."""
         budget = (self.HBM_BUDGET_BYTES if hbm_budget_bytes is None
                   else int(hbm_budget_bytes))
-        params_bytes = quant.tree_bytes(self.params)
-        kv_bytes = quant.tree_bytes(self._cache)
-        prompt_bytes = quant.tree_bytes(self._prompt)
+        held = {name: shard_mod.per_device_bytes(tree, sm=self.mesh)
+                for name, tree in (("params_bytes", self.params), ("kv_bytes", self._cache),
+                                   ("prompt_bytes", self._prompt))}
+        per_chip = {r: {name: rows[r] for name, rows in held.items()}
+                    for r in held["params_bytes"]}
+        for chip in per_chip.values():
+            chip["total_bytes"] = sum(chip.values())
+        params_bytes = self._params_bytes
+        kv_bytes = sum(r["kv_bytes"] for r in per_chip.values())   # planes split whole
+        prompt_bytes = self.num_slots * self.model.seq_len * self._prompt.element_size()
         if self._pagepool is not None:
             # A paged slot's cost is its reservation; the conservative figure is the
             # full-context span (P_max pages).
@@ -825,12 +946,20 @@ class ContinuousBatchingEngine:
             doc["page_bytes"] = self._page_bytes()
             doc["page_token_capacity"] = (self._pagepool.usable_pages
                                           * self._pagepool.page_size)
-        chip = {"params_bytes": params_bytes, "kv_bytes": kv_bytes,
-                "prompt_bytes": prompt_bytes, "total_bytes": per_step}
-        doc["per_chip"] = {self.device.index or 0: chip}
-        doc["bytes_per_chip_max"] = per_step
-        doc["params_kv_bytes_per_chip_max"] = params_bytes + kv_bytes
-        doc["mesh"] = None
+        doc["per_chip"] = per_chip
+        doc["bytes_per_chip_max"] = max(r["total_bytes"] for r in per_chip.values())
+        doc["params_kv_bytes_per_chip_max"] = max(r["params_bytes"] + r["kv_bytes"]
+                                                  for r in per_chip.values())
+        doc["mesh"] = self.mesh.describe() if self.mesh is not None else None
+        if self.mesh is not None:
+            # the budget is per chip: a dp group holds num_slots/dp slots, so one more
+            # slot costs each chip of its group kv_slot/tp bytes (the JAX engine's rule)
+            group = max(self.num_slots // self._dp, 1)
+            params_chip = max(r["params_bytes"] for r in per_chip.values())
+            kv_chip = max(r["kv_bytes"] for r in per_chip.values())
+            prompt_chip = max(r["prompt_bytes"] for r in per_chip.values())
+            slot_cost = max(kv_chip // group + prompt_chip // group, 1)
+            doc["slots_at_budget"] = self._dp * max((budget - params_chip) // slot_cost, 0)
         return doc
 
     def page_stats(self) -> dict | None:
@@ -894,6 +1023,8 @@ class ContinuousBatchingEngine:
             ttft_s=None if first is None else first - arrival,
             tpot_s=(now - first) / (new - 1) if first is not None and new > 1 else None,
             e2e_s=now - arrival, preemptions=int(self._parks[slot]))
+        self._crc = shard_mod.crc_of(req.request_id, tokens, self._crc)
+        self._finished += 1
         self._vacate(slot)
         return comp
 
@@ -916,14 +1047,17 @@ class ContinuousBatchingEngine:
         while budget > 0 and self._prefill_fifo:
             slot = self._next_prefill_slot()
             start, length, size = self._pending_chunks[slot].pop(0)
-            if self._pagepool is not None:
+            local = slot - self._slot0       # the chunk runs on the ranks of slot's group
+            if not self._own(slot):
+                pass
+            elif self._pagepool is not None:
                 lm_mod.paged_prefill_chunk(self.model, self.params, self._cache,
-                                           self._device_table(), self._prompt, slot, start,
-                                           length, chunk=size)
+                                           self._device_table(), self._prompt, local, start,
+                                           length, chunk=size, tp=self._tp)
             else:
                 fresh = self._chunks_done[slot] == 0 and self._hit_len[slot] == 0
                 lm_mod.prefill_chunk(self.model, self.params, self._cache, self._prompt,
-                                     slot, start, length, fresh, chunk=size)
+                                     local, start, length, fresh, chunk=size, tp=self._tp)
             self.prefill_invocations += 1
             self.prefill_tokens += length
             self._chunks_done[slot] += 1
@@ -999,6 +1133,10 @@ class ContinuousBatchingEngine:
                                  f"[0, {vocab}) for slot {i}: {d[:n].tolist()}")
             draft[i, :n] = d[:n]
             dlen[i] = n
+        if self.mesh is not None and self.mesh.num_devices > 1:
+            # rank 0's proposals on every rank (the drafters are deterministic; this
+            # keeps a drafter's host state from ever parting the ranks' programs)
+            draft, dlen = shard_mod.broadcast_from_leader((draft, dlen))
         t_draft = time.monotonic()
         staged = self._to_device(np.concatenate(
             [self._ids[:, None], self._t[:, None], dlen[:, None], draft], axis=1))
@@ -1150,13 +1288,36 @@ class ContinuousBatchingEngine:
                 counts[req.tenant] = counts.get(req.tenant, 0) + 1
         return counts
 
+    def expired_slots(self, now: float) -> list[int]:
+        """The occupied slots whose deadline passed at ``now``."""
+        return [i for i, req in enumerate(self._requests)
+                if req is not None and req.deadline_s is not None and now > req.deadline_s]
+
+    def expire_slots(self, slots: list[int], now: float) -> list[Completion]:
+        """Force-finish ``slots`` (``finish="timeout"``, partial tokens): the decision a
+        serve mesh's leader broadcasts."""
+        return [self._finish(i, "timeout", now) for i in slots]
+
     def expire(self, now: float | None = None) -> list[Completion]:
         """Force-finish in-flight requests whose deadline passed (``finish="timeout"``,
         partial tokens)."""
         now = time.monotonic() if now is None else now
-        return [self._finish(i, "timeout", now)
-                for i, req in enumerate(self._requests)
-                if req is not None and req.deadline_s is not None and now > req.deadline_s]
+        return self.expire_slots(self.expired_slots(now), now)
+
+    def drop_prefix_cache(self) -> None:
+        """Empty the prefix cache (its entries are droppable by definition: paged, their
+        pages return to the pool): the refusal path's last resort."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+
+    def host_digest(self) -> dict:
+        """The host ledger the serve mesh's replica check compares across ranks: the
+        program counters and a CRC over every finished request's id and tokens."""
+        return {"steps": self.steps, "decode_calls": self.decode_calls,
+                "verify_calls": dict(self.verify_calls),
+                "prefill_invocations": self.prefill_invocations,
+                "generated_tokens": self.generated_tokens, "finished": self._finished,
+                "crc": self._crc}
 
     @property
     def slot_occupancy(self) -> float | None:
@@ -1186,7 +1347,7 @@ class ContinuousBatchingEngine:
                 pending[:0] = exc.refused
                 if not exc.admitted and self.num_active == 0:
                     if self.prefix_cache is not None and len(self.prefix_cache):
-                        self.prefix_cache.clear()
+                        self.drop_prefix_cache()
                         continue
                     raise
             out.extend(self.step())

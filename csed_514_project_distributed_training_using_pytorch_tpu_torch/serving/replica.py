@@ -5,10 +5,15 @@ place that turns the model, engine and server flags (``<port>.serve_loadgen`` de
 as the JAX package's ``tools/serve_loadgen.py`` does) into a ``ContinuousBatchingEngine``
 and a ``Server`` with the same checkpoint fallback, draft-LM recipe and warm-up recipe.
 
+``--shard tp=T,dp=D`` builds the engine on the serve mesh (``serving/shard.py``) over the
+process group, which must hold ``T * D`` ranks (``train.launch``): every rank builds the
+engine and warms it up alike, rank 0 gets the ``Server`` over a ``shard.MeshLeader`` and
+every other rank ``None`` (it runs ``shard.follow``). ``--telemetry PATH`` is the server's
+JSONL stream.
+
 Only ``build_engine_server`` is ported. The replica process, its line protocol and the
-fleet that spawns it wait with ROADMAP A11 (the router and telemetry); so does ``trace=``.
-The serve mesh (``--shard``) is ROADMAP A10 and the prefill/decode tiers (``--tiers``,
-``--tier``) A11: each raises naming its item.
+fleet that spawns it wait with ROADMAP A11 (the router); so does ``trace=``. The
+prefill/decode tiers (``--tiers``, ``--tier``) raise naming A11.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs.slo import SLOSpec
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine,
+)
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+    shard as shard_mod,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
     Request,
@@ -33,15 +41,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import 
 
 def refuse_unported(args) -> None:
     """The flags of the fleet's replica that the port does not serve yet."""
-    if getattr(args, "shard", ""):
-        raise ValueError("the serve mesh (--shard) is not ported yet (ROADMAP A10: "
-                         "serving/shard.py)")
     if getattr(args, "tiers", "") or getattr(args, "tier", "unified") != "unified":
         raise ValueError("prefill/decode tiers are not ported yet (ROADMAP A11: "
                          "serving/tiers.py and the replica wire)")
-    if getattr(args, "telemetry", ""):
-        raise ValueError("the serving telemetry stream is not ported yet (ROADMAP A11: "
-                         "utils/telemetry.py)")
 
 
 def build_draft_model(args) -> lm.TransformerLM:
@@ -63,8 +65,9 @@ def build_engine_server(args, trace: object = None):
     ``--spec`` (``"draft-lm"`` builds ``build_draft_model`` from ``--draft-checkpoint`` or
     a seeded init at ``seed + 1``), the engine on ``args.device``, the ``--warmup`` recipe
     (every prefill chunk size, the prefix-cache hit path, a promptless request; then the
-    counters reset), and the ``Server``. Returns ``(engine, server)``; the server is not
-    started."""
+    counters reset), and the ``Server`` with ``--telemetry``. Returns ``(engine,
+    server)``; the server is not started. Under ``--shard`` with more than one rank the
+    server is rank 0's, over a ``shard.MeshLeader``, and ``None`` on the other ranks."""
     if trace is not None or getattr(args, "trace", ""):
         raise ValueError("distributed tracing is not ported yet (ROADMAP A11: "
                          "utils/trace.py)")
@@ -82,6 +85,8 @@ def build_engine_server(args, trace: object = None):
     if args.checkpoint:
         params = checkpoint.load_params_or_state(args.checkpoint, params)
     chunk_sizes = tuple(int(x) for x in args.prefill_chunks.split(",") if x)
+    tp, dp = shard_mod.parse_shard_spec(getattr(args, "shard", ""))
+    mesh = shard_mod.build_serve_mesh(tp, dp) if tp * dp > 1 else None
     spec = getattr(args, "spec", "off")
     drafter = None
     if spec == "draft-lm":
@@ -102,7 +107,7 @@ def build_engine_server(args, trace: object = None):
         kv_layout=getattr(args, "kv_layout", "contiguous"),
         page_size=getattr(args, "page_size", 64),
         num_pages=getattr(args, "num_pages", 0) or None,
-        spec=spec, spec_k=getattr(args, "spec_k", 4), drafter=drafter,
+        spec=spec, spec_k=getattr(args, "spec_k", 4), drafter=drafter, mesh=mesh,
         device=getattr(args, "device", "cuda"))
     if args.warmup:
         # every chunk size, the prefix cache's hit path and a promptless request run once
@@ -117,8 +122,12 @@ def build_engine_server(args, trace: object = None):
                     engine.run([Request(prompt=wp, max_new_tokens=1)])
             engine.run([Request(prompt=np.zeros(0, np.int32), max_new_tokens=2)])
         engine.reset_stats()
-    server = Server(engine, max_pending=args.max_pending,
+    if mesh is not None and mesh.rank != 0:
+        return engine, None
+    front = shard_mod.MeshLeader(engine) if mesh is not None else engine
+    server = Server(front, max_pending=args.max_pending,
                     default_timeout_s=args.timeout_s or None,
+                    telemetry=getattr(args, "telemetry", "") or None,
                     slo=SLOSpec.parse(getattr(args, "slo", "")),
                     tenants=parse_tenants(getattr(args, "tenants", "")))
     return engine, server

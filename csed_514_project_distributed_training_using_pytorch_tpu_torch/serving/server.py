@@ -19,8 +19,15 @@ Submitter threads touch only the request queue and their futures. The loop:
 The in-process summaries are the server's output: ``latency_histograms`` (TTFT, TPOT,
 e2e and queue-wait sketches, ``obs.hist.LogHistogram``), ``slo_summary`` (attainment
 against the run's ``SLOSpec``) and ``tenant_summaries`` (per-tenant counts, percentiles
-and attainment). The JSONL telemetry stream and distributed tracing are not ported:
-``telemetry`` and ``trace`` other than ``None`` raise, naming ROADMAP A11.
+and attainment). ``telemetry`` (a path, or a ``utils.telemetry.TelemetryWriter``) writes
+the JAX package's serving stream (stream mode, rank 0): ``manifest`` and ``serve_config``
+at start, one ``serve`` event a request, ``shed`` events at submit, ``prefill`` and
+``spec`` events after each step, and at drain ``kv_pages`` (paged engines), ``slo`` (with
+a spec), one ``tenant_summary`` a tenant and the ``serve_summary``. Distributed tracing is
+not ported: ``trace`` other than ``None`` raises, naming ROADMAP A11.
+
+On a serve mesh the server runs on rank 0 over a ``serving.shard.MeshLeader``, whose
+calls the other ranks replay (``serving.shard.follow``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs.hist impo
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs.slo import (
     AttainmentTracker,
     SLOSpec,
+    slo_event,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engine import (
     Completion,
@@ -46,12 +54,15 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engin
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
     Parked,
+    QuotaExceeded,
     Request,
     RequestQueue,
     SamplingParams,
     ServerStopped,
+    Shed,
     TenantTable,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
 
 _SERIES = ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s")
 
@@ -62,21 +73,17 @@ class Server:
     ``default_timeout_s`` applies to requests submitted without an explicit
     ``timeout_s``; ``slo`` declares a run-level promise; ``tenants`` activates the
     tenant discipline (quotas and weighted-fair, priority dequeue in the queue, slot caps
-    and priority preemption in the loop). ``telemetry`` and ``trace`` must be ``None``
-    (ROADMAP A11)."""
+    and priority preemption in the loop). ``telemetry`` is a JSONL path (a stream-mode
+    ``TelemetryWriter`` is made) or a writer; ``trace`` must be ``None`` (ROADMAP A11)."""
 
     def __init__(self, engine: ContinuousBatchingEngine, *, max_pending: int = 0,
                  default_timeout_s: float | None = None,
-                 telemetry: object = None,
+                 telemetry: str | T.TelemetryWriter | None = None,
                  trace: object = None,
                  slo: SLOSpec | None = None,
                  tenants: TenantTable | None = None,
                  hist_rel_err: float = 0.01,
                  idle_wait_s: float = 0.05):
-        if telemetry is not None:
-            raise ValueError("the serving telemetry stream is not ported yet (ROADMAP "
-                             "A11: utils/telemetry.py); pass telemetry=None and read "
-                             "the server's summaries")
         if trace is not None:
             raise ValueError("distributed tracing is not ported yet (ROADMAP A11: "
                              "utils/trace.py); pass trace=None")
@@ -84,6 +91,10 @@ class Server:
         self.tenants = tenants
         self.queue = RequestQueue(max_pending, tenants=tenants)
         self._default_timeout_s = default_timeout_s
+        self._writer = (telemetry if isinstance(telemetry, T.TelemetryWriter)
+                        else T.TelemetryWriter(telemetry, stream=True))
+        self._started_s: float | None = None
+        self._counts = {"requests": 0, "ok": 0, "timeout": 0, "shed": 0, "new_tokens": 0}
         self._idle_wait_s = idle_wait_s
         self._futures: dict[int, concurrent.futures.Future] = {}
         self._futures_lock = threading.Lock()
@@ -109,6 +120,26 @@ class Server:
     def start(self) -> "Server":
         if self._thread is not None:
             raise RuntimeError("server already started")
+        self._started_s = time.monotonic()
+        eng = self.engine
+        self._writer.emit(T.manifest_event(run_type="serve", device=eng.device))
+        self._writer.emit({
+            "event": "serve_config",
+            "num_slots": eng.num_slots,
+            "seq_len": eng.model.seq_len,
+            "vocab_size": eng.model.vocab_size,
+            "max_pending": self.queue.max_pending,
+            "default_timeout_s": self._default_timeout_s,
+            "prefill_chunk_sizes": list(eng.prefill_chunk_sizes),
+            "prefill_chunk_budget": eng.prefill_chunk_budget,
+            "prefix_cache_entries": eng.prefix_cache.capacity if eng.prefix_cache else 0,
+            "kv_dtype": eng.quant.kv_dtype,
+            "quant_policy": eng.quant.weights,
+            "spec": eng.spec,
+            "spec_k": eng.spec_k if eng.drafter is not None else None,
+            "slo": self._slo.spec.describe() if self._slo else None,
+            "tenants": self.tenants.describe() if self.tenants else None,
+        })
         self._thread = threading.Thread(target=self._loop, daemon=True, name="serve-loop")
         self._thread.start()
         return self
@@ -190,12 +221,19 @@ class Server:
             self._futures[rid] = fut
         try:
             shed = self.queue.submit(req)
-        except BaseException:
+        except BaseException as e:
             with self._futures_lock:
                 self._futures.pop(rid, None)
+            if isinstance(e, (Shed, QuotaExceeded)):
+                self._writer.emit(T.shed_event(
+                    tenant=tenant, reason="refused" if isinstance(e, Shed) else "quota",
+                    request_id=rid, priority=req.priority))
             raise
         for victim in shed:
             # A queued lower-priority request was displaced to admit this one.
+            self._writer.emit(T.shed_event(
+                tenant=getattr(victim, "tenant", "default"), reason="displaced",
+                request_id=victim.request_id, priority=getattr(victim, "priority", 0)))
             self._resolve(self._rejected_completion(victim, now, finish="shed"))
         return fut
 
@@ -204,6 +242,11 @@ class Server:
     def _resolve(self, comp: Completion) -> None:
         tenant = comp.request.tenant
         with self._series_lock:
+            self._counts["requests"] += 1
+            self._counts["ok"] += comp.ok
+            self._counts["timeout"] += comp.finish == "timeout"
+            self._counts["shed"] += comp.finish == "shed"
+            self._counts["new_tokens"] += comp.new_tokens
             for name in _SERIES:
                 self._series[name].add(getattr(comp, name))
             now = time.monotonic()
@@ -232,6 +275,11 @@ class Server:
                     tracker = self._slo_by_tenant[tenant] = AttainmentTracker(spec)
                 tracker.observe(now, ok=comp.ok, ttft_s=comp.ttft_s, tpot_s=comp.tpot_s,
                                 e2e_s=comp.e2e_s)
+        self._writer.emit(T.serve_event(
+            request_id=comp.request.request_id, prompt_len=comp.prompt_len,
+            new_tokens=comp.new_tokens, finish=comp.finish,
+            queue_wait_s=comp.queue_wait_s, ttft_s=comp.ttft_s, tpot_s=comp.tpot_s,
+            e2e_s=comp.e2e_s, tenant=tenant, preemptions=comp.preemptions))
         with self._futures_lock:
             fut = self._futures.pop(comp.request.request_id, None)
         if fut is not None:
@@ -279,6 +327,43 @@ class Server:
                         fut.set_exception(e)
                 except concurrent.futures.InvalidStateError:
                     pass
+        finally:
+            try:
+                self._emit_summary()
+            finally:
+                self._writer.close()
+
+    def _emit_summary(self) -> None:
+        """The drain-time events: the page ledger, attainment, one ``tenant_summary`` a
+        tenant, then the ``serve_summary`` (the engine's byte accounting included: under
+        a serve mesh a collective, which the leader broadcasts)."""
+        if not self._writer.enabled:
+            return
+        wall_s = (time.monotonic() - self._started_s
+                  if self._started_s is not None else None)
+        eng = self.engine
+        pages = eng.page_stats()
+        if pages is not None:
+            self._writer.emit(T.kv_pages_event(source="server", stats=pages))
+        if self._slo is not None:
+            self._writer.emit(slo_event(self._slo, source="server",
+                                        window=self._slo.window(time.monotonic())))
+        tenants = self.tenant_summaries()
+        for tenant, row in tenants.items():
+            self._writer.emit(T.tenant_summary_event(
+                tenant=tenant, source="server",
+                **{k: row.get(k) for k in ("requests", "ok", "timeout", "shed",
+                                           "new_tokens", "preemptions", "ttft_s",
+                                           "e2e_s", "slo")}))
+        self._writer.emit(T.serve_summary_event(
+            **self._counts, wall_s=wall_s, steps=eng.steps, decode_invocations=eng.steps,
+            generated_tokens=eng.generated_tokens, spec=eng.spec_stats(),
+            slot_occupancy=eng.slot_occupancy, prefill_tokens=eng.prefill_tokens,
+            prefill_chunks=eng.prefill_invocations, prefill_wall_s=None,
+            prefix_cache=eng.prefix_cache.stats() if eng.prefix_cache else None,
+            queue=self.queue.snapshot(), byte_accounting=eng.byte_accounting(),
+            kv_pages=pages, slo=self.slo_summary(), preemptions=eng.preemptions,
+            resumes=eng.resumes, tenants=tenants or None, **self._series))
 
     def _maybe_preempt(self, now: float) -> None:
         """Priority preemption: when higher-priority work waits and no slot is free, park
@@ -354,15 +439,16 @@ class Server:
                     self.queue.requeue(req)
                 if not exc.admitted and eng.num_active == 0:
                     if eng.prefix_cache is not None and len(eng.prefix_cache):
-                        eng.prefix_cache.clear()
+                        eng.drop_prefix_cache()
                     else:
                         raise
             if eng.num_active:
                 for comp in eng.step():
                     self._resolve(comp)
-                # the JAX server emits these as "spec" telemetry events (ROADMAP A11);
-                # drained here so that a long-lived spec server holds no per-tick history
-                eng.take_spec_records()
+                for rec in eng.take_prefill_records():
+                    self._writer.emit(T.prefill_event(**rec))
+                for rec in eng.take_spec_records():
+                    self._writer.emit(T.spec_event(**rec))
             elif len(self.queue) == 0 and self.queue.closed:
                 break
             else:

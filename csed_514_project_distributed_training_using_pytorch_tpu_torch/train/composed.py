@@ -61,8 +61,15 @@ either, from any mesh or trainer of the same widths, and skips the epochs it hol
 the next epoch boundary, and ``__main__`` exits 75; ``--profile`` traces the run with
 ``torch.profiler``.
 
-Not ported yet: ``--dcn-data`` (the hybrid ICI x DCN mesh, ROADMAP A10) and telemetry
-(A11).
+``--dcn-data N`` lays the grid out as the JAX package's ``make_hybrid_mesh`` does for N
+slices (``parallel.mesh.hybrid_rank_order``): the data axis's leading factor strides over N
+contiguous granules of ranks, every other axis stays inside a granule. It moves ranks, not
+math: the trajectory is the same mesh's without it, up to the order of the data
+all-reduce. ``--telemetry PATH`` (rank 0 writes) records the manifest with the grid's axes,
+the first epoch call's seconds and one step's flops as the ``compile`` event, one
+``epoch`` event an epoch and the ``mfu`` event; ``--health-stats`` adds one ``health``
+event an epoch from the segment's accumulators (the grad norm is the grid's
+``sharded_norm_fn``, as the step's clip reads it).
 """
 
 from __future__ import annotations
@@ -104,7 +111,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh
     ProcessGrid,
     ShardContext,
     cluster,
+    hybrid_rank_order,
     mesh_axes,
+    parse_mesh_spec,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.guard import (
     GuardRuntime,
@@ -124,6 +133,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import checkpoint
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     ComposedConfig,
     check_step_options,
@@ -165,9 +175,9 @@ def validate_config(config: ComposedConfig) -> dict[str, int]:
     data, seq, model, expert, stage = (axes[n] for n in AXES)
     check_step_options(config)
     validate_remat_policy(config.remat, config.remat_policy)
-    if config.dcn_data:
-        raise ValueError("--dcn-data (the hybrid ICI x DCN mesh, make_hybrid_mesh) is not "
-                         "ported yet (ROADMAP A10)")
+    if config.dcn_data and "data" not in mesh_axes(config.mesh):
+        raise ValueError("--dcn-data needs a data axis in --mesh (it is the axis whose "
+                         "leading factor spans slices)")
     if config.kv_heads and (config.kv_heads < 0 or NUM_HEADS % config.kv_heads):
         raise ValueError(f"--kv-heads {config.kv_heads} must be a positive divisor of the "
                          f"transformer's {NUM_HEADS} heads")
@@ -319,8 +329,10 @@ def build_segment_fn(config: ComposedConfig, model, *, total_steps: int = 0,
                                          warmup_steps=config.warmup_steps,
                                          total_steps=total_steps)
     step = make_train_step(model, **step_options(config, optimizer, lr_schedule, guard),
-                           grad_accum=config.grad_accum, **hooks)
-    return optimizer, make_segment_fn(step, pregather=config.pregather)
+                           grad_accum=config.grad_accum, with_metrics=config.health_stats,
+                           **hooks)
+    return optimizer, make_segment_fn(step, pregather=config.pregather,
+                                      health=config.health_stats)
 
 
 def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
@@ -336,7 +348,11 @@ def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
     validate_config(config)
     resolve_device(config.device)                     # fail fast, before any data work
     with cluster(config.device) as info:
-        grid = ProcessGrid(config.mesh)
+        order = None
+        if config.dcn_data:
+            names, sizes = parse_mesh_spec(config.mesh)
+            order = hybrid_rank_order(names, sizes, num_slices=config.dcn_data)
+        grid = ProcessGrid(config.mesh, order=order)
         return _train(config, info, grid, datasets, init_params)
 
 
@@ -345,7 +361,9 @@ def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_param
     device = info.device
     data, stage = grid.axis("data"), grid.axis("stage")
     store_dir = os.path.join(config.results_dir, "checkpoints") if config.results_dir else ""
-    grt = GuardRuntime(config, store_dir=store_dir)
+    tele = T.TrainerTelemetry(config.telemetry, config, run_type="composed", device=device,
+                              axes=mesh_axes(config.mesh), preserve=bool(config.resume_from))
+    grt = GuardRuntime(config, store_dir=store_dir, tele=tele.writer)
     if config.download_data and datasets is None:
         download_mnist(config.data_dir)
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
@@ -379,7 +397,8 @@ def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_param
         # checkpoints are in the one standard layout whatever mesh or trainer wrote them
         state, start_epoch, warning = checkpoint.restore_for_resume(
             config.resume_from, state, process_index=info.process_index,
-            process_count=info.process_count, steps_per_epoch=steps_per_epoch)
+            process_count=info.process_count, steps_per_epoch=steps_per_epoch,
+            tele=tele.writer)
         if warning:
             M.log(f"WARNING: {warning}")
         M.log(f"Resumed from {config.resume_from} at step {int(state.step)} "
@@ -435,10 +454,19 @@ def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_param
     train_x, test_x = to_device(train_ds.images), to_device(test_ds.images)
     train_y = to_device(train_ds.labels.astype(np.int64))
     test_y = to_device(test_ds.labels.astype(np.int64))
+    health = config.health_stats
+    if tele.on:
+        first = to_device(local_columns(np.arange(batch)[None] % n_train, data.size,
+                                        data.index, pieces)[0])
+        step = make_train_step(model, **step_options(config, optimizer, None, None),
+                               grad_accum=config.grad_accum, norm_fn=hooks["norm_fn"],
+                               dropout_rows=hooks["dropout_rows"])
+        tele.flops_per_step = T.train_step_flops(step, state, train_x[first],
+                                                 train_y[first], config.seed + 1)
     history = M.MetricsHistory()
     ckpt_path = (os.path.join(config.results_dir, "model_composed.ckpt")
                  if config.results_dir else "")
-    saver = checkpoint.make_saver(config.async_checkpoint)
+    saver = checkpoint.make_saver(config.async_checkpoint, tele=tele.writer)
     # host-side hooks at epoch boundaries; with both flags off they touch no state
     rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                              handle_preemption=config.handle_preemption,
@@ -452,12 +480,27 @@ def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_param
                 t_epoch = time.perf_counter()
                 plan = epoch_plan(config.seed, epoch, n_train, steps_per_epoch, batch)
                 plan = to_device(local_columns(plan, data.size, data.index, pieces))
-                state, losses = segment_fn(state, train_x, train_y, plan, config.seed + 1)
+                t_exec = time.perf_counter()
+                state, out = tele.first_call(segment_fn, state, train_x, train_y, plan,
+                                             config.seed + 1, steps_per_call=steps_per_epoch,
+                                             name="epoch")
+                losses, epoch_health = out if health else (out, None)
                 epoch_loss = losses.mean().item()               # the epoch's one host sync
                 history.epoch_seconds.append(time.perf_counter() - t_epoch)
+                t_eval = time.perf_counter()
                 sum_nll, correct = eval_fn(
                     state.ema if state.ema is not None else state.params, test_x, test_y)
                 val_loss = sum_nll.item() / n_test
+                if health:
+                    # every rank: the norm of a split state is a collective
+                    health_host = T.host_health(epoch_health)
+                    param_norm = T.global_l2_norm(state.params, hooks["norm_fn"])
+                tele.epoch(epoch, examples=steps_per_epoch * batch, steps=steps_per_epoch,
+                           wall_s=time.perf_counter() - t_epoch,
+                           execute_s=t_eval - t_exec, eval_s=time.perf_counter() - t_eval,
+                           data_s=t_exec - t_epoch, train_loss=epoch_loss,
+                           val_loss=val_loss, health=health_host if health else None,
+                           param_norm=param_norm if health else None)
                 examples_trained = (epoch + 1) * steps_per_epoch * batch
                 history.record_train(examples_trained, epoch_loss)
                 history.record_test(examples_trained, val_loss)
@@ -483,14 +526,16 @@ def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_param
                     if store_dir and config.keep_checkpoints:
                         checkpoint.save_versioned(
                             store_dir, host_state, keep=config.keep_checkpoints,
-                            health=stamp,
+                            health=stamp, tele=tele.writer,
                             cursor={"version": 1, "kind": "epoch", "seed": config.seed,
                                     "epoch": epoch + 1, "batch": 0,
                                     "step": int(host_state.step)})
                 grt.check_poisoned(state)           # raises Poisoned; __main__ exits 65
                 # preemption with this epoch's checkpoint written (raises Preempted;
                 # __main__ exits 75)
-                rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path)
+                rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path,
+                                 tele=tele.writer)
+        tele.close()
         if host_state is None or not ckpt_path:
             host_state = to_standard(state)
             if ckpt_path and start_epoch >= config.epochs:

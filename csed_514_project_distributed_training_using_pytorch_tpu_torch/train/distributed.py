@@ -62,7 +62,11 @@ At world 1 every split is the whole leaf and no collective runs: on the card the
 is still captured, with no new host sync. The eval, the checkpoints and the export read
 the gathered state.
 
-Not ported: telemetry (ROADMAP A11).
+Telemetry (``--telemetry PATH``, rank 0 writes): the manifest with the ``data`` axis, the
+first segment call's seconds and one step's flops (the step without its gradient reduce:
+one rank's share) as the ``compile`` event, one ``epoch`` event an epoch, the ``mfu``
+event at the end; ``--health-stats`` one ``health`` event an epoch from the segment's
+accumulators (not on the ``--host-local-feed`` path, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -115,15 +119,18 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
     HostFedStep,
     TrainState,
     create_train_state,
+    init_health,
     make_epoch_fn,
     make_eval_fn,
     make_train_step,
+    merge_health,
     segment_program,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
     checkpoint,
     plotting,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     DistributedConfig,
@@ -201,6 +208,11 @@ def main(config: DistributedConfig = DistributedConfig(), *,
               f"(per-replica {per_replica_batch}), data source: {train_ds.source}")
         M.log(f"Collective backend: {info.backend} (device {info.device.type}, "
               f"{world} rank(s))")
+        tele = T.TrainerTelemetry(config.telemetry, config, run_type="distributed",
+                                  device=info.device, axes={"data": world},
+                                  preserve=bool(config.resume_from))
+        health = config.health_stats
+        grt.tele = tele.writer
 
         samplers = [ShardedSampler(n_train, num_replicas=world, rank=r,
                                    seed=config.sampler_seed) for r in range(world)]
@@ -214,7 +226,7 @@ def main(config: DistributedConfig = DistributedConfig(), *,
         if config.resume_from:
             state, start_epoch, warning = checkpoint.restore_for_resume(
                 config.resume_from, state, process_index=rank, process_count=world,
-                steps_per_epoch=steps_per_epoch)
+                steps_per_epoch=steps_per_epoch, tele=tele.writer)
             if warning:
                 M.log(f"WARNING: {warning}")
             M.log(f"Resumed from {config.resume_from} at step {int(state.step)} "
@@ -254,7 +266,7 @@ def main(config: DistributedConfig = DistributedConfig(), *,
         else:
             segment_fn = make_epoch_fn(
                 model, **options, grad_accum=config.grad_accum, pregather=config.pregather,
-                unroll=config.scan_unroll, grad_reduce=reducer, rank=rank)
+                unroll=config.scan_unroll, grad_reduce=reducer, rank=rank, health=health)
             M.log(describe_program(segment_program(info.device, reducer), info.device))
         eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
 
@@ -264,12 +276,18 @@ def main(config: DistributedConfig = DistributedConfig(), *,
         if not config.host_local_feed:        # the host-local feed keeps it on the host
             train_x = to_device(train_ds.images)
             train_y = to_device(train_ds.labels.astype(np.int64))
+            if tele.on:
+                first = np.arange(per_replica_batch) % n_train
+                tele.flops_per_step = T.train_step_flops(
+                    make_train_step(model, **options, grad_accum=config.grad_accum,
+                                    rank=rank),
+                    state, train_x[first], train_y[first], config.seed)
 
         history = M.MetricsHistory()
         li = config.log_interval
         ckpt_path = os.path.join(config.results_dir, "model_dist.ckpt")
         ckpt_store = os.path.join(config.results_dir, "checkpoints")
-        saver = checkpoint.make_saver(config.async_checkpoint)
+        saver = checkpoint.make_saver(config.async_checkpoint, tele=tele.writer)
         # host-side hooks at epoch boundaries; with both flags off they touch no state
         rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                                  handle_preemption=config.handle_preemption,
@@ -285,8 +303,12 @@ def main(config: DistributedConfig = DistributedConfig(), *,
             idx = to_device(plan[:, col_lo:col_hi])
             steps, segments = plan.shape[0], []
             for seg_start in range(0, steps, li):
-                state, losses = segment_fn(state, train_x, train_y,
-                                           idx[seg_start:seg_start + li], config.seed)
+                state, out = tele.first_call(segment_fn, state, train_x, train_y,
+                                             idx[seg_start:seg_start + li], config.seed,
+                                             steps_per_call=li)
+                losses = out[0] if health else out
+                if health:
+                    ledger["health"] = merge_health(ledger["health"], out[1])
                 segments.append(losses)
                 tick(epoch, min(seg_start + li, steps), losses[-1])
             return state, torch.cat(segments)
@@ -317,6 +339,8 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                     rt.epoch_tick(state, epoch, fingerprint=grt.fingerprint)
                     t_epoch = time.perf_counter()
                     plan = epoch_index_plan(samplers, epoch, per_replica_batch)
+                    ledger = {"data_s": time.perf_counter() - t_epoch,
+                              "health": init_health(info.device) if health else None}
                     steps = plan.shape[0]
                     run_epoch = (run_epoch_host_local if config.host_local_feed
                                  else run_epoch_device_resident)
@@ -339,13 +363,23 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                     history.record_test((epoch + 1) * plan.size, val_loss)
                     M.log(M.dist_epoch_summary_line(epoch, train_loss, val_loss, accuracy,
                                                     watch.elapsed()))
+                    if tele.on:
+                        h = ledger["health"]
+                        tele.epoch(epoch, examples=n_train, steps=steps,
+                                   wall_s=time.perf_counter() - t_epoch,
+                                   execute_s=history.epoch_seconds[-1],
+                                   data_s=ledger["data_s"], train_loss=train_loss,
+                                   val_loss=val_loss,
+                                   health=T.host_health(h) if h is not None else None,
+                                   param_norm=(T.global_l2_norm(host_state.params)
+                                               if h is not None else None))
                     stamp = grt.epoch_end(state, epoch, steps=steps)
                     # the per-epoch full-state checkpoint (rank 0), for --resume-from
                     saver.save_train_state(ckpt_path, host_state)
                     if config.keep_checkpoints:
                         checkpoint.save_versioned(
                             ckpt_store, host_state, keep=config.keep_checkpoints,
-                            health=stamp,
+                            health=stamp, tele=tele.writer,
                             cursor={"version": 1, "kind": "epoch", "seed": config.seed,
                                     "epoch": epoch + 1, "batch": 0,
                                     "step": int(state.step)})
@@ -354,8 +388,10 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                     grt.check_poisoned(state)
                     # preemption with this epoch's checkpoint written (raises Preempted;
                     # __main__ exits 75)
-                    rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path)
+                    rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path,
+                                     tele=tele.writer)
 
+            tele.close()
             state = full_state(state)
             assert_replicas_synced(state.params)
             plotting.save_loss_curves(

@@ -8,7 +8,7 @@ sync). What the host does, at each epoch boundary:
   parameter fingerprint (``utils.telemetry.param_fingerprint``, host-local);
 - build the health stamp (``epoch_end`` returns it), which the trainers write into the
   versioned store's manifest (``utils.checkpoint.save_versioned(health=...)``) under
-  ``--keep-checkpoints``; the telemetry event waits for ROADMAP A11;
+  ``--keep-checkpoints``, and the 'anomaly' telemetry event when a writer is given;
 - enforce ``--anomaly-exit``: once this attempt has detected that many anomalies, write
   the poison marker and raise ``resilience.poison.Poisoned`` with the step window to skip.
 """
@@ -42,8 +42,10 @@ class GuardRuntime:
     """One run's guard bookkeeping. Construct it unconditionally: with ``--guard`` off
     every method returns at once."""
 
-    def __init__(self, config, *, store_dir: str = ""):
+    def __init__(self, config, *, store_dir: str = "", tele=None):
         self.enabled = bool(getattr(config, "guard", False))
+        self.tele = tele                        # a TelemetryWriter: the 'anomaly' event
+        self.skip = getattr(config, "skip_steps", "")
         self.spec = None
         if self.enabled:
             self.spec = GuardSpec(zscore=config.guard_zscore,
@@ -87,6 +89,9 @@ class GuardRuntime:
                 self._attempt_lo = max(step - int(steps), 0)
         stamp = {"clean": anoms == self._prev_anoms, "anomalies": anoms,
                  "skipped": int(gh.skipped), "step": step, "fingerprint": self.fingerprint}
+        if self.tele is not None:
+            self.tele.emit(T.anomaly_event(epoch, gh, steps, fingerprint=self.fingerprint,
+                                           skip=self.skip))
         self._prev_anoms = anoms
         return stamp
 

@@ -52,7 +52,13 @@ raises when none is present; the CPU is used only when asked for::
         --device cpu --epochs 1 --max-train-examples 256 --max-test-examples 100 \\
         --eval-batch 100 --embed-dim 32 --num-layers 1 --num-heads 2
 
-Not ported: ``--plan`` and ``--telemetry`` (ROADMAP A11); each raises naming its item.
+Telemetry (``--telemetry PATH``, rank 0 writes): the manifest with the grid's axes, the
+first segment call's seconds and one step's flops as the ``compile`` event, one ``epoch``
+event an epoch (and one ``data`` event on a corpus: batches, loader wait, the next
+epoch's cursor and the epoch's token CRC), the ``mfu`` event at the end;
+``--health-stats`` one ``health`` event an epoch from the segment's accumulators.
+
+Not ported: ``--plan`` (ROADMAP A11); it raises naming its item.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from __future__ import annotations
 import math
 import os
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -105,9 +112,11 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     TrainState,
     create_train_state,
+    init_health,
     make_epoch_from_step,
     make_segment_fn,
     make_train_step,
+    merge_health,
     segment_program,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
@@ -115,6 +124,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import 
     plotting,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     LMConfig,
     check_lm_config,
@@ -179,12 +189,13 @@ def lm_model(config: LMConfig, *, vocab: int, seq_len: int, seq_world: int = 1,
 
 def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
                  optimizer: optim.Optimizer, steps_per_epoch: int, grad_reduce=None,
-                 guard=None, rank: int = 0, norm_fn=None):
+                 guard=None, rank: int = 0, norm_fn=None, with_metrics: bool = False):
     """The trainer's step: ``train.step.make_train_step`` with the LM's next-token loss
     (label smoothing from ``config``, dropout on when ``config.dropout_rate`` is not 0) and
     ``config``'s clip, EMA, gradient accumulation and learning-rate schedule over
     ``config.epochs * steps_per_epoch`` updates. Called as ``step(state, tokens, zeros,
-    seed)``: the labels argument is unread."""
+    seed)``: the labels argument is unread. ``with_metrics`` returns ``(loss, grad
+    norm)`` for the health accumulators."""
     deterministic = config.dropout_rate == 0.0
 
     def lm_loss(params, xs, ys, rng):
@@ -200,7 +211,7 @@ def make_lm_step(model: lm_mod.TransformerLM, config: LMConfig, *,
                            optimizer=optimizer, lr_schedule=lr_schedule,
                            clip_grad_norm=config.clip_grad_norm, ema_decay=config.ema_decay,
                            loss_fn=lm_loss, guard=guard, grad_reduce=grad_reduce, rank=rank,
-                           norm_fn=norm_fn)
+                           norm_fn=norm_fn, with_metrics=with_metrics)
 
 
 def lm_mesh(mesh: str, world: int, *, zigzag: bool = False) -> str:
@@ -237,6 +248,10 @@ def main(config: LMConfig = LMConfig(), *,
         data, seq, tp_axis = grid.axis("data"), grid.axis("seq"), grid.axis("model")
         world, seq_world = data.size, seq.size
         rank = info.process_index
+        tele = T.TrainerTelemetry(config.telemetry, config, run_type="lm",
+                                  device=info.device, axes=mesh_axes(grid.spec),
+                                  preserve=bool(config.resume_from))
+        grt.tele = tele.writer
         # the ranks of one data coordinate hold the same batch and draw the same dropout
         # masks
         data_rank = data.index
@@ -316,7 +331,7 @@ def main(config: LMConfig = LMConfig(), *,
             state, start_epoch, warning = checkpoint.restore_for_resume(
                 config.resume_from, state, process_index=rank,
                 process_count=info.process_count,
-                steps_per_epoch=steps_per_epoch)
+                steps_per_epoch=steps_per_epoch, tele=tele.writer)
             if warning:
                 M.log(f"WARNING: {warning}")
             M.log(f"Resumed from {config.resume_from} at step {int(state.step)} "
@@ -332,15 +347,17 @@ def main(config: LMConfig = LMConfig(), *,
         # the reduce spans the data axis only (the whole group when nothing else is split)
         reducer = (dp.GradReducer(state.params, group=data.group)
                    if world > 1 or not sharded else None)
+        health = config.health_stats
+        norm_fn = tp.sharded_norm_fn(specs, grid)
         step_fn = make_lm_step(model, config, optimizer=optimizer,
                                steps_per_epoch=steps_per_epoch, grad_reduce=reducer,
-                               guard=grt.spec, rank=data_rank,
-                               norm_fn=tp.sharded_norm_fn(specs, grid))
+                               guard=grt.spec, rank=data_rank, norm_fn=norm_fn,
+                               with_metrics=health)
         if not sharded:
-            epoch_fn = make_epoch_from_step(step_fn, grad_reduce=reducer)
+            epoch_fn = make_epoch_from_step(step_fn, grad_reduce=reducer, health=health)
             M.log(describe_program(segment_program(info.device, reducer), info.device))
         else:
-            epoch_fn = make_segment_fn(step_fn)
+            epoch_fn = make_segment_fn(step_fn, health=health)
             M.log(f"Segment program: eager on {info.device} (mesh {mesh_axes(grid.spec)}: "
                   f"the seq and model collectives cross the process group outside a "
                   f"graph)")
@@ -354,19 +371,28 @@ def main(config: LMConfig = LMConfig(), *,
         history = M.MetricsHistory()
         ckpt_path = (os.path.join(config.results_dir, "model_lm.ckpt")
                      if config.results_dir else "")
-        saver = checkpoint.make_saver(config.async_checkpoint)
+        saver = checkpoint.make_saver(config.async_checkpoint, tele=tele.writer)
         rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                                  handle_preemption=config.handle_preemption,
                                  process_index=rank)
         cols = slice(data_rank * per_rank, (data_rank + 1) * per_rank)   # this rank's block
+        if tele.on:
+            first = torch.arange(per_rank, device=info.device) % n_train
+            tele.flops_per_step = T.train_step_flops(
+                make_lm_step(model, config, optimizer=optimizer,
+                             steps_per_epoch=steps_per_epoch, rank=data_rank,
+                             norm_fn=norm_fn),
+                state, tokens_d[first], zeros_d[first], config.seed + 1)
 
         def epoch_plan(epoch: int) -> torch.Tensor:
             """The epoch's ``[steps, global batch]`` plan, this rank's columns, on the
             device; a corpus epoch's tokens are copied into the split's tensor first (the
             same address, so the captured segments replay over them)."""
             if loader is not None:
-                tokens_d.copy_(torch.from_numpy(loader.epoch_tokens(epoch)))
+                epoch_np = loader.epoch_tokens(epoch)
+                tokens_d.copy_(torch.from_numpy(epoch_np))
                 history.data_wait_seconds.append(loader.pop_wait_s())
+                stream_digest[0] = zlib.crc32(epoch_np.tobytes())
                 order = np.arange(n_train)
             else:
                 # the (seed, epoch)-keyed permutation of parallel/sampler's contract, so a
@@ -376,6 +402,8 @@ def main(config: LMConfig = LMConfig(), *,
             plan = order[:steps_per_epoch * config.batch_size].reshape(steps_per_epoch, -1)
             return to_device(plan[:, cols])
 
+        stream_digest = [None]      # the corpus epoch's token CRC (the data event's)
+
         def run_epochs(state: TrainState) -> TrainState:
             for epoch in range(start_epoch, config.epochs):
                 # the heartbeat, with the previous boundary's fingerprint; no-op off
@@ -384,15 +412,43 @@ def main(config: LMConfig = LMConfig(), *,
                 plan = epoch_plan(epoch)
                 t_exec = time.perf_counter()
                 losses = []
+                epoch_health = init_health(info.device) if health else None
                 for start in range(0, steps_per_epoch, SEGMENT_STEPS):
-                    state, seg_losses = epoch_fn(state, tokens_d, zeros_d,
-                                                 plan[start:start + SEGMENT_STEPS],
-                                                 config.seed + 1)
-                    losses.append(seg_losses)
+                    state, out = tele.first_call(
+                        epoch_fn, state, tokens_d, zeros_d,
+                        plan[start:start + SEGMENT_STEPS], config.seed + 1,
+                        steps_per_call=min(SEGMENT_STEPS, steps_per_epoch), name="epoch")
+                    if health:
+                        out, seg_health = out
+                        epoch_health = merge_health(epoch_health, seg_health)
+                    losses.append(out)
                 train_loss = torch.cat(losses).mean().item()   # the epoch's one host sync
                 history.epoch_seconds.append(time.perf_counter() - t_exec)
+                t_eval = time.perf_counter()
                 eval_params = state.ema if state.ema is not None else state.params
                 val_nll = eval_fn(eval_params, test_d).item() / (n_test * seq_len)
+                if health:
+                    # every rank: the norm of a split state is a collective
+                    health_host = T.host_health(epoch_health)
+                    param_norm = T.global_l2_norm(state.params, norm_fn)
+                if tele.on:
+                    tele.epoch(epoch, examples=steps_per_epoch * config.batch_size,
+                               steps=steps_per_epoch,
+                               wall_s=time.perf_counter() - t_data,
+                               execute_s=history.epoch_seconds[-1],
+                               eval_s=time.perf_counter() - t_eval,
+                               data_s=t_exec - t_data, train_loss=train_loss,
+                               val_loss=val_nll,
+                               health=health_host if health else None,
+                               param_norm=param_norm if health else None)
+                    if loader is not None:
+                        tele.writer.emit(T.data_event(
+                            epoch, batches=steps_per_epoch,
+                            sequences=steps_per_epoch * config.batch_size,
+                            wait_s=history.data_wait_seconds[-1],
+                            throttle_s=config.data_throttle_s,
+                            cursor=loader.cursor(epoch + 1, 0),
+                            stream_digest=stream_digest[0]))
                 examples = (epoch + 1) * steps_per_epoch * config.batch_size
                 history.record_train(examples, train_loss)
                 history.record_test(examples, val_nll)
@@ -412,16 +468,19 @@ def main(config: LMConfig = LMConfig(), *,
                                         "step": int(state.step)})
                         checkpoint.save_versioned(store_dir, host_state,
                                                   keep=config.keep_checkpoints,
+                                                  tele=tele.writer,
                                                   health=stamp, cursor=cursor)
                 # the guard's exit after the stamped checkpoint is durable (raises
                 # Poisoned; __main__ exits 65)
                 grt.check_poisoned(state)
                 # preemption with this epoch's checkpoint written (raises Preempted; 75)
-                rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path)
+                rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path,
+                                 tele=tele.writer)
             return state
 
         try:
             state = run_epochs(state)
+            tele.close()
             if sharded:
                 state = full_state(state)
         finally:

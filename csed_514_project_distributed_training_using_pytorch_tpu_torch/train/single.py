@@ -60,7 +60,11 @@ and ``model.ckpt`` in the JAX package's transformer layout::
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single \
         --model transformer --use-pallas-kernels
 
-Telemetry (ROADMAP A11) is not ported yet.
+Telemetry (``--telemetry PATH``, ``utils/telemetry.py``): the manifest, the first segment
+call's seconds and one step's flops as the ``compile`` event, one ``epoch`` event an epoch
+and the ``mfu`` event at the end; ``--health-stats`` adds one ``health`` event an epoch,
+from the accumulators the segment carries (on the card inside its CUDA graph: no extra
+host sync, and the same parameters and kernel launches as without them).
 """
 
 from __future__ import annotations
@@ -91,15 +95,19 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step im
     HostFedStep,
     TrainState,
     create_train_state,
+    init_health,
     make_epoch_fn,
     make_eval_fn,
     make_train_step,
+    merge_health,
     segment_program,
+    update_health,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
     checkpoint,
     plotting,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import metrics as M
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
     SingleProcessConfig,
@@ -181,7 +189,11 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     if config.optimizer != "sgd" and config.use_pallas_kernels:
         raise ValueError("--use-pallas-kernels fuses the SGD-momentum update — it "
                          "requires --optimizer sgd")
-    grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"))
+    tele = T.TrainerTelemetry(config.telemetry, config, run_type="single", device=device,
+                              preserve=bool(resume_from or config.resume_from))
+    health = config.health_stats
+    grt = GuardRuntime(config, store_dir=os.path.join(config.results_dir, "checkpoints"),
+                       tele=tele.writer)
     if config.download_data and datasets is None:
         download_mnist(config.data_dir)       # torchvision download=True, src/train.py:26-31
     train_ds, test_ds = datasets if datasets is not None else load_mnist(config.data_dir)
@@ -234,11 +246,17 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         M.log(describe_host_fed(host_step.program, device))
     else:
         segment_fn = make_epoch_fn(model, **common, grad_accum=config.grad_accum,
-                                   pregather=config.pregather, unroll=config.scan_unroll)
+                                   pregather=config.pregather, unroll=config.scan_unroll,
+                                   health=health)
         M.log(describe_program(segment_program(device), device))
+        if tele.on:
+            step_fn = make_train_step(model, **common, grad_accum=config.grad_accum)
+            first = np.arange(config.batch_size_train) % len(train_ds)
+            tele.flops_per_step = T.train_step_flops(
+                step_fn, state, train_x[first], train_y[first], config.seed)
     # the ragged last batch need not divide by grad_accum, a memory knob: it steps
     # unaccumulated, as in the JAX package
-    tail_step_fn = make_train_step(model, **common)
+    tail_step_fn = make_train_step(model, **common, with_metrics=health)
     eval_fn = make_eval_fn(model, batch_size=config.batch_size_test)
 
     history = M.MetricsHistory()
@@ -246,7 +264,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     batch = config.batch_size_train
     ckpt_path = os.path.join(config.results_dir, "model.ckpt")
     ckpt_store = os.path.join(config.results_dir, "checkpoints")
-    saver = checkpoint.make_saver(config.async_checkpoint)
+    saver = checkpoint.make_saver(config.async_checkpoint, tele=tele.writer)
     # host-side hooks at epoch boundaries; with both flags off they touch no state
     rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                              handle_preemption=config.handle_preemption)
@@ -259,17 +277,29 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         history.record_test(examples_seen, avg)
         M.log(M.test_summary_line(avg, int(correct.item()), n_test, watch.elapsed()))
 
-    def train_epoch(state: TrainState, epoch: int) -> TrainState:
+    def train_epoch(state: TrainState, epoch: int) -> tuple[TrainState, dict]:
+        """One epoch; returns the state and its ledger: the index plan's seconds, the
+        losses' device sum and count, and the health accumulators (``--health-stats``)."""
+        t_data = time.perf_counter()
         train_loader.set_epoch(epoch)
         indices = train_loader.sampler.epoch_indices(epoch)
         idx_full = to_device(train_loader.epoch_index_matrix(epoch, allow_empty=True))
         full_steps = idx_full.shape[0]
+        ledger = {"data_s": time.perf_counter() - t_data,
+                  "loss_sum": torch.zeros((), device=device), "loss_steps": 0,
+                  "health": init_health(device) if health else None}
 
         # log_interval-sized segments (the last may be shorter), then the ragged tail.
         li = config.log_interval
         for seg_start in range(0, full_steps, li):
-            state, losses = segment_fn(state, train_x, train_y,
-                                       idx_full[seg_start:seg_start + li], config.seed)
+            state, out = tele.first_call(segment_fn, state, train_x, train_y,
+                                         idx_full[seg_start:seg_start + li], config.seed,
+                                         steps_per_call=li)
+            losses = out[0] if health else out
+            if health:
+                ledger["health"] = merge_health(ledger["health"], out[1])
+            ledger["loss_sum"] += losses.sum()
+            ledger["loss_steps"] += losses.shape[0]
             last_loss = losses[-1].item()              # the tick's one host sync
             batches_done = min(seg_start + li, full_steps)
             examples_seen = (epoch - 1) * n_train + batches_done * batch
@@ -283,9 +313,14 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         tail = indices[full_steps * batch:]
         if len(tail):
             tail_idx = to_device(tail)
-            state, _ = tail_step_fn(state, train_x.index_select(0, tail_idx),
-                                    train_y.index_select(0, tail_idx), config.seed)
-        return state
+            state, out = tail_step_fn(state, train_x.index_select(0, tail_idx),
+                                      train_y.index_select(0, tail_idx), config.seed)
+            loss = out[0] if health else out
+            if health:
+                ledger["health"] = update_health(ledger["health"], *out)
+            ledger["loss_sum"] += loss
+            ledger["loss_steps"] += 1
+        return state, ledger
 
     def train_epoch_host_pipeline(state: TrainState, epoch: int) -> TrainState:
         """The reference-shaped loop: host batches through the native threaded prefetcher,
@@ -313,7 +348,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
             state, _ = tail_step_fn(state, to_device(train_ds.images[tail]),
                                     to_device(train_ds.labels[tail].astype(np.int64)),
                                     config.seed)
-        return state
+        return state, {"data_s": None, "loss_sum": None, "loss_steps": 0, "health": None}
 
     if config.use_host_pipeline:
         train_epoch = train_epoch_host_pipeline
@@ -328,18 +363,34 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                 step_before = int(state.step)
                 t_epoch = time.perf_counter()
                 with annotate(f"train_epoch_{epoch}"):
-                    state = train_epoch(state, epoch)
+                    state, ledger = train_epoch(state, epoch)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)     # honest wall-clock
                 history.epoch_seconds.append(time.perf_counter() - t_epoch)
+                t_eval = time.perf_counter()
                 with annotate("eval"):
                     evaluate(state, epoch * n_train)
+                if tele.on:
+                    steps = int(state.step) - step_before
+                    h = ledger["health"]
+                    tele.epoch(epoch, examples=n_train, steps=steps,
+                               wall_s=time.perf_counter() - t_epoch,
+                               execute_s=history.epoch_seconds[-1],
+                               eval_s=time.perf_counter() - t_eval,
+                               data_s=ledger["data_s"],
+                               train_loss=(ledger["loss_sum"].item() / ledger["loss_steps"]
+                                           if ledger["loss_steps"] else None),
+                               val_loss=history.test_losses[-1],
+                               health=T.host_health(h) if h is not None else None,
+                               param_norm=(T.global_l2_norm(state.params)
+                                           if h is not None else None))
                 stamp = grt.epoch_end(state, epoch, steps=int(state.step) - step_before)
                 if config.keep_checkpoints:
                     # the versioned store, with the guard's health stamp and the data
                     # cursor of the (seed, epoch) permutation
                     checkpoint.save_versioned(
                         ckpt_store, state, keep=config.keep_checkpoints, health=stamp,
+                        tele=tele.writer,
                         cursor={"version": 1, "kind": "epoch", "seed": config.seed,
                                 "epoch": epoch + 1, "batch": 0, "step": int(state.step)})
                 # the guard's exit after the stamped checkpoint is durable (raises
@@ -348,7 +399,9 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                 # preemption at the epoch boundary: the tick checkpoint lags the tail
                 # batch, so save first (raises Preempted; __main__ exits 75)
                 rt.check_preempt(epoch=epoch, state=state, checkpoint=ckpt_path,
-                                 save=lambda: saver.save_train_state(ckpt_path, state))
+                                 save=lambda: saver.save_train_state(ckpt_path, state),
+                                 tele=tele.writer)
+            tele.close()
 
         plotting.save_loss_curves(history,
                                   os.path.join(config.images_dir, "train_test_curve.png"))

@@ -260,8 +260,19 @@ def restore_train_state(path: str, reference_state: TrainState) -> TrainState:
     return state_from_jax_dict(raw, ref)
 
 
+def _emit_checkpoint_event(tele, **kw) -> None:
+    """One ``checkpoint`` telemetry event through ``tele`` (a ``TelemetryWriter``, or
+    None: nothing)."""
+    if tele is None or not tele.enabled:
+        return
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        telemetry,
+    )
+    tele.emit(telemetry.checkpoint_event(**kw))
+
+
 def restore_for_resume(path: str, reference_state: TrainState, *, process_index: int,
-                       process_count: int, steps_per_epoch: int):
+                       process_count: int, steps_per_epoch: int, tele=None):
     """The data-parallel trainer's resume prologue: rank 0 restores, then broadcasts the
     full state to every rank over the process group (checkpoints are rank-0 writes, so
     without a shared filesystem only rank 0 can read one back), and the start epoch is
@@ -269,17 +280,21 @@ def restore_for_resume(path: str, reference_state: TrainState, *, process_index:
 
     Returns ``(state, start_epoch, warning)``, ``warning`` a log-worthy message when the
     step is not a whole number of this config's epochs (a mid-epoch checkpoint, or one
-    written under another batch size)."""
+    written under another batch size). ``tele`` records the restore as a ``checkpoint``
+    event."""
+    t0 = time.perf_counter()
     if os.path.isdir(path):
         # every rank reads the sharded directory (shared filesystem): no broadcast
-        return _derive_resume_epoch(restore_train_state_sharded(path, reference_state),
-                                    steps_per_epoch)
-    state = reference_state
-    if process_index == 0:
-        state = restore_train_state(path, state)
-    if process_count > 1:
-        for leaf in _tree_leaves(state):
-            collectives.broadcast_(leaf, src=0)
+        state, kind = restore_train_state_sharded(path, reference_state), "sharded"
+    else:
+        state, kind = reference_state, "full"
+        if process_index == 0:
+            state = restore_train_state(path, state)
+        if process_count > 1:
+            for leaf in _tree_leaves(state):
+                collectives.broadcast_(leaf, src=0)
+    _emit_checkpoint_event(tele, op="restore", path=path, kind=kind,
+                           wall_s=time.perf_counter() - t0, step=int(state.step))
     return _derive_resume_epoch(state, steps_per_epoch)
 
 
@@ -469,7 +484,8 @@ def load_manifest(dir_path: str) -> dict:
 
 
 def save_versioned(dir_path: str, state: TrainState, *, keep: int = 3,
-                   health: dict | None = None, cursor: dict | None = None) -> str | None:
+                   health: dict | None = None, cursor: dict | None = None,
+                   tele=None) -> str | None:
     """Write ``state`` as ``ckpt_{step:08d}.msgpack`` into the store: the file (atomic),
     then the manifest (atomic: file, step, sha256, bytes, time), then GC of everything past
     the newest ``keep`` steps, strictly after the manifest stops naming them. Rank-0 gated
@@ -485,6 +501,7 @@ def save_versioned(dir_path: str, state: TrainState, *, keep: int = 3,
     checkpoint durable at the boundary."""
     if not is_logging_process():
         return None
+    t0 = time.perf_counter()
     keep = max(int(keep), 1)
     data = _msgpack.packb(state_to_jax_dict(_host_copy(state)))
     step = int(state.step)
@@ -509,6 +526,8 @@ def save_versioned(dir_path: str, state: TrainState, *, keep: int = 3,
             os.remove(os.path.join(dir_path, e["file"]))
         except OSError:
             pass
+    _emit_checkpoint_event(tele, op="save", path=path, kind="full", nbytes=len(data),
+                           wall_s=time.perf_counter() - t0, step=step)
     return path
 
 
@@ -620,10 +639,14 @@ class AsyncCheckpointer:
     Writes to the same path coalesce: while one is in flight a newer state replaces the
     queued one (only the newest matters for an overwrite target). Writes stay atomic and
     rank-0 gated; ``flush()`` drains the queue and re-raises the first background error.
-    A context manager (exit flushes)."""
+    A context manager (exit flushes). ``tele`` makes each completed write a ``checkpoint``
+    event (bytes, write seconds, the queued states it coalesced away), from the worker
+    thread (the writer is thread-safe)."""
 
-    def __init__(self):
+    def __init__(self, tele=None):
         self._pending: dict[str, TrainState] = {}    # path -> newest host state
+        self._coalesced: dict[str, int] = {}         # path -> overwrites since its write
+        self._tele = tele
         self._lock = threading.Lock()
         self._work: queue.Queue = queue.Queue()      # paths with pending data
         self._error: BaseException | None = None
@@ -636,10 +659,17 @@ class AsyncCheckpointer:
                 return
             with self._lock:
                 state = self._pending.pop(path, None)
+                coalesced = self._coalesced.pop(path, 0)
             if state is None:                        # coalesced away
                 continue
             try:
-                _atomic_write(path, _msgpack.packb(state_to_jax_dict(state)))
+                t0 = time.perf_counter()
+                data = _msgpack.packb(state_to_jax_dict(state))
+                _atomic_write(path, data)
+                _emit_checkpoint_event(self._tele, op="save", path=path, kind="full",
+                                       nbytes=len(data), wall_s=time.perf_counter() - t0,
+                                       step=int(state.step), background=True,
+                                       coalesced=coalesced)
             except BaseException as e:               # surfaced by flush()
                 with self._lock:
                     if self._error is None:
@@ -656,6 +686,8 @@ class AsyncCheckpointer:
             self._thread.start()
         with self._lock:
             queued = path in self._pending
+            if queued:
+                self._coalesced[path] = self._coalesced.get(path, 0) + 1
             self._pending[path] = host
         if not queued:
             self._work.put(path)
@@ -680,18 +712,27 @@ class AsyncCheckpointer:
 
 class SyncSaver:
     """The synchronous saver with ``AsyncCheckpointer``'s call surface, so a trainer holds
-    one saver either way."""
+    one saver either way; ``tele`` makes each save a ``checkpoint`` event."""
+
+    def __init__(self, tele=None):
+        self._tele = tele
 
     def save_train_state(self, path: str, state: TrainState) -> None:
+        t0 = time.perf_counter()
         save_train_state(path, state)
+        if self._tele is not None and self._tele.enabled:
+            _emit_checkpoint_event(self._tele, op="save", path=path, kind="full",
+                                   nbytes=os.path.getsize(path),
+                                   wall_s=time.perf_counter() - t0, step=int(state.step))
 
     def flush(self) -> None:
         """Writes are already durable."""
 
 
-def make_saver(async_: bool = False):
-    """The trainers' saver: write-behind or synchronous, both flush()-able."""
-    return AsyncCheckpointer() if async_ else SyncSaver()
+def make_saver(async_: bool = False, tele=None):
+    """The trainers' saver: write-behind or synchronous, both flush()-able, both emitting
+    ``checkpoint`` telemetry events through ``tele``."""
+    return AsyncCheckpointer(tele=tele) if async_ else SyncSaver(tele=tele)
 
 
 # -- the params-only export -------------------------------------------------------------

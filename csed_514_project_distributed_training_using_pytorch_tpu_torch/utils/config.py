@@ -7,7 +7,7 @@ implements, with the JAX package's names and defaults (the reference's values), 
 error, never silently ignored (abbreviations are off for the same reason). The training
 step's options (``StepOptions``: optimizer, schedule, clipping, label smoothing, EMA,
 gradient accumulation, the guard, the segment program's knobs) are shared by the three
-trainers; two of their values still raise when a trainer starts (``check_step_options``).
+trainers; ``check_step_options`` refuses the values the port does not run.
 The run's options (``RunOptions``: checkpoints and resume, plots, profiling, heartbeats and
 preemption) are the two CNN trainers'; the composed trainer takes all of them but the plots
 (``ResilienceOptions``), as in the JAX package. The model's knobs (``ModelKnobs``:
@@ -52,8 +52,12 @@ class StepOptions:
                                       # has no loop body to unroll, ROADMAP A4)
     pregather: bool = False           # gather each segment's batches in one index_select
                                       # up front instead of one a step
-    health_stats: bool = False        # raises: the JAX package emits these only as
-                                      # telemetry events, not ported (ROADMAP A11)
+    health_stats: bool = False        # the segment's health accumulators (grad-norm
+                                      # mean/max, loss min/max/mean), emitted as one
+                                      # 'health' telemetry event an epoch; needs
+                                      # --telemetry
+    telemetry: str = ""               # the JSONL run-telemetry stream's path
+                                      # (utils/telemetry.py); empty off
 
 
 def check_scan_unroll(unroll: int) -> None:
@@ -64,13 +68,18 @@ def check_scan_unroll(unroll: int) -> None:
                          f"1 is accepted (ROADMAP A4)")
 
 
+def check_health_stats(config) -> None:
+    """``--health-stats`` writes 'health' telemetry events and nothing else: the JAX
+    package's refusal without ``--telemetry``."""
+    if config.health_stats and not config.telemetry:
+        raise ValueError("--health-stats emits telemetry 'health' events and has no "
+                         "other output — pass --telemetry PATH too")
+
+
 def check_step_options(config: StepOptions) -> None:
     """Raise on the step options the port does not run, naming the ROADMAP item, before a
     trainer touches any data."""
-    if config.health_stats:
-        raise ValueError("--health-stats emits telemetry 'health' events and has no other "
-                         "output (the JAX package requires --telemetry with it); telemetry "
-                         "is not ported (ROADMAP A11)")
+    check_health_stats(config)
     check_scan_unroll(config.scan_unroll)
     if config.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
@@ -206,7 +215,8 @@ class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
     """Knobs of the composed trainer (the transformer classifier), with the JAX package's
     defaults. Every mesh of ``data``, ``seq``, ``model``, ``expert`` and ``stage`` trains,
     over a process group of the mesh's product of ranks (``parallel.mesh.ProcessGrid``);
-    ``dcn_data`` raises naming ROADMAP A10."""
+    ``dcn_data`` lays the grid out slice-major on the data axis
+    (``parallel.mesh.hybrid_rank_order``)."""
 
     mesh: str = "data=2,seq=2,model=2"  # named axes (data: DP, seq: ring/Ulysses, model:
                                         # Megatron TP, expert: MoE, stage: pipeline);
@@ -220,7 +230,9 @@ class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
     fsdp: bool = False                  # ZeRO x TP: params and optimizer state also
                                         # split over data on each leaf's largest free
                                         # dim (parallel/fsdp.py); not with a stage axis
-    dcn_data: int = 0                   # raises: the hybrid ICI x DCN mesh (ROADMAP A10)
+    dcn_data: int = 0                   # the hybrid ICI x DCN layout: the data axis's
+                                        # leading factor strides over N slices of
+                                        # contiguous ranks; 0 off
     sharded_checkpoint: bool = False    # also write results/model_composed.ckpt.sharded/
                                         # each epoch: every rank its own blocks, no
                                         # gather; --resume-from takes the directory
@@ -257,8 +269,8 @@ class LMConfig:
     ``LMConfig`` with its default, plus ``device``. Meshes: none (``data`` over the
     process group), or ``data``, ``seq`` and ``model`` axes whose product is the process
     count (the einsum ring, or the einsum zig-zag with ``zigzag_attention``, on seq;
-    Megatron TP over the blocks on model); ``plan``, ``telemetry`` and ``health_stats``
-    raise naming ROADMAP A11 (``check_lm_config``)."""
+    Megatron TP over the blocks on model); ``plan`` raises naming ROADMAP A11
+    (``check_lm_config``)."""
 
     epochs: int = 2
     batch_size: int = 64                # global batch, split over the data ranks
@@ -310,8 +322,8 @@ class LMConfig:
     guard_zscore: float = 8.0
     anomaly_exit: int = 0               # exit 65 once >= N anomalies; 0 never
     skip_steps: str = ""                # identity-update windows "a:b[,c:d]"
-    telemetry: str = ""                 # raises: telemetry (ROADMAP A11)
-    health_stats: bool = False          # raises: telemetry (ROADMAP A11)
+    telemetry: str = ""                 # the JSONL run-telemetry stream's path; empty off
+    health_stats: bool = False          # one 'health' event an epoch; needs --telemetry
     max_train_examples: int = 0
     max_test_examples: int = 0
     device: str = "cuda"                # 'cuda' (the default: raises when no card is
@@ -324,13 +336,7 @@ def check_lm_config(config: LMConfig) -> None:
     if config.plan:
         raise ValueError("--plan (automatic parallelism planning) is not ported yet "
                          "(ROADMAP A11)")
-    if config.telemetry:
-        raise ValueError("--telemetry (the JSONL run-telemetry stream) is not ported yet "
-                         "(ROADMAP A11)")
-    if config.health_stats:
-        raise ValueError("--health-stats emits telemetry 'health' events and has no other "
-                         "output (the JAX package requires --telemetry with it); telemetry "
-                         "is not ported (ROADMAP A11)")
+    check_health_stats(config)
     if config.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")
     if config.kv_heads and (config.kv_heads < 0 or config.num_heads % config.kv_heads):

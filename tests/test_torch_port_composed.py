@@ -121,18 +121,21 @@ def test_composed_main_trains_the_step_options_like_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    # the mesh refusals the JAX package makes, in its words, and the one left (A10)
+    # the mesh refusals the JAX package makes, in its words (two cases keep the ids they
+    # had while their flags were refused naming a ROADMAP item)
     ({"mesh": "data=1,seq=2,stage=2"}, "a stage axis composes with data and model only"),
     ({"mesh": "data=2,stage=2", "fsdp": True}, "--fsdp does not compose with a stage"),
     ({"mesh": "data=1,expert=2", "moe_top_k": 3}, r"--moe-top-k must be in \[1, expert"),
-    ({"mesh": "data=2", "dcn_data": 2}, "ROADMAP A10"),      # the hybrid ICI x DCN mesh
+    pytest.param({"mesh": "seq=2", "dcn_data": 2}, "--dcn-data needs a data axis",
+                 id="kw3-ROADMAP A10"),                   # the hybrid ICI x DCN mesh
     ({"mesh": "data=1,pipe=1"}, "unknown mesh axis"),
     ({"mesh": "data=1", "kv_heads": 3}, "positive divisor"),
     ({"mesh": "data=1", "attention_window": -1}, "window must be >= 1"),
     ({"mesh": "data=1", "flash_attention": True, "seq_len": 100}, "divisible by"),
     ({"mesh": "data=1", "optimizer": "lamb"}, "choose 'sgd' or 'adamw'"),
     ({"mesh": "data=1", "scan_unroll": 2}, "ROADMAP A4"),
-    ({"mesh": "data=1", "health_stats": True}, "ROADMAP A11"),
+    pytest.param({"mesh": "data=1", "health_stats": True}, "pass --telemetry PATH too",
+                 id="kw10-ROADMAP A11"),
 ])
 def test_unported_or_bad_configs_raise(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -190,10 +193,12 @@ def test_cli_flags():
         "--moe-top-k", "2", "--sharded-checkpoint"])
     assert (cfg.fsdp, cfg.pipeline_microbatches, cfg.pipeline_schedule, cfg.moe_top_k,
             cfg.sharded_checkpoint) == (True, 8, "1f1b", 2, True)
-    for unported in (["--plan", "auto"], ["--telemetry", "t.jsonl"],
-                     ["--epoch", "2"]):
+    for unported in (["--plan", "auto"], ["--epoch", "2"]):
         with pytest.raises(SystemExit):
             config.parse_config(config.ComposedConfig, unported)
+    cfg = config.parse_config(config.ComposedConfig, [
+        "--telemetry", "t.jsonl", "--health-stats", "--dcn-data", "2"])
+    assert (cfg.telemetry, cfg.health_stats, cfg.dcn_data) == ("t.jsonl", True, 2)
     # the trainers' shared step options include two knobs of the JAX package's other
     # trainers that its composed config lacks (scan_unroll: only 1; pregather)
     ours = {f for f in config.ComposedConfig.__dataclass_fields__} - {

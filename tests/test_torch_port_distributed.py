@@ -539,7 +539,7 @@ def test_device_cuda_without_card_raises():
     assert not dist.is_initialized()
 
 
-UNPORTED = [["--plan", "auto"], ["--telemetry", "t.jsonl"], ["--epoch", "2"]]
+UNPORTED = [["--plan", "auto"], ["--epoch", "2"]]
 MODEL_FIELDS = ("model", "bf16", "remat", "remat_policy", "causal", "attention_window",
                 "kv_heads", "rope")
 
@@ -564,6 +564,9 @@ def test_config_keeps_jax_defaults_and_rejects_unported_flags():
     for argv in UNPORTED:
         with pytest.raises(SystemExit):
             config.parse_config(config.DistributedConfig, argv)
+    cfg = config.parse_config(config.DistributedConfig,
+                              ["--telemetry", "t.jsonl", "--health-stats"])
+    assert (cfg.telemetry, cfg.health_stats) == ("t.jsonl", True)
     with pytest.raises(ValueError, match="choose 'sgd' or 'adamw'"):
         distributed.main(config.DistributedConfig(device="cpu", optimizer="lamb"))
 

@@ -151,13 +151,31 @@ def test_chat_traffic_is_byte_identical_and_the_jax_tools():
 
 @pytest.mark.parametrize("argv,item", [
     (["--replicas", "2"], "A11"), (["--tiers", "prefill:1,decode:1"], "A11"),
-    (["--telemetry", "t.jsonl"], "A11"), (["--trace-dir", "spans"], "A11"),
-    (["--snapshot-interval-s", "1"], "A11"), (["--shard", "tp=2,dp=2"], "A10"),
+    # --telemetry and --shard are served now (their ids are the refusals' they replace):
+    # the stream is written, and a serve mesh asks for a world of tp*dp ranks
+    pytest.param(["--telemetry", "t.jsonl"], None, id="--telemetry-A11"),
+    (["--trace-dir", "spans"], "A11"),
+    (["--snapshot-interval-s", "1"], "A11"),
+    pytest.param(["--shard", "tp=2,dp=2"], "requested 4 devices, have 1", id="--shard-A10"),
     (["--affinity", "off"], "A11"), (["--autoscale", "on"], "A11"),
     (["--hedge", "on"], "A11"), (["--chaos", "delay:replica=1,ms=5"], "A11"),
     (["--echo"], "A11"), (["--framed-wire", "off"], "A11")],
     ids=lambda x: x if isinstance(x, str) else x[0])
-def test_unported_flags_raise_naming_their_item(argv, item):
+def test_unported_flags_raise_naming_their_item(argv, item, tmp_path, monkeypatch):
+    if argv[0] == "--telemetry":
+        monkeypatch.chdir(tmp_path)
+        assert serve_loadgen.main(["--device", "cpu", "--seq-len", "32", "--embed-dim",
+                                   "32", "--num-layers", "1", "--num-heads", "2",
+                                   "--requests", "3", "--max-new-tokens", "3",
+                                   "--prompt-lens", "4,8",
+                                   "--prefill-chunks", "8", "--rate", "100"] + argv) == 0
+        kinds = [json.loads(line)["event"] for line in open("t.jsonl")]
+        assert kinds.count("serve") == 3 and kinds[-1] == "serve_summary"
+        return
+    if argv[0] == "--shard":
+        with pytest.raises(ValueError, match=item):
+            serve_loadgen.main(["--device", "cpu"] + argv)
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         serve_loadgen.main(["--device", "cpu"] + argv)
 

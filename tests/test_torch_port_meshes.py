@@ -11,8 +11,11 @@ the port's own ``data=1`` runs.
     epochs;
 (c) in a gloo world of 4: the composed trainer at ``--mesh data=2,expert=2`` (the MoE's
     queues and auxiliary over the global batch) against the JAX composed trainer on a
-    4-device mesh, and the LM trainer at ``--mesh data=2,seq=2`` against its ``data=1``
-    run;
+    4-device mesh, the LM trainer at ``--mesh data=2,seq=2`` against its ``data=1`` run,
+    and ``--mesh model=2,data=2 --dcn-data 2`` (the hybrid rank order, which moves the
+    ranks of this mesh) against the same mesh without it, within 1e-6;
+(e) ``hybrid_rank_order`` against the JAX package's ``make_hybrid_mesh`` (device ids on
+    the 8 virtual CPU devices), shapes and errors;
 (d) the sharded checkpoint interchange: the port's directory (written at the default
     mesh) restores in the JAX package, and the JAX package's (written at
     ``data=2,model=2``) in the port, each bitwise equal to the writer's full-state
@@ -113,6 +116,7 @@ from {pkg}.utils import config
 base = {base!r}
 saved = {{}}
 init = np.load(base + "/init_moe.npz")
+init0 = np.load(base + "/init.npz")
 with mesh.cluster("cpu"):            # one group for every run
     state, hist = composed.main(config.ComposedConfig(
         device="cpu", results_dir=base + "/expert", **{expert_kw!r}),
@@ -129,6 +133,14 @@ with mesh.cluster("cpu"):            # one group for every run
     saved["lm/test"] = np.array(hist.test_losses)
     for k, p in state.params.items():
         saved["lm/p/" + k] = p.numpy()
+    for name, dcn in (("dcn", 2), ("nodcn", 0)):
+        state, hist = composed.main(config.ComposedConfig(
+            device="cpu", results_dir="", mesh="model=2,data=2", dcn_data=dcn, epochs=1,
+            **{dcn_kw!r}), datasets=splits({n_train}, {n_test}),
+            init_params={{k: torch.from_numpy(init0[k]) for k in init0.files}})
+        saved[name + "/train"] = np.array(hist.train_losses)
+        for k, p in state.params.items():
+            saved[name + "/p/" + k] = p.numpy()
 if RANK == 0:
     np.savez(base + "/m4.npz", **saved)
 """
@@ -144,7 +156,8 @@ def fleets(tmp_path_factory):
         "m8": (CHILD_8.format(pkg=fleet.PKG, base=str(base), kw=COMPOSED_KW,
                               n_train=N_TRAIN, n_test=N_TEST), 8),
         "m4": (CHILD_4.format(pkg=fleet.PKG, base=str(base), expert_kw=EXPERT_KW,
-                              lm_kw=LM_KW, n_train=N_TRAIN, n_test=N_TEST), 4)})
+                              lm_kw=LM_KW, dcn_kw=COMPOSED_KW, n_train=N_TRAIN,
+                              n_test=N_TEST), 4)})
     yield f
     f.close()
 
@@ -267,3 +280,59 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
+
+
+# -- (e) the hybrid ICI x DCN rank order ----------------------------------------------------
+
+
+def test_dcn_data_trains_as_the_same_mesh_without_it(fleets):
+    got = np.load(fleets.get("m4") / "m4.npz")
+    np.testing.assert_allclose(got["dcn/train"], got["nodcn/train"], atol=1e-6)
+    names = [k[len("dcn/p/"):] for k in got.files if k.startswith("dcn/p/")]
+    assert names
+    for k in names:
+        np.testing.assert_allclose(got["dcn/p/" + k], got["nodcn/p/" + k], atol=1e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("names,shape,slices", [
+    (("data", "model"), (4, 2), 2), (("data", "seq", "model"), (2, 2, 2), 2),
+    (("model", "data"), (2, 4), 2), (("data",), (8,), 4), (("data", "model"), (8, 1), 8),
+    (("seq", "data"), (2, 4), 4)], ids=lambda x: str(x))
+def test_hybrid_rank_order_is_make_hybrid_mesh(names, shape, slices, devices8):
+    import jax
+
+    from csed_514_project_distributed_training_using_pytorch_tpu.parallel import (
+        make_hybrid_mesh,
+    )
+    devices = make_hybrid_mesh(names, shape, num_slices=slices,
+                               devices=jax.devices()[:int(np.prod(shape))]).devices
+    want = np.vectorize(lambda d: d.id)(devices)
+    got = mesh.hybrid_rank_order(names, shape, num_slices=slices)
+    np.testing.assert_array_equal(got, want)
+    for rank in range(got.size):          # the grid puts each rank where the order does
+        grid = mesh.ProcessGrid(",".join(f"{n}={s}" for n, s in zip(names, shape)),
+                                rank=rank, world=got.size, order=got)
+        assert got[tuple(grid.coords[n] for n in names)] == rank
+
+
+@pytest.mark.parametrize("names,shape,slices", [
+    (("model",), (8,), 2), (("data", "model"), (2, 4), 4), (("data", "model"), (4, 2), 3)],
+    ids=["no-data-axis", "slices-over-data", "slices-over-devices"])
+def test_hybrid_rank_order_refuses_as_make_hybrid_mesh(names, shape, slices, devices8):
+    import jax
+
+    from csed_514_project_distributed_training_using_pytorch_tpu.parallel import (
+        make_hybrid_mesh,
+    )
+    with pytest.raises(ValueError) as theirs:
+        make_hybrid_mesh(names, shape, num_slices=slices, devices=jax.devices())
+    with pytest.raises(ValueError) as ours:
+        mesh.hybrid_rank_order(names, shape, num_slices=slices)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_dcn_data_needs_a_data_axis():
+    with pytest.raises(ValueError, match="--dcn-data needs a data axis"):
+        composed.main(config.ComposedConfig(device="cpu", mesh="seq=2", dcn_data=2),
+                      datasets=_splits(mnist))

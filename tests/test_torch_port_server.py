@@ -12,6 +12,7 @@ port's unparked one. ``Server``: threaded submits resolve, their greedy streams 
 accepted. Greedy streams are compared token for token.
 """
 
+import json
 import threading
 import time
 
@@ -406,10 +407,23 @@ def test_server_drains_everything_accepted_and_then_refuses():
 
 @pytest.mark.parametrize("kw", [dict(telemetry="serve.jsonl"), dict(trace="spans.jsonl")],
                          ids=["telemetry", "trace"])
-def test_server_telemetry_and_trace_raise_naming_a11(kw):
+def test_server_telemetry_and_trace_raise_naming_a11(kw, tmp_path):
+    """Tracing is refused naming ROADMAP A11; the telemetry stream is ported: the server
+    writes it, from the manifest to the drain's summary (its schema against the JAX
+    package's: ``tests/test_torch_port_telemetry.py``)."""
     _, _, tm, params = _pair()
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        Server(_engine(tm, params), **kw)
+    if "trace" in kw:
+        with pytest.raises(ValueError, match="ROADMAP A11"):
+            Server(_engine(tm, params), **kw)
+        return
+    path = tmp_path / kw["telemetry"]
+    server = Server(_engine(tm, params), telemetry=str(path)).start()
+    fut = server.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)
+    server.stop(timeout=RESULT_TIMEOUT)
+    assert fut.result(timeout=1.0).ok
+    kinds = [json.loads(line)["event"] for line in path.read_text().splitlines()]
+    assert kinds[:2] == ["manifest", "serve_config"] and kinds[-1] == "serve_summary"
+    assert "serve" in kinds
 
 
 def test_server_loop_error_fails_pending_futures():

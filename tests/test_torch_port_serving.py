@@ -266,12 +266,21 @@ def test_expire_returns_partial_streams():
 @pytest.mark.parametrize("kw,match", [(dict(spec="turbo"), "unknown spec mode"),
                                       (dict(drafter=NGramDrafter()),
                                        "never enabled implicitly"),
-                                      (dict(mesh=object()), "ROADMAP A10")],
+                                      ("mesh", "tp=3 must divide num_heads=4")],
                          ids=["spec", "drafter", "mesh"])
 def test_unported_engine_options_raise(kw, match):
-    """The serve mesh is refused naming its ROADMAP item. Speculative decoding is ported
-    (``tests/test_torch_port_spec.py``): what stays refused there is what the JAX engine
-    refuses, an unknown mode and a drafter without ``spec``."""
+    """What the engine refuses is what the JAX engine refuses: an unknown speculative mode,
+    a drafter without ``spec`` (``tests/test_torch_port_spec.py``), and a serve mesh whose
+    tp does not divide the heads (``validate_engine_mesh``, at construction; the mesh
+    itself is ported: ``tests/test_torch_port_serve_mesh.py``)."""
+    if kw == "mesh":
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+            ProcessGrid,
+        )
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+            shard,
+        )
+        kw = dict(mesh=shard.ServeMesh(grid=ProcessGrid("data=1,model=1"), tp=3, dp=1))
     tm = lm.TransformerLM(**SMALL)
     with pytest.raises(ValueError, match=match):
         ContinuousBatchingEngine(tm, tm.init(torch.Generator().manual_seed(0)),

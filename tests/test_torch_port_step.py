@@ -316,7 +316,9 @@ TRAINERS = {
 
 @pytest.mark.parametrize("trainer", sorted(TRAINERS))
 @pytest.mark.parametrize("flag,match", [
-    (dict(health_stats=True), "--telemetry.*ROADMAP A11"),
+    # the id it had while telemetry was unported
+    pytest.param(dict(health_stats=True), "--health-stats .* pass --telemetry PATH too",
+                 id="flag0---telemetry.*ROADMAP A11"),
     (dict(scan_unroll=8), "no loop body to unroll.*ROADMAP A4")])
 def test_still_rejected_step_flags_name_their_roadmap_item(trainer, flag, match):
     main, cls, extra = TRAINERS[trainer]

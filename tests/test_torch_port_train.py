@@ -426,9 +426,11 @@ def test_parse_config_flags():
     cfg = config.parse_config(config.SingleProcessConfig,
                               ["--model", "transformer", "--bf16", "--rope", "--remat"])
     assert (cfg.model, cfg.bf16, cfg.rope, cfg.remat) == ("transformer", True, True, True)
-    for argv in (["--n-epoch", "2"], ["--telemetry", "t.jsonl"]):
-        with pytest.raises(SystemExit):
-            config.parse_config(config.SingleProcessConfig, argv)
+    with pytest.raises(SystemExit):                   # no abbreviations
+        config.parse_config(config.SingleProcessConfig, ["--n-epoch", "2"])
+    cfg = config.parse_config(config.SingleProcessConfig,
+                              ["--telemetry", "t.jsonl", "--health-stats"])
+    assert (cfg.telemetry, cfg.health_stats) == ("t.jsonl", True)
 
 
 def test_metrics_lines_and_jsonl_match_jax(tmp_path):
