@@ -208,10 +208,23 @@ Phases (each raises on failure; nothing is caught):
     ``train.single --use-pallas-kernels --telemetry --health-stats`` for one short epoch:
     the stream has the JAX package's kinds and keys, and parameters and B1-B3 launches
     equal the run without the flags; (c) [24] (d)'s ``Server(telemetry=...)`` stream;
-30. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+30. the fault and tracing plane (``fault_plane_phase``), every process a port entry point
+    on the card: (a) ``resilience.supervisor.supervise`` (``fleet_supervise``) over
+    ``train.single --use-pallas-kernels`` (captured) with ``kill`` at the top of epoch 2
+    and the epoch-1 checkpoint torn: one restart, the torn file skipped, the final state
+    bitwise an unbroken run's, B1-B3 launches equal, the goodput ledger summing to the
+    wall within 1e-6 s with restart badput (none in the unbroken run); (b) ``nan`` poison
+    inside the captured step with ``--guard --anomaly-exit 1``: exit 65, the restart with
+    ``--skip-steps``, the final state bitwise the oracle's, B1-B3 launches = the replayed
+    steps; (c) the replica process (paged, traced, [25]'s LM) through the port's wire,
+    framed: 8 greedy streams against the in-process engine's, B6 launches = layers x
+    decode steps with every call held against the plain version, 8 span trees,
+    ``validate_chrome`` clean, a ChaosProxy ``corrupt`` as a typed ``WireCorrupt``,
+    ``kill:step=N`` -> 41, SIGTERM -> 75;
+31. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
-    their launches on [27]'s and [28]'s paths; B6 with its serve-mesh run of [29]), then,
-    last, the JSON result line.
+    their launches on [27]'s, [28]'s and [30]'s paths; B6 with its serve-mesh run of [29]
+    and its replica process of [30]), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -1464,6 +1477,514 @@ def serve_mesh_phase(dev, card: str, model, params: dict, ckpt: Path, test_ids, 
             "decode_steps": ranks[0]["steps"],
             "max_abs_err_by_rank": [r["max_abs_err"] for r in ranks],
             "streams_equal": same, "streams": MESH_REQUESTS, "ties": ties}
+
+
+# phase 30: the fault and tracing plane. Every process it starts is a port entry point on
+# the card (no --device cpu); the supervised trainer runs are 1,280 synthetic examples (20
+# captured steps an epoch, two segments of log_interval 10), the replica runs [25]'s LM
+FAULT_TRAIN = 1280             # (a), (b): the trainer's split, 20 steps of 64 an epoch
+FAULT_KILL_STEP = 20           # (a): the top of epoch 2; the epoch-1 checkpoint is torn
+FAULT_NAN_STEP = 7             # (b): the poisoned step, inside epoch 1's first segment
+REPLICA_REQUESTS, REPLICA_MAX_NEW = 8, 64   # (c): greedy requests through the wire
+REPLICA_KILL_STEP = 5          # (c): kill:step=N on a second replica
+GOODPUT_TOL = 1e-6             # (a): the decomposition's segments sum to the wall within
+
+
+def fault_trainer_child() -> None:
+    """Phase 30 (a)/(b): one attempt of ``train.single`` on the card, as the supervisor
+    spawns it (``python -c ... <out dir> <trainer flags> [--resume-from ...]
+    [--skip-steps ...]``): the split is ``FAULT_TRAIN`` synthetic examples, cuDNN runs
+    deterministically (two runs of one seed are then the same bits), the attempt's
+    telemetry goes to ``<out>/attempt<n>.jsonl`` (a restart from scratch would otherwise
+    overwrite its predecessor's stream), and at exit (0 or 65; a ``kill`` fault's
+    ``os._exit`` skips it) B1-B3's launch counts go to ``<out>/attempt<n>.json``."""
+    import atexit
+    import runpy
+
+    out, argv = Path(sys.argv[1]), sys.argv[2:]
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import data
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import mnist
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        fused_kernels as fk,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    n = sum(f.name.startswith("start") for f in out.iterdir())
+    (out / f"start{n}").write_text(json.dumps(argv))
+
+    def load_mnist(data_dir):
+        x, y = mnist._synthesize_split(FAULT_TRAIN, 400)
+        tx, ty = mnist._synthesize_split(1000, 401)
+        return (mnist.Dataset(mnist._normalize(x), y.astype(np.int32), "synthetic"),
+                mnist.Dataset(mnist._normalize(tx), ty.astype(np.int32), "synthetic"))
+
+    data.load_mnist = load_mnist
+    atexit.register(lambda: (out / f"attempt{n}.json").write_text(json.dumps(
+        {"launches": fk.launch_counts(), "argv": argv})))
+    sys.argv = ["train.single", *argv, "--telemetry", str(out / f"attempt{n}.jsonl")]
+    runpy.run_module(f"{PKG}.train.single", run_name="__main__")
+
+
+def replica_child() -> None:
+    """Phase 30 (c): the replica process on the card (``serving.replica.main`` with the
+    flags after ``<out>``), with every B6 call held against ``paged_attend_reference`` on
+    its operands; when ``main`` returns (``stop``), B6's launch count since the warm-up, the
+    held calls' errors and the engine's decode steps (``reset_stats`` zeroes them after the
+    warm-up) go to ``<out>`` as JSON. The counts travel outside
+    the protocol: the wire carries no key of the harness's."""
+    out, argv = Path(sys.argv[1]), sys.argv[2:]
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        paged_attention as paged,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        replica,
+    )
+
+    engines, errs, excess, shapes = [], [], [], set()
+    real, build = paged.paged_attend, replica.build_engine_server
+
+    def spy(q, k_pool, v_pool, table, t, **kw):
+        got = real(q, k_pool, v_pool, table, t, **kw)
+        want = paged.paged_attend_reference(q, k_pool, v_pool, table, t, **kw)
+        errs.append((got - want).abs().max().item())
+        excess.append(errs[-1] - PAGED_RTOL * want.abs().max().item())
+        shapes.add(tuple(q.shape))
+        return got
+
+    def hold(args, trace=None):
+        engine, server = build(args, trace=trace)     # its warm-up served: counts to 0
+        engines.append(engine)
+        paged.reset_launch_counts()
+        del errs[:], excess[:]
+        shapes.clear()
+        return engine, server
+
+    paged.paged_attend, replica.build_engine_server = spy, hold
+    rc = replica.main(argv)
+    out.write_text(json.dumps({
+        "rc": rc, "launches": paged.launch_counts()["paged_attend"],
+        "steps": engines[0].steps, "calls": len(errs),
+        "max_abs_err": max(errs) if errs else None,
+        "excess": max(excess) if excess else None, "shapes": sorted(map(list, shapes))}))
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)          # as the replica's own __main__: no teardown under live threads
+
+
+class WirePeer:
+    """A client of the replica's line protocol built on the port's ``serving/wire.py``:
+    newline JSON until ``negotiate`` (``hello_ack``), length + CRC frames after."""
+
+    def __init__(self, port: int, timeout: float = 300.0):
+        import socket
+
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+            wire,
+        )
+
+        self.wire, self.framed, self.pending = wire, False, []
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                self.sock = socket.create_connection(("127.0.0.1", port), timeout=1.0)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        self.lines, self.frames = wire.LineDecoder(), wire.FrameDecoder()
+        self.sock.settimeout(timeout)
+        self.hello = self.recv()
+
+    def negotiate(self) -> None:
+        if not self.wire.hello_wants_framing(self.hello):
+            fail(f"[30] (c) the replica's hello advertises no framing: {self.hello}")
+        self.send(self.wire.make_hello_ack())
+        self.framed = True
+
+    def send(self, obj: dict) -> None:
+        self.sock.sendall(self.wire.encode_msg(obj, framed=self.framed))
+
+    def recv(self) -> dict:
+        dec = self.frames if self.framed else self.lines
+        while not self.pending:
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                raise EOFError("the replica closed the connection")
+            self.pending += dec.feed(chunk)
+        return json.loads(self.pending.pop(0))
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _child_env(faults: str | None = None) -> dict:
+    """This process's environment without a launcher's rank variables (a child's fault
+    ``proc`` would read them) and with ``RESILIENCE_FAULTS`` as given."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "RESILIENCE_FAULTS", "JAX_PROCESS_ID")}
+    if faults:
+        env["RESILIENCE_FAULTS"] = faults
+    return env
+
+
+def _child_command(fn: str, *args: str) -> list[str]:
+    return ["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                  f"chip_smoke.{fn}()", *args]
+
+
+def fault_plane_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids,
+                      request_mix, serve, compare_streams, warmup) -> dict:
+    """Phase 30: the fault and tracing plane on the card. (a) ``fleet_supervise``'s
+    ``supervise`` over ``train.single --use-pallas-kernels`` (captured) with ``kill`` at
+    the top of epoch 2 and the epoch-1 checkpoint torn, against an unbroken run, and the
+    goodput ledger of both; (b) ``nan`` poison with ``--guard --anomaly-exit 1``: exit 65,
+    the rollback with ``--skip-steps``, against an oracle run skipping from the start; (c)
+    the replica process (paged, traced) driven through the port's wire, its streams against
+    the in-process engine's, B6 held against its plain version, the span trees, a chaos
+    ``corrupt``, ``kill:step=N`` and SIGTERM. Everything runs at once: the supervisors in
+    threads, the other processes beside them. Returns the launches of each path for the
+    kernels line."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+        supervisor,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    base = OUT_DIR / "fault_plane"
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {name: base / name for name in ("kill", "unbroken", "nan", "oracle", "replica")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    (base / "flags").mkdir()
+    steps = FAULT_TRAIN // BATCH
+
+    def trainer_args(d: Path, *extra: str) -> list[str]:
+        return ["--use-pallas-kernels", "--results-dir", str(d / "results"),
+                "--images-dir", str(d / "images"), *extra]
+
+    kill_args = trainer_args(dirs["kill"], "--n-epochs", "2", "--keep-checkpoints", "2")
+    nan_args = trainer_args(dirs["nan"], "--n-epochs", "1", "--guard", "--anomaly-exit",
+                            "1")
+    kill_faults = (f"kill:step={FAULT_KILL_STEP},flag={base / 'flags' / 'kill'};"
+                   f"torn:match={checkpoint.versioned_name(steps)},"
+                   f"flag={base / 'flags' / 'torn'}")
+    results, timings = {}, {}
+
+    def supervised(name: str, args: list[str], faults: str, store: Path) -> None:
+        t0 = time.perf_counter()
+        cfg = supervisor.SupervisorConfig(
+            num_processes=1, max_restarts=2, backoff_s=0.0, checkpoint_dir=str(store),
+            attempt_timeout_s=300, telemetry=str(dirs[name] / "supervisor.jsonl"))
+        try:
+            results[name] = supervisor.supervise(
+                _child_command("fault_trainer_child", str(dirs[name]), *args), cfg,
+                env=_child_env(faults))
+        except Exception as e:                  # surfaced on the main thread
+            results[name] = e
+        timings[name] = time.perf_counter() - t0
+
+    def spawn(name: str, command: list[str], faults: str | None = None):
+        log = open(base / f"{name}.log", "w")
+        return subprocess.Popen([sys.executable, *command], cwd=ROOT, env=_child_env(faults),
+                                stdout=log, stderr=subprocess.STDOUT)
+
+    # everything at once: two supervisors, the two reference runs, three replicas
+    threads = [threading.Thread(target=supervised, args=a) for a in (
+        ("kill", kill_args, kill_faults, dirs["kill"] / "results" / "checkpoints"),
+        ("nan", nan_args, f"nan:step={FAULT_NAN_STEP}",
+         dirs["nan"] / "results" / "checkpoints"))]
+    for t in threads:
+        t.start()
+    refs = {
+        "unbroken": spawn("unbroken", _child_command(
+            "fault_trainer_child", str(dirs["unbroken"]),
+            *trainer_args(dirs["unbroken"], "--n-epochs", "2", "--keep-checkpoints", "2"))),
+        "oracle": spawn("oracle", _child_command(
+            "fault_trainer_child", str(dirs["oracle"]),
+            *trainer_args(dirs["oracle"], "--n-epochs", "1", "--guard", "--anomaly-exit",
+                          "1", "--skip-steps", f"{FAULT_NAN_STEP}:{FAULT_NAN_STEP + 1}")))}
+    ports = {name: _free_port() for name in ("main", "kill", "term")}
+    span_dir = dirs["replica"] / "spans"
+    replica_flags = ["--checkpoint", str(ckpt), "--kv-layout", "paged", "--page-size",
+                     str(SERVE_PAGE), "--num-slots", str(SERVE_SLOTS)]
+    replicas = {
+        "main": spawn("replica_main", _child_command(
+            "replica_child", str(dirs["replica"] / "main.json"), "--port",
+            str(ports["main"]), "--trace", str(span_dir / "replica0.jsonl"),
+            *replica_flags)),          # warmed up (--warmup 1): the spans time the schedule
+        "kill": spawn("replica_kill", [
+            "-m", f"{PKG}.serving.replica", "--port", str(ports["kill"]), "--replica-id",
+            "1", *replica_flags, "--warmup", "0"],
+            faults=f"kill:proc=1,step={REPLICA_KILL_STEP}"),
+        "term": spawn("replica_term", [
+            "-m", f"{PKG}.serving.replica", "--port", str(ports["term"]), "--replica-id",
+            "2", *replica_flags, "--warmup", "0"], faults="stall:proc=2,step=3,secs=60")}
+
+    try:
+        return _fault_plane_checks(dev, card, t_model, t_params, test_ids, request_mix,
+                                   serve, compare_streams, warmup, base, dirs, steps, ports,
+                                   span_dir, replicas, refs, threads, results, timings,
+                                   t_phase)
+    finally:      # a failed check leaves no process of the phase's behind
+        for p in (*replicas.values(), *refs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _fault_plane_checks(dev, card, t_model, t_params, test_ids, request_mix, serve,
+                        compare_streams, warmup, base, dirs, steps, ports, span_dir,
+                        replicas, refs, threads, results, timings, t_phase) -> dict:
+    """Phase 30's client side and checks, once its processes are started."""
+    import signal
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs import goodput
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+        faults,
+        netfaults,
+        poison,
+        preemption,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import wire
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint,
+        trace,
+    )
+
+    # (c), meanwhile: the replica process through the wire
+    t_c = time.perf_counter()
+    requests = request_mix(test_ids, REPLICA_REQUESTS, REPLICA_MAX_NEW, 30)
+    client = trace.Tracer(str(span_dir / "loadgen.jsonl"), proc="loadgen")
+    peer = WirePeer(ports["main"])
+    hello = peer.hello
+    peer.negotiate()
+    t_submit = {}
+    for r in requests:
+        t_submit[r.request_id] = time.monotonic()
+        peer.send({"op": "submit", "id": r.request_id, "prompt": r.prompt.tolist(),
+                   "max_new_tokens": r.max_new_tokens, "temperature": 0.0, "top_k": 0,
+                   "top_p": 1.0, "timeout_s": None, "trace_id": f"smoke-{r.request_id}"})
+    done = {}
+    while len(done) < len(requests):
+        msg = peer.recv()
+        if msg.get("op") != "done":
+            fail(f"[30] (c) the replica answered {msg}")
+        done[msg["id"]] = msg
+        client.span("client", f"smoke-{msg['id']}", t_submit[msg["id"]], time.monotonic(),
+                    finish=msg["finish"])
+    client.close()
+    peer.send({"op": "stats", "id": 99})
+    stats = peer.recv()
+    peer.close()
+    wire_s = time.perf_counter() - t_c
+    # a ChaosProxy in front: connection 0 has its first reply after the hello damaged
+    proxy = netfaults.ChaosProxy(ports["main"], "corrupt:dir=s2c,after=1,conn=0", seed=30)
+    corrupt = None
+    try:
+        chaos = WirePeer(proxy.start())
+        chaos.negotiate()
+        chaos.send({"op": "submit", "id": 100, "prompt": requests[0].prompt.tolist(),
+                    "max_new_tokens": 4, "temperature": 0.0, "top_k": 0, "top_p": 1.0,
+                    "timeout_s": None, "trace_id": "smoke-chaos"})
+        try:
+            chaos.recv()
+        except wire.WireCorrupt as e:
+            corrupt = str(e)
+        chaos.close()
+    finally:
+        proxy.stop()
+    if corrupt is None:
+        fail("[30] (c) the ChaosProxy corrupt fault did not surface as a WireCorrupt")
+    after = WirePeer(ports["main"])                   # the replica lives on: a legacy peer
+    after.send({"op": "stats", "id": 101})
+    alive = after.recv()
+    after.send({"op": "stop"})
+    after.close()
+    # kill:step=N mid-request on the second replica; SIGTERM on the third while its request
+    # is held in flight (a stall fault sleeps its serving loop at decode step 3)
+    kpeer, tpeer = WirePeer(ports["kill"]), WirePeer(ports["term"])
+    for p in (kpeer, tpeer):
+        p.send({"op": "submit", "id": 0, "prompt": [], "max_new_tokens": 40,
+                "temperature": 0.0, "top_k": 0, "top_p": 1.0, "timeout_s": None})
+    time.sleep(2.0)
+    replicas["term"].send_signal(signal.SIGTERM)
+    codes = {name: p.wait(timeout=300) for name, p in replicas.items()}
+    term_lines = []
+    try:
+        while True:
+            term_lines.append(tpeer.recv())
+    except (EOFError, OSError):
+        pass
+    kpeer.close(), tpeer.close()
+    replica_s = time.perf_counter() - t_c
+
+    # (c): the readings
+    if codes != {"main": 0, "kill": faults.DEFAULT_KILL_EXIT,
+                 "term": preemption.EXIT_PREEMPTED}:
+        for name in replicas:
+            print((base / f"replica_{name}.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"[30] (c) replica exit codes {codes}")
+    if any(m.get("op") == "done" for m in term_lines):
+        fail(f"[30] (c) the SIGTERM'd replica flushed done lines: {term_lines}")
+    row = json.loads((dirs["replica"] / "main.json").read_text())
+    if alive.get("op") != "stats" or stats.get("op") != "stats":
+        fail(f"[30] (c) stats replies {stats}, {alive}")
+    got = {rid: m["tokens"] for rid, m in done.items()}
+    ref_eng, ref_streams, _, _ = serve(t_model, t_params, "paged", requests, warmup)
+    del ref_eng
+    params_dev = {k: p.to(dev) for k, p in t_params.items()}
+    ties = compare_streams("[30] (c)", t_model, params_dev, requests, got, ref_streams)
+    layers = t_model.num_layers
+    if row["launches"] != layers * row["steps"] or not row["launches"] or \
+            row["calls"] != row["launches"]:
+        fail(f"[30] (c) B6 launches {row['launches']} (held calls {row['calls']}) != "
+             f"{layers} layers x {row['steps']} decode steps")
+    if row["excess"] > PAGED_ATOL:
+        fail(f"[30] (c) B6 vs its plain version beyond atol {PAGED_ATOL} + rtol "
+             f"{PAGED_RTOL}: excess {row['excess']:.3e}")
+    spans, _ = trace.read_spans([str(span_dir)])
+    summary = trace.summarize_traces(spans)
+    doc = trace.chrome_trace(spans)
+    problems = trace.validate_chrome(doc)
+    (dirs["replica"] / "chrome_trace.json").write_text(json.dumps(doc))
+    names = {s["name"] for s in spans}
+    trees = trace.assemble(spans)
+    want_trees = {f"smoke-{r.request_id}" for r in requests} | {"smoke-chaos"}
+    if set(trees) != want_trees or summary["orphans"] or problems or not {
+            "client", "queue_wait", "prefill", "decode", "resolve"} <= names or not names <= (
+            set(trace.SEGMENTS) | {"client", "queue_wait", "decode"}):
+        fail(f"[30] (c) span trees {sorted(trees)}, names {sorted(names)}, orphans "
+             f"{summary['orphans']}, chrome problems {problems[:5]}")
+    same = sum(got[r.request_id] == ref_streams[r.request_id] for r in requests)
+    seg = summary["segments"]
+    print(f"[30] (c) python -m {PKG}.serving.replica --kv-layout paged --page-size "
+          f"{SERVE_PAGE} --num-slots {SERVE_SLOTS} --trace (device cuda), [25]'s trained LM "
+          f"{SERVE_LM}: hello {list(hello)} caps {hello['caps']}, framed after hello_ack; "
+          f"{REPLICA_REQUESTS} greedy requests through the port's wire, {same}/"
+          f"{REPLICA_REQUESTS} streams equal to the in-process engine's, {ties} diverging at "
+          f"a true tie; B6 launches {row['launches']} = {layers} layers x {row['steps']} "
+          f"decode steps (the replica's own counter, outside the protocol), every call at q "
+          f"{row['shapes']} held against the plain version (max |err| "
+          f"{row['max_abs_err']:.3e}, within atol {PAGED_ATOL} + rtol {PAGED_RTOL}); "
+          f"{len(trees) - 1} span trees with their client spans (+ the chaos request's), "
+          f"{summary['spans']} spans, names {sorted(names)}, 0 orphans, validate_chrome: "
+          f"no problem; critical path p50 ms "
+          f"{ {k: round(v['p50'] * 1e3, 3) for k, v in seg.items()} }; ChaosProxy corrupt: "
+          f"WireCorrupt({corrupt!r}) and the replica answered a legacy peer after it; "
+          f"kill:step={REPLICA_KILL_STEP} exit {codes['kill']}; SIGTERM with a request in "
+          f"flight (held by stall:step=3) exit {codes['term']} and no done line; stop exit "
+          f"0; wire "
+          f"{wire_s:.1f} s, replicas {replica_s:.1f} s [{card}]")
+
+    # (a) and (b): the supervisors and their references
+    for t in threads:
+        t.join(timeout=600)
+    for name, res in results.items():
+        if isinstance(res, Exception):
+            fail(f"[30] supervise {name}: {res!r}")
+    ref_codes = {name: p.wait(timeout=300) for name, p in refs.items()}
+    if ref_codes != {"unbroken": 0, "oracle": 0}:
+        for name in refs:
+            print((base / f"{name}.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"[30] reference runs exited {ref_codes}")
+
+    def final(d: Path) -> bytes:
+        return (d / "results" / "model.ckpt").read_bytes()
+
+    def attempts(d: Path) -> list[dict]:
+        return [json.loads(p.read_text()) for p in sorted(d.glob("attempt*.json"))]
+
+    def restarts(d: Path) -> list[dict]:
+        rows = [json.loads(line) for line in open(d / "supervisor.jsonl")]
+        return [r for r in rows if r["event"] == "restart"]
+
+    kill, nan = results["kill"], results["nan"]
+    k_rows, n_rows = restarts(dirs["kill"]), restarts(dirs["nan"])
+    k_att, n_att = attempts(dirs["kill"]), attempts(dirs["nan"])
+    ref_k, ref_n = attempts(dirs["unbroken"])[0], attempts(dirs["oracle"])[0]
+    torn_path = dirs["kill"] / "results" / "checkpoints" / checkpoint.versioned_name(steps)
+    if (kill.status, kill.attempts, kill.restarts, kill.resume_history) != (
+            "ok", 2, 1, [None, None]) or [(r["reason"], r["exit_code"]) for r in k_rows] != [
+            ("crash", 41)] or not (base / "flags" / "torn.p0").exists():
+        fail(f"[30] (a) supervise: {kill}, restarts {k_rows}")
+    if len(k_att) != 1 or k_att[0]["launches"] != ref_k["launches"] or set(
+            ref_k["launches"].values()) != {2 * steps}:
+        fail(f"[30] (a) B1-B3 launches: restarted attempt {k_att}, unbroken {ref_k}")
+    if final(dirs["kill"]) != final(dirs["unbroken"]):
+        fail("[30] (a) the supervised run's final state differs from the unbroken run's")
+    faulted = goodput.decompose([str(dirs["kill"])])
+    clean = goodput.decompose([str(dirs["unbroken"] / "attempt0.jsonl")])
+    for tag, rep in (("supervised", faulted), ("unbroken", clean)):
+        if abs(sum(rep["segments"].values()) - rep["wall_s"]) > GOODPUT_TOL:
+            fail(f"[30] (a) {tag} goodput segments sum to {sum(rep['segments'].values())} "
+                 f"vs wall {rep['wall_s']}")
+    if not faulted["segments"]["restart_badput_s"] > 0 or \
+            clean["segments"]["restart_badput_s"] != 0.0 or faulted["attempts"] != 2:
+        fail(f"[30] (a) goodput: supervised {faulted}, unbroken {clean}")
+    fmt = lambda rep: {k: round(v, 4) for k, v in rep["segments"].items()}
+    print(f"[30] (a) fleet_supervise over python -m {PKG}.train.single "
+          f"--use-pallas-kernels --n-epochs 2 --keep-checkpoints 2 (captured, "
+          f"{FAULT_TRAIN} examples, {steps} steps an epoch), RESILIENCE_FAULTS "
+          f"kill:step={FAULT_KILL_STEP} + torn:match={torn_path.name}: attempt 1 exit 41, 1 "
+          f"restart; the torn epoch-1 file was skipped (resume history "
+          f"{kill.resume_history}: with it torn no healthy checkpoint was left, so the "
+          f"restart began anew, and rewrote it whole); final model.ckpt bytes equal "
+          f"to the unbroken run's; B1-B3 launches of the restarted attempt "
+          f"{k_att[0]['launches']} = the unbroken run's (RESILIENCE_FAULTS unset there: an "
+          f"unarmed step); goodput supervised: wall {faulted['wall_s']:.3f} s = "
+          f"{fmt(faulted)} (restart badput {faulted['segments']['restart_badput_s']:.3f} s, "
+          f"{faulted['epochs_replayed']} epoch replayed), unbroken: wall "
+          f"{clean['wall_s']:.3f} s, restart badput 0.0; supervise {timings['kill']:.1f} s "
+          f"[{card}]")
+    if (nan.status, nan.attempts, nan.rollbacks, nan.skip_windows) != (
+            "ok", 2, 1, ((FAULT_NAN_STEP, FAULT_NAN_STEP + 1),)) or [
+            (r["reason"], r["exit_code"], r["skip"]) for r in n_rows] != [
+            ("poisoned", poison.EXIT_POISONED, f"{FAULT_NAN_STEP}:{FAULT_NAN_STEP + 1}")]:
+        fail(f"[30] (b) supervise: {nan}, restarts {n_rows}")
+    if n_att[-1]["argv"][-2:] != ["--skip-steps", f"{FAULT_NAN_STEP}:{FAULT_NAN_STEP + 1}"]:
+        fail(f"[30] (b) the restart's flags: {n_att[-1]['argv']}")
+    if set(n_att[-1]["launches"].values()) != {steps} or \
+            n_att[-1]["launches"] != ref_n["launches"]:
+        fail(f"[30] (b) B1-B3 launches: {[a['launches'] for a in n_att]}, oracle "
+             f"{ref_n['launches']} (want {steps} each)")
+    if final(dirs["nan"]) != final(dirs["oracle"]):
+        fail("[30] (b) the rolled-back run's final state differs from the oracle's")
+    poisoned = goodput.decompose([str(dirs["nan"])])
+    if abs(sum(poisoned["segments"].values()) - poisoned["wall_s"]) > GOODPUT_TOL or not \
+            poisoned["segments"]["rollback_badput_s"] > 0:
+        fail(f"[30] (b) goodput: {poisoned}")
+    print(f"[30] (b) fleet_supervise over train.single --use-pallas-kernels --guard "
+          f"--anomaly-exit 1 (captured), RESILIENCE_FAULTS nan:step={FAULT_NAN_STEP} (a "
+          f"torch.where on the device-resident step inside the CUDA graph): attempt 1 exit "
+          f"{n_rows[0]['exit_code']}, marker window {nan.skip_windows[0]}, restart with "
+          f"--skip-steps {n_rows[0]['skip']} (the poison fires again at step "
+          f"{FAULT_NAN_STEP} and is skipped); final model.ckpt bytes equal to the oracle's "
+          f"(--skip-steps from the start, RESILIENCE_FAULTS unset); B1-B3 launches of the "
+          f"replayed attempt {n_att[-1]['launches']} = its {steps} replayed steps = the "
+          f"oracle's; goodput: rollback badput "
+          f"{poisoned['segments']['rollback_badput_s']:.3f} s of wall "
+          f"{poisoned['wall_s']:.3f} s; supervise {timings['nan']:.1f} s [{card}]")
+    print(f"[30] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"b1_b3": {"supervised train.single, restarted attempt [30] (a)": k_att[0][
+        "launches"], "rolled-back train.single, replayed attempt [30] (b)": n_att[-1][
+        "launches"]}, "b6": {"replica process, paged [30] (c)": row["launches"]}}
 
 
 def moe_reference(out: str, top_k: int, steps: int = MESH_STEPS) -> None:
@@ -5002,8 +5523,14 @@ def main() -> None:
                                test_ds, server_stream)
     torch.cuda.empty_cache()
 
-    # -- 30. result ---------------------------------------------------------------------
+    # -- 30. the fault and tracing plane ----------------------------------------------------
     PHASE_START[30] = time.perf_counter()
+    slice19 = fault_plane_phase(dev, card, t_model, t_params, trained["path"], test_ids,
+                                request_mix, serve, compare_streams, warmup)
+    torch.cuda.empty_cache()
+
+    # -- 31. result ---------------------------------------------------------------------
+    PHASE_START[31] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -5052,7 +5579,12 @@ def main() -> None:
                 entry.setdefault("launches_by_path", {})[path] = counts[names[entry["name"]]]
         if entry["name"] == "paged_attend":      # B6 on each rank's own heads and pages
             entry["serve_mesh"] = slice18
-    print(f"[30] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+        for path, counts in slice19["b1_b3"].items():     # [30]'s supervised trainers
+            if entry["name"] in counts:
+                entry.setdefault("launches_by_path", {})[path] = counts[entry["name"]]
+        if entry["name"] == "paged_attend":              # [30] (c)'s replica process
+            entry.setdefault("launches_by_path", {}).update(slice19["b6"])
+    print(f"[31] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -205,7 +205,7 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.fleet:
         raise SystemExit("--fleet: the router fleet is not ported yet (ROADMAP A11: "
-                         "serving/router.py, serving/replica.py)")
+                         "serving/router.py)")
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
         resolve_device,
     )

@@ -1,19 +1,23 @@
-"""Resilience: heartbeats, cooperative preemption and the rollback-and-skip vocabulary.
+"""Resilience: supervised fleets, heartbeats, cooperative preemption, rollback-and-skip
+and fault injection.
 
-Counterpart of the JAX package's ``resilience/``: ``heartbeat`` is the liveness signal that
-tells slow from hung; ``preemption`` turns SIGTERM or SIGINT into a cooperative stop at an
-epoch boundary with a durable checkpoint and a resumable exit status (75); ``poison`` is
-the guard's typed exit (65) and skip-window grammar. The supervisor, fault injection and
-network faults wait for ROADMAP A11.
+Counterpart of the JAX package's ``resilience/``: ``supervisor`` watches a fleet and
+restarts it from the newest healthy checkpoint (or rolls it back past a poisoned window);
+``heartbeat`` is the liveness signal that tells slow from hung; ``preemption`` turns
+SIGTERM or SIGINT into a cooperative stop at an epoch boundary with a durable checkpoint
+and a resumable exit status (75); ``poison`` is the guard's typed exit (65) and skip-window
+grammar; ``faults`` injects each of those failures deterministically from
+``RESILIENCE_FAULTS``, and ``netfaults`` the network's (``ChaosProxy``).
 
 ``RunHooks`` is the trainers' wiring: host-side epoch-boundary code only (a captured
-segment is untouched), and with every flag off it reads nothing of the state, so no step
-is fetched from the device.
+segment is untouched), and with no heartbeat and no fault armed it reads nothing of the
+state, so no step is fetched from the device.
 """
 
 from __future__ import annotations
 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+    faults,
     heartbeat,
     poison,
     preemption,
@@ -28,13 +32,13 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience.pr
 )
 
 __all__ = ["EXIT_POISONED", "EXIT_PREEMPTED", "Poisoned", "Preempted", "RunHooks",
-           "heartbeat", "poison", "preemption"]
+           "faults", "heartbeat", "poison", "preemption"]
 
 
 class RunHooks:
-    """One trainer's heartbeat ticks and preemption checks (the JAX package's ``RunHooks``
-    without fault injection). With ``heartbeat_dir`` empty and ``handle_preemption`` off,
-    every method returns without touching ``state``."""
+    """One trainer's heartbeat ticks, fault ticks and preemption checks (the JAX package's
+    ``RunHooks``). With ``heartbeat_dir`` empty, ``handle_preemption`` off and no
+    ``RESILIENCE_FAULTS`` armed, every method returns without touching ``state``."""
 
     def __init__(self, *, heartbeat_dir: str = "", handle_preemption: bool = False,
                  process_index: int = 0):
@@ -49,12 +53,22 @@ class RunHooks:
         if self.preemption is not None:
             self.preemption.uninstall()
 
+    @property
+    def active(self) -> bool:
+        return self.heartbeat is not None or faults.active()
+
     def epoch_tick(self, state, epoch: int, fingerprint: float | None = None) -> None:
-        """At the top of each epoch: beat (with the previous boundary's parameter
-        fingerprint under ``--guard``). Fetches the step only when a heartbeat is on."""
-        if self.heartbeat is None:
+        """At the top of each epoch: apply armed tick faults (``faults.on_tick``), then
+        beat (with the previous boundary's parameter fingerprint under ``--guard``) unless
+        a ``freeze`` fault holds. Fetches the step only when a heartbeat or a fault is
+        armed."""
+        if not self.active:
             return
-        self.heartbeat.beat(step=int(state.step), epoch=epoch, fingerprint=fingerprint)
+        step = int(state.step)                  # one host sync, at the epoch boundary
+        faults.on_tick(step=step, epoch=epoch)
+        if self.heartbeat is not None and not faults.heartbeat_frozen(step=step,
+                                                                      epoch=epoch):
+            self.heartbeat.beat(step=step, epoch=epoch, fingerprint=fingerprint)
 
     def check_preempt(self, *, epoch: int, state, checkpoint: str = "", save=None,
                       tele=None) -> None:

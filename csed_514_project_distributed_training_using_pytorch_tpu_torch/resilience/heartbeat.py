@@ -7,8 +7,9 @@ package's supervisor reads either package's beats. Every trainer process with
 holding ``process_index``, ``pid``, ``step``, ``epoch``, ``status``, ``time`` and, under
 ``--guard``, the parameter ``fingerprint``, atomically (tmp + rename, so a reader never
 sees a torn beat). A process whose last beat (or, before its first, the fleet's start) is
-older than the staleness timeout is hung; a slow one keeps beating. The supervisor's own
-helpers (``fingerprint_mismatch``, ``clear``) wait for it (ROADMAP A11).
+older than the staleness timeout is hung; a slow one keeps beating. The supervisor
+(``resilience/supervisor.py``) reads the beats (``stale_processes``), compares their
+fingerprints (``fingerprint_mismatch``) and clears them at each attempt (``clear``).
 """
 
 from __future__ import annotations
@@ -100,3 +101,38 @@ def stale_processes(dir_path: str, *, num_processes: int, timeout_s: float,
         if now - t > timeout_s:
             stale.append(i)
     return stale
+
+
+def fingerprint_mismatch(dir_path: str) -> dict | None:
+    """Cross-replica state-divergence check over the latest beats: processes
+    reporting a fingerprint AT THE SAME STEP must agree bitwise (the params
+    they fingerprint are replicated by construction). Returns
+    ``{"step": s, "fingerprints": {proc: fp, ...}}`` for the first step where
+    two processes disagree, else None. Beats at different steps are never
+    compared — an epoch-boundary skew between peers is normal pipelining, not
+    divergence."""
+    by_step: dict[int, dict[int, float]] = {}
+    for i, b in read_heartbeats(dir_path).items():
+        if b.get("fingerprint") is None or b.get("step") is None:
+            continue
+        by_step.setdefault(int(b["step"]), {})[i] = float(b["fingerprint"])
+    for step in sorted(by_step):
+        fps = by_step[step]
+        if len(fps) >= 2 and len(set(fps.values())) > 1:
+            return {"step": step, "fingerprints": fps}
+    return None
+
+
+def clear(dir_path: str, process_index: int | None = None) -> None:
+    """Drop beat (and stray tmp) files — the supervisor calls this at attempt
+    start so a restarted fleet is judged only on its own signals.
+    ``process_index`` restricts the sweep to ONE process's files: the serving
+    router restarts replicas individually, and wiping a healthy peer's beat
+    would make it look newborn (or, worse, hung) to the next staleness check."""
+    pattern = (f"heartbeat_p{process_index}.json*" if process_index is not None
+               else "heartbeat_p*.json*")
+    for path in glob.glob(os.path.join(dir_path, pattern)):
+        try:
+            os.remove(path)
+        except OSError:
+            pass

@@ -31,9 +31,13 @@ engine; rank 0 runs the server, the workload and the clock, the other ranks repl
 engine calls (``serving.shard.follow``); then every rank gathers the byte accounting and
 the replica check compares the ranks' ledgers. Only rank 0 prints. On one card the ranks
 time-slice it over gloo: a correctness run, not a speed.
+``--trace-dir DIR`` traces every request: this process is the trace's origin and writes
+``DIR/loadgen.jsonl`` (one ``client`` span a request), the server writes
+``DIR/server.jsonl`` (the engine's spans and ``resolve``); the summary gains the critical
+path (``trace``), and ``python -m <port>.trace_report DIR`` renders the trees.
 Not ported, each refused naming its ROADMAP item: the fleet (``--replicas`` and every
-router, affinity, echo, elasticity, gray-failure and framed-wire flag) and ``--tiers``,
-``--trace-dir`` and ``--snapshot-interval-s`` (A11).
+router, affinity, echo, elasticity, gray-failure and framed-wire flag), ``--tiers`` and
+``--snapshot-interval-s`` (A11).
 
 Usage::
 
@@ -48,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 import threading
 import time
@@ -56,8 +61,8 @@ import numpy as np
 
 # Flags of the JAX tool that the port refuses, by destination, with the ROADMAP item that
 # holds them. A flag counts as given when its value differs from its default.
-_FLEET = "the serving fleet (router, replica processes, wire) is not ported yet " \
-         "(ROADMAP A11: serving/router.py, serving/replica.py)"
+_FLEET = "the serving fleet's router is not ported yet (ROADMAP A11: serving/router.py; " \
+         "the replica process and its wire are: <port>.serving.replica)"
 UNPORTED_FLAGS = {
     "replicas": _FLEET, "affinity": _FLEET, "echo": _FLEET, "echo_delay_s": _FLEET,
     "replica_platform": _FLEET, "router_max_pending": _FLEET, "heartbeat_dir": _FLEET,
@@ -71,7 +76,6 @@ UNPORTED_FLAGS = {
     "hedge": _FLEET, "hedge_after_s": _FLEET, "hedge_quantile": _FLEET,
     "hedge_factor": _FLEET, "chaos": _FLEET, "chaos_seed": _FLEET, "framed_wire": _FLEET,
     "tiers": "prefill/decode tiers are not ported yet (ROADMAP A11: serving/tiers.py)",
-    "trace_dir": "distributed tracing is not ported yet (ROADMAP A11: utils/trace.py)",
     "snapshot_interval_s": "fleet snapshots are not ported yet (ROADMAP A11: "
                            "serving/router.py)",
 }
@@ -473,7 +477,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--seed", type=int, default=0)
     p.add_argument("--telemetry", default="", help="the server's JSONL telemetry stream")
-    p.add_argument("--trace-dir", default="", help="not ported (ROADMAP A11)")
+    p.add_argument("--trace-dir", default="",
+                   help="distributed tracing: loadgen.jsonl (client spans) and "
+                        "server.jsonl (the engine's and server's spans) under this "
+                        "directory; render with <port>.trace_report")
     p.add_argument("--snapshot-interval-s", type=float, default=0.0,
                    help="not ported (ROADMAP A11)")
     p.add_argument("--summary-json", default="",
@@ -588,6 +595,63 @@ def tenant_rows(args, comps, rejections) -> dict | None:
     return rows
 
 
+class TracedFront:
+    """A ``Server`` front end whose every request is a trace origin: a new ``trace_id``
+    a submit (carried through the serve path) and a ``client`` span from the submit call
+    to the future's resolution, the outermost span of the tree. Everything else passes
+    through."""
+
+    def __init__(self, inner, tracer):
+        self._inner = inner
+        self._tracer = tracer
+
+    def submit(self, prompt, **kw):
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
+            new_trace_id,
+        )
+
+        tid = new_trace_id()
+        t0 = time.monotonic()
+        fut = self._inner.submit(prompt, trace_id=tid, **kw)
+
+        def _done(f, tid=tid, t0=t0):
+            try:
+                finish = f.result().finish
+            except BaseException as e:       # noqa: BLE001 — the span records it
+                finish = f"error:{type(e).__name__}"
+            self._tracer.span("client", tid, t0, time.monotonic(), finish=finish)
+
+        fut.add_done_callback(_done)
+        return fut
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def trace_summary_doc(args) -> dict:
+    """The summary's ``trace`` entry: where the spans live and the span-derived critical
+    path beside the serve percentiles (with the TTFT reconciliation against the run's
+    telemetry stream when there is one)."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.jsonl import (
+        read_jsonl,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
+        read_spans,
+        reconcile_ttft,
+        summarize_traces,
+    )
+
+    spans, _ = read_spans([args.trace_dir])
+    summary = summarize_traces(spans)
+    events = (read_jsonl(args.telemetry)
+              if args.telemetry and os.path.exists(args.telemetry) else [])
+    return {"dir": args.trace_dir, "traces": summary["traces"],
+            "spans": summary["spans"], "orphans": summary["orphans"],
+            "redispatched": summary["redispatched"], "segments": summary["segments"],
+            "ttft_s": summary["ttft_s"], "e2e_s": summary["e2e_s"],
+            "ttft_reconciliation": reconcile_ttft(summary, events)}
+
+
 def run(args, engine, server) -> tuple[list, dict, int | None, float]:
     """Drive the started ``server`` with the run's workload: ``(completions,
     rejections, sessions_done, wall_s)``. The wall stops when the last completion is in
@@ -641,7 +705,8 @@ def _serve(args) -> int:
         build_engine_server,
     )
 
-    engine, server = build_engine_server(args)
+    engine, server = build_engine_server(
+        args, trace=os.path.join(args.trace_dir, "server.jsonl") if args.trace_dir else None)
     sharded = engine.mesh is not None
     if server is None:                        # a follower rank of the serve mesh
         shard_mod.follow(engine)
@@ -649,9 +714,17 @@ def _serve(args) -> int:
         shard_mod.check_replicas(engine)
         return 0
     server.start()
+    tracer = None
+    if args.trace_dir:
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
+            Tracer,
+        )
+
+        tracer = Tracer(os.path.join(args.trace_dir, "loadgen.jsonl"), proc="loadgen")
+    front = TracedFront(server, tracer) if tracer is not None else server
     try:
         try:
-            comps, rejections, sessions_done, wall = run(args, engine, server)
+            comps, rejections, sessions_done, wall = run(args, engine, front)
         except BaseException:
             server.stop(drain=False)
             raise
@@ -659,10 +732,14 @@ def _serve(args) -> int:
     finally:
         if sharded:
             server.engine.close()             # the followers leave their loops
+        if tracer is not None:
+            tracer.close()       # after stop(): every client span's callback has run
     acct = engine.byte_accounting()
     if sharded:
         shard_mod.check_replicas(engine)
     doc = summarize(args, engine, server, comps, rejections, sessions_done, wall, acct)
+    if args.trace_dir:
+        doc["trace"] = trace_summary_doc(args)
     label = (f"chat ({args.sessions} sessions x {args.turns} turns)"
              if args.scenario == "chat" else f"{args.mode}-loop")
     print(f"{label}: {doc['requests']} completed ({doc['ok']} ok, {doc['timeout']} timeout, "
@@ -707,6 +784,17 @@ def _serve(args) -> int:
               f"{acct['params_kv_bytes_per_chip_max']} B/chip max (unsharded "
               f"{acct['params_bytes'] + acct['kv_bytes_resident']} B), "
               f"{acct['bytes_per_chip_max']} B/chip max in all; replica check passed")
+    if args.trace_dir:
+        tr = doc["trace"]
+        seg = tr["segments"]
+        top = sorted(seg, key=lambda n: -(seg[n]["p50"] or 0))[:3]
+        path = ", ".join(f"{n} p50 {(seg[n]['p50'] or 0) * 1e3:.1f}ms" for n in top)
+        print(f"trace: {tr['traces']} traces, {tr['spans']} spans, {tr['orphans']} "
+              f"orphans, {tr['redispatched']} redispatched"
+              + (f"; critical path {path}" if path else ""))
+        print(f"trace spans -> {args.trace_dir} (render: python -m "
+              f"csed_514_project_distributed_training_using_pytorch_tpu_torch.trace_report "
+              f"{args.trace_dir})")
     if args.summary_json:
         with open(args.summary_json, "w") as fh:
             json.dump(doc, fh, indent=1)

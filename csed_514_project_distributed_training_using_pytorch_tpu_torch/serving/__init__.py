@@ -14,51 +14,46 @@
 - ``server``: ``Server``, the in-process front end (``submit() -> Future``, a background
   loop that owns the engine, drain, expiry, tenant caps and priority preemption);
 - ``replica``: ``build_engine_server``, the engine and server from the load generator's
-  flags (the replica process and its wire protocol wait with ROADMAP A11);
+  flags, and the replica process behind the fleet's line protocol (``python -m
+  <port>.serving.replica``);
+- ``wire``: the protocol's framing (length + CRC frames, negotiated), decoders and the
+  jittered backoff;
 - ``shard``: the serve mesh, one replica's engine over ``tp * dp`` ranks
   (``build_serve_mesh``, the engine's ``mesh=``, ``MeshLeader``/``follow``).
 
 The load generator is ``<port>.serve_loadgen`` and the speculative A/B ``<port>.bench_spec_ab``.
 
 The names the JAX package's ``serving/__init__.py`` exports are exported here, except the
-fleet's ``Router``/``RouterCompletion`` (ROADMAP A11).
+fleet's ``Router``/``RouterCompletion`` (ROADMAP A11). They load on first use (PEP 562), so
+a process that imports only ``serving.wire``, ``serving.scheduler`` or an ``--echo``
+replica imports neither the engine nor ``torch``.
 """
 
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engine import (
-    Completion,
-    ContinuousBatchingEngine,
-    KVPagesExhausted,
-    filter_logits_per_slot,
-    greedy_chunk_plan,
-)
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.pagepool import (
-    PagePool,
-    PagePoolExhausted,
-    pages_for,
-)
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.prefix_cache import (
-    PrefixCache,
-)
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
-    Parked,
-    QueueClosed,
-    QueueFull,
-    QuotaExceeded,
-    Request,
-    RequestQueue,
-    SamplingParams,
-    ServerStopped,
-    Shed,
-    TenantSpec,
-    TenantTable,
-    parse_tenants,
-)
-from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.server import (
-    Server,
-)
+import importlib
 
-__all__ = ["Completion", "ContinuousBatchingEngine", "KVPagesExhausted", "PagePool",
-           "PagePoolExhausted", "Parked", "PrefixCache", "QueueClosed", "QueueFull",
-           "QuotaExceeded", "Request", "RequestQueue", "SamplingParams", "Server",
-           "ServerStopped", "Shed", "TenantSpec", "TenantTable", "filter_logits_per_slot",
-           "greedy_chunk_plan", "pages_for", "parse_tenants"]
+_EXPORTS = {
+    "engine": ("Completion", "ContinuousBatchingEngine", "KVPagesExhausted",
+               "filter_logits_per_slot", "greedy_chunk_plan"),
+    "pagepool": ("PagePool", "PagePoolExhausted", "pages_for"),
+    "prefix_cache": ("PrefixCache",),
+    "scheduler": ("Parked", "QueueClosed", "QueueFull", "QuotaExceeded", "Request",
+                  "RequestQueue", "SamplingParams", "ServerStopped", "Shed", "TenantSpec",
+                  "TenantTable", "parse_tenants"),
+    "server": ("Server",),
+}
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name: str):
+    module = _HOME.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_HOME))

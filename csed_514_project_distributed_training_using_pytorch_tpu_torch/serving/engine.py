@@ -75,8 +75,16 @@ what the unsharded engine draws. A contiguous prefix-cache entry holds each rank
 head planes of the slot (broadcast over the ``data`` axis from the slot's group, so any
 group can install it); a paged entry stays in its group's pages, and a hit from another
 group is a miss, as in the JAX package. ``byte_accounting`` gathers every rank's row into
-``per_chip``. Tracing, the spec mode's ``draft``/``verify`` spans included, waits with
-ROADMAP A11.
+``per_chip``.
+
+Two host-side hooks, both None (and free) by default: ``on_step(steps)``, called at the top
+of every step (the replica process points it at ``resilience.faults.on_tick``, so kill,
+preempt and stall faults fire after N decode steps, with requests in flight), and
+``tracer`` (a ``utils.trace.Tracer``, set by the ``Server``): requests that carry a
+``trace_id`` get ``queue_wait`` (arrival to admission), ``resume`` (a parked request's wait),
+``prefill`` (one a chunk, host time of its dispatch), ``decode`` (decode-ready to done,
+with the first-token split), spec mode's ``draft``/``verify`` (one each a verify tick) and
+``preempt_park`` spans, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -297,6 +305,8 @@ class ContinuousBatchingEngine:
         self.generated_tokens = 0     # emitted non-forced tokens
         self.preemptions = 0          # slots parked (priority pressure)
         self.resumes = 0              # parked requests re-admitted
+        self.on_step = None           # host hook: on_step(steps) at the top of each step
+        self.tracer = None            # utils.trace.Tracer (the Server sets it)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
@@ -377,6 +387,7 @@ class ContinuousBatchingEngine:
         self._hit_len = np.zeros((b,), np.int32)
         self._chunks_done = np.zeros((b,), np.int32)
         self._prefill_t0 = np.zeros((b,), np.float64)
+        self._ready_s = np.zeros((b,), np.float64)    # decode-ready stamps (the spans')
         self._prefill_records: list[dict] = []
         # --- speculative decoding (serving/spec/): ``spec`` names the mode, ``drafter``
         # injects the implementation (required for "draft-lm"). The two must agree: a
@@ -792,6 +803,9 @@ class ContinuousBatchingEngine:
             self._admit_s[slot] = now
             self._first_tok_s[slot] = None
             self._parks[slot] = 0
+            if self.tracer is not None:
+                self.tracer.span("queue_wait", request.trace_id, request.arrival_s, now,
+                                 request_id=request.request_id, slot=slot)
         else:
             # A resume keeps the first admission's stamps: queue wait and TTFT were paid
             # once; e2e keeps growing through the parked gap.
@@ -799,6 +813,11 @@ class ContinuousBatchingEngine:
             self._admit_s[slot] = parked.admit_s
             self._first_tok_s[slot] = parked.first_tok_s
             self._parks[slot] = parked.parks
+            if self.tracer is not None:
+                self.tracer.span("resume", request.trace_id, parked.parked_s, now,
+                                 request_id=request.request_id, slot=slot,
+                                 parks=parked.parks, resumed_at=fill)
+        self._ready_s[slot] = now
         hit_len = 0
         if page_hit is not None:
             hit_len = page_hit           # paged: looked up and shared at reservation
@@ -843,6 +862,7 @@ class ContinuousBatchingEngine:
         self._t[slot] = fill
         self._out[slot] = [int(x) for x in stream]
         self._active[slot] = True
+        self._ready_s[slot] = time.monotonic()
         if self.drafter is not None:
             # the drafter follows the slot's stream from here (the draft LM installs the
             # prompt into its own cache through the chunk plan)
@@ -1005,6 +1025,18 @@ class ContinuousBatchingEngine:
 
     def _finish(self, slot: int, finish: str, now: float) -> Completion:
         req = self._requests[slot]
+        if self.tracer is not None and not self._pending_chunks[slot]:
+            # decode-ready -> done, with the first-token split: its offset into the span
+            # (the decode_first/decode_tail segments) and its stamp (the span's TTFT)
+            first = self._first_tok_s[slot]
+            ready = float(self._ready_s[slot])
+            self.tracer.span(
+                "decode", req.trace_id, ready, now, request_id=req.request_id, slot=slot,
+                finish=finish,
+                new_tokens=max(len(self._out[slot]) - int(self._prompt_len[slot]), 0),
+                first_token_s=(None if first is None
+                               else round(max(0.0, first - ready), 6)),
+                first_token_ts=first)
         if self._pending_chunks[slot]:
             # Mid-prefill expiry: the emitted stream is the prompt prefix covered so far.
             tokens = np.asarray(self._stream[slot][:self._pending_chunks[slot][0][0]],
@@ -1048,6 +1080,7 @@ class ContinuousBatchingEngine:
             slot = self._next_prefill_slot()
             start, length, size = self._pending_chunks[slot].pop(0)
             local = slot - self._slot0       # the chunk runs on the ranks of slot's group
+            t0 = time.monotonic()
             if not self._own(slot):
                 pass
             elif self._pagepool is not None:
@@ -1058,6 +1091,12 @@ class ContinuousBatchingEngine:
                 fresh = self._chunks_done[slot] == 0 and self._hit_len[slot] == 0
                 lm_mod.prefill_chunk(self.model, self.params, self._cache, self._prompt,
                                      local, start, length, fresh, chunk=size, tp=self._tp)
+            if self.tracer is not None:
+                req = self._requests[slot]
+                self.tracer.span("prefill", req.trace_id, t0, time.monotonic(),
+                                 request_id=req.request_id, slot=slot, chunk=size,
+                                 start=start, length=length,
+                                 cache_hit_len=int(self._hit_len[slot]))
             self.prefill_invocations += 1
             self.prefill_tokens += length
             self._chunks_done[slot] += 1
@@ -1075,6 +1114,8 @@ class ContinuousBatchingEngine:
         ``[num_slots]`` token fetch (tokens and counts under spec)."""
         if self.num_active == 0:
             return []
+        if self.on_step is not None:
+            self.on_step(self.steps)
         self._run_prefill()
         if not self._active.any():            # everything in flight is prefilling
             return []
@@ -1165,6 +1206,14 @@ class ContinuousBatchingEngine:
             proposed += int(dlen[i])
             accepted += max(n - 1, 0)
             emitted += n
+            if self.tracer is not None:
+                req = self._requests[i]
+                self.tracer.span("draft", req.trace_id, t0, t_draft,
+                                 request_id=req.request_id, slot=i, k=k,
+                                 proposed=int(dlen[i]))
+                self.tracer.span("verify", req.trace_id, t_draft, now,
+                                 request_id=req.request_id, slot=i,
+                                 accepted=max(n - 1, 0), emitted=n)
             self._t[i] += n
             self._ids[i] = int(tok[i, n - 1])
             if self._t[i] >= self._total_len[i]:
@@ -1254,6 +1303,11 @@ class ContinuousBatchingEngine:
         parked = Parked(request=req, tokens=tokens, first_tok_s=self._first_tok_s[slot],
                         admit_s=float(self._admit_s[slot]), parked_s=now,
                         parks=int(self._parks[slot]) + 1)
+        if self.tracer is not None:
+            # the evicted decode stint; the final decode span covers the post-resume one
+            self.tracer.span("preempt_park", req.trace_id, float(self._ready_s[slot]), now,
+                             request_id=req.request_id, slot=slot, tokens_done=t,
+                             parks=parked.parks)
         self.preemptions += 1
         self._vacate(slot)
         return parked
@@ -1276,6 +1330,10 @@ class ContinuousBatchingEngine:
                           parks=parks + 1)
         else:
             back = req
+        if self.tracer is not None:
+            self.tracer.span("preempt_park", req.trace_id, float(self._admit_s[slot]), now,
+                             request_id=req.request_id, slot=slot, tokens_done=int(start),
+                             parks=parks + 1, mid_prefill=True)
         self.preemptions += 1
         self._vacate(slot)
         return back

@@ -23,8 +23,11 @@ and attainment). ``telemetry`` (a path, or a ``utils.telemetry.TelemetryWriter``
 the JAX package's serving stream (stream mode, rank 0): ``manifest`` and ``serve_config``
 at start, one ``serve`` event a request, ``shed`` events at submit, ``prefill`` and
 ``spec`` events after each step, and at drain ``kv_pages`` (paged engines), ``slo`` (with
-a spec), one ``tenant_summary`` a tenant and the ``serve_summary``. Distributed tracing is
-not ported: ``trace`` other than ``None`` raises, naming ROADMAP A11.
+a spec), one ``tenant_summary`` a tenant and the ``serve_summary``. ``trace`` (a span JSONL
+path, or a ``utils.trace.Tracer``) turns distributed tracing on: the engine emits its
+``queue_wait``/``prefill``/``decode`` (and spec, park) spans, the server the ``resolve``
+span, and ``submit`` gives a request that arrives without a ``trace_id`` a new one (this
+server is then the trace's origin).
 
 On a serve mesh the server runs on rank 0 over a ``serving.shard.MeshLeader``, whose
 calls the other ranks replay (``serving.shard.follow``).
@@ -63,6 +66,10 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.sched
     TenantTable,
 )
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import telemetry as T
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
+    Tracer,
+    new_trace_id,
+)
 
 _SERIES = ("ttft_s", "tpot_s", "e2e_s", "queue_wait_s")
 
@@ -74,20 +81,21 @@ class Server:
     ``timeout_s``; ``slo`` declares a run-level promise; ``tenants`` activates the
     tenant discipline (quotas and weighted-fair, priority dequeue in the queue, slot caps
     and priority preemption in the loop). ``telemetry`` is a JSONL path (a stream-mode
-    ``TelemetryWriter`` is made) or a writer; ``trace`` must be ``None`` (ROADMAP A11)."""
+    ``TelemetryWriter`` is made) or a writer; ``trace`` a span JSONL path or a ``Tracer``."""
 
     def __init__(self, engine: ContinuousBatchingEngine, *, max_pending: int = 0,
                  default_timeout_s: float | None = None,
                  telemetry: str | T.TelemetryWriter | None = None,
-                 trace: object = None,
+                 trace: str | Tracer | None = None,
                  slo: SLOSpec | None = None,
                  tenants: TenantTable | None = None,
                  hist_rel_err: float = 0.01,
                  idle_wait_s: float = 0.05):
-        if trace is not None:
-            raise ValueError("distributed tracing is not ported yet (ROADMAP A11: "
-                             "utils/trace.py); pass trace=None")
         self.engine = engine
+        self.tracer = (trace if isinstance(trace, Tracer)
+                       else Tracer(trace or "", proc="server"))
+        if self.tracer.enabled:
+            engine.tracer = self.tracer
         self.tenants = tenants
         self.queue = RequestQueue(max_pending, tenants=tenants)
         self._default_timeout_s = default_timeout_s
@@ -191,27 +199,34 @@ class Server:
     def submit(self, prompt, *, max_new_tokens: int,
                sampling: SamplingParams = SamplingParams(),
                timeout_s: float | None = None,
+               trace_id: str | None = None,
                tenant: str = "default",
                priority: int | None = None,
-               preemptible: bool | None = None) -> concurrent.futures.Future:
+               preemptible: bool | None = None,
+               traced: bool = True) -> concurrent.futures.Future:
         """Thread-safe enqueue. Returns a Future resolving to a ``Completion``
         (``finish`` tells ok from timeout/shed). Raises ``QueueFull`` (backpressure),
         ``QuotaExceeded`` (the tenant's admission quota), ``Shed`` (the queue is full of
         strictly higher-priority work) or ``ValueError`` (admission control) at once, in
         the caller's thread. ``tenant`` names the service class: priority and
         preemptibility default to the tenant table's spec; an admission may displace
-        queued lower-priority requests, whose futures resolve ``finish="shed"``."""
+        queued lower-priority requests, whose futures resolve ``finish="shed"``.
+        ``trace_id`` joins the request to an existing trace; with tracing on and no id
+        given, this submit is the trace's origin and assigns one (``traced=False`` opts
+        out: a replica's warm replay is set-up, not a request)."""
         now = time.monotonic()
         timeout_s = self._default_timeout_s if timeout_s is None else timeout_s
         with self._id_lock:
             rid = self._next_id
             self._next_id += 1
+        if trace_id is None and traced and self.tracer.enabled:
+            trace_id = new_trace_id()
         spec = self.tenants.spec_for(tenant) if self.tenants is not None else None
         req = Request(
             prompt=np.asarray(prompt, np.int32).reshape(-1),
             max_new_tokens=int(max_new_tokens), sampling=sampling, request_id=rid,
             arrival_s=now, deadline_s=None if timeout_s is None else now + timeout_s,
-            tenant=tenant,
+            trace_id=trace_id, tenant=tenant,
             priority=(priority if priority is not None else spec.priority if spec else 0),
             preemptible=(preemptible if preemptible is not None
                          else spec.preemptible if spec else False))
@@ -240,6 +255,7 @@ class Server:
     # ------------------------------------------------------------------ loop
 
     def _resolve(self, comp: Completion) -> None:
+        t0 = time.monotonic()
         tenant = comp.request.tenant
         with self._series_lock:
             self._counts["requests"] += 1
@@ -287,6 +303,9 @@ class Server:
                 fut.set_result(comp)
             except concurrent.futures.InvalidStateError:
                 pass                      # the caller cancelled: must not kill the loop
+        self.tracer.span("resolve", comp.request.trace_id, t0, time.monotonic(),
+                         request_id=comp.request.request_id, finish=comp.finish,
+                         new_tokens=comp.new_tokens)
 
     @staticmethod
     def _rejected_completion(item, now: float, *, finish: str) -> Completion:
@@ -332,6 +351,7 @@ class Server:
                 self._emit_summary()
             finally:
                 self._writer.close()
+                self.tracer.close()
 
     def _emit_summary(self) -> None:
         """The drain-time events: the page ledger, attainment, one ``tenant_summary`` a

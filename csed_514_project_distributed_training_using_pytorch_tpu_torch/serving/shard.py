@@ -254,6 +254,14 @@ class MeshLeader:
     def __getattr__(self, name):
         return getattr(self._engine, name)
 
+    @property
+    def tracer(self):
+        return self._engine.tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:      # rank 0's spans: the followers trace nothing
+        self._engine.tracer = tracer
+
     def _call(self, name: str, *args, **kwargs):
         broadcast_from_leader((name, args, kwargs))
         return getattr(self._engine, name)(*args, **kwargs)

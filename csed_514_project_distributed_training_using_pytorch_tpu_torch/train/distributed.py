@@ -367,7 +367,7 @@ def main(config: DistributedConfig = DistributedConfig(), *,
                         h = ledger["health"]
                         tele.epoch(epoch, examples=n_train, steps=steps,
                                    wall_s=time.perf_counter() - t_epoch,
-                                   execute_s=history.epoch_seconds[-1],
+                                   execute_s=history.epoch_seconds[-1] - ledger["data_s"],
                                    data_s=ledger["data_s"], train_loss=train_loss,
                                    val_loss=val_loss,
                                    health=T.host_health(h) if h is not None else None,

@@ -75,6 +75,15 @@ class Fleet:
     def running(self) -> bool:
         return any(p.poll() is None for p in self.procs)
 
+    def send_signal(self, sig) -> None:
+        """Deliver ``sig`` to every live child (a supervisor forwarding a preemption)."""
+        for p in self.procs:
+            if p.poll() is None:
+                try:
+                    p.send_signal(sig)
+                except OSError:
+                    pass
+
     def terminate(self, grace: float = 10.0) -> None:
         """SIGTERM every live child, give the fleet ``grace`` seconds together to exit,
         then SIGKILL stragglers and reap everything — a hung or failed peer leaves no

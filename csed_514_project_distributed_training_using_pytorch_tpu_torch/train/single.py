@@ -269,6 +269,13 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
     rt = resilience.RunHooks(heartbeat_dir=config.heartbeat_dir,
                              handle_preemption=config.handle_preemption)
 
+    def timed_save(state: TrainState) -> float:
+        """A log tick's overwrite save; its seconds leave the epoch's ``execute_s``, as the
+        JAX package's timer stops before it (the save is its own ``checkpoint`` event)."""
+        t0 = time.perf_counter()
+        saver.save_train_state(ckpt_path, state)
+        return time.perf_counter() - t0
+
     def evaluate(state: TrainState, examples_seen: int) -> None:
         # an EMA run evaluates the averaged weights (the reason to keep one)
         eval_params = state.ema if state.ema is not None else state.params
@@ -285,7 +292,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         indices = train_loader.sampler.epoch_indices(epoch)
         idx_full = to_device(train_loader.epoch_index_matrix(epoch, allow_empty=True))
         full_steps = idx_full.shape[0]
-        ledger = {"data_s": time.perf_counter() - t_data,
+        ledger = {"data_s": time.perf_counter() - t_data, "save_s": 0.0,
                   "loss_sum": torch.zeros((), device=device), "loss_steps": 0,
                   "health": init_health(device) if health else None}
 
@@ -307,7 +314,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
             history.record_train(examples_seen, last_loss)
             # the every-log-tick overwrite checkpoint: the state is on the host before the
             # next segment replays over it
-            saver.save_train_state(ckpt_path, state)
+            ledger["save_s"] += timed_save(state)
 
         # final partial batch (drop_last=False, as torch's DataLoader defaults)
         tail = indices[full_steps * batch:]
@@ -328,6 +335,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
         train_loader.set_epoch(epoch)
         train_loader.pop_wait_s()                  # this epoch's data wait starts at zero
         full_steps = train_loader.epoch_index_matrix(epoch, allow_empty=True).shape[0]
+        save_s = 0.0
         li = config.log_interval
         # the live bar (the reference's tqdm) draws only on a rank-0 terminal
         with M.ProgressBar(full_steps, desc=f"Epoch {epoch} ") as bar:
@@ -340,7 +348,7 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                     M.log(M.train_progress_line(epoch, b * batch, n_train, last_loss))
                     history.record_train(examples_seen, last_loss)
                     # the state is on the host before the next replay overwrites it
-                    saver.save_train_state(ckpt_path, state)
+                    save_s += timed_save(state)
                 bar.update(1)
         history.data_wait_seconds.append(train_loader.pop_wait_s())
         tail = train_loader.sampler.epoch_indices(epoch)[full_steps * batch:]
@@ -348,7 +356,8 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
             state, _ = tail_step_fn(state, to_device(train_ds.images[tail]),
                                     to_device(train_ds.labels[tail].astype(np.int64)),
                                     config.seed)
-        return state, {"data_s": None, "loss_sum": None, "loss_steps": 0, "health": None}
+        return state, {"data_s": None, "save_s": save_s, "loss_sum": None, "loss_steps": 0,
+                       "health": None}
 
     if config.use_host_pipeline:
         train_epoch = train_epoch_host_pipeline
@@ -375,7 +384,8 @@ def main(config: SingleProcessConfig = SingleProcessConfig(), *,
                     h = ledger["health"]
                     tele.epoch(epoch, examples=n_train, steps=steps,
                                wall_s=time.perf_counter() - t_epoch,
-                               execute_s=history.epoch_seconds[-1],
+                               execute_s=(history.epoch_seconds[-1]
+                                          - (ledger["data_s"] or 0.0) - ledger["save_s"]),
                                eval_s=time.perf_counter() - t_eval,
                                data_s=ledger["data_s"],
                                train_loss=(ledger["loss_sum"].item() / ledger["loss_steps"]

@@ -196,6 +196,64 @@ def step_seed(seed: int, step: int, rank: int = 0) -> int:
     return mix32(((step + b) & _M32) ^ a)
 
 
+# The CNN's leaves by their JAX names (models.cnn.params_to_jax); every other model's
+# dotted leaf names are the JAX package's nested tree paths.
+_CNN_JAX_NAMES = {"conv1.weight": "conv1_kernel", "conv1.bias": "conv1_bias",
+                  "conv2.weight": "conv2_kernel", "conv2.bias": "conv2_bias",
+                  "fc1.weight": "fc1_kernel", "fc1.bias": "fc1_bias",
+                  "fc2.weight": "fc2_kernel", "fc2.bias": "fc2_bias"}
+
+
+def jax_leaf_path(name: str) -> str:
+    """The JAX package's ``jax.tree_util.keystr`` of the leaf this parameter maps to:
+    ``conv1.weight`` -> ``['conv1_kernel']``, ``block_0.attn.qkv_kernel`` ->
+    ``['block_0']['attn']['qkv_kernel']`` (what a ``bitflip`` fault's ``leaf=`` matches)."""
+    parts = [_CNN_JAX_NAMES[name]] if name in _CNN_JAX_NAMES else name.split(".")
+    return "".join(f"[{p!r}]" for p in parts)
+
+
+def _grad_poison_fn():
+    """The armed grad-poison faults (``resilience.faults``: ``nan``, ``spike``,
+    ``bitflip``) as one function ``poison(grads, step_t) -> grads``, or None (no operation
+    added) unless ``RESILIENCE_FAULTS`` arms one for this process. Each fires at exact
+    equality with the device-resident step, by ``torch.where``, so a captured segment
+    replays it at the same step. ``bitflip`` plants its value in each leaf whose JAX path
+    contains ``leaf=``, at element 0: the element that is ``flat[0]`` of the JAX leaf (the
+    CNN's OIHW kernels, ``[out, in]`` dense kernels and (C, H, W) fc1 rows all put JAX's
+    first element first). On a sharded layout (FSDP, tensor parallel) element 0 is that of
+    each rank's own shard."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+        faults,
+    )
+
+    specs = faults.grad_poisons()
+    if not specs:
+        return None
+
+    def poison(grads: dict, step_t: torch.Tensor) -> dict:
+        for f in specs:
+            hit = step_t == f.step
+            if f.kind == "nan":
+                grads = {k: torch.where(hit, torch.full_like(g, float("nan")), g)
+                         for k, g in grads.items()}
+            elif f.kind == "spike":
+                grads = {k: torch.where(hit, (g.float() * f.scale).to(g.dtype), g)
+                         for k, g in grads.items()}
+            else:                          # bitflip: element 0 of each matching leaf
+                out = {}
+                for k, g in grads.items():
+                    if f.leaf in jax_leaf_path(k):
+                        flat = g.reshape(-1).clone()
+                        flat[:1] = torch.where(hit, torch.full_like(flat[:1], f.scale),
+                                               flat[:1])
+                        g = flat.view(g.shape)
+                    out[k] = g
+                grads = out
+        return grads
+
+    return poison
+
+
 def _step_tensor(step, device: torch.device) -> torch.Tensor:
     if isinstance(step, torch.Tensor):
         return step
@@ -344,7 +402,12 @@ def make_train_step(model, *, learning_rate: float, momentum: float,
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
+    poison = _grad_poison_fn()
+
     def apply_update(state: TrainState, step_t: torch.Tensor, grads, loss):
+        if poison is not None:
+            # armed grad poison, before the norm: the guard sees what the update applies
+            grads = poison(grads, step_t)
         gnorm = None
         if clip_grad_norm > 0.0:
             grads, gnorm = clip_by_global_norm(grads, clip_grad_norm, norm_fn=norm_fn)

@@ -1,9 +1,8 @@
 """Checkpoints in the JAX package's byte layout: save, restore, resume, the versioned store,
 write-behind saves and the params-only export.
 
-Counterpart of the JAX package's ``utils/checkpoint.py`` (its fault-injection hook waits
-for ROADMAP A11). A file either package
-writes, the other reads: for the same state the port writes the same bytes as the JAX
+Counterpart of the JAX package's ``utils/checkpoint.py``. A file either package writes, the
+other reads: for the same state the port writes the same bytes as the JAX
 package, through its own msgpack codec (``utils/_msgpack.py``: the subset flax emits, so
 no machine needs flax or msgpack).
 
@@ -23,7 +22,10 @@ The layout is the JAX package's state dict (``state_to_jax_dict``):
 Every save copies the state to host memory before it returns (the async saver included),
 so a captured segment's next replay, which overwrites the state's static buffers, cannot
 tear a write. Writes are atomic (tmp + ``os.replace``) and gated to rank 0 (the process
-group's rank, else the launcher's ``RANK``).
+group's rank, else the launcher's ``RANK``). Every file goes through ``_atomic_write``, the
+write-behind saver's too, and there an armed ``torn`` fault (``resilience.faults``) cuts
+the bytes; the store's manifest keeps the checksum of the whole payload, so the scans skip
+the torn file.
 
 The store's manifest carries the data cursor beside each file: the in-memory trainers'
 ``kind: "epoch"`` cursor (``check_cursor_resume`` warns on a mismatch), or the LM's token
@@ -67,6 +69,7 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel impo
     collectives,
     tensor_parallel as tp,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import faults
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.step import (
     GuardState,
     TrainState,
@@ -95,6 +98,8 @@ class CheckpointCorrupt(RuntimeError):
 
 
 def _atomic_write(path: str, data: bytes) -> None:
+    if faults.active():
+        data = faults.mangle_write(path, data)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

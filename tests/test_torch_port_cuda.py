@@ -1142,6 +1142,41 @@ def test_captured_segment_matches_the_eager_loop(device, use_pallas, dropout, mo
         torch.testing.assert_close(c_state.params[k], e_state.params[k], atol=1e-6, rtol=0)
 
 
+def test_grad_poison_replays_inside_the_captured_segment(device, monkeypatch):
+    """``RESILIENCE_FAULTS`` poison folded into the captured step (a ``torch.where`` on the
+    device-resident step): the graph, replayed, poisons the same steps as the eager loop
+    (NaN at step 3, a planted fc1 element at step 12), the guard refuses the NaN step and
+    counts alike, and B1-B3 launch once a step either way."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setenv("RESILIENCE_FAULTS", "nan:step=3;bitflip:step=12,leaf=fc1,scale=50.0")
+    for name in ("RANK", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    net = cnn.Net(conv_dropout_rate=0.0, fc_dropout_rate=0.0)
+    gen = torch.Generator(device=device).manual_seed(6)
+    xs = torch.randn(CAPTURE_STEPS * 64, 28, 28, 1, generator=gen, device=device)
+    ys = torch.randint(0, 10, (CAPTURE_STEPS * 64,), generator=gen, device=device)
+    plan = torch.randperm(CAPTURE_STEPS * 64, device=device).view(CAPTURE_STEPS, 64)
+    fn = step.make_train_step(net, learning_rate=0.01, momentum=0.5, use_pallas=True,
+                              guard=step.GuardSpec())
+    new_state = lambda: step.create_train_state(net, torch.Generator().manual_seed(1),
+                                                device=device, guard=True)
+    fk.reset_launch_counts()
+    (c_losses, c_state), = _segment_runs(new_state, [step.CapturedSegment(fn)], xs, ys,
+                                         plan)
+    counts = fk.launch_counts()
+    (e_losses, e_state), = _segment_runs(new_state, [step.make_segment_fn(fn)], xs, ys,
+                                         plan)
+    assert counts == dict.fromkeys(counts, CAPTURE_STEPS)
+    assert torch.isfinite(c_losses).all()          # the gradients are poisoned, not the loss
+    for f in ("anomalies", "nonfinite", "skipped", "first_anomaly_step"):
+        assert int(getattr(c_state.guard, f)) == int(getattr(e_state.guard, f)), f
+    assert (int(c_state.guard.nonfinite), int(c_state.guard.first_anomaly_step)) == (1, 3)
+    torch.testing.assert_close(c_losses, e_losses, atol=1e-6, rtol=0)
+    for k in e_state.params:
+        assert torch.isfinite(c_state.params[k]).all(), k
+        torch.testing.assert_close(c_state.params[k], e_state.params[k], atol=1e-6, rtol=0)
+
+
 def test_captured_segment_with_the_reducer_on_nccl(device, monkeypatch):
     """World 1 on NCCL: the all-reduce inside the graph; the reducer's calls count the
     replays; pregather and the health accumulators as the eager loop's (deterministic

@@ -7,6 +7,8 @@ expects exactly one top-level package directory with one — the JAX package.
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -58,7 +60,10 @@ def test_sources_found():
                    "parallel/ulysses.py", "bench_transformer.py", "models/__init__.py",
                    "models/cnn.py", "train/single.py", "parallel/tensor_parallel.py",
                    "parallel/fsdp.py", "parallel/expert_parallel.py",
-                   "parallel/pipeline.py"):
+                   "parallel/pipeline.py", "utils/trace.py", "obs/goodput.py",
+                   "resilience/faults.py", "resilience/supervisor.py",
+                   "resilience/netfaults.py", "serving/wire.py", "fleet_supervise.py",
+                   "trace_report.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -85,3 +90,17 @@ def test_chip_scripts_print_no_telemetry_events(path):
         if isinstance(node, ast.Dict):
             keys = [k.value for k in node.keys if isinstance(k, ast.Constant)]
             assert "event" not in keys
+
+
+@pytest.mark.parametrize("module", ["resilience.supervisor", "fleet_supervise",
+                                    "serving.wire", "resilience.netfaults",
+                                    "serving.scheduler", "utils.trace", "obs.goodput"])
+def test_fleet_side_modules_import_no_torch(module):
+    """A supervisor, a router's wire and the trace and goodput readers touch no device:
+    importing them loads neither ``torch`` nor, so, any CUDA state (the supervisor's
+    checkpoint scan imports the checkpoint module only when it has a store to scan)."""
+    code = (f"import sys; import {PORT.name}.{module}; "
+            f"sys.exit(1 if 'torch' in sys.modules else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, f"{module} imports torch: {out.stderr[-2000:]}"

@@ -6,7 +6,8 @@ package's tools.
   in-process update), for the open loop and the chat scenario with the draft LM;
 - the seeded workload and the chat scenario's traffic are the JAX tool's, request for
   request, and two runs of the port offer byte-identical traffic;
-- every fleet, telemetry, trace, shard and tier flag is refused naming its ROADMAP item;
+- every fleet and tier flag is refused naming its ROADMAP item (telemetry, trace and shard
+  are served);
 - ``bench_spec_ab``'s JSON document has ``tools/bench_spec_ab.py``'s keys, and ``--fleet``
   is refused; ``percentiles`` is the JAX package's.
 
@@ -154,7 +155,8 @@ def test_chat_traffic_is_byte_identical_and_the_jax_tools():
     # --telemetry and --shard are served now (their ids are the refusals' they replace):
     # the stream is written, and a serve mesh asks for a world of tp*dp ranks
     pytest.param(["--telemetry", "t.jsonl"], None, id="--telemetry-A11"),
-    (["--trace-dir", "spans"], "A11"),
+    # --trace-dir too: loadgen.jsonl and server.jsonl, a tree a request, in the summary
+    pytest.param(["--trace-dir", "spans"], None, id="--trace-dir"),
     (["--snapshot-interval-s", "1"], "A11"),
     pytest.param(["--shard", "tp=2,dp=2"], "requested 4 devices, have 1", id="--shard-A10"),
     (["--affinity", "off"], "A11"), (["--autoscale", "on"], "A11"),
@@ -171,6 +173,24 @@ def test_unported_flags_raise_naming_their_item(argv, item, tmp_path, monkeypatc
                                    "--prefill-chunks", "8", "--rate", "100"] + argv) == 0
         kinds = [json.loads(line)["event"] for line in open("t.jsonl")]
         assert kinds.count("serve") == 3 and kinds[-1] == "serve_summary"
+        return
+    if argv[0] == "--trace-dir":
+        monkeypatch.chdir(tmp_path)
+        assert serve_loadgen.main(["--device", "cpu", "--seq-len", "32", "--embed-dim",
+                                   "32", "--num-layers", "1", "--num-heads", "2",
+                                   "--requests", "3", "--max-new-tokens", "3",
+                                   "--prompt-lens", "4,8", "--prefill-chunks", "8",
+                                   "--rate", "100", "--summary-json", "s.json"] + argv) == 0
+        names = {}
+        for f in ("loadgen", "server"):
+            for line in open(f"spans/{f}.jsonl"):
+                row = json.loads(line)
+                names.setdefault(row["trace_id"], []).append((f, row["name"]))
+        assert len(names) == 3
+        for tree in names.values():
+            assert ("loadgen", "client") in tree and ("server", "decode") in tree
+        doc = json.load(open("s.json"))["trace"]
+        assert (doc["traces"], doc["orphans"], doc["dir"]) == (3, 0, "spans")
         return
     if argv[0] == "--shard":
         with pytest.raises(ValueError, match=item):

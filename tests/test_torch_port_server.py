@@ -408,13 +408,22 @@ def test_server_drains_everything_accepted_and_then_refuses():
 @pytest.mark.parametrize("kw", [dict(telemetry="serve.jsonl"), dict(trace="spans.jsonl")],
                          ids=["telemetry", "trace"])
 def test_server_telemetry_and_trace_raise_naming_a11(kw, tmp_path):
-    """Tracing is refused naming ROADMAP A11; the telemetry stream is ported: the server
-    writes it, from the manifest to the drain's summary (its schema against the JAX
-    package's: ``tests/test_torch_port_telemetry.py``)."""
+    """Both are ported (the name is the refusal's they replaced): the telemetry stream,
+    from the manifest to the drain's summary (its schema against the JAX package's:
+    ``tests/test_torch_port_telemetry.py``), and the span file, a tree per request with
+    ``queue_wait``, ``prefill``, ``decode`` and ``resolve`` (against the JAX ``Server``'s
+    trees: ``tests/test_torch_port_trace.py``)."""
     _, _, tm, params = _pair()
     if "trace" in kw:
-        with pytest.raises(ValueError, match="ROADMAP A11"):
-            Server(_engine(tm, params), **kw)
+        path = tmp_path / kw["trace"]
+        server = Server(_engine(tm, params), trace=str(path)).start()
+        fut = server.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)
+        server.stop(timeout=RESULT_TIMEOUT)
+        assert fut.result(timeout=1.0).ok
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        assert {r["event"] for r in rows} == {"span"}
+        assert len({r["trace_id"] for r in rows}) == 1
+        assert [r["name"] for r in rows] == ["queue_wait", "prefill", "decode", "resolve"]
         return
     path = tmp_path / kw["telemetry"]
     server = Server(_engine(tm, params), telemetry=str(path)).start()
