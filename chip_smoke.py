@@ -186,7 +186,7 @@ Phases (each raises on failure; nothing is caught):
     zig-zag, at seq=2 against data=1 for 5 steps each (no kernel launched on these paths);
 28. the training meshes (``mesh_phase``), every world of gloo ranks time-slicing the one
     card (correctness runs, no scaling points): (a)-(d) ``train.composed`` at the composed
-    widths (``--seq-len 2048 --flash-attention``) for 20 steps at ``data=1,model=2``;
+    widths (``--seq-len 2048 --flash-attention``) for 10 steps at ``data=1,model=2``;
     ``data=1,stage=2 --pipeline-microbatches 4`` under gpipe and 1f1b (the bubble
     printed); ``data=2 --fsdp`` and ``data=2,model=2 --fsdp``; ``data=1,expert=2`` at
     ``--moe-top-k`` 1 and 2; each within 1e-4 of ``--mesh data=1`` (the MoE runs of one
@@ -221,10 +221,23 @@ Phases (each raises on failure; nothing is caught):
     decode steps with every call held against the plain version, 8 span trees,
     ``validate_chrome`` clean, a ChaosProxy ``corrupt`` as a typed ``WireCorrupt``,
     ``kill:step=N`` -> 41, SIGTERM -> 75;
-31. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+31. the serving fleet (``fleet_phase``), every process a port entry point on the card:
+    (a) ``serving.router.Router`` over 2 paged replicas with prefix affinity, 16 greedy
+    requests (8 on one prefix), replica 1 killed mid-decode: every request ok, one
+    restart, streams equal to the in-process paged engine's up to true ties, each replica
+    process's B6 launches = layers x its own decode steps with every call held against
+    the plain version; (b) ``scale_up`` to 3 with warm prefixes (the new replica's first
+    affine request a prefix-cache hit), ``scale_down`` with 8 requests in flight (zero
+    loss), a rolling ``reload`` onto the same checkpoint (streams unchanged); (c) a
+    ``--tier prefill`` + ``--tier decode`` pair (contiguous): every request handed off, the
+    streams the contiguous engine's, the decode tier prefilling 0 tokens, the handoff
+    bytes one slot's planes each; a ``ChaosProxy`` corrupting the first handoff falls back
+    to local prefill with zero loss; (d) ``python -m <port>.serve_loadgen --replicas 2``
+    with the JAX tool's fleet summary keys;
+32. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
     their launches on [27]'s, [28]'s and [30]'s paths; B6 with its serve-mesh run of [29]
-    and its replica process of [30]), then, last, the JSON result line.
+    and its replica processes of [30] and [31]), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -412,7 +425,7 @@ PREEMPT_TRAIN = 1024           # (d): the preempted run's split, 16 steps an epo
 TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
 # phase 28: the training meshes. Worlds of 2, 4 and 8 are gloo processes time-slicing the
 # one card (correctness runs: every collective staged through host memory, no scaling)
-MESH_STEPS = 20                # (a)-(d): composed steps a run, at the composed widths
+MESH_STEPS = 10                # (a)-(d): composed steps a run, at the composed widths
 MESH_LM_STEPS = 10             # (f): the LM's steps a run, at LMConfig's widths
 MESH_MICROBATCHES = 4          # (b): the pipeline's microbatches a step
 MESH_ATOL = 1e-4               # every run vs its data=1 (or one-rank) reference: losses and
@@ -1985,6 +1998,451 @@ def _fault_plane_checks(dev, card, t_model, t_params, test_ids, request_mix, ser
     return {"b1_b3": {"supervised train.single, restarted attempt [30] (a)": k_att[0][
         "launches"], "rolled-back train.single, replayed attempt [30] (b)": n_att[-1][
         "launches"]}, "b6": {"replica process, paged [30] (c)": row["launches"]}}
+
+
+FLEET_REQUESTS = 16            # [31] (a): greedy requests, half of them sharing a prefix
+FLEET_SHARED = 128             # (a): the shared prompts' common prefix (two pages)
+FLEET_MAX_NEW = 48             # (a): new tokens a request
+FLEET_KILL_STEP = 20           # (a): replica 1's decode step at its kill, mid-decode
+FLEET_PREFIX_CACHE = 16        # the unified replicas' prefix-cache entries
+FLEET_TIMEOUT = 300.0          # seconds a batch of futures may take
+TIER_REQUESTS = 8              # (c): prompts of 64-256 tokens
+TIER_MAX_NEW = 32
+TIER_CHAOS = "corrupt:dir=c2s,after=1,conn=0"    # (c): the first handoff's 2nd unit damaged
+
+
+def fleet_replica_child() -> None:
+    """Phase 31: one replica of a fleet (``serving.replica.main`` with the router's argv
+    after ``<out dir>``), every B6 call held against ``paged_attend_reference``. When the
+    process ends through ``main``'s return (``stop``) or a drain's exit (``scale_down``,
+    ``reload``), it writes ``<out dir>/replica<id>_<pid>.json``: B6's launch count and the
+    held calls since the warm-up, the engine's decode steps and prefill tokens (zeroed by
+    the warm-up's ``reset_stats``), its prefix cache's counters and a decode replica's
+    handoff ledger. A killed process writes nothing. ``SMOKE_HANDOFF_CHAOS``, where set, puts a ``ChaosProxy`` of that schedule in
+    front of a decode replica's handoff listener (the port the hello advertises is the
+    proxy's)."""
+    out, argv = Path(sys.argv[1]), sys.argv[2:]
+    sys.path.insert(0, str(ROOT))
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        paged_attention as paged,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.resilience import (
+        netfaults,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        replica,
+    )
+
+    rid = int(argv[argv.index("--replica-id") + 1])
+    engines, errs, excess, shapes, handoff = [], [], [], set(), []
+    real, build = paged.paged_attend, replica.build_engine_server
+
+    def spy(q, k_pool, v_pool, table, t, **kw):
+        got = real(q, k_pool, v_pool, table, t, **kw)
+        want = paged.paged_attend_reference(q, k_pool, v_pool, table, t, **kw)
+        errs.append((got - want).abs().max().item())
+        excess.append(errs[-1] - PAGED_RTOL * want.abs().max().item())
+        shapes.add(tuple(q.shape))
+        return got
+
+    def hold(args, trace=None):
+        engine, server = build(args, trace=trace)     # its warm-up served: counts to 0
+        engines.append(engine)
+        paged.reset_launch_counts()
+        del errs[:], excess[:]
+        shapes.clear()
+        return engine, server
+
+    def dump(rc: int) -> None:
+        eng = engines[0] if engines else None
+        cache = getattr(eng, "prefix_cache", None)
+        (out / f"replica{rid}_{os.getpid()}.json").write_text(json.dumps({
+            "rc": rc, "replica": rid, "pid": os.getpid(),
+            "launches": paged.launch_counts()["paged_attend"],
+            "calls": len(errs), "steps": eng.steps if eng else None,
+            "prefill_tokens": eng.prefill_tokens if eng else None,
+            "prefix_cache": cache.stats() if cache is not None else None,
+            "handoff": handoff[0].snapshot() if handoff else None,
+            "max_abs_err": max(errs) if errs else None,
+            "excess": max(excess) if excess else None,
+            "shapes": sorted(map(list, shapes))}))
+
+    class ExitShim:         # a drain ends the process with os._exit(0) from its thread
+        def __getattr__(self, name):
+            return getattr(os, name)
+
+        def _exit(self, code):
+            dump(code)
+            os._exit(code)
+
+    chaos = os.environ.get("SMOKE_HANDOFF_CHAOS")
+    listen = replica._start_handoff_listener
+
+    def proxied(args, engine, state, stop_flag):
+        handoff.append(state)
+        port = listen(args, engine, state, stop_flag)
+        if not chaos:
+            return port
+        return netfaults.ChaosProxy(port, chaos, proxy_id=rid, seed=31).start()
+
+    replica._start_handoff_listener = proxied
+    paged.paged_attend, replica.build_engine_server = spy, hold
+    replica.os = ExitShim()
+    rc = replica.main(argv)
+    dump(rc)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)          # as the replica's own __main__: no teardown under live threads
+
+
+def _generations(out_dir: Path) -> list[dict]:
+    return [json.loads(p.read_text()) for p in sorted(out_dir.glob("replica*_*.json"))]
+
+
+def jax_fleet_summary_keys() -> set[str]:
+    """The keys ``tools/serve_loadgen.py`` writes for a fleet run, read off its source (the
+    file's text, not an import): its ``doc = {...}`` and the fleet branch's
+    ``doc.update`` (the one that writes ``replicas``)."""
+    import ast
+
+    tree = ast.parse((ROOT / "tools" / "serve_loadgen.py").read_text(encoding="utf-8"))
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    keys: set[str] = set()
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "doc" for t in node.targets)):
+            keys |= {k.value for k in node.value.keys if isinstance(k, ast.Constant)}
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "update" and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "doc"):
+            kws = {kw.arg for kw in node.keywords}
+            if "replicas" in kws:
+                keys |= kws
+    return keys
+
+
+def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, serve,
+                compare_streams, warmup) -> dict:
+    """Phase 31: the serving fleet on the card, every process a port entry point. (a)
+    ``serving.router.Router`` over 2 unified paged replicas (B6) with affinity: 16 greedy
+    requests, half sharing a prefix, replica 1 killed mid-decode: zero loss, one restart,
+    streams equal to the in-process paged engine's up to true ties, each replica's B6
+    launches = layers x its own decode steps, every call held against the plain version;
+    (b) ``scale_up`` to 3 with warm prefixes (the new replica's first affine request a
+    prefix-cache hit), ``scale_down`` to 2 with work in flight, a rolling ``reload`` onto
+    the same checkpoint; (c) ``--tier prefill`` + ``--tier decode`` contiguous replicas:
+    handed-off streams equal to the contiguous engine's, the decode tier prefilling
+    nothing, the handoff bytes the layout's plane bytes; then a ``ChaosProxy`` corrupting
+    the first handoff: local prefill, zero loss; (d) ``python -m <port>.serve_loadgen
+    --replicas 2``: the JAX tool's fleet keys. (a)-(b) and (c)-(d) run at once in two
+    threads while this process serves the references. Returns B6's launches by replica
+    process for the kernels line."""
+    import numpy as np
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import serving
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.router import (
+        Router,
+    )
+
+    t_phase = time.perf_counter()
+    base = OUT_DIR / "fleet"
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {name: base / name for name in ("unified", "tiers", "chaos", "loadgen")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    cpu = dev.type != "cuda"              # a CPU rehearsal asks its replicas for the CPU
+    device_flags = ["--device", "cpu"] if cpu else []
+    layers = t_model.num_layers
+
+    # the workloads: (a) 8 prompts on one 128-token prefix and 8 of their own, (c) 64-256
+    rng = np.random.default_rng(31)
+    shared = test_ids[0, :FLEET_SHARED]
+    fleet_reqs = []
+    for i in range(FLEET_REQUESTS):
+        if i % 2 == 0:
+            tail = test_ids[1 + i, FLEET_SHARED:FLEET_SHARED + int(rng.integers(16, 97))]
+            prompt = np.concatenate([shared, tail])
+        else:
+            prompt = test_ids[1 + i, :int(rng.integers(48, 257))].copy()
+        fleet_reqs.append(serving.Request(prompt=prompt.astype(np.int32),
+                                          max_new_tokens=FLEET_MAX_NEW, request_id=i))
+    tier_reqs = [serving.Request(prompt=test_ids[20 + i, :64 + 24 * i].copy(),
+                                 max_new_tokens=TIER_MAX_NEW, request_id=i)
+                 for i in range(TIER_REQUESTS)]
+    chaos_reqs = tier_reqs[:4]
+
+    def env_of(faults: str | None = None, chaos: str | None = None) -> dict:
+        env = _child_env(faults)
+        env["OMP_NUM_THREADS"] = "2"
+        if chaos:
+            env["SMOKE_HANDOFF_CHAOS"] = chaos
+        return env
+
+    def router_of(name: str, flags: list[str], n: int, env: dict, **kw) -> Router:
+        return Router(_child_command("fleet_replica_child", str(dirs[name])) + flags
+                      + device_flags, num_replicas=n, env=env,
+                      heartbeat_dir=str(dirs[name] / "hb"), heartbeat_timeout_s=60.0,
+                      backoff_s=0.5, telemetry=str(dirs[name] / "router.jsonl"), **kw)
+
+    def submit_all(router, reqs, extend: int = 0):
+        futs = {r.request_id: router.submit(
+            np.concatenate([r.prompt, r.prompt[:extend]]) if extend else r.prompt,
+            max_new_tokens=r.max_new_tokens) for r in reqs}
+        return {rid: f.result(timeout=FLEET_TIMEOUT) for rid, f in futs.items()}
+
+    paged_flags = ["--checkpoint", str(ckpt), "--kv-layout", "paged", "--page-size",
+                   str(SERVE_PAGE), "--num-slots", str(SERVE_SLOTS), "--prefix-cache",
+                   str(FLEET_PREFIX_CACHE)]
+    contiguous_flags = ["--checkpoint", str(ckpt), "--num-slots", str(SERVE_SLOTS)]
+    results, errors, walls = {}, {}, {}
+    routers: list[Router] = []
+
+    def unified() -> None:       # (a) then (b)
+        t0 = time.perf_counter()
+        kill = f"kill:proc=1,step={FLEET_KILL_STEP},flag={dirs['unified'] / 'kill_flag'}"
+        router = router_of("unified", paged_flags, 2, env_of(kill), warm_prefixes=8,
+                           snapshot_interval_s=0.5)
+        routers.append(router)
+        router.start()
+        if not router.wait_ready(timeout=FLEET_TIMEOUT):
+            raise RuntimeError("(a) the fleet did not come up")
+        results["start_s"] = time.perf_counter() - t0
+        results["a"] = submit_all(router, fleet_reqs)
+        deadline = time.monotonic() + 120
+        while router.replicas[1].restarts < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        # the restarted replica is warm-started with the hot prefixes too, and the last
+        # warm start owns them: it must be ready before the scale-up's
+        if not router.wait_ready(timeout=FLEET_TIMEOUT):
+            raise RuntimeError("(a) replica 1 did not come back")
+        walls["a"] = time.perf_counter() - t0
+        # (b) scale-up with warm prefixes: the new replica's first affine request
+        t0 = time.perf_counter()
+        new = router.scale_up()
+        if new is None or not router.wait_ready(timeout=FLEET_TIMEOUT):
+            raise RuntimeError(f"(b) scale_up gave {new}, not ready")
+        results["warmed"] = router.replicas[new].warmed
+        first = None
+        for r in fleet_reqs:           # one at a time, until one lands on the new replica
+            c = submit_all(router, [r], extend=8)[r.request_id]
+            if not c.ok:
+                raise RuntimeError(f"(b) request {r.request_id}: {c.finish}")
+            if c.replica == new:
+                first = c
+                break
+        results["first_affine"] = first
+        hits = None
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:     # the snapshot loop's poll of its counters
+            row = router.fleet_snapshot()["per_replica"][new]
+            if "prefix_hit_rate" in row:
+                hits = row["prefix_hit_rate"]
+                break
+            time.sleep(0.1)
+        results["first_hit_rate"] = hits
+        walls["scale_up"] = time.perf_counter() - t0
+        # scale-down with work in flight
+        t0 = time.perf_counter()
+        futs = {r.request_id: router.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in fleet_reqs[:8]}
+        results["retired"] = router.scale_down()
+        results["b_down"] = {rid: f.result(timeout=FLEET_TIMEOUT) for rid, f in futs.items()}
+        walls["scale_down"] = time.perf_counter() - t0
+        # a rolling reload onto the same checkpoint, then (a)'s requests again
+        t0 = time.perf_counter()
+        results["reload"] = router.reload(str(ckpt))
+        results["b_reload"] = submit_all(router, fleet_reqs)
+        walls["reload"] = time.perf_counter() - t0
+        results["summary_a"] = router.stop(timeout=FLEET_TIMEOUT)
+
+    def tiers() -> None:          # (c) then (d)
+        t0 = time.perf_counter()
+        roles = [["--tier", "prefill"], ["--tier", "decode"]]
+        clean = router_of("tiers", contiguous_flags, 2, env_of(), replica_extra_args=roles)
+        faulty = router_of("chaos", contiguous_flags, 2, env_of(chaos=TIER_CHAOS),
+                           replica_extra_args=roles)
+        routers.extend((clean, faulty))
+        clean.start(), faulty.start()
+        if not (clean.wait_ready(timeout=FLEET_TIMEOUT)
+                and faulty.wait_ready(timeout=FLEET_TIMEOUT)):
+            raise RuntimeError("(c) the tiered fleets did not come up")
+        results["c"] = submit_all(clean, tier_reqs)
+        results["summary_c"] = clean.stop(timeout=FLEET_TIMEOUT)
+        results["c_chaos"] = submit_all(faulty, chaos_reqs)
+        results["summary_chaos"] = faulty.stop(timeout=FLEET_TIMEOUT)
+        walls["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = dirs["loadgen"] / "summary.json"
+        code = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.serve_loadgen", "--replicas", "2",
+             "--checkpoint", str(ckpt), "--kv-layout", "paged", "--page-size",
+             str(SERVE_PAGE), "--num-slots", str(SERVE_SLOTS), "--prefix-cache", "8",
+             "--requests", "16", "--max-new-tokens", "32", "--prompt-lens", "0,64,160",
+             "--rate", "64", "--summary-json", str(out), "--telemetry",
+             str(dirs["loadgen"] / "router.jsonl"), *device_flags],
+            cwd=ROOT, env=env_of(), stdout=open(dirs["loadgen"] / "loadgen.log", "w"),
+            stderr=subprocess.STDOUT, timeout=600).returncode
+        results["d"] = (code, json.loads(out.read_text()) if out.exists() else None)
+        walls["d"] = time.perf_counter() - t0
+
+    def guarded(name, fn):
+        try:
+            fn()
+        except BaseException as e:             # noqa: BLE001 — surfaced below
+            errors[name] = e
+
+    threads = [threading.Thread(target=guarded, args=(n, f), name=f"fleet-{n}")
+               for n, f in (("unified", unified), ("tiers", tiers))]
+    for t in threads:
+        t.start()
+    try:
+        # meanwhile: the in-process references (paged with B6; contiguous for the tiers)
+        _, ref_paged, _, _ = serve(t_model, t_params, "paged", fleet_reqs, warmup)
+        _, ref_contig, _, _ = serve(t_model, t_params, "contiguous", tier_reqs, warmup)
+        for t in threads:
+            t.join(timeout=1800)
+    finally:
+        for router in routers:           # a failed check leaves no replica behind
+            if router.last_summary is None:
+                try:
+                    router.stop(drain=False, timeout=10)
+                except Exception:        # noqa: BLE001 — teardown of a failed phase
+                    pass
+    if errors:
+        for name in ("unified", "tiers", "chaos", "loadgen"):
+            for log in sorted(dirs[name].glob("*.log")):
+                print(log.read_text()[-3000:], file=sys.stderr)
+        fail(f"[31] {errors}")
+    params_dev = {k: p.to(dev) for k, p in t_params.items()}
+
+    def streams(comps: dict, tag: str, n: int) -> dict:
+        if len(comps) != n or not all(c.ok for c in comps.values()):
+            fail(f"[31] {tag}: {n} requests, finishes {[c.finish for c in comps.values()]}")
+        return {rid: c.tokens.tolist() for rid, c in comps.items()}
+
+    # (a)
+    a = results["a"]
+    got_a = streams(a, "(a)", FLEET_REQUESTS)
+    ties_a = compare_streams("[31] (a)", t_model, params_dev, fleet_reqs, got_a, ref_paged)
+    summ = results["summary_a"]
+    rows = [json.loads(line) for line in open(dirs["unified"] / "router.jsonl")]
+    fails = [r for r in rows if r["event"] == "replica" and r.get("action") == "fail"]
+    if len(fails) != 1 or fails[0]["reason"] != "crash" or fails[0]["replica"] != 1:
+        fail(f"[31] (a) replica failures {fails}")
+    router_restarts = sum(r["restarts"] for r in summ["per_replica"])
+    redispatched = sum(c.redispatches > 0 for c in a.values())
+    affinity = sum(c.affinity_hit for c in a.values())
+    if router_restarts != 1 or not redispatched or not affinity:
+        fail(f"[31] (a) restarts {router_restarts}, redispatched {redispatched}, affinity "
+             f"hits {affinity}")
+    gens = _generations(dirs["unified"])
+    for g in gens:
+        want = layers * g["steps"]
+        if g["calls"] != want or (not cpu and g["launches"] != want):
+            fail(f"[31] (a)/(b) replica {g['replica']}: B6 launches {g['launches']} (held "
+                 f"calls {g['calls']}) != {layers} layers x {g['steps']} decode steps")
+        if g["excess"] is not None and g["excess"] > PAGED_ATOL:
+            fail(f"[31] replica {g['replica']}: B6 vs its plain version beyond atol "
+                 f"{PAGED_ATOL} + rtol {PAGED_RTOL}: excess {g['excess']:.3e}")
+    b6 = {f"fleet replica {g['replica']}, process {g['pid']} [31] (a)-(b)": g["launches"]
+          for g in gens}
+    max_err = max((g["max_abs_err"] or 0.0) for g in gens)
+    same_a = sum(got_a[r.request_id] == ref_paged[r.request_id] for r in fleet_reqs)
+    print(f"[31] (a) Router over 2 python -m {PKG}.serving.replica processes (paged, pages "
+          f"of {SERVE_PAGE}, {SERVE_SLOTS} slots, prefix cache {FLEET_PREFIX_CACHE}, "
+          f"affinity on; device cuda by the replica's default), [25]'s trained LM "
+          f"{SERVE_LM}: {FLEET_REQUESTS} greedy requests (8 on one {FLEET_SHARED}-token "
+          f"prefix), kill:proc=1,step={FLEET_KILL_STEP} mid-decode: {len(a)} ok, "
+          f"{redispatched} redispatched, {router_restarts} restart (replica 1, crash); "
+          f"{same_a}/{FLEET_REQUESTS} streams equal to the in-process paged engine's, "
+          f"{ties_a} diverging at a true tie; affinity hits {affinity}; ready in "
+          f"{results['start_s']:.1f} s, (a) {walls['a']:.1f} s [{card}]")
+    # (b)
+    first, rate = results["first_affine"], results["first_hit_rate"]
+    if first is None or not first.affinity_hit or rate != 1.0 or not results["warmed"]:
+        fail(f"[31] (b) scale-up: warmed {results['warmed']}, first request on the new "
+             f"replica {first}, its prefix hit rate {rate}")
+    got_down = streams(results["b_down"], "(b) scale-down", 8)
+    ties_down = compare_streams("[31] (b) scale-down", t_model, params_dev, fleet_reqs[:8],
+                                got_down, ref_paged)
+    got_reload = streams(results["b_reload"], "(b) reload", FLEET_REQUESTS)
+    ties_reload = compare_streams("[31] (b) reload", t_model, params_dev, fleet_reqs,
+                                  got_reload, ref_paged)
+    unchanged = sum(got_reload[i] == got_a[i] for i in got_a)
+    reload = results["reload"]
+    if results["retired"] is None or summ["scale"]["retired"] != 1 or \
+            summ["scale"]["reloads"] != len(reload["reloaded"]) != 2 or \
+            summ["ok"] != summ["requests"]:
+        fail(f"[31] (b) retired {results['retired']}, scale {summ['scale']}, ok "
+             f"{summ['ok']} of {summ['requests']}")
+    print(f"[31] (b) scale_up 2 -> 3: replica {len(summ['per_replica']) - 1} warmed "
+          f"{results['warmed']} hot prefixes, its first affine request (replica "
+          f"{first.replica}, affinity hit) a prefix-cache hit (hit rate {rate}) "
+          f"({walls['scale_up']:.1f} s); scale_down -> 2 with 8 requests in flight: replica "
+          f"{results['retired']} retired, 8/8 ok, {ties_down} ties "
+          f"({walls['scale_down']:.1f} s); reload onto the same checkpoint, one replica at "
+          f"a time (replicas {reload['reloaded']}, {reload['wall_s']:.1f} s), then (a)'s {FLEET_REQUESTS} requests: {unchanged}/"
+          f"{FLEET_REQUESTS} streams unchanged from (a), {ties_reload} ties against the "
+          f"in-process engine ({walls['reload']:.1f} s); router: {summ['ok']} ok of "
+          f"{summ['requests']}, {summ['redispatches']} redispatches, {summ['duplicates']} "
+          f"duplicates; B6 by replica process {list(b6.values())} = {layers} x their own "
+          f"decode steps {[g['steps'] for g in gens]}, every call within atol {PAGED_ATOL} "
+          f"+ rtol {PAGED_RTOL} of the plain version (max |err| {max_err:.3e}) [{card}]")
+    # (c)
+    got_c = streams(results["c"], "(c)", TIER_REQUESTS)
+    ties_c = compare_streams("[31] (c)", t_model, params_dev, tier_reqs, got_c, ref_contig)
+    summ_c = results["summary_c"]
+    per_handoff = quant.tree_bytes(lm.init_cache(t_model, 1, device="cpu"))
+    tier_gens = {g["replica"]: g for g in _generations(dirs["tiers"])}
+    handoffs = [json.loads(line) for line in open(dirs["tiers"] / "router.jsonl")]
+    handoffs = [r for r in handoffs if r["event"] == "kv_handoff"]
+    if not all(c.disagg for c in results["c"].values()) or \
+            summ_c["handoffs"] != TIER_REQUESTS or summ_c["handoff_failures"] or \
+            summ_c["handoff_bytes"] != TIER_REQUESTS * per_handoff or \
+            tier_gens[1]["prefill_tokens"] != 0 or \
+            {r["bytes"] for r in handoffs} != {per_handoff}:
+        fail(f"[31] (c) disagg {[c.disagg for c in results['c'].values()]}, handoffs "
+             f"{summ_c['handoffs']}, failures {summ_c['handoff_failures']}, bytes "
+             f"{summ_c['handoff_bytes']} (want {TIER_REQUESTS} x {per_handoff}), decode "
+             f"tier prefill tokens {tier_gens[1]['prefill_tokens']}")
+    got_x = streams(results["c_chaos"], "(c) chaos", len(chaos_reqs))
+    ties_x = compare_streams("[31] (c) chaos", t_model, params_dev, chaos_reqs, got_x,
+                             ref_contig)
+    summ_x = results["summary_chaos"]
+    stats_x = {g["replica"]: g for g in _generations(dirs["chaos"])}[1]["handoff"] or {}
+    if summ_x["handoff_failures"] != 1 or summ_x["ok"] != len(chaos_reqs) or \
+            stats_x.get("crc_failures") != 1:
+        fail(f"[31] (c) chaos: handoff failures {summ_x['handoff_failures']}, ok "
+             f"{summ_x['ok']}, decode replica ledger {stats_x}")
+    walls_h = sorted(r["wall_s"] for r in handoffs)
+    same_c = sum(got_c[r.request_id] == ref_contig[r.request_id] for r in tier_reqs)
+    print(f"[31] (c) --tier prefill + --tier decode (contiguous, [25]'s LM): "
+          f"{TIER_REQUESTS} greedy requests, prompts {len(tier_reqs[0].prompt)}-"
+          f"{len(tier_reqs[-1].prompt)}: {TIER_REQUESTS} handed off, {same_c}/"
+          f"{TIER_REQUESTS} streams equal to the in-process contiguous engine's, {ties_c} "
+          f"ties; decode tier prefill tokens {tier_gens[1]['prefill_tokens']}; handoff "
+          f"bytes {summ_c['handoff_bytes']} = {TIER_REQUESTS} x {per_handoff} (one slot's "
+          f"planes), handoff wall p50 {walls_h[len(walls_h) // 2] * 1e3:.3f} ms max "
+          f"{walls_h[-1] * 1e3:.3f} ms; ChaosProxy {TIER_CHAOS} on the decode replica's "
+          f"handoff listener: {summ_x['handoff_failures']} handoff bounced (crc_failures "
+          f"{stats_x.get('crc_failures')}), {summ_x['handoffs']} handed off, "
+          f"{summ_x['ok']}/{len(chaos_reqs)} ok, {ties_x} ties; {walls['c']:.1f} s [{card}]")
+    # (d)
+    code, doc = results["d"]
+    want = jax_fleet_summary_keys()
+    if code != 0 or doc is None or set(doc) != want or doc["ok"] != doc["requests"] or \
+            doc["replicas"] != 2:
+        print((dirs["loadgen"] / "loadgen.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"[31] (d) serve_loadgen --replicas 2: exit {code}, keys "
+             f"{sorted(set(doc or {}) ^ want)} differ from the JAX tool's")
+    print(f"[31] (d) python -m {PKG}.serve_loadgen --replicas 2 --kv-layout paged: exit 0, "
+          f"{doc['ok']}/{doc['requests']} ok, {doc['tokens_per_s']:.1f} tokens/s, the JAX "
+          f"tool's {len(want)} fleet summary keys; {walls['d']:.1f} s [{card}]")
+    print(f"[31] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"b6": b6}
 
 
 def moe_reference(out: str, top_k: int, steps: int = MESH_STEPS) -> None:
@@ -5529,8 +5987,14 @@ def main() -> None:
                                 request_mix, serve, compare_streams, warmup)
     torch.cuda.empty_cache()
 
-    # -- 31. result ---------------------------------------------------------------------
+    # -- 31. the serving fleet --------------------------------------------------------------
     PHASE_START[31] = time.perf_counter()
+    slice20 = fleet_phase(dev, card, t_model, t_params, trained["path"], test_ids, serve,
+                          compare_streams, warmup)
+    torch.cuda.empty_cache()
+
+    # -- 32. result ---------------------------------------------------------------------
+    PHASE_START[32] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -5584,7 +6048,9 @@ def main() -> None:
                 entry.setdefault("launches_by_path", {})[path] = counts[entry["name"]]
         if entry["name"] == "paged_attend":              # [30] (c)'s replica process
             entry.setdefault("launches_by_path", {}).update(slice19["b6"])
-    print(f"[31] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+        if entry["name"] == "paged_attend":              # [31]'s fleet replicas
+            entry["launches_by_path"].update(slice20["b6"])
+    print(f"[32] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,8 +19,10 @@ compiles nothing while it serves. Without ``--checkpoint`` the tool first trains
 LM with the port's ``train.lm`` on the committed MNIST IDX fixture, so the artifact
 reflects a trained model. ``--draft-checkpoint`` gives the draft-LM side trained weights
 (the JAX tool reaches them through its fleet's flag); the default is the replica's recipe
-at a seeded init. ``--fleet`` is refused (ROADMAP A11). The engines run on ``--device``
-(``cuda`` by default).
+at a seeded init. ``--fleet`` also runs both sides as 2-replica router fleets through
+``serve_loadgen --replicas 2 --scenario chat`` and embeds the two fleet summaries
+(``fleet``: ``a``, ``b``). The engines and the replicas run on ``--device`` (``cuda`` by
+default).
 
 Usage::
 
@@ -159,6 +161,27 @@ def run_side(model, params, args, *, spec: str, drafter=None, engine=None):
     return metrics, by_prompt, engine
 
 
+def run_fleet_side(args, ckpt: str, *, spec: str) -> dict:
+    """One 2-replica router-fleet chat run through ``serve_loadgen``; returns its
+    ``--summary-json`` document (the fleet's tokens/s and the router's spec ledger)."""
+    out = os.path.join(args.workdir, f"fleet_{spec}.json")
+    argv = ["--replicas", "2", "--scenario", "chat",
+            "--sessions", str(args.sessions), "--turns", str(args.turns),
+            "--max-new-tokens", str(args.max_new_tokens),
+            "--prompt-lens", args.prompt_lens, "--num-slots", str(args.num_slots),
+            "--kv-layout", args.kv_layout, "--device", args.device,
+            "--checkpoint", ckpt, "--seed", str(args.seed),
+            "--spec", spec, "--spec-k", str(args.spec_k), "--summary-json", out]
+    if args.draft_checkpoint:
+        argv += ["--draft-checkpoint", args.draft_checkpoint]
+    os.makedirs(args.workdir, exist_ok=True)
+    rc = serve_loadgen.main(argv)
+    if rc != 0:
+        raise SystemExit(f"fleet leg ({spec}) failed with rc {rc}")
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def token_match_rate(toks_a: dict, toks_b: dict) -> float:
     """The share of requests whose streams are equal. Greedy chat is deterministic per
     prompt, so the two runs' completions join on the exact prompt tokens; a prompt only
@@ -177,7 +200,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-epochs", type=int, default=12)
     p.add_argument("--data-dir", default=str(FIXTURE))
     p.add_argument("--workdir", default="spec_ab_work",
-                   help="directory of the trained checkpoint")
+                   help="directory of the trained checkpoint and the fleet summaries")
     p.add_argument("--spec", default="ngram", choices=("ngram", "draft-lm"))
     p.add_argument("--spec-k", type=int, default=4)
     p.add_argument("--draft-checkpoint", default="",
@@ -190,7 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=48)
     p.add_argument("--prompt-lens", default="32,64,96")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--fleet", action="store_true", help="not ported (ROADMAP A11)")
+    p.add_argument("--fleet", action="store_true",
+                   help="also run the 2-replica router-fleet A/B and embed both fleet "
+                        "summaries")
     p.add_argument("--gate-tokens-per-step", type=float, default=1.5,
                    help="minimum accepted tokens/step (the acceptance bar)")
     p.add_argument("--gate-invocation-ratio", type=float, default=1.5,
@@ -203,9 +228,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.fleet:
-        raise SystemExit("--fleet: the router fleet is not ported yet (ROADMAP A11: "
-                         "serving/router.py)")
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
         resolve_device,
     )
@@ -246,6 +268,10 @@ def main(argv: list[str] | None = None) -> int:
     }
     print(f"== token match {match:.3f}, {invocation_ratio:.2f}x fewer invocations/token, "
           f"tokens/s ratio {doc['tokens_per_s_ratio']:.2f}x")
+    if args.fleet:
+        print("== fleet legs (2 replicas each)")
+        doc["fleet"] = {"a": run_fleet_side(args, ckpt, spec="off"),
+                        "b": run_fleet_side(args, ckpt, spec=args.spec)}
     problems = []
     if match < 1.0:
         problems.append(f"token match {match:.3f} < 1.0")

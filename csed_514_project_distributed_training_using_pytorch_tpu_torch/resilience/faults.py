@@ -60,9 +60,10 @@ the fault fires at most once per process, the marker being created with a per-pr
 suffix, so a restarted run that replays the step does not fire again; tick kinds only).
 
 The process index that ``proc`` matches and that suffixes ``flag``: the index a process set
-with ``set_process_index`` (the replica process sets its ``--replica-id``), else ``RANK``
-(the port's launcher, ``train/launch.py``), else ``JAX_PROCESS_ID`` (what the JAX package's
-launcher and router set, e.g. for a port replica that the JAX router spawns), else 0.
+with ``set_process_index`` (the replica process sets its ``--replica-id``, which both
+packages' routers pass), else ``RANK`` (the port's launcher, ``train/launch.py``; a
+router's one-process replica fleet is rank 0 of 1, its index in ``FLEET_PROCESS_ID``),
+else ``JAX_PROCESS_ID`` (what the JAX package's launcher and router set), else 0.
 
 With ``RESILIENCE_FAULTS`` unset, ``active()`` is one dict lookup and every hook returns at
 once.

@@ -1,9 +1,10 @@
-"""Load generator for the serving stack: open loop, closed loop and chat sessions.
+"""Load generator for the serving stack: open loop, closed loop, chat sessions, fleets.
 
-The in-process path of the JAX package's ``tools/serve_loadgen.py``: one
-``ContinuousBatchingEngine`` behind one ``serving.Server``, built by
-``serving.replica.build_engine_server`` from the same model, engine and server flags, and
-driven by a reproducible synthetic workload:
+The port of the JAX package's ``tools/serve_loadgen.py``: one ``ContinuousBatchingEngine``
+behind one ``serving.Server``, built by ``serving.replica.build_engine_server`` from the
+same model, engine and server flags, or — with ``--replicas N`` — ``serving.Router`` over N
+replica processes (``python -m <port>.serving.replica``), driven by a reproducible
+synthetic workload:
 
 - **open loop** (``--mode open``): requests arrive on a Poisson process at ``--rate``
   req/s (``--arrival-pattern burst``: ``--burst-size`` back to back, then
@@ -33,11 +34,21 @@ the replica check compares the ranks' ledgers. Only rank 0 prints. On one card t
 time-slice it over gloo: a correctness run, not a speed.
 ``--trace-dir DIR`` traces every request: this process is the trace's origin and writes
 ``DIR/loadgen.jsonl`` (one ``client`` span a request), the server writes
-``DIR/server.jsonl`` (the engine's spans and ``resolve``); the summary gains the critical
-path (``trace``), and ``python -m <port>.trace_report DIR`` renders the trees.
-Not ported, each refused naming its ROADMAP item: the fleet (``--replicas`` and every
-router, affinity, echo, elasticity, gray-failure and framed-wire flag), ``--tiers`` and
-``--snapshot-interval-s`` (A11).
+``DIR/server.jsonl`` (the engine's spans and ``resolve``), a fleet's router
+``DIR/router.jsonl`` and each replica ``DIR/replica<i>.jsonl``; the summary gains the
+critical path (``trace``), and ``python -m <port>.trace_report DIR`` renders the trees.
+
+The fleet (``--replicas N``): this process imports no ``torch``; the engines live in the
+replicas, which run on ``--replica-platform`` (a device word; empty = ``--device``, so the
+card by default, and the CPU must be asked for). Before spawning a paged fleet on the
+card it builds the B6 library once in a child process, so N replicas do not race the
+build. ``--affinity``, the restart and heartbeat knobs, ``--autoscale`` and its policy,
+``--warm-prefixes``, ``--drain-timeout-s``, ``--straggler-k``, ``--hedge``, ``--chaos``,
+``--framed-wire`` and ``--snapshot-interval-s`` are the router's; ``--echo`` spawns
+deterministic model-free replicas; ``--tiers prefill:1,decode:1`` assigns the replicas'
+roles by position (contiguous KV only). The summary has the JAX tool's fleet keys. The
+sharded replica behind the router (``--shard`` with ``--replicas``) is not ported and is
+refused naming ROADMAP A11.
 
 Usage::
 
@@ -45,6 +56,9 @@ Usage::
         --requests 32 --mode open --rate 16 --num-slots 8 --summary-json serve.json
     python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.serve_loadgen \\
         --scenario chat --sessions 6 --turns 3 --spec ngram --device cpu
+    python -m csed_514_project_distributed_training_using_pytorch_tpu_torch.serve_loadgen \\
+        --replicas 2 --scenario chat --sessions 8 --turns 4 --prefix-cache 8 \\
+        --kv-layout paged --telemetry router.jsonl --summary-json fleet.json
 """
 
 from __future__ import annotations
@@ -59,26 +73,7 @@ import time
 
 import numpy as np
 
-# Flags of the JAX tool that the port refuses, by destination, with the ROADMAP item that
-# holds them. A flag counts as given when its value differs from its default.
-_FLEET = "the serving fleet's router is not ported yet (ROADMAP A11: serving/router.py; " \
-         "the replica process and its wire are: <port>.serving.replica)"
-UNPORTED_FLAGS = {
-    "replicas": _FLEET, "affinity": _FLEET, "echo": _FLEET, "echo_delay_s": _FLEET,
-    "replica_platform": _FLEET, "router_max_pending": _FLEET, "heartbeat_dir": _FLEET,
-    "heartbeat_timeout_s": _FLEET, "max_restarts": _FLEET, "backoff_s": _FLEET,
-    "autoscale": _FLEET, "min_replicas": _FLEET, "max_replicas": _FLEET,
-    "scale_up_age_s": _FLEET, "scale_up_util": _FLEET, "scale_down_util": _FLEET,
-    "scale_sustain_up": _FLEET, "scale_sustain_down": _FLEET, "scale_cooldown_s": _FLEET,
-    "scale_slo_floor": _FLEET, "scale_slo_tenant": _FLEET,
-    "scale_slo_min_requests": _FLEET, "warm_prefixes": _FLEET, "drain_timeout_s": _FLEET,
-    "straggler_k": _FLEET, "eject_min_samples": _FLEET, "eject_cooldown_s": _FLEET,
-    "hedge": _FLEET, "hedge_after_s": _FLEET, "hedge_quantile": _FLEET,
-    "hedge_factor": _FLEET, "chaos": _FLEET, "chaos_seed": _FLEET, "framed_wire": _FLEET,
-    "tiers": "prefill/decode tiers are not ported yet (ROADMAP A11: serving/tiers.py)",
-    "snapshot_interval_s": "fleet snapshots are not ported yet (ROADMAP A11: "
-                           "serving/router.py)",
-}
+PKG = "csed_514_project_distributed_training_using_pytorch_tpu_torch"
 
 
 def percentiles(xs, qs=(50, 95, 99)) -> dict | None:
@@ -353,8 +348,7 @@ def run_chat(front, args, vocab_size):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX tool's flags (its fleet, telemetry, tracing, shard and tier flags kept so
-    that they can be refused by name) and ``--device``."""
+    """The JAX tool's flags and ``--device``."""
     p = argparse.ArgumentParser(description=__doc__, allow_abbrev=False,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     m = p.add_argument_group("model")
@@ -414,42 +408,92 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--shard", default="",
                    help="the serve mesh, tp=<n>,dp=<n>: a world of tp*dp ranks "
                         "(train.launch --num-processes)")
-    f = p.add_argument_group("fleet: not ported (ROADMAP A11); each flag is refused")
-    f.add_argument("--tiers", default="")
-    f.add_argument("--replicas", type=int, default=0)
-    f.add_argument("--affinity", choices=("on", "off"), default="on")
-    f.add_argument("--echo", action="store_true")
-    f.add_argument("--echo-delay-s", type=float, default=0.0)
-    f.add_argument("--replica-platform", default="cpu")
-    f.add_argument("--router-max-pending", type=int, default=0)
-    f.add_argument("--heartbeat-dir", default="")
-    f.add_argument("--heartbeat-timeout-s", type=float, default=20.0)
-    f.add_argument("--max-restarts", type=int, default=3)
-    f.add_argument("--backoff-s", type=float, default=0.5)
-    f.add_argument("--autoscale", choices=("on", "off"), default="off")
-    f.add_argument("--min-replicas", type=int, default=0)
-    f.add_argument("--max-replicas", type=int, default=0)
-    f.add_argument("--scale-up-age-s", type=float, default=0.5)
-    f.add_argument("--scale-up-util", type=float, default=0.95)
-    f.add_argument("--scale-down-util", type=float, default=0.25)
-    f.add_argument("--scale-sustain-up", type=int, default=2)
-    f.add_argument("--scale-sustain-down", type=int, default=4)
-    f.add_argument("--scale-cooldown-s", type=float, default=3.0)
-    f.add_argument("--scale-slo-floor", type=float, default=0.0)
-    f.add_argument("--scale-slo-tenant", default="")
-    f.add_argument("--scale-slo-min-requests", type=int, default=5)
-    f.add_argument("--warm-prefixes", type=int, default=8)
-    f.add_argument("--drain-timeout-s", type=float, default=30.0)
-    f.add_argument("--straggler-k", type=float, default=0.0)
-    f.add_argument("--eject-min-samples", type=int, default=8)
-    f.add_argument("--eject-cooldown-s", type=float, default=5.0)
-    f.add_argument("--hedge", choices=("on", "off"), default="off")
-    f.add_argument("--hedge-after-s", type=float, default=0.0)
-    f.add_argument("--hedge-quantile", type=float, default=95.0)
-    f.add_argument("--hedge-factor", type=float, default=2.0)
-    f.add_argument("--chaos", default="")
-    f.add_argument("--chaos-seed", type=int, default=0)
-    f.add_argument("--framed-wire", choices=("on", "off"), default="on")
+    f = p.add_argument_group("fleet (0 replicas = the in-process server)")
+    f.add_argument("--tiers", default="",
+                   help="prefill/decode tiers, e.g. 'prefill:1,decode:1' (roles assigned "
+                        "to replicas by position; contiguous KV): prefill-tier replicas "
+                        "prefill and ship KV planes to decode-tier replicas; empty = a "
+                        "unified fleet")
+    f.add_argument("--replicas", type=int, default=0,
+                   help="run a serving.Router fleet of N replica processes instead of "
+                        "the in-process server")
+    f.add_argument("--affinity", choices=("on", "off"), default="on",
+                   help="prefix-affinity routing vs the least-loaded baseline")
+    f.add_argument("--echo", action="store_true",
+                   help="fleet mode: model-free --echo replicas (deterministic tokens, "
+                        "--echo-delay-s a token), the router-mechanics workload")
+    f.add_argument("--echo-delay-s", type=float, default=0.0,
+                   help="echo replicas: per-token sleep (keeps work in flight)")
+    f.add_argument("--replica-platform", default="",
+                   help="the replicas' device (cuda or cpu); empty = --device")
+    f.add_argument("--router-max-pending", type=int, default=0,
+                   help="router admission queue bound (0 = unbounded)")
+    f.add_argument("--heartbeat-dir", default="",
+                   help="replica liveness dir (default: a temporary dir)")
+    f.add_argument("--heartbeat-timeout-s", type=float, default=20.0,
+                   help="beat staleness that counts a replica as hung")
+    f.add_argument("--max-restarts", type=int, default=3,
+                   help="per-replica restart budget")
+    f.add_argument("--backoff-s", type=float, default=0.5,
+                   help="restart backoff base (exponential, capped, jittered)")
+    a = p.add_argument_group("elasticity (fleet mode)")
+    a.add_argument("--autoscale", choices=("on", "off"), default="off",
+                   help="drive scale_up/scale_down from the fleet_snapshot signal "
+                        "(needs --snapshot-interval-s > 0)")
+    a.add_argument("--min-replicas", type=int, default=0,
+                   help="scale-down floor (0 = --replicas, i.e. never shrink)")
+    a.add_argument("--max-replicas", type=int, default=0,
+                   help="scale-up cap (0 = --replicas when autoscaling, unbounded for "
+                        "manual scaling)")
+    a.add_argument("--scale-up-age-s", type=float, default=0.5,
+                   help="queue head older than this counts as overloaded")
+    a.add_argument("--scale-up-util", type=float, default=0.95,
+                   help="in-flight/capacity at/above this counts as overloaded")
+    a.add_argument("--scale-down-util", type=float, default=0.25,
+                   help="empty queue + utilization at/below this counts idle")
+    a.add_argument("--scale-sustain-up", type=int, default=2,
+                   help="consecutive overloaded snapshots before a scale-up")
+    a.add_argument("--scale-sustain-down", type=int, default=4,
+                   help="consecutive idle snapshots before a scale-down")
+    a.add_argument("--scale-cooldown-s", type=float, default=3.0,
+                   help="dead time after any scale action")
+    a.add_argument("--scale-slo-floor", type=float, default=0.0,
+                   help="windowed SLO attainment below this counts as overloaded and "
+                        "blocks every shrink (0 = utilization-only policy)")
+    a.add_argument("--scale-slo-tenant", default="",
+                   help="watch this tenant's window instead of the fleet-wide one")
+    a.add_argument("--scale-slo-min-requests", type=int, default=5,
+                   help="completions in the window before attainment is trusted")
+    a.add_argument("--warm-prefixes", type=int, default=8,
+                   help="hot affinity prefixes a new replica replays before it is "
+                        "marked ready (0 = cold starts)")
+    a.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="how long a retiring/reloading replica may finish in-flight "
+                        "work before stragglers redispatch")
+    gf = p.add_argument_group("gray failures (fleet mode)")
+    gf.add_argument("--straggler-k", type=float, default=0.0,
+                    help="eject a replica whose windowed dispatch p95 exceeds k x the "
+                         "fleet-median peer p95 (0 = off)")
+    gf.add_argument("--eject-min-samples", type=int, default=8,
+                    help="windowed samples on the scored replica before ejection")
+    gf.add_argument("--eject-cooldown-s", type=float, default=5.0,
+                    help="degraded dwell before the probe re-opens dispatch")
+    gf.add_argument("--hedge", choices=("on", "off"), default="off",
+                    help="hedged dispatch: a request pending past the hedge deadline "
+                         "gets a second copy on another replica; first completion wins")
+    gf.add_argument("--hedge-after-s", type=float, default=0.0,
+                    help="fixed hedge deadline (0 = from the windowed latency quantile)")
+    gf.add_argument("--hedge-quantile", type=float, default=95.0,
+                    help="quantile of the fleet's windowed dispatch latency")
+    gf.add_argument("--hedge-factor", type=float, default=2.0,
+                    help="multiplier on the quantile for the derived deadline")
+    gf.add_argument("--chaos", default="",
+                    help="network-chaos spec (resilience/netfaults.py grammar): every "
+                         "router<->replica link through a seeded fault proxy")
+    gf.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos proxy's corrupt-byte positions")
+    gf.add_argument("--framed-wire", choices=("on", "off"), default="on",
+                    help="negotiate length+CRC framing ('off' pins newline JSON)")
     g = p.add_argument_group("load")
     g.add_argument("--scenario", choices=("batch", "chat"), default="batch")
     g.add_argument("--sessions", type=int, default=8, help="chat: concurrent sessions")
@@ -482,18 +526,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "server.jsonl (the engine's and server's spans) under this "
                         "directory; render with <port>.trace_report")
     p.add_argument("--snapshot-interval-s", type=float, default=0.0,
-                   help="not ported (ROADMAP A11)")
+                   help="fleet mode: a fleet_snapshot event every N seconds (the "
+                        "elasticity load signal; needs --telemetry, 0 = off)")
     p.add_argument("--summary-json", default="",
                    help="write the run summary as one JSON document (the JAX tool's "
                         "single-server keys)")
     return p
 
 
-def check_args(p: argparse.ArgumentParser, args) -> None:
-    """The JAX tool's argument checks, then the refusal of every unported flag."""
-    for dest, why in UNPORTED_FLAGS.items():
-        if getattr(args, dest) != p.get_default(dest):
-            raise SystemExit(f"--{dest.replace('_', '-')}: {why}")
+def check_args(args) -> list[str]:
+    """The JAX tool's argument checks; returns the tier roles (``[]``: a unified fleet)."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.tiers import (
+        parse_shard_spec,
+        parse_tier_spec,
+    )
+
     if args.scenario == "batch":
         if args.mode == "open" and args.rate <= 0:
             raise SystemExit("--rate must be > 0 in open-loop mode")
@@ -508,14 +555,41 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
         if args.burst_tenant not in known:
             raise SystemExit(f"--burst-tenant {args.burst_tenant!r} is not one of the "
                              f"--tenants names {sorted(known) or '(none declared)'}")
+    if args.echo and args.replicas < 1:
+        raise SystemExit("--echo needs --replicas N (echo replicas are a fleet-mode "
+                         "workload)")
+    roles: list[str] = []
+    if args.tiers:
+        if args.replicas < 1:
+            raise SystemExit("--tiers needs --replicas N (tiered serving is a fleet-mode "
+                             "workload)")
+        try:
+            roles = parse_tier_spec(args.tiers)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+        if len(roles) != args.replicas:
+            raise SystemExit(
+                f"--tiers names {len(roles)} replica role(s) but --replicas is "
+                f"{args.replicas} — the spec assigns roles by position and must cover "
+                f"the whole fleet")
+    if args.shard:
+        if args.echo:
+            raise SystemExit("--shard needs a real engine (echo replicas build no mesh)")
+        try:
+            parse_shard_spec(args.shard)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+        if args.replicas:
+            raise SystemExit("--shard with --replicas: the sharded replica behind the "
+                             "router is not ported yet (ROADMAP A11: a launcher world "
+                             "per replica); run the serve mesh without --replicas")
+    return roles
 
 
-def summarize(args, engine, server, comps, rejections, sessions_done, wall,
-              acct: dict) -> dict:
-    """The run summary in the JAX tool's single-server keys (``acct``: the engine's
-    ``byte_accounting``)."""
+def summary_head(args, comps, rejections, sessions_done, wall) -> dict:
+    """The run summary's keys common to the JAX tool's single-server and fleet
+    summaries."""
     ok = sum(c.ok for c in comps)
-    prefix = engine.prefix_cache.stats() if engine.prefix_cache else None
     new_tokens = sum(c.new_tokens for c in comps)
     doc = {
         "scenario": args.scenario,
@@ -550,6 +624,15 @@ def summarize(args, engine, server, comps, rejections, sessions_done, wall,
     if args.scenario == "chat":
         doc.update(sessions=args.sessions, turns=args.turns,
                    turn_user_tokens=args.turn_user_tokens, sessions_done=sessions_done)
+    return doc
+
+
+def summarize(args, engine, server, comps, rejections, sessions_done, wall,
+              acct: dict) -> dict:
+    """The run summary in the JAX tool's single-server keys (``acct``: the engine's
+    ``byte_accounting``)."""
+    prefix = engine.prefix_cache.stats() if engine.prefix_cache else None
+    doc = summary_head(args, comps, rejections, sessions_done, wall)
     doc.update(
         shard=args.shard or None,
         bytes=acct,
@@ -574,19 +657,74 @@ def summarize(args, engine, server, comps, rejections, sessions_done, wall,
     return doc
 
 
+def summarize_fleet(args, comps, rejections, sessions_done, wall, rs: dict) -> dict:
+    """The run summary in the JAX tool's fleet keys (``rs``: the router's summary)."""
+    pc = rs.get("prefix_cache") or {}
+    doc = summary_head(args, comps, rejections, sessions_done, wall)
+    doc.update(
+        replicas=args.replicas, affinity=args.affinity,
+        echo=args.echo, autoscale=args.autoscale,
+        arrival_pattern=(args.arrival_pattern
+                         if args.scenario == "batch" and args.mode == "open" else None),
+        scale=rs.get("scale"),
+        scale_events=rs.get("scale_events"),
+        target=rs.get("target"),
+        replicas_ready_p50=rs.get("replicas_ready_p50"),
+        replicas_ready_max=rs.get("replicas_ready_max"),
+        replicas_ready_min=rs.get("replicas_ready_min"),
+        affinity_rate=rs["affinity_rate"],
+        redispatches=rs["redispatches"],
+        redispatched_requests=rs["redispatched_requests"],
+        duplicate_completions=rs["duplicates"],
+        hedge=args.hedge, straggler_k=args.straggler_k or None,
+        chaos=args.chaos or None,
+        ejections=rs.get("ejections"),
+        probes=rs.get("probes"),
+        hedges=rs.get("hedges"),
+        hedge_wins=rs.get("hedge_wins"),
+        hedge_win_rate=rs.get("hedge_win_rate"),
+        wire_corrupt=rs.get("wire_corrupt"),
+        replica_restarts=rs["replica_restarts"],
+        prefix_cache=rs.get("prefix_cache"),
+        prefix_hit_rate=pc["hits"] / pc["queries"] if pc.get("queries") else None,
+        spec_stats=rs.get("spec"),
+        tiers=args.tiers or None,
+        shard=args.shard or None,
+        handoffs=rs.get("handoffs"),
+        handoff_bytes=rs.get("handoff_bytes"),
+        handoff_failures=rs.get("handoff_failures"),
+        disagg_requests=sum(getattr(c, "disagg", False) for c in comps),
+        per_replica=[{k: r[k] for k in ("replica", "state", "restarts", "dispatched",
+                                        "completed", "tier", "handoffs") if k in r}
+                     for r in rs["per_replica"]],
+        slo_attainment=rs.get("slo"),
+        replica_latency=rs.get("replica_latency"),
+        tenant_summary=rs.get("tenants"),
+        preemptions=rs.get("preemptions"),
+        resumes=rs.get("resumes"),
+        router_queue=rs.get("queue"))
+    return doc
+
+
+def _comp_tenant(c) -> str:
+    """A completion's tenant: a ``RouterCompletion`` carries it, a ``Completion`` through
+    its request."""
+    return (getattr(c, "tenant", None)
+            or getattr(getattr(c, "request", None), "tenant", None) or "default")
+
+
 def tenant_rows(args, comps, rejections) -> dict | None:
     """Per-tenant counts and percentiles (``--tenants`` only)."""
     if not args.tenants:
         return None
     rows = {}
-    tenant = lambda c: getattr(c.request, "tenant", None) or "default"   # noqa: E731
-    for t in sorted({tenant(c) for c in comps} | set(rejections["by_tenant"])):
-        tc = [c for c in comps if tenant(c) == t]
+    for t in sorted({_comp_tenant(c) for c in comps} | set(rejections["by_tenant"])):
+        tc = [c for c in comps if _comp_tenant(c) == t]
         rows[t] = {
             "requests": len(tc), "ok": sum(c.ok for c in tc),
             "timeout": sum(c.finish == "timeout" for c in tc),
             "shed": sum(c.finish == "shed" for c in tc),
-            "preemptions": sum(c.preemptions for c in tc),
+            "preemptions": sum(getattr(c, "preemptions", 0) for c in tc),
             "new_tokens": sum(c.new_tokens for c in tc),
             "ttft_s": percentiles([c.ttft_s for c in tc]),
             "e2e_s": percentiles([c.e2e_s for c in tc]),
@@ -674,10 +812,121 @@ def run(args, engine, server) -> tuple[list, dict, int | None, float]:
     return comps, rejections, sessions_done, time.monotonic() - t0
 
 
+def build_replica_command(args) -> list[str]:
+    """The replica process's argv from this run's model, engine and server flags (the
+    router appends ``--port``, ``--replica-id``, ``--heartbeat-dir``, ``--device`` and the
+    tier). The JAX tool's command, plus the paged layout's flags, which the port's fleet
+    runs B6 through."""
+    if args.echo:
+        cmd = ["-m", f"{PKG}.serving.replica", "--echo",
+               "--seq-len", str(args.seq_len), "--num-levels", str(args.num_levels),
+               "--num-slots", str(args.num_slots), "--max-pending", str(args.max_pending)]
+        if args.echo_delay_s:
+            cmd += ["--echo-delay-s", str(args.echo_delay_s)]
+        return cmd
+    cmd = ["-m", f"{PKG}.serving.replica",
+           "--seq-len", str(args.seq_len), "--num-levels", str(args.num_levels),
+           "--embed-dim", str(args.embed_dim), "--num-layers", str(args.num_layers),
+           "--num-heads", str(args.num_heads), "--kv-heads", str(args.kv_heads),
+           "--attention-window", str(args.attention_window), "--seed", str(args.seed),
+           "--num-slots", str(args.num_slots), "--max-pending", str(args.max_pending),
+           "--timeout-s", str(args.timeout_s), "--prefill-chunks", args.prefill_chunks,
+           "--prefill-budget", str(args.prefill_budget),
+           "--prefix-cache", str(args.prefix_cache),
+           "--prefix-cache-bytes", str(args.prefix_cache_bytes),
+           "--kv-layout", args.kv_layout, "--page-size", str(args.page_size),
+           "--num-pages", str(args.num_pages),
+           "--kv-dtype", args.kv_dtype, "--quant-policy", args.quant_policy,
+           "--spec", args.spec, "--spec-k", str(args.spec_k),
+           "--draft-layers", str(args.draft_layers),
+           "--draft-embed-dim", str(args.draft_embed_dim),
+           "--draft-heads", str(args.draft_heads), "--warmup", str(args.warmup)]
+    if args.slo:
+        cmd += ["--slo", args.slo]
+    if args.draft_checkpoint:
+        cmd += ["--draft-checkpoint", args.draft_checkpoint]
+    if args.rope:
+        cmd.append("--rope")
+    if args.checkpoint:
+        cmd += ["--checkpoint", args.checkpoint]
+    return cmd
+
+
+def prebuild_kernels(args, device: str, env: dict) -> None:
+    """Build the B6 library once, in a child process (this one imports no ``torch``),
+    before a paged fleet's replicas start on the card: each would otherwise run its own
+    ``nvcc``. The build needs ``nvcc``, not a card; a replica without one fails on its
+    own."""
+    if args.echo or args.kv_layout != "paged" or not device.startswith("cuda"):
+        return
+    import subprocess
+
+    code = (f"from {PKG}.ops import _build; "
+            f"print(_build.build(('paged_attention',)), flush=True)")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True)
+
+
+def build_router(args, roles: list[str]):
+    """The ``serving.Router`` of the fleet flags over ``build_replica_command``'s
+    replicas, on ``--replica-platform`` (else ``--device``). Not started."""
+    import tempfile
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs.slo import SLOSpec
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.router import (
+        Router,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.scheduler import (
+        parse_tenants,
+    )
+
+    # the replicas import this package whatever their working directory
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{root}:{env['PYTHONPATH']}" if env.get("PYTHONPATH") else root
+    device = args.replica_platform or args.device
+    prebuild_kernels(args, device, env)
+    autoscale = None
+    if args.autoscale == "on":
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.autoscaler import (
+            AutoscalePolicy,
+        )
+
+        autoscale = AutoscalePolicy(
+            min_replicas=args.min_replicas or args.replicas,
+            max_replicas=args.max_replicas or args.replicas,
+            up_queue_age_s=args.scale_up_age_s, up_utilization=args.scale_up_util,
+            down_utilization=args.scale_down_util, sustain_up=args.scale_sustain_up,
+            sustain_down=args.scale_sustain_down, cooldown_s=args.scale_cooldown_s,
+            slo_floor=args.scale_slo_floor or None,
+            slo_tenant=args.scale_slo_tenant or None,
+            slo_min_requests=args.scale_slo_min_requests)
+    return Router(
+        build_replica_command(args), num_replicas=args.replicas, device=device,
+        max_pending=args.router_max_pending, default_timeout_s=args.timeout_s or None,
+        affinity=args.affinity == "on",
+        heartbeat_dir=args.heartbeat_dir or tempfile.mkdtemp(prefix="serve_hb_"),
+        heartbeat_timeout_s=args.heartbeat_timeout_s, max_restarts=args.max_restarts,
+        backoff_s=args.backoff_s, telemetry=args.telemetry, trace_dir=args.trace_dir,
+        snapshot_interval_s=args.snapshot_interval_s, autoscale=autoscale,
+        min_replicas=args.min_replicas or None, max_replicas=args.max_replicas or None,
+        warm_prefixes=args.warm_prefixes, drain_timeout_s=args.drain_timeout_s,
+        straggler_k=args.straggler_k, eject_min_samples=args.eject_min_samples,
+        eject_cooldown_s=args.eject_cooldown_s, hedge=args.hedge == "on",
+        hedge_after_s=args.hedge_after_s, hedge_quantile=args.hedge_quantile,
+        hedge_factor=args.hedge_factor, chaos=args.chaos, chaos_seed=args.chaos_seed,
+        framed_wire=args.framed_wire == "on", slo=SLOSpec.parse(args.slo),
+        # the router is the fleet's one quota-charging front door: the replicas' argv
+        # has no --tenants (the tenancy fields ride the wire), so nothing is charged twice
+        tenants=parse_tenants(args.tenants), env=env,
+        replica_extra_args=[["--tier", role] for role in roles] if roles else None)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    check_args(p, args)
+    roles = check_args(args)
+    if args.replicas > 0:
+        return _serve_fleet(args, roles)
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
         cluster,
     )
@@ -694,6 +943,73 @@ def main(argv: list[str] | None = None) -> int:
         with cluster(args.device):
             return _serve(args)
     return _serve(args)
+
+
+def _serve_fleet(args, roles: list[str]) -> int:
+    """Start the router's fleet, drive it, stop it, summarize (the JAX tool's fleet
+    lines and keys)."""
+    router = build_router(args, roles)
+    router.start()
+    if not router.wait_ready(timeout=600):
+        router.stop(drain=False)
+        raise SystemExit("fleet did not come up within 600s (or crash-looped its restart "
+                         "budget away — check the replica command and its stderr)")
+    tracer = None
+    if args.trace_dir:
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
+            Tracer,
+        )
+
+        tracer = Tracer(os.path.join(args.trace_dir, "loadgen.jsonl"), proc="loadgen")
+    front = TracedFront(router, tracer) if tracer is not None else router
+    try:
+        comps, rejections, sessions_done, wall = run(args, None, front)
+    except BaseException:
+        router.stop(drain=False)         # never orphan a replica process
+        raise
+    rs = router.stop(timeout=600)
+    if tracer is not None:
+        tracer.close()           # after stop(): every client span's callback has run
+    doc = summarize_fleet(args, comps, rejections, sessions_done, wall, rs)
+    if args.trace_dir:
+        doc["trace"] = trace_summary_doc(args)
+    label = (f"chat ({args.sessions} sessions x {args.turns} turns)"
+             if args.scenario == "chat" else f"{args.mode}-loop")
+    print(f"{label}: {doc['requests']} completed ({doc['ok']} ok, {doc['timeout']} timeout, "
+          f"{doc['shed']} shed, {doc['rejected']} rejected, {doc['quota_rejected']} "
+          f"over-quota, {doc['shed_submits']} shed-at-submit) in {wall:.2f}s"
+          + (f", {sessions_done}/{args.sessions} sessions ran to completion"
+             if sessions_done is not None else ""))
+    hit_rate, aff = doc["prefix_hit_rate"], rs["affinity_rate"]
+    print(f"fleet: {args.replicas} replicas on {'echo' if args.echo else args.replica_platform or args.device}, affinity "
+          f"{args.affinity}: {doc['new_tokens']} tokens, {doc['new_tokens'] / wall:.1f} "
+          f"tokens/s, affinity rate {'-' if aff is None else f'{aff:.2f}'}, prefix hit "
+          f"rate {'-' if hit_rate is None else f'{hit_rate:.2f}'}")
+    print(f"resilience: {rs['redispatches']} redispatches ({rs['redispatched_requests']} "
+          f"requests), {rs['replica_restarts']} replica restart(s), {rs['duplicates']} "
+          f"duplicate completion(s)")
+    if rs.get("ejections") or rs.get("hedges") or rs.get("wire_corrupt"):
+        win = rs.get("hedge_win_rate")
+        print(f"gray failures: {rs.get('ejections', 0)} ejection(s), "
+              f"{rs.get('probes', 0)} probe recover(ies), {rs.get('hedges', 0)} hedge(s) "
+              f"(win rate {'-' if win is None else f'{win:.2f}'}), "
+              f"{rs.get('wire_corrupt', 0)} typed wire fault(s)")
+    if rs.get("handoffs") or rs.get("handoff_failures"):
+        print(f"tiers ({args.tiers or '?'}): {rs.get('handoffs', 0)} kv handoff(s), "
+              f"{rs.get('handoff_bytes', 0)} bytes shipped, "
+              f"{rs.get('handoff_failures', 0)} bounced to local prefill, "
+              f"{doc['disagg_requests']} request(s) served disaggregated")
+    sc = rs.get("scale") or {}
+    if rs.get("scale_events"):
+        print(f"elasticity: {sc.get('scale_ups', 0)} scale-up(s), {sc.get('retired', 0)} "
+              f"graceful retire(s), {sc.get('reloads', 0)} reload(s); replicas ready p50 "
+              f"{rs.get('replicas_ready_p50') or '-'} / max "
+              f"{rs.get('replicas_ready_max') or '-'} (target ended at {rs.get('target')})")
+    if args.summary_json:
+        with open(args.summary_json, "w") as fh:
+            json.dump(doc, fh, indent=1)
+        print(f"summary json -> {args.summary_json}")
+    return 0
 
 
 def _serve(args) -> int:

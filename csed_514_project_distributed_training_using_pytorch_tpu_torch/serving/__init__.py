@@ -18,15 +18,22 @@
   <port>.serving.replica``);
 - ``wire``: the protocol's framing (length + CRC frames, negotiated), decoders and the
   jittered backoff;
+- ``router``: ``Router``, the fleet's front door over N replica processes (prefix
+  affinity, at-least-once redispatch, backpressure, restarts, straggler ejection,
+  hedging, elasticity, rolling and canary reloads, tenant budgets, SLO windows);
+- ``tiers``: the prefill/decode roles and the replica-to-replica KV handoff's codec and
+  wire;
+- ``autoscaler``: ``AutoscalePolicy`` and ``FleetAutoscaler``, the hysteresis that drives
+  the router's scale-up and scale-down from its snapshots;
 - ``shard``: the serve mesh, one replica's engine over ``tp * dp`` ranks
   (``build_serve_mesh``, the engine's ``mesh=``, ``MeshLeader``/``follow``).
 
 The load generator is ``<port>.serve_loadgen`` and the speculative A/B ``<port>.bench_spec_ab``.
 
-The names the JAX package's ``serving/__init__.py`` exports are exported here, except the
-fleet's ``Router``/``RouterCompletion`` (ROADMAP A11). They load on first use (PEP 562), so
-a process that imports only ``serving.wire``, ``serving.scheduler`` or an ``--echo``
-replica imports neither the engine nor ``torch``.
+The names the JAX package's ``serving/__init__.py`` exports are exported here. They load
+on first use (PEP 562), so a process that imports only ``serving.router``,
+``serving.wire``, ``serving.scheduler`` or an ``--echo`` replica imports neither the
+engine nor ``torch``.
 """
 
 import importlib
@@ -36,6 +43,7 @@ _EXPORTS = {
                "filter_logits_per_slot", "greedy_chunk_plan"),
     "pagepool": ("PagePool", "PagePoolExhausted", "pages_for"),
     "prefix_cache": ("PrefixCache",),
+    "router": ("Router", "RouterCompletion"),
     "scheduler": ("Parked", "QueueClosed", "QueueFull", "QuotaExceeded", "Request",
                   "RequestQueue", "SamplingParams", "ServerStopped", "Shed", "TenantSpec",
                   "TenantTable", "parse_tenants"),

@@ -30,13 +30,26 @@ frames after negotiation):
   message when sent), ``submit`` (``{"op", "id", "prompt", "max_new_tokens",
   "temperature", "top_k", "top_p", "timeout_s"}``, ``trace_id`` only on a traced
   request), ``cancel`` (a hedge this replica lost: abort if queued, else suppress the
-  reply), ``stats``, ``warm`` (replay prompts through prefill; acked ``warm_done``),
-  ``drain`` (refuse new submits, finish accepted work, ack ``drained``, exit 0), ``stop``
-  (finish accepted work, exit 0);
+  reply), ``prefill`` (prefill tier: prefill the prompt, ship its planes to the decode
+  replica named in ``handoff``), ``stats``, ``warm`` (replay prompts through prefill;
+  acked ``warm_done``), ``drain`` (refuse new submits, finish accepted work, ack
+  ``drained``, exit 0), ``stop`` (finish accepted work, exit 0);
 - replica -> router: ``hello`` (always newline JSON: replica id, ``num_slots``,
-  ``max_pending``, ``pid``, ``caps: ["framed1"]``), ``done`` (tokens, finish, latencies),
-  ``error`` (``queue_full``, ``draining``, ``quota``, ``shed``, ``invalid``, ``failed``,
-  or ``wire_corrupt`` with ``id: null``), ``warm_done``, ``drained``, ``stats``.
+  ``max_pending``, ``pid``, ``caps: ["framed1"]``; ``tier`` and ``handoff_port`` only on
+  a tiered replica), ``done`` (tokens, finish, latencies), ``error`` (``queue_full``,
+  ``draining``, ``quota``, ``shed``, ``invalid``, ``failed``, or ``wire_corrupt`` with
+  ``id: null``), ``prefill_done``/``prefill_failed``, ``warm_done``, ``drained``,
+  ``stats``.
+
+Tiers (``--tier prefill|decode``, ``serving/tiers.py``): a decode replica opens a
+second, always-framed listener for ``kv_handoff`` messages from prefill replicas (its
+port rides the hello), checks each plane's crc32 and the layout signature, copies the
+planes to its device on a side stream, waits for the copy, and only then inserts them
+into its prefix cache, so the engine's next admission of that prompt is a full-prefix
+hit and a torn or corrupt handoff leaves nothing behind. A prefill replica prefills the
+prompt (one generated token), looks its planes up in its own prefix cache and ships them;
+it reports ``prefill_failed`` on any fault, and the router then prefills locally. The
+handoff ships whole contiguous planes, so a paged engine refuses a tier.
 
 Every blocking point of the main thread times out after 0.5 s, so a SIGTERM (or a
 ``preempt`` fault's signal to itself) runs its handler promptly; a peer that connects and
@@ -44,9 +57,9 @@ stalls is dropped after ``--wire-idle-timeout-s``. Greedy decode makes a replay
 token-identical, which is what makes a router's at-least-once delivery safe.
 
 ``--echo`` serves deterministic tokens without the engine or ``torch``: the protocol,
-heartbeats, faults and preemption are the same code. The prefill/decode tiers (``--tier``
-other than ``unified``, the KV handoff) raise naming ROADMAP A11; ``--shard`` is refused
-in the replica process (one process is one rank here).
+heartbeats, faults, preemption and the handoff wire are the same code (an echo decode
+replica counts and acks handoffs). ``--shard`` is refused in the replica process (one
+process is one rank here).
 """
 
 from __future__ import annotations
@@ -79,6 +92,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.sched
     Shed,
     parse_tenants,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+    tiers as tiers_mod,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.wire import (
     CAP_FRAMED,
     FrameDecoder,
@@ -89,13 +105,6 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.wire 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
     Tracer,
 )
-
-
-def refuse_unported(args) -> None:
-    """The flags of the fleet's replica that the port does not serve yet."""
-    if getattr(args, "tiers", "") or getattr(args, "tier", "unified") != "unified":
-        raise ValueError("prefill/decode tiers are not ported yet (ROADMAP A11: "
-                         "serving/tiers.py and the replica's KV handoff)")
 
 
 def build_draft_model(args):
@@ -125,7 +134,6 @@ def build_engine_server(args, trace: Tracer | str | None = None):
     than one rank the server is rank 0's, over a ``shard.MeshLeader``, and ``None`` on the
     other ranks. The engine's modules (and ``torch``) are imported here, so an ``--echo``
     replica never loads them."""
-    refuse_unported(args)
     import torch
 
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
@@ -158,6 +166,21 @@ def build_engine_server(args, trace: Tracer | str | None = None):
     mesh = shard_mod.build_serve_mesh(tp, dp) if tp * dp > 1 else None
     spec = getattr(args, "spec", "off")
     drafter = None
+    tier = getattr(args, "tier", tiers_mod.ROLE_UNIFIED)
+    kv_layout = getattr(args, "kv_layout", "contiguous")
+    if kv_layout != "contiguous" and tier != tiers_mod.ROLE_UNIFIED:
+        # The handoff ships whole contiguous planes; a paged engine's prefix entries are
+        # page ids with no planes to encode. Refused at start-up, not per request.
+        raise ValueError(
+            f"--kv-layout {kv_layout} is incompatible with --tier "
+            f"{args.tier}: the prefill/decode KV handoff ships contiguous "
+            f"planes (run paged engines as unified replicas)")
+    # The tiers ride the prefix cache (the prefill tier snapshots finished prompts into
+    # it, the decode tier installs handed-off planes from it): a tier without
+    # --prefix-cache gets 32 entries rather than a handoff path that cannot work.
+    prefix_entries = args.prefix_cache
+    if tier != tiers_mod.ROLE_UNIFIED and not prefix_entries:
+        prefix_entries = 32
     if spec == "draft-lm":
         draft_model = build_draft_model(args)
         draft_params = draft_model.init(torch.Generator().manual_seed(args.seed + 1))
@@ -169,11 +192,11 @@ def build_engine_server(args, trace: Tracer | str | None = None):
     engine = ContinuousBatchingEngine(
         model, params, num_slots=args.num_slots, seed=args.seed,
         prefill_chunk_sizes=chunk_sizes, prefill_chunk_budget=args.prefill_budget,
-        prefix_cache_entries=args.prefix_cache,
+        prefix_cache_entries=prefix_entries,
         prefix_cache_bytes=getattr(args, "prefix_cache_bytes", 0) or None,
         kv_dtype=getattr(args, "kv_dtype", "model"),
         quant_policy=getattr(args, "quant_policy", "off"),
-        kv_layout=getattr(args, "kv_layout", "contiguous"),
+        kv_layout=kv_layout,
         page_size=getattr(args, "page_size", 64),
         num_pages=getattr(args, "num_pages", 0) or None,
         spec=spec, spec_k=getattr(args, "spec_k", 4), drafter=drafter, mesh=mesh,
@@ -383,7 +406,7 @@ def _handle_submit(msg, server, out: _WireOut):
     fut.add_done_callback(_done)
 
 
-def _stats_payload(engine, server) -> dict:
+def _stats_payload(engine, server, handoff=None) -> dict:
     eng: dict = {"steps": engine.steps}
     for name in ("prefill_tokens", "prefill_invocations", "slot_occupancy",
                  "generated_tokens", "preemptions", "resumes"):
@@ -421,7 +444,253 @@ def _stats_payload(engine, server) -> dict:
             # the router folds these into fleet_snapshot's tenants section —
             # what an SLO-driven autoscaler and fleet_top read per tier.
             out["tenants"] = tenants
+    if handoff is not None:
+        # Tiered-serving ledger (decode tier: received; prefill tier: shipped): the
+        # router folds these into fleet_snapshot per tier.
+        out["handoff"] = handoff.snapshot()
     return out
+
+
+class _HandoffState:
+    """The tiered replica's KV-handoff ledger and (decode tier) listener port.
+
+    The listener is a port of its own: the main protocol socket is a one-connection
+    ``listen(1)`` owned by the router, so plane bytes ride a second, always-framed socket
+    replica to replica; the router learns the port from the hello and never sees a plane
+    byte. The counters are lock-guarded: handler threads race the stats op."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.port = 0
+        self.received = 0
+        self.shipped = 0
+        self.bytes_in = 0
+        self.bytes_out = 0
+        self.crc_failures = 0
+        self.layout_rejects = 0
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {"port": self.port, "received": self.received,
+                    "shipped": self.shipped, "bytes_in": self.bytes_in,
+                    "bytes_out": self.bytes_out,
+                    "crc_failures": self.crc_failures,
+                    "layout_rejects": self.layout_rejects}
+
+
+def _planes_to_device(planes: dict, device) -> dict:
+    """Decoded (CPU) planes onto the engine's device, off the engine's thread: on a card
+    the copies run on a side stream that is waited for before this returns, and each
+    tensor is marked as used by the default stream (the engine's), so the entry is
+    complete before the engine can hit it and its memory is not reused under a pending
+    install."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return planes
+    side = torch.cuda.Stream(device=device)
+    engine_stream = torch.cuda.default_stream(device)
+    with torch.cuda.stream(side):
+        moved = {name: {key: t.to(device) for key, t in layer.items()}
+                 for name, layer in planes.items()}
+    side.synchronize()
+    for layer in moved.values():
+        for t in layer.values():
+            t.record_stream(engine_stream)
+    return moved
+
+
+def _start_handoff_listener(args, engine, state: _HandoffState,
+                            stop_flag: threading.Event) -> int:
+    """Bind the handoff listener (port 0 = ephemeral; the port rides the hello) and serve
+    one framed ``kv_handoff`` per connection: verify CRC and layout, copy the planes to
+    the engine's device, insert them into the engine's prefix cache (the decode engine's
+    next admission of that prompt is a full-prefix hit), ack, close. An echo replica (no
+    prefix cache) counts and acks only."""
+    lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    lsock.bind(("127.0.0.1", int(getattr(args, "handoff_port", 0) or 0)))
+    lsock.listen(4)
+    lsock.settimeout(0.5)
+    port = lsock.getsockname()[1]
+    with state.lock:
+        state.port = port
+
+    def _one(conn):
+        rid = None
+        try:
+            conn.settimeout(10.0)
+            msg = tiers_mod.read_handoff(conn)
+            if msg is None:
+                return
+            rid = msg.get("id")
+            tokens = np.asarray(msg.get("tokens") or [], np.int32)
+            cache = getattr(engine, "prefix_cache", None)
+            nbytes = int(msg.get("bytes") or 0)
+            if cache is not None and len(tokens):
+                layout = getattr(engine, "plane_layout", None)
+                try:
+                    planes = tiers_mod.decode_planes(msg, layout=layout)
+                except WireCorrupt as e:
+                    with state.lock:
+                        state.crc_failures += 1
+                    tiers_mod.send_ack(conn, request_id=rid, ok=False,
+                                       reason=f"crc: {e}")
+                    return
+                except ValueError as e:
+                    with state.lock:
+                        state.layout_rejects += 1
+                    tiers_mod.send_ack(conn, request_id=rid, ok=False,
+                                       reason=f"layout: {e}")
+                    return
+                # the whole entry is on the device before the (lock-guarded) insert
+                cache.insert(tokens, _planes_to_device(planes, engine.device),
+                             layout=layout)
+            with state.lock:
+                state.received += 1
+                state.bytes_in += nbytes
+            tiers_mod.send_ack(conn, request_id=rid, ok=True, nbytes=nbytes)
+        except (OSError, WireCorrupt) as e:
+            # A torn connection mid-handoff: no ack leaves, the prefill side reports
+            # prefill_failed, the router falls back to local prefill.
+            with state.lock:
+                state.crc_failures += isinstance(e, WireCorrupt)
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _loop():
+        while not stop_flag.is_set():
+            try:
+                conn, _ = lsock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            threading.Thread(target=_one, args=(conn,), daemon=True,
+                             name="handoff-recv").start()
+        try:
+            lsock.close()
+        except OSError:
+            pass
+
+    threading.Thread(target=_loop, daemon=True, name="handoff-listen").start()
+    return port
+
+
+def _handle_prefill(msg, args, engine, server, out: _WireOut,
+                    state: _HandoffState):
+    """The prefill-tier op: prefill the prompt here (one generated token, the admission
+    that fills the prefix cache), look its planes up, ship them to the decode replica
+    named in ``msg["handoff"]``, and report ``prefill_done`` (the router then dispatches
+    the request to that replica as a full-prefix hit) or ``prefill_failed`` (the router
+    falls back to local prefill: disaggregation is an optimization, never a
+    dependency)."""
+    rid = msg["id"]
+    prompt = np.asarray(msg.get("prompt") or [], np.int32)
+    target = msg.get("handoff") or {}
+    host = target.get("host", "127.0.0.1")
+    port = int(target.get("port") or 0)
+
+    def _fail(reason):
+        try:
+            _send(out, {"op": "prefill_failed", "id": rid, "reason": reason})
+        except OSError:
+            pass
+
+    if not len(prompt) or not port:
+        _fail("bad_prefill_op")
+        return
+
+    def _ship(ttft_s):
+        # A worker thread: the cache lookup is lock-safe, the planes come to the host
+        # here, and the socket must never block the decode loop.
+        t0 = time.monotonic()
+        try:
+            if args.echo:
+                payload = tiers_mod.encode_planes({"echo": prompt})
+            else:
+                cache = getattr(engine, "prefix_cache", None)
+                layout = getattr(engine, "plane_layout", None)
+                hit, planes = (0, None)
+                if cache is not None:
+                    hit, planes = cache.lookup(prompt, min_len=1, layout=layout)
+                if planes is None or hit < len(prompt):
+                    _fail("no_planes")
+                    return
+                payload = tiers_mod.encode_planes(planes, layout=layout)
+            ack = tiers_mod.ship_planes(host, port, request_id=rid,
+                                        tokens=prompt, payload=payload,
+                                        timeout_s=args.handoff_timeout_s)
+        except (OSError, WireCorrupt) as e:
+            _fail(f"ship: {e}")
+            return
+        if not ack.get("ok"):
+            _fail(f"nack: {ack.get('reason', 'rejected')}")
+            return
+        wall = time.monotonic() - t0
+        with state.lock:
+            state.shipped += 1
+            state.bytes_out += int(payload["bytes"])
+        try:
+            _send(out, {"op": "prefill_done", "id": rid,
+                        "prompt_len": int(len(prompt)),
+                        "handoff_bytes": int(payload["bytes"]),
+                        "handoff_wall_s": round(wall, 6),
+                        "ttft_s": ttft_s})
+        except OSError:
+            pass
+
+    if args.echo:
+        try:
+            server.begin_request()
+        except QueueClosed:
+            _send(out, {"op": "error", "id": rid, "error": "draining",
+                        "message": "echo replica draining"})
+            return
+
+        def _echo_job():
+            try:
+                _tokens, ttft = server.complete(
+                    prompt, 1, trace_id=msg.get("trace_id"), request_id=rid)
+                _ship(ttft)
+            finally:
+                server.end_request()
+
+        threading.Thread(target=_echo_job, daemon=True,
+                         name="prefill-echo").start()
+        return
+    try:
+        fut = server.submit(prompt, max_new_tokens=1,
+                            trace_id=msg.get("trace_id"),
+                            tenant=msg.get("tenant", "default"),
+                            priority=msg.get("priority"),
+                            preemptible=msg.get("preemptible"))
+    except QueueFull:
+        _send(out, {"op": "error", "id": rid, "error": "queue_full",
+                    "message": "replica queue at capacity"})
+        return
+    except QueueClosed:
+        _send(out, {"op": "error", "id": rid, "error": "draining",
+                    "message": "replica draining (retire/reload)"})
+        return
+    except (QuotaExceeded, Shed, ValueError) as e:
+        _fail(f"admit: {e}")
+        return
+
+    def _done(f):
+        try:
+            comp = f.result()
+        except BaseException as e:           # server died mid-prefill
+            _fail(f"prefill: {e}")
+            return
+        threading.Thread(target=_ship, args=(comp.ttft_s,), daemon=True,
+                         name="handoff-ship").start()
+
+    fut.add_done_callback(_done)
 
 
 def serve_forever(args) -> int:
@@ -449,6 +718,14 @@ def serve_forever(args) -> int:
                               process_index=replica_id) if args.heartbeat_dir \
         else None
     stop_flag = threading.Event()
+
+    # A decode replica opens its handoff listener BEFORE the hello, so the port it
+    # advertises is live the moment the router reads it.
+    tier = getattr(args, "tier", tiers_mod.ROLE_UNIFIED)
+    handoff = _HandoffState()
+    handoff_port = 0
+    if tier == tiers_mod.ROLE_DECODE:
+        handoff_port = _start_handoff_listener(args, engine, handoff, stop_flag)
 
     def _ticker():
         # Liveness + preemption watch. A `freeze` fault silences the beat while
@@ -558,9 +835,15 @@ def serve_forever(args) -> int:
                     out.cancelled.add(rid)
                 if fut is not None:
                     fut.cancel()         # only wins while it is still queued
+        elif op == "prefill":
+            # Prefill-tier dispatch: prefill here, ship the planes to the decode
+            # replica the router named, report prefill_done/failed.
+            _handle_prefill(msg, args, engine, server, out, handoff)
         elif op == "stats":
             _send(out, {"op": "stats", "id": msg.get("id"),
-                        **_stats_payload(engine, server)})
+                        **_stats_payload(
+                            engine, server,
+                            handoff if tier != tiers_mod.ROLE_UNIFIED else None)})
         elif op == "warm":
             # Prefix-cache warm-start (scale-up/reload): replay the fleet's
             # hot prefixes through prefill BEFORE taking traffic — one
@@ -652,6 +935,12 @@ def serve_forever(args) -> int:
                  "num_slots": args.num_slots,
                  "max_pending": args.max_pending,
                  "pid": os.getpid(), "caps": [CAP_FRAMED]}
+        # Tier fields appear only on tiered replicas: an untiered fleet's hello is
+        # unchanged.
+        if tier != tiers_mod.ROLE_UNIFIED:
+            hello["tier"] = tier
+            if handoff_port:
+                hello["handoff_port"] = handoff_port
         _send(out, hello)
         # Mode is decided by the FIRST router message: until its newline
         # arrives, bytes accumulate RAW (feeding them to a line splitter
@@ -871,10 +1160,19 @@ def main(argv: list[str] | None = None) -> int:
                         "and priority preemption in this replica's server; "
                         "empty = single implicit tenant")
     t = p.add_argument_group("tiered / sharded serving")
-    t.add_argument("--tier", default="unified",
-                   choices=("unified", "prefill", "decode"),
-                   help="replica role; only 'unified' (the default) is ported: "
-                        "'prefill' and 'decode' raise naming ROADMAP A11")
+    t.add_argument("--tier", default=tiers_mod.ROLE_UNIFIED,
+                   choices=tiers_mod.ROLES,
+                   help="replica role: 'prefill' serves only prefill ops and "
+                        "ships finished KV planes; 'decode' runs a handoff "
+                        "listener and serves decode traffic; 'unified' "
+                        "(default) is the classic do-everything replica")
+    t.add_argument("--handoff-port", type=int, default=0,
+                   help="decode tier: the KV-handoff listener port (0 = "
+                        "ephemeral; the actual port rides the hello)")
+    t.add_argument("--handoff-timeout-s", type=float, default=10.0,
+                   help="prefill tier: per-handoff connect/ack deadline — a "
+                        "dead decode peer becomes prefill_failed (router "
+                        "falls back to local prefill), never a hang")
     t.add_argument("--shard", default="",
                    help="in-replica serve mesh: refused here (a replica process is "
                         "one rank; the serve mesh runs under serve_loadgen --shard "
@@ -896,7 +1194,6 @@ def main(argv: list[str] | None = None) -> int:
                         "(a router appends one per replica under its "
                         "--trace-dir); empty = tracing off")
     args = p.parse_args(argv)
-    refuse_unported(args)
     if args.shard:
         p.error("--shard: a replica process serves one rank; run the serve mesh with "
                 "serve_loadgen --shard through train.launch")

@@ -45,8 +45,9 @@ This module (home of the shared ``Request``/``SamplingParams``/``TenantSpec``
 types and the ``Parked`` mid-decode preemption record) is the port's own copy of
 the JAX package's ``serving/scheduler.py``, which imports no JAX: it touches no
 device, and its queue discipline is pinned equal to the reference's on scripted
-arrival sequences (``tests/test_torch_port_server.py``). The fleet (router,
-replicas) that the comments below mention is the JAX package's (ROADMAP A11).
+arrival sequences (``tests/test_torch_port_server.py``). The fleet (router, replicas)
+that the comments below mention is the port's ``serving/router.py`` and
+``serving/replica.py``.
 """
 
 from __future__ import annotations

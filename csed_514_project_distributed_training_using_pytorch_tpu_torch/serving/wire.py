@@ -1,8 +1,8 @@
 """Hardened wire plumbing for the router↔replica TCP protocol.
 
 The port's own copy of the JAX package's ``serving/wire.py`` (plain Python; the port
-imports nothing of that package): the same frames, CRC and negotiation, so a port
-replica speaks to the JAX router byte for byte.
+imports nothing of that package): the same frames, CRC and negotiation, so the port's
+router and replicas speak to the JAX package's byte for byte.
 
 The fleet protocol was born as newline-delimited JSON: one object per line,
 both directions, self-synchronizing on ``\\n`` and trivially debuggable with

@@ -5,7 +5,7 @@ imports no JAX but belongs to the JAX package). The launch contract: **every pro
 the same command**, and its coordinates arrive in torch's environment contract
 (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``), which ``parallel.mesh.initialize_cluster`` reads — the variables
-``torchrun`` sets too. All processes run on this host; rank 0 hosts the rendezvous store on
+``torchrun`` sets too — plus ``FLEET_PROCESS_ID`` (``Fleet(process_id_base=)``). All processes run on this host; rank 0 hosts the rendezvous store on
 ``--port`` (default: a free port, found by binding port 0).
 
 Usage (a world of 2 on the CPU)::
@@ -39,11 +39,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child_env(base: dict, *, port: int, num_processes: int, rank: int) -> dict:
+def _child_env(base: dict, *, port: int, num_processes: int, rank: int,
+               process_id: int | None = None) -> dict:
     env = dict(base)
     env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                WORLD_SIZE=str(num_processes), RANK=str(rank), LOCAL_RANK=str(rank),
-               LOCAL_WORLD_SIZE=str(num_processes))
+               LOCAL_WORLD_SIZE=str(num_processes),
+               FLEET_PROCESS_ID=str(rank if process_id is None else process_id))
     return env
 
 
@@ -51,13 +53,22 @@ class Fleet:
     """A running fleet as one unit: spawn, poll, teardown."""
 
     def __init__(self, command: list[str], *, num_processes: int,
-                 port: int | None = None, env: dict | None = None):
+                 port: int | None = None, env: dict | None = None,
+                 process_id_base: int = 0):
+        """``process_id_base`` offsets the children's fleet-wide identity,
+        ``FLEET_PROCESS_ID`` = base + rank: the serving router runs one one-process fleet
+        per replica (so replicas crash and restart one by one), and the offset keeps each
+        replica's index. ``RANK``/``WORLD_SIZE`` stay the fleet's own (0 of 1 for a
+        replica), so no child of a base > 0 looks to ``torch.distributed`` like a rank
+        outside its world. A replica's fault ``proc=`` and heartbeat index come from its
+        ``--replica-id`` (``faults.set_process_index``), which the router passes."""
         self.port = port or _free_port()
         base = dict(os.environ if env is None else env)
         self.procs = [
             subprocess.Popen([sys.executable, *command],
                              env=_child_env(base, port=self.port,
-                                            num_processes=num_processes, rank=i))
+                                            num_processes=num_processes, rank=i,
+                                            process_id=process_id_base + i))
             for i in range(num_processes)
         ]
         self._first_failure: int | None = None

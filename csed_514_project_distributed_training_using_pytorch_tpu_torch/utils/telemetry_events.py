@@ -6,10 +6,12 @@ field-level schemas live with the producers (``utils/telemetry.py``'s event func
 The port emits a subset of these kinds: ``manifest``, ``compile``, ``epoch``, ``data``,
 ``health``, ``mfu``, ``checkpoint``, ``anomaly``, ``preempt`` from the trainers; ``serve``,
 ``serve_config``, ``serve_summary``, ``prefill``, ``spec``, ``shed``, ``tenant_summary``,
-``kv_pages`` and ``slo`` from the server; ``restart`` and ``supervise_summary`` from the
-supervisor; ``span`` from the tracers. The rest wait with their producers (ROADMAP A11:
-the router, the tiers, the planner and deployment). ``describe`` is the registry's one
-query.
+``kv_pages`` and ``slo`` from the server; ``route``, ``replica``, ``router_config``,
+``router_summary``, ``fleet_snapshot``, ``scale``, ``eject``, ``hedge``, ``chaos``,
+``tier``, ``kv_handoff``, ``shed``, ``tenant_summary`` and ``slo`` from the fleet's router
+(``serving/router.py``, through ``utils/jsonl.py``); ``restart`` and ``supervise_summary``
+from the supervisor; ``span`` from the tracers. The rest wait with their producers
+(ROADMAP A11: the planner and deployment). ``describe`` is the registry's one query.
 """
 
 from __future__ import annotations

@@ -1748,3 +1748,46 @@ def test_bench_transformer_runs_the_flash_kernels_on_the_card(device):
     assert line["platform"] == "gpu" and line["segment_program"] == "eager"
     assert math.isfinite(line["final_train_loss"]) and line["mfu_vs_bf16_peak"] is not None
     assert fa.launch_counts() == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_handoff_planes_install_bitwise_on_the_card(device, kv):
+    """The tiers' KV handoff on the card: a prefill engine's cached planes for a prompt
+    (``kv`` planes; int8 with its f32 scales) go through ``serving.tiers``' codec to the
+    CPU and back onto the card by the decode replica's side-stream copy; they arrive
+    bitwise, and a decode engine holding them serves the prompt as a full-prefix hit
+    (no prefill) with the prefill engine's greedy stream."""
+    import numpy as np
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        Request,
+        replica,
+        tiers,
+    )
+
+    model = lm.TransformerLM(seq_len=128, embed_dim=32, num_layers=2, num_heads=2)
+    params = model.init(torch.Generator().manual_seed(3))
+    prompt = np.random.default_rng(3).integers(0, 16, size=70).astype(np.int32)
+
+    def engine():
+        return ContinuousBatchingEngine(model, params, num_slots=2, kv_dtype=kv,
+                                        prefix_cache_entries=4, device=device)
+
+    pre, dec = engine(), engine()
+    want = pre.run([Request(prompt=prompt, max_new_tokens=12)])[0].tokens.tolist()
+    hit, planes = pre.prefix_cache.lookup(prompt, min_len=1, layout=pre.plane_layout)
+    assert hit == len(prompt)
+    payload = tiers.encode_planes(planes, layout=pre.plane_layout)
+    moved = replica._planes_to_device(
+        tiers.decode_planes(payload, layout=dec.plane_layout), dec.device)
+    for name, layer in planes.items():
+        for key, plane in layer.items():
+            assert moved[name][key].device == plane.device
+            assert moved[name][key].dtype == plane.dtype
+            assert torch.equal(moved[name][key].view(torch.uint8), plane.view(torch.uint8))
+    dec.prefix_cache.insert(prompt, moved, layout=dec.plane_layout)
+    got = dec.run([Request(prompt=prompt, max_new_tokens=12)])[0].tokens.tolist()
+    assert dec.prefill_tokens == 0 and dec.prefix_cache.hits == 1
+    assert got == want

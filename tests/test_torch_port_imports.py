@@ -6,6 +6,7 @@ expects exactly one top-level package directory with one — the JAX package.
 """
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -63,7 +64,8 @@ def test_sources_found():
                    "parallel/pipeline.py", "utils/trace.py", "obs/goodput.py",
                    "resilience/faults.py", "resilience/supervisor.py",
                    "resilience/netfaults.py", "serving/wire.py", "fleet_supervise.py",
-                   "trace_report.py"):
+                   "trace_report.py", "serving/router.py", "serving/tiers.py",
+                   "serving/autoscaler.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -94,13 +96,48 @@ def test_chip_scripts_print_no_telemetry_events(path):
 
 @pytest.mark.parametrize("module", ["resilience.supervisor", "fleet_supervise",
                                     "serving.wire", "resilience.netfaults",
-                                    "serving.scheduler", "utils.trace", "obs.goodput"])
+                                    "serving.scheduler", "utils.trace", "obs.goodput",
+                                    "serving.router", "serving.tiers", "serving.autoscaler",
+                                    "serving.replica", "serve_loadgen", "train.launch"])
 def test_fleet_side_modules_import_no_torch(module):
-    """A supervisor, a router's wire and the trace and goodput readers touch no device:
-    importing them loads neither ``torch`` nor, so, any CUDA state (the supervisor's
-    checkpoint scan imports the checkpoint module only when it has a store to scan)."""
+    """A supervisor, the fleet's router, its tiers codec and autoscaler, an ``--echo``
+    replica, the load generator's fleet parent and the trace and goodput readers touch no
+    device: importing them loads neither ``torch`` nor, so, any CUDA state (the
+    supervisor's checkpoint scan imports the checkpoint module only when it has a store
+    to scan; a replica imports the engine only when it builds one, and the tiers codec
+    ``torch`` only when it decodes planes)."""
     code = (f"import sys; import {PORT.name}.{module}; "
             f"sys.exit(1 if 'torch' in sys.modules else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, f"{module} imports torch: {out.stderr[-2000:]}"
+
+
+def test_an_echo_fleet_runs_without_torch(tmp_path):
+    """The port's router over two ``--echo`` replicas, a tiered pair, from a process that
+    never imports ``torch``: every request is served, and neither the router's process
+    nor the replicas (each writes whether it had loaded it when it stops) loaded it."""
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    replica = (f"import os, sys; from {PORT.name}.serving import replica; "
+               f"code = replica.main(sys.argv[1:]); "
+               f"open(os.path.join({str(marks)!r}, str(os.getpid())), 'w')"
+               f".write(str('torch' in sys.modules)); sys.exit(code)")
+    code = f"""
+import sys
+import numpy as np
+from {PORT.name}.serving.router import Router
+cmd = ["-c", {replica!r}, "--echo", "--num-levels", "8", "--seq-len", "32"]
+r = Router(cmd, num_replicas=2, heartbeat_dir={str(tmp_path / "hb")!r},
+           replica_extra_args=[["--tier", "prefill"], ["--tier", "decode"]]).start()
+assert r.wait_ready(timeout=60)
+comps = [r.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=3).result(timeout=60)
+         for _ in range(3)]
+summ = r.stop(timeout=60)
+assert all(c.ok and c.disagg for c in comps) and summ["handoffs"] == 3
+sys.exit(1 if "torch" in sys.modules else 0)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=180, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert [p.read_text() for p in marks.iterdir()] == ["False", "False"]

@@ -6,10 +6,13 @@ package's tools.
   in-process update), for the open loop and the chat scenario with the draft LM;
 - the seeded workload and the chat scenario's traffic are the JAX tool's, request for
   request, and two runs of the port offer byte-identical traffic;
-- every fleet and tier flag is refused naming its ROADMAP item (telemetry, trace and shard
-  are served);
-- ``bench_spec_ab``'s JSON document has ``tools/bench_spec_ab.py``'s keys, and ``--fleet``
-  is refused; ``percentiles`` is the JAX package's.
+- every fleet and tier flag of the JAX tool does what it does there: ``--replicas N``
+  runs the port's ``Router`` over N replica processes (the summary has the JAX tool's
+  fleet keys), ``--echo`` model-free replicas, ``--tiers`` the prefill/decode handoff, and
+  the affinity, autoscale, hedge, chaos, framed-wire and snapshot flags reach the router
+  (telemetry, trace and shard are served too);
+- ``bench_spec_ab``'s JSON document has ``tools/bench_spec_ab.py``'s keys, with
+  ``--fleet`` its two fleet summaries; ``percentiles`` is the JAX package's.
 
 The engines here run a 32-position LM on the CPU; the summary's numbers are not compared
 (they are timings), its keys are.
@@ -150,18 +153,116 @@ def test_chat_traffic_is_byte_identical_and_the_jax_tools():
     assert runs[0][1] == 12 and runs[0][2] == 4
 
 
+def jax_fleet_summary_keys() -> set[str]:
+    """The keys ``tools/serve_loadgen.py`` writes for a fleet run: its ``doc = {...}`` and
+    the fleet branch's ``doc.update`` (the one that writes ``replicas``)."""
+    main = _main_of(ROOT / "tools" / "serve_loadgen.py")
+    keys: set[str] = set()
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "doc" for t in node.targets)):
+            keys |= _dict_keys(node.value)
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "update" and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "doc"):
+            if "replicas" in {kw.arg for kw in node.keywords}:
+                keys |= {kw.arg for kw in node.keywords}
+    return keys
+
+
+ECHO_FLEET = ["--replicas", "2", "--echo", "--seq-len", "32", "--num-levels", "8",
+              "--num-slots", "2", "--max-pending", "4", "--requests", "6",
+              "--max-new-tokens", "5", "--prompt-lens", "4,8", "--rate", "200",
+              "--summary-json", "s.json", "--telemetry", "t.jsonl"]
+
+
+def _fleet_run(argv: list[str]) -> tuple[dict, list[dict]]:
+    """``serve_loadgen.main(argv)`` in the working directory: its summary and telemetry."""
+    assert serve_loadgen.main(argv) == 0
+    doc = json.loads(pathlib.Path("s.json").read_text())
+    rows = [json.loads(line) for line in open("t.jsonl")] if pathlib.Path(
+        "t.jsonl").exists() else []
+    assert doc["ok"] == doc["requests"] > 0
+    return doc, rows
+
+
+def _ported_fleet_flag(flag: str, argv: list[str]) -> None:
+    """What each fleet flag of the JAX tool does in the port's load generator (run in a
+    scratch working directory; the echo fleets start in a fraction of a second)."""
+    if flag == "--replicas":
+        doc, rows = _fleet_run(TINY + ["--requests", "6", "--max-new-tokens", "5",
+                                       "--prompt-lens", "0,4,12", "--rate", "200",
+                                       "--kv-layout", "paged", "--page-size", "8",
+                                       "--summary-json", "s.json"] + argv)
+        assert set(doc) == jax_fleet_summary_keys()
+        assert doc["replicas"] == 2 and not doc["echo"]
+        assert [r["replica"] for r in doc["per_replica"]] == [0, 1]
+    elif flag == "--tiers":
+        with pytest.raises(SystemExit, match="--tiers needs --replicas N"):
+            serve_loadgen.main(["--device", "cpu"] + argv)
+        with pytest.raises(SystemExit, match="replica role"):
+            serve_loadgen.main(["--device", "cpu", "--replicas", "3"] + argv)
+        doc, rows = _fleet_run(ECHO_FLEET + argv)
+        assert doc["tiers"] == "prefill:1,decode:1"
+        assert doc["handoffs"] == doc["disagg_requests"] == 6
+        assert [r["tier"] for r in doc["per_replica"]] == ["prefill", "decode"]
+        assert sum(r["event"] == "kv_handoff" for r in rows) == 6
+    elif flag == "--snapshot-interval-s":
+        doc, rows = _fleet_run(ECHO_FLEET + ["--echo-delay-s", "0.05"] + argv)
+        assert any(r["event"] == "fleet_snapshot" for r in rows)
+    elif flag == "--affinity":
+        doc, rows = _fleet_run(ECHO_FLEET + ["--scenario", "chat", "--sessions", "2",
+                                             "--turns", "3"] + argv)
+        assert doc["affinity"] == "off" and doc["affinity_rate"] == 0.0
+        assert doc["sessions_done"] == 2
+        assert next(r for r in rows if r["event"] == "router_config")["affinity"] is False
+    elif flag == "--autoscale":
+        with pytest.raises(ValueError, match="snapshot_interval_s"):
+            serve_loadgen.main(ECHO_FLEET + argv)
+        doc, rows = _fleet_run(ECHO_FLEET + ["--max-replicas", "3",
+                                             "--snapshot-interval-s", "0.1"] + argv)
+        policy = next(r for r in rows if r["event"] == "router_config")["autoscale"]
+        assert doc["autoscale"] == "on" and (policy["min_replicas"],
+                                             policy["max_replicas"]) == (2, 3)
+    elif flag == "--hedge":
+        doc, rows = _fleet_run(ECHO_FLEET + ["--echo-delay-s", "0.02", "--hedge-after-s",
+                                             "0.05"] + argv)
+        config = next(r for r in rows if r["event"] == "router_config")
+        assert doc["hedge"] == "on" and config["hedge"] is True
+        assert config["hedge_after_s"] == 0.05
+    elif flag == "--chaos":
+        doc, rows = _fleet_run(ECHO_FLEET + argv)
+        assert doc["chaos"] == argv[1]
+        assert any(r["event"] == "chaos" and r["kind"] == "delay" for r in rows)
+    elif flag == "--echo":
+        with pytest.raises(SystemExit, match="--echo needs --replicas N"):
+            serve_loadgen.main(["--device", "cpu"] + argv)
+        doc, rows = _fleet_run(ECHO_FLEET + argv)
+        assert doc["echo"] is True and doc["replica_restarts"] == 0
+    elif flag == "--framed-wire":
+        doc, rows = _fleet_run(ECHO_FLEET + argv)
+        ready = [r for r in rows if r["event"] == "replica" and r["action"] == "ready"]
+        assert len(ready) == 2 and not any(r["framed"] for r in ready)
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--replicas", "2"], "A11"), (["--tiers", "prefill:1,decode:1"], "A11"),
+    # the fleet's flags are served: each id names the refusal its case replaces
+    pytest.param(["--replicas", "2"], None, id="--replicas-A11"),
+    pytest.param(["--tiers", "prefill:1,decode:1"], None, id="--tiers-A11"),
     # --telemetry and --shard are served now (their ids are the refusals' they replace):
     # the stream is written, and a serve mesh asks for a world of tp*dp ranks
     pytest.param(["--telemetry", "t.jsonl"], None, id="--telemetry-A11"),
     # --trace-dir too: loadgen.jsonl and server.jsonl, a tree a request, in the summary
     pytest.param(["--trace-dir", "spans"], None, id="--trace-dir"),
-    (["--snapshot-interval-s", "1"], "A11"),
+    pytest.param(["--snapshot-interval-s", "0.1", "--telemetry", "t.jsonl"], None,
+                 id="--snapshot-interval-s-A11"),
     pytest.param(["--shard", "tp=2,dp=2"], "requested 4 devices, have 1", id="--shard-A10"),
-    (["--affinity", "off"], "A11"), (["--autoscale", "on"], "A11"),
-    (["--hedge", "on"], "A11"), (["--chaos", "delay:replica=1,ms=5"], "A11"),
-    (["--echo"], "A11"), (["--framed-wire", "off"], "A11")],
+    pytest.param(["--affinity", "off"], None, id="--affinity-A11"),
+    pytest.param(["--autoscale", "on"], None, id="--autoscale-A11"),
+    pytest.param(["--hedge", "on"], None, id="--hedge-A11"),
+    pytest.param(["--chaos", "delay:replica=1,ms=5"], None, id="--chaos-A11"),
+    pytest.param(["--echo"], None, id="--echo-A11"),
+    pytest.param(["--framed-wire", "off"], None, id="--framed-wire-A11")],
     ids=lambda x: x if isinstance(x, str) else x[0])
 def test_unported_flags_raise_naming_their_item(argv, item, tmp_path, monkeypatch):
     if argv[0] == "--telemetry":
@@ -195,9 +296,13 @@ def test_unported_flags_raise_naming_their_item(argv, item, tmp_path, monkeypatc
     if argv[0] == "--shard":
         with pytest.raises(ValueError, match=item):
             serve_loadgen.main(["--device", "cpu"] + argv)
+        # the sharded replica behind the router is the one fleet shape still refused
+        with pytest.raises(SystemExit, match="ROADMAP A11"):
+            serve_loadgen.main(["--device", "cpu", "--replicas", "2"] + argv)
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        serve_loadgen.main(["--device", "cpu"] + argv)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    _ported_fleet_flag(argv[0], argv)
 
 
 def test_percentiles_match_jax():
@@ -237,5 +342,17 @@ def test_bench_spec_ab_writes_the_jax_document(tmp_path):
     assert set(doc["a"]) == set(doc["b"]) == want_metrics
     assert doc["token_match_rate"] == 1.0 and doc["b"]["spec_stats"]["mode"] == "ngram"
     assert rc == (0 if doc["gates_passed"] else 1)
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
-        bench_spec_ab.main(["--device", "cpu", "--fleet"])
+    # --fleet: both sides again as 2-replica router fleets (CPU replicas), their summaries
+    # embedded with the JAX tool's fleet keys
+    out = tmp_path / "ab_fleet.json"
+    bench_spec_ab.main(["--device", "cpu", "--checkpoint", str(ckpt), "--sessions", "2",
+                        "--turns", "1", "--max-new-tokens", "4", "--prompt-lens", "8",
+                        "--num-slots", "2", "--out", str(out), "--fleet", "--workdir",
+                        str(tmp_path / "work")])
+    fleet = json.loads(out.read_text())["fleet"]
+    for side, spec in (("a", "off"), ("b", "ngram")):
+        assert set(fleet[side]) == jax_fleet_summary_keys() | {
+            "sessions", "turns", "turn_user_tokens", "sessions_done"}
+        assert fleet[side]["spec"] == spec and fleet[side]["replicas"] == 2
+        assert fleet[side]["ok"] == fleet[side]["requests"] == 2
+    assert fleet["b"]["spec_stats"]["mode"] == "ngram"
