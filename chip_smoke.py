@@ -93,7 +93,7 @@ Phases (each raises on failure; nothing is caught):
     forward and gradients, with each rank's launches against the plan (hops × blocks
     within the truncated reach), those at a nonzero hop offset included;
 19. the slice: ``train.composed.main`` at ``--mesh data=1,seq=2 --flash-attention
-    --seq-len 2048`` at full width for 5 steps against ``--mesh data=1`` in this process,
+    --seq-len 2048`` at full width for 3 steps against ``--mesh data=1`` in this process,
     per-step losses and final parameters, with each rank's launches (all, and at a nonzero
     hop offset) against the plan; then the same with ``--attention-window 300`` (every
     off-diagonal hop at its offset ±C), with ``--zigzag-attention --causal``, and with
@@ -151,7 +151,8 @@ Phases (each raises on failure; nothing is caught):
     branches alone at ``[8, 2, 4, 32]`` and R = 8, D = 128 (ms, device µs, the bound of the
     narrow pool and its scales, plain and SDPA ms);
 25. the pixel LM trained on the card and served through B6: (a) ``train.lm`` for two
-    epochs at ``LMConfig``'s defaults (937 steps an epoch in captured segments; of the
+    epochs at ``LMConfig``'s defaults on 30,000 examples (468 steps an epoch in captured
+    segments; of the
     first: epoch seconds, ms a step, the loss falls, test NLL per token below ln 17,
     perplexity), 20 captured steps against the eager loop and a profiler window over each
     (host launch calls a step); (b) ``--resume-from`` (a)'s first-epoch store checkpoint
@@ -172,7 +173,7 @@ Phases (each raises on failure; nothing is caught):
     ``Server`` park/resume over spec; (d) ``serve_loadgen`` in process, open loop and chat;
 27. the transformer on every trainer and every sequence schedule
     (``transformer_trainers_phase``): (a) ``train.composed --mesh data=1,seq=2 --seq-impl
-    ulysses --flash-attention`` at the composed widths for 5 steps on two gloo ranks
+    ulysses --flash-attention`` at the composed widths for 3 steps on two gloo ranks
     sharing the card (B4/B5 at ``[64, 2048, 2, 16]`` on each) against ``--mesh data=1``,
     launches against the plan; (b) ``python -m <port>.bench_transformer --large --flash``
     (its ``main`` in this process): its JSON line, the bf16 flash route, B4/B5 launches =
@@ -183,10 +184,10 @@ Phases (each raises on failure; nothing is caught):
     steps, the loss falling, ``model.ckpt`` restored on the CPU bitwise; (d) composed ``--resume-from`` against the straight run,
     and SIGTERM inside an epoch giving exit 75; (e) the composed trainer's einsum ring
     (causal, ``--remat``) and windowed einsum zig-zag, and the LM's einsum ring and
-    zig-zag, at seq=2 against data=1 for 5 steps each (no kernel launched on these paths);
+    zig-zag, at seq=2 against data=1 for 3 steps each (no kernel launched on these paths);
 28. the training meshes (``mesh_phase``), every world of gloo ranks time-slicing the one
     card (correctness runs, no scaling points): (a)-(d) ``train.composed`` at the composed
-    widths (``--seq-len 2048 --flash-attention``) for 10 steps at ``data=1,model=2``;
+    widths (``--seq-len 2048 --flash-attention``) for 5 steps at ``data=1,model=2``;
     ``data=1,stage=2 --pipeline-microbatches 4`` under gpipe and 1f1b (the bubble
     printed); ``data=2 --fsdp`` and ``data=2,model=2 --fsdp``; ``data=1,expert=2`` at
     ``--moe-top-k`` 1 and 2; each within 1e-4 of ``--mesh data=1`` (the MoE runs of one
@@ -233,11 +234,24 @@ Phases (each raises on failure; nothing is caught):
     streams the contiguous engine's, the decode tier prefilling 0 tokens, the handoff
     bytes one slot's planes each; a ``ChaosProxy`` corrupting the first handoff falls back
     to local prefill with zero loss; (d) ``python -m <port>.serve_loadgen --replicas 2``
-    with the JAX tool's fleet summary keys;
-32. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+    with the JAX tool's fleet summary keys; then, on (a)-(b)'s fleet once (c)-(d) are done,
+    (e) the promotion gate (``deploy.Promoter``, scorers of ``models.lm.decode_nll`` on
+    the card): [25]'s LM published into a versioned store with a clean stamp gates,
+    canaries on one replica and is promoted fleet-wide; a noisy copy is rejected at the
+    NLL gate; a head-negated copy passes a loosened gate and is rolled back at the canary
+    by the incumbent-scored NLL of its sampled tokens; the ledger in order, the events
+    with the JAX package's keys, every request ok through the rolls, B6 = layers x
+    decode steps in every replica process;
+32. the parallelism planner (``planner_phase``): (a) ``plan.Topology.detect`` of the card;
+    (b) ``train.composed --plan tune --flash-attention --seq-len 2048`` at world 1: three
+    measured candidates (the dense core in the trials), B4/B5 launches = the planned
+    run's, ``plan_report`` against the run's telemetry; (c) the saved plan replayed
+    bitwise against the pinned ``--mesh``/``--grad-accum``; (d) ``for_serve``'s slot
+    bytes against the engine's ``byte_accounting`` for kv_dtype None, int8 and fp8;
+33. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
-    their launches on [27]'s, [28]'s and [30]'s paths; B6 with its serve-mesh run of [29]
-    and its replica processes of [30] and [31]), then, last, the JSON result line.
+    their launches on [27]'s, [28]'s, [30]'s and [32]'s paths; B6 with its serve-mesh run
+    of [29] and its replica processes of [30] and [31]), then, last, the JSON result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -247,6 +261,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -374,7 +389,7 @@ RING_CASES = (("ring", False, 0), ("ring", True, 0), ("ring", False, 100),
 # ring op vs the one-process flash_attention on the full sequence, both 3xTF32 kernels on
 # the card: the same pairs in other blocks, merged in f32 (the kernels' own f32 tolerance)
 RING_TOL = {"out": (2e-5, 1e-5), "grad": (1e-4, 1e-4)}
-RING_STEPS = 5                 # phases 19, 27 (a): trainer steps a run, batch 64, dropout
+RING_STEPS = 3                 # phases 19, 27 (a): trainer steps a run, batch 64, dropout
                                # off (few: the smoke's time limit holds [28] too)
 RING_TRAINER_WINDOW = 300      # phase 19's windowed runs: every hop with a nonzero offset
 RING_TRAINERS = (              # phase 19: (label, schedule, causal, window)
@@ -396,10 +411,15 @@ POISON_TRAIN = 640             # phase 21: the poisoned run's split, 10 steps an
 RESUME_ATOL = 1e-6             # phase 22 (a): 1 epoch + resume vs 2 epochs straight, both
                                # captured on the card (the tolerance of [20])
 PREEMPT_EPOCHS = 3             # phase 22 (d): SIGTERM once epoch 2 has begun
+PREFETCH_TIMED = 12800         # phase 23 (d): the timed turns' examples, 200 batches (a
+                               # fifth of the epoch: the smoke's time limit)
 HOST_FED_WINDOW = 100          # phase 23 (b): host-fed steps of each program under the
                                # profiler
 
 # The pixel LM trained on the card and served through B6, phase 25.
+LM_TRAIN = 30000               # (a), (b) and [26]'s draft LM: the train split's first
+                               # 30,000 examples, 468 steps an epoch (half the split: the
+                               # smoke's time limit)
 LM_CAPTURE_STEPS = 20          # (a): captured vs eager, and the profiler windows
 LM_CAPTURE_ATOL = 1e-5         # (a): the same operations on the same inputs on the card
 LM_PROMPT = 392                # (d): the top half of a test image
@@ -417,7 +437,7 @@ SPEC_JAX_GATES = (1.0, 1.5, 1.5)   # the JAX tool's token match, tok/step, invoc
 # phase 27: the transformer on every trainer and every sequence schedule
 SEQ_TRAJECTORY_ATOL = 1e-4     # (a), (e): seq=2 vs data=1, as [19]
 SEQ_WINDOW = 300               # (e): the windowed einsum zig-zag
-SEQ_SHORT_STEPS = 5            # (e): steps of the einsum runs (the LM's at its defaults)
+SEQ_SHORT_STEPS = 3            # (e): steps of the einsum runs (the LM's at its defaults)
 BENCH_LARGE_STEPS = 10         # (b): bench_transformer --large's steps a run
 BENCH_RUNS = 4                 # (b): its warm-up and three timed runs
 RESUME_TRAIN = 4096            # (d): the composed runs' split, 64 steps an epoch
@@ -425,12 +445,13 @@ PREEMPT_TRAIN = 1024           # (d): the preempted run's split, 16 steps an epo
 TOKEN_MATCH_BUDGET, NLL_DELTA_BUDGET = 0.90, 0.05   # (d): tests/test_quant.py's budgets
 # phase 28: the training meshes. Worlds of 2, 4 and 8 are gloo processes time-slicing the
 # one card (correctness runs: every collective staged through host memory, no scaling)
-MESH_STEPS = 10                # (a)-(d): composed steps a run, at the composed widths
-MESH_LM_STEPS = 10             # (f): the LM's steps a run, at LMConfig's widths
+MESH_STEPS = 5                 # (a)-(d): composed steps a run, at the composed widths
+                               # (few: the smoke's time limit)
+MESH_LM_STEPS = 5              # (f): the LM's steps a run, at LMConfig's widths
 MESH_MICROBATCHES = 4          # (b): the pipeline's microbatches a step
 MESH_ATOL = 1e-4               # every run vs its data=1 (or one-rank) reference: losses and
-                               # every parameter (the sums of another layout, 20 SGD steps)
-DEFAULT_MESH_TRAIN = 1280      # (e): the JAX default mesh's short epoch, 20 steps of 64
+                               # every parameter (the sums of another layout, MESH_STEPS steps)
+DEFAULT_MESH_TRAIN = 640       # (e): the JAX default mesh's short epoch, 10 steps of 64
 
 
 PHASE_START: dict[int, float] = {}   # main()'s phases by number: when each began
@@ -998,7 +1019,7 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
     """Phase 27: the transformer on every trainer and every sequence schedule, on the card.
 
     (a) ``train.composed --mesh data=1,seq=2 --seq-impl ulysses --flash-attention`` at the
-    composed widths (seq 2048) for 5 steps on two gloo ranks sharing the card, against
+    composed widths (seq 2048) for 3 steps on two gloo ranks sharing the card, against
     ``--mesh data=1`` in this process, each rank's B4/B5 launches against the plan;
     (b) ``python -m <port>.bench_transformer --large --flash`` (its ``main``, in this
     process, so that its launches can be read): its JSON line, the flash route, B4/B5
@@ -1045,15 +1066,17 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
     # -- (a), (e): every seq=2 run in one fleet, the data=1 references here ----------------
     stem = str(OUT_DIR / "seq_run")
     t0 = time.perf_counter()
-    run_seq_fleet("[27] seq=2:", [
+    fleet = start_fleet(seq_fleet_command([
         (trainer, f"{stem}{i}_w2.npz", ["--mesh", "data=1,seq=2", *flags], steps)
-        for i, (_, flags, _, trainer, steps) in enumerate(SEQ_RUNS)])
+        for i, (_, flags, _, trainer, steps) in enumerate(SEQ_RUNS)]))
+    for i, (_, _, ref_flags, trainer, n_steps) in enumerate(SEQ_RUNS):
+        run = composed_trajectory if trainer == "composed" else lm_trajectory
+        run(f"{stem}{i}_w1.npz", "--mesh", "data=1", *ref_flags, steps=n_steps)
+    finish_fleet("[27] seq=2:", fleet)
     fleet_s = time.perf_counter() - t0
     layers = 2
     for i, (label, _, ref_flags, trainer, n_steps) in enumerate(SEQ_RUNS):
         w1, w2 = f"{stem}{i}_w1.npz", f"{stem}{i}_w2.npz"
-        run = composed_trajectory if trainer == "composed" else lm_trajectory
-        run(w1, "--mesh", "data=1", *ref_flags, steps=n_steps)
         one, two = np.load(w1), np.load(w2)
         params = [k for k in one.files
                   if k not in ("losses", "train", "test", "epoch_seconds", "steps")]
@@ -1091,7 +1114,8 @@ def transformer_trainers_phase(dev, card: str, train_ds, test_ds) -> dict:
               f"{shown}; launches by rank {counts or 'n/a (the LM runs no kernel)'}; step "
               f"{step_ms:.3f} ms at seq=2 (two ranks time-slicing one card, every transfer "
               f"staged through host memory: no scaling point) [{card}]")
-    print(f"[27] (a), (e) the seq=2 fleet: {fleet_s:.1f} s for {len(SEQ_RUNS)} runs; "
+    print(f"[27] (a), (e) the seq=2 fleet, the data=1 references in this process meanwhile: "
+          f"{fleet_s:.1f} s for {len(SEQ_RUNS)} runs; "
           f"Ulysses' B4/B5 operands on each rank {list(ULYSSES_LOCAL)} f32")
 
     # -- (b) bench_transformer --large --flash ---------------------------------------------
@@ -2009,6 +2033,18 @@ FLEET_TIMEOUT = 300.0          # seconds a batch of futures may take
 TIER_REQUESTS = 8              # (c): prompts of 64-256 tokens
 TIER_MAX_NEW = 32
 TIER_CHAOS = "corrupt:dir=c2s,after=1,conn=0"    # (c): the first handoff's 2nd unit damaged
+PROMOTE_EVAL_ROWS = 8          # (e): the gate's held-out test images, scored by decode_nll
+PROMOTE_PROMPT = 592           # (e): the canary traffic's prompts, 192 new tokens each: every
+                               # completion a full 784-token sample for the scorer
+PROMOTE_ROUND = 8              # (e): fresh requests a dwell round
+PROMOTE_ROUNDS = 8             # (e): dwell rounds at most (both sides need PROMOTE_MIN)
+PROMOTE_MIN = 3                # (e): completions on each side of the canary comparison
+PROMOTE_WINDOW = 1.0           # (e): the canary window's seconds (the dwell's floor)
+PROMOTE_NLL_MARGIN = 0.5       # (e): canary vs fleet sampled NLL (different prompts a side)
+PROMOTE_ROLL_TRAFFIC = (64, 8)  # (e): prompt and new tokens of the requests during the rolls
+PROMOTE_ROLL_PAUSE = 0.25      # (e): seconds between those requests' pairs
+PROMOTE_PERF_PROBES = 1        # (e): timed decode_nll probes a gate (each 784 steps)
+PROMOTE_IDS = (1000, 1160)     # (e): the test images it draws (gate rows, then prompts)
 
 
 def fleet_replica_child() -> None:
@@ -2121,8 +2157,267 @@ def jax_fleet_summary_keys() -> set[str]:
     return keys
 
 
+class PromoteScorers:
+    """(e)'s probes, the JAX package's ``tools/train_serve_loop.py`` rules on the port:
+    ``models.lm.decode_nll`` on the card over ``PROMOTE_EVAL_ROWS`` held-out test images
+    (the gate's NLL, and the fixed scorer of the canary's sampled tokens under the
+    incumbent), a timed ``decode_nll`` as the perf probe (an untimed call first when the
+    params were not on the card yet), params loaded through ``load_params_or_state`` as
+    the replicas load them, cached by path."""
+
+    def __init__(self, model, dev, eval_ids):
+        import torch
+
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+
+        self.lm, self.model, self.dev = lm, model, dev
+        self.template = model.init(torch.Generator().manual_seed(0))
+        self.eval = torch.from_numpy(eval_ids).to(dev)
+        self._cache: dict = {}
+
+    def params(self, path: str) -> dict:
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+            checkpoint,
+        )
+
+        if path not in self._cache:
+            loaded = checkpoint.load_params_or_state(path, self.template)
+            self._cache = {path: {k: p.to(self.dev) for k, p in loaded.items()}}
+        return self._cache[path]
+
+    def score(self, params, tokens) -> float:
+        import torch
+
+        with torch.no_grad():
+            return self.lm.decode_nll(self.model, params, tokens).item()
+
+    def nll(self, path: str) -> float:
+        return self.score(self.params(path), self.eval)
+
+    def perf(self, path: str) -> float:
+        fresh = path not in self._cache
+        p = self.params(path)
+        if fresh:                  # absorb the load and the transfer, as the tool's probe
+            self.score(p, self.eval)
+        t0 = time.perf_counter()
+        self.score(p, self.eval)
+        return time.perf_counter() - t0
+
+    def sample_nll(self, samples: list, scorer_path: str) -> float | None:
+        import torch
+
+        rows = [s["tokens"] for s in samples if len(s["tokens"]) == self.model.seq_len]
+        if not rows:
+            return None
+        return self.score(self.params(scorer_path),
+                          torch.tensor(rows, dtype=torch.int64, device=self.dev))
+
+
+def jax_event_keys(name: str) -> set[str]:
+    """The keys of the dict the JAX package's ``utils/telemetry.py::<name>`` returns, read
+    off its source (the file's text, not an import)."""
+    import ast
+
+    path = ROOT / "csed_514_project_distributed_training_using_pytorch_tpu" / "utils" / \
+        "telemetry.py"
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return)
+               and isinstance(n.value, ast.Dict))
+    return {k.value for k in ret.value.keys if isinstance(k, ast.Constant)}
+
+
+def promoter_phase(router, t_model, ckpt: Path, eval_ids, dev, out: Path) -> dict:
+    """[31] (e): ``deploy.Promoter`` over (a)-(b)'s fleet and a versioned store beside it.
+    [25]'s trained LM is published clean (it gates, canaries on one replica, and is
+    promoted fleet-wide); a copy with every leaf perturbed (N(0, 0.5) noise, seed 31) and a
+    clean stamp is rejected at the NLL gate; a copy with the head negated passes a loosened
+    gate (no NLL budget, no perf probe) into the canary, where the incumbent-scored NLL of
+    its sampled tokens rolls it back. The canary window's dwell serves rounds of fresh
+    full-length requests until both sides hold ``PROMOTE_MIN`` completions; every promote
+    and rollback roll runs under short requests. Returns the readings for the checks after the fleet stops."""
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import deploy
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        lm as lm_train, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        checkpoint, telemetry,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig,
+    )
+
+    store, ledger, stream = out / "store", out / "promotion.jsonl", out / "promote.jsonl"
+    seq = t_model.seq_len
+    scorers = PromoteScorers(t_model, dev, eval_ids[:PROMOTE_EVAL_ROWS])
+    state = checkpoint.restore_train_state(str(ckpt), st.create_train_state(
+        lm.TransformerLM(**SERVE_LM), torch.Generator().manual_seed(0),
+        optimizer=lm_train.lm_optimizer(LMConfig())))
+    step0 = int(state.step)
+    gen = torch.Generator().manual_seed(31)
+    noisy = {k: p + 0.5 * torch.randn(p.shape, generator=gen) for k, p in state.params.items()}
+    flipped = dict(state.params, head_kernel=-state.params["head_kernel"])
+    fresh = iter(range(PROMOTE_EVAL_ROWS + PROMOTE_ROUND, len(eval_ids)))
+    reused = itertools.cycle(range(PROMOTE_EVAL_ROWS, PROMOTE_EVAL_ROWS + PROMOTE_ROUND))
+    rounds, rolls, roll_ok = [], [], []
+
+    def publish(step: int, params: dict) -> str:
+        stamp = {"clean": True, "anomalies": 0, "skipped": 0, "step": step,
+                 "fingerprint": telemetry.param_fingerprint(params)}
+        return checkpoint.save_versioned(
+            str(store), state._replace(params=params, step=torch.tensor(step)), keep=8,
+            health=stamp, cursor={"version": 1, "kind": "epoch", "seed": 1, "epoch": 2,
+                                  "batch": 0, "step": step})
+
+    def burst(rows, n: int, prompt_len: int, max_new: int) -> list:
+        rows = [next(rows) for _ in range(n)]
+        futs = [router.submit(eval_ids[r, :prompt_len].copy(), max_new_tokens=max_new)
+                for r in rows]
+        return [f.result(timeout=FLEET_TIMEOUT) for f in futs]
+
+    def dwell(window_s: float) -> None:
+        """The canary window: rounds of fresh full-length requests, at least
+        ``window_s`` seconds and until both sides hold PROMOTE_MIN completions and a
+        full-length sample."""
+        t0, n = time.perf_counter(), 0
+        while True:
+            comps = burst(fresh, PROMOTE_ROUND, PROMOTE_PROMPT, seq - PROMOTE_PROMPT)
+            if not all(c.ok for c in comps):
+                raise RuntimeError(f"(e) dwell: finishes {[c.finish for c in comps]}")
+            n += 1
+            rep = router.canary_report()
+            full = [any(len(x["tokens"]) == seq for x in rep[side])
+                    for side in ("canary_samples", "fleet_samples")]
+            if (rep["canary"]["requests"] >= PROMOTE_MIN
+                    and rep["fleet"]["requests"] >= PROMOTE_MIN and all(full)
+                    and time.perf_counter() - t0 >= window_s):
+                rounds.append((n, rep["canary"]["requests"], rep["fleet"]["requests"]))
+                return
+            if n >= PROMOTE_ROUNDS:
+                raise RuntimeError(f"(e) dwell: {n} rounds left canary {rep['canary']}, "
+                                   f"fleet {rep['fleet']}, full samples {full}")
+
+    class Fleet:
+        """The router as the promoter sees it: promote and rollback rolls run under
+        short requests on a thread, each of which must finish ok."""
+
+        def canary_reload(self, path):
+            rolls.append(("canary", router.canary_reload(path)))
+            return rolls[-1][1]
+
+        def canary_report(self):
+            return router.canary_report()
+
+        def _under_traffic(self, name, fn):
+            stop, done = threading.Event(), []
+
+            def traffic():
+                while not stop.wait(PROMOTE_ROLL_PAUSE):
+                    done.extend(burst(reused, 2, *PROMOTE_ROLL_TRAFFIC))
+
+            t = threading.Thread(target=traffic, name="promote-traffic")
+            t.start()
+            try:
+                rolls.append((name, fn()))
+            finally:
+                stop.set()
+                t.join(timeout=FLEET_TIMEOUT)
+            roll_ok.append((name, len(done), sum(c.ok for c in done)))
+            return rolls[-1][1]
+
+        def promote_canary(self):
+            return self._under_traffic("promote", router.promote_canary)
+
+        def rollback_canary(self):
+            return self._under_traffic("rollback", router.rollback_canary)
+
+    promoter = deploy.Promoter(
+        str(store), router=Fleet(), nll_fn=scorers.nll, perf_fn=scorers.perf,
+        sample_nll_fn=lambda samples: scorers.sample_nll(samples, promoter.incumbent),
+        gate=deploy.GateConfig(perf_probes=PROMOTE_PERF_PROBES),
+        canary=deploy.CanaryConfig(window_s=PROMOTE_WINDOW, min_requests=PROMOTE_MIN,
+                                   nll_margin=PROMOTE_NLL_MARGIN),
+        ledger_path=str(ledger), telemetry=str(stream), incumbent=str(ckpt),
+        dwell_fn=dwell)
+    walls, actions, names = {}, [], {}
+    for tag, step, params in (("clean", step0 + 1, state.params),
+                              ("noisy", step0 + 2, noisy),
+                              ("flipped", step0 + 3, flipped)):
+        names[tag] = os.path.basename(publish(step, params))
+        if tag == "flipped":       # the loosened gate: no NLL budget, no perf probe
+            promoter.gate = deploy.GateConfig(nll_budget=float("inf"))
+            promoter.perf_fn = None
+        t0 = time.perf_counter()
+        actions += promoter.run_once()
+        walls[tag] = time.perf_counter() - t0
+    promoter.close()
+    return {"actions": actions, "names": names, "walls": walls, "rounds": rounds,
+            "rolls": rolls, "roll_ok": roll_ok, "incumbent": promoter.incumbent,
+            "incumbent_nll": promoter.incumbent_nll, "command": list(router._command),
+            "ledger": deploy.read_ledger(str(ledger)),
+            "events": [json.loads(line) for line in open(stream)]}
+
+
+def check_promotion(e: dict, wall_s: float, card: str) -> None:
+    """[31] (e)'s checks on ``promoter_phase``'s readings, and its line: the terminal
+    actions, the ledger's transitions in order, the incumbent and the fleet's command on
+    the clean candidate, the events with the JAX package's keys, every request during the
+    rolls ok."""
+    names = e["names"]
+    want_ledger = ["candidate_seen", "gate_pass", "canary_start", "canary_pass", "promoted",
+                   "candidate_seen", "gate_fail",
+                   "candidate_seen", "gate_pass", "canary_start", "canary_fail",
+                   "rolled_back"]
+    ledger = e["ledger"]
+    by = {row["action"] + ":" + row["candidate"]: row for row in ledger}
+    clean_path = str(OUT_DIR / "fleet" / "unified" / "store" / names["clean"])
+    if e["actions"] != ["promoted", "gate_fail", "rolled_back"] or \
+            [r["action"] for r in ledger] != want_ledger or \
+            [r["candidate"] for r in ledger] != [names["clean"]] * 5 + [names["noisy"]] * 2 \
+            + [names["flipped"]] * 5 or \
+            by["gate_fail:" + names["noisy"]]["reason"] != "nll_over_budget" or \
+            e["incumbent"] != clean_path or \
+            e["command"][e["command"].index("--checkpoint") + 1] != clean_path:
+        fail(f"[31] (e) actions {e['actions']}, ledger {[(r['action'], r['candidate']) for r in ledger]}, "
+             f"incumbent {e['incumbent']}, fleet command {e['command']}")
+    keys = {"promote": jax_event_keys("promote_event"), "canary": jax_event_keys("canary_event")}
+    bad_keys = [ev for ev in e["events"] if set(ev) - {"t_s"} != keys[ev["event"]]]
+    kinds = [(ev["event"], ev.get("action") or ev.get("verdict")) for ev in e["events"]]
+    if bad_keys or kinds.count(("canary", "pass")) != 1 or \
+            kinds.count(("canary", "fail")) != 1 or ("promote", "promoted") not in kinds or \
+            ("promote", "rolled_back") not in kinds:
+        fail(f"[31] (e) events {kinds}; keys differing from the JAX package's: {bad_keys}")
+    if any(ok != n or not n for _, n, ok in e["roll_ok"]):
+        fail(f"[31] (e) requests during the rolls (roll, sent, ok): {e['roll_ok']}")
+    passed = by["canary_pass:" + names["clean"]]
+    failed = by["canary_fail:" + names["flipped"]]
+    noisy = by["gate_fail:" + names["noisy"]]
+    print(f"[31] (e) deploy.Promoter over this fleet and a versioned store "
+          f"(utils.checkpoint.save_versioned, clean health stamps), decode_nll on the card "
+          f"over {PROMOTE_EVAL_ROWS} test images: [25]'s LM as {names['clean']}: gate NLL "
+          f"{by['gate_pass:' + names['clean']]['nll']:.6f} vs the incumbent's "
+          f"{by['gate_pass:' + names['clean']]['incumbent_nll']:.6f}, perf "
+          f"{by['gate_pass:' + names['clean']]['perf_s']:.3f} s vs "
+          f"{by['gate_pass:' + names['clean']]['incumbent_perf_s']:.3f} s; canary on "
+          f"replica {passed['replica']} ({passed['canary_requests']} vs "
+          f"{passed['fleet_requests']} requests, sampled NLL {passed['canary_nll']:.4f} vs "
+          f"{passed['fleet_nll']:.4f}) -> promoted fleet-wide; {names['noisy']} (every leaf "
+          f"+ N(0, 0.5)): gate NLL {noisy['nll']:.4f} > {noisy['incumbent_nll']:.4f} + 0.05 "
+          f"-> gate_fail, never on the fleet; {names['flipped']} (head negated, loosened "
+          f"gate): canary sampled NLL {failed['canary_nll']:.4f} > fleet "
+          f"{failed['fleet_nll']:.4f} + {PROMOTE_NLL_MARGIN} -> rolled back; ledger "
+          f"{len(ledger)} rows in order, {len(e['events'])} promote/canary events with the "
+          f"JAX package's keys; dwell rounds (rounds, canary, fleet) {e['rounds']}; requests "
+          f"during the rolls (roll, sent, ok) {e['roll_ok']}; walls "
+          f"{ {k: round(v, 1) for k, v in e['walls'].items()} } s, (e) {wall_s:.1f} s "
+          f"[{card}]")
+
+
 def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, serve,
-                compare_streams, warmup) -> dict:
+                compare_streams, warmup, eval_ids) -> dict:
     """Phase 31: the serving fleet on the card, every process a port entry point. (a)
     ``serving.router.Router`` over 2 unified paged replicas (B6) with affinity: 16 greedy
     requests, half sharing a prefix, replica 1 killed mid-decode: zero loss, one restart,
@@ -2135,14 +2430,19 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
     nothing, the handoff bytes the layout's plane bytes; then a ``ChaosProxy`` corrupting
     the first handoff: local prefill, zero loss; (d) ``python -m <port>.serve_loadgen
     --replicas 2``: the JAX tool's fleet keys. (a)-(b) and (c)-(d) run at once in two
-    threads while this process serves the references. Returns B6's launches by replica
-    process for the kernels line."""
+    threads while this process serves the references; then (e) the promotion gate on
+    (a)-(b)'s fleet (``promoter_phase``, alone on the card: its perf gate times
+    ``decode_nll``): [25]'s LM published clean and promoted through a canary, a noisy copy
+    rejected at the NLL gate, a head-negated copy rolled back at the canary by the sampled
+    NLL, the ledger and the events in the JAX package's order and keys, every future ok.
+    Returns B6's launches by replica process for the kernels line."""
     import numpy as np
     import torch
 
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import quant
     from csed_514_project_distributed_training_using_pytorch_tpu_torch import serving
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.obs.slo import SLOSpec
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.router import (
         Router,
     )
@@ -2199,15 +2499,19 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
     contiguous_flags = ["--checkpoint", str(ckpt), "--num-slots", str(SERVE_SLOTS)]
     results, errors, walls = {}, {}, {}
     routers: list[Router] = []
+    unified_up = threading.Event()
 
     def unified() -> None:       # (a) then (b)
         t0 = time.perf_counter()
         kill = f"kill:proc=1,step={FLEET_KILL_STEP},flag={dirs['unified'] / 'kill_flag'}"
         router = router_of("unified", paged_flags, 2, env_of(kill), warm_prefixes=8,
-                           snapshot_interval_s=0.5)
+                           snapshot_interval_s=0.5, sample_completions=4,
+                           slo=SLOSpec.parse("ttft=30,e2e=120,window=600"))
         routers.append(router)
         router.start()
-        if not router.wait_ready(timeout=FLEET_TIMEOUT):
+        ready = router.wait_ready(timeout=FLEET_TIMEOUT)
+        unified_up.set()
+        if not ready:
             raise RuntimeError("(a) the fleet did not come up")
         results["start_s"] = time.perf_counter() - t0
         results["a"] = submit_all(router, fleet_reqs)
@@ -2256,9 +2560,11 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
         results["reload"] = router.reload(str(ckpt))
         results["b_reload"] = submit_all(router, fleet_reqs)
         walls["reload"] = time.perf_counter() - t0
-        results["summary_a"] = router.stop(timeout=FLEET_TIMEOUT)
+        results["unified"] = router        # (e) runs on it once (c)-(d) are done
 
     def tiers() -> None:          # (c) then (d)
+        # the unified fleet starts first, alone on the host's cores: it is the longer path
+        unified_up.wait(timeout=FLEET_TIMEOUT)
         t0 = time.perf_counter()
         roles = [["--tier", "prefill"], ["--tier", "decode"]]
         clean = router_of("tiers", contiguous_flags, 2, env_of(), replica_extra_args=roles)
@@ -2293,6 +2599,8 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
             fn()
         except BaseException as e:             # noqa: BLE001 — surfaced below
             errors[name] = e
+        finally:
+            unified_up.set()
 
     threads = [threading.Thread(target=guarded, args=(n, f), name=f"fleet-{n}")
                for n, f in (("unified", unified), ("tiers", tiers))]
@@ -2304,6 +2612,17 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
         _, ref_contig, _, _ = serve(t_model, t_params, "contiguous", tier_reqs, warmup)
         for t in threads:
             t.join(timeout=1800)
+        if not errors:
+            # (e) the promotion gate on (a)-(b)'s fleet, alone on the card
+            t0 = time.perf_counter()
+            results["before_e"] = {p.name for p in dirs["unified"].glob("replica*_*.json")}
+            try:
+                results["e"] = promoter_phase(results["unified"], t_model, ckpt, eval_ids,
+                                              dev, dirs["unified"])
+            except BaseException as e:           # noqa: BLE001 — surfaced below
+                errors["promoter"] = e
+            walls["e"] = time.perf_counter() - t0
+            results["summary_a"] = results["unified"].stop(timeout=FLEET_TIMEOUT)
     finally:
         for router in routers:           # a failed check leaves no replica behind
             if router.last_summary is None:
@@ -2342,13 +2661,20 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
     for g in gens:
         want = layers * g["steps"]
         if g["calls"] != want or (not cpu and g["launches"] != want):
-            fail(f"[31] (a)/(b) replica {g['replica']}: B6 launches {g['launches']} (held "
+            fail(f"[31] replica {g['replica']}: B6 launches {g['launches']} (held "
                  f"calls {g['calls']}) != {layers} layers x {g['steps']} decode steps")
         if g["excess"] is not None and g["excess"] > PAGED_ATOL:
             fail(f"[31] replica {g['replica']}: B6 vs its plain version beyond atol "
                  f"{PAGED_ATOL} + rtol {PAGED_RTOL}: excess {g['excess']:.3e}")
-    b6 = {f"fleet replica {g['replica']}, process {g['pid']} [31] (a)-(b)": g["launches"]
-          for g in gens}
+    before_e = results["before_e"]
+
+    def sub_phase(g: dict) -> str:
+        """(a)-(b) for a replica process that stopped before (e) began, else (b)-(e)."""
+        return ("(a)-(b)" if f"replica{g['replica']}_{g['pid']}.json" in before_e
+                else "(b)-(e)")
+
+    b6 = {f"fleet replica {g['replica']}, process {g['pid']} [31] {sub_phase(g)}":
+          g["launches"] for g in gens}
     max_err = max((g["max_abs_err"] or 0.0) for g in gens)
     same_a = sum(got_a[r.request_id] == ref_paged[r.request_id] for r in fleet_reqs)
     print(f"[31] (a) Router over 2 python -m {PKG}.serving.replica processes (paged, pages "
@@ -2373,8 +2699,11 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
                                   got_reload, ref_paged)
     unchanged = sum(got_reload[i] == got_a[i] for i in got_a)
     reload = results["reload"]
+    e = results["e"]
+    e_rolls = sum(len(r["promoted"]) if name == "promote" else 1 for name, r in e["rolls"])
     if results["retired"] is None or summ["scale"]["retired"] != 1 or \
-            summ["scale"]["reloads"] != len(reload["reloaded"]) != 2 or \
+            len(reload["reloaded"]) != 2 or \
+            summ["scale"]["reloads"] != len(reload["reloaded"]) + e_rolls or \
             summ["ok"] != summ["requests"]:
         fail(f"[31] (b) retired {results['retired']}, scale {summ['scale']}, ok "
              f"{summ['ok']} of {summ['requests']}")
@@ -2391,6 +2720,8 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
           f"duplicates; B6 by replica process {list(b6.values())} = {layers} x their own "
           f"decode steps {[g['steps'] for g in gens]}, every call within atol {PAGED_ATOL} "
           f"+ rtol {PAGED_RTOL} of the plain version (max |err| {max_err:.3e}) [{card}]")
+    # (e)
+    check_promotion(e, walls["e"], card)
     # (c)
     got_c = streams(results["c"], "(c)", TIER_REQUESTS)
     ties_c = compare_streams("[31] (c)", t_model, params_dev, tier_reqs, got_c, ref_contig)
@@ -2512,6 +2843,156 @@ MESH_RUNS = (   # phase 28: (label, flags, world, flash operand shape on each ra
 )
 MESH_LM_RUNS = (("(f) LM data=1,model=2", "data=1,model=2", 2),
                 ("(f) LM data=2,seq=2", "data=2,seq=2", 4))
+
+
+PLAN_TRAIN, PLAN_TEST = 640, 1000   # [32] (b), (c): 10 steps of 64 at seq 2048, one eval batch
+
+
+def planner_phase(dev, card: str, train_ds, test_ds, t_model, t_params: dict) -> dict:
+    """Phase 32, the parallelism planner on the card. (a) ``Topology.detect`` of the card:
+    its name, torch's total as the ``"runtime"`` budget, the H100's peak, one device and
+    one granule. (b) ``train.composed --plan tune --flash-attention --seq-len 2048`` at
+    [9]'s widths, world 1, ``PLAN_TRAIN`` examples: ``plan_composed.json`` with ``source:
+    "tune"``, a measured step for each of the top three candidates and their ``autotune``
+    events; the trials run the dense core (the JAX rule) and launch no flash kernel, so
+    B4/B5 launches are the planned run's alone: layers x steps x the plan's grad_accum
+    (forward: and the eval batch); ``python -m <port>.plan_report`` renders it against
+    the run's telemetry. (c) ``--plan <saved>`` replayed, against the same run with
+    ``--mesh``/``--grad-accum`` pinned to the plan: bitwise equal parameters and equal
+    launches. (d) ``plan.scenarios.for_serve`` on [25]'s LM for kv_dtype None, int8 and
+    fp8: one slot's KV bytes equal the contiguous engine's ``byte_accounting``, and
+    ``search_serve``'s pick. Returns (b)'s launches for the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import plan, serving
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import composed
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        ComposedConfig,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.jsonl import (
+        read_jsonl,
+    )
+
+    t_phase = time.perf_counter()
+    root = OUT_DIR / "plan"
+    shutil.rmtree(root, ignore_errors=True)
+    os.environ.pop("PLAN_HBM_BYTES", None)
+
+    cpu = dev.type != "cuda"              # a CPU rehearsal: the CPU's topology, no launch
+    # (a) the card's topology
+    topo = plan.Topology.detect(dev)
+    if cpu:
+        ok = topo == plan.Topology(num_devices=1)
+    else:
+        ok = ("h100" in topo.device_kind.lower() and topo.hbm_source == "runtime"
+              and topo.hbm_bytes == float(torch.cuda.mem_get_info(dev)[1])
+              and topo.peak_flops == 989e12)
+    if not (ok and topo.num_devices == 1 and topo.num_slices == 1):
+        fail(f"[32] (a) Topology.detect: {topo}")
+    print(f"[32] (a) Topology.detect(cuda:0): {topo.device_kind}, hbm {topo.hbm_bytes:.0f} B "
+          f"({topo.hbm_source}: torch.cuda.mem_get_info's total), peak "
+          f"{topo.peak_flops:.3g} FLOP/s, NVLink {topo.ici_bytes:.3g} B/s, across hosts "
+          f"{topo.dcn_bytes:.3g} B/s (published figures), {topo.num_devices} device, "
+          f"{topo.num_slices} granule [{card}]")
+
+    # (b) the tuned run
+    steps = PLAN_TRAIN // COMPOSED[0]
+    base = ComposedConfig(mesh="data=1", flash_attention=True, seq_len=COMPOSED[1], epochs=1,
+                          max_train_examples=PLAN_TRAIN, max_test_examples=PLAN_TEST,
+                          device=dev.type)
+    layers = composed.build_classifier(base).num_layers
+    eval_batches = PLAN_TEST // base.batch_size_test
+
+    def run(tag: str, cfg):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = composed.main(dataclasses.replace(cfg, results_dir=str(root / tag)),
+                                    datasets=(train_ds, test_ds))
+        if not cpu:
+            torch.cuda.synchronize()
+        return state, hist, fa.launch_counts(), time.perf_counter() - t0
+
+    tuned, t_hist, t_counts, t_wall = run("tune", dataclasses.replace(
+        base, plan="tune", telemetry=str(root / "tune.jsonl")))
+    path = root / "tune" / "plan_composed.json"
+    saved = plan.Plan.load(str(path))
+    measured = [r for r in saved.candidates if r["measured_step_s"] is not None]
+    events = [r for r in read_jsonl(str(root / "tune.jsonl")) if r["event"] == "autotune"]
+    accum = saved.grad_accum
+    want = {"flash_fwd": layers * (steps * accum + eval_batches),
+            "flash_dq": layers * steps * accum, "flash_dkv": layers * steps * accum}
+    if cpu:
+        want = dict.fromkeys(want, 0)
+    if saved.source != "tune" or saved.mesh != "data=1" or len(measured) != 3 or \
+            len(events) != 3 or any(not r["measured_step_s"] > 0 for r in measured) or \
+            saved.measured_step_s != measured[0]["measured_step_s"] or t_counts != want:
+        fail(f"[32] (b) plan {saved.source} {saved.mesh} accum {accum}, {len(measured)} "
+             f"measured, {len(events)} autotune events, launches {t_counts} != {want}")
+    rows = ", ".join(f"accum {r['candidate']['grad_accum']}: predicted "
+                     f"{r['costs']['step_s'] * 1e3:.3f} ms, measured "
+                     f"{r['measured_step_s'] * 1e3:.3f} ms (warm-up {r['compile_s']:.2f} s, "
+                     f"{r['measured_flops_per_step']:.4g} flops)" for r in measured)
+    print(f"[32] (b) train.composed --plan tune --flash-attention --seq-len {COMPOSED[1]}, "
+          f"world 1, {PLAN_TRAIN} examples: {path.name} source {saved.source}, mesh "
+          f"{saved.mesh}, grad_accum {accum}; the top 3 trialed (the trainer's eager step, "
+          f"the dense core, {len(events)} autotune events): {rows}; B4/B5 launches "
+          f"{t_counts} = {layers} layers x {steps} steps x accum {accum} (+ {eval_batches} "
+          f"eval batch forward), none in the trials; val loss {t_hist.test_losses[0]:.4f}; "
+          f"main() {t_wall:.1f} s [{card}]")
+    report = subprocess.run([sys.executable, "-m", f"{PKG}.plan_report", str(path),
+                             "--telemetry", str(root / "tune.jsonl")],
+                            cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if report.returncode or "run measured (telemetry)" not in report.stdout or \
+            "meas_ms" not in report.stdout:
+        fail(f"[32] (b) plan_report exited {report.returncode}: {report.stderr[-2000:]}")
+    for line in report.stdout.splitlines():
+        print(f"[32] (b) plan_report: {line}")
+
+    # (c) the saved plan replayed against the pinned layout
+    replay, _, r_counts, r_wall = run("replay", dataclasses.replace(base, plan=str(path)))
+    pinned, _, p_counts, p_wall = run("pinned", dataclasses.replace(
+        base, mesh=saved.mesh, grad_accum=accum))
+    differ = [k for k in pinned.params if not torch.equal(replay.params[k], pinned.params[k])]
+    if differ or r_counts != want or p_counts != want:
+        fail(f"[32] (c) replay vs pinned: differing {differ}, launches {r_counts} vs "
+             f"{p_counts} (want {want})")
+    tuned_diff = max((tuned.params[k] - pinned.params[k]).abs().max().item()
+                     for k in pinned.params)
+    print(f"[32] (c) --plan {path.name} replayed ({r_wall:.1f} s) against --mesh "
+          f"{saved.mesh} --grad-accum {accum} ({p_wall:.1f} s): {len(pinned.params)} "
+          f"parameters bitwise equal, launches {r_counts} each; (b)'s tuned run against "
+          f"them max |dparam| {tuned_diff:.3e} [{card}]")
+    del tuned, replay, pinned
+    if not cpu:
+        torch.cuda.empty_cache()
+
+    # (d) the serve planner's slot bytes against the engine's
+    rows = []
+    for kv in (None, "int8", "fp8"):
+        sc = plan.scenarios.for_serve(t_model, num_slots=SERVE_SLOTS, prompt_len=LM_PROMPT,
+                                      kv_dtype=kv, device=dev)
+        engine = serving.ContinuousBatchingEngine(t_model, t_params, num_slots=SERVE_SLOTS,
+                                                  kv_layout="contiguous",
+                                                  kv_dtype=kv or "model", device=dev)
+        got = engine.byte_accounting()["kv_bytes_per_slot"]
+        pick = plan.search_serve(sc)[0]
+        if sc.stats.kv_bytes_per_slot != got or sc.topo.hbm_source != (
+                "nominal" if cpu else "runtime"):
+            fail(f"[32] (d) kv_dtype {kv}: for_serve {sc.stats.kv_bytes_per_slot} B a slot, "
+                 f"the engine's byte_accounting {got}")
+        rows.append(f"{kv or 'model'} {got:.0f} B (pick {pick.shard_spec()}, predicted "
+                    f"{pick.costs.tokens_per_s:.4g} tokens/s, {pick.costs.slots_at_budget} "
+                    f"slots at the budget)")
+        del engine
+    print(f"[32] (d) plan.scenarios.for_serve on [25]'s LM, {SERVE_SLOTS} slots: one slot's "
+          f"KV bytes = the contiguous engine's byte_accounting: {'; '.join(rows)} [{card}]")
+    print(f"[32] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"tf32": t_counts, "grad_accum": accum}
 
 
 def mesh_phase(dev, card: str) -> dict:
@@ -3693,9 +4174,10 @@ def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
     model = Net()
     step_fn = st.make_train_step(model, learning_rate=LR, momentum=MOMENTUM, use_pallas=True)
     wait = {}
+    timed = mnist.truncate(train_ds, PREFETCH_TIMED)
     for depth in (0, 2, 2, 0):
         state = st.create_train_state(model, torch.Generator().manual_seed(1), device=dev)
-        feed = BatchLoader(train_ds, BATCH, shuffle=True, seed=1, prefetch=depth,
+        feed = BatchLoader(timed, BATCH, shuffle=True, seed=1, prefetch=depth,
                            device=dev if depth else None)
         t0 = time.perf_counter()
         for bx, by in feed:
@@ -3705,8 +4187,8 @@ def host_fed_phase(dev, card: str, train_ds, test_ds) -> None:
         sync()
         wait.setdefault(depth, []).append((feed.pop_wait_s(), time.perf_counter() - t0))
     print(f"[23] (d) BatchLoader(prefetch=2, device={dev}): {n} batches == the host "
-          f"iterator's, in order, bitwise; an epoch fed to the eager fused step in turns "
-          f"(data wait s / epoch s): without prefetch "
+          f"iterator's, in order, bitwise; {PREFETCH_TIMED // BATCH} batches fed to the "
+          f"eager fused step in turns (data wait s / s): without prefetch "
           f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[0])}; prefetch=2 "
           f"{', '.join(f'{w:.4f} / {s:.3f}' for w, s in wait[2])} [{card}]")
 
@@ -3717,7 +4199,8 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     (a) ``python -m <port>.train.lm --epochs 2 --keep-checkpoints 2``'s flags through
     ``parse_config`` and ``train.lm.main`` at ``LMConfig``'s defaults (vocab 16 + BOS, seq
     784, embed 64, 2 layers, 4 heads, batch 64, AdamW 1e-3, clip 1.0) on the synthetic
-    seed-514 split, 937 steps an epoch in captured segments; of the first epoch: its
+    seed-514 split's first ``LM_TRAIN`` examples, 468 steps an epoch in captured segments;
+    of the first epoch: its
     seconds, ms a step, the first and last segments' mean losses (the loss must fall), the
     test NLL per token (below ln 17) and its perplexity. Then 20 steps of the trainer's step (``train.lm.make_lm_step`` at the
     same flags) captured against the eager loop from the trainer's start on its first plan
@@ -3765,12 +4248,13 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
     # (a) two epochs at the defaults, captured, the store keeping each epoch's checkpoint
     # ((b) resumes from the first); (a)'s readings are the first epoch's
     state, hist, wall, segments, argv = train("a", ["--epochs", "2", "--keep-checkpoints",
-                                                    "2"])
+                                                    "2", "--max-train-examples",
+                                                    str(LM_TRAIN)])
     steps = int(state.step) // 2
     per_epoch = -(-steps // lm_train.SEGMENT_STEPS)
     first, last = segments[0].mean().item(), segments[per_epoch - 1].mean().item()
     nll = hist.test_losses[0]
-    if steps != len(train_ds) // 64 or len(segments) != 2 * per_epoch:
+    if steps != min(len(train_ds), LM_TRAIN) // 64 or len(segments) != 2 * per_epoch:
         fail(f"[25] (a) {2 * steps} steps in {len(segments)} segments")
     if not last < first:
         fail(f"[25] (a) the train loss did not fall: first segment {first}, last {last}")
@@ -3834,7 +4318,8 @@ def lm_phase(dev, card: str, train_ds, test_ds) -> dict:
 
     # (b) --resume-from (a)'s first-epoch checkpoint, against (a)'s two epochs straight
     resumed, r_hist, _, _, _ = train("b_resumed", [
-        "--epochs", "2", "--generate", "0", "--resume-from",
+        "--epochs", "2", "--generate", "0", "--max-train-examples", str(LM_TRAIN),
+        "--resume-from",
         str(root / "a" / "checkpoints" / checkpoint.versioned_name(steps))])
     straight, s_hist = state, hist
     if not int(resumed.step) == int(straight.step) == 2 * steps:
@@ -4097,6 +4582,7 @@ def spec_phase(dev, card: str, model, params: dict, ckpt: Path, train_ds, test_d
     t0 = time.perf_counter()
     argv = ["--epochs", "1", "--num-layers", "1", "--embed-dim", str(model.embed_dim // 2),
             "--num-heads", str(model.num_heads), "--generate", "0", "--device", dev.type,
+            "--max-train-examples", str(LM_TRAIN),
             "--results-dir", str(draft_dir), "--images-dir", str(draft_dir / "images")]
     _, d_hist = lm_train.main(parse_config(LMConfig, argv), datasets=(train_ds, test_ds))
     torch.cuda.synchronize()
@@ -5282,11 +5768,18 @@ def main() -> None:
                   f"{count / DP_PROFILE_STEPS:4.1f}/step  {name[:90]}")
     del d_x, d_y, grads
 
+    # the world-2 run and the world-2 trajectory at once, the world-1 trajectory here
     w2_dir = OUT_DIR / "distributed_w2"
-    w2_out = run_fleet("[15] world 2:", [
+    traj = {1: OUT_DIR / "dp_trajectory_w1.npz", 2: OUT_DIR / "dp_trajectory_w2.npz"}
+    w2_fleet = start_fleet([
         "-m", f"{PKG}.train.distributed", "--device", "cuda", "--epochs", "2",
         "--max-train-examples", str(DP_W2_TRAIN), "--max-test-examples", str(DP_W2_TEST),
         "--results-dir", str(w2_dir), "--images-dir", str(w2_dir / "images")])
+    traj_fleet = start_fleet([
+        "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+              f"chip_smoke.dp_trajectory({str(traj[2])!r})"])
+    dp_trajectory(str(traj[1]))
+    w2_out = finish_fleet("[15] world 2:", w2_fleet)
     w2_val = [json.loads(l)["loss"] for l in open(w2_dir / "metrics.jsonl")
               if json.loads(l)["kind"] == "test"]
     print(f"[15] world 2 (gloo, two ranks time-slicing one card: a correctness run, not a "
@@ -5297,11 +5790,7 @@ def main() -> None:
     if not (len(w2_val) == 2 and all(map(math.isfinite, w2_val)) and w2_val[1] < w2_val[0]):
         fail(f"[15] the world-2 val loss did not fall: {w2_val}")
 
-    traj = {1: OUT_DIR / "dp_trajectory_w1.npz", 2: OUT_DIR / "dp_trajectory_w2.npz"}
-    dp_trajectory(str(traj[1]))
-    run_fleet("[15] trajectory world 2:", [
-        "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-              f"chip_smoke.dp_trajectory({str(traj[2])!r})"])
+    finish_fleet("[15] trajectory world 2:", traj_fleet)
     w1, w2 = np.load(traj[1]), np.load(traj[2])
     e_loss = close("dp trajectory loss", torch.from_numpy(w2["losses"]),
                    torch.from_numpy(w1["losses"]), DP_TRAJECTORY_ATOL, 0.0)
@@ -5989,12 +6478,19 @@ def main() -> None:
 
     # -- 31. the serving fleet --------------------------------------------------------------
     PHASE_START[31] = time.perf_counter()
+    eval_ids = lm.tokenize_images_to_ids(torch.from_numpy(
+        test_ds.images[PROMOTE_IDS[0]:PROMOTE_IDS[1]])).numpy()
     slice20 = fleet_phase(dev, card, t_model, t_params, trained["path"], test_ids, serve,
-                          compare_streams, warmup)
+                          compare_streams, warmup, eval_ids)
     torch.cuda.empty_cache()
 
-    # -- 32. result ---------------------------------------------------------------------
+    # -- 32. the parallelism planner --------------------------------------------------------
     PHASE_START[32] = time.perf_counter()
+    slice21 = planner_phase(dev, card, train_ds, test_ds, t_model, t_params)
+    torch.cuda.empty_cache()
+
+    # -- 33. result ---------------------------------------------------------------------
+    PHASE_START[33] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -6037,6 +6533,8 @@ def main() -> None:
     tf32 = ("flash_fwd_tf32", "flash_dq_tf32", "flash_dkv_tf32")
     new_paths |= {f"composed {label}, rank 0 [28]": (launches, dict(zip(tf32, counted)))
                   for label, launches in slice17.items()}
+    new_paths[f"composed --plan tune, the planned run (grad_accum {slice21['grad_accum']}) "
+              f"[32] (b)"] = (slice21["tf32"], dict(zip(tf32, counted)))
     for entry in kernels:
         for path, (counts, names) in new_paths.items():
             if entry["name"] in names:
@@ -6050,7 +6548,7 @@ def main() -> None:
             entry.setdefault("launches_by_path", {}).update(slice19["b6"])
         if entry["name"] == "paged_attend":              # [31]'s fleet replicas
             entry["launches_by_path"].update(slice20["b6"])
-    print(f"[32] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[33] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,6 +19,9 @@ Counterpart of the JAX package's ``parallel/mesh.py`` (that module imports JAX):
   ``ProcessGrid`` (``--dcn-data``): the ``data`` axis's leading factor strides over
   ``num_slices`` equal, contiguous granules of ranks (one per slice), so that only that
   factor's collectives cross between granules.
+- ``device_memory_budget``, ``num_granules`` and ``topology_summary`` are what the
+  parallelism planner (``plan/``) prices layouts against: one rank, one device, so the
+  device count is the world's size, and the granules are the world's distinct hosts.
 
 The backend is chosen by rule and named in every result: ``nccl`` when the ranks run on
 CUDA and each rank on this host has a card of its own (rank r on ``cuda:LOCAL_RANK``);
@@ -33,6 +36,7 @@ import dataclasses
 import datetime
 import math
 import os
+import socket
 from dataclasses import dataclass
 
 import numpy as np
@@ -332,3 +336,75 @@ def shard_slices(full_len: int, size: int, index: int, groups: int = 1) -> list[
     part = full_len // groups
     w = part // size
     return [slice(g * part + index * w, g * part + (index + 1) * w) for g in range(groups)]
+
+
+# Nominal per-device budget when neither torch nor the spec table knows the device (the
+# CPU, unknown kinds): deterministic rather than a guess per machine, the JAX package's
+# value; override with PLAN_HBM_BYTES.
+DEFAULT_DEVICE_MEMORY = 16 << 30
+
+
+def device_kind(device: torch.device | str = "cuda") -> str:
+    """The device's name as the spec tables key it: torch's CUDA device name (raises
+    without a card), or ``"cpu"``."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def device_memory_budget(device: torch.device | str = "cuda") -> tuple[int, str]:
+    """Usable device-memory bytes for one device, with provenance, in the JAX package's
+    order of sources: ``"env"`` (the ``PLAN_HBM_BYTES`` override), ``"runtime"`` (on a
+    card, the total ``torch.cuda.mem_get_info`` reports for it), ``"spec"`` (the
+    per-kind capacity table, ``utils.benchmarks.HBM_CAPACITY_BY_KIND``) or
+    ``"nominal"`` (``DEFAULT_DEVICE_MEMORY``)."""
+    # Lazy: utils.benchmarks pulls the trainer stack, which imports this module.
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.benchmarks import (
+        HBM_CAPACITY_BY_KIND,
+        lookup_by_kind,
+    )
+
+    if os.environ.get("PLAN_HBM_BYTES"):
+        return int(os.environ["PLAN_HBM_BYTES"]), "env"
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1]), "runtime"
+    cap = lookup_by_kind(HBM_CAPACITY_BY_KIND, device_kind(device))
+    if cap is not None:
+        return int(cap), "spec"
+    return int(DEFAULT_DEVICE_MEMORY), "nominal"
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def num_granules() -> int:
+    """How many hosts the process group spans: the boundaries its collectives cross
+    between machines (1 without a group, or at one rank). At more than one rank every rank
+    must call it: the host names are all-gathered."""
+    world = _world()
+    if world == 1:
+        return 1
+    hosts = [None] * world
+    dist.all_gather_object(hosts, socket.gethostname())
+    return len(set(hosts))
+
+
+def topology_summary(device: torch.device | str = "cuda") -> dict:
+    """One-call snapshot of the topology the planner prices layouts against, in the JAX
+    package's keys: platform (``"gpu"`` for a card), the device's kind, the device and
+    process counts (one device a rank: both the world's size), the per-device memory
+    budget and its source, and the granule count. A collective at more than one rank
+    (``num_granules``)."""
+    device = torch.device(device)
+    budget, source = device_memory_budget(device)
+    world = _world()
+    return {
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": device_kind(device),
+        "device_count": world,
+        "process_count": world,
+        "hbm_bytes": budget,
+        "hbm_source": source,
+        "num_granules": num_granules(),
+    }

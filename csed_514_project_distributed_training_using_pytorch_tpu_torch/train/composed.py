@@ -70,6 +70,12 @@ the first epoch call's seconds and one step's flops as the ``compile`` event, on
 ``epoch`` event an epoch and the ``mfu`` event; ``--health-stats`` adds one ``health``
 event an epoch from the segment's accumulators (the grad norm is the grid's
 ``sharded_norm_fn``, as the step's clip reads it).
+
+``--plan auto|tune|<path>`` picks the layout instead of ``--mesh`` (``plan/``: the mesh,
+``--fsdp``, ``--grad-accum`` and ``--pipeline-microbatches`` over the launched world's
+devices; ``tune`` trials the top three one-device candidates first, at a world of one),
+saves ``<results_dir>/plan_composed.json`` and emits the ``plan`` (and ``autotune``)
+telemetry events; without it nothing changes.
 """
 
 from __future__ import annotations
@@ -344,25 +350,44 @@ def main(config: ComposedConfig = ComposedConfig(), *, datasets=None,
 
     ``datasets`` optionally injects a ``(train, test)`` Dataset pair; ``init_params``
     optionally replaces the drawn initial parameters (both for tests: the JAX package's
-    initial parameters carried across with ``models.transformer.params_from_jax``)."""
-    validate_config(config)
+    initial parameters carried across with ``models.transformer.params_from_jax``).
+
+    ``--plan`` is resolved inside the process group, before the grid is laid out: the
+    plan rewrites the mesh, FSDP, the gradient accumulation and the pipeline's
+    microbatches (``plan.apply_plan``), and the planned config is validated as any
+    other."""
+    if not config.plan:
+        validate_config(config)
     resolve_device(config.device)                     # fail fast, before any data work
     with cluster(config.device) as info:
+        run_plan, plan_events = None, []
+        if config.plan:
+            # trial events buffer until the telemetry writer exists (_train)
+            from csed_514_project_distributed_training_using_pytorch_tpu_torch import (
+                plan as plan_mod,
+            )
+            config, run_plan = plan_mod.apply_plan(config, "composed",
+                                                   emit=plan_events.append,
+                                                   device=info.device)
+            validate_config(config)
         order = None
         if config.dcn_data:
             names, sizes = parse_mesh_spec(config.mesh)
             order = hybrid_rank_order(names, sizes, num_slices=config.dcn_data)
         grid = ProcessGrid(config.mesh, order=order)
-        return _train(config, info, grid, datasets, init_params)
+        return _train(config, info, grid, datasets, init_params, run_plan, plan_events)
 
 
-def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_params):
+def _train(config: ComposedConfig, info, grid: ProcessGrid, datasets, init_params,
+           run_plan=None, plan_events=()):
     watch = M.Stopwatch()
     device = info.device
     data, stage = grid.axis("data"), grid.axis("stage")
     store_dir = os.path.join(config.results_dir, "checkpoints") if config.results_dir else ""
     tele = T.TrainerTelemetry(config.telemetry, config, run_type="composed", device=device,
                               axes=mesh_axes(config.mesh), preserve=bool(config.resume_from))
+    if run_plan is not None:
+        tele.plan(run_plan, plan_events)
     grt = GuardRuntime(config, store_dir=store_dir, tele=tele.writer)
     if config.download_data and datasets is None:
         download_mnist(config.data_dir)

@@ -58,7 +58,10 @@ event an epoch (and one ``data`` event on a corpus: batches, loader wait, the ne
 epoch's cursor and the epoch's token CRC), the ``mfu`` event at the end;
 ``--health-stats`` one ``health`` event an epoch from the segment's accumulators.
 
-Not ported: ``--plan`` (ROADMAP A11); it raises naming its item.
+``--plan auto|tune|<path>`` picks the mesh (data × model) and the gradient accumulation
+instead of ``--mesh``/``--grad-accum`` (``plan.apply_plan``, inside the process group,
+before the grid), saves ``<results_dir>/plan_lm.json`` and emits the ``plan`` (and
+``autotune``) telemetry events; without it nothing changes.
 """
 
 from __future__ import annotations
@@ -243,6 +246,15 @@ def main(config: LMConfig = LMConfig(), *,
     store_dir = os.path.join(config.results_dir, "checkpoints") if config.results_dir else ""
     grt = GuardRuntime(config, store_dir=store_dir)
     with cluster(device) as info:
+        run_plan, plan_events = None, []
+        if config.plan:
+            # before the grid: the plan rewrites --mesh and --grad-accum; the trial events
+            # buffer until the telemetry writer exists
+            from csed_514_project_distributed_training_using_pytorch_tpu_torch import (
+                plan as plan_mod,
+            )
+            config, run_plan = plan_mod.apply_plan(config, "lm", emit=plan_events.append,
+                                                   device=info.device)
         grid = ProcessGrid(lm_mesh(config.mesh, info.process_count,
                                    zigzag=config.zigzag_attention))
         data, seq, tp_axis = grid.axis("data"), grid.axis("seq"), grid.axis("model")
@@ -252,6 +264,8 @@ def main(config: LMConfig = LMConfig(), *,
                                   device=info.device, axes=mesh_axes(grid.spec),
                                   preserve=bool(config.resume_from))
         grt.tele = tele.writer
+        if run_plan is not None:
+            tele.plan(run_plan, plan_events)
         # the ranks of one data coordinate hold the same batch and draw the same dropout
         # masks
         data_rank = data.index

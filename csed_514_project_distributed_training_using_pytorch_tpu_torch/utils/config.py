@@ -221,6 +221,13 @@ class ComposedConfig(StepOptions, ResilienceOptions, ModelKnobs):
     mesh: str = "data=2,seq=2,model=2"  # named axes (data: DP, seq: ring/Ulysses, model:
                                         # Megatron TP, expert: MoE, stage: pipeline);
                                         # product = the launcher's world
+    plan: str = ""                      # automatic parallelism planning (plan/): 'auto'
+                                        # picks mesh/fsdp/grad-accum/microbatches from
+                                        # the analytical cost model, 'tune' re-ranks
+                                        # the top candidates by measured step time, a
+                                        # path replays a saved plan JSON; overrides
+                                        # --mesh/--fsdp/--grad-accum/
+                                        # --pipeline-microbatches. "" changes nothing
     pipeline_microbatches: int = 4      # microbatches a step under a stage axis (bubble
                                         # (S-1)/(M+S-1)); batch/grad_accum must divide
                                         # by it, and the microbatch by the data axis
@@ -269,8 +276,8 @@ class LMConfig:
     ``LMConfig`` with its default, plus ``device``. Meshes: none (``data`` over the
     process group), or ``data``, ``seq`` and ``model`` axes whose product is the process
     count (the einsum ring, or the einsum zig-zag with ``zigzag_attention``, on seq;
-    Megatron TP over the blocks on model); ``plan`` raises naming ROADMAP A11
-    (``check_lm_config``)."""
+    Megatron TP over the blocks on model); ``plan`` picks the mesh and the gradient
+    accumulation (``plan.apply_plan``: data x model)."""
 
     epochs: int = 2
     batch_size: int = 64                # global batch, split over the data ranks
@@ -283,7 +290,9 @@ class LMConfig:
     kv_heads: int = 0                   # grouped-query K/V heads (0 = MHA); divides heads
     mesh: str = ""                      # "" (data over every rank) or data/seq/model
                                         # axes, e.g. "data=2,seq=2", "data=1,model=2"
-    plan: str = ""                      # raises: automatic planning (ROADMAP A11)
+    plan: str = ""                      # automatic parallelism planning (plan/): 'auto'
+                                        # | 'tune' | a saved plan JSON; overrides
+                                        # --mesh/--grad-accum. "" changes nothing
     zigzag_attention: bool = False      # the zig-zag causal ring on the seq axis
                                         # (seq_len % (2·seq) == 0)
     rope: bool = False                  # rotary position embeddings (no pos_embed)
@@ -331,11 +340,8 @@ class LMConfig:
 
 
 def check_lm_config(config: LMConfig) -> None:
-    """Raise on the LM trainer's knobs the port does not run, naming the ROADMAP item,
-    and on values the JAX package refuses, before any data or rendezvous work."""
-    if config.plan:
-        raise ValueError("--plan (automatic parallelism planning) is not ported yet "
-                         "(ROADMAP A11)")
+    """Raise on the LM trainer's knob values the JAX package refuses, before any data or
+    rendezvous work."""
     check_health_stats(config)
     if config.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {config.grad_accum}")

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``utils/metrics.py``: the loss trajectories, the
 every-``log_interval`` train progress line, the post-eval test summary, the data-parallel
-epoch summary, the ``metrics.jsonl`` artifact and the host-fed loops' live progress bar.
+epoch summary, the ``metrics.jsonl`` artifact (and its reader, ``load_metrics_jsonl``) and
+the host-fed loops' live progress bar.
 The lines are character for character the JAX package's, and only rank 0 of a process
 group prints them.
 """
@@ -63,6 +64,18 @@ def save_metrics_jsonl(history: MetricsHistory, path: str) -> str:
     payload = "".join(json.dumps(row, allow_nan=False) + "\n" for row in rows)
     _atomic_write(path, payload.encode())
     return path
+
+
+def load_metrics_jsonl(path: str) -> list[dict]:
+    """Read-side inverse of ``save_metrics_jsonl``, and the one reader of every JSONL this
+    repo writes (the telemetry stream, the serving logs): one dict per non-blank line,
+    unknown event kinds passed through, a torn final line skipped
+    (``utils.jsonl.read_jsonl``)."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.jsonl import (
+        read_jsonl,
+    )
+
+    return read_jsonl(path)
 
 
 class Stopwatch:

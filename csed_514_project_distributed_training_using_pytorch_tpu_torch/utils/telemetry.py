@@ -253,9 +253,9 @@ def train_step_flops(step_fn, state, *batch) -> float:
 class TrainerTelemetry:
     """A trainer's telemetry: the writer (rank-0 gated, atomic, ``preserve`` on a resumed
     run), the manifest at construction, the ``compile`` event from the first segment
-    call's seconds (``first_call``), one ``epoch`` (and, with ``health``, one ``health``)
-    event an epoch, and the ``mfu`` event with the best step time at ``close``. Every
-    method is a no-op when ``path`` is empty."""
+    call's seconds (``first_call``), the ``plan`` event of a planned run (``plan``), one
+    ``epoch`` (and, with ``health``, one ``health``) event an epoch, and the ``mfu`` event
+    with the best step time at ``close``. Every method is a no-op when ``path`` is empty."""
 
     def __init__(self, path: str, config, *, run_type: str, device,
                  axes: dict[str, int] | None = None, preserve: bool = False):
@@ -309,6 +309,13 @@ class TrainerTelemetry:
             mfu=estimate_mfu(self.flops_per_step, step_s, device=self.device)["mfu"]))
         if health is not None:
             self.writer.emit(health_event(epoch, health, steps, param_norm=param_norm))
+
+    def plan(self, plan, events=()) -> None:
+        """The ``plan`` event of a run that ``--plan`` laid out, then the ``autotune``
+        events its trials buffered before the writer existed."""
+        self.writer.emit(plan_event(plan))
+        for event in events:
+            self.writer.emit(event)
 
     def close(self) -> None:
         if self.on and self.best_step_s is not None:

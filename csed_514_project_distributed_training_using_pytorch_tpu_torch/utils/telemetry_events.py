@@ -10,8 +10,9 @@ The port emits a subset of these kinds: ``manifest``, ``compile``, ``epoch``, ``
 ``router_summary``, ``fleet_snapshot``, ``scale``, ``eject``, ``hedge``, ``chaos``,
 ``tier``, ``kv_handoff``, ``shed``, ``tenant_summary`` and ``slo`` from the fleet's router
 (``serving/router.py``, through ``utils/jsonl.py``); ``restart`` and ``supervise_summary``
-from the supervisor; ``span`` from the tracers. The rest wait with their producers
-(ROADMAP A11: the planner and deployment). ``describe`` is the registry's one query.
+from the supervisor; ``span`` from the tracers; ``plan`` and ``autotune`` from the
+planned trainers (``plan/``); ``promote`` and ``canary`` from the promotion gate
+(``deploy/promoter.py``). ``describe`` is the registry's one query.
 """
 
 from __future__ import annotations

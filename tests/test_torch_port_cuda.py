@@ -1791,3 +1791,40 @@ def test_handoff_planes_install_bitwise_on_the_card(device, kv):
     got = dec.run([Request(prompt=prompt, max_new_tokens=12)])[0].tokens.tolist()
     assert dec.prefill_tokens == 0 and dec.prefix_cache.hits == 1
     assert got == want
+
+
+def test_topology_detect_reads_the_card(device, monkeypatch):
+    """The planner's topology on the card: the device's name, torch's own total as the
+    ``"runtime"`` budget, the H100's published peak and links, one device and one granule
+    (no process group); ``PLAN_HBM_BYTES`` still wins, as in the JAX package."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel import mesh
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.plan import costs
+
+    monkeypatch.delenv("PLAN_HBM_BYTES", raising=False)
+    total = torch.cuda.mem_get_info(device)[1]
+    assert mesh.device_memory_budget(device) == (total, "runtime")
+    topo = costs.Topology.detect(device)
+    assert topo.device_kind == torch.cuda.get_device_name(device)
+    assert (topo.hbm_bytes, topo.hbm_source) == (float(total), "runtime")
+    assert (topo.num_devices, topo.num_slices) == (1, 1)
+    if "h100" in topo.device_kind.lower():
+        assert (topo.peak_flops, topo.ici_bytes, topo.dcn_bytes) == (989e12, 4.5e11, 5e10)
+    monkeypatch.setenv("PLAN_HBM_BYTES", str(1 << 30))
+    assert mesh.device_memory_budget(device) == (1 << 30, "env")
+
+
+def test_serve_planner_slot_bytes_equal_the_engines_on_the_card(device):
+    """``plan.scenarios.for_serve``'s slot bytes (meta planes) equal the contiguous
+    engine's ``byte_accounting`` on the card, for each KV dtype."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import plan, serving
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
+
+    model = lm.TransformerLM(seq_len=128, embed_dim=32, num_layers=2, num_heads=2)
+    params = model.init(torch.Generator().manual_seed(3))
+    for kv in (None, "int8", "fp8"):
+        engine = serving.ContinuousBatchingEngine(model, params, num_slots=4,
+                                                  kv_dtype=kv or "model", device=device)
+        sc = plan.scenarios.for_serve(model, num_slots=4, prompt_len=64, kv_dtype=kv,
+                                      device=device)
+        assert sc.stats.kv_bytes_per_slot == engine.byte_accounting()["kv_bytes_per_slot"]
+        assert sc.topo.hbm_source == "runtime"

@@ -65,7 +65,10 @@ def test_sources_found():
                    "resilience/faults.py", "resilience/supervisor.py",
                    "resilience/netfaults.py", "serving/wire.py", "fleet_supervise.py",
                    "trace_report.py", "serving/router.py", "serving/tiers.py",
-                   "serving/autoscaler.py"):
+                   "serving/autoscaler.py", "plan/__init__.py", "plan/costs.py",
+                   "plan/artifact.py", "plan/search.py", "plan/scenarios.py",
+                   "plan/autotune.py", "plan_report.py", "deploy/__init__.py",
+                   "deploy/promoter.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -79,7 +82,7 @@ def test_no_jax_imports(path):
 def test_top_level_is_a_namespace_package():
     assert not (PORT / "__init__.py").exists()
     for sub in ("data", "ops", "models", "obs", "parallel", "resilience", "serving",
-                "serving/spec", "train", "utils"):
+                "serving/spec", "train", "utils", "plan", "deploy"):
         assert (PORT / sub / "__init__.py").is_file(), sub
 
 

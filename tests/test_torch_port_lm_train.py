@@ -95,8 +95,7 @@ def test_lm_config_is_the_jax_packages_and_refuses_the_unported(monkeypatch):
     with pytest.raises(SystemExit):
         config.parse_config(config.LMConfig, ["--epoch", "1"])    # no abbreviations
     base = config.LMConfig(device="cpu")
-    for kw, match in ((dict(plan="auto"), "ROADMAP A11"),
-                      (dict(health_stats=True), "pass --telemetry PATH too"),
+    for kw, match in ((dict(health_stats=True), "pass --telemetry PATH too"),
                       (dict(zigzag_attention=True), "needs a seq axis"),
                       (dict(grad_accum=0), "grad_accum"), (dict(kv_heads=3), "kv-heads"),
                       (dict(remat_policy="save-dots"), "add --remat"),
