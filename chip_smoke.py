@@ -235,20 +235,34 @@ Phases (each raises on failure; nothing is caught):
     bytes one slot's planes each; a ``ChaosProxy`` corrupting the first handoff falls back
     to local prefill with zero loss; (d) ``python -m <port>.serve_loadgen --replicas 2``
     with the JAX tool's fleet summary keys; then, on (a)-(b)'s fleet once (c)-(d) are done,
-    (e) the promotion gate (``deploy.Promoter``, scorers of ``models.lm.decode_nll`` on
-    the card): [25]'s LM published into a versioned store with a clean stamp gates,
-    canaries on one replica and is promoted fleet-wide; a noisy copy is rejected at the
-    NLL gate; a head-negated copy passes a loosened gate and is rolled back at the canary
-    by the incumbent-scored NLL of its sampled tokens; the ledger in order, the events
-    with the JAX package's keys, every request ok through the rolls, B6 = layers x
-    decode steps in every replica process;
+    (e) the promotion gate (``deploy.Promoter``, the port tool's
+    ``train_serve_loop.Scorers``: ``models.lm.decode_nll`` on the card): [25]'s LM
+    published into a versioned store with a clean stamp gates, canaries on one replica and
+    is promoted fleet-wide; the tool's ``publish_corrupted`` copy of it (every float leaf +
+    N(0, 2), clean stamp) is rejected at the NLL gate; a head-negated copy passes a
+    loosened gate and is rolled back at the canary by the incumbent-scored NLL of its
+    sampled tokens; the ledger in order, the events with the JAX package's keys, every
+    request ok through the rolls, B6 = layers x decode steps in every replica process;
 32. the parallelism planner (``planner_phase``): (a) ``plan.Topology.detect`` of the card;
     (b) ``train.composed --plan tune --flash-attention --seq-len 2048`` at world 1: three
     measured candidates (the dense core in the trials), B4/B5 launches = the planned
     run's, ``plan_report`` against the run's telemetry; (c) the saved plan replayed
     bitwise against the pinned ``--mesh``/``--grad-accum``; (d) ``for_serve``'s slot
     bytes against the engine's ``byte_accounting`` for kv_dtype None, int8 and fp8;
-33. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+33. the train→serve promotion loop (``promote_loop_phase``), each step a port entry point
+    in a process of its own: (a) ``build_corpus`` over the repository's six frozen texts
+    (seq 256); (b) ``train_serve_loop --quick`` on that corpus at ``LMConfig``'s widths
+    (a trainer publishing while two contiguous replicas serve, the gate, the canary, the
+    corrupted candidates caught, the resume leg bitwise, the throttled run's goodput):
+    every gate true, nothing lost through the rolls, the promotion ledger's transitions in
+    order with their measured margins (a clean candidate through gate and canary to the
+    fleet; a corrupted one stopped at the NLL gate; another rolled back at the canary by
+    the incumbent-scored NLL of its sampled tokens), the promote and canary events with
+    the JAX package's keys, each leg's seconds and each promotion's seconds from publish;
+    (c)
+    ``telemetry_report`` over its streams (no unknown kind) and ``--goodput`` (its
+    ``data_wait_s`` the loop's). No port kernel lies on this path;
+34. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
     their launches on [27]'s, [28]'s, [30]'s and [32]'s paths; B6 with its serve-mesh run
     of [29] and its replica processes of [30] and [31]), then, last, the JSON result line.
@@ -328,9 +342,9 @@ FLASH_TOL = {"float32": {"out": (2e-5, 1e-5), "lse": (1e-4, 1e-4), "grad": (1e-4
                           "grad": (1e-3, BF16_RTOL)}}
 FLASH_ITERS, FLASH_WARMUP = 5, 2   # timed calls a case, after the warm-up
 CROSSOVER_SEQS = (512, 1024, 2048)
-COMPOSED_TRAIN = 60000         # phase 9: the whole synthetic train split, 937 steps of 64
-                               # (about 40 s on the card; 150 steps did not lower the val
-                               # loss at seq 2048, one epoch does)
+COMPOSED_TRAIN = 30000         # phase 9: half the synthetic train split, 468 steps of 64
+                               # (~10 s on the card; 150 steps did not lower the val loss
+                               # at seq 2048, 937 did)
 COMPOSED_TEST = 10000          # phase 9: the whole test split, 10 eval batches of 1000
 LARGE_LAYERS, LARGE_STEPS = 8, 3   # phase 10: full depth; timed steps after one warm-up
 
@@ -2157,62 +2171,6 @@ def jax_fleet_summary_keys() -> set[str]:
     return keys
 
 
-class PromoteScorers:
-    """(e)'s probes, the JAX package's ``tools/train_serve_loop.py`` rules on the port:
-    ``models.lm.decode_nll`` on the card over ``PROMOTE_EVAL_ROWS`` held-out test images
-    (the gate's NLL, and the fixed scorer of the canary's sampled tokens under the
-    incumbent), a timed ``decode_nll`` as the perf probe (an untimed call first when the
-    params were not on the card yet), params loaded through ``load_params_or_state`` as
-    the replicas load them, cached by path."""
-
-    def __init__(self, model, dev, eval_ids):
-        import torch
-
-        from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
-
-        self.lm, self.model, self.dev = lm, model, dev
-        self.template = model.init(torch.Generator().manual_seed(0))
-        self.eval = torch.from_numpy(eval_ids).to(dev)
-        self._cache: dict = {}
-
-    def params(self, path: str) -> dict:
-        from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
-            checkpoint,
-        )
-
-        if path not in self._cache:
-            loaded = checkpoint.load_params_or_state(path, self.template)
-            self._cache = {path: {k: p.to(self.dev) for k, p in loaded.items()}}
-        return self._cache[path]
-
-    def score(self, params, tokens) -> float:
-        import torch
-
-        with torch.no_grad():
-            return self.lm.decode_nll(self.model, params, tokens).item()
-
-    def nll(self, path: str) -> float:
-        return self.score(self.params(path), self.eval)
-
-    def perf(self, path: str) -> float:
-        fresh = path not in self._cache
-        p = self.params(path)
-        if fresh:                  # absorb the load and the transfer, as the tool's probe
-            self.score(p, self.eval)
-        t0 = time.perf_counter()
-        self.score(p, self.eval)
-        return time.perf_counter() - t0
-
-    def sample_nll(self, samples: list, scorer_path: str) -> float | None:
-        import torch
-
-        rows = [s["tokens"] for s in samples if len(s["tokens"]) == self.model.seq_len]
-        if not rows:
-            return None
-        return self.score(self.params(scorer_path),
-                          torch.tensor(rows, dtype=torch.int64, device=self.dev))
-
-
 def jax_event_keys(name: str) -> set[str]:
     """The keys of the dict the JAX package's ``utils/telemetry.py::<name>`` returns, read
     off its source (the file's text, not an import)."""
@@ -2229,19 +2187,27 @@ def jax_event_keys(name: str) -> set[str]:
 
 def promoter_phase(router, t_model, ckpt: Path, eval_ids, dev, out: Path) -> dict:
     """[31] (e): ``deploy.Promoter`` over (a)-(b)'s fleet and a versioned store beside it.
-    [25]'s trained LM is published clean (it gates, canaries on one replica, and is
-    promoted fleet-wide); a copy with every leaf perturbed (N(0, 0.5) noise, seed 31) and a
-    clean stamp is rejected at the NLL gate; a copy with the head negated passes a loosened
-    gate (no NLL budget, no perf probe) into the canary, where the incumbent-scored NLL of
-    its sampled tokens rolls it back. The canary window's dwell serves rounds of fresh
-    full-length requests until both sides hold ``PROMOTE_MIN`` completions; every promote
-    and rollback roll runs under short requests. Returns the readings for the checks after the fleet stops."""
+    The probes are the port tool's ``train_serve_loop.Scorers`` on [25]'s model over
+    ``PROMOTE_EVAL_ROWS`` held-out test images. [25]'s trained LM is published clean (it
+    gates, canaries on one replica, and is promoted fleet-wide); the tool's
+    ``publish_corrupted`` copy of that incumbent (every float leaf + N(0, 2), seed 31, a
+    clean stamp) is rejected at the NLL gate; a copy with the head negated passes a
+    loosened gate (no NLL budget, no perf probe) into the canary, where the
+    incumbent-scored NLL of its sampled tokens rolls it back. The canary window's dwell
+    serves rounds of fresh full-length requests until both sides hold ``PROMOTE_MIN``
+    completions; every promote and rollback roll runs under short requests. Returns the
+    readings for the checks after the fleet stops."""
+    import argparse
+
     import torch
 
     from csed_514_project_distributed_training_using_pytorch_tpu_torch import deploy
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.models import lm
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
         lm as lm_train, step as st,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train_serve_loop import (
+        Scorers, publish_corrupted,
     )
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
         checkpoint, telemetry,
@@ -2252,13 +2218,12 @@ def promoter_phase(router, t_model, ckpt: Path, eval_ids, dev, out: Path) -> dic
 
     store, ledger, stream = out / "store", out / "promotion.jsonl", out / "promote.jsonl"
     seq = t_model.seq_len
-    scorers = PromoteScorers(t_model, dev, eval_ids[:PROMOTE_EVAL_ROWS])
+    scorers = Scorers(argparse.Namespace(device=str(dev)), model=t_model,
+                      eval_rows=eval_ids[:PROMOTE_EVAL_ROWS])
     state = checkpoint.restore_train_state(str(ckpt), st.create_train_state(
         lm.TransformerLM(**SERVE_LM), torch.Generator().manual_seed(0),
         optimizer=lm_train.lm_optimizer(LMConfig())))
     step0 = int(state.step)
-    gen = torch.Generator().manual_seed(31)
-    noisy = {k: p + 0.5 * torch.randn(p.shape, generator=gen) for k, p in state.params.items()}
     flipped = dict(state.params, head_kernel=-state.params["head_kernel"])
     fresh = iter(range(PROMOTE_EVAL_ROWS + PROMOTE_ROUND, len(eval_ids)))
     reused = itertools.cycle(range(PROMOTE_EVAL_ROWS, PROMOTE_EVAL_ROWS + PROMOTE_ROUND))
@@ -2344,9 +2309,13 @@ def promoter_phase(router, t_model, ckpt: Path, eval_ids, dev, out: Path) -> dic
         dwell_fn=dwell)
     walls, actions, names = {}, [], {}
     for tag, step, params in (("clean", step0 + 1, state.params),
-                              ("noisy", step0 + 2, noisy),
+                              ("noisy", step0 + 2, None),
                               ("flipped", step0 + 3, flipped)):
-        names[tag] = os.path.basename(publish(step, params))
+        if tag == "noisy":         # the tool's corrupted republish of the incumbent
+            path = publish_corrupted(str(store), promoter.incumbent, step=step, seed=31)
+        else:
+            path = publish(step, params)
+        names[tag] = os.path.basename(path)
         if tag == "flipped":       # the loosened gate: no NLL budget, no perf probe
             promoter.gate = deploy.GateConfig(nll_budget=float("inf"))
             promoter.perf_fn = None
@@ -2396,16 +2365,18 @@ def check_promotion(e: dict, wall_s: float, card: str) -> None:
     failed = by["canary_fail:" + names["flipped"]]
     noisy = by["gate_fail:" + names["noisy"]]
     print(f"[31] (e) deploy.Promoter over this fleet and a versioned store "
-          f"(utils.checkpoint.save_versioned, clean health stamps), decode_nll on the card "
-          f"over {PROMOTE_EVAL_ROWS} test images: [25]'s LM as {names['clean']}: gate NLL "
+          f"(utils.checkpoint.save_versioned, clean health stamps), the port tool's "
+          f"train_serve_loop.Scorers (decode_nll on the card) over {PROMOTE_EVAL_ROWS} test "
+          f"images: [25]'s LM as {names['clean']}: gate NLL "
           f"{by['gate_pass:' + names['clean']]['nll']:.6f} vs the incumbent's "
           f"{by['gate_pass:' + names['clean']]['incumbent_nll']:.6f}, perf "
           f"{by['gate_pass:' + names['clean']]['perf_s']:.3f} s vs "
           f"{by['gate_pass:' + names['clean']]['incumbent_perf_s']:.3f} s; canary on "
           f"replica {passed['replica']} ({passed['canary_requests']} vs "
           f"{passed['fleet_requests']} requests, sampled NLL {passed['canary_nll']:.4f} vs "
-          f"{passed['fleet_nll']:.4f}) -> promoted fleet-wide; {names['noisy']} (every leaf "
-          f"+ N(0, 0.5)): gate NLL {noisy['nll']:.4f} > {noisy['incumbent_nll']:.4f} + 0.05 "
+          f"{passed['fleet_nll']:.4f}) -> promoted fleet-wide; {names['noisy']} (the tool's "
+          f"publish_corrupted: every float leaf + N(0, 2)): gate NLL {noisy['nll']:.4f} > "
+          f"{noisy['incumbent_nll']:.4f} + 0.05 "
           f"-> gate_fail, never on the fleet; {names['flipped']} (head negated, loosened "
           f"gate): canary sampled NLL {failed['canary_nll']:.4f} > fleet "
           f"{failed['fleet_nll']:.4f} + {PROMOTE_NLL_MARGIN} -> rolled back; ledger "
@@ -2993,6 +2964,200 @@ def planner_phase(dev, card: str, train_ds, test_ds, t_model, t_params: dict) ->
           f"KV bytes = the contiguous engine's byte_accounting: {'; '.join(rows)} [{card}]")
     print(f"[32] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {"tf32": t_counts, "grad_accum": accum}
+
+
+LOOP_TEXTS = ("DESIGN.md", "SURVEY.md", "PAPER.md", "PARITY.md", "RESULTS.md", "VERDICT.md")
+LOOP_CORPUS = ("--seq-len", "256", "--shard-sequences", "256", "--eval-frac", "0.1")
+LOOP_WIDTHS = ("--embed-dim", "64", "--num-layers", "2", "--num-heads", "4",
+               "--batch-size", "64")                     # LMConfig's, as [25] and [31]
+# A quarter of each sampled sequence generated, as the tool's default 16 new tokens are of
+# its fixture's 64: the canary scores whole samples, and with 16 of 256 the garbage a
+# corrupted candidate generates moves the mean by less than --nll-margin (a CPU run at
+# these widths on this corpus: canary 3.377 against the fleet's 3.105, promoted). The
+# margin also needs --quick's 4 epochs: an incumbent of 2 (at embed 32, one layer) left
+# the corrupted canary 0.457 above the fleet, and promoted it.
+LOOP_MAX_NEW = ("--max-new-tokens", "64")
+LOOP_TIMEOUT = 900             # [33] (b): seconds the loop may take
+LOOP_STEPS = ["candidate_seen", "gate_pass", "canary_start", "canary_pass", "promoted"]
+
+
+def promote_loop_phase(card: str) -> None:
+    """[33]: the train→serve loop as a user runs it, every step a port entry point in a
+    process of its own. (a) ``python -m <port>.build_corpus`` over the repository's six
+    frozen texts, read back through ``data.stream``; (b) ``python -m
+    <port>.train_serve_loop --quick`` on that corpus at ``LMConfig``'s widths: a trainer
+    publishing into the versioned store while two replicas serve, the promoter's gate and
+    canary, the rollback of two corrupted candidates, the resume leg bitwise and the
+    throttled run's goodput; its seven gates, the ledger and the events with the JAX
+    package's keys; each leg's seconds from the time its first line reached this process;
+    the time from each promoted checkpoint's publish (its manifest ``unix_time``) to its
+    promotion (the ledger); (c) ``python -m <port>.telemetry_report`` over the promote and
+    router streams (no unknown event kind) and ``--goodput`` over the throttled run (its
+    ``data_wait_s`` the loop's)."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.data import stream
+
+    t_phase = time.perf_counter()
+    root = OUT_DIR / "promote_loop"
+    shutil.rmtree(root, ignore_errors=True)
+    corpus, out, work = root / "corpus", root / "out", root / "work"
+    env = {**_child_env(), "PYTHONPATH": str(ROOT)}
+
+    # (a) the corpus, built here from the texts in the checkout
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.build_corpus", "--out", str(corpus), *LOOP_CORPUS,
+         *(str(ROOT / name) for name in LOOP_TEXTS)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    build_s = time.perf_counter() - t0
+    if built.returncode != 0:
+        fail(f"[33] (a) build_corpus exited {built.returncode}: {built.stderr[-2000:]}")
+    meta = stream.load_meta(str(corpus))
+    n_train = sum(e["sequences"] for e in meta["shards"])
+    n_eval = meta["eval"]["sequences"]
+    n_bytes = sum((ROOT / name).stat().st_size for name in LOOP_TEXTS) + len(LOOP_TEXTS) - 1
+    if (meta["seq_len"], meta["vocab"]) != (256, 256) or \
+            n_train + n_eval != n_bytes // 256 or n_eval != math.ceil(0.1 * (n_bytes // 256)) \
+            or stream.eval_tokens(str(corpus)).shape != (n_eval, 256) or \
+            stream.StreamLoader(str(corpus), 64).batches_per_epoch != n_train // 64:
+        fail(f"[33] (a) corpus meta {meta}, {n_bytes} bytes in")
+    print(f"[33] (a) python -m {PKG}.build_corpus over {', '.join(LOOP_TEXTS)} ({n_bytes:,} "
+          f"bytes, {build_s:.1f} s): {built.stdout.strip()}; data.stream reads it: "
+          f"{n_train // 64} batches of 64 an epoch, sha256 of every shard checked")
+
+    # (b) the loop, its output read line by line to time the legs
+    flags = (*LOOP_WIDTHS, *LOOP_MAX_NEW)
+    cmd = [sys.executable, "-m", f"{PKG}.train_serve_loop", "--quick", "--corpus",
+           str(corpus), *flags, "--out-dir", str(out), "--work-dir", str(work)]
+    t0 = time.perf_counter()
+    legs, lines = {}, []
+    with open(root / "loop.log", "w") as log:
+        # a session of its own: on a timeout its trainer and replicas go with it
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        timer = threading.Timer(LOOP_TIMEOUT, os.killpg, (proc.pid, 9))
+        timer.start()
+        try:
+            for line in proc.stdout:
+                log.write(line)
+                lines.append(line.rstrip())
+                if line.startswith("== "):
+                    legs[line.split()[1]] = time.perf_counter() - t0
+        finally:
+            timer.cancel()
+            code = proc.wait()
+    loop_s = time.perf_counter() - t0
+    if code != 0:
+        tail = "\n".join(lines[-40:])
+        fail(f"[33] (b) train_serve_loop exited {code} after {loop_s:.1f} s:\n{tail}")
+    ends = list(legs.values())[1:] + [loop_s]
+    leg_s = {name: round(end - start, 1)
+             for (name, start), end in zip(legs.items(), ends)}
+    summary = json.loads((out / "summary.json").read_text())
+    gates, promote, rollback = summary["gates"], summary["promote"], summary["rollback"]
+    if not all(gates.values()) or len(gates) != 7:
+        fail(f"[33] (b) gates {gates}")
+    # the promotion ledger: the promote leg's candidates each through gate and canary to
+    # the fleet (or superseded by a newer one), then the rollback leg's two corrupted ones
+    ledger = [json.loads(line) for line in open(out / "promotion_ledger.jsonl")]
+    walks: dict[str, list] = {}
+    for row in ledger:
+        walks.setdefault(row["candidate"], []).append(row)
+    names = list(walks)
+    *promoted_names, gated, canaried = names
+    acts = {c: [r["action"] for r in rows] for c, rows in walks.items()}
+    row = {c: {r["action"]: r for r in rows} for c, rows in walks.items()}
+    budget, margin = 0.25, 0.5                  # the tool's --nll-budget, --nll-margin
+    promoted = [c for c in promoted_names if acts[c] == LOOP_STEPS]
+    if not promoted or promoted[-1] != promote["final_incumbent"] or \
+            any(acts[c] not in (LOOP_STEPS, ["superseded"]) for c in promoted_names) or \
+            any(row[c]["gate_pass"]["nll"] > row[c]["gate_pass"]["incumbent_nll"] + budget
+                or row[c]["canary_pass"]["canary_nll"]
+                > row[c]["canary_pass"]["fleet_nll"] + margin for c in promoted) or \
+            acts[gated] != ["candidate_seen", "gate_fail"] or \
+            row[gated]["gate_fail"]["reason"] != "nll_over_budget" or \
+            row[gated]["gate_fail"]["nll"] <= row[gated]["gate_fail"]["incumbent_nll"] + budget \
+            or acts[canaried] != ["candidate_seen", "gate_pass", "canary_start", "canary_fail",
+                                  "rolled_back"] or \
+            row[canaried]["canary_fail"]["canary_nll"] \
+            <= row[canaried]["canary_fail"]["fleet_nll"] + margin or \
+            rollback["incumbent_after"] != promote["final_incumbent"] or \
+            rollback["fleet_checkpoint_after"] != promote["final_incumbent"] or \
+            promote["traffic"]["lost"] != 0 or not promote["traffic"]["ok"]:
+        fail(f"[33] (b) ledger {[(r['action'], r['candidate']) for r in ledger]}, promote "
+             f"{promote}, rollback {rollback}")
+    events = [json.loads(line) for line in open(out / "promote_telemetry.jsonl")]
+    keys = {"promote": jax_event_keys("promote_event"), "canary": jax_event_keys("canary_event")}
+    bad_keys = [ev for ev in events if set(ev) - {"t_s"} != keys[ev["event"]]]
+    kinds = [(ev["event"], ev.get("action") or ev.get("verdict")) for ev in events]
+    if bad_keys or kinds.count(("canary", "pass")) != len(promoted) or \
+            kinds.count(("canary", "fail")) != 1 or \
+            kinds.count(("promote", "promoted")) != len(promoted) or \
+            kinds.count(("promote", "rolled_back")) != 1:
+        fail(f"[33] (b) events {kinds}; keys differing from the JAX package's: {bad_keys}")
+    store = work / "train" / "checkpoints"
+    published = {e["file"]: e["unix_time"]
+                 for e in json.loads((store / "manifest.json").read_text())["entries"]}
+    to_fleet = {c: round(row[c]["promoted"]["t"] - published[c], 3) for c in promoted}
+    stages = {c: (round(row[c]["canary_start"]["t"] - row[c]["candidate_seen"]["t"], 3),
+                  round(row[c]["promoted"]["t"] - row[c]["canary_start"]["t"], 3))
+              for c in promoted}
+    print(f"[33] (b) python -m {PKG}.train_serve_loop --quick {' '.join(flags)} on that "
+          f"corpus: exit 0 in {loop_s:.1f} s (legs {leg_s} s); gates {gates}")
+    gate = {c: (round(row[c]["gate_pass"]["nll"], 4), round(row[c]["gate_pass"]["incumbent_nll"], 4),
+                round(row[c]["gate_pass"]["perf_s"], 3),
+                round(row[c]["gate_pass"]["incumbent_perf_s"], 3)) for c in promoted}
+    canary = {c: (row[c]["canary_pass"]["replica"], row[c]["canary_pass"]["canary_requests"],
+                  row[c]["canary_pass"]["fleet_requests"],
+                  round(row[c]["canary_pass"]["canary_nll"], 4),
+                  round(row[c]["canary_pass"]["fleet_nll"], 4)) for c in promoted}
+    g_fail, c_fail = row[gated]["gate_fail"], row[canaried]["canary_fail"]
+    print(f"[33] (b) promote: {promote['promoter_counts']}, {promote['initial_checkpoint']} -> "
+          f"{promote['final_incumbent']}; gate (NLL, incumbent's, perf s, incumbent's) {gate}; "
+          f"canary (replica, requests, fleet's, sampled NLL, fleet's) {canary}; publish -> "
+          f"promoted s {to_fleet} (seen -> canary, canary -> promoted s {stages}); requests "
+          f"ok {promote['traffic']['ok']}, lost {promote['traffic']['lost']} through every "
+          f"roll, router {promote['router_summary']}")
+    print(f"[33] (b) rollback: {gated} (params + N(0, 2), clean stamp): gate NLL "
+          f"{g_fail['nll']:.4f} > {g_fail['incumbent_nll']:.4f} + {budget} -> gate_fail, never "
+          f"on the fleet; {canaried} (loosened gate): canary sampled NLL "
+          f"{c_fail['canary_nll']:.4f} > fleet {c_fail['fleet_nll']:.4f} + {margin} -> rolled "
+          f"back, fleet on {rollback['fleet_checkpoint_after']}; ledger {len(ledger)} rows in "
+          f"order, {len(events)} promote/canary events with the JAX package's keys")
+    resume, data = summary["resume"], summary["data_wait"]
+    print(f"[33] (b) resume: {resume['total_epochs']} epochs straight vs {resume['split_at']} + "
+          f"resume, model_lm.ckpt bitwise {resume['bitwise_identical']}, stream digests "
+          f"{resume['digests_resumed']} equal {resume['stream_digests_match']}; data_wait: "
+          f"{data['data_wait_s']:.3f} s of {data['wall_s']:.3f} s wall at "
+          f"{data['throttle_s']} s a batch, segments {data['segments']} [{card}]")
+
+    # (c) the reader over the loop's streams
+    report = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.telemetry_report", str(out / "promote_telemetry.jsonl"),
+         str(out / "router.jsonl")], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    if report.returncode != 0 or "unrecognized events" in report.stdout or \
+            "promotions" not in report.stdout:
+        fail(f"[33] (c) telemetry_report exited {report.returncode}:\n{report.stdout[-3000:]}"
+             f"{report.stderr[-2000:]}")
+    emitted = root / "goodput_event.jsonl"
+    good = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.telemetry_report", "--goodput",
+         str(out / "train_throttled.jsonl"), "--emit", str(emitted)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    ledger_json = json.loads((out / "goodput.json").read_text())
+    got = json.loads(emitted.read_text().splitlines()[-1]) if emitted.exists() else {}
+    if good.returncode != 0 or got.get("data_wait_s") != ledger_json["segments"]["data_wait_s"]:
+        fail(f"[33] (c) --goodput exited {good.returncode}, data_wait_s {got.get('data_wait_s')} "
+             f"vs the loop's {ledger_json['segments']['data_wait_s']}:\n{good.stdout[-2000:]}"
+             f"{good.stderr[-2000:]}")
+    for line in report.stdout.splitlines():
+        if line.startswith("==") or "promotions" in line or "replica" in line[:12]:
+            print(f"[33] (c) telemetry_report: {line.strip()}")
+    for line in good.stdout.splitlines()[:4]:
+        print(f"[33] (c) telemetry_report --goodput: {line.strip()}")
+    print(f"[33] (c) no unknown event kind in either stream; --goodput data_wait_s "
+          f"{got['data_wait_s']} = the loop's goodput.json")
+    print(f"[33] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def mesh_phase(dev, card: str) -> dict:
@@ -6489,8 +6654,12 @@ def main() -> None:
     slice21 = planner_phase(dev, card, train_ds, test_ds, t_model, t_params)
     torch.cuda.empty_cache()
 
-    # -- 33. result ---------------------------------------------------------------------
+    # -- 33. the train→serve promotion loop -------------------------------------------------
     PHASE_START[33] = time.perf_counter()
+    promote_loop_phase(card)
+
+    # -- 34. result ---------------------------------------------------------------------
+    PHASE_START[34] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -6548,7 +6717,7 @@ def main() -> None:
             entry.setdefault("launches_by_path", {}).update(slice19["b6"])
         if entry["name"] == "paged_attend":              # [31]'s fleet replicas
             entry["launches_by_path"].update(slice20["b6"])
-    print(f"[33] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+    print(f"[34] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -68,7 +68,8 @@ def test_sources_found():
                    "serving/autoscaler.py", "plan/__init__.py", "plan/costs.py",
                    "plan/artifact.py", "plan/search.py", "plan/scenarios.py",
                    "plan/autotune.py", "plan_report.py", "deploy/__init__.py",
-                   "deploy/promoter.py"):
+                   "deploy/promoter.py", "build_corpus.py", "train_serve_loop.py",
+                   "telemetry_report.py"):
         assert PORT / module in SOURCES, module
 
 
