@@ -262,10 +262,20 @@ Phases (each raises on failure; nothing is caught):
     (c)
     ``telemetry_report`` over its streams (no unknown kind) and ``--goodput`` (its
     ``data_wait_s`` the loop's). No port kernel lies on this path;
-34. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
+34. the sharded replica behind the router (``sharded_fleet_phase``): a ``Router`` over 2
+    replicas each ``--shard tp=2`` (a world of 2 ranks the router spawns, restarts and
+    addresses as one), paged KV through B6 on each rank's own heads and pages, [25]'s LM;
+    (b) [31] (a)'s 16 requests with one world's follower rank SIGKILLed and the other's
+    leader killed by ``kill:proc=1,step=N``: both worlds restart whole, no old pid alive,
+    zero lost, the streams the unsharded engine's up to true ties; (a) the requests again
+    on the restarted worlds: every rank's B6 launches = layers x its world's decode steps,
+    each call held against the plain version, params + KV a rank <= the unsharded / 1.8;
+    (c) ``serve_loadgen --replicas 2 --shard tp=2`` with the JAX tool's fleet keys;
+35. one JSON line with every kernel's numbers (each flash kernel with its offset form; B6's
     int8 and fp8 branches as rows of their own; B1/B2 with their launch floor; B1-B5 with
     their launches on [27]'s, [28]'s, [30]'s and [32]'s paths; B6 with its serve-mesh run
-    of [29] and its replica processes of [30] and [31]), then, last, the JSON result line.
+    of [29] and its replica processes of [30], [31] and [34]'s ranks), then, last, the JSON
+    result line.
 
 It exits non-zero, and prints no result, when no CUDA device is present or when the port's
 package is not beside it.
@@ -475,6 +485,16 @@ def phase_seconds() -> dict[int, float]:
     """Each of main()'s phases that has begun, with its seconds (up to the next one)."""
     marks = sorted(PHASE_START.items()) + [(None, time.perf_counter())]
     return {n: round(t1 - t0, 1) for (n, t0), (_, t1) in zip(marks, marks[1:])}
+
+
+def write_json(path, doc) -> None:
+    """Write ``doc`` to ``path`` whole or not at all (tmp + rename): a child killed, or
+    ended by another of its threads, mid-write leaves only its temporary file, which no
+    reader's pattern matches."""
+    path = Path(path)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_text(json.dumps(doc))
+    os.replace(tmp, path)
 
 
 def fail(msg: str) -> None:
@@ -1314,7 +1334,7 @@ def serve_mesh_child(ckpt: str, requests_path: str, out: str) -> None:
         t0 = time.perf_counter()
         doc["loadgen_rc"] = serve_loadgen.main(argv)
         doc["loadgen_s"] = time.perf_counter() - t0
-        Path(f"{out}-rank{rank}.json").write_text(json.dumps(doc))
+        write_json(f"{out}-rank{rank}.json", doc)
 
 
 # The telemetry stream's keys per event kind, the JAX package's (utils/telemetry.py's
@@ -1574,8 +1594,8 @@ def fault_trainer_child() -> None:
                 mnist.Dataset(mnist._normalize(tx), ty.astype(np.int32), "synthetic"))
 
     data.load_mnist = load_mnist
-    atexit.register(lambda: (out / f"attempt{n}.json").write_text(json.dumps(
-        {"launches": fk.launch_counts(), "argv": argv})))
+    atexit.register(lambda: write_json(out / f"attempt{n}.json",
+                                       {"launches": fk.launch_counts(), "argv": argv}))
     sys.argv = ["train.single", *argv, "--telemetry", str(out / f"attempt{n}.jsonl")]
     runpy.run_module(f"{PKG}.train.single", run_name="__main__")
 
@@ -1617,11 +1637,11 @@ def replica_child() -> None:
 
     paged.paged_attend, replica.build_engine_server = spy, hold
     rc = replica.main(argv)
-    out.write_text(json.dumps({
+    write_json(out, {
         "rc": rc, "launches": paged.launch_counts()["paged_attend"],
         "steps": engines[0].steps, "calls": len(errs),
         "max_abs_err": max(errs) if errs else None,
-        "excess": max(excess) if excess else None, "shapes": sorted(map(list, shapes))}))
+        "excess": max(excess) if excess else None, "shapes": sorted(map(list, shapes))})
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(rc)          # as the replica's own __main__: no teardown under live threads
@@ -2062,13 +2082,14 @@ PROMOTE_IDS = (1000, 1160)     # (e): the test images it draws (gate rows, then 
 
 
 def fleet_replica_child() -> None:
-    """Phase 31: one replica of a fleet (``serving.replica.main`` with the router's argv
-    after ``<out dir>``), every B6 call held against ``paged_attend_reference``. When the
-    process ends through ``main``'s return (``stop``) or a drain's exit (``scale_down``,
-    ``reload``), it writes ``<out dir>/replica<id>_<pid>.json``: B6's launch count and the
-    held calls since the warm-up, the engine's decode steps and prefill tokens (zeroed by
-    the warm-up's ``reset_stats``), its prefix cache's counters and a decode replica's
-    handoff ledger. A killed process writes nothing. ``SMOKE_HANDOFF_CHAOS``, where set, puts a ``ChaosProxy`` of that schedule in
+    """Phases 31, 34: one replica of a fleet (``serving.replica.main`` with the router's
+    argv after ``<out dir>``; under ``--shard`` one rank of its world), every B6 call held
+    against ``paged_attend_reference``. When the process ends through ``main``'s return
+    (``stop``, a follower's end) or an exit through ``os._exit`` (a drain, a follower's
+    SIGTERM), it writes ``<out dir>/replica<id>_<pid>.json``: its rank and world, B6's
+    launch count and the held calls since the warm-up, the engine's decode steps and
+    prefill tokens (zeroed by the warm-up's ``reset_stats``), its prefix cache's counters
+    and a decode replica's handoff ledger. A killed process writes nothing. ``SMOKE_HANDOFF_CHAOS``, where set, puts a ``ChaosProxy`` of that schedule in
     front of a decode replica's handoff listener (the port the hello advertises is the
     proxy's)."""
     out, argv = Path(sys.argv[1]), sys.argv[2:]
@@ -2106,8 +2127,10 @@ def fleet_replica_child() -> None:
     def dump(rc: int) -> None:
         eng = engines[0] if engines else None
         cache = getattr(eng, "prefix_cache", None)
-        (out / f"replica{rid}_{os.getpid()}.json").write_text(json.dumps({
+        write_json(out / f"replica{rid}_{os.getpid()}.json", {
             "rc": rc, "replica": rid, "pid": os.getpid(),
+            "rank": int(os.environ.get("RANK", "0")),     # a sharded replica's world
+            "world": os.environ.get("MASTER_PORT"),      # one rendezvous port a world
             "launches": paged.launch_counts()["paged_attend"],
             "calls": len(errs), "steps": eng.steps if eng else None,
             "prefill_tokens": eng.prefill_tokens if eng else None,
@@ -2115,15 +2138,22 @@ def fleet_replica_child() -> None:
             "handoff": handoff[0].snapshot() if handoff else None,
             "max_abs_err": max(errs) if errs else None,
             "excess": max(excess) if excess else None,
-            "shapes": sorted(map(list, shapes))}))
+            "shapes": sorted(map(list, shapes))})
+
+    # Several threads may end the process at once (a dead rank fails every request
+    # thread while the world's SIGTERM reaches the main thread): the first writes the
+    # counters and exits, the others wait for that. Re-entrant for a signal handler that
+    # interrupts the main thread inside it.
+    exiting = threading.RLock()
 
     class ExitShim:         # a drain ends the process with os._exit(0) from its thread
         def __getattr__(self, name):
             return getattr(os, name)
 
         def _exit(self, code):
-            dump(code)
-            os._exit(code)
+            with exiting:
+                dump(code)
+                os._exit(code)
 
     chaos = os.environ.get("SMOKE_HANDOFF_CHAOS")
     listen = replica._start_handoff_listener
@@ -2139,10 +2169,11 @@ def fleet_replica_child() -> None:
     paged.paged_attend, replica.build_engine_server = spy, hold
     replica.os = ExitShim()
     rc = replica.main(argv)
-    dump(rc)
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(rc)          # as the replica's own __main__: no teardown under live threads
+    with exiting:
+        dump(rc)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)      # as the replica's own __main__: no teardown under live threads
 
 
 def _generations(out_dir: Path) -> list[dict]:
@@ -2387,6 +2418,27 @@ def check_promotion(e: dict, wall_s: float, card: str) -> None:
           f"[{card}]")
 
 
+def fleet_requests(test_ids) -> list:
+    """[31] (a)'s and [34]'s greedy requests: 8 prompts on one ``FLEET_SHARED``-token
+    prefix of a test image and 8 of their own, ``FLEET_MAX_NEW`` new tokens each."""
+    import numpy as np
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch import serving
+
+    rng = np.random.default_rng(31)
+    shared = test_ids[0, :FLEET_SHARED]
+    reqs = []
+    for i in range(FLEET_REQUESTS):
+        if i % 2 == 0:
+            tail = test_ids[1 + i, FLEET_SHARED:FLEET_SHARED + int(rng.integers(16, 97))]
+            prompt = np.concatenate([shared, tail])
+        else:
+            prompt = test_ids[1 + i, :int(rng.integers(48, 257))].copy()
+        reqs.append(serving.Request(prompt=prompt.astype(np.int32),
+                                    max_new_tokens=FLEET_MAX_NEW, request_id=i))
+    return reqs
+
+
 def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, serve,
                 compare_streams, warmup, eval_ids) -> dict:
     """Phase 31: the serving fleet on the card, every process a port entry point. (a)
@@ -2429,17 +2481,7 @@ def fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids, s
     layers = t_model.num_layers
 
     # the workloads: (a) 8 prompts on one 128-token prefix and 8 of their own, (c) 64-256
-    rng = np.random.default_rng(31)
-    shared = test_ids[0, :FLEET_SHARED]
-    fleet_reqs = []
-    for i in range(FLEET_REQUESTS):
-        if i % 2 == 0:
-            tail = test_ids[1 + i, FLEET_SHARED:FLEET_SHARED + int(rng.integers(16, 97))]
-            prompt = np.concatenate([shared, tail])
-        else:
-            prompt = test_ids[1 + i, :int(rng.integers(48, 257))].copy()
-        fleet_reqs.append(serving.Request(prompt=prompt.astype(np.int32),
-                                          max_new_tokens=FLEET_MAX_NEW, request_id=i))
+    fleet_reqs = fleet_requests(test_ids)
     tier_reqs = [serving.Request(prompt=test_ids[20 + i, :64 + 24 * i].copy(),
                                  max_new_tokens=TIER_MAX_NEW, request_id=i)
                  for i in range(TIER_REQUESTS)]
@@ -3158,6 +3200,239 @@ def promote_loop_phase(card: str) -> None:
     print(f"[33] (c) no unknown event kind in either stream; --goodput data_wait_s "
           f"{got['data_wait_s']} = the loop's goodput.json")
     print(f"[33] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+SHARD_SPEC = "tp=2"            # [34]: each replica a world of 2 ranks, heads 4 over 2
+SHARD_KILL_STEP = 20           # (b): replica 1's leader at its decode step 20, mid-decode
+SHARD_BYTES_RATIO = 1.8        # params + KV a rank <= the unsharded engine's / 1.8
+
+
+def sharded_fleet_phase(dev, card: str, t_model, t_params: dict, ckpt: Path, test_ids,
+                        serve, compare_streams, warmup) -> dict:
+    """Phase 34: the sharded replica behind the router, every process a port entry point.
+    A ``serving.router.Router`` over 2 replicas, each ``--shard tp=2`` (a world of 2 ranks,
+    ``train.launch.Fleet(whole=True)``), paged KV through B6 on each rank's own heads and
+    pages, [25]'s trained LM: (b) [31] (a)'s 16 greedy requests with replica 0's follower
+    rank SIGKILLed at the first completion and replica 1's leader killed by
+    ``kill:proc=1,step=N``: each world dies and restarts whole (no pid of the old
+    generation alive), zero lost, the streams equal to the unsharded in-process paged
+    engine's up to true ties; (a) the same requests again on the restarted worlds: the
+    streams again, every rank's B6 launches = layers x its world's decode steps (each call
+    held against the plain version), params + KV a rank <= the unsharded engine's / 1.8
+    (the replicas' ``stats``); (c) ``python -m <port>.serve_loadgen --replicas 2 --shard
+    tp=2 --kv-layout paged``, in a thread while (b)-(a) run: exit 0, the JAX tool's fleet
+    keys, ``shard`` "tp=2". Returns B6's launches by rank process for the kernels line."""
+    import signal
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.router import (
+        Router,
+    )
+
+    t_phase = time.perf_counter()
+    base = OUT_DIR / "sharded_fleet"
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {name: base / name for name in ("fleet", "loadgen")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    cpu = dev.type != "cuda"
+    device_flags = ["--device", "cpu"] if cpu else []
+    layers = t_model.num_layers
+    reqs = fleet_requests(test_ids)
+    flags = ["--checkpoint", str(ckpt), "--kv-layout", "paged", "--page-size",
+             str(SERVE_PAGE), "--num-slots", str(SERVE_SLOTS), "--shard", SHARD_SPEC]
+    env = _child_env(f"kill:proc=1,step={SHARD_KILL_STEP},"
+                     f"flag={dirs['fleet'] / 'kill_flag'}")
+    env["OMP_NUM_THREADS"] = "2"
+    router = Router(_child_command("fleet_replica_child", str(dirs["fleet"])) + flags
+                    + device_flags, num_replicas=2, env=env,
+                    heartbeat_dir=str(dirs["fleet"] / "hb"), heartbeat_timeout_s=60.0,
+                    backoff_s=0.5, telemetry=str(dirs["fleet"] / "router.jsonl"))
+    results, errors = {}, {}
+
+    def loadgen() -> None:            # (c), beside the router's worlds
+        t0 = time.perf_counter()
+        out = dirs["loadgen"] / "summary.json"
+        lg_env = _child_env()
+        lg_env["OMP_NUM_THREADS"] = "2"
+        code = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.serve_loadgen", "--replicas", "2", "--shard",
+             SHARD_SPEC, "--checkpoint", str(ckpt), "--kv-layout", "paged", "--page-size",
+             str(SERVE_PAGE), "--num-slots", str(SERVE_SLOTS), "--requests", "16",
+             "--max-new-tokens", "32", "--prompt-lens", "0,64,160", "--rate", "64",
+             "--summary-json", str(out), "--telemetry", str(dirs["loadgen"] / "router.jsonl"),
+             *device_flags],
+            cwd=ROOT, env=lg_env, stdout=open(dirs["loadgen"] / "loadgen.log", "w"),
+            stderr=subprocess.STDOUT, timeout=600).returncode
+        results["c"] = (code, json.loads(out.read_text()) if out.exists() else None,
+                        time.perf_counter() - t0)
+
+    def guarded() -> None:
+        try:
+            loadgen()
+        except BaseException as e:             # noqa: BLE001 — surfaced below
+            errors["c"] = e
+
+    def submit_all(reqs_):
+        futs = {r.request_id: router.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in reqs_}
+        return futs
+
+    def pids() -> list[list[int]]:
+        return [[p.pid for p in rep.fleet.procs] for rep in router.replicas]
+
+    thread = threading.Thread(target=guarded, name="sharded-loadgen")
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        if not router.wait_ready(timeout=FLEET_TIMEOUT):
+            fail("[34] the sharded fleet did not come up")
+        start_s = time.perf_counter() - t0
+        thread.start()
+        # (b) the two kills, mid-decode
+        t0 = time.perf_counter()
+        old = pids()
+        futs = submit_all(reqs)
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while not any(f.done() for f in futs.values()) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        os.kill(old[0][1], signal.SIGKILL)           # replica 0's follower rank
+        got_b = {rid: f.result(timeout=FLEET_TIMEOUT) for rid, f in futs.items()}
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while (any(rep.restarts < 1 for rep in router.replicas)
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        if not router.wait_ready(timeout=FLEET_TIMEOUT):
+            fail("[34] (b) the worlds did not come back")
+        b_s = time.perf_counter() - t0
+        new = pids()
+        alive = []
+        for pid in (p for world in old for p in world):
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        # (a) the same requests on the restarted worlds, then every rank's counters
+        t0 = time.perf_counter()
+        got_a = {rid: f.result(timeout=FLEET_TIMEOUT) for rid, f in submit_all(reqs).items()}
+        a_s = time.perf_counter() - t0
+        router._collect_stats(wait_s=60.0)
+        stats = [rep.stats["engine"] for rep in router.replicas]
+        # meanwhile the loadgen's worlds; the in-process reference after the kills
+        ref_engine, ref, _, _ = serve(t_model, t_params, "paged", reqs, warmup)
+        single = ref_engine.byte_accounting()
+        del ref_engine
+        thread.join(timeout=900)
+        summ = router.stop(timeout=FLEET_TIMEOUT)
+    finally:
+        if router.last_summary is None:
+            try:
+                router.stop(drain=False, timeout=10)
+            except Exception:          # noqa: BLE001 — teardown of a failed phase
+                pass
+    if errors or "c" not in results:
+        print((dirs["loadgen"] / "loadgen.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"[34] (c) {errors or 'did not finish'}")
+    params_dev = {k: p.to(dev) for k, p in t_params.items()}
+
+    def streams(comps: dict, tag: str) -> dict:
+        if len(comps) != FLEET_REQUESTS or not all(c.ok for c in comps.values()):
+            fail(f"[34] {tag}: finishes {[c.finish for c in comps.values()]}")
+        return {rid: c.tokens.tolist() for rid, c in comps.items()}
+
+    # (b)
+    b = streams(got_b, "(b)")
+    ties_b = compare_streams("[34] (b)", t_model, params_dev, reqs, b, ref)
+    rows = [json.loads(line) for line in open(dirs["fleet"] / "router.jsonl")]
+    fails = [r for r in rows if r["event"] == "replica" and r.get("action") == "fail"]
+    if sorted((r["replica"], r["reason"]) for r in fails) != [(0, "crash"), (1, "crash")]:
+        fail(f"[34] (b) replica failures {fails}")
+    codes = {r["replica"]: r["exit_code"] for r in fails}
+    restart_s = {}
+    for r in fails:
+        ready = next(e for e in rows if e["event"] == "replica" and e["action"] == "ready"
+                     and e["replica"] == r["replica"] and e["t_s"] > r["t_s"])
+        restart_s[r["replica"]] = ready["t_s"] - r["t_s"]
+    if alive or any(set(w) & set(n) for w, n in zip(old, new)) or \
+            [rep.restarts for rep in router.replicas] != [1, 1]:
+        fail(f"[34] (b) old pids {old} alive {alive}, new {new}, restarts "
+             f"{[rep.restarts for rep in router.replicas]}")
+    redispatched = sum(c.redispatches > 0 for c in got_b.values())
+    same_b = sum(b[r.request_id] == ref[r.request_id] for r in reqs)
+    print(f"[34] (b) Router over 2 python -m {PKG}.serving.replica --shard {SHARD_SPEC} "
+          f"worlds (2 ranks each, gloo on the one card; paged, pages of {SERVE_PAGE}, "
+          f"{SERVE_SLOTS} slots), [25]'s trained LM: {FLEET_REQUESTS} greedy requests; "
+          f"replica 0's follower rank SIGKILLed at the first completion (world exit "
+          f"{codes.get(0)}), replica 1's leader by kill:proc=1,step={SHARD_KILL_STEP} "
+          f"(world exit {codes.get(1)}): {len(got_b)} ok, {redispatched} redispatched; each "
+          f"world restarted whole (old pids {old} gone, new {new}) in "
+          f"{restart_s.get(0, 0):.1f} / {restart_s.get(1, 0):.1f} s; {same_b}/"
+          f"{FLEET_REQUESTS} streams equal to the unsharded in-process paged engine's, "
+          f"{ties_b} diverging at a true tie; fleet ready in {start_s:.1f} s, (b) "
+          f"{b_s:.1f} s [{card}]")
+    # (a)
+    a = streams(got_a, "(a)")
+    ties_a = compare_streams("[34] (a)", t_model, params_dev, reqs, a, ref)
+    # every rank process that ended through the replica's own exits wrote its counters:
+    # the restarted worlds' four ranks at the router's stop (exit 0), and those of (b)'s
+    # worlds that the teardown reached alive (their last step may be cut mid-layer)
+    gens = _generations(dirs["fleet"])
+    live = [g for g in gens if g["rc"] == 0]
+    worlds: dict[str, list[dict]] = {}
+    for g in live:
+        worlds.setdefault(g["world"], []).append(g)
+    if len(worlds) != 2 or any(sorted(g["rank"] for g in ranks) != [0, 1]
+                               or len({g["steps"] for g in ranks}) != 1
+                               for ranks in worlds.values()):
+        fail(f"[34] (a) the restarted worlds' ranks "
+             f"{[(g['replica'], g['world'], g['rank'], g['steps']) for g in live]}")
+    for g in live:
+        want = layers * g["steps"]
+        if not g["steps"] or g["calls"] != want or (not cpu and g["launches"] != want):
+            fail(f"[34] replica {g['replica']} rank {g['rank']}: B6 launches "
+                 f"{g['launches']} (held calls {g['calls']}) != {layers} layers x "
+                 f"{g['steps']} decode steps")
+    for g in gens:
+        if g["excess"] is not None and g["excess"] > PAGED_ATOL:
+            fail(f"[34] replica {g['replica']} rank {g['rank']}: B6 vs its plain version "
+                 f"beyond atol {PAGED_ATOL} + rtol {PAGED_RTOL}: excess {g['excess']:.3e}")
+    single_pk = single["params_bytes"] + single["kv_bytes_resident"]
+    per_rank = [row["params_bytes"] + row["kv_bytes"]
+                for st in stats for row in st["bytes"]["per_chip"].values()]
+    stat_launches = [r["b6_launches"] for st in stats for r in st["ranks"]]
+    if len(per_rank) != 4 or max(per_rank) * SHARD_BYTES_RATIO > single_pk:
+        fail(f"[34] (a) params + KV a rank {per_rank} vs the unsharded {single_pk} / "
+             f"{SHARD_BYTES_RATIO}")
+    b6 = {f"sharded replica {g['replica']}, rank {g['rank']}, process {g['pid']} [34] "
+          f"{'(a)' if g['rc'] == 0 else '(b)'}": g["launches"] for g in gens}
+    max_err = max((g["max_abs_err"] or 0.0) for g in gens)
+    shapes = sorted({tuple(s) for g in gens for s in g["shapes"]})
+    same_a = sum(a[r.request_id] == ref[r.request_id] for r in reqs)
+    tokens = sum(len(a[r.request_id]) - len(r.prompt) for r in reqs)
+    print(f"[34] (a) the same {FLEET_REQUESTS} requests on the restarted worlds: {same_a}/"
+          f"{FLEET_REQUESTS} streams equal, {ties_a} ties; {tokens / a_s:.1f} tokens/s "
+          f"({tokens} new tokens in {a_s:.2f} s); B6 per rank process "
+          f"{[(g['replica'], g['rank'], g['launches'], g['steps']) for g in gens]} "
+          f"(replica, rank, launches, decode steps: launches = {layers} x steps), operands "
+          f"{shapes}, every call within atol {PAGED_ATOL} + rtol {PAGED_RTOL} of the plain "
+          f"version (max |err| {max_err:.3e}); stats while serving: B6 {stat_launches}; "
+          f"params + KV a rank {per_rank} B, max {max(per_rank) / single_pk:.4f} of the "
+          f"unsharded {single_pk} B (bar 1/{SHARD_BYTES_RATIO}); router {summ['ok']} ok of "
+          f"{summ['requests']} [{card}]")
+    # (c)
+    code, doc, c_s = results["c"]
+    want = jax_fleet_summary_keys()
+    if code != 0 or doc is None or set(doc) != want or doc["ok"] != doc["requests"] or \
+            doc["shard"] != SHARD_SPEC or doc["replicas"] != 2:
+        print((dirs["loadgen"] / "loadgen.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"[34] (c) serve_loadgen --replicas 2 --shard {SHARD_SPEC}: exit {code}, keys "
+             f"{sorted(set(doc or {}) ^ want)} differ from the JAX tool's")
+    print(f"[34] (c) python -m {PKG}.serve_loadgen --replicas 2 --shard {SHARD_SPEC} "
+          f"--kv-layout paged: exit 0, {doc['ok']}/{doc['requests']} ok, "
+          f"{doc['tokens_per_s']:.1f} tokens/s, shard {doc['shard']!r}, the JAX tool's "
+          f"{len(want)} fleet summary keys; {c_s:.1f} s [{card}]")
+    print(f"[34] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"b6": b6}
 
 
 def mesh_phase(dev, card: str) -> dict:
@@ -6658,8 +6933,14 @@ def main() -> None:
     PHASE_START[33] = time.perf_counter()
     promote_loop_phase(card)
 
-    # -- 34. result ---------------------------------------------------------------------
+    # -- 34. the sharded replica behind the router ------------------------------------------
     PHASE_START[34] = time.perf_counter()
+    slice23 = sharded_fleet_phase(dev, card, t_model, t_params, trained["path"], test_ids,
+                                  serve, compare_streams, warmup)
+    torch.cuda.empty_cache()
+
+    # -- 35. result ---------------------------------------------------------------------
+    PHASE_START[35] = time.perf_counter()
     replaces = {"nll_fwd": f"{TPU_KERNELS}:53", "nll_bwd": f"{TPU_KERNELS}:69",
                 "sgd_momentum": f"{TPU_KERNELS}:156", "flash_fwd_tf32": f"{TPU_ATTENTION}:479",
                 "flash_dq_tf32": f"{TPU_ATTENTION}:666", "flash_dkv_tf32": f"{TPU_ATTENTION}:731",
@@ -6717,7 +6998,9 @@ def main() -> None:
             entry.setdefault("launches_by_path", {}).update(slice19["b6"])
         if entry["name"] == "paged_attend":              # [31]'s fleet replicas
             entry["launches_by_path"].update(slice20["b6"])
-    print(f"[34] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
+        if entry["name"] == "paged_attend":              # [34]'s sharded replicas' ranks
+            entry["launches_by_path"].update(slice23["b6"])
+    print(f"[35] chip_smoke.py {time.perf_counter() - t_start:.1f} s from the device check "
           f"to here, the builds included; seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -6725,4 +7008,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception:
+        if PHASE_START:
+            print(f"chip_smoke: seconds by phase: {phase_seconds()}", file=sys.stderr)
+        raise

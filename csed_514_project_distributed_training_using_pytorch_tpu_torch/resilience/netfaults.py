@@ -255,8 +255,11 @@ class ChaosProxy:
                 self._threads.append(t)
 
     def _pump(self, src, dst, sched: _ConnSchedule, client, upstream) -> None:
-        src.settimeout(0.2)
         try:
+            try:
+                src.settimeout(0.2)
+            except OSError:          # the other direction already closed both ends
+                return
             while not self._stop.is_set():
                 try:
                     unit = src.recv(1 << 16)

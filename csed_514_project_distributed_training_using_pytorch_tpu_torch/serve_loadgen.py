@@ -46,9 +46,10 @@ build. ``--affinity``, the restart and heartbeat knobs, ``--autoscale`` and its 
 ``--warm-prefixes``, ``--drain-timeout-s``, ``--straggler-k``, ``--hedge``, ``--chaos``,
 ``--framed-wire`` and ``--snapshot-interval-s`` are the router's; ``--echo`` spawns
 deterministic model-free replicas; ``--tiers prefill:1,decode:1`` assigns the replicas'
-roles by position (contiguous KV only). The summary has the JAX tool's fleet keys. The
-sharded replica behind the router (``--shard`` with ``--replicas``) is not ported and is
-refused naming ROADMAP A11.
+roles by position (contiguous KV only). The summary has the JAX tool's fleet keys.
+``--shard tp=T,dp=D`` with ``--replicas N`` passes the flag to every replica, as the JAX
+tool does: each replica is then a world of ``T * D`` ranks that the router spawns, restarts
+and addresses as one (``serving/replica.py``).
 
 Usage::
 
@@ -579,10 +580,9 @@ def check_args(args) -> list[str]:
             parse_shard_spec(args.shard)
         except ValueError as exc:
             raise SystemExit(str(exc))
-        if args.replicas:
-            raise SystemExit("--shard with --replicas: the sharded replica behind the "
-                             "router is not ported yet (ROADMAP A11: a launcher world "
-                             "per replica); run the serve mesh without --replicas")
+        if roles:
+            raise SystemExit("--shard with --tiers: the KV handoff installs planes on one "
+                             "rank; run sharded replicas unified")
     return roles
 
 
@@ -849,6 +849,8 @@ def build_replica_command(args) -> list[str]:
         cmd.append("--rope")
     if args.checkpoint:
         cmd += ["--checkpoint", args.checkpoint]
+    if args.shard:
+        cmd += ["--shard", args.shard]
     return cmd
 
 

@@ -22,6 +22,18 @@ replica as it drives its own. Run it as::
   requests in flight; ``proc=`` matches ``--replica-id``), exits 75 on SIGTERM without
   resolving in-flight work (so a router drains and replays it), and exits 1 when the
   serving loop dies.
+- ``--shard tp=T,dp=D``: the replica is a world of ``T * D`` processes (the router spawns
+  it through ``train.launch.Fleet(whole=True)``; every rank runs this same command) and
+  the router addresses it as one replica. Rank 0 binds ``--port``, speaks the protocol,
+  writes the heartbeats, ticks the faults and owns the ``Server`` over a
+  ``shard.MeshLeader``; every other rank replays its engine calls (``shard.follow``) and
+  exits with the world: 75 on SIGTERM, 0 when the leader stops or drains. ``stats``
+  carries every rank's B6 launches and decode steps (``engine.ranks``) beside the
+  per-rank bytes; ``stop`` and ``drain`` run ``shard.closing_check`` (the replica check,
+  which fails the replica's exit when a rank parted) before the world ends. A rank that
+  hangs holds rank 0 inside one mesh call, and rank 0 then stops beating, so the router's
+  heartbeat timeout restarts the world. A tier with ``--shard`` is refused: the handoff
+  installs planes on one rank.
 
 Line protocol (one JSON object per message both ways; newline-framed, or length + CRC
 frames after negotiation):
@@ -58,8 +70,7 @@ token-identical, which is what makes a router's at-least-once delivery safe.
 
 ``--echo`` serves deterministic tokens without the engine or ``torch``: the protocol,
 heartbeats, faults, preemption and the handoff wire are the same code (an echo decode
-replica counts and acks handoffs). ``--shard`` is refused in the replica process (one
-process is one rank here).
+replica counts and acks handoffs).
 """
 
 from __future__ import annotations
@@ -105,6 +116,11 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.wire 
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.trace import (
     Tracer,
 )
+
+
+# Seconds one mesh call may run before a sharded replica's rank 0 withholds its heartbeat
+# (a decode step or prefill chunk takes milliseconds; warm-up runs before the server).
+MESH_CALL_STUCK_S = 1.0
 
 
 def build_draft_model(args):
@@ -324,7 +340,7 @@ def _send(out: _WireOut, obj: dict) -> None:
     out.send(obj)
 
 
-def _handle_submit(msg, server, out: _WireOut):
+def _handle_submit(msg, server, out: _WireOut, *, sharded: bool = False):
     prompt = np.asarray(msg.get("prompt") or [], np.int32)
     rid = msg["id"]
     sampling = SamplingParams(temperature=msg.get("temperature", 0.0),
@@ -383,6 +399,12 @@ def _handle_submit(msg, server, out: _WireOut):
         try:
             comp = f.result()
         except BaseException as e:           # server died mid-request
+            if sharded:
+                # A sharded replica's loop dies when a rank of its world does: that is a
+                # crashed replica, whose accepted work the router replays, never fails.
+                print(f"[replica] the serving loop died with a rank of the world "
+                      f"({e!r}); exiting 1", flush=True)
+                os._exit(1)
             try:
                 _send(out, {"op": "error", "id": rid,
                             "error": "failed", "message": str(e)})
@@ -425,6 +447,10 @@ def _stats_payload(engine, server, handoff=None) -> dict:
         # Paged-KV pool ledger (None on contiguous engines): the router folds
         # free/in_use/refusals into fleet_snapshot, fleet_top renders a column.
         eng["kv_pages"] = engine.page_stats()
+    if hasattr(engine, "rank_counters"):
+        # A sharded replica: every rank's B6 launches and decode steps (the bytes' per_chip
+        # rows are each rank's resident bytes).
+        eng["ranks"] = engine.rank_counters()
     out = {"engine": eng,
            "queue": (server.queue.snapshot()
                      if hasattr(server, "queue") else None)}
@@ -693,13 +719,69 @@ def _handle_prefill(msg, args, engine, server, out: _WireOut,
     fut.add_done_callback(_done)
 
 
+def _follow_forever(args, engine, handler) -> int:
+    """A follower rank of a sharded replica: replay rank 0's engine calls until it
+    closes (returns 0), exit 75 on SIGTERM (also when rank 0, on the same signal, went
+    first), return 1 when rank 0 is gone otherwise. The replay runs on a thread, so this
+    main thread runs the signal handler promptly."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving import (
+        shard as shard_mod,
+    )
+
+    failed: list[BaseException] = []
+
+    def _run():
+        try:
+            shard_mod.follow(engine)
+        except BaseException as e:          # noqa: BLE001 — the leader died mid-call
+            failed.append(e)
+
+    t = threading.Thread(target=_run, daemon=True, name="replica-follow")
+    t.start()
+    while t.is_alive():
+        if handler.requested:
+            os._exit(EXIT_PREEMPTED)
+        t.join(0.5)
+    if handler.requested:        # the world's SIGTERM ended rank 0 first
+        os._exit(EXIT_PREEMPTED)
+    if failed:
+        print(f"[replica {args.replica_id} rank {os.environ.get('RANK')}] the world's "
+              f"rank 0 is gone ({failed[0]!r}); exiting 1", flush=True)
+        return 1
+    return 0
+
+
+def _close_world(leader, replica_id: int) -> dict:
+    """A sharded replica's end: the closing replica check over every rank (raises when a
+    rank parted), then the followers' loops end."""
+    check = leader.closing_check()
+    leader.close()
+    ranks = ", ".join(f"rank {r['rank']}: {r['b6_launches']} B6 launches, {r['steps']} "
+                      f"steps, {check['per_chip'][str(r['rank'])]['total_bytes']} B"
+                      for r in check["ranks"])
+    print(f"[replica {replica_id}] replica check passed ({ranks})", flush=True)
+    return check
+
+
 def serve_forever(args) -> int:
     """The replica process: build (or echo), listen on ``127.0.0.1:args.port``, serve one
     router connection at a time until ``stop`` (returns 0), ``drain`` (exits 0), SIGTERM
-    (exits 75), a ``kill`` fault (its exit code) or a dead serving loop (exits 1)."""
+    (exits 75), a ``kill`` fault (its exit code) or a dead serving loop (exits 1). Under
+    ``--shard`` every rank of the world calls it; the ranks after 0 follow."""
     replica_id = args.replica_id
     faults.set_process_index(replica_id)     # ``proc=`` and ``flag`` match the replica id
     handler = PreemptionHandler().install()
+    leader = None                            # a sharded replica's MeshLeader (rank 0)
+    tp, dp = tiers_mod.parse_shard_spec(getattr(args, "shard", ""))
+    if not args.echo and tp * dp > 1:
+        from csed_514_project_distributed_training_using_pytorch_tpu_torch.parallel.mesh import (
+            initialize_cluster,
+        )
+
+        initialize_cluster(args.device)      # the world's group; it ends with the process
+        if int(os.environ.get("RANK", "0")) != 0:
+            engine, _ = build_engine_server(args)
+            return _follow_forever(args, engine, handler)
 
     # This process's span track (``--trace`` empty = everything below is a
     # no-op): one file per replica, appended across restarts — a crashed
@@ -712,7 +794,10 @@ def serve_forever(args) -> int:
         # the serve-path resilience tick: kill/preempt/stall faults fire between decode
         # steps, with requests in flight
         engine.on_step = lambda step: faults.on_tick(step=step)
+        if engine.mesh is not None:
+            leader = server.engine
         server.start()
+    front = leader if leader is not None else engine     # what ``stats`` reads
 
     beat = hb.HeartbeatWriter(args.heartbeat_dir,
                               process_index=replica_id) if args.heartbeat_dir \
@@ -743,7 +828,10 @@ def serve_forever(args) -> int:
                       f"{server._error!r}; exiting for restart", flush=True)
                 os._exit(1)
             step = int(engine.steps)
-            if beat is not None and not faults.heartbeat_frozen(step=step):
+            # a rank that hangs holds rank 0 inside one mesh call: no beat then, so the
+            # router's heartbeat timeout ends the world rather than a collective's own
+            stuck = leader is not None and leader.busy_s > MESH_CALL_STUCK_S
+            if beat is not None and not faults.heartbeat_frozen(step=step) and not stuck:
                 beat.beat(step=step, epoch=0)
             if handler.requested:
                 # Preemption exits WITHOUT resolving in-flight work: expiring
@@ -823,7 +911,7 @@ def serve_forever(args) -> int:
                         server.end_request()
                 threading.Thread(target=_echo_job, daemon=True).start()
             else:
-                _handle_submit(msg, server, out)
+                _handle_submit(msg, server, out, sharded=leader is not None)
         elif op == "cancel":
             # Hedge-loser stand-down: the router resolved this id on a peer.
             # Still queued here -> abort outright (frees the slot); already
@@ -842,7 +930,7 @@ def serve_forever(args) -> int:
         elif op == "stats":
             _send(out, {"op": "stats", "id": msg.get("id"),
                         **_stats_payload(
-                            engine, server,
+                            front, server,
                             handoff if tier != tiers_mod.ROLE_UNIFIED else None)})
         elif op == "warm":
             # Prefix-cache warm-start (scale-up/reload): replay the fleet's
@@ -895,15 +983,23 @@ def serve_forever(args) -> int:
             # ack-then-exit order lets the router retire this replica without
             # classifying the exit as a crash.
             def _drain_job(m=msg):
+                ack = {"op": "drained", "id": m.get("id")}
                 if args.echo:
                     server.drain()
                     tracer.close()
                 else:
                     server.stop(drain=True)      # blocks until the loop exits;
                                                  # closes telemetry + tracer
+                    if leader is not None:
+                        try:
+                            ack["ranks"] = _close_world(leader, replica_id)["ranks"]
+                        except Exception as e:   # noqa: BLE001 — a desync fails the exit
+                            print(f"[replica {replica_id}] replica check failed: {e!r}",
+                                  flush=True)
+                            os._exit(1)
+                ack["steps"] = int(engine.steps)
                 try:
-                    _send(out, {"op": "drained", "id": m.get("id"),
-                                "steps": int(engine.steps)})
+                    _send(out, ack)
                 except OSError:
                     pass
                 print(f"[replica {replica_id}] drained; exiting 0", flush=True)
@@ -1066,6 +1162,13 @@ def serve_forever(args) -> int:
                     stop_flag.set()
                     if not args.echo:
                         server.stop(drain=True)   # loop closes the tracer
+                        if leader is not None:
+                            try:
+                                _close_world(leader, replica_id)
+                            except Exception as e:   # noqa: BLE001 — fails the exit
+                                print(f"[replica {replica_id}] replica check failed: "
+                                      f"{e!r}", flush=True)
+                                return 1
                     else:
                         tracer.close()
                     return 0
@@ -1174,9 +1277,10 @@ def main(argv: list[str] | None = None) -> int:
                         "dead decode peer becomes prefill_failed (router "
                         "falls back to local prefill), never a hang")
     t.add_argument("--shard", default="",
-                   help="in-replica serve mesh: refused here (a replica process is "
-                        "one rank; the serve mesh runs under serve_loadgen --shard "
-                        "through train.launch)")
+                   help="in-replica serve mesh, e.g. 'tp=2,dp=2': the replica is a "
+                        "world of tp*dp processes running this command (train.launch; "
+                        "the router spawns it so), rank 0 serving the protocol over "
+                        "the sharded engine (serving/shard.py)")
     p.add_argument("--wire-idle-timeout-s", type=float, default=120.0,
                    help="disconnect a peer that connected but never sent a "
                         "complete message, or stalled mid-message, for this "
@@ -1195,8 +1299,15 @@ def main(argv: list[str] | None = None) -> int:
                         "--trace-dir); empty = tracing off")
     args = p.parse_args(argv)
     if args.shard:
-        p.error("--shard: a replica process serves one rank; run the serve mesh with "
-                "serve_loadgen --shard through train.launch")
+        if args.echo:
+            p.error("--shard needs a real engine (echo replicas build no mesh)")
+        if args.tier != tiers_mod.ROLE_UNIFIED:
+            p.error("--shard with --tier: the KV handoff installs planes on one rank; "
+                    "run sharded replicas unified")
+        try:
+            tiers_mod.parse_shard_spec(args.shard)
+        except ValueError as exc:
+            p.error(str(exc))
     if not args.echo:
         from csed_514_project_distributed_training_using_pytorch_tpu_torch.train.single import (
             resolve_device,

@@ -5,7 +5,9 @@ lifecycle, wire and telemetry. ``Server`` is one engine on one card; this router
 independent ``serving/replica.py`` processes of the port — each a whole engine and
 server, spawned and supervised through ``train.launch.Fleet(num_processes=1,
 process_id_base=i)`` so replicas crash and restart *individually* — behind one
-``submit() -> Future`` door. Failure is an input:
+``submit() -> Future`` door. A replica whose command carries ``--shard tp=T,dp=D`` is a
+world of ``T*D`` ranks (``Fleet(num_processes=T*D, whole=True)``): one replica to
+everything below, dying and restarting whole. Failure is an input:
 
 - **at-least-once delivery** — every dispatched request stays in the router's
   per-replica in-flight ledger until its completion line arrives. A replica
@@ -121,6 +123,9 @@ from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.sched
     Shed,
     TenantTable,
 )
+from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.tiers import (
+    parse_shard_spec,
+)
 from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.wire import (
     JitterBackoff,
     FrameDecoder,
@@ -211,6 +216,19 @@ class RouterCompletion:
     @property
     def ok(self) -> bool:
         return self.finish == "ok"
+
+
+def _shard_world(command: list[str]) -> int:
+    """The processes one replica of ``command`` runs as: ``tp * dp`` of its
+    ``--shard`` (the serve mesh's world), else 1."""
+    spec = ""
+    for i, tok in enumerate(command):
+        if tok == "--shard" and i + 1 < len(command):
+            spec = command[i + 1]
+        elif tok.startswith("--shard="):
+            spec = tok.partition("=")[2]
+    tp, dp = parse_shard_spec(spec)
+    return tp * dp
 
 
 def _with_checkpoint(command: list[str], checkpoint: str) -> list[str]:
@@ -1179,8 +1197,8 @@ class Router:
     # ------------------------------------------------------------------ spawn/io
 
     def _spawn(self, rep: _Replica) -> None:
-        """(Re)launch one replica as its own single-process Fleet. Caller holds
-        the lock."""
+        """(Re)launch one replica as its own Fleet: one process, or a sharded
+        replica's world of ranks. Caller holds the lock."""
         rep.generation += 1
         rep.port = _free_port()
         rep.capacity = None
@@ -1238,8 +1256,12 @@ class Router:
                     os.path.join(self._trace_dir, f"replica{rep.index}.jsonl")]
         if self._device:
             cmd += ["--device", self._device]
-        rep.fleet = Fleet(cmd, num_processes=1, process_id_base=rep.index,
-                          env=self._env)
+        # A sharded replica (``--shard tp=T,dp=D`` in its command) is a world of T*D
+        # ranks that lives and dies whole, every rank under the replica's index: one
+        # death, one restart of the whole world.
+        world = _shard_world(cmd)
+        rep.fleet = Fleet(cmd, num_processes=world, process_id_base=rep.index,
+                          env=self._env, whole=world > 1)
         rep.started_wall = time.time()
         rep.started_mono = time.monotonic()
         rep.state = "starting"

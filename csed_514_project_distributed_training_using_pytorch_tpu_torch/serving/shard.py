@@ -23,8 +23,11 @@ Host state (slots, positions, the page table, the prefix cache's keys) is the sa
 every rank: every rank runs the same host decisions. ``ContinuousBatchingEngine.run``
 keeps that by construction (every rank serves the same requests); under a ``Server``
 rank 0 owns the queue and the clock, and ``MeshLeader`` broadcasts each decision
-(admissions, expiries, parks, steps) that the other ranks replay in ``follow``.
-``check_replicas`` raises when the ranks' engines parted.
+(admissions, expiries, parks, steps) that the other ranks replay in ``follow``, one call
+at a time whatever thread makes it (the serving loop, a replica's ``stats`` op).
+``check_replicas`` raises when the ranks' engines parted; ``rank_counters`` gathers each
+rank's B6 launches and decode steps, and ``closing_check`` is the replica check with
+both, which a sharded replica runs before its world ends.
 
 This module also keeps the specs (``cache_pspecs``, ``pool_pspecs``, ``plane_pspecs``,
 ``param_shardings``) from which each rank takes its local box, and ``per_device_bytes``,
@@ -34,6 +37,8 @@ what each rank holds, which ``byte_accounting`` gathers into its ``per_chip`` ro
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import time
 import zlib
 
@@ -245,11 +250,16 @@ class MeshLeader:
     the engine's host state or runs a collective is broadcast to the other ranks first
     (``follow`` replays it there), so all ranks run the same programs on the same state.
     Reads go to the engine. The clock is rank 0's: ``expire`` broadcasts the slots it
-    found expired, not the time, and every stamp travels with its call. ``close`` ends the
-    followers' loops."""
+    found expired, not the time, and every stamp travels with its call. Calls from
+    several threads go one at a time (a broadcast and its call are one unit), so the
+    followers replay them in rank 0's order. ``busy_s`` is how long the call in progress
+    has run (0 between calls): a rank that hangs holds rank 0 inside one. ``close`` ends
+    the followers' loops."""
 
     def __init__(self, engine):
         self._engine = engine
+        self._lock = threading.Lock()
+        self._busy_since: float | None = None
 
     def __getattr__(self, name):
         return getattr(self._engine, name)
@@ -262,9 +272,22 @@ class MeshLeader:
     def tracer(self, tracer) -> None:      # rank 0's spans: the followers trace nothing
         self._engine.tracer = tracer
 
+    @property
+    def busy_s(self) -> float:
+        since = self._busy_since
+        return 0.0 if since is None else time.monotonic() - since
+
     def _call(self, name: str, *args, **kwargs):
-        broadcast_from_leader((name, args, kwargs))
-        return getattr(self._engine, name)(*args, **kwargs)
+        with self._lock:
+            self._busy_since = time.monotonic()
+            try:
+                broadcast_from_leader((name, args, kwargs))
+                target = _MESH_FUNCTIONS.get(name)
+                if target is not None:
+                    return target(self._engine, *args, **kwargs)
+                return getattr(self._engine, name)(*args, **kwargs)
+            finally:
+                self._busy_since = None
 
     def admit_many(self, admissions, *, now: float | None = None):
         now = time.monotonic() if now is None else now
@@ -293,14 +316,22 @@ class MeshLeader:
     def byte_accounting(self, **kwargs):
         return self._call("byte_accounting", **kwargs)
 
+    def rank_counters(self) -> list[dict]:
+        return self._call("rank_counters")
+
+    def closing_check(self) -> dict:
+        return self._call("closing_check")
+
     def close(self) -> None:
-        broadcast_from_leader(None)
+        with self._lock:
+            broadcast_from_leader(None)
 
 
 def follow(engine) -> None:
     """A follower rank's loop: replay rank 0's ``MeshLeader`` calls on this rank's engine
     until the leader closes. A typed refusal (``KVPagesExhausted``) that the leader's
-    caller handles is handled alike here: the engine state after it is the same."""
+    caller handles is handled alike here: the engine state after it is the same. The
+    records only rank 0's server reads are dropped as they come."""
     from csed_514_project_distributed_training_using_pytorch_tpu_torch.serving.engine import (
         KVPagesExhausted,
     )
@@ -310,10 +341,45 @@ def follow(engine) -> None:
         if cmd is None:
             return
         name, args, kwargs = cmd
+        target = _MESH_FUNCTIONS.get(name)
         try:
-            getattr(engine, name)(*args, **kwargs)
+            if target is not None:
+                target(engine, *args, **kwargs)
+            else:
+                getattr(engine, name)(*args, **kwargs)
         except KVPagesExhausted:
             pass
+        engine.take_prefill_records()
+        engine.take_spec_records()
+
+
+def rank_counters(engine) -> list[dict]:
+    """Every rank's row, gathered (a collective: every rank calls it): its global rank,
+    pid, B6 launches (``ops.paged_attention.launch_counts``: 0 where no kernel launched,
+    as on the CPU) and decode steps."""
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.ops import (
+        paged_attention,
+    )
+
+    mine = {"rank": dist.get_rank() if dist.is_initialized() else 0, "pid": os.getpid(),
+            "b6_launches": paged_attention.launch_counts()["paged_attend"],
+            "steps": engine.steps}
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [mine]
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, mine)
+    return rows
+
+
+def closing_check(engine) -> dict:
+    """The replica check a sharded replica runs before its world ends (a collective):
+    ``check_replicas`` (raises when a rank parted), then every rank's ``rank_counters``
+    and resident bytes (``byte_accounting``'s ``per_chip``)."""
+    ledger = check_replicas(engine)
+    ranks = rank_counters(engine)
+    per_chip = engine.byte_accounting()["per_chip"]
+    return {"ledger": ledger, "ranks": ranks,
+            "per_chip": {str(r): row for r, row in per_chip.items()}}
 
 
 def check_replicas(engine) -> dict:
@@ -337,8 +403,13 @@ def crc_of(request_id, tokens, prev: int = 0) -> int:
     return zlib.crc32(repr((request_id, [int(x) for x in tokens])).encode(), prev)
 
 
+# The module functions a ``MeshLeader`` call may name (``fn(engine, ...)`` on every rank),
+# beside the engine's own methods.
+_MESH_FUNCTIONS = {"rank_counters": rank_counters, "closing_check": closing_check}
+
+
 __all__ = ["HEAD_AXIS", "KV_PLANE_AXES", "MeshLeader", "PAGE_PLANE_AXES", "SLOT_AXIS",
            "ServeMesh", "broadcast_from_leader", "build_serve_mesh", "cache_pspecs",
-           "check_replicas", "crc_of", "follow", "local_box", "param_shardings",
+           "check_replicas", "closing_check", "crc_of", "follow", "local_box", "param_shardings",
            "param_specs", "parse_shard_spec", "per_device_bytes", "plane_pspecs",
-           "pool_pspecs", "validate_engine_mesh"]
+           "pool_pspecs", "rank_counters", "validate_engine_mesh"]

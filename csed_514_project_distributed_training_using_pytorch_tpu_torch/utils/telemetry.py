@@ -23,10 +23,14 @@ leaves ``null`` where it has nothing honest:
   segment call's seconds (on the card the warm-up and the CUDA-graph capture with the
   first replay; on the CPU the first eager segment); ``lower_s`` and the bytes keys are
   null (no lowering, no cost analysis);
-- ``flops_per_step``: ``step_flops`` counts one step with
-  ``torch.utils.flop_counter.FlopCounterMode`` and adds the flops of the hand-written
-  kernels that the counter cannot see, by formula, for each launch the step made
-  (``fused_kernels.launched_flops``, ``flash_attention.launched_flops``);
+- ``flops_per_step``: ``step_flops`` counts one step under ``StepFlopCounter``, a
+  ``TorchFunctionMode`` that prices each matmul, einsum, linear and conv call as
+  ``FlopCounterMode`` prices the aten products they run (2·m·k·n; bias and elementwise
+  work free) and derives the backward's products by rule, and adds the flops of the
+  hand-written kernels that it cannot see, by formula, for each launch the step made
+  (``fused_kernels.launched_flops``, ``flash_attention.launched_flops``). A function mode
+  imports nothing: ``FlopCounterMode``, a dispatch mode, pulls in ``torch._dynamo`` and
+  ``sympy`` on first entry, seconds of every trainer's start-up;
 - the manifest's ``jax_version``/``jaxlib_version`` are null; it names ``torch_version``
   and ``cuda_version`` beside them, and its ``mesh`` is the process grid's axes;
 - ``estimate_mfu`` divides by the card's bf16 peak (``utils.benchmarks.peak_flops``), and
@@ -38,6 +42,7 @@ Read side: ``utils.jsonl.read_jsonl``; renderer: ``tools/telemetry_report.py``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -203,15 +208,129 @@ def hand_kernel_flops() -> float:
     return float(fused_kernels.launched_flops + flash_attention.launched_flops)
 
 
-def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
-    """``fn(*args, **kwargs)`` once under ``FlopCounterMode``: ``(its result, the flops)``,
-    the counter's total plus the hand kernels' formula flops of the launches it made."""
-    from torch.utils.flop_counter import FlopCounterMode
+def _prod(xs) -> int:
+    return math.prod(int(x) for x in xs)
 
+
+def _matmul_flops(a: torch.Tensor, b: torch.Tensor) -> int:
+    """``torch.matmul(a, b)``'s flops as its aten ``mm``/``bmm`` count them; a
+    vector operand makes an ``mv``/``dot``, which the aten count leaves out. The batch
+    dims broadcast by hand: ``torch.broadcast_shapes`` imports ``sympy``."""
+    if a.dim() < 2 or b.dim() < 2:
+        return 0
+    batch = itertools.zip_longest(reversed(a.shape[:-2]), reversed(b.shape[:-2]),
+                                  fillvalue=1)
+    return 2 * _prod(max(x, y) for x, y in batch) * a.shape[-2] * a.shape[-1] * b.shape[-1]
+
+
+def _einsum_flops(equation: str, operands) -> int:
+    """A two-operand einsum's flops as its one ``bmm`` counts them: 2 × the sizes of
+    the letters both operands share or the output keeps (a letter that only one operand
+    has and the output drops is summed before the product, for free)."""
+    equation = equation.replace(" ", "")
+    inputs, _, out = equation.partition("->")
+    specs = inputs.split(",")
+    if len(specs) != 2 or "." in equation or "->" not in equation:
+        raise NotImplementedError(f"StepFlopCounter: einsum {equation!r} is not priced "
+                                  f"(two operands, an explicit output, no ellipsis)")
+    size = {}
+    for spec, t in zip(specs, operands):
+        for letter, n in zip(spec, t.shape):
+            size[letter] = max(size.get(letter, 1), int(n))
+    left, right = set(specs[0]), set(specs[1])
+    return 2 * _prod(size[c] for c in (left & right) | ((left | right) & set(out)))
+
+
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm,
+            torch.Tensor.mm, torch.bmm, torch.Tensor.bmm)
+_BACKWARDS = (torch.autograd.grad, torch.autograd.backward, torch.Tensor.backward)
+
+
+class StepFlopCounter(torch.overrides.TorchFunctionMode):
+    """Counts the flops of the torch calls made under it, as ``FlopCounterMode`` counts
+    the aten products they lower to, with no dispatch mode.
+
+    A function mode sees the Python-level calls, not the aten ops of autograd's
+    derivative formulas, so the backward's products are derived: a product called with
+    grad enabled costs its forward flops once more for each operand that requires grad
+    (its backward computes one product of the same size for each; a step differentiates
+    every parameter it reads, so every such operand's gradient is computed). The mode
+    stays on inside the backward (``_engine_run_backward`` entered under it, and the
+    engine carries the mode to its worker threads), where the calls it sees are real
+    forward products counted once: the recomputation of a rematerialized block, a custom
+    autograd function's backward in plain torch. A product recomputed under a dispatch
+    mode is served from the selective-remat cache (``save-dots``, the only dispatch mode
+    the port enters) and is not counted; a conv is not a dot and is."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+        self._in_backward = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _BACKWARDS:
+            return self._backward(func, args, kwargs)
+        out = func(*args, **kwargs)
+        operands, flops = (), 0
+        if func in _MATMULS or func in (torch.addmm, torch.baddbmm):
+            operands = args[1:3] if func in (torch.addmm, torch.baddbmm) else args[:2]
+            flops = _matmul_flops(*operands)
+        elif func is torch.Tensor.__rmatmul__:
+            operands = args[:2]
+            flops = _matmul_flops(args[1], args[0])
+        elif func is torch.nn.functional.linear:
+            x, w = args[0], args[1] if len(args) > 1 else kwargs["weight"]
+            operands = (x, w)
+            flops = 2 * _prod(x.shape) * w.shape[0] if x.dim() >= 2 else 0
+        elif func is torch.einsum:
+            operands = args[1:]
+            if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+                operands = tuple(operands[0])
+            flops = _einsum_flops(args[0], operands)
+        elif func in (torch.nn.functional.conv2d, torch.conv2d):
+            operands = args[:2]
+            flops = 2 * out.shape[0] * _prod(out.shape[2:]) * _prod(args[1].shape)
+        if not flops:
+            return out
+        if self._in_backward:
+            is_dot = func not in (torch.nn.functional.conv2d, torch.conv2d)
+            if not (is_dot and torch._C._len_torch_dispatch_stack()):
+                self.total += flops
+            return out
+        grads = (sum(isinstance(t, torch.Tensor) and t.requires_grad for t in operands)
+                 if torch.is_grad_enabled() else 0)
+        self.total += flops * (1 + grads)
+        return out
+
+    def _backward(self, func, args, kwargs):
+        """``func`` (the backward's entry) with the engine's run under this mode: the
+        entry's Python wrapper would otherwise leave the mode off for the whole run."""
+        import torch.autograd as autograd
+
+        engine_run = autograd._engine_run_backward
+
+        def run_under_mode(*a, **k):
+            with self:
+                return engine_run(*a, **k)
+
+        self._in_backward += 1
+        autograd._engine_run_backward = run_under_mode
+        try:
+            return func(*args, **kwargs)
+        finally:
+            autograd._engine_run_backward = engine_run
+            self._in_backward -= 1
+
+
+def step_flops(fn, *args, **kwargs) -> tuple[object, float]:
+    """``fn(*args, **kwargs)`` once under ``StepFlopCounter``: ``(its result, the
+    flops)``, the counter's total plus the hand kernels' formula flops of the launches
+    it made."""
     before = hand_kernel_flops()
-    with FlopCounterMode(display=False) as counter:
+    with StepFlopCounter() as counter:
         out = fn(*args, **kwargs)
-    return out, float(counter.get_total_flops()) + hand_kernel_flops() - before
+    return out, float(counter.total) + hand_kernel_flops() - before
 
 
 def _clone(tree):

@@ -1828,3 +1828,46 @@ def test_serve_planner_slot_bytes_equal_the_engines_on_the_card(device):
                                       device=device)
         assert sc.stats.kv_bytes_per_slot == engine.byte_accounting()["kv_bytes_per_slot"]
         assert sc.topo.hbm_source == "runtime"
+
+
+@pytest.mark.parametrize("case", ["cnn", "lm", "lm-remat"])
+def test_step_flops_equal_flop_counter_mode_on_the_card(device, case):
+    """``utils.telemetry.train_step_flops`` on the card equals ``FlopCounterMode``'s total:
+    the backward runs on the autograd engine's device thread there, and the remat
+    recomputation inside it must be counted as on the CPU. The CNN runs its plain loss and
+    update (the fused kernels' flops come by formula, which ``FlopCounterMode`` cannot
+    see)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.train import (
+        lm as lm_train,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils import (
+        telemetry,
+    )
+    from csed_514_project_distributed_training_using_pytorch_tpu_torch.utils.config import (
+        LMConfig,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    if case == "cnn":
+        model = cnn.Net().to(device)
+        state = step.create_train_state(model, torch.Generator().manual_seed(0),
+                                        device=device)
+        fn = step.make_train_step(model, learning_rate=0.01, momentum=0.5)
+        batch = (torch.randn(64, 28, 28, 1, generator=gen, device=device),
+                 torch.randint(0, 10, (64,), generator=gen, device=device), 0)
+    else:
+        cfg = LMConfig(embed_dim=64, num_layers=2, num_heads=4, batch_size=8,
+                       remat=case == "lm-remat")
+        model = lm_train.lm_model(cfg, vocab=cfg.num_levels + 1, seq_len=784).to(device)
+        opt = lm_train.lm_optimizer(cfg)
+        state = step.create_train_state(model, torch.Generator().manual_seed(0),
+                                        optimizer=opt, device=device)
+        fn = lm_train.make_lm_step(model, cfg, optimizer=opt, steps_per_epoch=10)
+        batch = (torch.randint(0, 16, (8, 784), generator=gen, device=device),
+                 torch.zeros(8, dtype=torch.int64, device=device), 1)
+    with FlopCounterMode(display=False) as counter:
+        fn(telemetry._clone(state), *batch)
+    want = counter.get_total_flops()
+    assert want > 0 and telemetry.train_step_flops(fn, state, *batch) == float(want)

@@ -69,7 +69,7 @@ def test_sources_found():
                    "plan/artifact.py", "plan/search.py", "plan/scenarios.py",
                    "plan/autotune.py", "plan_report.py", "deploy/__init__.py",
                    "deploy/promoter.py", "build_corpus.py", "train_serve_loop.py",
-                   "telemetry_report.py"):
+                   "telemetry_report.py", "bench_shard_serve.py", "bench_chaos_fleet.py"):
         assert PORT / module in SOURCES, module
 
 
@@ -102,14 +102,15 @@ def test_chip_scripts_print_no_telemetry_events(path):
                                     "serving.wire", "resilience.netfaults",
                                     "serving.scheduler", "utils.trace", "obs.goodput",
                                     "serving.router", "serving.tiers", "serving.autoscaler",
-                                    "serving.replica", "serve_loadgen", "train.launch"])
+                                    "serving.replica", "serve_loadgen", "train.launch",
+                                    "bench_chaos_fleet"])
 def test_fleet_side_modules_import_no_torch(module):
     """A supervisor, the fleet's router, its tiers codec and autoscaler, an ``--echo``
     replica, the load generator's fleet parent and the trace and goodput readers touch no
     device: importing them loads neither ``torch`` nor, so, any CUDA state (the
     supervisor's checkpoint scan imports the checkpoint module only when it has a store
     to scan; a replica imports the engine only when it builds one, and the tiers codec
-    ``torch`` only when it decodes planes)."""
+    ``torch`` only when it decodes planes). The chaos bench drives an echo fleet."""
     code = (f"import sys; import {PORT.name}.{module}; "
             f"sys.exit(1 if 'torch' in sys.modules else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -189,7 +189,15 @@ def _fleet_run(argv: list[str]) -> tuple[dict, list[dict]]:
 def _ported_fleet_flag(flag: str, argv: list[str]) -> None:
     """What each fleet flag of the JAX tool does in the port's load generator (run in a
     scratch working directory; the echo fleets start in a fraction of a second)."""
-    if flag == "--replicas":
+    if flag == "--replicas" and "--shard" in argv:
+        doc, rows = _fleet_run(TINY + ["--requests", "6", "--max-new-tokens", "5",
+                                       "--prompt-lens", "0,4,12", "--rate", "200",
+                                       "--kv-layout", "paged", "--page-size", "8",
+                                       "--summary-json", "s.json"] + argv)
+        assert set(doc) == jax_fleet_summary_keys()
+        assert doc["shard"] == "tp=2" and doc["replicas"] == 1
+        assert doc["replica_restarts"] == 0
+    elif flag == "--replicas":
         doc, rows = _fleet_run(TINY + ["--requests", "6", "--max-new-tokens", "5",
                                        "--prompt-lens", "0,4,12", "--rate", "200",
                                        "--kv-layout", "paged", "--page-size", "8",
@@ -257,6 +265,8 @@ def _ported_fleet_flag(flag: str, argv: list[str]) -> None:
     pytest.param(["--snapshot-interval-s", "0.1", "--telemetry", "t.jsonl"], None,
                  id="--snapshot-interval-s-A11"),
     pytest.param(["--shard", "tp=2,dp=2"], "requested 4 devices, have 1", id="--shard-A10"),
+    # and behind the router: every replica a world of tp*dp ranks
+    pytest.param(["--replicas", "1", "--shard", "tp=2"], None, id="--shard-replicas"),
     pytest.param(["--affinity", "off"], None, id="--affinity-A11"),
     pytest.param(["--autoscale", "on"], None, id="--autoscale-A11"),
     pytest.param(["--hedge", "on"], None, id="--hedge-A11"),
@@ -296,12 +306,16 @@ def test_unported_flags_raise_naming_their_item(argv, item, tmp_path, monkeypatc
     if argv[0] == "--shard":
         with pytest.raises(ValueError, match=item):
             serve_loadgen.main(["--device", "cpu"] + argv)
-        # the sharded replica behind the router is the one fleet shape still refused
-        with pytest.raises(SystemExit, match="ROADMAP A11"):
-            serve_loadgen.main(["--device", "cpu", "--replicas", "2"] + argv)
+        # behind the router a sharded replica is served (--shard-replicas); a tiered one
+        # is refused: the KV handoff installs planes on one rank
+        with pytest.raises(SystemExit, match="installs planes on one rank"):
+            serve_loadgen.main(["--device", "cpu", "--replicas", "2", "--tiers",
+                                "prefill:1,decode:1"] + argv)
         return
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    if "--shard" in argv:
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")     # a world's ranks share the cores
     _ported_fleet_flag(argv[0], argv)
 
 
